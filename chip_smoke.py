@@ -1,0 +1,482 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+
+Run from the root of a checkout on a machine with a CUDA device and the
+CUDA toolkit (``nvcc``)::
+
+    python3 chip_smoke.py
+
+It builds the port's CUDA kernels from ``paddle_tpu_torch/csrc/`` and runs
+these phases, printing one JSON line for each:
+
+``device``   the card (``nvidia-smi`` name and power limit, torch's name).
+``build``    the kernel build; nvcc's ptxas report goes to standard error.
+``kernels``  each kernel against its plain PyTorch version on the same
+             inputs (fp32 within 1e-4; bf16 within 2e-2 of the plain version
+             run in fp32 on the same bf16 inputs), over the packings of the
+             CPU tests at tiny shapes and over Llama-3-8B's attention shapes
+             (H=32, Hkv=8, D=128, bs=16, T in {8, 64, 256, 512}, tables of up
+             to 64 pages), with times from CUDA events: the kernel, the plain
+             version, one PyTorch library call computing the same function
+             (``scaled_dot_product_attention`` over the K/V gathered to a
+             dense context beforehand, a yardstick the port never calls) and
+             the bound, the larger of the operations over the card's peak
+             rate and the bytes over its memory rate.
+``identity`` Llama-3-8B at full width cut to 4 layers, fp32, random weights
+             from a seeded generator: 8 prompts sharing a 64-token prefix
+             through the engine with the kernel and with the plain version;
+             the greedy tokens must be identical and the kernel must have
+             launched once per layer per engine step.
+``serve``    Llama-3-8B at full width and depth, bf16 weights and pools:
+             16 prompts of 256-2048 tokens, 64 greedy tokens each, through
+             ``LLM.generate``; output tokens/s, mean TTFT, mean inter-token
+             latency, engine steps, kernel launches (= steps x layers) and
+             peak device memory.
+``profile``  torch.profiler over a short window of the same engine: device
+             time by kernel, the ragged kernel's and the matrix products'
+             shares, and the device's idle share.
+
+Then a line ``{"kernels": [...]}`` summarising each kernel at the main
+path's shapes, the ``nvidia-smi`` line, and last
+``{"ok": true, "device": {...}}``.  Any failure raises and the script exits
+nonzero without that last line; so does a machine without a CUDA device,
+and a directory that holds this script without the package.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
+PEAK_BYTES = 3.35e12                                  # H100 SXM HBM3
+KERNEL_NAME = "ragged_paged_attention"
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# --- kernel phase -------------------------------------------------------------
+
+def packing(rng, Tb, n_decode, chunks, W, bs, num_blocks):
+    """Packed metadata as the engine builds it: ``n_decode`` decode rows and
+    one prefill chunk row per entry of ``chunks`` (its token count), with
+    random KV lengths up to ``W * bs`` over distinct random pages; tokens
+    past the real ones are pads routed to a pad row."""
+    rows = []
+    for n in [1] * n_decode + list(chunks):
+        kv = int(rng.integers(n, W * bs + 1))
+        pages = rng.choice(np.arange(1, num_blocks), -(-kv // bs),
+                           replace=False)
+        rows.append((pages, kv, list(range(kv - n, kv))))
+    return pack_rows(rows, Tb, W)
+
+
+def tiny_packings():
+    """The decode-only / chunk-only / mixed / padded packings of
+    tests/test_torch_ragged_paged.py (H=4, Hkv=2, bs=4)."""
+    return {
+        "decode_only": ([([1 + 2 * i, 2 + 2 * i][:max(1, -(-L // 4))], L,
+                          [L - 1]) for i, L in enumerate((3, 6, 8, 5))], 4),
+        "chunk_only": ([([3, 7], 7, [4, 5, 6]),
+                        ([5, 9], 5, [0, 1, 2, 3, 4])], 8),
+        "mixed": ([([3, 7], 6, [5]), ([5, 9], 5, [2, 3, 4]),
+                   ([2, 11], 8, [7])], 8),
+        "padded": ([([3], 2, [1]), ([5, 9], 5, [3, 4])], 8),
+    }
+
+
+def pack_rows(rows, Tb, W):
+    """Packed metadata from ``rows`` = [(pages, kv_len, q_positions)], with
+    the row arrays padded to ``Tb`` rows."""
+    tables = np.zeros((Tb, W), np.int32)
+    lens = np.ones((Tb,), np.int32)
+    seg = np.full((Tb,), min(len(rows), Tb - 1), np.int32)
+    pos = np.zeros((Tb,), np.int32)
+    cursor = 0
+    for i, (pages, kv, positions) in enumerate(rows):
+        tables[i, :len(pages)] = pages
+        lens[i] = kv
+        seg[cursor:cursor + len(positions)] = i
+        pos[cursor:cursor + len(positions)] = positions
+        cursor += len(positions)
+    if cursor > Tb:
+        raise ValueError(f"{cursor} tokens do not fit a bucket of {Tb}")
+    return tables, lens, seg, pos
+
+
+def work(q, k_cache, tables, lens, seg, pos):
+    """Operations and unique bytes the function needs on these inputs:
+    4 * limit_t * H * D flops per token; q and out once, each used row's
+    K/V pages once, and the routing arrays."""
+    T, H, D = q.shape
+    bs, Hkv = k_cache.shape[1], k_cache.shape[2]
+    limit = np.minimum(lens[seg], pos + 1)
+    flops = float(4 * limit.sum() * H * D)
+    row_limit = {}
+    for r, lim in zip(seg.tolist(), limit.tolist()):
+        row_limit[r] = max(row_limit.get(r, 0), lim)
+    pages = sum(-(-lim // bs) for lim in row_limit.values())
+    nbytes = (2 * q.numel() * q.element_size()
+              + 2 * pages * bs * Hkv * D * k_cache.element_size()
+              + 4 * (tables.size + lens.size + seg.size + pos.size))
+    return flops, nbytes
+
+
+def time_ms(fn, iters, warmup=2):
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def library_call(q, k_cache, v_cache, tables, seg, lens, pos):
+    """scaled_dot_product_attention over each token's pages gathered to a
+    dense masked context beforehand: returns the timed call (the gather
+    stays outside it)."""
+    import torch
+    import torch.nn.functional as F
+
+    T, H, D = q.shape
+    bs, Hkv = k_cache.shape[1], k_cache.shape[2]
+    W = tables.shape[1]
+    bt = tables.long()[seg.long()]
+    k = k_cache[bt].reshape(T, W * bs, Hkv, D).transpose(1, 2)
+    v = v_cache[bt].reshape(T, W * bs, Hkv, D).transpose(1, 2)
+    limit = torch.minimum(lens.long()[seg.long()], pos.long() + 1)
+    mask = (torch.arange(W * bs, device=q.device)[None, :]
+            < limit[:, None])[:, None, None, :]
+    qd = q[:, :, None, :].to(k.dtype)
+    major, minor = (int(x) for x in torch.__version__.split(".")[:2])
+    if (major, minor) >= (2, 5):
+        return lambda: F.scaled_dot_product_attention(
+            qd, k, v, attn_mask=mask, enable_gqa=True)
+    k, v = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
+    return lambda: F.scaled_dot_product_attention(qd, k, v, attn_mask=mask)
+
+
+def kernel_phase(torch, rp):
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    checks = []
+
+    def check(label, q32, k32, v32, meta, dtype):
+        q, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
+        out = rp.ragged_kernel(q, k, v, *meta)
+        torch.cuda.synchronize()
+        ref = rp.ragged_reference(q.float(), k.float(), v.float(), *meta)
+        err = float((out.float() - ref).abs().max())
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        if not (err <= tol and torch.isfinite(out).all()):
+            raise AssertionError(f"ragged kernel disagrees with the plain "
+                                 f"version on {label} {dtype}: max abs err "
+                                 f"{err} > {tol}")
+        checks.append({"case": label, "dtype": str(dtype).split(".")[-1],
+                       "max_abs_err": err, "tol": tol})
+        return q, k, v, err
+
+    for D in (8, 16):
+        for name, (rows, Tb) in tiny_packings().items():
+            meta = [torch.from_numpy(a).to(dev)
+                    for a in pack_rows(rows, Tb, 4)]
+            q = torch.randn(Tb, 4, D, device=dev)
+            k = torch.randn(16, 4, 2, D, device=dev)
+            v = torch.randn(16, 4, 2, D, device=dev)
+            for dtype in (torch.float32, torch.bfloat16):
+                check(f"tiny {name} D={D}", q, k, v, meta, dtype)
+
+    H, Hkv, D, bs, W, num_blocks = 32, 8, 128, 16, 64, 4096
+    shapes = {8: (8, []), 64: (32, [29]), 256: (16, [120, 119]),
+              512: (16, [248, 247])}   # Tb: (decode rows, chunk sizes)
+    timings = []
+    summary = None
+    k32 = torch.randn(num_blocks, bs, Hkv, D, device=dev)
+    v32 = torch.randn(num_blocks, bs, Hkv, D, device=dev)
+    for Tb, (n_decode, chunks) in shapes.items():
+        arrays = packing(rng, Tb, n_decode, chunks, W, bs, num_blocks)
+        meta = [torch.from_numpy(a).to(dev) for a in arrays]
+        q32 = torch.randn(Tb, H, D, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            label = f"8b T={Tb} decode={n_decode} chunks={chunks}"
+            q, k, v, err = check(label, q32, k32, v32, meta, dtype)
+            flops, nbytes = work(q, k, *arrays)
+            name = str(dtype).split(".")[-1]
+            library = library_call(q, k, v, *[meta[i] for i in (0, 2, 1, 3)])
+            ref = rp.ragged_reference(q.float(), k.float(), v.float(), *meta)
+            library_err = float((library()[:, :, 0].float() - ref).abs().max())
+            if not library_err <= 2e-2:
+                raise AssertionError(f"the library yardstick computes another "
+                                     f"function: max abs err {library_err}")
+            del ref
+            t_flops = flops / PEAK_FLOPS[name] * 1e3
+            t_bytes = nbytes / PEAK_BYTES * 1e3
+            row = {
+                "T": Tb, "dtype": name, "decode_rows": n_decode,
+                "chunks": chunks, "max_abs_err": err,
+                "ms": time_ms(lambda: rp.ragged_kernel(q, k, v, *meta), 20),
+                "plain_ms": time_ms(
+                    lambda: rp.ragged_reference(q, k, v, *meta), 5, 1),
+                "library_ms": time_ms(library, 10),
+                "library_max_abs_err": library_err,
+                "bound_ms": max(t_flops, t_bytes),
+                "bound_by": "operations" if t_flops > t_bytes else "bytes",
+                "flops": flops, "bytes": nbytes,
+            }
+            timings.append(row)
+            if Tb == 512 and dtype == torch.bfloat16:
+                summary = row   # the serve phase's step shape and types
+            del library
+            torch.cuda.empty_cache()
+    emit("kernels", name=KERNEL_NAME, checks=len(checks),
+         worst=max(checks, key=lambda c: c["max_abs_err"] / c["tol"]),
+         timings=timings)
+    return summary
+
+
+# --- engine phases ------------------------------------------------------------
+
+def prompts_with_prefix(rng, n, lo, hi, prefix_len, vocab):
+    prefix = rng.integers(0, vocab, prefix_len).tolist()
+    return [prefix + rng.integers(0, vocab, int(rng.integers(lo, hi + 1))
+                                  - prefix_len).tolist() for _ in range(n)]
+
+
+def identity_phase(torch, rp, serving, LlamaConfig, LlamaForCausalLM):
+    layers = 4
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=layers)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.float32,
+                             generator=gen)
+    rng = np.random.default_rng(1)
+    prompts = prompts_with_prefix(rng, 8, 100, 700, 64, cfg.vocab_size)
+    need = sum(-(-(len(p) + 16) // 16) for p in prompts) + 1
+    results = {}
+    for route in (None, False):
+        eng = serving.EngineCore(model, config=serving.EngineConfig(
+            num_blocks=need + 16, block_size=16, dtype=torch.float32,
+            unified_step=True, use_pallas_paged=route,
+            scheduler=serving.SchedulerConfig(max_num_seqs=8,
+                                              max_tokens_per_step=256)))
+        rp.launches = 0
+        reqs = [eng.add_request(p, serving.SamplingParams(max_new_tokens=16))
+                for p in prompts]
+        t0 = time.perf_counter()
+        eng.run(max_steps=2000)
+        torch.cuda.synchronize()
+        results[route] = {
+            "tokens": [list(r.output_tokens) for r in reqs],
+            "launches": rp.launches, "steps": eng.ragged_launches,
+            "seconds": time.perf_counter() - t0,
+            "prefix_hit_tokens": eng.metrics.counters[
+                "prefix_cache_hit_tokens"],
+            "buckets": sorted(eng.ragged_buckets)}
+        if eng.kv.occupancy() != 0.0:
+            raise AssertionError("identity: the pool is not empty at the end")
+    kern, plain = results[None], results[False]
+    if kern["tokens"] != plain["tokens"]:
+        raise AssertionError("identity: kernel and plain engines emitted "
+                             "different greedy tokens")
+    if kern["launches"] != kern["steps"] * layers or plain["launches"]:
+        raise AssertionError(f"identity: {kern['launches']} kernel launches "
+                             f"for {kern['steps']} steps x {layers} layers "
+                             f"(plain run: {plain['launches']})")
+    if kern["prefix_hit_tokens"] <= 0:
+        raise AssertionError("identity: no prefix fork happened")
+    if any(len(t) != 16 or not all(0 <= x < cfg.vocab_size for x in t)
+           for t in kern["tokens"]):
+        raise AssertionError("identity: malformed token streams")
+    emit("identity", layers=layers, dtype="float32",
+         prompt_lens=[len(p) for p in prompts],
+         greedy_identical=True, kernel_launches=kern["launches"],
+         ragged_launches=kern["steps"], plain_launches=plain["launches"],
+         prefix_hit_tokens=kern["prefix_hit_tokens"],
+         buckets=kern["buckets"], kernel_s=kern["seconds"],
+         plain_s=plain["seconds"], first_tokens=kern["tokens"][0][:8])
+
+
+def serve_phase(torch, rp, serving, LlamaConfig, LlamaForCausalLM):
+    cfg = LlamaConfig.llama3_8b()
+    layers = cfg.num_hidden_layers
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                             generator=gen)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size,
+                            int(rng.integers(256, 2049))).tolist()
+               for _ in range(16)]
+    new_tokens = 64
+    warm = [rng.integers(0, cfg.vocab_size, 48).tolist()]
+    need = sum(-(-(len(p) + new_tokens) // 16) for p in prompts + warm) + 1
+    llm = serving.LLM(model, config=serving.EngineConfig(
+        num_blocks=need + 16, block_size=16, dtype=torch.bfloat16,
+        unified_step=True,
+        scheduler=serving.SchedulerConfig(max_num_seqs=16,
+                                          max_tokens_per_step=512)))
+    eng = llm.engine
+    llm.generate(warm, serving.SamplingParams(max_new_tokens=2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps0 = eng.ragged_launches
+    hists = [eng.metrics.histogram(n) for n in ("time_to_first_token",
+                                                 "inter_token_latency")]
+    before = [(h.count, h.sum) for h in hists]
+    rp.launches = 0
+    t0 = time.perf_counter()
+    outs = llm.generate(prompts, serving.SamplingParams(
+        max_new_tokens=new_tokens))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = rp.launches
+    steps = eng.ragged_launches - steps0
+    if launches != steps * layers:
+        raise AssertionError(f"serve: {launches} kernel launches for "
+                             f"{steps} steps x {layers} layers")
+    out_tokens = sum(len(o.token_ids) for o in outs)
+    if out_tokens != 16 * new_tokens or not all(
+            0 <= t < cfg.vocab_size for o in outs for t in o.token_ids):
+        raise AssertionError("serve: malformed token streams")
+    if eng.kv.occupancy() != 0.0:
+        raise AssertionError("serve: the pool is not empty at the end")
+    # means over this run's observations only (the warm-up's are excluded)
+    ttft, itl = ((h.sum - s0) / (h.count - c0)
+                 for h, (c0, s0) in zip(hists, before))
+    emit("serve", model="llama3_8b", layers=layers, dtype="bfloat16",
+         prompts=len(prompts), prompt_tokens=sum(map(len, prompts)),
+         new_tokens_each=new_tokens, seconds=wall,
+         output_tokens_per_s=out_tokens / wall,
+         total_tokens_per_s=(out_tokens + sum(map(len, prompts))) / wall,
+         mean_ttft_s=ttft, mean_itl_s=itl,
+         engine_steps=steps, kernel_launches=launches,
+         buckets=sorted({b for b in eng.ragged_buckets}),
+         preemptions=eng.metrics.counters["preemptions"],
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         model_build_s=build_s, num_blocks=eng.num_blocks)
+    return launches, llm
+
+
+def profile_phase(torch, serving, llm, vocab):
+    """torch.profiler over a short window of the warm serve engine (4
+    prompts of 1024 tokens, 8 new tokens each): device time by kernel and
+    the shares of the ragged kernel and of the matrix products.  The same
+    window runs once without the profiler first; its wall time against the
+    profiled device time gives the device's idle share (the profiler's own
+    host cost would inflate it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(3)
+
+    def window():
+        # fresh prompts each time: no prefix-cache hits
+        prompts = [rng.integers(0, vocab, 1024).tolist() for _ in range(4)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        llm.generate(prompts, serving.SamplingParams(max_new_tokens=8))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e6
+
+    wall_us = window()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiled_us = window()
+    # device rows only: an operator row also carries the device time of
+    # the kernels it launched, which would count them twice
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            kernels[e.key] = kernels.get(e.key, 0.0) + e.self_device_time_total
+    busy = sum(kernels.values())
+
+    def share(*marks):
+        return (sum(us for k, us in kernels.items()
+                    if any(m in k.lower() for m in marks)) / busy
+                if busy else None)
+
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    emit("profile", window_wall_us=wall_us, profiled_wall_us=profiled_us,
+         device_busy_us=busy, idle_share=(1 - busy / wall_us) if busy else None,
+         ragged_kernel_share=share(KERNEL_NAME),
+         matmul_share=share("gemm", "xmma", "cutlass", "nvjet", "matmul"),
+         top_kernels=[{"name": k[:120], "us": us} for k, us in top])
+
+
+def main() -> int:
+    try:
+        import torch
+
+        from paddle_tpu_torch import serving
+        from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+        from paddle_tpu_torch.ops import _build
+        from paddle_tpu_torch.ops import ragged_paged as rp
+    except ImportError as e:
+        print(f"chip_smoke: the paddle_tpu_torch package is not here ({e}); "
+              "run from the root of a checkout", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on a GPU",
+              file=sys.stderr)
+        return 2
+    # the plain versions are references: full fp32 products, no TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    smi = nvidia_smi_line()
+    emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda)
+
+    t0 = time.perf_counter()
+    _build.build([KERNEL_NAME])
+    for name, log in _build.build_logs.items():
+        print(f"--- nvcc {name} ---\n{log}", file=sys.stderr)
+    emit("build", kernels=[KERNEL_NAME], seconds=time.perf_counter() - t0)
+
+    summary = kernel_phase(torch, rp)
+    identity_phase(torch, rp, serving, LlamaConfig, LlamaForCausalLM)
+    torch.cuda.empty_cache()
+    launches, llm = serve_phase(torch, rp, serving, LlamaConfig,
+                                LlamaForCausalLM)
+    profile_phase(torch, serving, llm, llm.engine.model.config.vocab_size)
+
+    print(json.dumps({"kernels": [{
+        "name": KERNEL_NAME, "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+        "replaces": "paddle_tpu/ops/ragged_paged.py:111",
+        "launches": launches, "max_abs_err": summary["max_abs_err"],
+        "ms": summary["ms"], "plain_ms": summary["plain_ms"],
+        "bound_ms": summary["bound_ms"], "bound_by": summary["bound_by"],
+        "library_ms": summary["library_ms"]}]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,111 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``paddle_tpu_torch/csrc/<name>.cu`` has a plain C interface and is
+compiled by ``nvcc`` into its own shared library, which is loaded with
+``ctypes``.  No PyTorch header is compiled, so a build takes seconds.
+
+The library lands in ``paddle_tpu_torch/_build/`` (listed in
+``.gitignore``), keyed by a hash of the source and the flags: the first use
+after a change builds it, later uses load it.  Nothing is built when this
+module is imported; a kernel wrapper calls :func:`load` the first time it
+launches.  When ``nvcc`` fails, :class:`KernelBuildFailed` carries its
+standard error.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+build_logs: Dict[str, str] = {}   # ptxas report (registers, shared memory,
+                                  # spills) of each kernel built here
+
+
+class KernelBuildFailed(RuntimeError):
+    """``nvcc`` is missing or refused a kernel source."""
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    raise KernelBuildFailed(
+        "nvcc not found (looked on PATH, $CUDA_HOME/bin and "
+        "/usr/local/cuda/bin): the CUDA kernels are built on a machine "
+        "with the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` is built: the name carries a
+    hash of the source and the flags, so an edit rebuilds it."""
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _start(name: str):
+    out = library_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+           str(CSRC_DIR / f"{name}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True), tmp, out
+
+
+def build(names: Iterable[str]) -> None:
+    """Build every named kernel that is not built yet, one ``nvcc`` per
+    source, all started together.  Raises :class:`KernelBuildFailed` with
+    nvcc's standard error for the first source that fails."""
+    with _lock:
+        jobs = {name: _start(name) for name in names}
+        errors = []
+        for name, job in jobs.items():
+            if job is None:
+                continue
+            proc, tmp, out = job
+            stdout, stderr = proc.communicate()
+            build_logs[name] = stdout + stderr
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                errors.append(f"nvcc failed on csrc/{name}.cu "
+                              f"(exit {proc.returncode}):\n{stderr}")
+                continue
+            os.replace(tmp, out)  # atomic: a reader never sees half a file
+        if errors:
+            raise KernelBuildFailed("\n".join(errors))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    build([name])
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
+        return lib

@@ -1,0 +1,73 @@
+"""User-facing serving entrypoints over :class:`EngineCore` (the port of
+``paddle_tpu/serving/entrypoints.py``).
+
+* :class:`LLM` — offline batch inference: hand it every prompt, it drives
+  the continuous-batching loop to completion and returns per-request
+  outputs in submission order.
+* :func:`stream_generate` — online single-request streaming over a shared
+  engine: yields tokens as they decode while other requests keep batching.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, List, Optional, Sequence, Union
+
+from .engine import EngineConfig, EngineCore
+from .request import Request, SamplingParams
+
+
+class CompletionOutput:
+    """What one request produced: tokens + why it stopped."""
+
+    def __init__(self, req: Request):
+        self.request_id = req.request_id
+        self.prompt_ids = list(req.prompt_ids)
+        self.token_ids = list(req.output_tokens)
+        self.finish_reason = (req.finish_reason.value
+                              if req.finish_reason else None)
+        self.num_preemptions = req.num_preemptions
+        self.error = req.error
+
+    def __repr__(self):
+        return (f"CompletionOutput(request_id={self.request_id!r}, "
+                f"tokens={self.token_ids}, finish={self.finish_reason})")
+
+
+class LLM:
+    """Offline batch generation with continuous batching underneath:
+    ``LLM(model, config=EngineConfig(unified_step=True, ...))``."""
+
+    def __init__(self, model, config: Optional[EngineConfig] = None):
+        self.engine = EngineCore(model, config=config)
+
+    def generate(self, prompts: Sequence,
+                 sampling_params: Union[SamplingParams,
+                                        Sequence[SamplingParams], None] = None,
+                 ) -> List[CompletionOutput]:
+        """Submit every prompt, drain the engine, return outputs in
+        submission order."""
+        if sampling_params is None:
+            params = [SamplingParams() for _ in prompts]
+        elif isinstance(sampling_params, SamplingParams):
+            params = [sampling_params for _ in prompts]
+        else:
+            params = list(sampling_params)
+            if len(params) != len(prompts):
+                raise ValueError("one SamplingParams per prompt required")
+        reqs = [self.engine.add_request(p, sampling=sp)
+                for p, sp in zip(prompts, params)]
+        self.engine.run()
+        return [CompletionOutput(r) for r in reqs]
+
+    def summary(self) -> str:
+        return self.engine.metrics.summary()
+
+
+def stream_generate(engine: EngineCore, prompt_ids,
+                    sampling: Optional[SamplingParams] = None,
+                    request_id=None, priority: int = 0) -> Iterator[int]:
+    """Submit one request to a (possibly shared) engine and stream its
+    tokens; other in-flight requests keep decoding in the same batches."""
+    req = engine.add_request(prompt_ids, sampling=sampling,
+                             request_id=request_id, priority=priority)
+    return engine.stream(req.request_id)

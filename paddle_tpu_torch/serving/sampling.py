@@ -1,0 +1,93 @@
+"""Per-request sampling — the host side (the port of
+``paddle_tpu/serving/sampling.py``, carried over unchanged).
+
+The device side is :func:`paddle_tpu_torch.ops.sampling.sample_tokens`: every
+traced step program now ends in a per-row sampling reduction and returns
+token ids, so the host never touches logits on the emission path.  This
+module owns the host half of that contract:
+
+* :class:`SamplingPack` — builds the padded per-row ``(temperature,
+  top_k, top_p, key)`` quartet arrays a step program consumes.  Padding
+  rows stay all-zero (``temperature == 0`` → greedy argmax over the null
+  page's logits, discarded by the host), so packing never perturbs real
+  rows and the arrays bucket exactly like every other routing input.
+* **The draw-index discipline** (:func:`draw_index`) — the PRNG key for
+  a request's draw is the raw u32 pair ``(seed, output_position)``.
+  Output position is a pure function of request state, so the sampled
+  stream is identical across: preemption-recompute (the replayed
+  positions are never re-drawn — they are already in
+  ``output_tokens``), dp=1 vs dp=2 placement, server vs offline
+  ``LLM.generate``, and spec-decode verify packing (a verify row's
+  position ``j`` uses the same key the plain decode path would have
+  used when it reached that position).
+
+Greedy requests (``temperature == 0``) never consume a key, matching the
+host-argmax semantics bit for bit.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+# pre-registered by the engine at construction
+# so the series exist from the first scrape:
+#   serving_sampled_tokens_total — tokens emitted by non-greedy rows
+#     (device Gumbel-max draws); greedy emissions are not counted here
+#   serving_greedy_tokens_total  — tokens emitted by greedy rows via the
+#     same in-trace program (the two together = all emitted tokens)
+METRIC_NAMES = (
+    "serving_sampled_tokens_total",
+    "serving_greedy_tokens_total",
+)
+
+
+def register_metrics(registry):
+    """Create the sampling counters on ``registry`` (idempotent: the
+    registry's get-or-create contract returns existing series)."""
+    return {
+        "sampled": registry.counter(
+            "serving_sampled_tokens_total",
+            help="tokens emitted via in-trace sampled (temperature>0) rows"),
+        "greedy": registry.counter(
+            "serving_greedy_tokens_total",
+            help="tokens emitted via in-trace greedy (temperature==0) rows"),
+    }
+
+
+def draw_index(req, offset: int = 0) -> int:
+    """The PRNG draw index for ``req``'s next emitted token (+``offset``
+    for speculative positions beyond it): its output position.  THE
+    determinism anchor — see the module docstring."""
+    return len(req.output_tokens) + offset
+
+
+class SamplingPack:
+    """Padded per-row sampling quartet for one step program launch.
+
+    ``n`` is the padded row count (batch bucket for decode, token bucket
+    for the unified ragged program — rows there are PACKED TOKEN
+    POSITIONS, one quartet per position, so a verify row's k draft
+    positions each carry their own draw index).
+    """
+
+    __slots__ = ("temps", "top_ks", "top_ps", "keys")
+
+    def __init__(self, n: int):
+        self.temps = np.zeros((n,), np.float32)   # 0 = greedy (padding too)
+        self.top_ks = np.zeros((n,), np.int32)
+        self.top_ps = np.ones((n,), np.float32)
+        self.keys = np.zeros((n, 2), np.uint32)
+
+    def set(self, i: int, sampling, draw: int) -> None:
+        """Fill row ``i`` from a ``SamplingParams`` + draw index."""
+        self.temps[i] = np.float32(sampling.temperature)
+        self.top_ks[i] = np.int32(sampling.top_k)
+        self.top_ps[i] = np.float32(sampling.top_p)
+        self.keys[i, 0] = np.uint32(int(sampling.seed) & 0xFFFFFFFF)
+        self.keys[i, 1] = np.uint32(int(draw) & 0xFFFFFFFF)
+
+    def set_request(self, i: int, req, offset: int = 0) -> None:
+        self.set(i, req.sampling, draw_index(req, offset))
+
+    def arrays(self):
+        return self.temps, self.top_ks, self.top_ps, self.keys

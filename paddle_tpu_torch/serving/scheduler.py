@@ -1,0 +1,331 @@
+"""Continuous-batching scheduler (the port of
+``paddle_tpu/serving/scheduler.py``; host code, carried over with the
+planning of the parts this slice runs).
+
+Every engine step the scheduler
+
+1. **reserves** this step's decode slot for every fully-prefilled running
+   request, and on exhaustion **preempts** — the least-important running
+   request (highest ``(priority, arrival_seq)``) is evicted, its blocks
+   freed (shared prefix blocks stay with their other owners), and it is
+   re-enqueued at the FRONT of the waiting queue for prefill-recompute;
+2. **plans prefill chunks** under the per-step token budgets
+   (``max_prefill_tokens_per_step``, and ``max_tokens_per_step`` shared
+   with the decode rows): continuing partial prefills outrank new
+   admissions;
+3. **admits** waiting requests while the running set is under
+   ``max_num_seqs`` and the pool can cover the request's *uncached*
+   prompt tail plus one decode block of headroom without preempting
+   anyone.  Admission first **forks the longest cached block-prefix** of
+   the prompt from the prefix cache (refcount++, zero recompute).
+
+Invariants: slot reservation is all-or-nothing per request; a preempted
+request keeps its generated tokens, so recompute costs one prefill over
+``prompt + output_tokens`` and continues token-identically (greedy); a
+request that can never fit the pool is finished as ABORT instead of
+live-locking the queue; the engine pads each step to a size bucket
+(:func:`bucket_size`).  The speculative-decode draft budget, the decode
+burst headroom, the AOT sequence cap and the planned-token ledger of the
+JAX scheduler come with their consumers (ROADMAP A7–A9).
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Deque, List, Optional
+
+from .kv_manager import KVCacheManager
+from .request import FinishReason, Request, RequestState
+
+
+def bucket_size(n: int, cap: Optional[int] = None) -> int:
+    """Next power of two ≥ n (≥1); optionally clamped to ``cap``.  The
+    shape-bucketing of the step: any batch/width in the same bucket has
+    the same tensor shapes (the bound a captured program needs)."""
+    b = 1
+    while b < n:
+        b <<= 1
+    return min(b, cap) if cap is not None else b
+
+
+@dataclass
+class SchedulerConfig:
+    """Per-step planning knobs.  Rides ``EngineConfig.scheduler`` in the
+    one-object engine construction form, or the legacy
+    ``EngineCore(scheduler_config=...)`` keyword."""
+
+    max_num_seqs: int = 8            # running-set cap (decode batch ≤ this)
+    max_prefills_per_step: int = 1   # admission throttle: prefill is the
+                                     # expensive fixed-shape program; decode
+                                     # latency of running requests is
+                                     # protected by not batching many
+                                     # prefills into one engine step
+    max_prefill_tokens_per_step: Optional[int] = None
+                                     # chunked prefill: per-step token
+                                     # budget shared by ALL prefill work
+                                     # (continuations + admissions) so a
+                                     # long prompt advances in bucketed
+                                     # chunks alongside the decode batch
+                                     # instead of stalling it.  None =
+                                     # unlimited (one-shot prefill).
+    max_tokens_per_step: Optional[int] = None
+                                     # unified ragged packing:
+                                     # ONE token budget for the whole
+                                     # step — decode rows (1 token each)
+                                     # claim it first (they are NEVER
+                                     # split across steps), prefill work
+                                     # (continuations + admissions)
+                                     # competes for the remainder.  The
+                                     # packed token bucket is therefore
+                                     # bounded by bucket_size(max(this,
+                                     # max_num_seqs)) — a decode batch
+                                     # larger than the budget still runs
+                                     # whole.  None = no combined cap
+                                     # (prefill still honours its own
+                                     # budget).
+
+    def __post_init__(self):
+        if (self.max_prefill_tokens_per_step is not None
+                and self.max_prefill_tokens_per_step < 1):
+            # a zero/negative budget plans NO prefill ever: requests would
+            # queue forever while has_work() stays True — fail fast instead
+            raise ValueError(
+                "max_prefill_tokens_per_step must be None or >= 1, got "
+                f"{self.max_prefill_tokens_per_step}")
+        if (self.max_tokens_per_step is not None
+                and self.max_tokens_per_step < 1):
+            raise ValueError(
+                "max_tokens_per_step must be None or >= 1, got "
+                f"{self.max_tokens_per_step}")
+
+
+@dataclass
+class SchedulerOutput:
+    """One step's plan: prefill chunks to run, the decode set, and who
+    was preempted to make room."""
+
+    prefills: List[Request] = field(default_factory=list)
+    admitted: List[Request] = field(default_factory=list)  # ⊆ prefills:
+                                     # newly admitted this step (the
+                                     # engine counts their cache hits)
+    decodes: List[Request] = field(default_factory=list)
+    preempted: List[Request] = field(default_factory=list)
+    aborted: List[Request] = field(default_factory=list)
+
+
+class ContinuousBatchingScheduler:
+    """Owns the waiting queue and the running set; pure bookkeeping — the
+    engine executes the plan this object returns."""
+
+    def __init__(self, config: SchedulerConfig, kv: KVCacheManager):
+        self.config = config
+        self.kv = kv
+        self.waiting: Deque[Request] = deque()  # unbounded-ok: live work queue (admission drains it); not telemetry
+        self.running: List[Request] = []
+
+    # --- queue ops ----------------------------------------------------------
+    def add(self, req: Request) -> None:
+        req.state = RequestState.WAITING
+        self.waiting.append(req)
+
+    def remove(self, req: Request) -> None:
+        if req in self.running:
+            self.running.remove(req)
+        try:
+            self.waiting.remove(req)
+        except ValueError:
+            pass  # swallow-ok: remove() contract is idempotent — "not queued" is a normal state (running, or already removed), not a fault
+
+    @property
+    def queue_depth(self) -> int:
+        return len(self.waiting)
+
+    @property
+    def num_running(self) -> int:
+        return len(self.running)
+
+    def has_work(self) -> bool:
+        return bool(self.waiting or self.running)
+
+    # --- planning -----------------------------------------------------------
+    def _usable_blocks(self) -> int:
+        return self.kv.num_blocks - 1  # block 0 = null page
+
+    def _needs_prefill(self, req: Request) -> bool:
+        """True while ``req``'s prompt (+ kept output, on recompute) is
+        not yet in the pool.  The newest generated token's KV is written
+        by the decode step that consumes it, so a recompute that reaches
+        ``prompt + output - 1`` committed tokens resumes straight into
+        decode — the decode step IS its final prefill position."""
+        target = len(req.prompt_ids) + len(req.output_tokens)
+        if req.output_tokens:
+            target -= 1
+        return self.kv.seq_len(req.request_id) < target
+
+    def _chunk_capacity(self, req: Request, want: int, promised: int) -> int:
+        """Clamp a continuation chunk to what the pool can actually back
+        right now (``promised`` = blocks already pledged this pass): the
+        pool may have drained since this request was admitted, and a
+        chunk the engine cannot allocate must never be planned."""
+        rid = req.request_id
+        free_slots = (self.kv.num_owned_blocks(rid) * self.kv.block_size
+                      - self.kv.seq_len(rid))
+        avail = max(0, self.kv.num_available - promised)
+        return min(want, free_slots + avail * self.kv.block_size)
+
+    def _plan_prefills(self, out: SchedulerOutput) -> None:
+        """Plan this step's prefill work under the chunk token budget:
+        first continue partial prefills (most-important first — finishing
+        an in-flight prompt beats admitting a new one), then admit from
+        the waiting queue."""
+        budget = self.config.max_prefill_tokens_per_step
+        remaining = float("inf") if budget is None else int(budget)
+        total = self.config.max_tokens_per_step
+        if total is not None:
+            # unified packing: this step's decode rows (slots
+            # reserved before prefill planning) already claimed one
+            # packed token each — prefill work competes for the rest of
+            # the SINGLE budget, so decode latency is protected.  Decode
+            # rows themselves are never split across steps, so the
+            # packed token count is bounded by max(total, num decode
+            # rows), not by total alone.
+            remaining = min(remaining,
+                            max(0, int(total) - len(out.decodes)))
+        promised = 0  # blocks pledged to prefills planned THIS pass: the
+                      # engine allocates them only when it runs the chunk,
+                      # so kv.num_available alone would double-count
+        for req in sorted(self.running, key=lambda r: r.preempt_key):
+            if req.state is not RequestState.RUNNING:
+                continue
+            if not self._needs_prefill(req):
+                continue
+            if remaining <= 0:
+                break
+            want = (len(req.prompt_ids) + len(req.output_tokens)
+                    - self.kv.seq_len(req.request_id))
+            n = self._chunk_capacity(req, min(want, remaining), promised)
+            if n <= 0:
+                continue  # pool pressure: wait for decode-side churn
+            req._chunk_tokens = int(n)
+            promised += self.kv.blocks_needed(req.request_id, n)
+            remaining -= n
+            out.prefills.append(req)
+
+        admitted = 0
+        while (self.waiting
+               and len(self.running) < self.config.max_num_seqs
+               and admitted < self.config.max_prefills_per_step
+               and remaining > 0):
+            req = self.waiting[0]
+            ids = req.prompt_ids + req.output_tokens
+            prompt_blocks = self.kv.blocks_for(len(ids))
+            if prompt_blocks > self._usable_blocks():
+                # can never fit, even with the whole pool: fail THIS request
+                # honestly rather than live-locking everyone behind it
+                self.waiting.popleft()
+                req.state = RequestState.FINISHED
+                req.finish_reason = FinishReason.ABORT
+                req.error = (f"request needs {prompt_blocks} KV blocks; "
+                             f"pool has {self._usable_blocks()} usable")
+                out.aborted.append(req)
+                continue
+            # admit on the UNCACHED tail, not the whole prompt: blocks
+            # already in the prefix cache cost nothing new (live shares)
+            # or only their reuse-LRU slot (``from_reuse`` — those leave
+            # the available set when forked, so they are charged).  This
+            # is what makes a warm cache raise admission capacity.
+            if req._probe_epoch != self.kv.cache_epoch:
+                # leading-block hashes the fleet router already computed
+                # (req.prefix_hashes) are reused, not re-hashed
+                req._probe_blocks = self.kv.match_prefix(
+                    ids, precomputed=req.prefix_hashes)
+                req._probe_epoch = self.kv.cache_epoch
+            hit = req._probe_blocks
+            from_reuse = self.kv.reuse_count(hit)
+            uncached = prompt_blocks - len(hit)
+            # +1 decode-slot headroom, but never demand more than the pool
+            # HAS: a prompt filling the pool exactly is still servable when
+            # its decode tokens fit the last block's free slots
+            need = min(uncached + 1, self._usable_blocks())
+            if need + from_reuse > self.kv.num_available - promised:
+                break  # admission never preempts running work
+            self.waiting.popleft()
+            cached = self.kv.fork_prefix(req.request_id, ids, blocks=hit)
+            req.num_cached_tokens = cached
+            promised += need  # the fork itself already moved from_reuse
+                              # blocks out of num_available
+            req.state = RequestState.RUNNING
+            self.running.append(req)
+            n = min(len(ids) - cached, remaining)
+            req._chunk_tokens = int(n)
+            remaining -= n
+            out.prefills.append(req)
+            out.admitted.append(req)
+            admitted += 1
+
+    def _preempt(self, victim: Request) -> None:
+        """Evict ``victim``: free its blocks (shared prefix blocks stay
+        with their other owners — refcounts guarantee a preemption never
+        clobbers a block someone else forked), re-enqueue at the FRONT of
+        the waiting queue (a preempted request outranks new arrivals, so
+        it is re-admitted and recomputed as soon as blocks free up)."""
+        self.running.remove(victim)
+        self.kv.free(victim.request_id)
+        victim.state = RequestState.PREEMPTED
+        victim.num_preemptions += 1
+        victim.num_cached_tokens = 0
+        victim._chunk_tokens = None
+        victim._probe_blocks = None  # re-admission hashes prompt + output,
+        victim._probe_epoch = -1     # not the ids this match was for
+        self.waiting.appendleft(victim)
+
+    def _pick_victim(self, exclude) -> Optional[Request]:
+        # only block-holding requests relieve pressure, and a request
+        # that already reserved its slot this step (= more important in
+        # the iteration order) is never stolen from
+        candidates = [r for r in self.running if r not in exclude
+                      and self.kv.num_owned_blocks(r.request_id) > 0]
+        if not candidates:
+            return None
+        return max(candidates, key=lambda r: r.preempt_key)
+
+    def _reserve_decode_slots(self, out: SchedulerOutput) -> None:
+        """Reserve one decode slot per running request, preempting the
+        least-important block-holding requests on exhaustion.  Iterates
+        most-important first so preemption pressure lands on the tail."""
+        granted: List[Request] = []
+        for req in sorted(list(self.running), key=lambda r: r.preempt_key):
+            if req.state is not RequestState.RUNNING:
+                continue  # preempted by an earlier iteration
+            if self._needs_prefill(req):
+                continue  # mid-(chunked)-prefill: no decode slot yet —
+                          # the chunk planner advances it instead
+            while True:
+                slot = self.kv.append_slot(req.request_id)
+                if slot is not None:
+                    req._slot = slot
+                    granted.append(req)
+                    out.decodes.append(req)
+                    break
+                victim = self._pick_victim(exclude=granted + [req])
+                if victim is None:
+                    # nothing evictable below it: this request itself
+                    # yields (it is the least important slot-seeker left)
+                    self._preempt(req)
+                    out.preempted.append(req)
+                    break
+                self._preempt(victim)
+                out.preempted.append(victim)
+
+    def schedule(self) -> SchedulerOutput:
+        """Plan one engine step.  Decode slots are reserved BEFORE
+        prefill planning, so blocks promised to a freshly planned chunk
+        can never be consumed by this step's decode appends.  A request
+        whose prefill completes samples its first token from the final
+        chunk's last-position logits within the same step, so it is not
+        in ``decodes``."""
+        out = SchedulerOutput()
+        self._reserve_decode_slots(out)
+        self._plan_prefills(out)
+        return out

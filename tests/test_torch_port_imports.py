@@ -1,0 +1,144 @@
+"""Boundaries of the PyTorch port.
+
+* No module of ``paddle_tpu_torch`` and not ``chip_smoke.py`` imports
+  ``jax``, ``jaxlib`` or ``paddle_tpu`` (an AST walk over every import).
+* The package imports with no ``nvcc`` and no ``triton``, builds nothing
+  and loads no JAX while doing so.
+* Without a CUDA device and without ``device="cpu"``, building the model
+  raises instead of running on the CPU, and ``chip_smoke.py`` exits
+  nonzero with no result line — as it does beside no package.
+* Every ``EngineConfig`` setting the port does not implement raises
+  ``NotImplementedError`` naming its ROADMAP item, as do MoE layers.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.serving import EngineConfig, EngineCore
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "paddle_tpu_torch"
+FORBIDDEN = {"jax", "jaxlib", "paddle_tpu"}
+
+
+def _port_files():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 20 and all(f.exists() for f in files)
+    return files
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        elif (isinstance(node, ast.Call) and getattr(node.func, "id", None)
+              == "__import__" and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split(".")[0]
+
+
+def test_port_never_imports_jax_or_the_jax_package():
+    offenders = {str(f.relative_to(REPO)): sorted(FORBIDDEN & set(
+        _imported_roots(f))) for f in _port_files()}
+    assert {k: v for k, v in offenders.items() if v} == {}
+
+
+def test_package_imports_without_nvcc_triton_or_jax():
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts)
+        .removesuffix(".__init__")
+        for p in PORT.rglob("*.py"))
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['triton'] = None\n"   # any import of it would raise
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from paddle_tpu_torch.ops import _build\n"
+        "assert not _build._libs\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'paddle_tpu'))\n"
+        "assert not bad, bad\n"
+        "print(len(sys.argv) and 'ok')\n")
+    env = dict(os.environ, PATH="/nonexistent", CUDA_HOME="/nonexistent",
+               PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path, alone):
+    """chip_smoke.py exits nonzero and prints no result where there is no
+    CUDA device, and in a directory holding it and nothing of the repo."""
+    script = REPO / "chip_smoke.py"
+    cwd = REPO
+    if alone:
+        cwd = tmp_path
+        (tmp_path / "chip_smoke.py").write_text(script.read_text())
+    env = dict(os.environ, PYTHONPATH="", CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_model_without_a_card_raises_instead_of_using_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1))
+    model = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1),
+                             device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
+
+
+def test_moe_layers_raise_at_construction():
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        LlamaForCausalLM(LlamaConfig.tiny_moe(num_hidden_layers=1),
+                         device="cpu")
+
+
+@pytest.mark.parametrize("fields, item", [
+    (dict(unified_step=False), "A7"),
+    (dict(burst_steps=4), "A7"),
+    (dict(audit=object()), "A8"),
+    (dict(profile_ops=True), "A8"),
+    (dict(lifecycle=object()), "A8"),
+    (dict(spec=object()), "A9"),
+    (dict(aot_path="artifact"), "A9"),
+    (dict(aot=object()), "A9"),
+    (dict(role="prefill"), "A9"),
+    (dict(role="decode"), "A9"),
+    (dict(mp=2), "A11"),
+])
+def test_unported_engine_settings_raise(fields, item):
+    model = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1),
+                             device="cpu")
+    cfg = dict(num_blocks=16, block_size=4, unified_step=True)
+    cfg.update(fields)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        EngineCore(model, config=EngineConfig(**cfg))
+
+
+def test_supported_settings_build():
+    model = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1),
+                             device="cpu")
+    eng = EngineCore(model, config=EngineConfig(
+        num_blocks=16, block_size=4, unified_step=True, mp=1,
+        burst_steps=1, use_pallas_paged=False, dtype=torch.bfloat16))
+    assert eng._k_pools[0].dtype == torch.bfloat16
+    assert eng._k_pools[0].shape == (16, 4, 2, 16)
+    with pytest.raises(ValueError, match="role"):
+        EngineCore(model, config=EngineConfig(unified_step=True,
+                                              role="router"))
