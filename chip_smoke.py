@@ -10,8 +10,9 @@ It builds the port's CUDA kernels from ``paddle_tpu_torch/csrc/`` and runs
 these phases, printing one JSON line for each:
 
 ``device``   the card (``nvidia-smi`` name and power limit, torch's name).
-``build``    the kernel build; nvcc's ptxas report goes to standard error.
-``kernels``  each kernel against its plain PyTorch version on the same
+``build``    both kernels in one build (one nvcc each, started together);
+             nvcc's ptxas report goes to standard error.
+``kernels``  the ragged kernel against its plain PyTorch version on the same
              inputs (fp32 within 1e-4; bf16 within 2e-2 of the plain version
              run in fp32 on the same bf16 inputs), over the packings of the
              CPU tests at tiny shapes and over Llama-3-8B's attention shapes
@@ -22,6 +23,15 @@ these phases, printing one JSON line for each:
              dense context beforehand, a yardstick the port never calls) and
              the bound, the larger of the operations over the card's peak
              rate and the bytes over its memory rate.
+``decode_kernels``  the paged decode kernel against its plain version
+             (fp32 within 1e-4, bf16 within 2e-2 of the plain version in
+             fp32 on the same bf16 inputs), over the CPU tests' decode
+             buckets B x W in {1,2,4,8}^2 and Llama-3-8B's decode shapes
+             (H=32, Hkv=8, D=128, bs=16, B in {1, 4, 16}, random lengths up
+             to 2112 tokens in tables padded to 256 pages), timed like the
+             ragged kernel, plus the kernel's device time per call read
+             from torch.profiler (at small batches the CUDA-event time of
+             back-to-back calls is the host's cost of issuing them).
 ``identity`` Llama-3-8B at full width cut to 4 layers, fp32, random weights
              from a seeded generator: 8 prompts sharing a 64-token prefix
              through the engine with the kernel and with the plain version;
@@ -35,9 +45,25 @@ these phases, printing one JSON line for each:
 ``profile``  torch.profiler over a short window of the same engine: device
              time by kernel, the ragged kernel's and the matrix products'
              shares, and the device's idle share.
+``identity_legacy``  the identity model and prompts through the JAX
+             package's default serving call, ``LLM(model, num_blocks=...,
+             block_size=16, max_num_seqs=8)`` (the legacy prefill / chunk /
+             decode families) with a 256-token prefill budget: the decode
+             kernel and the plain version give identical greedy tokens, so
+             do decode bursts of 8 with strictly fewer host round trips, and
+             the decode kernel launched (decode steps + burst iterations) x
+             layers times.
+``serve_legacy``  the serve model and prompts through the legacy ``LLM``
+             in bf16, without and with decode bursts of 8: the serve
+             numbers, the steps of each family and the mean wall time of
+             one launch of each, the launch rule and peak memory.  Then a
+             profile window on each of the two engines: the decode
+             kernel's, the matrix products' and the idle shares.
 
-Then a line ``{"kernels": [...]}`` summarising each kernel at the main
-path's shapes, the ``nvidia-smi`` line, and last
+Then a line ``{"kernels": [...]}`` summarising each kernel at its serve
+path's shapes (the ragged kernel at the unified serve step, the decode
+kernel at B=16 bf16, with the launches of the serve and the burst-free
+serve_legacy runs), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and the script exits
 nonzero without that last line; so does a machine without a CUDA device,
 and a directory that holds this script without the package.
@@ -55,6 +81,10 @@ import numpy as np
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
 PEAK_BYTES = 3.35e12                                  # H100 SXM HBM3
 KERNEL_NAME = "ragged_paged_attention"
+DECODE_NAME = "paged_decode_attention"
+# the device functions of each kernel, as a profiler names them
+KERNEL_MARKS = ("ragged_paged_attention_kernel",)
+DECODE_MARKS = ("paged_decode_kernel", "combine_splits_kernel")
 
 
 def emit(phase: str, **fields) -> None:
@@ -152,6 +182,28 @@ def time_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters, marks):
+    """Device time per call of ``fn`` spent in the kernels whose names hold
+    one of ``marks``, from torch.profiler.  Unlike :func:`time_ms` it
+    leaves out the host's cost of issuing each call, which sets the pace of
+    back-to-back calls when the kernel is shorter than that cost."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and any(m in e.key for m in marks))
+    return us / iters / 1e3
+
+
 def library_call(q, k_cache, v_cache, tables, seg, lens, pos):
     """scaled_dot_product_attention over each token's pages gathered to a
     dense masked context beforehand: returns the timed call (the gather
@@ -163,8 +215,8 @@ def library_call(q, k_cache, v_cache, tables, seg, lens, pos):
     bs, Hkv = k_cache.shape[1], k_cache.shape[2]
     W = tables.shape[1]
     bt = tables.long()[seg.long()]
-    k = k_cache[bt].reshape(T, W * bs, Hkv, D).transpose(1, 2)
-    v = v_cache[bt].reshape(T, W * bs, Hkv, D).transpose(1, 2)
+    k = k_cache[bt].reshape(T, W * bs, Hkv, D).transpose(1, 2).contiguous()
+    v = v_cache[bt].reshape(T, W * bs, Hkv, D).transpose(1, 2).contiguous()
     limit = torch.minimum(lens.long()[seg.long()], pos.long() + 1)
     mask = (torch.arange(W * bs, device=q.device)[None, :]
             < limit[:, None])[:, None, None, :]
@@ -255,6 +307,143 @@ def kernel_phase(torch, rp):
     return summary
 
 
+# --- decode kernel phase ------------------------------------------------------
+
+def decode_bucket_case(rng, B, W, bs=4, Hkv=2, H=4, D=16):
+    """tests/test_torch_paged_decode.py's decode bucket: each row owns 1..W
+    distinct pages, 0-padded, with a random length inside them."""
+    num_blocks = W * B + 2
+    k = rng.standard_normal((num_blocks, bs, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((num_blocks, bs, Hkv, D)).astype(np.float32)
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    tables = np.zeros((B, W), np.int32)
+    lens = np.zeros((B,), np.int32)
+    blocks = iter(range(1, num_blocks))
+    for i in range(B):
+        owned = rng.integers(1, W + 1)
+        tables[i, :owned] = [next(blocks) for _ in range(owned)]
+        lens[i] = rng.integers(1, owned * bs + 1)
+    return q, k, v, tables, lens
+
+
+def decode_tables(rng, lens, W, bs, num_blocks):
+    """A [B, W] table over distinct random pages, live pages only."""
+    need = [-(-int(n) // bs) for n in lens]
+    pages = rng.choice(np.arange(1, num_blocks), sum(need), replace=False)
+    tables = np.zeros((len(lens), W), np.int32)
+    at = 0
+    for i, n in enumerate(need):
+        tables[i, :n] = pages[at:at + n]
+        at += n
+    return tables
+
+
+def decode_kernel_phase(torch, pd):
+    """The decode kernel against decode_reference: the CPU tests' bucket
+    lattice, then Llama-3-8B's decode shapes with times.  At the 8B shapes
+    each timed launch takes the next of several table sets over distinct
+    pages of a large pool, so the pages come from device memory and not
+    from L2, as they do for a decode step that walks all the layers."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(4)
+    checks = []
+
+    def check(label, q, k, v, tables, lens):
+        out = pd.decode_kernel(q, k, v, tables, lens)
+        torch.cuda.synchronize()
+        ref = pd.decode_reference(q.float(), k.float(), v.float(), tables,
+                                  lens)
+        err = float((out.float() - ref).abs().max())
+        tol = 1e-4 if q.dtype == torch.float32 else 2e-2
+        if not (err <= tol and torch.isfinite(out.float()).all()):
+            raise AssertionError(f"decode kernel disagrees with the plain "
+                                 f"version on {label} {q.dtype}: max abs "
+                                 f"err {err} > {tol}")
+        checks.append({"case": label, "dtype": str(q.dtype).split(".")[-1],
+                       "max_abs_err": err, "tol": tol})
+        return err
+
+    for B in (1, 2, 4, 8):
+        for W in (1, 2, 4, 8):
+            arrays = [torch.from_numpy(a).to(dev)
+                      for a in decode_bucket_case(rng, B, W)]
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = (t.to(dtype) for t in arrays[:3])
+                check(f"tiny B={B} W={W}", q, k, v, *arrays[3:])
+
+    H, Hkv, D, bs, W, max_len, n_sets = 32, 8, 128, 16, 256, 2112, 12
+    num_blocks = n_sets * 16 * (max_len // bs) + 1
+    k32 = torch.randn(num_blocks, bs, Hkv, D, device=dev)
+    v32 = torch.randn(num_blocks, bs, Hkv, D, device=dev)
+    timings = []
+    summary = None
+    for B in (1, 4, 16):
+        lens = rng.integers(1, max_len + 1, B).astype(np.int32)
+        sets = [decode_tables(rng, lens, W, bs, num_blocks)
+                for _ in range(n_sets)]
+        lens_t = torch.from_numpy(lens).to(dev)
+        tables = [torch.from_numpy(t).to(dev) for t in sets]
+        q32 = torch.randn(B, H, D, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
+            label = f"8b B={B}"
+            err = max(check(label, q, k, v, t, lens_t) for t in tables[:2])
+            flops, nbytes = work(q, k, sets[0], lens, np.arange(B),
+                                 lens - 1)
+            # one query token per row, at position len - 1
+            rows = torch.arange(B, device=dev)
+            library = [library_call(q, k, v, t, rows, lens_t, lens_t - 1)
+                       for t in tables]
+            ref = pd.decode_reference(q.float(), k.float(), v.float(),
+                                      tables[0], lens_t)
+            library_err = float((library[0]()[:, :, 0].float() - ref)
+                                .abs().max())
+            if not library_err <= 2e-2:
+                raise AssertionError(f"the library yardstick computes another "
+                                     f"function: max abs err {library_err}")
+            del ref
+
+            def cycle(fn):
+                state = {"i": 0}
+
+                def call():
+                    fn(state["i"] % n_sets)
+                    state["i"] += 1
+                return call
+
+            name = str(dtype).split(".")[-1]
+            t_flops = flops / PEAK_FLOPS[name] * 1e3
+            t_bytes = nbytes / PEAK_BYTES * 1e3
+            kernel = cycle(lambda i: pd.decode_kernel(q, k, v, tables[i],
+                                                      lens_t))
+            row = {
+                "B": B, "dtype": name, "lens": lens.tolist(), "W": W,
+                "max_abs_err": err,
+                "ms": time_ms(kernel, 4 * n_sets),
+                "device_ms": device_ms(kernel, 2 * n_sets, DECODE_MARKS),
+                "plain_ms": time_ms(cycle(lambda i: pd.decode_reference(
+                    q, k, v, tables[i], lens_t)), n_sets, 1),
+                "library_ms": time_ms(cycle(lambda i: library[i]()),
+                                      2 * n_sets),
+                "library_max_abs_err": library_err,
+                "bound_ms": max(t_flops, t_bytes),
+                "bound_by": "operations" if t_flops > t_bytes else "bytes",
+                "flops": flops, "bytes": nbytes,
+                "splits": pd.num_splits(dev, B, H, Hkv),
+            }
+            timings.append(row)
+            if B == 16 and dtype == torch.bfloat16:
+                summary = row   # the serve_legacy decode step's shape
+            del library, q, k, v
+            torch.cuda.empty_cache()
+    del k32, v32
+    torch.cuda.empty_cache()
+    emit("decode_kernels", name=DECODE_NAME, checks=len(checks),
+         worst=max(checks, key=lambda c: c["max_abs_err"] / c["tol"]),
+         timings=timings)
+    return summary
+
+
 # --- engine phases ------------------------------------------------------------
 
 def prompts_with_prefix(rng, n, lo, hi, prefix_len, vocab):
@@ -314,6 +503,105 @@ def identity_phase(torch, rp, serving, LlamaConfig, LlamaForCausalLM):
          prefix_hit_tokens=kern["prefix_hit_tokens"],
          buckets=kern["buckets"], kernel_s=kern["seconds"],
          plain_s=plain["seconds"], first_tokens=kern["tokens"][0][:8])
+    return model, prompts, kern["tokens"]
+
+
+def legacy_counts(eng):
+    """Steps of each legacy family, bursts and decode-kernel launches due
+    so far: the decode kernel runs once per layer per decode step and per
+    burst iteration."""
+    m = eng.metrics
+    chunks = m.counters["chunked_prefill_steps"]
+    decode_steps = m.histogram("decode_step").count
+    burst_iters = int(eng._burst_counters["length"].sum)
+    return {"prefill_steps": m.histogram("prefill_step").count - chunks,
+            "chunk_steps": chunks, "decode_steps": decode_steps,
+            "bursts": int(eng._burst_counters["launches"].value),
+            "burst_iterations": burst_iters,
+            "roundtrips": int(eng._burst_counters["roundtrips"].value),
+            "decode_launches_due": (decode_steps + burst_iters)
+            * eng.model.config.num_hidden_layers}
+
+
+def identity_legacy_phase(torch, pd, serving, model, prompts,
+                          unified_tokens):
+    """The identity model and prompts through the JAX package's default
+    serving call, the keyword form of LLM, which builds the legacy
+    families.  Its prefill budget is set on the scheduler's config: the
+    keyword form takes max_num_seqs only."""
+    layers = model.config.num_hidden_layers
+    need = sum(-(-(len(p) + 16) // 16) for p in prompts) + 1
+    budget = 256
+    results = {}
+    for name in ("kernel", "plain", "burst"):
+        if name == "burst":
+            llm = serving.LLM(model, config=serving.EngineConfig(
+                num_blocks=need + 16, block_size=16, burst_steps=8,
+                scheduler=serving.SchedulerConfig(
+                    max_num_seqs=8, max_prefill_tokens_per_step=budget)))
+        else:
+            llm = serving.LLM(model, num_blocks=need + 16, block_size=16,
+                              max_num_seqs=8,
+                              use_pallas_paged=None if name == "kernel"
+                              else False)
+            llm.engine.scheduler.config.max_prefill_tokens_per_step = budget
+        eng = llm.engine
+        if eng._unified:
+            raise AssertionError("identity_legacy: LLM(model, ...) did not "
+                                 "build the legacy families")
+        pd.launches = 0
+        t0 = time.perf_counter()
+        outs = llm.generate(prompts, serving.SamplingParams(
+            max_new_tokens=16))
+        torch.cuda.synchronize()
+        counts = legacy_counts(eng)
+        results[name] = dict(
+            counts, tokens=[o.token_ids for o in outs],
+            launches=pd.launches, seconds=time.perf_counter() - t0,
+            prefix_hit_tokens=eng.metrics.counters["prefix_cache_hit_tokens"],
+            buckets={"decode": sorted(eng.decode_buckets),
+                     "prefill": sorted(eng.prefill_buckets),
+                     "burst": sorted(eng.burst_buckets)})
+        if eng.kv.occupancy() != 0.0:
+            raise AssertionError(f"identity_legacy {name}: the pool is not "
+                                 f"empty at the end")
+        del llm, eng
+    kern, plain, burst = results["kernel"], results["plain"], results["burst"]
+    if kern["tokens"] != plain["tokens"]:
+        raise AssertionError("identity_legacy: the decode kernel and the "
+                             "plain version emitted different greedy tokens")
+    if burst["tokens"] != kern["tokens"]:
+        raise AssertionError("identity_legacy: decode bursts changed the "
+                             "greedy tokens")
+    if not burst["roundtrips"] < kern["roundtrips"] or burst["bursts"] == 0:
+        raise AssertionError(f"identity_legacy: {burst['bursts']} bursts, "
+                             f"{burst['roundtrips']} round trips against "
+                             f"{kern['roundtrips']} without bursts")
+    for name in ("kernel", "burst"):
+        r = results[name]
+        if r["launches"] != r["decode_launches_due"]:
+            raise AssertionError(
+                f"identity_legacy {name}: {r['launches']} decode-kernel "
+                f"launches, not (decode steps {r['decode_steps']} + burst "
+                f"iterations {r['burst_iterations']}) x {layers} layers")
+    if plain["launches"]:
+        raise AssertionError("identity_legacy: the plain run launched the "
+                             "decode kernel")
+    if kern["chunk_steps"] <= 0 or kern["prefix_hit_tokens"] <= 0:
+        raise AssertionError("identity_legacy: the chunk family or the "
+                             "prefix fork did not run")
+    if any(len(t) != 16 or not all(0 <= x < model.config.vocab_size
+                                   for x in t) for t in kern["tokens"]):
+        raise AssertionError("identity_legacy: malformed token streams")
+    agree = sum(a == b for ta, tb in zip(kern["tokens"], unified_tokens)
+                for a, b in zip(ta, tb))
+    emit("identity_legacy", layers=layers, dtype="float32",
+         prefill_budget=budget, greedy_identical=True,
+         burst_identical=True,
+         tokens_agreeing_with_unified=agree,
+         tokens_total=sum(map(len, unified_tokens)),
+         **{name: {k: v for k, v in r.items() if k != "tokens"}
+            for name, r in results.items()})
 
 
 def serve_phase(torch, rp, serving, LlamaConfig, LlamaForCausalLM):
@@ -376,16 +664,104 @@ def serve_phase(torch, rp, serving, LlamaConfig, LlamaForCausalLM):
          preemptions=eng.metrics.counters["preemptions"],
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          model_build_s=build_s, num_blocks=eng.num_blocks)
-    return launches, llm
+    return launches, llm, prompts, warm, new_tokens
 
 
-def profile_phase(torch, serving, llm, vocab):
-    """torch.profiler over a short window of the warm serve engine (4
-    prompts of 1024 tokens, 8 new tokens each): device time by kernel and
-    the shares of the ragged kernel and of the matrix products.  The same
-    window runs once without the profiler first; its wall time against the
-    profiled device time gives the device's idle share (the profiler's own
-    host cost would inflate it)."""
+def serve_legacy_phase(torch, pd, serving, model, prompts, warm,
+                       new_tokens):
+    """The serve model and prompts through the legacy LLM in bf16, without
+    and with decode bursts of 8.  Returns the decode-kernel launches of the
+    burst-free run and the two LLMs."""
+    layers = model.config.num_hidden_layers
+    need = sum(-(-(len(p) + new_tokens) // 16) for p in prompts + warm) + 1
+    rows, llms = {}, {}
+    for name, burst in (("legacy", 0), ("legacy_burst", 8)):
+        kw = {}
+        if burst:
+            kw["config"] = serving.EngineConfig(
+                num_blocks=need + 16, block_size=16, dtype=torch.bfloat16,
+                burst_steps=burst,
+                scheduler=serving.SchedulerConfig(max_num_seqs=16))
+        llm = serving.LLM(model, num_blocks=need + 16, block_size=16,
+                          dtype=torch.bfloat16, max_num_seqs=16, **kw)
+        eng = llm.engine
+        llm.generate(warm, serving.SamplingParams(max_new_tokens=2))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = legacy_counts(eng)
+        hists = [eng.metrics.histogram(n) for n in ("time_to_first_token",
+                                                     "inter_token_latency")]
+        seen = [(h.count, h.sum) for h in hists]
+        families = {n: eng.metrics.histogram(n) for n in (
+            "prefill_step", "decode_step", "burst_step")}
+        fam_seen = {n: (h.count, h.sum) for n, h in families.items()}
+        pd.launches = 0
+        t0 = time.perf_counter()
+        outs = llm.generate(prompts, serving.SamplingParams(
+            max_new_tokens=new_tokens))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = pd.launches
+        after = legacy_counts(eng)
+        steps = {k: after[k] - before[k] for k in after}
+        if launches != steps["decode_launches_due"]:
+            raise AssertionError(
+                f"serve_legacy {name}: {launches} decode-kernel launches, "
+                f"not (decode steps {steps['decode_steps']} + burst "
+                f"iterations {steps['burst_iterations']}) x {layers} layers")
+        out_tokens = sum(len(o.token_ids) for o in outs)
+        if out_tokens != len(prompts) * new_tokens or not all(
+                0 <= t < model.config.vocab_size
+                for o in outs for t in o.token_ids):
+            raise AssertionError(f"serve_legacy {name}: malformed token "
+                                 f"streams")
+        if eng.kv.occupancy() != 0.0:
+            raise AssertionError(f"serve_legacy {name}: the pool is not "
+                                 f"empty at the end")
+        if burst and steps["bursts"] == 0:
+            raise AssertionError("serve_legacy: no burst launched")
+        ttft, itl = ((h.sum - s0) / (h.count - c0)
+                     for h, (c0, s0) in zip(hists, seen))
+        # mean wall time of one launch of each family in this run (the
+        # host's work included: each ends when its tokens reach the host)
+        step_ms = {n: (h.sum - fam_seen[n][1]) / (h.count - fam_seen[n][0])
+                   * 1e3 for n, h in families.items()
+                   if h.count > fam_seen[n][0]}
+        rows[name] = dict(
+            mean_step_ms=step_ms,
+            burst_steps=burst, seconds=wall,
+            output_tokens_per_s=out_tokens / wall,
+            total_tokens_per_s=(out_tokens + sum(map(len, prompts))) / wall,
+            mean_ttft_s=ttft, mean_itl_s=itl, decode_kernel_launches=launches,
+            tokens=[o.token_ids for o in outs],
+            preemptions=eng.metrics.counters["preemptions"],
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            num_blocks=eng.num_blocks,
+            buckets={"decode": sorted(eng.decode_buckets),
+                     "prefill": sorted(eng.prefill_buckets),
+                     "burst": sorted(eng.burst_buckets)}, **steps)
+        llms[name] = llm
+    legacy, bursty = rows["legacy"], rows["legacy_burst"]
+    if not bursty["roundtrips"] < legacy["roundtrips"]:
+        raise AssertionError("serve_legacy: bursts did not cut the host "
+                             "round trips")
+    agree = sum(a == b for ta, tb in zip(legacy.pop("tokens"),
+                                         bursty.pop("tokens"))
+                for a, b in zip(ta, tb))
+    emit("serve_legacy", model="llama3_8b", layers=layers, dtype="bfloat16",
+         prompts=len(prompts), prompt_tokens=sum(map(len, prompts)),
+         new_tokens_each=new_tokens, burst_tokens_agreeing=agree, **rows)
+    return legacy["decode_kernel_launches"], llms
+
+
+def profile_phase(torch, serving, llm, vocab, window_name="unified",
+                  label="ragged", marks=KERNEL_MARKS, new_tokens=8):
+    """torch.profiler over a short window of a warm serve engine (4
+    prompts of 1024 tokens, ``new_tokens`` new tokens each): device time by
+    kernel and the shares of the attention kernel and of the matrix
+    products.  The same window runs once without the profiler first; its
+    wall time against the profiled device time gives the device's idle
+    share (the profiler's own host cost would inflate it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -396,7 +772,8 @@ def profile_phase(torch, serving, llm, vocab):
         prompts = [rng.integers(0, vocab, 1024).tolist() for _ in range(4)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        llm.generate(prompts, serving.SamplingParams(max_new_tokens=8))
+        llm.generate(prompts, serving.SamplingParams(
+            max_new_tokens=new_tokens))
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e6
 
@@ -418,9 +795,10 @@ def profile_phase(torch, serving, llm, vocab):
                 if busy else None)
 
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    emit("profile", window_wall_us=wall_us, profiled_wall_us=profiled_us,
+    emit("profile", window=window_name, new_tokens=new_tokens,
+         window_wall_us=wall_us, profiled_wall_us=profiled_us,
          device_busy_us=busy, idle_share=(1 - busy / wall_us) if busy else None,
-         ragged_kernel_share=share(KERNEL_NAME),
+         **{f"{label}_kernel_share": share(*marks)},
          matmul_share=share("gemm", "xmma", "cutlass", "nvjet", "matmul"),
          top_kernels=[{"name": k[:120], "us": us} for k, us in top])
 
@@ -432,6 +810,7 @@ def main() -> int:
         from paddle_tpu_torch import serving
         from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
         from paddle_tpu_torch.ops import _build
+        from paddle_tpu_torch.ops import paged_decode as pd
         from paddle_tpu_torch.ops import ragged_paged as rp
     except ImportError as e:
         print(f"chip_smoke: the paddle_tpu_torch package is not here ({e}); "
@@ -451,17 +830,31 @@ def main() -> int:
          cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    _build.build([KERNEL_NAME])
+    _build.build([KERNEL_NAME, DECODE_NAME])
     for name, log in _build.build_logs.items():
         print(f"--- nvcc {name} ---\n{log}", file=sys.stderr)
-    emit("build", kernels=[KERNEL_NAME], seconds=time.perf_counter() - t0)
+    emit("build", kernels=[KERNEL_NAME, DECODE_NAME],
+         seconds=time.perf_counter() - t0)
 
     summary = kernel_phase(torch, rp)
-    identity_phase(torch, rp, serving, LlamaConfig, LlamaForCausalLM)
+    decode_summary = decode_kernel_phase(torch, pd)
+    model, prompts, unified_tokens = identity_phase(
+        torch, rp, serving, LlamaConfig, LlamaForCausalLM)
+    identity_legacy_phase(torch, pd, serving, model, prompts, unified_tokens)
+    del model
     torch.cuda.empty_cache()
-    launches, llm = serve_phase(torch, rp, serving, LlamaConfig,
-                                LlamaForCausalLM)
-    profile_phase(torch, serving, llm, llm.engine.model.config.vocab_size)
+    launches, llm, prompts, warm, new_tokens = serve_phase(
+        torch, rp, serving, LlamaConfig, LlamaForCausalLM)
+    model = llm.engine.model
+    vocab = model.config.vocab_size
+    profile_phase(torch, serving, llm, vocab)
+    del llm   # frees the unified engine's pools; the model stays
+    torch.cuda.empty_cache()
+    decode_launches, llms = serve_legacy_phase(torch, pd, serving, model,
+                                               prompts, warm, new_tokens)
+    for name, legacy_llm in llms.items():
+        profile_phase(torch, serving, legacy_llm, vocab, window_name=name,
+                      label="decode", marks=DECODE_MARKS, new_tokens=32)
 
     print(json.dumps({"kernels": [{
         "name": KERNEL_NAME, "route": "cuda",
@@ -470,7 +863,16 @@ def main() -> int:
         "launches": launches, "max_abs_err": summary["max_abs_err"],
         "ms": summary["ms"], "plain_ms": summary["plain_ms"],
         "bound_ms": summary["bound_ms"], "bound_by": summary["bound_by"],
-        "library_ms": summary["library_ms"]}]}))
+        "library_ms": summary["library_ms"]}, {
+        "name": DECODE_NAME, "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/paged_decode_attention.cu",
+        "replaces": "paddle_tpu/ops/pallas_paged.py:45",
+        "launches": decode_launches,
+        "max_abs_err": decode_summary["max_abs_err"],
+        "ms": decode_summary["ms"], "plain_ms": decode_summary["plain_ms"],
+        "bound_ms": decode_summary["bound_ms"],
+        "bound_by": decode_summary["bound_by"],
+        "library_ms": decode_summary["library_ms"]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,24 +1,29 @@
 """Llama model family — the port of ``paddle_tpu/models/llama.py`` on its
-ragged paged serving route.
+cached routes.
 
 Architecture follows Llama-3: RMSNorm pre-norm, rotary embeddings, grouped
 query attention, SwiGLU MLP, untied LM head (tying supported).  Module and
 parameter names are the JAX package's, so ``convert.llama_from_paddle_tpu``
 maps its ``state_dict()`` one to one (linear weights transposed).
 
-What this slice ports: attention through a
-:class:`~paddle_tpu_torch.ops.paged_attention.PagedCache` routed with
-``seg_ids`` — the unified ragged step, where the batch is ONE packed row of
-tokens spanning many sequences.  What waits:
+The attention takes the routes of the JAX model's cached forward:
 
-* the no-cache forward (training, and the JAX package's dense prefill) goes
-  through ``ring_flash_attention`` and the flash kernels — ROADMAP A10;
-* the dense-cache and the legacy paged decode / chunk routes — ROADMAP A7;
-* MoE layers (``num_experts > 0``) and mp > 1 — ROADMAP A11.
+* a dense ``(k_buf, v_buf)`` cache — the one-shot prefill of the legacy
+  engine and :meth:`LlamaForCausalLM.generate`;
+* a :class:`~paddle_tpu_torch.ops.paged_attention.PagedCache`, told apart
+  as the JAX model does: routed with ``seg_ids`` — the unified ragged step
+  (``ops/ragged_paged.py``); with ``[B, S]`` slot arrays — a chunked
+  prefill (``paged_prefill_attention``); with ``[B]`` slot arrays — a
+  decode step (``paged_attention``, the CUDA decode kernel on the card).
+
+What waits: the no-cache forward (training, through
+``ring_flash_attention`` and the flash kernels) — ROADMAP A10; MoE layers
+(``num_experts > 0``) and mp > 1 — ROADMAP A11.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional
 
@@ -28,6 +33,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..nn.norm import RMSNorm
+from ..ops import paged_attention as pa_mod
 from ..ops import ragged_paged as rp_mod
 from ..parallel.mp_layers import (
     ColumnParallelLinear,
@@ -135,8 +141,9 @@ def _rope_tables(head_dim: int, max_pos: int, theta: float):
 
 
 def _apply_rope(x, cos, sin):
-    """x: [B, S, H, D]; cos/sin: [B, S, D/2] per-token tables (cast to x's
-    dtype before the rotation, as the JAX package does)."""
+    """x: [B, S, H, D]; cos/sin: [B, S, D/2] (or [1, S, D/2]) per-token
+    tables, cast to x's dtype before the rotation, as the JAX package
+    does."""
     d2 = x.shape[-1] // 2
     x1, x2 = x[..., :d2], x[..., d2:]
     cos = cos[:, :, None, :].to(x.dtype)
@@ -145,8 +152,8 @@ def _apply_rope(x, cos, sin):
 
 
 class LlamaAttention(nn.Module):
-    """Grouped-query attention with rotary embeddings, on the ragged paged
-    route."""
+    """Grouped-query attention with rotary embeddings, on the cached routes
+    (dense buffers, paged decode, paged chunk, unified ragged)."""
 
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
@@ -179,18 +186,89 @@ class LlamaAttention(nn.Module):
             raise NotImplementedError(
                 "the no-cache Llama forward runs ring_flash_attention and "
                 "the flash kernels, which the port has not reached yet "
-                "(ROADMAP A10); serve through the engine's paged caches")
-        if getattr(cache, "seg_ids", None) is None:
-            raise NotImplementedError(
-                "only the unified ragged paged route is ported; the dense "
-                "and legacy paged caches are ROADMAP A7")
-        if pos is None or pos.dim() != 2:
-            raise ValueError("the ragged route needs [B, S] per-token "
-                             "positions")
-        # rope at each token's own absolute position
-        q = _apply_rope(q, self._rope_cos[pos], self._rope_sin[pos])
-        k = _apply_rope(k, self._rope_cos[pos], self._rope_sin[pos])
-        return self._ragged_paged_attention(q, k, v, cache, B, S, hd)
+                "(ROADMAP A10); serve through a cache")
+        if pos is None:
+            raise ValueError("a cached forward needs the tokens' positions")
+        idx = self._rope_index(pos, S)
+        cos, sin = self._rope_cos[idx], self._rope_sin[idx]
+        q = _apply_rope(q, cos, sin)
+        k = _apply_rope(k, cos, sin)
+        if not isinstance(cache, pa_mod.PagedCache):
+            return self._cached_attention(q, k, v, cache, pos, B, S, hd)
+        if cache.seg_ids is not None:
+            return self._ragged_paged_attention(q, k, v, cache, B, S, hd)
+        if cache.slot_blocks is not None and cache.slot_blocks.dim() == 2:
+            return self._chunk_paged_attention(q, k, v, cache, B, S, hd)
+        return self._paged_attention(q, k, v, cache, B, S, hd)
+
+    def _rope_index(self, pos, S):
+        """``[B, S]`` (or ``[1, S]``) rope-table rows for ``pos``, as the JAX
+        ``rope_at`` reads it: a scalar is a shared first position, ``[B]``
+        per-row first positions, ``[B, S]`` every token's own position
+        (the packed ragged step)."""
+        dev = self._rope_cos.device
+        if not isinstance(pos, torch.Tensor) or pos.dim() == 0:
+            return (int(pos) + torch.arange(S, device=dev))[None, :]
+        pos = pos.to(device=dev, dtype=torch.int64)
+        if pos.dim() == 2:
+            return pos
+        return pos[:, None] + torch.arange(S, device=dev)[None, :]
+
+    def _cached_attention(self, q, k, v, cache, pos, B, S, hd):
+        """Dense KV cache: write this call's K/V into the static
+        ``[B, M, Hkv, D]`` buffers at position ``pos`` (in place; the JAX
+        version rebinds them), then grouped-query attention over the whole
+        buffer with the causal mask ``col <= pos + row``.  Scores in fp32;
+        the probabilities are cast to the buffers' dtype for the product
+        with V, as in the JAX version."""
+        k_buf, v_buf = cache
+        p = int(pos)
+        k_buf[:, p:p + S] = k.to(k_buf.dtype)
+        v_buf[:, p:p + S] = v.to(v_buf.dtype)
+        rep = self.num_heads // self.num_kv_heads
+        M = k_buf.shape[1]
+        qg = q.reshape(B, S, self.num_kv_heads, rep, hd)
+        logits = torch.einsum("bqhrd,bkhd->bhrqk", qg.float(),
+                              k_buf.float()) / math.sqrt(hd)
+        dev = q.device
+        col = torch.arange(M, device=dev)[None, :]
+        row = torch.arange(S, device=dev)[:, None]
+        logits.masked_fill_(~(col <= p + row), -1e30)
+        probs = torch.softmax(logits, dim=-1)
+        del logits   # [B, Hkv, rep, S, M] fp32: the largest transient
+        out = torch.einsum("bhrqk,bkhd->bqhrd", probs.to(v_buf.dtype), v_buf)
+        return self.o_proj(out.reshape(B, S, self.num_heads * hd).to(q.dtype))
+
+    def _paged_attention(self, q, k, v, cache, B, S, hd):
+        """Decode step over the shared pools: each row's one new token
+        writes its K/V into its (block, offset) slot — pad rows write the
+        null page 0 — then paged decode attention through the block tables
+        (``ops/paged_attention.paged_attention``: the CUDA decode kernel on
+        the card)."""
+        if S != 1:
+            raise ValueError(f"the paged decode route takes one token per "
+                             f"row, got {S}")
+        kp, vp = cache.k_pool, cache.v_pool
+        slots = (cache.slot_blocks, cache.slot_offsets)   # [B] each
+        kp.index_put_(slots, k[:, 0].to(kp.dtype))
+        vp.index_put_(slots, v[:, 0].to(vp.dtype))
+        out = pa_mod.paged_attention(
+            q[:, 0], kp, vp, cache.block_tables, cache.seq_lens,
+            use_pallas=cache.use_pallas)
+        return self.o_proj(out.reshape(B, S, self.num_heads * hd))
+
+    def _chunk_paged_attention(self, q, k, v, cache, B, S, hd):
+        """Chunked prefill over the shared pools: the chunk's S tokens write
+        their (block, offset) slots — pads write the null page — then causal
+        attention over the gathered pages from ``cache.q_start``
+        (``ops/paged_attention.paged_prefill_attention``, plain PyTorch)."""
+        kp, vp = cache.k_pool, cache.v_pool
+        slots = (cache.slot_blocks, cache.slot_offsets)   # [B, S] each
+        kp.index_put_(slots, k.to(kp.dtype))
+        vp.index_put_(slots, v.to(vp.dtype))
+        out = pa_mod.paged_prefill_attention(
+            q, kp, vp, cache.block_tables, cache.seq_lens, cache.q_start)
+        return self.o_proj(out.reshape(B, S, self.num_heads * hd))
 
     def _ragged_paged_attention(self, q, k, v, cache, B, S, hd):
         """Unified ragged step: the batch is ONE packed row of S tokens
@@ -310,3 +388,69 @@ class LlamaForCausalLM(nn.Module):
         if self.lm_head is None:
             return h @ self.llama.embed_tokens.weight.T
         return self.lm_head(h)
+
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens: int = 32,
+                 temperature: float = 1.0, top_k: int = 0, top_p: float = 1.0,
+                 eos_token_id: Optional[int] = None, seed: int = 0):
+        """Autoregressive generation with a static dense KV cache: one
+        prefill over ``input_ids`` (``[B, T0]``), then one decode step per
+        new token.  Greedy when ``temperature == 0``; otherwise it samples
+        on the host from ``np.random.default_rng(seed)`` exactly as the JAX
+        package's ``generate`` does, so equal logits give equal tokens.
+        Returns ``[B, T0 + n]`` int64 on the CPU (``n <= max_new_tokens``;
+        it stops early once every row has emitted ``eos_token_id``)."""
+        cfg = self.config
+        ids = (input_ids.detach().cpu().long()
+               if isinstance(input_ids, torch.Tensor) else
+               torch.as_tensor(np.asarray(input_ids), dtype=torch.int64))
+        B, T0 = ids.shape
+        M = T0 + max_new_tokens
+        w = self.llama.embed_tokens.weight
+        shape = (B, M, cfg.num_key_value_heads, cfg.head_dim)
+        caches = [(torch.zeros(shape, dtype=w.dtype, device=w.device),
+                   torch.zeros(shape, dtype=w.dtype, device=w.device))
+                  for _ in range(cfg.num_hidden_layers)]
+        was_training = self.training
+        self.eval()
+        rng = np.random.default_rng(seed)
+
+        def sample(logits_np):
+            if temperature == 0.0:
+                return logits_np.argmax(-1)
+            logits_np = logits_np / max(temperature, 1e-6)
+            if top_k > 0:
+                kth = np.sort(logits_np, -1)[:, -top_k][:, None]
+                logits_np = np.where(logits_np < kth, -1e30, logits_np)
+            probs = np.exp(logits_np - logits_np.max(-1, keepdims=True))
+            probs /= probs.sum(-1, keepdims=True)
+            if top_p < 1.0:
+                order = np.argsort(-probs, -1)
+                sorted_p = np.take_along_axis(probs, order, -1)
+                keep = np.cumsum(sorted_p, -1) - sorted_p < top_p
+                mask = np.zeros_like(probs, bool)
+                np.put_along_axis(mask, order, keep, -1)
+                probs = np.where(mask, probs, 0.0)
+                probs /= probs.sum(-1, keepdims=True)
+            return np.array([rng.choice(probs.shape[-1], p=p) for p in probs])
+
+        def last_logits(tokens, pos):
+            logits = self(tokens.to(w.device), caches=caches, pos=pos)
+            return logits[:, -1].float().cpu().numpy()
+
+        out = [ids.numpy()]
+        tok = sample(last_logits(ids, 0))
+        finished = np.zeros((B,), bool)
+        for step in range(max_new_tokens):
+            if eos_token_id is not None:
+                finished |= tok == eos_token_id
+            out.append(tok[:, None])
+            if eos_token_id is not None and finished.all():
+                break
+            if step == max_new_tokens - 1:
+                break
+            tok = sample(last_logits(
+                torch.from_numpy(tok[:, None].astype(np.int64)), T0 + step))
+        if was_training:
+            self.train()
+        return torch.from_numpy(np.concatenate(out, axis=1).astype(np.int64))

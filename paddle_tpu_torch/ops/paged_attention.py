@@ -1,9 +1,10 @@
-"""Paged (block) KV-cache bookkeeping for serving — the host part.
+"""Paged (block) KV-cache for serving: the bookkeeping and the legacy
+attention paths.
 
-The PyTorch counterpart of the host half of
-``paddle_tpu/ops/paged_attention.py``: the KV cache lives in fixed-size
-blocks indexed per sequence through a block table, so sequences share one
-block pool with no per-request contiguous allocation.
+The PyTorch counterpart of ``paddle_tpu/ops/paged_attention.py``: the KV
+cache lives in fixed-size blocks indexed per sequence through a block
+table, so sequences share one block pool with no per-request contiguous
+allocation.
 
 * :class:`BlockPool` — refcounted free list, prefix-chain hashes and the
   reuse LRU of the prefix cache (no device tensors).
@@ -12,20 +13,29 @@ block pool with no per-request contiguous allocation.
   digests, so a pool of either package recognises the other's prefixes.
 * :class:`PagedCache` — one layer's view of the shared pools plus the
   per-step routing tensors the model's attention reads.
+* :func:`paged_attention` — decode-step attention: the CUDA kernel of
+  ``ops/paged_decode.py`` on the card, :func:`_xla_paged_attention` (the
+  plain version, the JAX package's ``decode_oracle``) on the CPU or when
+  pinned.
+* :func:`paged_prefill_attention` — chunked-prefill attention over the
+  pools, plain PyTorch on every device (XLA code in the JAX package).
 
-The legacy decode/chunk attention paths of the JAX module
-(``_xla_paged_attention``, ``paged_prefill_attention``, the decode kernel
-dispatch) and the block-transfer methods of its ``BlockPool`` belong to
-later slices of the port (ROADMAP A7 and A9).
+The block-transfer methods of the JAX ``BlockPool`` come with the KV
+hand-off (ROADMAP A9).
 """
 
 from __future__ import annotations
 
 import hashlib
+import math
 from collections import OrderedDict
 from typing import List, Optional
 
 import torch
+
+# Which path the most recent paged_attention dispatch took:
+# "cuda" | "reference".
+last_path: Optional[str] = None
 
 
 class PoolExhausted(RuntimeError):
@@ -294,17 +304,23 @@ class PagedCache:
     attention as its ``cache``: the model writes this step's K/V into the
     slots and attends through the block tables.  ``k_pool``/``v_pool`` are
     the engine's ``[num_blocks, block_size, Hkv, D]`` tensors, written in
-    place; the routing tensors are set by :meth:`route` before each step."""
+    place; the routing tensors are set by :meth:`route` before each step.
+
+    The model tells the three routes apart as the JAX model does:
+    ``seg_ids`` set → the unified ragged step; ``[B, S]`` slot arrays → a
+    chunked prefill; ``[B]`` slot arrays → a decode step."""
 
     def __init__(self, k_pool: torch.Tensor, v_pool: torch.Tensor):
         self.k_pool = k_pool
         self.v_pool = v_pool
         self.block_tables = None   # [R, W] int32
         self.seq_lens = None       # [R] int32 (AFTER this step's tokens)
-        self.slot_blocks = None    # [T] int64 — page of each packed token
-        self.slot_offsets = None   # [T] int64 — offset within the page
-        self.q_start = None        # [T] int32 — absolute position of each
-                                   # packed token
+        self.slot_blocks = None    # int64 page of each new token: [B]
+                                   # (decode), [B, S] (chunk) or [T] (ragged)
+        self.slot_offsets = None   # int64 offset within the page, same shape
+        self.q_start = None        # int32: the chunk's first position (a
+                                   # scalar or [B]) — or, on the ragged
+                                   # route, [T] positions of every token
         self.seg_ids = None        # [T] int32 row index of each packed
                                    # token; non-None routes the model's
                                    # attention through ops/ragged_paged.py
@@ -328,3 +344,86 @@ class PagedCache:
             self.q_start = put(q_start, torch.int32)
         if seg_ids is not None:
             self.seg_ids = put(seg_ids, torch.int32)
+
+
+def _xla_paged_attention(q, k_cache, v_cache, block_tables, seq_lens):
+    """Decode attention by gather (the JAX package's ``_xla_paged_attention``,
+    which it exports as ``decode_oracle``): each row's pages gathered to a
+    padded ``[B, W * bs, Hkv, D]`` context, a grouped einsum (KV heads never
+    repeated), columns ``>= seq_lens`` masked.  Computes in fp32 and returns
+    q's dtype.  The plain version of the CUDA decode kernel."""
+    B, H, D = q.shape
+    W = block_tables.shape[1]
+    bs, Hkv = k_cache.shape[1], k_cache.shape[2]
+    rep = H // Hkv
+    scale = 1.0 / math.sqrt(D)
+
+    bt = block_tables.long()
+    k = k_cache[bt].reshape(B, W * bs, Hkv, D)
+    v = v_cache[bt].reshape(B, W * bs, Hkv, D)
+
+    qg = q.reshape(B, Hkv, rep, D)
+    logits = torch.einsum("bhrd,bshd->bhrs", qg.float(), k.float()) * scale
+    col = torch.arange(W * bs, device=q.device)
+    mask = col[None, :] < seq_lens.long()[:, None]            # [B, S]
+    logits.masked_fill_(~mask[:, None, None, :], -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhrs,bshd->bhrd", probs, v.float())
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+def paged_prefill_attention(q, k_cache, v_cache, block_tables, seq_lens,
+                            q_start):
+    """Chunked-prefill attention over the paged pools (plain PyTorch on
+    every device, as it was XLA code in the JAX package).
+
+    ``q``: ``[B, S, H, D]`` — ``S`` new tokens per row at positions
+    ``q_start + [0, S)`` (``q_start`` a scalar or ``[B]``).  The chunk's own
+    K/V is already in the pools, so the causal mask ``col <= q_start + row``
+    covers the earlier prefix and the chunk with one predicate;
+    ``seq_lens`` (the KV length after the chunk) keeps pad rows off
+    garbage pages.  Scores in fp32; the probabilities are cast to the
+    pools' dtype for the product with V, as the JAX version does.  Returns
+    ``[B, S, H, D]`` in q's dtype."""
+    B, S, H, D = q.shape
+    W = block_tables.shape[1]
+    bs, Hkv = k_cache.shape[1], k_cache.shape[2]
+    rep = H // Hkv
+    scale = 1.0 / math.sqrt(D)
+
+    bt = block_tables.long()
+    k = k_cache[bt].reshape(B, W * bs, Hkv, D)
+    v = v_cache[bt].reshape(B, W * bs, Hkv, D)
+
+    qg = q.reshape(B, S, Hkv, rep, D)
+    logits = torch.einsum("bqhrd,bkhd->bhrqk", qg.float(), k.float()) * scale
+    col = torch.arange(W * bs, device=q.device)[None, None, :]
+    starts = torch.as_tensor(q_start, device=q.device).long()
+    if starts.dim() == 1:                     # per-row chunk starts
+        starts = starts[:, None, None]
+    row = starts + torch.arange(S, device=q.device)[None, :, None]
+    mask = (col <= row) & (col < seq_lens.long()[:, None, None])  # [B, S, K]
+    logits.masked_fill_(~mask[:, None, None], -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhrqk,bkhd->bqhrd", probs.to(v.dtype), v)
+    return out.reshape(B, S, H, D).to(q.dtype)
+
+
+def paged_attention(q, k_cache, v_cache, block_tables, seq_lens,
+                    use_pallas: Optional[bool] = None):
+    """Decode-step attention over the paged pools: ``q`` ``[B, H, D]`` (one
+    new token per row), ``block_tables`` ``[B, W]`` int32, ``seq_lens``
+    ``[B]`` int32; returns ``[B, H, D]``.
+
+    On a CUDA tensor it launches the CUDA decode kernel
+    (``ops/paged_decode.py``) — or raises: there is no fallback and no
+    tileability rule — and ``use_pallas=False`` pins
+    :func:`_xla_paged_attention`.  On a CPU tensor the plain version runs
+    and ``use_pallas=True`` raises.  ``last_path`` records the choice."""
+    global last_path
+    from . import paged_decode
+
+    out = paged_decode.paged_attention_decode(
+        q, k_cache, v_cache, block_tables, seq_lens, use_pallas=use_pallas)
+    last_path = paged_decode.last_path
+    return out

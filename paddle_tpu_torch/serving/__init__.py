@@ -1,8 +1,9 @@
 """``paddle_tpu_torch.serving`` — the request-level continuous-batching
-engine on the unified ragged step.
+engine.
 
 * :class:`EngineCore` / :class:`EngineConfig` (``engine.py``) — request
-  queue, one packed ragged step per engine step, streaming, abort.
+  queue; each engine step runs the legacy prefill/chunk/decode families,
+  one packed ragged step, or a decode burst; streaming, abort.
 * :class:`ContinuousBatchingScheduler` (``scheduler.py``) — admission,
   chunked prefill under token budgets, decode-slot reservation with
   preemption-and-recompute.
@@ -11,6 +12,7 @@ engine on the unified ragged step.
 * :class:`ServingMetrics` (``metrics.py``) — TTFT / inter-token latency,
   queue/pool gauges, counters, ``summary()``.
 * :class:`LLM` / :func:`stream_generate` (``entrypoints.py``).
+* ``burst.py`` — when a decode burst may launch and how long it may be.
 """
 
 from .engine import EngineConfig, EngineCore  # noqa: F401

@@ -1,33 +1,43 @@
 """EngineCore: request-level continuous-batching serving engine (the port
-of ``paddle_tpu/serving/engine.py`` on its unified ragged step).
+of ``paddle_tpu/serving/engine.py``: its legacy program families, its
+decode bursts and its unified ragged step).
 
 Above the block pool sits an engine that owns a request queue, admission
-control and preemption, and runs every engine step as ONE packed ragged
-step:
+control and preemption.  Each engine step runs the scheduler's plan in one
+of three ways, as the JAX engine does:
 
-* All sequences share ONE paged KV pool per layer
-  (``[num_blocks, block_size, Hkv, D]``, allocated once on the device and
-  written in place); per-step routing arrays (block tables, lengths, slot
-  indices, per-token row ids and positions) are data, so joining/leaving
-  requests never change the pools.
-* The scheduler's plan — decode rows (one token each) and prefill chunks —
-  packs into one flat token batch padded to a power-of-two bucket ``Tb``
-  (with tables padded to ``TWb`` pages), so a step's shapes come from a
-  bounded set (``ragged_buckets``), ready for captured CUDA graphs.
-* Pool exhaustion preempts (lowest priority, newest arrival first) and
-  recomputes instead of failing the request: the victim's next prefill
-  runs over ``prompt + output_tokens`` — token-identical continuation under
-  greedy decoding.
-* Pad tokens route to a pad row whose table is all null pages (block 0)
-  with ``kv_len = 1``, and write their K/V into the null page.
+* **The legacy families** (``unified_step=False``, the default of the
+  keyword construction ``EngineCore(model, num_blocks=..., ...)``): each
+  prefill chunk runs alone — one-shot over a dense cache when nothing is
+  cached and no budget splits the prompt (``_prefill_fn``), else through
+  the paged pools (``_chunk_prefill_fn``) — and the decode rows run as one
+  batched decode step (``_decode_fn``), whose attention is the CUDA decode
+  kernel on the card.
+* **The unified ragged step** (``unified_step=True``): decode rows and
+  prefill chunks pack into one flat token batch (``_unified_fn``), whose
+  attention is the CUDA ragged kernel on the card.
+* **A decode burst** (``burst_steps >= 2``, either mode): when the running
+  set is a decode-only resident cohort, up to ``burst_steps`` decode steps
+  run back to back on the device (``_burst_fn`` →
+  ``ops/decode_burst.run_burst``), and only the ``[B, N]`` token buffer
+  comes back to the host.
 
-The step runs eagerly on the device of the model's parameters: the Llama
-forward, whose ragged attention is the CUDA kernel on the card, then the
-sampling epilogue; only the sampled token ids come back to the host.  The
-legacy program families, bursts, speculative decoding, disaggregation, AOT
-artifacts, the auditor and the lifecycle/step-profile/cache-stat/history
-hooks belong to later slices of the port: the :class:`EngineConfig` fields
-that ask for them raise ``NotImplementedError`` naming the ROADMAP item.
+All sequences share ONE paged KV pool per layer (``[num_blocks,
+block_size, Hkv, D]``, allocated once on the device and written in place);
+per-step routing arrays (block tables, lengths, slot indices, positions)
+are data, padded to power-of-two buckets so a step's shapes come from
+bounded sets (``decode_buckets``, ``prefill_buckets``, ``ragged_buckets``,
+``burst_buckets``).  Pool exhaustion preempts (lowest priority, newest
+arrival first) and recomputes instead of failing the request.  Pad rows
+and pad tokens write their K/V into the null page (block 0) and read it.
+
+Every family runs eagerly on the device of the model's parameters and
+ends in the sampling epilogue; only sampled token ids come back to the
+host.  ``serving_host_roundtrips_total`` counts family launches (a burst
+counts once).  Speculative decoding, disaggregation, AOT artifacts, the
+auditor and the lifecycle/step-profile/cache-stat/history hooks belong to
+later slices of the port: the :class:`EngineConfig` fields that ask for
+them raise ``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -40,8 +50,11 @@ import numpy as np
 import torch
 
 from ..observability.audit import logit_stats
+from ..ops.decode_burst import run_burst
 from ..ops.paged_attention import PagedCache, PoolExhausted
 from ..ops.sampling import sample_tokens
+from .burst import burst_eligible, clamp_burst
+from .burst import register_metrics as _register_burst_metrics
 from .kv_manager import KVCacheManager
 from .metrics import ServingMetrics, StepTimer
 from .request import FinishReason, Request, RequestState, SamplingParams
@@ -57,16 +70,15 @@ from .scheduler import (
 @dataclass
 class EngineConfig:
     """Engine-level deployment knobs, with the JAX package's names and
-    defaults: ``EngineCore(model, config=EngineConfig(...))``.  (The JAX
-    engine's legacy keyword construction builds ``unified_step=False`` and
-    comes with the legacy families, ROADMAP A7.)
+    defaults: ``EngineCore(model, config=EngineConfig(...))``, or the
+    keyword form ``EngineCore(model, num_blocks=..., ...)``, which folds
+    into one of these.
 
-    This slice serves ``unified_step=True`` at mp=1.  Fields asking for
-    what it does not implement raise ``NotImplementedError`` at engine
-    build (see :func:`check_supported`); ``lifecycle_events``,
-    ``decode_event_sample``, ``step_profile``, ``cache_stats`` and
-    ``history`` select telemetry whose hooks do not exist yet in the port
-    (ROADMAP A8) and record nothing."""
+    Fields asking for what the port does not implement yet raise
+    ``NotImplementedError`` at engine build (see :func:`check_supported`);
+    ``lifecycle_events``, ``decode_event_sample``, ``step_profile``,
+    ``cache_stats`` and ``history`` select telemetry whose hooks do not
+    exist yet in the port (ROADMAP A8) and record nothing."""
 
     num_blocks: int = 256
     block_size: int = 16
@@ -74,8 +86,9 @@ class EngineConfig:
     prefix_cache: bool = True
     profile_ops: bool = False
     scheduler: Optional[SchedulerConfig] = None
-    # ragged attention routing: None/True = the CUDA kernel on a CUDA
-    # device (True raises on the CPU), False = the plain PyTorch version
+    # attention-kernel routing (decode and ragged): None/True = the CUDA
+    # kernel on a CUDA device (True raises on the CPU), False = the plain
+    # PyTorch version
     use_pallas_paged: Optional[bool] = None
     mp: Optional[int] = None
     lifecycle_events: bool = True
@@ -85,27 +98,26 @@ class EngineConfig:
     audit: Optional[object] = None
     cache_stats: bool = True
     history: bool = True
+    # ONE packed ragged step per engine step instead of the legacy
+    # prefill / chunk / decode families
     unified_step: bool = False
     aot_path: Optional[str] = None
     aot: Optional[object] = None
     spec: Optional[object] = None
+    # decode bursts: up to this many decode steps per host round trip for
+    # a decode-only resident cohort; 0/1 = off
     burst_steps: int = 0
     role: str = "unified"
 
 
 def check_supported(config: EngineConfig) -> None:
-    """Raise for every :class:`EngineConfig` setting this slice does not
-    implement — nothing is silently ignored."""
+    """Raise for every :class:`EngineConfig` setting the port does not
+    implement yet — nothing is silently ignored."""
     if config.role not in ("unified", "prefill", "decode"):
         raise ValueError(
             f"EngineConfig.role must be 'unified', 'prefill' or 'decode'; "
             f"got {config.role!r}")
     todo = (
-        (not config.unified_step, "unified_step=False",
-         "the legacy prefill/chunk/decode program families", "A7"),
-        ((config.burst_steps or 0) >= 2,
-         f"burst_steps={config.burst_steps}",
-         "device-resident decode bursts", "A7"),
         (config.audit is not None, "audit", "the numerics auditor", "A8"),
         (config.profile_ops, "profile_ops=True",
          "the per-op dispatch timer", "A8"),
@@ -131,15 +143,31 @@ class EngineCore:
 
     ``add_request`` enqueues; each ``step()`` asks the scheduler for a
     plan (decode-slot reservation with preemption, then admission and
-    prefill chunks), runs it as ONE packed ragged step with in-step
+    prefill chunks), runs it — as a decode burst, as one packed ragged
+    step, or as the legacy prefill and decode families — with in-step
     sampling, and retires finished requests.  ``stream()`` exposes a
     per-request generator that drives ``step()`` on demand.
 
-    ``ragged_launches`` counts packed steps run; with the CUDA kernel each
-    one launches it once per layer."""
+    Construction: ``config=EngineConfig(...)`` WINS over the keyword
+    arguments, which are otherwise folded into an :class:`EngineConfig`
+    (``self.engine_config``) — the JAX engine's rule, so the keyword form
+    builds the legacy families (``unified_step=False``).
 
-    def __init__(self, model, config: Optional[EngineConfig] = None):
-        config = config if config is not None else EngineConfig()
+    ``ragged_launches`` counts packed steps run; with the CUDA kernels the
+    ragged kernel launches once per layer per packed step, and the decode
+    kernel once per layer per decode step or burst iteration."""
+
+    def __init__(self, model, num_blocks: int = 256, block_size: int = 16,
+                 dtype=torch.float32,
+                 scheduler_config: Optional[SchedulerConfig] = None,
+                 profile_ops: bool = False, prefix_cache: bool = True,
+                 config: Optional[EngineConfig] = None,
+                 use_pallas_paged: Optional[bool] = None):
+        if config is None:
+            config = EngineConfig(
+                num_blocks=num_blocks, block_size=block_size, dtype=dtype,
+                prefix_cache=prefix_cache, profile_ops=profile_ops,
+                scheduler=scheduler_config, use_pallas_paged=use_pallas_paged)
         check_supported(config)
         self.engine_config = config
         num_blocks, block_size = config.num_blocks, config.block_size
@@ -156,26 +184,141 @@ class EngineCore:
         self.tracer = self.metrics.tracer
         self._sampling_counters = _register_sampling_metrics(
             self.metrics.registry)
+        self._burst_counters = _register_burst_metrics(self.metrics.registry)
         self.kv.on_evict = self._on_pool_evict
         self.requests: Dict[object, Request] = {}
         self.step_seq = 0
-        self._use_pallas_ragged = config.use_pallas_paged
-        pool_dtype = (config.dtype if config.dtype is not None
-                      else torch.float32)
+        self._unified = bool(config.unified_step)
+        # attention-kernel routing of every family (PagedCache.use_pallas)
+        self._use_pallas = config.use_pallas_paged
+        self._pool_dtype = (config.dtype if config.dtype is not None
+                            else torch.float32)
         # allocated once; every step writes its K/V into them in place
         shape = (num_blocks, block_size, cfg.num_key_value_heads,
                  cfg.head_dim)
-        self._k_pools = [torch.zeros(shape, dtype=pool_dtype,
+        self._k_pools = [torch.zeros(shape, dtype=self._pool_dtype,
                                      device=self.device)
                          for _ in range(cfg.num_hidden_layers)]
-        self._v_pools = [torch.zeros(shape, dtype=pool_dtype,
+        self._v_pools = [torch.zeros(shape, dtype=self._pool_dtype,
                                      device=self.device)
                          for _ in range(cfg.num_hidden_layers)]
+        self.decode_buckets = set()
+        self.prefill_buckets = set()
         self.ragged_buckets = set()
+        self.burst_buckets = set()
         self.ragged_launches = 0
+        # decode bursts: the tables of a burst are padded to ONE width (the
+        # full pool's width bucket), so rows crossing block boundaries
+        # mid-burst never change it; the kernel reads only live pages
+        self._burst_steps = max(0, int(config.burst_steps or 0))
+        self._burst_width = bucket_size(max(1, num_blocks - 1))
         model.eval()
 
-    # --- the packed step (runs on the device) --------------------------------
+    # --- the step families (run on the device) -------------------------------
+    def _caches(self, tables, lens, slot_blocks, slot_offsets,
+                q_start=None, seg_ids=None):
+        """One routed :class:`PagedCache` per layer over the engine's
+        pools (the routing tensors are already on the device)."""
+        caches = []
+        for k, v in zip(self._k_pools, self._v_pools):
+            c = PagedCache(k, v)
+            c.route(tables, lens, slot_blocks, slot_offsets,
+                    q_start=q_start, seg_ids=seg_ids)
+            c.use_pallas = self._use_pallas
+            caches.append(c)
+        return caches
+
+    @staticmethod
+    def _sample(logits, temps, top_ks, top_ps, keys, any_sampled: bool):
+        """The sampling epilogue.  ``any_sampled`` is False when every row
+        is greedy: the reduction then equals its argmax, which is taken
+        directly instead of sorting the vocabulary."""
+        if any_sampled:
+            return sample_tokens(logits, temps, top_ks, top_ps, keys)
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+
+    def _decode_fn(self, ids, pos, tables, lens, slot_blocks, slot_offsets,
+                   temps, top_ks, top_ps, keys, any_sampled: bool):
+        """One batched decode step: each row writes its token's K/V into
+        its (block, offset) slot and attends through its block table (the
+        CUDA decode kernel on the card), then the next token of every row
+        is sampled.  Returns tokens, last-position logits and their
+        :func:`logit_stats`, on the device."""
+        caches = self._caches(tables, lens, slot_blocks, slot_offsets)
+        with torch.no_grad():
+            logits = self.model(ids, caches=caches, pos=pos)
+            last = logits[:, -1, :].float()
+            tokens = self._sample(last, temps, top_ks, top_ps, keys,
+                                  any_sampled)
+            return tokens, last, logit_stats(last)
+
+    def _burst_fn(self, ids, pos, tables, lens, slot_blocks, slot_offsets,
+                  n_steps: int, active, eos_ids, temps, top_ks, top_ps, keys,
+                  any_sampled: bool):
+        """A decode burst: ``n_steps`` chained decode steps through
+        :func:`~paddle_tpu_torch.ops.decode_burst.run_burst` — each
+        iteration is the ``_decode_fn`` body (route, forward, sampling)
+        with the sampled token fed straight back as the next input.
+        Returns the ``[B, Nb]`` token buffer (``-1`` = not emitted), the
+        last logits and their stats, on the device."""
+
+        def model_step(ids_j, pos_j, lens_j, sb, so, kp, vp):
+            # kp / vp are the engine's pools, written in place
+            caches = self._caches(tables, lens_j, sb, so)
+            logits = self.model(ids_j, caches=caches, pos=pos_j)
+            return logits[:, -1, :].float(), kp, vp
+
+        with torch.no_grad():
+            buf, last, _, _ = run_burst(
+                model_step, n_steps, self.model.config.vocab_size, ids, pos,
+                lens, active, eos_ids, slot_blocks, slot_offsets, temps,
+                top_ks, top_ps, keys, self._k_pools, self._v_pools,
+                any_sampled=any_sampled)
+            return buf, last, logit_stats(last)
+
+    def _prefill_fn(self, ids, last_pos: int, blocks, offs, temps, top_ks,
+                    top_ps, keys, any_sampled: bool):
+        """One-shot prefill: the dense-cache forward over the (padded)
+        prompt, then every layer's K/V scattered into the sequence's pages
+        — pad positions scatter into the null page, whose content no real
+        row reads.  Returns the token sampled off the LAST REAL position,
+        its logits and their stats."""
+        cfg = self.model.config
+        shape = (1, ids.shape[1], cfg.num_key_value_heads, cfg.head_dim)
+        dense = [(torch.zeros(shape, dtype=self._pool_dtype,
+                              device=self.device),
+                  torch.zeros(shape, dtype=self._pool_dtype,
+                              device=self.device))
+                 for _ in range(cfg.num_hidden_layers)]
+        with torch.no_grad():
+            logits = self.model(ids, caches=dense, pos=0)
+            last = logits[0, last_pos].float()
+            del logits
+            tokens = self._sample(last[None], temps, top_ks, top_ps, keys,
+                                  any_sampled)
+            for kp, vp, (kb, vb) in zip(self._k_pools, self._v_pools, dense):
+                kp.index_put_((blocks, offs), kb[0])
+                vp.index_put_((blocks, offs), vb[0])
+            return tokens, last, logit_stats(last)
+
+    def _chunk_prefill_fn(self, ids, start: int, start_t, last_pos: int,
+                          tables, lens, slot_blocks, slot_offsets, temps,
+                          top_ks, top_ps, keys, any_sampled: bool):
+        """Chunked / resumed prefill: ``ids`` (one bucketed chunk starting
+        at absolute position ``start``; ``start_t`` is the same on the
+        device) runs through the PAGED pools — the chunk's K/V scatters
+        into its slots and attention covers the computed prefix plus the
+        chunk itself.  Returns the token sampled off the chunk's LAST REAL
+        position, its logits and their stats."""
+        caches = self._caches(tables, lens, slot_blocks, slot_offsets,
+                              q_start=start_t)
+        with torch.no_grad():
+            logits = self.model(ids, caches=caches, pos=start)
+            last = logits[0, last_pos].float()
+            tokens = self._sample(last[None], temps, top_ks, top_ps, keys,
+                                  any_sampled)
+            return tokens, last, logit_stats(last)
+
     def _unified_fn(self, ids, pos, seg_ids, last_idx, tables, lens,
                     slot_blocks, slot_offsets, temps, top_ks, top_ps, keys,
                     any_sampled: bool):
@@ -187,25 +330,14 @@ class EngineCore:
         its K/V into its own (block, offset) slot and attends causally over
         its row's pages.  Returns the token sampled at every packed
         position, each row's last-token logits (gathered at ``last_idx``)
-        and their :func:`logit_stats`, all on the device.
-
-        ``any_sampled`` is False when every position is greedy: the
-        sampling reduction then equals its argmax, which is taken directly
-        instead of sorting the vocabulary."""
-        caches = []
-        for k, v in zip(self._k_pools, self._v_pools):
-            c = PagedCache(k, v)
-            c.route(tables, lens, slot_blocks, slot_offsets,
-                    q_start=pos[0], seg_ids=seg_ids)
-            c.use_pallas = self._use_pallas_ragged
-            caches.append(c)
+        and their :func:`logit_stats`, all on the device."""
+        caches = self._caches(tables, lens, slot_blocks, slot_offsets,
+                              q_start=pos[0], seg_ids=seg_ids)
         with torch.no_grad():
             logits = self.model(ids, caches=caches, pos=pos)[0].float()
             last = logits[last_idx]
-            if any_sampled:
-                tokens = sample_tokens(logits, temps, top_ks, top_ps, keys)
-            else:
-                tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+            tokens = self._sample(logits, temps, top_ks, top_ps, keys,
+                                  any_sampled)
             return tokens, last, logit_stats(last)
 
     # --- request lifecycle --------------------------------------------------
@@ -326,6 +458,226 @@ class EngineCore:
             self._emit_device(req, tok)
 
     # --- execution ----------------------------------------------------------
+    def _step_call(self, fn, *args, **kw):
+        """Launch one step family.  Every call is one host->device round
+        trip — the denominator of the burst saving — counted here so
+        per-step and burst launches share one ledger."""
+        self._burst_counters["roundtrips"].inc()
+        return fn(*args, **kw)
+
+    def _on_device(self, *arrays):
+        """Host arrays to the engine's device (u32 sampling keys as
+        int64: the sampler masks them back to 32 bits)."""
+        return [torch.from_numpy(a.astype(np.int64) if a.dtype == np.uint32
+                                 else a).to(self.device) for a in arrays]
+
+    def _prefill(self, req: Request) -> None:
+        """Run one prefill program for ``req`` — the whole prompt (cold
+        one-shot over a dense cache), or one chunk of it (token-budgeted
+        chunked prefill and/or resume past a prefix-cache hit) through the
+        pools.  Emits the request's next token only when the prefill
+        completes (the final chunk's last-position logits ARE that
+        token)."""
+        rid = req.request_id
+        t0 = time.perf_counter()
+        ids, target, start, n, recompute = self._begin_prefill_chunk(req, t0)
+        table = self.kv.table(rid)
+        bs = self.block_size
+        pos = np.arange(start, start + n)
+        # one sampling row: the final chunk's last-position draw
+        pack = SamplingPack(1)
+        pack.set_request(0, req)
+        sampled = bool((pack.temps > 0).any())
+        if start == 0 and n == target:
+            Tb = bucket_size(target)
+            ids_arr = np.zeros((1, Tb), np.int64)
+            ids_arr[0, :target] = ids
+            blocks = np.zeros((Tb,), np.int64)   # pads -> null page
+            blocks[:target] = [table[p // bs] for p in pos]
+            offs = np.arange(Tb, dtype=np.int64) % bs
+            self.prefill_buckets.add(("prefill", Tb))
+            ids_t, blocks_t, offs_t, *quartet = self._on_device(
+                ids_arr, blocks, offs, *pack.arrays())
+            with self.tracer.span("prefill_step", cat="serving",
+                                  request=str(rid), trace=req.trace_id,
+                                  tokens=target, bucket=Tb,
+                                  recompute=recompute):
+                with StepTimer(self.metrics, "prefill_step"):
+                    toks, _last, _stats = self._step_call(
+                        self._prefill_fn, ids_t, target - 1, blocks_t,
+                        offs_t, *quartet, any_sampled=sampled)
+                    tok = int(toks[0])
+        else:
+            Wb = bucket_size(n)
+            TWb = bucket_size(len(table))
+            ids_arr = np.zeros((1, Wb), np.int64)
+            ids_arr[0, :n] = ids[start:start + n]
+            blocks = np.zeros((1, Wb), np.int64)   # pads -> null page
+            blocks[0, :n] = [table[p // bs] for p in pos]
+            offs = np.zeros((1, Wb), np.int64)
+            offs[0, :n] = pos % bs
+            tables = np.zeros((1, TWb), np.int32)
+            tables[0, :len(table)] = table
+            lens = np.array([start + n], np.int32)
+            self.prefill_buckets.add(("chunk", Wb, TWb))
+            self.metrics.count("chunked_prefill_steps")
+            (ids_t, start_t, tables_t, lens_t, blocks_t, offs_t,
+             *quartet) = self._on_device(
+                ids_arr, np.array(start, np.int32), tables, lens, blocks,
+                offs, *pack.arrays())
+            with self.tracer.span("prefill_step", cat="serving",
+                                  request=str(rid), trace=req.trace_id,
+                                  tokens=n, bucket=Wb, chunk=True,
+                                  start=start, cached=req.num_cached_tokens,
+                                  recompute=recompute):
+                with StepTimer(self.metrics, "prefill_step"):
+                    toks, _last, _stats = self._step_call(
+                        self._chunk_prefill_fn, ids_t, start, start_t, n - 1,
+                        tables_t, lens_t, blocks_t, offs_t, *quartet,
+                        any_sampled=sampled)
+                    tok = int(toks[0])
+        self._finish_prefill_chunk(req, ids, target, start, n, tok)
+
+    def _decode(self, reqs: List[Request]) -> Dict[object, int]:
+        """One bucketed decode step for ``reqs`` (slots already reserved by
+        the scheduler on ``req._slot``)."""
+        B = len(reqs)
+        Bb = bucket_size(B)
+        width = max(len(self.kv.table(r.request_id)) for r in reqs)
+        Wb = bucket_size(width)
+        ids = np.zeros((Bb, 1), np.int64)
+        poss = np.zeros((Bb,), np.int32)
+        tables = np.zeros((Bb, Wb), np.int32)
+        lens = np.ones((Bb,), np.int32)    # pad rows: 1 token of null page
+        slot_blocks = np.zeros((Bb,), np.int64)
+        slot_offsets = np.zeros((Bb,), np.int64)
+        pack = SamplingPack(Bb)  # pad rows stay temp=0 → argmax, ignored
+        for i, r in enumerate(reqs):
+            rid = r.request_id
+            t = self.kv.table(rid)
+            p = self.kv.seq_len(rid)
+            ids[i, 0] = r.last_token
+            poss[i] = p
+            tables[i, :len(t)] = t
+            lens[i] = p + 1                # cache length AFTER this token
+            slot_blocks[i], slot_offsets[i] = r._slot
+            pack.set_request(i, r)
+        self.decode_buckets.add(("decode", Bb, Wb))
+        args = self._on_device(ids, poss, tables, lens, slot_blocks,
+                               slot_offsets, *pack.arrays())
+        with self.tracer.span("decode_step", cat="serving", batch=B,
+                              batch_bucket=Bb, width_bucket=Wb,
+                              requests=",".join(str(r.request_id)
+                                                for r in reqs)):
+            with StepTimer(self.metrics, "decode_step"):
+                toks, _last, _stats = self._step_call(
+                    self._decode_fn, *args,
+                    any_sampled=bool((pack.temps > 0).any()))
+                toks = toks.cpu().numpy()
+        result = {}
+        for i, r in enumerate(reqs):
+            self.kv.commit(r.request_id, 1)
+            tok = int(toks[i])
+            self._emit_device(r, tok)
+            result[r.request_id] = tok
+        return result
+
+    def _burst_exec(self, reqs: List[Request],
+                    n_steps: int) -> Dict[object, int]:
+        """Launch ONE decode burst covering ``n_steps`` decode steps for a
+        decode-only resident cohort.  The host pre-extends every row's
+        block table to its burst length (the clamp guaranteed the pool can
+        back it), launches the loop, then reconciles the whole burst after
+        the fact: per-token emission through the normal ``_emit``
+        bookkeeping, KV commit of what was actually written, and
+        truncation of the unused pre-allocated tail."""
+        B = len(reqs)
+        Bb = bucket_size(B)
+        Nb = bucket_size(n_steps)
+        W = self._burst_width
+        starts: Dict[object, int] = {}
+        for r in reqs:
+            rid = r.request_id
+            starts[rid] = self.kv.seq_len(rid)
+            # positions p..p+n-1 all get slots up front (the decode slot
+            # reservation already covers p); failure means burst_capacity
+            # promised more than the pool holds
+            if not self.kv.allocate(rid, n_steps, cause="burst"):
+                raise PoolExhausted(
+                    f"burst pre-allocation failed for {rid!r}: "
+                    f"burst_capacity promised {n_steps} steps x {B} rows")
+        ids = np.zeros((Bb, 1), np.int64)
+        poss = np.zeros((Bb,), np.int32)
+        tables = np.zeros((Bb, W), np.int32)
+        lens = np.ones((Bb,), np.int32)    # pad rows: 1 token of null page
+        slot_blocks = np.zeros((Bb, Nb), np.int64)
+        slot_offsets = np.zeros((Bb, Nb), np.int64)
+        active = np.zeros((Bb,), np.bool_)
+        eos_ids = np.full((Bb,), -1, np.int32)
+        pack = SamplingPack(Bb)
+        bs = self.block_size
+        for i, r in enumerate(reqs):
+            rid = r.request_id
+            t = self.kv.table(rid)
+            p = starts[rid]
+            ids[i, 0] = r.last_token
+            poss[i] = p
+            tables[i, :len(t)] = t
+            lens[i] = p + 1
+            q = np.arange(p, p + n_steps)
+            slot_blocks[i, :n_steps] = [t[x // bs] for x in q]
+            slot_offsets[i, :n_steps] = q % bs
+            active[i] = True
+            if r.sampling.eos_token_id is not None:
+                eos_ids[i] = int(r.sampling.eos_token_id)
+            pack.set_request(i, r)
+        self.burst_buckets.add(("burst", Bb, Nb))
+        (ids_t, pos_t, tables_t, lens_t, sb_t, so_t, active_t, eos_t,
+         *quartet) = self._on_device(ids, poss, tables, lens, slot_blocks,
+                                     slot_offsets, active, eos_ids,
+                                     *pack.arrays())
+        with self.tracer.span("burst_step", cat="serving", batch=B,
+                              batch_bucket=Bb, burst_len=n_steps,
+                              burst_bucket=Nb,
+                              requests=",".join(str(r.request_id)
+                                                for r in reqs)):
+            with StepTimer(self.metrics, "burst_step"):
+                buf, _last, _stats = self._step_call(
+                    self._burst_fn, ids_t, pos_t, tables_t, lens_t, sb_t,
+                    so_t, n_steps, active_t, eos_t, *quartet,
+                    any_sampled=bool((pack.temps > 0).any()))
+                buf = buf.cpu().numpy()
+        result = {}
+        emitted_total = 0
+        for i, r in enumerate(reqs):
+            rid = r.request_id
+            e = 0
+            for j in range(n_steps):
+                tok = int(buf[i, j])
+                if tok < 0:   # -1: the row went inactive (EOS)
+                    break
+                self._emit_device(r, tok)
+                result[rid] = tok
+                e += 1
+                if r.finished:
+                    break
+            emitted_total += e
+            # iteration j wrote the KV of its input token at p+j, so e
+            # emissions committed e positions — as e per-step decodes
+            # would; unfinished rows hand back the unused tail (finished
+            # rows free wholesale when they retire)
+            self.kv.commit(rid, e)
+            if not r.finished:
+                self.kv.truncate(rid, starts[rid] + e)
+        # the scheduler planned one decode token per row; the burst's extra
+        # emissions are decode work the engine added
+        self.scheduler.tokens_planned_decode += emitted_total - B
+        c = self._burst_counters
+        c["launches"].inc()
+        c["tokens"].inc(emitted_total)
+        c["length"].observe(float(n_steps))
+        return result
+
     def _unified_exec(self, prefills: List[Request],
                       decodes: List[Request]) -> Dict[object, int]:
         """Pack this step's whole plan — decode rows + prefill chunks —
@@ -387,16 +739,14 @@ class EngineCore:
             last_idx[i] = cursor - 1
         self.ragged_buckets.add(("ragged", Tb, TWb))
         self.metrics.count("unified_steps")
-        dev = self.device
-        args = [torch.from_numpy(a).to(dev) for a in (
-            ids, pos, seg, last_idx, tables, lens, slot_blocks,
-            slot_offsets, pack.temps, pack.top_ks, pack.top_ps,
-            pack.keys.astype(np.int64))]
+        args = self._on_device(ids, pos, seg, last_idx, tables, lens,
+                               slot_blocks, slot_offsets, *pack.arrays())
         with self.tracer.span("unified_step", cat="serving", tokens=T,
                               rows=R, token_bucket=Tb, table_bucket=TWb):
             with StepTimer(self.metrics, "unified_step"):
-                toks, _last, _stats = self._unified_fn(
-                    *args, any_sampled=bool((pack.temps > 0).any()))
+                toks, _last, _stats = self._step_call(
+                    self._unified_fn, *args,
+                    any_sampled=bool((pack.temps > 0).any()))
                 toks = toks.cpu().numpy()
         self.ragged_launches += 1
         emitted: Dict[object, int] = {}
@@ -419,8 +769,9 @@ class EngineCore:
         return emitted
 
     def step(self) -> Dict[object, int]:
-        """One engine iteration: schedule → one packed step → retire.
-        Returns {request_id: token} emitted this step."""
+        """One engine iteration: schedule → a decode burst, one packed
+        step, or the legacy prefill and decode families → retire.  Returns
+        {request_id: last token} emitted this step."""
         self.step_seq += 1
         self.kv.clock = self.step_seq  # park lifetimes tick in steps
         with self.tracer.span("engine_step", cat="serving") as sp:
@@ -452,8 +803,28 @@ class EngineCore:
             decodes = [r for r in plan.decodes
                        if r.state is RequestState.RUNNING]
             emitted: Dict[object, int] = {}
-            if plan.prefills or decodes:
-                emitted = self._unified_exec(plan.prefills, decodes)
+            # a decode-only resident cohort with a clamped horizon >= 2
+            # runs as ONE burst; pending prefill work falls through to the
+            # per-step paths (host decisions stay at burst boundaries)
+            burst_n = 0
+            if self._burst_steps >= 2 and burst_eligible(
+                    self.scheduler, plan, decodes, None):
+                burst_n = clamp_burst(self._burst_steps, decodes,
+                                      plan.burst_capacity)
+            if burst_n >= 2:
+                emitted = self._burst_exec(decodes, burst_n)
+            elif self._unified:
+                if plan.prefills or decodes:
+                    emitted = self._unified_exec(plan.prefills, decodes)
+            else:
+                for req in plan.prefills:
+                    before = len(req.output_tokens)
+                    self._prefill(req)
+                    if len(req.output_tokens) > before:  # prefill done —
+                        # a partial chunk emits nothing yet
+                        emitted[req.request_id] = req.output_tokens[-1]
+                if decodes:
+                    emitted.update(self._decode(decodes))
             for req in list(self.scheduler.running):
                 if req.finished:
                     self._retire(req)

@@ -12,8 +12,11 @@ from __future__ import annotations
 
 from typing import Iterator, List, Optional, Sequence, Union
 
-from .engine import EngineConfig, EngineCore
+import torch
+
+from .engine import EngineCore
 from .request import Request, SamplingParams
+from .scheduler import SchedulerConfig
 
 
 class CompletionOutput:
@@ -34,11 +37,22 @@ class CompletionOutput:
 
 
 class LLM:
-    """Offline batch generation with continuous batching underneath:
-    ``LLM(model, config=EngineConfig(unified_step=True, ...))``."""
+    """Offline batch generation with continuous batching underneath.
 
-    def __init__(self, model, config: Optional[EngineConfig] = None):
-        self.engine = EngineCore(model, config=config)
+    ``LLM(model)`` takes the JAX package's signature and builds its engine
+    the same way: ``EngineCore(model, num_blocks=..., block_size=...,
+    dtype=..., scheduler_config=SchedulerConfig(max_num_seqs=...),
+    **engine_kw)`` — the legacy families unless ``engine_kw`` says
+    otherwise.  ``LLM(model, config=EngineConfig(...))`` passes a whole
+    config through ``engine_kw``; it then wins over the keywords."""
+
+    def __init__(self, model, num_blocks: int = 256, block_size: int = 16,
+                 dtype=None, max_num_seqs: int = 8, **engine_kw):
+        self.engine = EngineCore(
+            model, num_blocks=num_blocks, block_size=block_size,
+            dtype=dtype if dtype is not None else torch.float32,
+            scheduler_config=SchedulerConfig(max_num_seqs=max_num_seqs),
+            **engine_kw)
 
     def generate(self, prompts: Sequence,
                  sampling_params: Union[SamplingParams,

@@ -1,5 +1,5 @@
 """Serving metrics: request-level latency + scheduler/pool health (the
-subset of ``paddle_tpu/serving/metrics.py`` the unified path records).
+subset of ``paddle_tpu/serving/metrics.py`` the port's engine records).
 
 Registry-backed: every counter / gauge / latency distribution is a series
 in a :class:`~paddle_tpu_torch.observability.metrics.MetricsRegistry`
@@ -7,11 +7,12 @@ in a :class:`~paddle_tpu_torch.observability.metrics.MetricsRegistry`
 
 * **time-to-first-token** (arrival → first emitted token), **inter-token
   latency**, the queue-wait / prefill / e2e breakdown, and the wall time
-  of each unified step;
+  of each step program (prefill, decode, unified, burst);
 * **queue depth**, **running-set size** and **KV-pool occupancy**, sampled
   once per engine step;
 * counters: admitted, finished-by-reason, preemptions, recompute
-  prefills, prefix-cache hits and misses, unified steps.
+  prefills, prefix-cache hits and misses, chunked-prefill and unified
+  steps.
 
 The per-op dispatch timer, step-profiler tables and the mesh-collective
 series of the JAX module are ROADMAP A8 and A11.
@@ -42,6 +43,7 @@ _COUNTER_NAMES = (
     "prefix_cache_miss_tokens",   # prompt tokens that needed compute
     "prefix_cache_evictions",     # cached blocks clobbered for allocation
     "prefill_tokens_computed",    # tokens the prefill rows actually ran
+    "chunked_prefill_steps",      # chunk-program launches (vs one-shot)
     "slo",                        # finished requests that carried slo_ms
     "slo_good",                   # ... and met it
     "unified_steps",              # packed ragged step launches
@@ -53,7 +55,10 @@ _GAUGE_NAMES = ("queue_depth", "num_running", "kv_pool_occupancy",
 _HISTOGRAM_NAMES = (
     "time_to_first_token",
     "inter_token_latency",
+    "prefill_step",   # wall time of one prefill or chunk program
+    "decode_step",    # wall time of one batched decode step
     "unified_step",   # wall time of one packed ragged step
+    "burst_step",     # wall time of one N-step decode burst
     "queue_wait",
     "prefill",
     "decode_itl",
@@ -197,7 +202,7 @@ class ServingMetrics:
 
 
 class StepTimer:
-    """``with StepTimer(metrics, "unified_step") as st: ...`` — observes
+    """``with StepTimer(metrics, "decode_step") as st: ...`` — observes
     the wall time into the named histogram and leaves it on ``st.dt``."""
 
     def __init__(self, metrics: ServingMetrics, name: str):

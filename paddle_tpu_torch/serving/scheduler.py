@@ -24,9 +24,10 @@ request keeps its generated tokens, so recompute costs one prefill over
 ``prompt + output_tokens`` and continues token-identically (greedy); a
 request that can never fit the pool is finished as ABORT instead of
 live-locking the queue; the engine pads each step to a size bucket
-(:func:`bucket_size`).  The speculative-decode draft budget, the decode
-burst headroom, the AOT sequence cap and the planned-token ledger of the
-JAX scheduler come with their consumers (ROADMAP A7–A9).
+(:func:`bucket_size`).  Each plan carries the decode-burst headroom
+(``burst_capacity``), and the scheduler keeps the planned-token ledger
+(``tokens_planned``).  The speculative-decode draft budget and the AOT
+sequence cap of the JAX scheduler come with their consumers (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -112,6 +113,11 @@ class SchedulerOutput:
     decodes: List[Request] = field(default_factory=list)
     preempted: List[Request] = field(default_factory=list)
     aborted: List[Request] = field(default_factory=list)
+    # decode-burst headroom: the largest per-row burst length the pool can
+    # back for THIS plan's decode rows, from the ONE
+    # ``KVCacheManager.burst_capacity`` accessor — the engine's launch
+    # clamp reads this field, so planning and clamp never disagree
+    burst_capacity: int = 0
 
 
 class ContinuousBatchingScheduler:
@@ -123,6 +129,10 @@ class ContinuousBatchingScheduler:
         self.kv = kv
         self.waiting: Deque[Request] = deque()  # unbounded-ok: live work queue (admission drains it); not telemetry
         self.running: List[Request] = []
+        # planned-work ledger: every prefill token and decode row ever put
+        # in a plan (a burst adds the extra decode tokens it emitted)
+        self.tokens_planned_prefill = 0
+        self.tokens_planned_decode = 0
 
     # --- queue ops ----------------------------------------------------------
     def add(self, req: Request) -> None:
@@ -328,4 +338,16 @@ class ContinuousBatchingScheduler:
         out = SchedulerOutput()
         self._reserve_decode_slots(out)
         self._plan_prefills(out)
+        # burst headroom after slot reservation and chunk planning: it
+        # reflects the pool this plan leaves behind
+        out.burst_capacity = self.kv.burst_capacity(len(out.decodes))
+        self.tokens_planned_prefill += sum(
+            r._chunk_tokens or 0 for r in out.prefills)
+        self.tokens_planned_decode += len(out.decodes)
         return out
+
+    @property
+    def tokens_planned(self) -> int:
+        """Total tokens ever planned (prefill chunk tokens + one per decode
+        row, plus the extra tokens of decode bursts)."""
+        return self.tokens_planned_prefill + self.tokens_planned_decode
