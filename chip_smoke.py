@@ -10,8 +10,8 @@ It builds the port's CUDA kernels from ``paddle_tpu_torch/csrc/`` and runs
 these phases, printing one JSON line for each:
 
 ``device``   the card (``nvidia-smi`` name and power limit, torch's name).
-``build``    both kernels in one build (one nvcc each, started together);
-             nvcc's ptxas report goes to standard error.
+``build``    the three kernel sources in one build (one nvcc each, started
+             together); nvcc's ptxas report goes to standard error.
 ``kernels``  the ragged kernel against its plain PyTorch version on the same
              inputs (fp32 within 1e-4; bf16 within 2e-2 of the plain version
              run in fp32 on the same bf16 inputs), over the packings of the
@@ -59,11 +59,40 @@ these phases, printing one JSON line for each:
              one launch of each, the launch rule and peak memory.  Then a
              profile window on each of the two engines: the decode
              kernel's, the matrix products' and the idle shares.
+``flash_kernels``  the three flash kernels (forward, dQ, dK/dV) against
+             their twins on the same inputs by ``flash.rowwise_error``,
+             each output row against its twin row (fp32 within 1e-4; bf16
+             within 2e-2 of the twins run in fp32 on the same bf16 inputs),
+             at the CPU tests' shapes and at Llama-3-8B's training shape
+             (H=32, Hkv=8, D=128, causal, B=2, S=4096), where each output
+             with its last tile zeroed must fail the same check; timed
+             there like the other kernels; the library yardsticks are
+             ``scaled_dot_product_attention`` (causal, GQA) and its
+             autograd backward, which computes dQ, dK and dV in one.
+``train_identity``  Llama-3-8B widths cut to 2 layers, fp32, B=1, S=1024:
+             4 AdamW steps with the kernels and with
+             ``use_flash_attention=False``; the losses agree within 1e-4
+             relative and each kernel launched 4 x 2 times.
+``train``    the training path at full Llama-3-8B width cut to 4 layers
+             (full depth needs ~128 GB of weights, gradients and AdamW
+             state), bf16 with fp32 master weights, AdamW under a cosine
+             schedule, B=2, S=4096 on examples/pretrain_llama.py's
+             synthetic corpus: 2 warm-up and 8 timed steps of
+             ``model(ids) -> criterion -> backward -> step -> clear_grad``;
+             losses (finite, falling), ms a step, tokens/s, MFU against
+             989 TFLOP/s with PaLM's count (and without the input
+             embedding in N), peak memory, and launches =
+             steps x layers for each kernel.
+``train_profile``  torch.profiler over 2 more train steps: each flash
+             kernel's and the matrix products' share of device time, each
+             flash kernel's device time a launch, the top kernels and the
+             idle share.
 
-Then a line ``{"kernels": [...]}`` summarising each kernel at its serve
+Then a line ``{"kernels": [...]}`` summarising each kernel at its main
 path's shapes (the ragged kernel at the unified serve step, the decode
-kernel at B=16 bf16, with the launches of the serve and the burst-free
-serve_legacy runs), the ``nvidia-smi`` line, and last
+kernel at B=16 bf16, the flash kernels at the train shape in bf16, with
+the launches of the serve, the burst-free serve_legacy and the train
+runs), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and the script exits
 nonzero without that last line; so does a machine without a CUDA device,
 and a directory that holds this script without the package.
@@ -71,10 +100,12 @@ and a directory that holds this script without the package.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -82,9 +113,14 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
 PEAK_BYTES = 3.35e12                                  # H100 SXM HBM3
 KERNEL_NAME = "ragged_paged_attention"
 DECODE_NAME = "paged_decode_attention"
+FLASH_NAME = "flash_attention"
 # the device functions of each kernel, as a profiler names them
 KERNEL_MARKS = ("ragged_paged_attention_kernel",)
 DECODE_MARKS = ("paged_decode_kernel", "combine_splits_kernel")
+# (flash_fwd_kernel for fp32 inputs, flash_fwd_mma_kernel for bf16, ...)
+FLASH_MARKS = {"fwd": ("flash_fwd_",), "dq": ("flash_bwd_dq_",),
+               "dkv": ("flash_bwd_dkv_",)}
+MATMUL_MARKS = ("gemm", "xmma", "cutlass", "nvjet", "matmul")
 
 
 def emit(phase: str, **fields) -> None:
@@ -762,7 +798,6 @@ def profile_phase(torch, serving, llm, vocab, window_name="unified",
     products.  The same window runs once without the profiler first; its
     wall time against the profiled device time gives the device's idle
     share (the profiler's own host cost would inflate it)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(3)
@@ -781,25 +816,452 @@ def profile_phase(torch, serving, llm, vocab, window_name="unified",
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         profiled_us = window()
-    # device rows only: an operator row also carries the device time of
-    # the kernels it launched, which would count them twice
-    kernels = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            kernels[e.key] = kernels.get(e.key, 0.0) + e.self_device_time_total
+    kernels = device_kernels(prof)
     busy = sum(kernels.values())
-
-    def share(*marks):
-        return (sum(us for k, us in kernels.items()
-                    if any(m in k.lower() for m in marks)) / busy
-                if busy else None)
-
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     emit("profile", window=window_name, new_tokens=new_tokens,
          window_wall_us=wall_us, profiled_wall_us=profiled_us,
          device_busy_us=busy, idle_share=(1 - busy / wall_us) if busy else None,
-         **{f"{label}_kernel_share": share(*marks)},
-         matmul_share=share("gemm", "xmma", "cutlass", "nvjet", "matmul"),
+         **{f"{label}_kernel_share": share(kernels, marks)},
+         matmul_share=share(kernels, MATMUL_MARKS),
+         top_kernels=[{"name": k[:120], "us": us} for k, us in top])
+
+
+def device_kernels(prof):
+    """Device microseconds by kernel name in a profile.  Device rows only:
+    an operator row also carries the device time of the kernels it
+    launched, which would count them twice."""
+    from torch.autograd import DeviceType
+
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            kernels[e.key] = kernels.get(e.key, 0.0) + e.self_device_time_total
+    return kernels
+
+
+def share(kernels, marks):
+    """The share of device time in kernels whose names hold a mark."""
+    busy = sum(kernels.values())
+    return (sum(us for k, us in kernels.items()
+                if any(m in k.lower() for m in marks)) / busy
+            if busy else None)
+
+
+# --- training phases ----------------------------------------------------------
+
+# (B, Sq, Sk, H, Hkv, D) of the flash checks at tiny shapes: those of
+# tests/test_torch_flash_attention.py, on the card and against the Pallas
+# kernels (ragged edges, one token, rectangular, GQA 4:1 / 2:1 / 1:1, head
+# dims 64 and 128, S up to 512)
+FLASH_TINY = [(1, 128, 128, 4, 1, 128), (2, 100, 100, 4, 2, 64),
+              (1, 70, 70, 2, 2, 128), (1, 1, 1, 2, 1, 64),
+              (2, 200, 200, 8, 2, 128), (1, 96, 160, 4, 2, 64),
+              (1, 256, 256, 4, 1, 128), (2, 128, 128, 2, 2, 64),
+              (1, 512, 512, 2, 1, 64)]
+TRAIN_B, TRAIN_S = 2, 4096     # the train phase's batch and sequence
+
+
+def flash_counts(flash):
+    return {"fwd": flash.fwd_launches, "dq": flash.dq_launches,
+            "dkv": flash.dkv_launches}
+
+
+def reset_flash_counts(flash):
+    flash.fwd_launches = flash.dq_launches = flash.dkv_launches = 0
+
+
+def flash_work(q, k, causal):
+    """Operations of each flash kernel on these shapes (an S x Sk x D
+    product is 2·S·Sk·D per head, halved under the causal mask: forward 2,
+    dQ 3, dK/dV 4 products) and the bytes each must move, each input read
+    once and each output written once."""
+    B, S, H, D = q.shape
+    Sk = k.shape[1]
+    unit = 2.0 * B * H * S * Sk * D * (0.5 if causal else 1.0)
+    qb, kb = q.numel() * q.element_size(), k.numel() * k.element_size()
+    stat = B * H * S * 4          # lse or delta, fp32
+    return {"fwd": (2 * unit, 2 * qb + 2 * kb + stat),
+            "dq": (3 * unit, 3 * qb + 2 * kb + 2 * stat),
+            "dkv": (4 * unit, 2 * qb + 4 * kb + 2 * stat)}
+
+
+def tensor_wide_err(got, want):
+    """Max abs error over the twin's largest value, floored at 1: the
+    measure these checks used before flash.rowwise_error, read beside it on
+    the planted faults."""
+    return (float((got.float() - want).abs().max())
+            / max(float(want.abs().max()), 1.0))
+
+
+def tail_zeroed(t, rows=64):
+    """``t`` with its last tile of rows along dim 1 (queries or keys)
+    zeroed: what a kernel that skipped its last tile would write."""
+    t = t.clone()
+    t[:, -rows:] = 0
+    return t
+
+
+def flash_check(torch, flash, label, q, k, v, do, causal, plant=False):
+    """The three kernels in the order of a training step, each against its
+    twin run in fp32 on the same inputs (the backward twins take the
+    kernel's lse and delta), by flash.rowwise_error: each row of out, dQ,
+    dK and dV is held to its own twin row, so that a wrong tail of a causal
+    sequence, where the rows are small, shows.  With ``plant``, the measure
+    is also read on each output with its last 64-row tile zeroed, and must
+    fail there.  Returns a record of the errors (per row and absolute), the
+    twin's largest value and smallest row, the planted reads, the
+    tolerance, and the kernel's lse and delta; raises on a disagreement."""
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    out, lse = flash.fwd_kernel(q, k, v, causal)
+    delta = torch.einsum("bshd,bshd->bhs", do.float(),
+                         out.float()).contiguous()
+    dq = flash.bwd_dq_kernel(q, k, v, do, lse, delta, causal)
+    dk, dv = flash.bwd_dkv_kernel(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    f32 = [t.float() for t in (q, k, v, do)]
+    rec = {"row": {}, "abs": {}, "twin_max": {}, "twin_least_row": {},
+           "planted": {}}
+
+    def hold(name, got, want):
+        rec["row"][name] = flash.rowwise_error(got, want)
+        rec["abs"][name] = float((got.float() - want).abs().max())
+        rec["twin_max"][name] = float(want.abs().max())
+        rec["twin_least_row"][name] = float(want.abs().amax(-1).min())
+        if plant:
+            bad = tail_zeroed(got)
+            rec["planted"][name] = {
+                "row": flash.rowwise_error(bad, want),
+                "tensor_wide": tensor_wide_err(bad, want)}
+
+    ref_out, ref_lse = flash.fwd_reference(*f32[:3], scale, causal)
+    hold("out", out, ref_out)
+    rec["lse"] = float((lse - ref_lse).abs().max())
+    del ref_out, ref_lse
+    hold("dq", dq, flash.bwd_dq_reference(*f32, lse, delta, scale, causal))
+    ref_dk, ref_dv = flash.bwd_dkv_reference(*f32, lse, delta, scale, causal)
+    hold("dk", dk, ref_dk)
+    hold("dv", dv, ref_dv)
+    del ref_dk, ref_dv, f32
+    tol = 1e-4 if q.dtype == torch.float32 else 2e-2
+    rec["tol"] = tol
+    finite = all(bool(torch.isfinite(t.float()).all())
+                 for t in (out, lse, dq, dk, dv))
+    bad = {n: e for n, e in rec["row"].items() if not e <= tol}
+    if not rec["lse"] <= 1e-4:
+        bad["lse"] = rec["lse"]
+    unseen = {n: r["row"] for n, r in rec["planted"].items()
+              if not r["row"] > tol}
+    if bad or not finite or unseen:
+        raise AssertionError(f"flash kernels disagree with their twins on "
+                             f"{label} {q.dtype}: {bad} (tol {tol}), "
+                             f"finite={finite}; planted faults read within "
+                             f"tolerance: {unseen}")
+    return rec, lse, delta
+
+
+def kernel_err(rec, kind, key):
+    """A kernel's error from a flash_check record: out for the forward, dQ,
+    and the larger of dK and dV."""
+    names = {"fwd": ("out",), "dq": ("dq",), "dkv": ("dk", "dv")}[key]
+    return max(rec[kind][n] for n in names)
+
+
+def flash_library(torch, q, k, v, do):
+    """The yardsticks, which the port never calls: scaled_dot_product_
+    attention (causal, GQA) on [B, H, S, D] copies made beforehand, and the
+    autograd backward of that call, which computes dQ, dK and dV in one."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    g = do.transpose(1, 2).contiguous()
+
+    def fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+
+    def bwd():
+        return torch.autograd.grad(out, (qt, kt, vt), g, retain_graph=True)
+
+    return fwd, bwd
+
+
+def flash_kernel_phase(torch, flash):
+    """The three flash kernels against their twins at the CPU tests' shapes
+    and at Llama-3-8B's training shape (H=32, Hkv=8, D=128, causal, B=2,
+    S=4096), fp32 and bf16; at the training shape the kernel's CUDA-event
+    and profiler device times, the twin's, the library's and the bound."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(7)
+    checks = []
+
+    def inputs(B, Sq, Sk, H, Hkv, D):
+        return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                .to(dev) for s in ((B, Sq, H, D), (B, Sk, Hkv, D),
+                                   (B, Sk, Hkv, D), (B, Sq, H, D))]
+
+    for case in FLASH_TINY:
+        q32, k32, v32, do32 = inputs(*case)
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (False, True):
+                rec, _, _ = flash_check(
+                    torch, flash, f"tiny {case} causal={causal}",
+                    *(t.to(dtype) for t in (q32, k32, v32, do32)), causal)
+                checks.append({"case": f"tiny {case} causal={causal}",
+                               "dtype": str(dtype).split(".")[-1], **rec})
+
+    B, S, H, Hkv, D = TRAIN_B, TRAIN_S, 32, 8, 128
+    q32, k32, v32, do32 = inputs(B, S, S, H, Hkv, D)
+    timings, summary = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        q, k, v, do = (t.to(dtype) for t in (q32, k32, v32, do32))
+        # the planted faults: each output with its last tile zeroed must
+        # fail the check at the shape where rows are smallest
+        rec, lse, delta = flash_check(torch, flash, "8b train shape",
+                                      q, k, v, do, True, plant=True)
+        checks.append({"case": "8b train shape", "dtype": name, **rec})
+        scale = 1.0 / np.sqrt(D)
+        kernels = {
+            "fwd": lambda: flash.fwd_kernel(q, k, v, True),
+            "dq": lambda: flash.bwd_dq_kernel(q, k, v, do, lse, delta, True),
+            "dkv": lambda: flash.bwd_dkv_kernel(q, k, v, do, lse, delta,
+                                                True)}
+        plains = {
+            "fwd": lambda: flash.fwd_reference(q, k, v, scale, True),
+            "dq": lambda: flash.bwd_dq_reference(q, k, v, do, lse, delta,
+                                                 scale, True),
+            "dkv": lambda: flash.bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                   scale, True)}
+        lib_fwd, lib_bwd = flash_library(torch, q, k, v, do)
+        # the yardstick computes this function: its output against the
+        # twin's (its gradients are the pair's yardstick, checked loosely:
+        # it rounds elsewhere than the kernels do)
+        ref_out, _ = flash.fwd_reference(*(t.float() for t in (q, k, v)),
+                                         scale, True)
+        lib_err = float((lib_fwd().transpose(1, 2).float() - ref_out)
+                        .abs().max())
+        del ref_out
+        lib_grads = lib_bwd()
+        ref_dk, ref_dv = flash.bwd_dkv_reference(
+            *(t.float() for t in (q, k, v, do)), lse, delta, scale, True)
+        lib_grad_err = max(tensor_wide_err(lib_grads[1].transpose(1, 2),
+                                           ref_dk),
+                           tensor_wide_err(lib_grads[2].transpose(1, 2),
+                                           ref_dv))
+        del ref_dk, ref_dv, lib_grads
+        if not (lib_err <= 2e-2 and lib_grad_err <= 5e-2):
+            raise AssertionError(f"the library yardstick computes another "
+                                 f"function: forward err {lib_err}, "
+                                 f"gradient err {lib_grad_err}")
+        library = {"fwd": time_ms(lib_fwd, 5), "dq": time_ms(lib_bwd, 5)}
+        library["dkv"] = library["dq"]
+        for key, (flops, nbytes) in flash_work(q, k, True).items():
+            t_flops = flops / PEAK_FLOPS[name] * 1e3
+            t_bytes = nbytes / PEAK_BYTES * 1e3
+            row = {
+                "kernel": key, "dtype": name, "B": B, "S": S, "H": H,
+                "Hkv": Hkv, "D": D, "causal": True,
+                "max_abs_err": kernel_err(rec, "abs", key),
+                "max_row_err": kernel_err(rec, "row", key),
+                "ms": time_ms(kernels[key], 5),
+                "plain_ms": time_ms(plains[key], 2, 1),
+                "library_ms": library[key],
+                "library_max_abs_err": lib_err if key == "fwd"
+                else lib_grad_err,
+                "bound_ms": max(t_flops, t_bytes),
+                "bound_by": "operations" if t_flops > t_bytes else "bytes",
+                "flops": flops, "bytes": nbytes,
+            }
+            timings.append(row)
+            if dtype == torch.bfloat16:
+                summary[key] = row     # the train phase's shape and type
+            torch.cuda.empty_cache()
+        del q, k, v, do, lse, delta, kernels, plains, lib_fwd, lib_bwd
+        torch.cuda.empty_cache()
+    worst = max(checks, key=lambda c: max(max(c["row"].values()) / c["tol"],
+                                          c["lse"] / 1e-4))
+    emit("flash_kernels", name=FLASH_NAME, checks=len(checks), worst=worst,
+         train_shape=[c for c in checks if c["planted"]], timings=timings,
+         note="max_row_err is flash.rowwise_error (each row over its twin "
+              "row's max, floored at 1e-2 of the twin's max and at 0.1); "
+              "planted: the "
+              "same outputs with their last 64-row tile zeroed, read by it "
+              "and by the tensor-wide measure (error over the twin's max, "
+              "floored at 1); library_ms of dq and dkv is one autograd "
+              "backward of scaled_dot_product_attention, which computes "
+              "both; library_max_abs_err of dq/dkv is tensor-wide")
+    return summary
+
+
+def corpus(rng, B, S):
+    """examples/pretrain_llama.py's synthetic corpus: shifted arithmetic
+    sequences mod 17, token ids [B, S]."""
+    start = rng.integers(0, 17, (B, 1))
+    return (start + np.arange(S)) % 17
+
+
+def train_steps(model, criterion, opt, batches, sched=None):
+    """``model(ids) -> criterion -> backward -> step -> clear_grad`` for
+    each batch; the losses stay on the device, read after the run."""
+    losses = []
+    for ids in batches:
+        loss = criterion(model(ids), ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        if sched is not None:
+            sched.step()
+        losses.append(loss.detach())
+    return losses
+
+
+def train_identity_phase(torch, flash, fa, port):
+    """Llama-3-8B widths cut to 2 layers, fp32, B=1, S=1024: 4 AdamW steps
+    with the kernels and 4 with ``use_flash_attention=False`` (the composite
+    paths), from the same seeded weights and batches.  The losses agree
+    within 1e-4 relative and each kernel launched steps x layers times."""
+    layers, S, steps = 2, 1024, 4
+    rng = np.random.default_rng(6)
+    batches = [torch.from_numpy(corpus(rng, 1, S)).cuda()
+               for _ in range(steps)]
+    runs = {}
+    for use_flash in (True, False):
+        cfg = port.LlamaConfig.llama3_8b(num_hidden_layers=layers,
+                                         use_flash_attention=use_flash)
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        model = port.LlamaForCausalLM(cfg, device="cuda",
+                                      dtype=torch.float32, generator=gen)
+        opt = port.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                         weight_decay=0.01)
+        reset_flash_counts(flash)
+        t0 = time.perf_counter()
+        losses = train_steps(model, port.LlamaPretrainingCriterion(cfg), opt,
+                             batches)
+        torch.cuda.synchronize()
+        runs[use_flash] = {"losses": [float(x) for x in losses],
+                           "launches": flash_counts(flash),
+                           "path": fa.last_path,
+                           "seconds": time.perf_counter() - t0}
+        del model, opt, losses
+        gc.collect()
+        torch.cuda.empty_cache()
+    kern, plain = runs[True], runs[False]
+    rel = max(abs(a - b) / abs(b)
+              for a, b in zip(kern["losses"], plain["losses"]))
+    if not (np.isfinite(kern["losses"]).all() and rel <= 1e-4):
+        raise AssertionError(f"train_identity: kernel losses "
+                             f"{kern['losses']} against composite "
+                             f"{plain['losses']} (rel {rel})")
+    due = {k: steps * layers for k in FLASH_MARKS}
+    if (kern["launches"] != due or any(plain["launches"].values())
+            or kern["path"] != "cuda"):
+        raise AssertionError(f"train_identity: launches {kern['launches']} "
+                             f"(due {due}), composite run "
+                             f"{plain['launches']}, path {kern['path']}")
+    emit("train_identity", layers=layers, dtype="float32", batch=1, seq=S,
+         steps=steps, max_rel_loss_diff=rel, kernel=kern, composite=plain)
+
+
+def train_phase(torch, flash, fa, port):
+    """The main path: Llama-3-8B at full width cut to 4 layers, bf16
+    parameters, AdamW with fp32 master weights under a cosine schedule, B=2
+    and S=4096 on the synthetic corpus; 2 warm-up steps, then 8 timed."""
+    layers, warm, timed = 4, 2, 8
+    B, S = TRAIN_B, TRAIN_S
+    cfg = port.LlamaConfig.llama3_8b(num_hidden_layers=layers)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    t0 = time.perf_counter()
+    model = port.LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                                  generator=gen)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    criterion = port.LlamaPretrainingCriterion(cfg)
+    sched = port.CosineAnnealingDecay(1e-4, T_max=10)
+    opt = port.AdamW(learning_rate=sched, parameters=model.parameters(),
+                     weight_decay=0.01, multi_precision=True)
+    rng = np.random.default_rng(0)
+    batches = [torch.from_numpy(corpus(rng, B, S)).cuda()
+               for _ in range(warm + timed)]
+    reset_flash_counts(flash)
+    losses = train_steps(model, criterion, opt, batches[:warm], sched)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses += train_steps(model, criterion, opt, batches[warm:], sched)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_counts(flash)
+    losses = [float(x) for x in losses]
+    due = {k: (warm + timed) * layers for k in FLASH_MARKS}
+    if launches != due or fa.last_path != "cuda":
+        raise AssertionError(f"train: kernel launches {launches}, due {due} "
+                             f"(path {fa.last_path})")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"train: losses {losses} are not finite or do "
+                             f"not fall")
+    n_params = sum(p.numel() for p in model.parameters())
+    # PaLM's count, as bench.py's train_flops_per_token: 6N + 12·L·S·hidden
+    attn_flops = 12.0 * layers * S * cfg.hidden_size
+    flops_per_token = 6.0 * n_params + attn_flops
+    # N holds the input embedding, a lookup with no product (27% of N at 4
+    # layers): the count without it says how much that flatters the MFU
+    lookup = (model.llama.embed_tokens.weight.numel()
+              if model.lm_head is not None else 0)
+    tokens_per_s = B * S * timed / wall
+    emit("train", model="llama3_8b", layers=layers, dtype="bfloat16",
+         batch=B, seq=S, warmup_steps=warm, timed_steps=timed,
+         losses=losses, ms_per_step=wall / timed * 1e3,
+         tokens_per_s=tokens_per_s, params=n_params,
+         flops_per_token=flops_per_token,
+         mfu=flops_per_token * tokens_per_s / PEAK_FLOPS["bfloat16"],
+         embedding_params=lookup,
+         mfu_without_embedding=(6.0 * (n_params - lookup) + attn_flops)
+         * tokens_per_s / PEAK_FLOPS["bfloat16"],
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         kernel_launches=launches, model_build_s=build_s)
+    return launches, (model, criterion, opt, sched)
+
+
+def train_profile_phase(torch, trainer, steps=2):
+    """torch.profiler over 2 train steps: the device-time share of each
+    flash kernel and its device time a launch, the matrix products' share,
+    the top kernels, and the idle share against the wall time of 2
+    unprofiled steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model, criterion, opt, sched = trainer
+    rng = np.random.default_rng(9)
+    batches = [torch.from_numpy(corpus(rng, TRAIN_B, TRAIN_S)).cuda()
+               for _ in range(2 * steps)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_steps(model, criterion, opt, batches[:steps], sched)
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        train_steps(model, criterion, opt, batches[steps:], sched)
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    flash_shares = {key: share(kernels, marks)
+                    for key, marks in FLASH_MARKS.items()}
+    # each flash kernel launches once a layer a step
+    launches = steps * model.config.num_hidden_layers
+    flash_device_ms = {key: busy * s / launches / 1e3 if s else None
+                       for key, s in flash_shares.items()}
+    emit("train_profile", steps=steps, window_wall_us=wall_us,
+         device_busy_us=busy, idle_share=(1 - busy / wall_us) if busy else None,
+         flash_shares=flash_shares, flash_device_ms=flash_device_ms,
+         flash_share=sum(v or 0.0 for v in flash_shares.values()),
+         matmul_share=share(kernels, MATMUL_MARKS),
          top_kernels=[{"name": k[:120], "us": us} for k, us in top])
 
 
@@ -808,10 +1270,17 @@ def main() -> int:
         import torch
 
         from paddle_tpu_torch import serving
-        from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
-        from paddle_tpu_torch.ops import _build
+        from paddle_tpu_torch.models import (
+            LlamaConfig,
+            LlamaForCausalLM,
+            LlamaPretrainingCriterion,
+        )
+        from paddle_tpu_torch.ops import _build, flash
+        from paddle_tpu_torch.ops import flash_attention as fa
         from paddle_tpu_torch.ops import paged_decode as pd
         from paddle_tpu_torch.ops import ragged_paged as rp
+        from paddle_tpu_torch.optimizer import AdamW
+        from paddle_tpu_torch.optimizer.lr import CosineAnnealingDecay
     except ImportError as e:
         print(f"chip_smoke: the paddle_tpu_torch package is not here ({e}); "
               "run from the root of a checkout", file=sys.stderr)
@@ -830,11 +1299,11 @@ def main() -> int:
          cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    _build.build([KERNEL_NAME, DECODE_NAME])
+    built = [KERNEL_NAME, DECODE_NAME, FLASH_NAME]
+    _build.build(built)
     for name, log in _build.build_logs.items():
         print(f"--- nvcc {name} ---\n{log}", file=sys.stderr)
-    emit("build", kernels=[KERNEL_NAME, DECODE_NAME],
-         seconds=time.perf_counter() - t0)
+    emit("build", kernels=built, seconds=time.perf_counter() - t0)
 
     summary = kernel_phase(torch, rp)
     decode_summary = decode_kernel_phase(torch, pd)
@@ -852,9 +1321,30 @@ def main() -> int:
     torch.cuda.empty_cache()
     decode_launches, llms = serve_legacy_phase(torch, pd, serving, model,
                                                prompts, warm, new_tokens)
-    for name, legacy_llm in llms.items():
-        profile_phase(torch, serving, legacy_llm, vocab, window_name=name,
+    for name in llms:
+        profile_phase(torch, serving, llms[name], vocab, window_name=name,
                       label="decode", marks=DECODE_MARKS, new_tokens=32)
+    del llms, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    flash_summary = flash_kernel_phase(torch, flash)
+    port = SimpleNamespace(
+        LlamaConfig=LlamaConfig, LlamaForCausalLM=LlamaForCausalLM,
+        LlamaPretrainingCriterion=LlamaPretrainingCriterion, AdamW=AdamW,
+        CosineAnnealingDecay=CosineAnnealingDecay)
+    train_identity_phase(torch, flash, fa, port)
+    train_launches, trainer = train_phase(torch, flash, fa, port)
+    train_profile_phase(torch, trainer)
+    flash_rows = [{
+        "name": f"flash_attention_{key}", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+        "replaces": f"paddle_tpu/ops/pallas_flash.py:{line}",
+        "launches": train_launches[key],
+        **{f: flash_summary[key][f] for f in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}}
+        for key, line in (("fwd", 52), ("dq", 153), ("dkv", 195))]
 
     print(json.dumps({"kernels": [{
         "name": KERNEL_NAME, "route": "cuda",
@@ -872,7 +1362,7 @@ def main() -> int:
         "ms": decode_summary["ms"], "plain_ms": decode_summary["plain_ms"],
         "bound_ms": decode_summary["bound_ms"],
         "bound_by": decode_summary["bound_by"],
-        "library_ms": decode_summary["library_ms"]}]}))
+        "library_ms": decode_summary["library_ms"]}, *flash_rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

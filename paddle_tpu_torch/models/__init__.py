@@ -1,3 +1,7 @@
 """Models of the port."""
 
-from .llama import LlamaConfig, LlamaForCausalLM  # noqa: F401
+from .llama import (  # noqa: F401
+    LlamaConfig,
+    LlamaForCausalLM,
+    LlamaPretrainingCriterion,
+)

@@ -1,13 +1,16 @@
-"""Llama model family — the port of ``paddle_tpu/models/llama.py`` on its
-cached routes.
+"""Llama model family — the port of ``paddle_tpu/models/llama.py``.
 
 Architecture follows Llama-3: RMSNorm pre-norm, rotary embeddings, grouped
 query attention, SwiGLU MLP, untied LM head (tying supported).  Module and
 parameter names are the JAX package's, so ``convert.llama_from_paddle_tpu``
 maps its ``state_dict()`` one to one (linear weights transposed).
 
-The attention takes the routes of the JAX model's cached forward:
+The attention takes the routes of the JAX model's forward:
 
+* no cache — training and scoring: rope at positions ``0..S-1``, then
+  ``parallel/ring_attention.ring_flash_attention`` (at sep=1 the attention
+  dispatch of ``ops/flash_attention.py``: the CUDA flash kernels on the
+  card);
 * a dense ``(k_buf, v_buf)`` cache — the one-shot prefill of the legacy
   engine and :meth:`LlamaForCausalLM.generate`;
 * a :class:`~paddle_tpu_torch.ops.paged_attention.PagedCache`, told apart
@@ -16,9 +19,9 @@ The attention takes the routes of the JAX model's cached forward:
   prefill (``paged_prefill_attention``); with ``[B]`` slot arrays — a
   decode step (``paged_attention``, the CUDA decode kernel on the card).
 
-What waits: the no-cache forward (training, through
-``ring_flash_attention`` and the flash kernels) — ROADMAP A10; MoE layers
-(``num_experts > 0``) and mp > 1 — ROADMAP A11.
+``LlamaPretrainingCriterion`` is the shifted next-token cross-entropy of
+the JAX package.  What waits: MoE layers (``num_experts > 0``), mp > 1,
+pipeline micro-batches and 1F1B — ROADMAP A11.
 """
 
 from __future__ import annotations
@@ -30,8 +33,10 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..nn import functional as F
 from ..nn.norm import RMSNorm
 from ..ops import paged_attention as pa_mod
 from ..ops import ragged_paged as rp_mod
@@ -40,6 +45,7 @@ from ..parallel.mp_layers import (
     RowParallelLinear,
     VocabParallelEmbedding,
 )
+from ..parallel.ring_attention import ring_flash_attention
 
 
 @dataclass
@@ -58,7 +64,11 @@ class LlamaConfig:
     rope_theta: float = 500000.0
     initializer_range: float = 0.02
     tie_word_embeddings: bool = False
-    # parallel/perf knobs of the JAX package (training path, ROADMAP A10)
+    # parallel/perf knobs of the JAX package.  recompute checkpoints each
+    # decoder layer in training; use_flash_attention=False pins the
+    # composite attention paths (the kernels stay off for this model);
+    # scan_layers runs the same module loop (the JAX scan is a compile-time
+    # device with the same math); sequence_parallel is mp > 1 (A11)
     sequence_parallel: bool = False
     recompute: bool = False
     use_flash_attention: bool = True
@@ -152,8 +162,9 @@ def _apply_rope(x, cos, sin):
 
 
 class LlamaAttention(nn.Module):
-    """Grouped-query attention with rotary embeddings, on the cached routes
-    (dense buffers, paged decode, paged chunk, unified ragged)."""
+    """Grouped-query attention with rotary embeddings: the no-cache route
+    (flash attention) and the cached ones (dense buffers, paged decode,
+    paged chunk, unified ragged)."""
 
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
@@ -182,17 +193,21 @@ class LlamaAttention(nn.Module):
         q = self.q_proj(x).reshape(B, S, self.num_heads, hd)
         k = self.k_proj(x).reshape(B, S, self.num_kv_heads, hd)
         v = self.v_proj(x).reshape(B, S, self.num_kv_heads, hd)
-        if cache is None:
-            raise NotImplementedError(
-                "the no-cache Llama forward runs ring_flash_attention and "
-                "the flash kernels, which the port has not reached yet "
-                "(ROADMAP A10); serve through a cache")
-        if pos is None:
+        if cache is not None and pos is None:
             raise ValueError("a cached forward needs the tokens' positions")
-        idx = self._rope_index(pos, S)
-        cos, sin = self._rope_cos[idx], self._rope_sin[idx]
+        if pos is None:
+            cos, sin = self._rope_cos[None, :S], self._rope_sin[None, :S]
+        else:
+            idx = self._rope_index(pos, S)
+            cos, sin = self._rope_cos[idx], self._rope_sin[idx]
         q = _apply_rope(q, cos, sin)
         k = _apply_rope(k, cos, sin)
+        if cache is None:
+            # GQA KV heads are read natively by every attention path
+            out = ring_flash_attention(
+                q, k, v, causal=True,
+                use_pallas=None if self.config.use_flash_attention else False)
+            return self.o_proj(out.reshape(B, S, self.num_heads * hd))
         if not isinstance(cache, pa_mod.PagedCache):
             return self._cached_attention(q, k, v, cache, pos, B, S, hd)
         if cache.seg_ids is not None:
@@ -339,12 +354,30 @@ class LlamaModel(nn.Module):
              for i in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
 
-    def forward(self, input_ids, caches=None, pos=None):
+    def forward(self, input_ids, pp_microbatches: Optional[int] = None,
+                caches=None, pos=None):
+        """Without caches, in training with ``config.recompute``, each
+        decoder layer is checkpointed (``torch.utils.checkpoint``, the
+        port's ``jax.checkpoint``): its activations are recomputed in the
+        backward.  ``config.scan_layers`` takes the same loop — the JAX
+        package's ``lax.scan`` over stacked layer weights compiles one layer
+        body instead of L, with the same math, and PyTorch compiles
+        nothing."""
+        if pp_microbatches:
+            raise NotImplementedError(
+                "pipeline micro-batches are not ported yet (ROADMAP A11); "
+                "the port runs pp=1")
         h = self.embed_tokens(input_ids)
-        if caches is None:
-            caches = [None] * len(self.layers)
-        for layer, cache in zip(self.layers, caches):
-            h = layer(h, cache=cache, pos=pos)
+        if caches is not None:
+            for layer, cache in zip(self.layers, caches):
+                h = layer(h, cache=cache, pos=pos)
+            return self.norm(h)
+        remat = self.config.recompute and self.training
+        for layer in self.layers:
+            if remat:
+                h = checkpoint(layer, h, None, pos, use_reentrant=False)
+            else:
+                h = layer(h, pos=pos)
         return self.norm(h)
 
 
@@ -383,11 +416,19 @@ class LlamaForCausalLM(nn.Module):
                               VocabParallelEmbedding)):
                 m.weight.normal_(0.0, std, generator=generator)
 
-    def forward(self, input_ids, caches=None, pos=None):
-        h = self.llama(input_ids, caches=caches, pos=pos)
+    def forward(self, input_ids, pp_microbatches: Optional[int] = None,
+                caches=None, pos=None):
+        h = self.llama(input_ids, pp_microbatches=pp_microbatches,
+                       caches=caches, pos=pos)
         if self.lm_head is None:
             return h @ self.llama.embed_tokens.weight.T
         return self.lm_head(h)
+
+    def train_batch_1f1b(self, input_ids, labels, n_microbatch: int,
+                         criterion=None, recompute: bool = False):
+        raise NotImplementedError(
+            "the 1F1B pipeline schedule is not ported yet (ROADMAP A11); "
+            "train with model(ids), the criterion and loss.backward()")
 
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens: int = 32,
@@ -454,3 +495,20 @@ class LlamaForCausalLM(nn.Module):
         if was_training:
             self.train()
         return torch.from_numpy(np.concatenate(out, axis=1).astype(np.int64))
+
+
+class LlamaPretrainingCriterion(nn.Module):
+    """Shifted next-token cross-entropy (PaddleNLP
+    ``LlamaPretrainingCriterion`` analog); ``ignore_index=-100`` masks
+    padding."""
+
+    def __init__(self, config: Optional[LlamaConfig] = None,
+                 ignore_index=-100):
+        super().__init__()
+        self.ignore_index = ignore_index
+
+    def forward(self, logits, labels):
+        shifted = logits[:, :-1, :]
+        target = labels[:, 1:]
+        return F.cross_entropy(shifted, target, reduction="mean",
+                               ignore_index=self.ignore_index)

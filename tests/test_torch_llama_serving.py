@@ -5,7 +5,7 @@ package on the same weights (CPU, fp32, ``LlamaConfig.tiny`` at 2 layers).
   port exactly, and refuses a missing, extra or misshaped key.
 * One packed ragged step (decode rows + a prefill chunk + pad tokens) gives
   the JAX model's logits within 2e-4 and writes the same K/V into the
-  pools.
+  pools; the no-cache forward gives them within 1e-4.
 * The port's engine gives greedy tokens identical to the JAX unified
   engine in the four scenarios of ``test_unified_ragged.py`` at mp=1 —
   plain stream, preemption recompute, warm prefix cache, chunked prefill —
@@ -167,9 +167,19 @@ def test_packed_ragged_step_matches_jax_logits():
 
 
 def test_no_cache_forward_waits_for_the_training_slice():
-    model = _port_model(_jax_model())
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        model(torch.zeros((1, 4), dtype=torch.int64))
+    """The training slice has come: the no-cache forward (rope at 0..S-1,
+    then ring_flash_attention) gives the JAX model's logits within 1e-4,
+    in eval and in train mode."""
+    jm = _jax_model()
+    model = _port_model(jm)
+    ids = np.random.default_rng(3).integers(0, 256, (2, 12))
+    with paddle.no_grad():
+        want = np.asarray(jm(paddle.to_tensor(ids, dtype="int64")).numpy())
+    for training in (False, True):
+        model.train(training)
+        with torch.no_grad():
+            got = model(torch.from_numpy(ids)).numpy()
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
 
 
 # --- engine token identity ---------------------------------------------------

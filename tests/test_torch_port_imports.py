@@ -8,8 +8,9 @@
   raises instead of running on the CPU, and ``chip_smoke.py`` exits
   nonzero with no result line — as it does beside no package.
 * Every ``EngineConfig`` setting the port does not implement raises
-  ``NotImplementedError`` naming its ROADMAP item, as do MoE layers; the
-  legacy families and decode bursts build and serve.
+  ``NotImplementedError`` naming its ROADMAP item, as do MoE layers,
+  pipeline micro-batches, sep > 1 and gradient clipping; the legacy
+  families and decode bursts build and serve.
 """
 
 import ast
@@ -22,6 +23,8 @@ import pytest
 import torch
 
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.parallel.ring_attention import ring_flash_attention
 from paddle_tpu_torch.serving import EngineConfig, EngineCore, SamplingParams
 
 REPO = Path(__file__).resolve().parent.parent
@@ -144,6 +147,24 @@ def test_unported_engine_settings_raise(fields, item):
     eng.run(max_steps=100)
     assert req.finished and len(req.output_tokens) == 6
     assert eng.kv.occupancy() == 0.0
+
+
+def test_unported_training_settings_raise():
+    """Pipeline micro-batches, 1F1B and ring attention over sep > 1 raise
+    naming ROADMAP A11; gradient clipping raises naming A12."""
+    model = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1),
+                             device="cpu")
+    ids = torch.zeros((2, 4), dtype=torch.int64)
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        model(ids, pp_microbatches=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        model.train_batch_1f1b(ids, ids, n_microbatch=2)
+    q = torch.zeros((1, 8, 2, 16))
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        ring_flash_attention(q, q, q, sep=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        AdamW(parameters=model.parameters(), grad_clip=object())
+    assert model(ids).shape == (2, 4, 256)
 
 
 def test_supported_settings_build():
