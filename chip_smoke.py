@@ -10,8 +10,21 @@ It builds the port's CUDA kernels from ``paddle_tpu_torch/csrc/`` and runs
 these phases, printing one JSON line for each:
 
 ``device``   the card (``nvidia-smi`` name and power limit, torch's name).
-``build``    the three kernel sources in one build (one nvcc each, started
+``build``    the four kernel sources in one build (one nvcc each, started
              together); nvcc's ptxas report goes to standard error.
+``custom_op`` the custom-op path: the scale kernel (``csrc/scaled.cu``)
+             against its twin bit for bit (``torch.equal``) over fp32, bf16
+             and fp16, alpha in {2, 3, 0.1, -3.5}, 1 to 1,000,003
+             elements, aligned and at storage offset 3, plus a planted
+             fault the check must refuse; the JAX docstring example,
+             ``ops/scaled.py::my_scaled``, called 3 times on a [8192,
+             4096] bf16 tensor with its backward (launches = 3, gradient
+             exactly 9: three runs of the custom bwd); one call under
+             torch.profiler, whose ``my_scaled`` range must hold the
+             kernel; the kernel, the op, its twin and ``torch.mul`` timed
+             at that shape by CUDA events, the kernel and ``torch.mul``
+             also by profiler device time, beside the bound; a
+             ``cpp_extension.load`` host op on a CUDA tensor.
 ``kernels``  the ragged kernel against its plain PyTorch version on the same
              inputs (fp32 within 1e-4; bf16 within 2e-2 of the plain version
              run in fp32 on the same bf16 inputs), over the packings of the
@@ -90,12 +103,13 @@ these phases, printing one JSON line for each:
 
 Then a line ``{"kernels": [...]}`` summarising each kernel at its main
 path's shapes (the ragged kernel at the unified serve step, the decode
-kernel at B=16 bf16, the flash kernels at the train shape in bf16, with
-the launches of the serve, the burst-free serve_legacy and the train
-runs), the ``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``.  Any failure raises and the script exits
-nonzero without that last line; so does a machine without a CUDA device,
-and a directory that holds this script without the package.
+kernel at B=16 bf16, the flash kernels at the train shape in bf16, the
+scale kernel at [8192, 4096] bf16, with the launches of the serve, the
+burst-free serve_legacy, the train and the custom_op runs), the
+``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any
+failure raises and the script exits nonzero without that last line; so
+does a machine without a CUDA device, and a directory that holds this
+script without the package.
 """
 
 from __future__ import annotations
@@ -114,6 +128,7 @@ PEAK_BYTES = 3.35e12                                  # H100 SXM HBM3
 KERNEL_NAME = "ragged_paged_attention"
 DECODE_NAME = "paged_decode_attention"
 FLASH_NAME = "flash_attention"
+SCALED_NAME = "scaled"
 # the device functions of each kernel, as a profiler names them
 KERNEL_MARKS = ("ragged_paged_attention_kernel",)
 DECODE_MARKS = ("paged_decode_kernel", "combine_splits_kernel")
@@ -1265,6 +1280,181 @@ def train_profile_phase(torch, trainer, steps=2):
          top_kernels=[{"name": k[:120], "us": us} for k, us in top])
 
 
+# --- custom-op phase ----------------------------------------------------------
+
+# tests/test_custom_op.py's host ops, built by cpp_extension.load
+RELU6_SOURCE = """
+#include <cstdint>
+extern "C" void my_relu6(const float* x, float* y, int64_t n) {
+    for (int64_t i = 0; i < n; ++i) {
+        float v = x[i] < 0.f ? 0.f : x[i];
+        y[i] = v > 6.f ? 6.f : v;
+    }
+}
+extern "C" void my_relu6_grad(const float* x, const float* gy, float* gx,
+                              int64_t n) {
+    for (int64_t i = 0; i < n; ++i)
+        gx[i] = (x[i] > 0.f && x[i] < 6.f) ? gy[i] : 0.f;
+}
+"""
+# a Llama-3-8B activation at the train phase's B=2, S=4096: [B*S, hidden]
+SCALED_SHAPE = (TRAIN_B * TRAIN_S, 4096)
+
+
+def scaled_sweep(torch, sc):
+    """The kernel against its twin, bit for bit (torch.equal), over fp32,
+    bf16 and fp16, alpha in {2, 3, 0.1, -3.5}, 1 to 1,000,003 elements,
+    each aligned and as a view at storage offset 3 (not 16-byte aligned:
+    the scalar path); then one planted fault, the twin with its last
+    element changed, which the same check must refuse."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    checks, worst = 0, 0.0
+
+    def same(out, ref):
+        return out.shape == ref.shape and out.dtype == ref.dtype and \
+            torch.equal(out, ref)
+
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for alpha in (2.0, 3.0, 0.1, -3.5):
+            for n in (1, 7, 4097, 1_000_003):
+                base = torch.randn(n + 3, device=dev, generator=gen).to(dtype)
+                for label, x in (("aligned", base[:n]), ("offset 3", base[3:])):
+                    if (label == "offset 3") != bool(x.data_ptr() % 16):
+                        raise AssertionError(f"custom_op: the {label} view "
+                                             f"has the wrong alignment")
+                    out = sc.scaled_kernel(x, alpha)
+                    torch.cuda.synchronize()
+                    ref = sc.scaled_reference(x, alpha)
+                    worst = max(worst, float((out.float() - ref.float())
+                                             .abs().max()))
+                    if not same(out, ref):
+                        raise AssertionError(
+                            f"scaled kernel differs from its twin: {dtype}, "
+                            f"alpha={alpha}, n={n}, {label}")
+                    checks += 1
+    x = torch.randn(4097, device=dev, generator=gen).bfloat16()
+    out = sc.scaled_kernel(x, 0.1)
+    planted = sc.scaled_reference(x, 0.1)
+    planted[-1] = planted[-1] * 2 + 1
+    if same(out, planted):
+        raise AssertionError("custom_op: the planted fault passed the check")
+    return checks, worst
+
+
+def custom_op_phase(torch, sc, cpp_extension, build_dir):
+    """The custom-op path: the sweep, then the JAX docstring example as a
+    user imports it, ``ops/scaled.py::my_scaled`` (``register_custom_op(
+    scaled, name="my_scaled", vjp=(scaled_fwd, scaled_bwd),
+    nondiff_argnames=("alpha",))``), called on a [8192, 4096] bf16 tensor on
+    the card three times with its backward (launches counted from 0 over
+    those calls), one call under torch.profiler, times at that shape (CUDA
+    events and profiler device time, for the kernel and for torch.mul),
+    and a g++ host op on a CUDA tensor."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda")
+    checks, sweep_err = scaled_sweep(torch, sc)
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn(SCALED_SHAPE, device=dev, generator=gen) \
+        .bfloat16().requires_grad_()
+    calls = 3
+    sc.launches = 0
+    for _ in range(calls):
+        y = sc.my_scaled(x, alpha=3.0)
+        y.sum().backward()
+    torch.cuda.synchronize()
+    launches = sc.launches
+    if launches != calls or sc.last_path != "cuda":
+        raise AssertionError(f"custom_op: {launches} launches for {calls} "
+                             f"calls (path {sc.last_path})")
+    # the gradient of 3 calls, accumulated: 9 everywhere (exact in bf16),
+    # which only 3 runs of the custom bwd (g * 3 each) give
+    if not (torch.equal(x.grad, torch.full_like(x, 9.0))
+            and torch.equal(y, sc.scaled_reference(x.detach(), 3.0))):
+        raise AssertionError("custom_op: wrong output or gradient")
+    x = x.detach()
+    del y
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sc.my_scaled(x, alpha=3.0)
+        torch.cuda.synchronize()
+    kernel_names = [k for k in device_kernels(prof) if "scaled_kernel" in k]
+
+    def subtree(e):
+        return [e] + [d for c in e.cpu_children for d in subtree(c)]
+
+    # kernels launched inside the my_scaled range: those the profiler
+    # attached to it or to an op under it, and the device events whose
+    # correlation id is that of a runtime call under it (cudaLaunchKernel)
+    from torch.autograd import DeviceType
+
+    inside = [d for e in prof.events() if e.name == "my_scaled"
+              for d in subtree(e)]
+    ids = {d.id for d in inside}
+    under = [k.name for d in inside for k in d.kernels] + [
+        e.name for e in prof.events()
+        if e.device_type == DeviceType.CUDA and e.id in ids]
+    if not kernel_names or not set(kernel_names) & set(under):
+        raise AssertionError(f"custom_op: the profile shows kernels "
+                             f"{kernel_names}, and under my_scaled {under}")
+
+    alpha = 3.0   # exact in bf16, so torch.mul computes the same function
+    library = torch.mul(x, alpha)
+    if not torch.equal(library, sc.scaled_kernel(x, alpha)):
+        raise AssertionError("custom_op: torch.mul computes another function")
+    del library
+    nbytes = 2 * x.numel() * x.element_size()
+    # one fp32 multiply an element, on the CUDA cores
+    t_flops = x.numel() / PEAK_FLOPS["float32"] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    timing = {
+        "shape": list(SCALED_SHAPE), "dtype": "bfloat16", "alpha": alpha,
+        "max_abs_err": sweep_err,
+        # CUDA events of back-to-back calls (the host's issue included)
+        "ms": time_ms(lambda: sc.scaled_kernel(x, alpha), 50),
+        "op_ms": time_ms(lambda: sc.my_scaled(x, alpha=alpha), 50),
+        "plain_ms": time_ms(lambda: sc.scaled_reference(x, alpha), 20),
+        "library_ms": time_ms(lambda: torch.mul(x, alpha), 50),
+        # profiler device time a launch, the same for both
+        "device_ms": device_ms(lambda: sc.scaled_kernel(x, alpha), 20,
+                               ("scaled_kernel",)),
+        "library_device_ms": device_ms(lambda: torch.mul(x, alpha), 20,
+                                       ("elementwise_kernel",)),
+        "bound_ms": max(t_flops, t_bytes),
+        "bound_by": "operations" if t_flops > t_bytes else "bytes",
+        "flops": float(x.numel()), "bytes": nbytes,
+    }
+
+    os.makedirs(build_dir, exist_ok=True)
+    src = os.path.join(build_dir, "my_relu6.cc")
+    with open(src, "w") as f:
+        f.write(RELU6_SOURCE)
+    ext = cpp_extension.load(name="my_relu6", sources=[src],
+                             build_directory=build_dir)
+    xh = torch.randn(4096, generator=torch.Generator().manual_seed(13)) * 5
+    xd = xh.to(dev).requires_grad_()
+    yd = ext.my_relu6(xd)
+    yd.sum().backward()
+    host_ok = (yd.device.type == "cuda" and xd.grad.device.type == "cuda"
+               and torch.equal(yd.cpu(), ext.my_relu6(xh))
+               and torch.equal(xd.grad.cpu(), ((xh > 0) & (xh < 6)).float()))
+    if not host_ok:
+        raise AssertionError("custom_op: the host op on a CUDA tensor gave "
+                             "another result than on the CPU")
+    emit("custom_op", name="scaled", sweep_checks=checks,
+         sweep_bit_exact=True, planted_fault_caught=True, calls=calls,
+         kernel_launches=launches, grad=9.0,
+         profile_kernels=kernel_names, under_my_scaled=sorted(set(under)),
+         host_op={"device": "cuda", "equal_to_cpu": True, "grad_ok": True},
+         timing=timing)
+    return launches, timing
+
+
 def main() -> int:
     try:
         import torch
@@ -1279,8 +1469,10 @@ def main() -> int:
         from paddle_tpu_torch.ops import flash_attention as fa
         from paddle_tpu_torch.ops import paged_decode as pd
         from paddle_tpu_torch.ops import ragged_paged as rp
+        from paddle_tpu_torch.ops import scaled as sc
         from paddle_tpu_torch.optimizer import AdamW
         from paddle_tpu_torch.optimizer.lr import CosineAnnealingDecay
+        from paddle_tpu_torch.utils import cpp_extension
     except ImportError as e:
         print(f"chip_smoke: the paddle_tpu_torch package is not here ({e}); "
               "run from the root of a checkout", file=sys.stderr)
@@ -1299,11 +1491,15 @@ def main() -> int:
          cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    built = [KERNEL_NAME, DECODE_NAME, FLASH_NAME]
+    built = [KERNEL_NAME, DECODE_NAME, FLASH_NAME, SCALED_NAME]
     _build.build(built)
     for name, log in _build.build_logs.items():
         print(f"--- nvcc {name} ---\n{log}", file=sys.stderr)
     emit("build", kernels=built, seconds=time.perf_counter() - t0)
+
+    scaled_launches, scaled_summary = custom_op_phase(
+        torch, sc, cpp_extension,
+        str(_build.BUILD_DIR / "extensions"))
 
     summary = kernel_phase(torch, rp)
     decode_summary = decode_kernel_phase(torch, pd)
@@ -1362,7 +1558,14 @@ def main() -> int:
         "ms": decode_summary["ms"], "plain_ms": decode_summary["plain_ms"],
         "bound_ms": decode_summary["bound_ms"],
         "bound_by": decode_summary["bound_by"],
-        "library_ms": decode_summary["library_ms"]}, *flash_rows]}))
+        "library_ms": decode_summary["library_ms"]}, *flash_rows, {
+        "name": SCALED_NAME, "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/scaled.cu",
+        "replaces": "paddle_tpu/utils/extension.py:18",
+        "launches": scaled_launches,
+        **{f: scaled_summary[f] for f in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "device_ms", "library_device_ms")}}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,11 +30,17 @@ from paddle_tpu_torch.serving import EngineConfig, EngineCore, SamplingParams
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "paddle_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "paddle_tpu"}
+# modules whose JAX counterparts reach into the JAX package's core (run_op,
+# Tensor, pure_callback): they must be among the files checked
+MUST_CHECK = ("utils/__init__.py", "utils/extension.py",
+              "utils/cpp_extension.py", "utils/host_build.py",
+              "ops/scaled.py", "version.py")
 
 
 def _port_files():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20 and all(f.exists() for f in files)
+    assert {PORT / m for m in MUST_CHECK} <= set(files)
     return files
 
 
