@@ -75,13 +75,19 @@ these phases, printing one JSON line for each:
 ``flash_kernels``  the three flash kernels (forward, dQ, dK/dV) against
              their twins on the same inputs by ``flash.rowwise_error``,
              each output row against its twin row (fp32 within 1e-4; bf16
-             within 2e-2 of the twins run in fp32 on the same bf16 inputs),
-             at the CPU tests' shapes and at Llama-3-8B's training shape
-             (H=32, Hkv=8, D=128, causal, B=2, S=4096), where each output
-             with its last tile zeroed must fail the same check; timed
-             there like the other kernels; the library yardsticks are
-             ``scaled_dot_product_attention`` (causal, GQA) and its
-             autograd backward, which computes dQ, dK and dV in one.
+             within 2e-2 of the twins run in fp32 on the same bf16 inputs;
+             lse within 1e-4), at the CPU tests' shapes, at the edges of
+             the bf16 TMA kernels' tiles (S = 130 and 4000, GQA groups of
+             1, 2, 4 and 8 heads, head dims 64 and 128), on unaligned bf16
+             views that must take the counted copy route (2 copies,
+             results bit-equal to contiguous inputs), and at Llama-3-8B's
+             training shape (H=32, Hkv=8, D=128, causal, B=2, S=4096),
+             where each output with its last tile zeroed must fail the
+             same check; timed there like the other kernels, with the
+             achieved TFLOP/s and the bound's share of the time; the
+             library yardsticks are ``scaled_dot_product_attention``
+             (causal, GQA) and its autograd backward, which computes dQ,
+             dK and dV in one.
 ``train_identity``  Llama-3-8B widths cut to 2 layers, fp32, B=1, S=1024:
              4 AdamW steps with the kernels and with
              ``use_flash_attention=False``; the losses agree within 1e-4
@@ -132,7 +138,7 @@ SCALED_NAME = "scaled"
 # the device functions of each kernel, as a profiler names them
 KERNEL_MARKS = ("ragged_paged_attention_kernel",)
 DECODE_MARKS = ("paged_decode_kernel", "combine_splits_kernel")
-# (flash_fwd_kernel for fp32 inputs, flash_fwd_mma_kernel for bf16, ...)
+# (flash_fwd_kernel for fp32 inputs, flash_fwd_tma_kernel for bf16, ...)
 FLASH_MARKS = {"fwd": ("flash_fwd_",), "dq": ("flash_bwd_dq_",),
                "dkv": ("flash_bwd_dkv_",)}
 MATMUL_MARKS = ("gemm", "xmma", "cutlass", "nvjet", "matmul")
@@ -865,15 +871,18 @@ def share(kernels, marks):
 
 # --- training phases ----------------------------------------------------------
 
-# (B, Sq, Sk, H, Hkv, D) of the flash checks at tiny shapes: those of
+# (B, Sq, Sk, H, Hkv, D) of the flash checks at small shapes: those of
 # tests/test_torch_flash_attention.py, on the card and against the Pallas
-# kernels (ragged edges, one token, rectangular, GQA 4:1 / 2:1 / 1:1, head
-# dims 64 and 128, S up to 512)
+# kernels (ragged edges, one token, rectangular, GQA 8:1 / 4:1 / 2:1 / 1:1
+# at head dims 64 and 128, S up to 512), and the edges of the TMA kernels'
+# 64- and 128-row tiles (S = 130 and 4000)
 FLASH_TINY = [(1, 128, 128, 4, 1, 128), (2, 100, 100, 4, 2, 64),
               (1, 70, 70, 2, 2, 128), (1, 1, 1, 2, 1, 64),
               (2, 200, 200, 8, 2, 128), (1, 96, 160, 4, 2, 64),
               (1, 256, 256, 4, 1, 128), (2, 128, 128, 2, 2, 64),
-              (1, 512, 512, 2, 1, 64)]
+              (1, 512, 512, 2, 1, 64), (1, 130, 130, 8, 1, 128),
+              (1, 200, 200, 16, 2, 64), (1, 130, 130, 2, 2, 64),
+              (1, 4000, 4000, 4, 1, 64), (1, 4000, 4000, 8, 2, 128)]
 TRAIN_B, TRAIN_S = 2, 4096     # the train phase's batch and sequence
 
 
@@ -1006,6 +1015,39 @@ def flash_library(torch, q, k, v, do):
     return fwd, bwd
 
 
+def flash_copy_route_check(torch, flash, checks):
+    """bf16 q, k, v and dO as views whose rows start off 16 bytes (rows D + 1
+    apart), which TMA cannot read: the forward and dK/dV wrappers must copy
+    them to contiguous tensors first (route "copy", counted once a launch),
+    hold the twins, and give what contiguous inputs give, bit for bit."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    B, S, H, Hkv, D = 2, 130, 8, 2, 128
+    bufs = [torch.randn(B, S, n, D + 1, device=dev, generator=gen)
+            .bfloat16() for n in (H, Hkv, Hkv, H)]
+    views = [t[..., 1:] for t in bufs]
+    copies = flash.copy_launches
+    rec, _, _ = flash_check(torch, flash, "unaligned views", *views, True)
+    routed = {"copies": flash.copy_launches - copies,
+              "route": flash.last_route}
+    checks.append({"case": "unaligned views (2, 130, 130, 8, 2, 128) "
+                           "causal=True", "dtype": "bfloat16", **rec})
+    outs = []
+    for q, k, v, do in (views, [t.contiguous() for t in views]):
+        out, lse = flash.fwd_kernel(q, k, v, True)
+        delta = torch.einsum("bshd,bshd->bhs", do.float(),
+                             out.float()).contiguous()
+        outs.append((out, lse, *flash.bwd_dkv_kernel(q, k, v, do, lse, delta,
+                                                     True)))
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(*outs))
+    if routed != {"copies": 2, "route": "copy"} or not same:
+        raise AssertionError(f"flash copy route: {routed} (due 2 copies on "
+                             f"route 'copy'), bit-equal to contiguous: "
+                             f"{same}")
+    return {**routed, "bit_equal_to_contiguous": same}
+
+
 def flash_kernel_phase(torch, flash):
     """The three flash kernels against their twins at the CPU tests' shapes
     and at Llama-3-8B's training shape (H=32, Hkv=8, D=128, causal, B=2,
@@ -1029,6 +1071,8 @@ def flash_kernel_phase(torch, flash):
                     *(t.to(dtype) for t in (q32, k32, v32, do32)), causal)
                 checks.append({"case": f"tiny {case} causal={causal}",
                                "dtype": str(dtype).split(".")[-1], **rec})
+
+    copy_route = flash_copy_route_check(torch, flash, checks)
 
     B, S, H, Hkv, D = TRAIN_B, TRAIN_S, 32, 8, 128
     q32, k32, v32, do32 = inputs(B, S, S, H, Hkv, D)
@@ -1079,18 +1123,20 @@ def flash_kernel_phase(torch, flash):
         for key, (flops, nbytes) in flash_work(q, k, True).items():
             t_flops = flops / PEAK_FLOPS[name] * 1e3
             t_bytes = nbytes / PEAK_BYTES * 1e3
+            ms = time_ms(kernels[key], 5)
             row = {
                 "kernel": key, "dtype": name, "B": B, "S": S, "H": H,
                 "Hkv": Hkv, "D": D, "causal": True,
                 "max_abs_err": kernel_err(rec, "abs", key),
                 "max_row_err": kernel_err(rec, "row", key),
-                "ms": time_ms(kernels[key], 5),
+                "ms": ms, "tflops": flops / ms / 1e9,
                 "plain_ms": time_ms(plains[key], 2, 1),
                 "library_ms": library[key],
                 "library_max_abs_err": lib_err if key == "fwd"
                 else lib_grad_err,
                 "bound_ms": max(t_flops, t_bytes),
                 "bound_by": "operations" if t_flops > t_bytes else "bytes",
+                "bound_share": max(t_flops, t_bytes) / ms,
                 "flops": flops, "bytes": nbytes,
             }
             timings.append(row)
@@ -1103,6 +1149,7 @@ def flash_kernel_phase(torch, flash):
                                           c["lse"] / 1e-4))
     emit("flash_kernels", name=FLASH_NAME, checks=len(checks), worst=worst,
          train_shape=[c for c in checks if c["planted"]], timings=timings,
+         copy_route=copy_route,
          note="max_row_err is flash.rowwise_error (each row over its twin "
               "row's max, floored at 1e-2 of the twin's max and at 0.1); "
               "planted: the "

@@ -13,8 +13,10 @@
 //   delta    [B, H, Sq]       fp32 rowsum(dO * O), computed by the caller
 //
 // What they compute is the TPU kernels' arithmetic: scores s = (q . k) * scale
-// in fp32; with causal, the top-left mask row >= col fills s with -1e30; the
-// online softmax keeps (m, l, acc) in fp32 and guards l == 0 with 1;
+// in fp32; with causal, the top-left mask row >= col fills s with -1e30 (the
+// TMA kernels use -inf, which weighs the same 0 in every row that has a
+// key: all of them, since key 0 is never masked); the online softmax keeps
+// (m, l, acc) in fp32 and guards l == 0 with 1;
 // p is rounded to v's dtype before the P.V product, dS to k's (dQ) or q's
 // (dK) dtype and P to dO's dtype (dV) before the last products, all of which
 // accumulate in fp32.  Keys at or past Sk and query rows at or past Sq (the
@@ -24,12 +26,14 @@
 // 4096, D = 128) each kernel does O(S^2 D) multiply-adds on O(S D) bytes,
 // hundreds of operations a byte, far above the card's ridge.  What the design
 // does about it:
-//   * one block owns a 64-row tile and loops over the other side's 64-row
-//     tiles in place of the TPU's sequential grid axis (blocks here run in
-//     parallel, in no order; nothing carries from one block to another);
-//   * bf16 inputs (training) take the tensor cores: mma.sync m16n8k16 with
-//     fp32 accumulators, 4 warps of 16 rows each, P and dS kept in registers
-//     between the two products of a tile (see the bf16 section below);
+//   * bf16 forward and dK/dV (training) are Hopper kernels: a producer warp
+//     keeps TMA loads in flight in a ring of shared-memory stages, two
+//     consumer warpgroups multiply on wgmma, and the forward packs a GQA
+//     group's query heads into one block, so each K/V tile is loaded once
+//     per group (see the section "bf16 forward and dK/dV on Hopper");
+//   * bf16 dQ takes the tensor cores through mma.sync m16n8k16 with fp32
+//     accumulators, 4 warps of 16 rows each, dS kept in registers between
+//     the two products of a tile;
 //   * fp32 inputs take fp32 FMAs from shared memory (fp32 has no tensor-core
 //     path that keeps its precision): the tiles live in shared memory as fp32
 //     rows padded by one word, so a warp's reads fall in distinct banks or
@@ -40,15 +44,18 @@
 //   * dK/dV has one block per (batch, KV tile, KV head) that walks the group's
 //     query heads and the query tiles from the diagonal on, accumulating in
 //     registers and writing once: no atomics, so results are deterministic.
-// Left to later work: loads that overlap the products (cp.async or TMA),
-// wgmma, and sharing a K/V tile among a GQA group's query heads.
+// Left to later work: dQ on TMA and wgmma.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include <initializer_list>
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -414,9 +421,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ===========================================================================
-// bf16: the same three kernels on the tensor cores (mma.sync m16n8k16, bf16
-// operands, fp32 accumulators).  A block of 4 warps owns a 64-row tile; each
-// warp owns 16 of its rows and the whole 64-column tile of the other side.
+// bf16 dQ on the tensor cores (mma.sync m16n8k16, bf16 operands, fp32
+// accumulators).  A block of 4 warps owns a 64-row tile; each warp owns 16
+// of its rows and the whole 64-column tile of the other side.
 // Tiles stay bf16 in shared memory, rows padded by 8 elements so that the
 // fragment loads of a warp fall in distinct banks.  A score tile comes out
 // of the tensor core in the C-fragment layout, which is the A-fragment
@@ -574,97 +581,6 @@ __device__ __forceinline__ void mma_pv(float (&acc)[D / 8][4],
   }
 }
 
-// forward, bf16: grid (n_q, H, B), 4 warps; tile qi = n_q - 1 - blockIdx.x.
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, bf16* __restrict__ out,
-                         float* __restrict__ lse, Strides qs, Strides ks,
-                         Strides vs, Strides os, int H, int Hkv, int Sq, int Sk,
-                         float scale, int causal, int vec) {
-  constexpr int ST = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_bytes[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_bytes);
-  bf16* Ks = Qs + kTile * ST;
-  bf16* Vs = Ks + kTile * ST;
-
-  const int qi = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kv = h / (H / Hkv);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int q0 = qi * kTile;
-  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-
-  load_tile_bf16<D>(Qs, q, qs, b, h, q0, Sq, vec);
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};
-
-  const int nk = key_tiles(qi, Sk, causal);
-  for (int kj = 0; kj < nk; ++kj) {
-    __syncthreads();  // the previous tile's K and V are consumed
-    load_tile_bf16<D>(Ks, k, ks, b, kv, kj * kTile, Sk, vec);
-    load_tile_bf16<D>(Vs, v, vs, b, kv, kj * kTile, Sk, vec);
-    __syncthreads();
-    float s[8][4];
-    mma_rows<D>(s, Qs, warp * 16, Ks, g, t);
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = kj * kTile + j * 8 + 2 * t + e;
-          float& x = s[j][2 * hf + e];
-          x = (!causal || rows[hf] >= col) ? x * scale : kNegInf;
-          if (col < Sk) mx = fmaxf(mx, x);
-        }
-      const float m_new = fmaxf(m[hf], quad_max(mx));
-      const float corr = expf(m[hf] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = kj * kTile + j * 8 + 2 * t + e;
-          float& x = s[j][2 * hf + e];
-          x = col < Sk ? expf(x - m_new) : 0.f;
-          sum += x;
-        }
-      l[hf] = l[hf] * corr + quad_sum(sum);
-      m[hf] = m_new;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        acc[n][2 * hf] *= corr;
-        acc[n][2 * hf + 1] *= corr;
-      }
-    }
-    mma_pv<D>(acc, s, Vs, lane);
-  }
-
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int row = rows[hf];
-    if (row >= Sq) continue;
-    const float safe_l = l[hf] == 0.f ? 1.f : l[hf];
-    bf16* o = out + b * os.b + row * os.s + h * os.h + 2 * t;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(o + n * 8) =
-          pack_bf16(acc[n][2 * hf] / safe_l, acc[n][2 * hf + 1] / safe_l);
-    if (t == 0)
-      lse[(static_cast<long long>(b) * H + h) * Sq + row] =
-          m[hf] + logf(safe_l);
-  }
-}
-
 // dQ, bf16: grid (n_q, H, B), 4 warps.
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
@@ -744,142 +660,495 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
-// dK / dV, bf16: grid (n_k, Hkv, B), 4 warps, each owning 16 key rows of
-// the block's key tile; the query tile is taken kCols columns at a time to
-// keep S^T and dP^T small beside the two D-wide accumulators.
+// ===========================================================================
+// bf16 forward and dK/dV on Hopper: TMA loads into a ring of shared-memory
+// stages, consumed by wgmma.  A block has two consumer warpgroups, each
+// owning 64 rows of the block's tile.  Stage s of the ring has a `full`
+// mbarrier (the issuing thread's arrival plus the TMA bytes) and an `empty`
+// one (one arrival from each consumer warp once its wgmmas have read the
+// stage).  One thread issues every TMA load: in the forward, the first
+// thread of a ninth warp, the producer; in dK/dV, consumer thread 0, which
+// refills a stage once every warp has released it.  The register file is
+// split in four quarters over which the warps are spread, so a ninth warp
+// caps every thread at 168 registers: the forward fits (168, no spills),
+// dK/dV's two D-wide accumulators do not (at D = 128 it takes over 220 of
+// the 255 that 8 warps allow).  setmaxnreg, which moves registers from a
+// producer warpgroup to the consumers, did not lift ptxas's allocation
+// above the cap for dK/dV, which still spilled.  Inputs are read through
+// 4-d tensor maps over the [B, S, heads, D] tensors (dims D, heads, S,
+// B): a box is 64 columns of D
+// (128 bytes, the 128-byte swizzle the wgmma descriptors expect) by some
+// heads by some rows, and D = 128 is two boxes side by side.  Rows past S
+// come back as zeros; the kernels mask the keys and queries past the edge
+// themselves, since a zero key still scores 0.
+// ===========================================================================
+
+constexpr int kConsumerWarps = 8;         // two warpgroups
+constexpr int kFwdThreads = 32 * (kConsumerWarps + 1);   // + the producer
+constexpr int kDkvThreads = 32 * kConsumerWarps;
+constexpr int kStages = 2;                // ring depth
+constexpr int kBox = 64;                  // bf16 columns of a TMA box
+constexpr int kFwdRows = 128;             // rows of a forward block
+constexpr int kFwdKeys = 128;             // keys of a forward K/V tile
+constexpr int kDkvKeys = 128;             // keys of a dK/dV block
+constexpr int kDkvRows = 64;              // query rows of a dK/dV Q/dO tile
+// A TMA box may only start on 16 bytes, so the lse and delta slice of a
+// query tile is loaded from its start rounded down to 4 floats, 68 floats
+// long, into a slot of 96 (128-byte-aligned slots).
+constexpr int kStatBox = kDkvRows + 4;
+constexpr int kStatSlot = 96;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = hopper::smem_addr(p);
+  return p + ((1024u - (a & 1023u)) & 1023u);
+}
+
+// A score tile (m64n{8 kSteps * 2}) in accumulator layout, rounded to bf16
+// as the A fragments of kSteps k16 steps.
+template <int kSteps>
+__device__ __forceinline__ void to_a_frags(uint32_t (&a)[kSteps][4],
+                                           const float* s) {
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk) {
+    a[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+    a[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    a[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    a[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[kk][r]) :: "memory");
+}
+
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
-                             const bf16* __restrict__ k,
-                             const bf16* __restrict__ v,
-                             const bf16* __restrict__ dout,
-                             const float* __restrict__ lse,
-                             const float* __restrict__ delta,
-                             bf16* __restrict__ dk, bf16* __restrict__ dv,
-                             Strides qs, Strides ks, Strides vs, Strides dos,
-                             Strides dks, Strides dvs, int H, int Hkv, int Sq,
-                             int Sk, float scale, int causal, int vec) {
-  constexpr int ST = D + 8;
-  // query columns a step: as many as the registers hold beside the two
-  // D-wide accumulators (at D = 128, 32 columns spill)
-  constexpr int kCols = D == 128 ? 16 : 32;
-  extern __shared__ __align__(16) unsigned char smem_bytes[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_bytes);
-  bf16* Vs = Ks + kTile * ST;
-  bf16* Qs = Vs + kTile * ST;
-  bf16* dOs = Qs + kTile * ST;
-  float* lse_s = reinterpret_cast<float*>(dOs + kTile * ST);
-  float* delta_s = lse_s + kTile;
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (D == 64)
+    hopper::wgmma_rs_n64(d, a, b);
+  else
+    hopper::wgmma_rs_n128(d, a, b);
+}
 
-  const int kj = blockIdx.x;
-  const int kv = blockIdx.y;
-  const int b = blockIdx.z;
+// The 128-byte-swizzled tile descriptors: K-major at shared address a
+// (8-row groups 1024 bytes apart), and MN-major at a with the next 64
+// columns `box` bytes on.
+__device__ __forceinline__ uint64_t kmajor(uint32_t a) {
+  return hopper::smem_desc(a, 16, 1024);
+}
+__device__ __forceinline__ uint64_t mnmajor(uint32_t a, int box) {
+  return hopper::smem_desc(a, box, 1024);
+}
+
+// Forward: replaces paddle_tpu/ops/pallas_flash.py::_fwd_kernel for bf16.
+//
+// Bound on an H100: the operations.  At the training shape (B = 2, S =
+// 4096, H = 32, Hkv = 8, D = 128, causal) the two products are 275 GFLOP
+// on 1.2 MB of q, k, v and out; at 989 TFLOP/s that is 0.28 ms, against
+// 0.0004 ms for the bytes.  What the design does about it:
+//   * one block per (batch, KV head, query tile).  Its 128 rows are the
+//     group's rep query heads at 128 / rep positions each, row r = position
+//     r / rep, head r % rep: in [B, S, H, D] those heads sit side by side,
+//     so one TMA box (64, rep, 128 / rep) loads them, and each K/V tile
+//     crosses from device memory to shared memory once per GQA group;
+//   * the producer keeps K and V tiles in flight in a 2-stage ring while
+//     the consumers multiply: S = Q.K^T on wgmma m64n128k16 with Q and K
+//     from shared memory, then P (rounded to bf16 in registers) . V with V
+//     read MN-major through the descriptor, no copy or transpose;
+//   * scores stay fp32 in the exp2 domain, log2(e) * scale folded into one
+//     FMA a score; masked scores are -inf and the max's base is 0 while a
+//     row has seen no key, so they weigh exactly 0 (every row has key 0);
+//     lse is written as a natural log, m * ln 2 + log l;
+//   * causal blocks visit only the key tiles at or below their last row,
+//     diagonal tile first, and mask only the tiles that cross the diagonal
+//     or Sk; the blocks of the last query tiles (the most key tiles) are
+//     launched first.
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    flash_fwd_tma_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         bf16* __restrict__ out, float* __restrict__ lse,
+                         Strides os, int B, int H, int Hkv, int Sq, int Sk,
+                         float scale_log2, int causal) {
+  using namespace hopper;
+  constexpr int kBoxes = D / kBox;
+  constexpr int kQBox = kFwdRows * 128;   // bytes of one box of the Q tile
+  constexpr int kKBox = kFwdKeys * 128;   // ... of a K or V tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = align1024(smem_raw);
+  unsigned char* Ks = Qs + kBoxes * kQBox;               // [stage][box]
+  unsigned char* Vs = Ks + kStages * kBoxes * kKBox;     // [stage][box]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + kStages * kBoxes * kKBox);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* k_empty = k_full + kStages;
+  uint64_t* v_full = k_empty + kStages;
+  uint64_t* v_empty = v_full + kStages;
+
   const int rep = H / Hkv;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int k0 = kj * kTile;
-  const int keys[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
-  const int nq = (Sq + kTile - 1) / kTile;
-  const int q_first = causal ? kj : 0;
+  const int per = kFwdRows / rep;     // query positions of the block
+  const int rows = per * rep;         // rows in use (128 when rep | 128)
+  const int n_bh = Hkv * B;
+  const int n_q = (Sq + per - 1) / per;
+  const int qt = n_q - 1 - static_cast<int>(blockIdx.x) / n_bh;
+  const int g = static_cast<int>(blockIdx.x) % n_bh % Hkv;
+  const int b = static_cast<int>(blockIdx.x) % n_bh / Hkv;
+  const int q0 = qt * per;
+  const int q_last = min(q0 + per, Sq) - 1;
+  const int key_end = causal ? min(Sk, q_last + 1) : Sk;
+  const int nk = (key_end + kFwdKeys - 1) / kFwdKeys;
 
-  load_tile_bf16<D>(Ks, k, ks, b, kv, k0, Sk, vec);
-  load_tile_bf16<D>(Vs, v, vs, b, kv, k0, Sk, vec);
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) dk_acc[n][c] = dv_acc[n][c] = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(k_empty + s, kConsumerWarps);
+      mbar_init(v_empty + s, kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  for (int gi = 0; gi < rep; ++gi) {
-    const int h = kv * rep + gi;
-    const long long stat = (static_cast<long long>(b) * H + h) * Sq;
-    for (int qi = q_first; qi < nq; ++qi) {
-      const int q0 = qi * kTile;
-      __syncthreads();  // the previous tile's Q and dO are consumed
-      load_tile_bf16<D>(Qs, q, qs, b, h, q0, Sq, vec);
-      load_tile_bf16<D>(dOs, dout, dos, b, h, q0, Sq, vec);
-      if (threadIdx.x < kTile) {
-        const int row = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = row < Sq ? lse[stat + row] : 0.f;
-        delta_s[threadIdx.x] = row < Sq ? delta[stat + row] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 1
-      for (int c0 = 0; c0 < kTile; c0 += kCols) {
-        // S^T and dP^T for query columns [c0, c0 + kCols)
-        float s[kCols / 8][4], dp[kCols / 8][4];
-#pragma unroll
-        for (int j = 0; j < kCols / 8; ++j)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) s[j][c] = dp[j][c] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          uint32_t ak[4], av[4];
-          load_a<ST>(ak, Ks, warp * 16, kk * 16, g, t);
-          load_a<ST>(av, Vs, warp * 16, kk * 16, g, t);
-#pragma unroll
-          for (int j = 0; j < kCols / 8; ++j) {
-            uint32_t b0, b1;
-            load_bt<ST>(b0, b1, Qs, c0 + j * 8, kk * 16, g, t);
-            mma_bf16(s[j], ak, b0, b1);
-            load_bt<ST>(b0, b1, dOs, c0 + j * 8, kk * 16, g, t);
-            mma_bf16(dp[j], av, b0, b1);
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < kCols / 8; ++j)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int key = keys[c >> 1];
-            const int qc = c0 + j * 8 + 2 * t + (c & 1);
-            const int row = q0 + qc;
-            const float sc = (!causal || row >= key) ? s[j][c] * scale : kNegInf;
-            const float p =
-                (row < Sq && key < Sk) ? expf(sc - lse_s[qc]) : 0.f;
-            s[j][c] = p;                                         // P^T
-            dp[j][c] = p * (dp[j][c] - delta_s[qc]) * scale;     // dS^T
-          }
-        // dV += P^T . dO and dK += dS^T . Q over these query rows
-#pragma unroll
-        for (int kk = 0; kk < kCols / 16; ++kk) {
-          const uint32_t ap[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                                  pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                                  pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                                  pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-          const uint32_t ads[4] = {
-              pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
-              pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
-              pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-              pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
-#pragma unroll
-          for (int n2 = 0; n2 < D / 16; ++n2) {
-            uint32_t bb[4];
-            load_b_trans<ST>(bb, dOs, c0 + kk * 16, n2 * 16, lane);
-            mma_bf16(dv_acc[2 * n2], ap, bb[0], bb[1]);
-            mma_bf16(dv_acc[2 * n2 + 1], ap, bb[2], bb[3]);
-            load_b_trans<ST>(bb, Qs, c0 + kk * 16, n2 * 16, lane);
-            mma_bf16(dk_acc[2 * n2], ads, bb[0], bb[1]);
-            mma_bf16(dk_acc[2 * n2 + 1], ads, bb[2], bb[3]);
-          }
-        }
+  if (threadIdx.x >= 32 * kConsumerWarps) {
+    // the producer warp
+    if (threadIdx.x == 32 * kConsumerWarps) {
+      mbar_arrive_expect(q_full, rows * D * 2);
+      for (int x = 0; x < kBoxes; ++x)
+        tma_load_4d(Qs + x * kQBox, &tq, q_full, x * kBox, g * rep, q0, b);
+      for (int it = 0; it < nk; ++it) {
+        const int k0 = (nk - 1 - it) * kFwdKeys;
+        const int st = it % kStages;
+        const uint32_t ph = (it / kStages) & 1;
+        mbar_wait(k_empty + st, ph ^ 1);
+        mbar_arrive_expect(k_full + st, kFwdKeys * D * 2);
+        for (int x = 0; x < kBoxes; ++x)
+          tma_load_4d(Ks + (st * kBoxes + x) * kKBox, &tk, k_full + st,
+                      x * kBox, g, k0, b);
+        mbar_wait(v_empty + st, ph ^ 1);
+        mbar_arrive_expect(v_full + st, kFwdKeys * D * 2);
+        for (int x = 0; x < kBoxes; ++x)
+          tma_load_4d(Vs + (st * kBoxes + x) * kKBox, &tv, v_full + st,
+                      x * kBox, g, k0, b);
       }
     }
+  } else {
+    // a consumer: rows [64 cw, 64 cw + 64) of the block
+    const int cw = threadIdx.x / 128;
+    const int t = threadIdx.x % 128;
+    const int lane = t & 31;
+    const int c = lane & 3;
+    int pos[2], head[2];
+    bool live[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = cw * 64 + (t >> 5) * 16 + (lane >> 2) + 8 * i;
+      pos[i] = q0 + r / rep;
+      head[i] = g * rep + r % rep;
+      live[i] = r < rows && pos[i] < Sq;
+    }
+    float o[D / 2];
+#pragma unroll
+    for (int n = 0; n < D / 2; ++n) o[n] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};   // this thread's part of each row's sum
+
+    mbar_wait(q_full, 0);
+    for (int it = 0; it < nk; ++it) {
+      const int k0 = (nk - 1 - it) * kFwdKeys;
+      const int st = it % kStages;
+      const uint32_t ph = (it / kStages) & 1;
+      float s[kFwdKeys / 2];
+      const uint32_t qa = smem_addr(Qs) + cw * 64 * 128;
+      const uint32_t ka = smem_addr(Ks) + st * kBoxes * kKBox;
+      mbar_wait(k_full + st, ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n128(s, kmajor(qa + (kk / 4) * kQBox + (kk % 4) * 32),
+                      kmajor(ka + (kk / 4) * kKBox + (kk % 4) * 32), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      if (lane == 0) mbar_arrive(k_empty + st);
+
+      if (k0 + kFwdKeys > Sk || (causal && k0 + kFwdKeys - 1 > q0)) {
+#pragma unroll
+        for (int j = 0; j < kFwdKeys / 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int col = k0 + 8 * j + 2 * c + e;
+              if (col >= Sk || (causal && col > pos[i]))
+                s[4 * j + 2 * i + e] = -INFINITY;
+            }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < kFwdKeys / 8; ++j)
+          mx = fmaxf(mx, fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
+        const float m_new = fmaxf(m[i], quad_max(mx) * scale_log2);
+        const float base = m_new == -INFINITY ? 0.f : m_new;
+        const float corr = ex2(m[i] - base);
+        m[i] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < kFwdKeys / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[4 * j + 2 * i + e];
+            x = ex2(fmaf(x, scale_log2, -base));
+            sum += x;
+          }
+        l[i] = l[i] * corr + sum;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          o[4 * n + 2 * i] *= corr;
+          o[4 * n + 2 * i + 1] *= corr;
+        }
+      }
+      uint32_t pa[kFwdKeys / 16][4];
+      to_a_frags<kFwdKeys / 16>(pa, s);
+      fence_regs(o);
+      const uint32_t va = smem_addr(Vs) + st * kBoxes * kKBox;
+      mbar_wait(v_full + st, ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kFwdKeys / 16; ++kk)
+        wgmma_rs<D>(o, pa[kk], mnmajor(va + kk * 16 * 128, kKBox));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      if (lane == 0) mbar_arrive(v_empty + st);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float sum = quad_sum(l[i]);
+      if (!live[i]) continue;
+      const float safe_l = sum == 0.f ? 1.f : sum;
+      bf16* orow = out + b * os.b + pos[i] * os.s + head[i] * os.h + 2 * c;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(orow + 8 * n) =
+            pack_bf16(o[4 * n + 2 * i] / safe_l, o[4 * n + 2 * i + 1] / safe_l);
+      if (c == 0)
+        lse[(static_cast<long long>(b) * H + head[i]) * Sq + pos[i]] =
+            m[i] * kLn2 + logf(safe_l);
+    }
+  }
+}
+
+// dK / dV: replaces paddle_tpu/ops/pallas_flash.py::_bwd_dkv_kernel for
+// bf16.
+//
+// Bound on an H100: the operations.  At the training shape the four
+// products (S^T, dP^T, dV, dK) are 550 GFLOP on 2.2 MB; at 989 TFLOP/s
+// 0.56 ms.  What the design does about it:
+//   * one block per (batch, KV head, 128-key tile); each consumer owns 64
+//     keys and keeps its dK and dV accumulators (64 x D fp32 each) in
+//     registers (over 220 a thread at D = 128, which is why the block has
+//     no ninth, producer warp: consumer thread 0 issues the loads);
+//     the K and V tiles are loaded once by TMA and stay in shared memory;
+//   * the block walks the group's query heads and, for each, the 64-row
+//     query tiles from the diagonal on; Q, dO and the tile's lse and delta
+//     slices (1-d tensor maps over the flat [B, H, Sq] arrays) stream
+//     through a 2-stage TMA ring;
+//   * S^T = K.Q^T and dP^T = V.dO^T on wgmma m64n64k16 with K and V as the
+//     shared-memory A operand; then dV += P^T.dO and dK += dS^T.Q with P^T
+//     and dS^T rounded to bf16 in registers as the A operand and dO and Q
+//     read MN-major from the same tiles;
+//   * P = exp2(s * log2(e) * scale - lse * log2(e)), one FMA a score;
+//   * each block writes its keys' dK and dV once: no atomics, so the
+//     results are deterministic.
+template <int D>
+__global__ void __launch_bounds__(kDkvThreads, 1)
+    flash_bwd_dkv_tma_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const __grid_constant__ CUtensorMap tdo,
+                             const __grid_constant__ CUtensorMap tlse,
+                             const __grid_constant__ CUtensorMap tdelta,
+                             bf16* __restrict__ dk, bf16* __restrict__ dv,
+                             Strides dks, Strides dvs, int B, int H, int Hkv,
+                             int Sq, int Sk, float scale, int causal) {
+  using namespace hopper;
+  constexpr int kBoxes = D / kBox;
+  constexpr int kKBox = kDkvKeys * 128;   // bytes of one box of K or V
+  constexpr int kQBox = kDkvRows * 128;   // ... of a Q or dO tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Ks = align1024(smem_raw);
+  unsigned char* Vs = Ks + kBoxes * kKBox;
+  unsigned char* Qs = Vs + kBoxes * kKBox;               // [stage][box]
+  unsigned char* dOs = Qs + kStages * kBoxes * kQBox;    // [stage][box]
+  float* lse_s = reinterpret_cast<float*>(dOs + kStages * kBoxes * kQBox);
+  float* delta_s = lse_s + kStages * kStatSlot;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(delta_s + kStages * kStatSlot);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int rep = H / Hkv;
+  const int n_bh = Hkv * B;
+  const int kt = static_cast<int>(blockIdx.x) / n_bh;  // heaviest first
+  const int g = static_cast<int>(blockIdx.x) % n_bh % Hkv;
+  const int b = static_cast<int>(blockIdx.x) % n_bh / Hkv;
+  const int k0 = kt * kDkvKeys;
+  const int nq = (Sq + kDkvRows - 1) / kDkvRows;
+  const int q_first = causal ? k0 / kDkvRows : 0;  // tiles holding q >= k0
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // The block's walk: step it is query tile q_first + it % n_qt of the
+  // group's query head it / n_qt, in stage it % kStages.
+  const int n_qt = max(nq - q_first, 0);
+  const int n_it = rep * n_qt;
+  auto issue = [&](int it) {
+    const int h = g * rep + it / n_qt;
+    const int qt = q_first + it % n_qt;
+    const int st = it % kStages;
+    mbar_arrive_expect(full + st, 2 * kDkvRows * D * 2 + 2 * kStatBox * 4);
+    for (int x = 0; x < kBoxes; ++x) {
+      tma_load_4d(Qs + (st * kBoxes + x) * kQBox, &tq, full + st, x * kBox, h,
+                  qt * kDkvRows, b);
+      tma_load_4d(dOs + (st * kBoxes + x) * kQBox, &tdo, full + st, x * kBox,
+                  h, qt * kDkvRows, b);
+    }
+    const int flat = ((b * H + h) * Sq + qt * kDkvRows) & ~3;
+    tma_load_1d(lse_s + st * kStatSlot, &tlse, full + st, flat);
+    tma_load_1d(delta_s + st * kStatSlot, &tdelta, full + st, flat);
+  };
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect(kv_full, 2 * kDkvKeys * D * 2);
+    for (int x = 0; x < kBoxes; ++x) {
+      tma_load_4d(Ks + x * kKBox, &tk, kv_full, x * kBox, g, k0, b);
+      tma_load_4d(Vs + x * kKBox, &tv, kv_full, x * kBox, g, k0, b);
+    }
+    for (int it = 0; it < min(kStages, n_it); ++it) issue(it);
+  }
+  __syncwarp();
+
+  // consumer warpgroup cw owns keys [k0 + 64 cw, k0 + 64 cw + 64)
+  const int cw = threadIdx.x / 128;
+  const int t = threadIdx.x % 128;
+  const int lane = t & 31;
+  const int c = lane & 3;
+  int key[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    key[i] = k0 + cw * 64 + (t >> 5) * 16 + (lane >> 2) + 8 * i;
+  const float scale_log2 = scale * kLog2e;
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int n = 0; n < D / 2; ++n) dk_acc[n] = dv_acc[n] = 0.f;
+
+  mbar_wait(kv_full, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % kStages;
+    const uint32_t ph = (it / kStages) & 1;
+    const int q0 = (q_first + it % n_qt) * kDkvRows;
+    const int stat0 = (b * H + g * rep + it / n_qt) * Sq;
+    float s[kDkvRows / 2], dp[kDkvRows / 2];
+    const uint32_t ka = smem_addr(Ks) + cw * 64 * 128;
+    const uint32_t qa = smem_addr(Qs) + st * kBoxes * kQBox;
+    mbar_wait(full + st, ph);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(s, kmajor(ka + (kk / 4) * kKBox + (kk % 4) * 32),
+                   kmajor(qa + (kk / 4) * kQBox + (kk % 4) * 32), kk);
+    const uint32_t va = smem_addr(Vs) + cw * 64 * 128;
+    const uint32_t da_ = smem_addr(dOs) + st * kBoxes * kQBox;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(dp, kmajor(va + (kk / 4) * kKBox + (kk % 4) * 32),
+                   kmajor(da_ + (kk / 4) * kQBox + (kk % 4) * 32), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // s = S^T (rows: keys, columns: this tile's queries) -> P^T,
+    // dp = dP^T -> dS^T
+    const bool edge = q0 + kDkvRows > Sq || k0 + kDkvKeys > Sk ||
+                      (causal && q0 < k0 + kDkvKeys - 1);
+    const int shift = (stat0 + q0) & 3;   // where the slice starts
+    const float* lse_t = lse_s + st * kStatSlot + shift;
+    const float* delta_t = delta_s + st * kStatSlot + shift;
+#pragma unroll
+    for (int j = 0; j < kDkvRows / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * c + e;
+        const int q = q0 + col;
+        const float lse2 = lse_t[col] * kLog2e;
+        const float dl = delta_t[col];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int x = 4 * j + 2 * i + e;
+          float p = ex2(fmaf(s[x], scale_log2, -lse2));
+          if (edge && !(q < Sq && key[i] < Sk && (!causal || q >= key[i])))
+            p = 0.f;
+          s[x] = p;
+          dp[x] = p * (dp[x] - dl) * scale;
+        }
+      }
+    uint32_t pa[kDkvRows / 16][4], da[kDkvRows / 16][4];
+    to_a_frags<kDkvRows / 16>(pa, s);
+    to_a_frags<kDkvRows / 16>(da, dp);
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    wgmma_fence();
+    const uint32_t doa = smem_addr(dOs) + st * kBoxes * kQBox;
+#pragma unroll
+    for (int kk = 0; kk < kDkvRows / 16; ++kk)
+      wgmma_rs<D>(dv_acc, pa[kk], mnmajor(doa + kk * 16 * 128, kQBox));
+    const uint32_t qb = smem_addr(Qs) + st * kBoxes * kQBox;
+#pragma unroll
+    for (int kk = 0; kk < kDkvRows / 16; ++kk)
+      wgmma_rs<D>(dk_acc, da[kk], mnmajor(qb + kk * 16 * 128, kQBox));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    if (lane == 0) mbar_arrive(empty + st);
+    // refill this stage with step it + kStages once every warp is done
+    if (threadIdx.x == 0 && it + kStages < n_it) {
+      mbar_wait(empty + st, ph);
+      issue(it + kStages);
+    }
+    __syncwarp();   // the wgmmas ahead need the whole warp
   }
 
 #pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int key = keys[hf];
-    if (key >= Sk) continue;
-    bf16* ok = dk + b * dks.b + key * dks.s + kv * dks.h + 2 * t;
-    bf16* ov = dv + b * dvs.b + key * dvs.s + kv * dvs.h + 2 * t;
+  for (int i = 0; i < 2; ++i) {
+    if (key[i] >= Sk) continue;
+    bf16* ok = dk + b * dks.b + key[i] * dks.s + g * dks.h + 2 * c;
+    bf16* ov = dv + b * dvs.b + key[i] * dvs.s + g * dvs.h + 2 * c;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(ok + n * 8) =
-          pack_bf16(dk_acc[n][2 * hf], dk_acc[n][2 * hf + 1]);
-      *reinterpret_cast<uint32_t*>(ov + n * 8) =
-          pack_bf16(dv_acc[n][2 * hf], dv_acc[n][2 * hf + 1]);
+      *reinterpret_cast<uint32_t*>(ok + 8 * n) =
+          pack_bf16(dk_acc[4 * n + 2 * i], dk_acc[4 * n + 2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(ov + 8 * n) =
+          pack_bf16(dv_acc[4 * n + 2 * i], dv_acc[4 * n + 2 * i + 1]);
     }
   }
 }
@@ -915,28 +1184,131 @@ int rows_aligned(std::initializer_list<const void*> inputs,
   return 1;
 }
 
-// bf16 shared memory: tiles of 64 rows padded to D + 8 bf16.
+// bf16 shared memory of the dQ kernel: tiles of 64 rows padded to D + 8.
 constexpr int mma_tile_bytes(int D) { return kTile * (D + 8) * 2; }
 
-// The host side of each kernel: fp32 inputs take the FMA kernels, bf16
-// inputs the tensor-core ones.
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query
+// so that the library needs no -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The tensor map of a bf16 [B, S, heads, D] tensor with element strides st:
+// dims (D, heads, S, B), boxes of (64, box_heads, box_rows, 1) with the
+// 128-byte swizzle; rows past S read as zeros.  TMA needs a 16-byte-aligned
+// base and strides that are multiples of 16 bytes (the wrapper copies other
+// inputs to contiguous ones first); the stride of a dim of extent 1 is never
+// used and is replaced by its contiguous value.
+cudaError_t bf16_map(CUtensorMap* map, const void* ptr, Strides st, int B,
+                     int S, int heads, int D, int box_heads, int box_rows) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const long long sh = heads > 1 ? st.h : D;
+  const long long ss = S > 1 ? st.s : sh * heads;
+  const long long sb = B > 1 ? st.b : ss * S;
+  if (reinterpret_cast<uintptr_t>(ptr) % 16 || (sh | ss | sb) % 8)
+    return cudaErrorMisalignedAddress;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {kBox, static_cast<cuuint32_t>(box_heads),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
+// The tensor map of a flat fp32 array of n values (lse or delta, [B, H, Sq]
+// contiguous) in boxes of kStatBox values, one dK/dV query tile's slice and
+// the up to 3 values before it; values past n read as zeros.
+cudaError_t stat_map(CUtensorMap* map, const void* ptr, long long n) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  if (reinterpret_cast<uintptr_t>(ptr) % 16) return cudaErrorMisalignedAddress;
+  const cuuint64_t dims[1] = {static_cast<cuuint64_t>(n)};
+  const cuuint64_t unused[1] = {static_cast<cuuint64_t>((n * 4 + 15) / 16 * 16)};
+  const cuuint32_t box[1] = {kStatBox};
+  const cuuint32_t unit[1] = {1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1,
+                const_cast<void*>(ptr), dims, unused, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of the TMA kernels: 1024 bytes of slack to align
+// the tiles, the tiles, the lse and delta stages and the mbarriers.
+constexpr int fwd_tma_bytes(int D) {
+  return 1024 + (kFwdRows + 2 * kStages * kFwdKeys) * D * 2 +
+         (1 + 4 * kStages) * 8;
+}
+constexpr int dkv_tma_bytes(int D) {
+  return 1024 + (2 * kDkvKeys + 2 * kStages * kDkvRows) * D * 2 +
+         2 * kStages * kStatSlot * 4 + (1 + 2 * kStages) * 8;
+}
+
+// The host side of each kernel: fp32 inputs take the FMA kernels; bf16
+// inputs take the TMA/wgmma kernels (forward, dK/dV) and the mma.sync one
+// (dQ).
 template <typename T, int D>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
                 void* lse, const long long* st, int B, int H, int Hkv, int Sq,
                 int Sk, float scale, int causal, cudaStream_t stream) {
-  const dim3 grid((Sq + kTile - 1) / kTile, H, B);
   cudaError_t err;
   if constexpr (std::is_same_v<T, bf16>) {
-    const int bytes = 3 * mma_tile_bytes(D);
-    auto kernel = flash_fwd_mma_kernel<D>;
+    const int rep = H / Hkv;
+    const int per = kFwdRows / rep;
+    if (per < 1) return cudaErrorInvalidValue;
+    CUtensorMap tq, tk, tv;
+    if ((err = bf16_map(&tq, q, strides_at(st, 0), B, Sq, H, D, rep, per)) !=
+            cudaSuccess ||
+        (err = bf16_map(&tk, k, strides_at(st, 1), B, Sk, Hkv, D, 1,
+                        kFwdKeys)) != cudaSuccess ||
+        (err = bf16_map(&tv, v, strides_at(st, 2), B, Sk, Hkv, D, 1,
+                        kFwdKeys)) != cudaSuccess)
+      return err;
+    const int bytes = fwd_tma_bytes(D);
+    auto kernel = flash_fwd_tma_kernel<D>;
     if ((err = allow_smem(kernel, bytes)) != cudaSuccess) return err;
-    kernel<<<grid, kMmaThreads, bytes, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(out),
-        static_cast<float*>(lse), strides_at(st, 0), strides_at(st, 1),
-        strides_at(st, 2), strides_at(st, 3), H, Hkv, Sq, Sk, scale, causal,
-        rows_aligned({q, k, v}, st));
+    const int blocks = (Sq + per - 1) / per * Hkv * B;
+    kernel<<<blocks, kFwdThreads, bytes, stream>>>(
+        tq, tk, tv, static_cast<bf16*>(out), static_cast<float*>(lse),
+        strides_at(st, 3), B, H, Hkv, Sq, Sk, scale * kLog2e, causal);
   } else {
+    const dim3 grid((Sq + kTile - 1) / kTile, H, B);
     const int bytes = 3 * tile_bytes(D) + p_bytes();
     auto kernel = flash_fwd_kernel<D>;
     if ((err = allow_smem(kernel, bytes)) != cudaSuccess) return err;
@@ -989,21 +1361,32 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
                     void* dk, void* dv, const long long* st, int B, int H,
                     int Hkv, int Sq, int Sk, float scale, int causal,
                     cudaStream_t stream) {
-  const dim3 grid((Sk + kTile - 1) / kTile, Hkv, B);
   cudaError_t err;
   if constexpr (std::is_same_v<T, bf16>) {
-    const int bytes = 4 * mma_tile_bytes(D) + 2 * kTile * 4;
-    auto kernel = flash_bwd_dkv_mma_kernel<D>;
+    CUtensorMap tq, tk, tv, tdo, tlse, tdelta;
+    if ((err = bf16_map(&tq, q, strides_at(st, 0), B, Sq, H, D, 1,
+                        kDkvRows)) != cudaSuccess ||
+        (err = bf16_map(&tk, k, strides_at(st, 1), B, Sk, Hkv, D, 1,
+                        kDkvKeys)) != cudaSuccess ||
+        (err = bf16_map(&tv, v, strides_at(st, 2), B, Sk, Hkv, D, 1,
+                        kDkvKeys)) != cudaSuccess ||
+        (err = bf16_map(&tdo, dout, strides_at(st, 3), B, Sq, H, D, 1,
+                        kDkvRows)) != cudaSuccess ||
+        (err = stat_map(&tlse, lse, static_cast<long long>(B) * H * Sq)) !=
+            cudaSuccess ||
+        (err = stat_map(&tdelta, delta, static_cast<long long>(B) * H * Sq)) !=
+            cudaSuccess)
+      return err;
+    const int bytes = dkv_tma_bytes(D);
+    auto kernel = flash_bwd_dkv_tma_kernel<D>;
     if ((err = allow_smem(kernel, bytes)) != cudaSuccess) return err;
-    kernel<<<grid, kMmaThreads, bytes, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<bf16*>(dk), static_cast<bf16*>(dv), strides_at(st, 0),
-        strides_at(st, 1), strides_at(st, 2), strides_at(st, 3),
-        strides_at(st, 4), strides_at(st, 5), H, Hkv, Sq, Sk, scale, causal,
-        rows_aligned({q, k, v, dout}, st));
+    const int blocks = (Sk + kDkvKeys - 1) / kDkvKeys * Hkv * B;
+    kernel<<<blocks, kDkvThreads, bytes, stream>>>(
+        tq, tk, tv, tdo, tlse, tdelta, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), strides_at(st, 4), strides_at(st, 5), B, H,
+        Hkv, Sq, Sk, scale, causal);
   } else {
+    const dim3 grid((Sk + kTile - 1) / kTile, Hkv, B);
     const int bytes = 4 * tile_bytes(D) + p_bytes() + 2 * kTile * 4;
     auto kernel = flash_bwd_dkv_kernel<D>;
     if ((err = allow_smem(kernel, bytes)) != cudaSuccess) return err;

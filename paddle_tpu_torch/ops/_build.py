@@ -5,8 +5,9 @@ compiled by ``nvcc`` into its own shared library, which is loaded with
 ``ctypes``.  No PyTorch header is compiled, so a build takes seconds.
 
 The library lands in ``paddle_tpu_torch/_build/`` (listed in
-``.gitignore``), keyed by a hash of the source and the flags: the first use
-after a change builds it, later uses load it.  Nothing is built when this
+``.gitignore``), keyed by a hash of the source, every ``csrc/*.cuh`` header
+and the flags: the first use after a change to any of them builds it,
+later uses load it.  Nothing is built when this
 module is imported; a kernel wrapper calls :func:`load` the first time it
 launches.  When ``nvcc`` fails, :class:`KernelBuildFailed` carries its
 standard error.
@@ -56,11 +57,13 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` is built: the name carries a
-    hash of the source and the flags, so an edit rebuilds it."""
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    hash of the source, of every header in ``csrc/`` (name and bytes) and of
+    the flags, so an edit to any of them rebuilds it."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

@@ -22,8 +22,15 @@ Written twice against this one interface:
   mode; on the card they are what the kernels are compared with.
 * the hand-written CUDA kernels of ``csrc/flash_attention.cu``
   (:func:`fwd_kernel`, :func:`bwd_dq_kernel`, :func:`bwd_dkv_kernel`), which
-  replace the three Pallas kernels: bf16 inputs on the tensor cores
-  (``mma.sync``), fp32 inputs on fp32 FMAs.
+  replace the three Pallas kernels: bf16 forward and dK/dV on Hopper's TMA
+  and ``wgmma``, bf16 dQ on ``mma.sync``, fp32 inputs on fp32 FMAs.
+
+:func:`route` is the rule that picks among them, a pure function of the
+device, dtype, head dim, pointers and strides.  TMA reads a tensor in
+place only from a 16-byte-aligned base with strides that are multiples of
+16 bytes; a bf16 input that is not so (a view with odd strides) is copied
+to a contiguous tensor first, and :data:`copy_launches` counts the launches
+that took that route.
 
 :class:`FlashAttention` is the ``torch.autograd.Function`` that mirrors the
 JAX ``custom_vjp``: the forward saves ``(q, k, v, out, lse)``; the backward
@@ -53,6 +60,10 @@ last_path: Optional[str] = None
 fwd_launches = 0
 dq_launches = 0
 dkv_launches = 0
+# Forward and dK/dV launches whose bf16 inputs were copied to contiguous
+# tensors first (route "copy"), and the route of the most recent one.
+copy_launches = 0
+last_route: Optional[str] = None
 
 _KERNEL = "flash_attention"
 DTYPES = (torch.float32, torch.bfloat16)   # the dtypes the kernels take
@@ -188,6 +199,55 @@ def _check(op, named, stats=()):
                          f"{tuple(k.shape)}")
 
 
+def _tma_ready(ptr, shape, stride):
+    """Whether TMA reads a ``[B, S, heads, D]`` bf16 tensor in place: a
+    16-byte-aligned base, and the b, s and head strides of every dim longer
+    than 1 multiples of 8 elements (16 bytes; a dim of extent 1 is never
+    stepped over)."""
+    return ptr % 16 == 0 and all(
+        st % 8 == 0 for n, st in zip(shape[:3], stride[:3]) if n > 1)
+
+
+def route(device_type, dtype, head_dim, layouts):
+    """Which code computes the forward or dK/dV for these inputs:
+
+    * ``"reference"``: a tensor on the CPU takes the plain twin;
+    * ``"fma"``: fp32 takes the FMA kernel;
+    * ``"tma"``: bf16 whose every input TMA reads in place takes the
+      TMA/``wgmma`` kernel;
+    * ``"copy"``: other bf16 inputs are copied to contiguous tensors, then
+      take the TMA/``wgmma`` kernel.
+
+    ``layouts`` holds ``(data_ptr, shape, stride)`` of each
+    ``[B, S, heads, D]`` input.  Raises on a dtype or head dim the kernels do
+    not take."""
+    if device_type != "cuda":
+        return "reference"
+    if dtype not in DTYPES:
+        raise TypeError(f"flash kernels: inputs must be float32 or "
+                        f"bfloat16, got {dtype}")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"flash kernels: head dim {head_dim} is not one of "
+                         f"{HEAD_DIMS}")
+    if dtype == torch.float32:
+        return "fma"
+    return "tma" if all(_tma_ready(*lay) for lay in layouts) else "copy"
+
+
+def _routed(tensors):
+    """The inputs as the kernel reads them: contiguous copies on the copy
+    route, else the inputs themselves."""
+    global copy_launches, last_route
+    q = tensors[0]
+    way = route(q.device.type, q.dtype, q.shape[-1],
+                [(t.data_ptr(), tuple(t.shape), t.stride()) for t in tensors])
+    if way == "copy":
+        tensors = [t.contiguous() for t in tensors]
+        copy_launches += 1
+    last_route = way
+    return tensors
+
+
 def _strides(*tensors):
     """The (b, s, head) element strides of each tensor, as a C array."""
     vals = [s for t in tensors for s in t.stride()[:3]]
@@ -210,9 +270,11 @@ def _shape_args(q, k):
 def fwd_kernel(q, k, v, causal):
     """Launch the forward kernel on the current stream; returns ``(out,
     lse)``.  Raises on inputs it does not take, when it cannot be built, and
-    when the launch is refused."""
+    when the launch is refused.  bf16 inputs that TMA cannot read in place
+    are copied first (:func:`route`)."""
     global fwd_launches
     _check("forward", [("q", q), ("k", k), ("v", v)])
+    q, k, v = _routed([q, k, v])
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     B, Sq, H, D = q.shape
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
@@ -248,10 +310,13 @@ def bwd_dq_kernel(q, k, v, do, lse, delta, causal):
 
 
 def bwd_dkv_kernel(q, k, v, do, lse, delta, causal):
-    """Launch the dK/dV kernel; returns ``(dK, dV)`` ``[B, Sk, Hkv, D]``."""
+    """Launch the dK/dV kernel; returns ``(dK, dV)`` ``[B, Sk, Hkv, D]``.
+    bf16 inputs that TMA cannot read in place are copied first
+    (:func:`route`)."""
     global dkv_launches
     _check("dkv", [("q", q), ("k", k), ("v", v), ("do", do)],
            [("lse", lse), ("delta", delta)])
+    q, k, v, do = _routed([q, k, v, do])
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     lib = _lib()

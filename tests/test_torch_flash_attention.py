@@ -14,12 +14,19 @@ On the CPU (fp32, inputs from numpy seeds):
 * ``flash_attention_fwd`` takes the JAX package's off-TPU path for each
   shape, and ``use_pallas=True`` raises on a CPU tensor;
 * ``flash.rowwise_error``, the measure of the card's checks, passes bf16
-  rounding and fails a zeroed last tile at a causal shape.
+  rounding and fails a zeroed last tile at a causal shape;
+* ``flash.route``, the wrappers' rule, as a pure function of device, dtype,
+  head dim, pointer alignment and strides: aligned bf16 takes the TMA
+  kernels, unaligned bf16 a contiguous copy and then the TMA kernels, fp32
+  the FMA kernels, a CPU tensor the twins.
 
 The tests marked ``cuda`` hold the three CUDA kernels to the twins on the
 card by ``flash.rowwise_error`` (fp32 within 1e-4; bf16 within 2e-2 of the
-twins run in fp32 on the same bf16 inputs), including lengths that are not a multiple of the 64-row tile, strided and
-unaligned inputs and the launch counters; they skip elsewhere.  JAX is
+twins run in fp32 on the same bf16 inputs), including lengths that are not
+a multiple of the kernels' 64- and 128-row tiles (130, 4000), GQA groups of
+1, 2, 4 and 8 heads at head dims 64 and 128, strided and unaligned inputs
+(the unaligned bf16 ones counted on the copy route) and the launch
+counters; they skip elsewhere.  JAX is
 imported inside the tests that use it, so this file also runs on a machine
 without JAX
 (``python -m pytest --noconftest -m cuda tests/test_torch_flash_attention.py``).
@@ -252,6 +259,53 @@ def test_kernel_wrappers_reject_cpu_tensors_before_building():
             flash.dkv_launches) == counts
 
 
+def _layout(shape, elem_strides=None, ptr=4096):
+    """(data_ptr, shape, stride) of a [B, S, heads, D] tensor, contiguous
+    unless strides are given."""
+    if elem_strides is None:
+        B, S, n, D = shape
+        elem_strides = (S * n * D, n * D, D, 1)
+    return ptr, shape, elem_strides
+
+
+@pytest.mark.parametrize("device, dtype, layouts, want", [
+    # a CPU tensor takes the twins, whatever its layout
+    ("cpu", torch.bfloat16, [_layout((2, 130, 4, 128), ptr=2)], "reference"),
+    ("cpu", torch.float32, [_layout((2, 130, 4, 128))], "reference"),
+    # fp32 takes the FMA kernels, which read any strides
+    ("cuda", torch.float32, [_layout((2, 130, 4, 128), ptr=4)], "fma"),
+    # aligned bf16: contiguous, and views into a packed [B, S, 4, H, D]
+    ("cuda", torch.bfloat16, [_layout((2, 130, 4, 128)),
+                              _layout((2, 130, 1, 128))], "tma"),
+    ("cuda", torch.bfloat16,
+     [_layout((2, 130, 4, 128), (130 * 4 * 4 * 128, 4 * 4 * 128, 128, 1),
+              ptr=4096 + 2 * 4 * 128 * 2)], "tma"),
+    # a dim of extent 1 is never stepped over: its stride does not matter
+    ("cuda", torch.bfloat16,
+     [_layout((1, 130, 1, 64), (3, 64, 5, 1))], "tma"),
+    # unaligned bf16: a base off 16 bytes, or rows D + 1 apart
+    ("cuda", torch.bfloat16, [_layout((2, 130, 4, 128)),
+                              _layout((2, 130, 1, 128), ptr=4098)], "copy"),
+    ("cuda", torch.bfloat16,
+     [_layout((2, 130, 4, 128), (130 * 4 * 129, 4 * 129, 129, 1))], "copy"),
+    ("cuda", torch.bfloat16,
+     [_layout((2, 130, 4, 64), (130 * 4 * 64 + 4, 4 * 64, 64, 1))], "copy"),
+])
+def test_route_rule(device, dtype, layouts, want):
+    D = layouts[0][1][-1]
+    assert flash.route(device, dtype, D, layouts) == want
+
+
+def test_route_rule_raises_on_what_no_kernel_takes():
+    lay = [_layout((1, 64, 2, 96))]
+    with pytest.raises(ValueError, match="head dim 96"):
+        flash.route("cuda", torch.bfloat16, 96, lay)
+    with pytest.raises(TypeError, match="float16"):
+        flash.route("cuda", torch.float16, 64, [_layout((1, 64, 2, 64))])
+    # on the CPU the twins take any head dim and dtype
+    assert flash.route("cpu", torch.float16, 96, lay) == "reference"
+
+
 # --- on the card --------------------------------------------------------------
 
 @pytest.fixture
@@ -262,10 +316,13 @@ def cuda():
 
 
 # (B, Sq, Sk, H, Hkv, D): tile-aligned, ragged edges (S not a multiple of
-# 64), rectangular, GQA 4:1 / 2:1 / 1:1, head dims 64 and 128
+# the 64- and 128-row tiles: 70, 100, 130, 200, 4000), rectangular, GQA
+# 8:1 / 4:1 / 2:1 / 1:1 at head dims 64 and 128
 CUDA_CASES = [(1, 128, 128, 4, 1, 128), (2, 100, 100, 4, 2, 64),
               (1, 70, 70, 2, 2, 128), (1, 1, 1, 2, 1, 64),
-              (2, 200, 200, 8, 2, 128), (1, 96, 160, 4, 2, 64)]
+              (2, 200, 200, 8, 2, 128), (1, 96, 160, 4, 2, 64),
+              (1, 130, 130, 8, 1, 128), (1, 200, 200, 16, 2, 64),
+              (1, 130, 130, 2, 2, 64), (1, 4000, 4000, 4, 1, 64)]
 
 
 def _cuda_inputs(dev, case, dtype, seed=0):
@@ -315,9 +372,10 @@ def test_cuda_kernels_match_twins(cuda, case, causal, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_kernels_read_through_strides(cuda, dtype, layout):
     """q/k/v/dO as views (no copy) into one packed [B, S, 4, H, D] buffer,
-    or with rows that do not start on 16 bytes (the bf16 kernels' element
-    loads): all three kernels give what they give on contiguous copies,
-    bit for bit."""
+    or with rows that do not start on 16 bytes: all three kernels give what
+    they give on contiguous copies, bit for bit.  TMA reads the packed bf16
+    views in place; the unaligned bf16 ones take the counted copy route
+    (forward and dK/dV; dQ reads them with element loads)."""
     B, S, H, D = 2, 130, 4, 128
     if layout == "packed":
         buf = torch.randn(B, S, 4, H, D, device=cuda).to(dtype)
@@ -326,14 +384,24 @@ def test_cuda_kernels_read_through_strides(cuda, dtype, layout):
         buf = torch.randn(4, B, S, H, D + 1, device=cuda).to(dtype)
         views = [buf[i, ..., 1:] for i in range(4)]
     assert not any(t.is_contiguous() for t in views)
-    results = []
+    results, routes = [], []
     for q, k, v, do in (views, [t.contiguous() for t in views]):
+        copies = flash.copy_launches
         out, lse = flash.fwd_kernel(q, k, v, True)
+        route = flash.last_route
         delta = torch.einsum("bshd,bshd->bhs", do.float(),
                              out.float()).contiguous()
         dq = flash.bwd_dq_kernel(q, k, v, do, lse, delta, True)
         dk, dv = flash.bwd_dkv_kernel(q, k, v, do, lse, delta, True)
+        assert flash.last_route == route
+        routes.append((route, flash.copy_launches - copies))
         results.append((out, lse, dq, dk, dv))
+    if dtype == torch.float32:
+        assert routes == [("fma", 0), ("fma", 0)]
+    elif layout == "packed":
+        assert routes == [("tma", 0), ("tma", 0)]
+    else:
+        assert routes == [("copy", 2), ("tma", 0)]
     torch.cuda.synchronize()
     for got, want in zip(*results):
         assert torch.equal(got, want)
