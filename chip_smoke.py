@@ -26,16 +26,26 @@ these phases, printing one JSON line for each:
              also by profiler device time, beside the bound; a
              ``cpp_extension.load`` host op on a CUDA tensor.
 ``kernels``  the ragged kernel against its plain PyTorch version on the same
-             inputs (fp32 within 1e-4; bf16 within 2e-2 of the plain version
-             run in fp32 on the same bf16 inputs), over the packings of the
-             CPU tests at tiny shapes and over Llama-3-8B's attention shapes
-             (H=32, Hkv=8, D=128, bs=16, T in {8, 64, 256, 512}, tables of up
-             to 64 pages), with times from CUDA events: the kernel, the plain
-             version, one PyTorch library call computing the same function
+             inputs, each (token, head) row against its twin row by
+             ``flash.rowwise_error`` and absolutely (fp32 within 1e-4; bf16
+             within 2e-2 of the plain version run in fp32 on the same bf16
+             inputs), over the packings of the CPU tests at tiny shapes (the
+             simple route) and over Llama-3-8B's attention shapes (H=32,
+             Hkv=8, D=128, bs=16, T in {8, 64, 256, 512}, tables of up to 64
+             pages; bf16 takes the tma route, fp32 the simple one), plus GQA
+             7:1 (H=28, Hkv=4), a chunk starting mid-page and decode-only
+             steps on the tma route; the device work list against its twin
+             at each packing; a planted fault, the kernel's output with the
+             last page of each chunk token's walk dropped, which the row
+             check must refuse at T=512; the launches of each route.  Times
+             from CUDA events: the kernel, the plain version, one PyTorch
+             library call computing the same function
              (``scaled_dot_product_attention`` over the K/V gathered to a
-             dense context beforehand, a yardstick the port never calls) and
-             the bound, the larger of the operations over the card's peak
-             rate and the bytes over its memory rate.
+             dense context beforehand, a yardstick the port never calls)
+             and the bound, the larger of the operations over the card's
+             peak rate and the bytes over its memory rate; at T=512 bf16
+             also the profiler's device time of every device function of
+             the call (work list, chunk, decode and combine kernels).
 ``decode_kernels``  the paged decode kernel against its plain version
              (fp32 within 1e-4, bf16 within 2e-2 of the plain version in
              fp32 on the same bf16 inputs), over the CPU tests' decode
@@ -49,12 +59,12 @@ these phases, printing one JSON line for each:
              from a seeded generator: 8 prompts sharing a 64-token prefix
              through the engine with the kernel and with the plain version;
              the greedy tokens must be identical and the kernel must have
-             launched once per layer per engine step.
+             launched once per layer per engine step, on the simple route.
 ``serve``    Llama-3-8B at full width and depth, bf16 weights and pools:
              16 prompts of 256-2048 tokens, 64 greedy tokens each, through
              ``LLM.generate``; output tokens/s, mean TTFT, mean inter-token
-             latency, engine steps, kernel launches (= steps x layers) and
-             peak device memory.
+             latency, engine steps, kernel launches (= steps x layers, every
+             one on the tma route) and peak device memory.
 ``profile``  torch.profiler over a short window of the same engine: device
              time by kernel, the ragged kernel's and the matrix products'
              shares, and the device's idle share.
@@ -78,8 +88,9 @@ these phases, printing one JSON line for each:
              within 2e-2 of the twins run in fp32 on the same bf16 inputs;
              lse within 1e-4), at the CPU tests' shapes, at the edges of
              the bf16 TMA kernels' tiles (S = 130 and 4000, GQA groups of
-             1, 2, 4 and 8 heads, head dims 64 and 128), on unaligned bf16
-             views that must take the counted copy route (2 copies,
+             1, 2, 4 and 8 heads, head dims 64 and 128, and groups of 7 and
+             3 heads, which fill 126 of a block's 128 rows), on unaligned
+             bf16 views that must take the counted copy route (3 copies,
              results bit-equal to contiguous inputs), and at Llama-3-8B's
              training shape (H=32, Hkv=8, D=128, causal, B=2, S=4096),
              where each output with its last tile zeroed must fail the
@@ -105,7 +116,10 @@ these phases, printing one JSON line for each:
 ``train_profile``  torch.profiler over 2 more train steps: each flash
              kernel's and the matrix products' share of device time, each
              flash kernel's device time a launch, the top kernels and the
-             idle share.
+             idle share; on a line before it (``train_clocks``), the card's
+             SM clock, power draw and temperature sampled by nvidia-smi
+             before and after the window.  The ``kernels`` line's flash
+             rows take their ``device_ms`` from this window.
 
 Then a line ``{"kernels": [...]}`` summarising each kernel at its main
 path's shapes (the ragged kernel at the unified serve step, the decode
@@ -122,6 +136,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -136,7 +151,7 @@ DECODE_NAME = "paged_decode_attention"
 FLASH_NAME = "flash_attention"
 SCALED_NAME = "scaled"
 # the device functions of each kernel, as a profiler names them
-KERNEL_MARKS = ("ragged_paged_attention_kernel",)
+KERNEL_MARKS = ("ragged_",)   # work list, chunk, decode, combine, simple
 DECODE_MARKS = ("paged_decode_kernel", "combine_splits_kernel")
 # (flash_fwd_kernel for fp32 inputs, flash_fwd_tma_kernel for bf16, ...)
 FLASH_MARKS = {"fwd": ("flash_fwd_",), "dq": ("flash_bwd_dq_",),
@@ -146,6 +161,18 @@ MATMUL_MARKS = ("gemm", "xmma", "cutlass", "nvjet", "matmul")
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def gpu_sample() -> dict:
+    """The card's SM clock, power draw and temperature, as nvidia-smi reads
+    them now."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    clock, power, temp = (x.strip() for x in
+                          out.stdout.strip().splitlines()[0].split(","))
+    return {"clocks_sm": clock, "power_draw": power, "temperature": temp}
 
 
 def nvidia_smi_line() -> str:
@@ -239,13 +266,13 @@ def time_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters, marks):
-    """Device time per call of ``fn`` spent in the kernels whose names hold
-    one of ``marks``, from torch.profiler.  Unlike :func:`time_ms` it
-    leaves out the host's cost of issuing each call, which sets the pace of
-    back-to-back calls when the kernel is shorter than that cost."""
+def device_times(fn, iters, marks):
+    """Device time per call of ``fn`` in each kernel whose name holds one of
+    ``marks``, from torch.profiler: {function name: ms}.  Unlike
+    :func:`time_ms` it leaves out the host's cost of issuing each call,
+    which sets the pace of back-to-back calls when the kernels are shorter
+    than that cost.  Raises when it records none in those kernels."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -255,10 +282,22 @@ def device_ms(fn, iters, marks):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
-             and any(m in e.key for m in marks))
-    return us / iters / 1e3
+    times = {}
+    for k, us in device_kernels(prof).items():
+        if any(m in k.lower() for m in marks):
+            name = re.search(r"(\w+)(<[^>(]*>)?\(", k.split("::")[-1])
+            key = name.group(0)[:-1] if name else k[:60]
+            times[key] = times.get(key, 0.0) + us / iters / 1e3
+    if not times:
+        raise AssertionError(f"the profiler recorded no device time in "
+                             f"kernels named {marks}")
+    return times
+
+
+def device_ms(fn, iters, marks):
+    """The device time per call of ``fn`` summed over the kernels whose
+    names hold one of ``marks`` (:func:`device_times`)."""
+    return sum(device_times(fn, iters, marks).values())
 
 
 def library_call(q, k_cache, v_cache, tables, seg, lens, pos):
@@ -286,25 +325,43 @@ def library_call(q, k_cache, v_cache, tables, seg, lens, pos):
     return lambda: F.scaled_dot_product_attention(qd, k, v, attn_mask=mask)
 
 
-def kernel_phase(torch, rp):
+def dropped_last_page(pos, seg, rows, bs):
+    """q_pos with the last page of each walk of the tokens of ``rows``
+    dropped: each such token then attends up to the start of the page that
+    holds its own position (the row's last tokens lose the row's last
+    page); tokens of a row's first page keep their walk.  What a kernel
+    that skipped each walk's last page would compute."""
+    pos = pos.copy()
+    for t in np.flatnonzero(np.isin(seg, list(rows))):
+        if pos[t] >= bs:
+            pos[t] = pos[t] // bs * bs - 1
+    return pos
+
+
+def kernel_phase(torch, rp, flash):
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     checks = []
+    rp.simple_launches = rp.tma_launches = 0
 
-    def check(label, q32, k32, v32, meta, dtype):
+    def check(label, q32, k32, v32, meta, dtype, route):
         q, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
         out = rp.ragged_kernel(q, k, v, *meta)
         torch.cuda.synchronize()
         ref = rp.ragged_reference(q.float(), k.float(), v.float(), *meta)
         err = float((out.float() - ref).abs().max())
+        row = flash.rowwise_error(out, ref)
         tol = 1e-4 if dtype == torch.float32 else 2e-2
-        if not (err <= tol and torch.isfinite(out).all()):
+        if not (err <= tol and row <= tol and torch.isfinite(out).all()
+                and rp.last_route == route):
             raise AssertionError(f"ragged kernel disagrees with the plain "
                                  f"version on {label} {dtype}: max abs err "
-                                 f"{err} > {tol}")
+                                 f"{err}, row err {row} (tol {tol}), route "
+                                 f"{rp.last_route} (due {route})")
         checks.append({"case": label, "dtype": str(dtype).split(".")[-1],
-                       "max_abs_err": err, "tol": tol})
-        return q, k, v, err
+                       "route": route, "max_abs_err": err,
+                       "max_row_err": row, "tol": tol})
+        return q, k, v, err, row, ref
 
     for D in (8, 16):
         for name, (rows, Tb) in tiny_packings().items():
@@ -314,36 +371,63 @@ def kernel_phase(torch, rp):
             k = torch.randn(16, 4, 2, D, device=dev)
             v = torch.randn(16, 4, 2, D, device=dev)
             for dtype in (torch.float32, torch.bfloat16):
-                check(f"tiny {name} D={D}", q, k, v, meta, dtype)
+                check(f"tiny {name} D={D}", q, k, v, meta, dtype, "simple")
 
     H, Hkv, D, bs, W, num_blocks = 32, 8, 128, 16, 64, 4096
     shapes = {8: (8, []), 64: (32, [29]), 256: (16, [120, 119]),
               512: (16, [248, 247])}   # Tb: (decode rows, chunk sizes)
     timings = []
     summary = None
+    work_lists = {}
+    planted = None
     k32 = torch.randn(num_blocks, bs, Hkv, D, device=dev)
     v32 = torch.randn(num_blocks, bs, Hkv, D, device=dev)
     for Tb, (n_decode, chunks) in shapes.items():
         arrays = packing(rng, Tb, n_decode, chunks, W, bs, num_blocks)
         meta = [torch.from_numpy(a).to(dev) for a in arrays]
         q32 = torch.randn(Tb, H, D, device=dev)
+        # the device work list against its plain twin
+        per = rp.tokens_per_item(Tb, H, Hkv)
+        items = rp.worklist_kernel(meta[2], per)
+        if items != rp.work_items(arrays[2], per):
+            raise AssertionError(f"ragged work list at T={Tb} differs from "
+                                 f"its twin")
+        work_lists[Tb] = {"chunk_items": len(items[0]),
+                          "decode_items": len(items[1]), "per": per}
         for dtype in (torch.float32, torch.bfloat16):
             label = f"8b T={Tb} decode={n_decode} chunks={chunks}"
-            q, k, v, err = check(label, q32, k32, v32, meta, dtype)
+            route = "tma" if dtype == torch.bfloat16 else "simple"
+            q, k, v, err, row_err, ref = check(label, q32, k32, v32, meta,
+                                               dtype, route)
             flops, nbytes = work(q, k, *arrays)
             name = str(dtype).split(".")[-1]
             library = library_call(q, k, v, *[meta[i] for i in (0, 2, 1, 3)])
-            ref = rp.ragged_reference(q.float(), k.float(), v.float(), *meta)
             library_err = float((library()[:, :, 0].float() - ref).abs().max())
             if not library_err <= 2e-2:
                 raise AssertionError(f"the library yardstick computes another "
                                      f"function: max abs err {library_err}")
+            if Tb == 512 and dtype == torch.bfloat16:
+                # the planted fault: the last page of each chunk token's
+                # walk dropped must fail the row check
+                pos = dropped_last_page(
+                    arrays[3], arrays[2],
+                    range(n_decode, n_decode + len(chunks)), bs)
+                bad = rp.ragged_kernel(q, k, v, *meta[:3],
+                                       torch.from_numpy(pos).to(dev))
+                planted = {"row": flash.rowwise_error(bad, ref),
+                           "abs": float((bad.float() - ref).abs().max()),
+                           "tol": 2e-2}
+                if not planted["row"] > 2e-2:
+                    raise AssertionError(f"ragged: the dropped last pages "
+                                         f"passed the row check: {planted}")
+                del bad
             del ref
             t_flops = flops / PEAK_FLOPS[name] * 1e3
             t_bytes = nbytes / PEAK_BYTES * 1e3
             row = {
-                "T": Tb, "dtype": name, "decode_rows": n_decode,
-                "chunks": chunks, "max_abs_err": err,
+                "T": Tb, "dtype": name, "route": route,
+                "decode_rows": n_decode, "chunks": chunks,
+                "max_abs_err": err, "max_row_err": row_err,
                 "ms": time_ms(lambda: rp.ragged_kernel(q, k, v, *meta), 20),
                 "plain_ms": time_ms(
                     lambda: rp.ragged_reference(q, k, v, *meta), 5, 1),
@@ -353,14 +437,53 @@ def kernel_phase(torch, rp):
                 "bound_by": "operations" if t_flops > t_bytes else "bytes",
                 "flops": flops, "bytes": nbytes,
             }
-            timings.append(row)
             if Tb == 512 and dtype == torch.bfloat16:
+                parts = device_times(
+                    lambda: rp.ragged_kernel(q, k, v, *meta), 20,
+                    KERNEL_MARKS)
+                row["device_ms"] = sum(parts.values())
+                row["device_ms_by_kernel"] = parts
                 summary = row   # the serve phase's step shape and types
+            timings.append(row)
             del library
             torch.cuda.empty_cache()
+    del k32, v32
+    torch.cuda.empty_cache()
+
+    # the tma route at GQA 7:1, a chunk starting mid-page, decode-only steps
+    extra = {
+        "gqa 7:1 T=256": (28, 4, 256, 16, [120, 119], None),
+        "chunks from mid-page T=128": (32, 8, 128, 3, [37, 50, 19],
+                                       [bs + 5, 3 * bs - 1, 7]),
+        "decode only T=16": (32, 8, 16, 16, [], None),
+        "gqa 7:1 decode only T=8": (28, 4, 8, 8, [], None),
+    }
+    for label, (h, hkv, Tb, n_decode, chunks, starts) in extra.items():
+        rows = []
+        for i, n in enumerate([1] * n_decode + chunks):
+            kv = int(rng.integers(n, W * bs + 1))
+            if starts is not None and i >= n_decode:
+                kv = starts[i - n_decode] + n
+            pages = rng.choice(np.arange(1, 1024), -(-kv // bs),
+                               replace=False)
+            rows.append((pages, kv, list(range(kv - n, kv))))
+        meta = [torch.from_numpy(a).to(dev)
+                for a in pack_rows(rows, Tb, W)]
+        check(label, torch.randn(Tb, h, D, device=dev),
+              torch.randn(1024, bs, hkv, D, device=dev),
+              torch.randn(1024, bs, hkv, D, device=dev), meta,
+              torch.bfloat16, "tma")
+    routes = {"simple": rp.simple_launches, "tma": rp.tma_launches}
     emit("kernels", name=KERNEL_NAME, checks=len(checks),
-         worst=max(checks, key=lambda c: c["max_abs_err"] / c["tol"]),
-         timings=timings)
+         worst=max(checks, key=lambda c: max(c["max_abs_err"],
+                                             c["max_row_err"]) / c["tol"]),
+         planted_dropped_pages=planted, work_lists=work_lists,
+         route_launches=routes, timings=timings,
+         note="max_row_err is flash.rowwise_error over (token, head) rows; "
+              "planted: the kernel's output at T=512 bf16 with the last "
+              "page of each chunk token's walk dropped, read by it (must "
+              "exceed tol) and absolutely; route_launches counts every "
+              "launch of this phase, checks and timing loops included")
     return summary
 
 
@@ -525,7 +648,7 @@ def identity_phase(torch, rp, serving, LlamaConfig, LlamaForCausalLM):
             unified_step=True, use_pallas_paged=route,
             scheduler=serving.SchedulerConfig(max_num_seqs=8,
                                               max_tokens_per_step=256)))
-        rp.launches = 0
+        rp.launches = rp.simple_launches = rp.tma_launches = 0
         reqs = [eng.add_request(p, serving.SamplingParams(max_new_tokens=16))
                 for p in prompts]
         t0 = time.perf_counter()
@@ -534,6 +657,8 @@ def identity_phase(torch, rp, serving, LlamaConfig, LlamaForCausalLM):
         results[route] = {
             "tokens": [list(r.output_tokens) for r in reqs],
             "launches": rp.launches, "steps": eng.ragged_launches,
+            "route_launches": {"simple": rp.simple_launches,
+                               "tma": rp.tma_launches},
             "seconds": time.perf_counter() - t0,
             "prefix_hit_tokens": eng.metrics.counters[
                 "prefix_cache_hit_tokens"],
@@ -544,10 +669,12 @@ def identity_phase(torch, rp, serving, LlamaConfig, LlamaForCausalLM):
     if kern["tokens"] != plain["tokens"]:
         raise AssertionError("identity: kernel and plain engines emitted "
                              "different greedy tokens")
-    if kern["launches"] != kern["steps"] * layers or plain["launches"]:
+    if (kern["launches"] != kern["steps"] * layers or plain["launches"]
+            or kern["route_launches"]["simple"] != kern["launches"]):
         raise AssertionError(f"identity: {kern['launches']} kernel launches "
-                             f"for {kern['steps']} steps x {layers} layers "
-                             f"(plain run: {plain['launches']})")
+                             f"for {kern['steps']} steps x {layers} layers, "
+                             f"by route {kern['route_launches']} (fp32: all "
+                             f"simple; plain run: {plain['launches']})")
     if kern["prefix_hit_tokens"] <= 0:
         raise AssertionError("identity: no prefix fork happened")
     if any(len(t) != 16 or not all(0 <= x < cfg.vocab_size for x in t)
@@ -556,6 +683,7 @@ def identity_phase(torch, rp, serving, LlamaConfig, LlamaForCausalLM):
     emit("identity", layers=layers, dtype="float32",
          prompt_lens=[len(p) for p in prompts],
          greedy_identical=True, kernel_launches=kern["launches"],
+         route_launches=kern["route_launches"],
          ragged_launches=kern["steps"], plain_launches=plain["launches"],
          prefix_hit_tokens=kern["prefix_hit_tokens"],
          buckets=kern["buckets"], kernel_s=kern["seconds"],
@@ -690,17 +818,19 @@ def serve_phase(torch, rp, serving, LlamaConfig, LlamaForCausalLM):
     hists = [eng.metrics.histogram(n) for n in ("time_to_first_token",
                                                  "inter_token_latency")]
     before = [(h.count, h.sum) for h in hists]
-    rp.launches = 0
+    rp.launches = rp.simple_launches = rp.tma_launches = 0
     t0 = time.perf_counter()
     outs = llm.generate(prompts, serving.SamplingParams(
         max_new_tokens=new_tokens))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = rp.launches
+    routes = {"simple": rp.simple_launches, "tma": rp.tma_launches}
     steps = eng.ragged_launches - steps0
-    if launches != steps * layers:
+    if launches != steps * layers or routes["tma"] != launches:
         raise AssertionError(f"serve: {launches} kernel launches for "
-                             f"{steps} steps x {layers} layers")
+                             f"{steps} steps x {layers} layers, by route "
+                             f"{routes} (every one due on the tma route)")
     out_tokens = sum(len(o.token_ids) for o in outs)
     if out_tokens != 16 * new_tokens or not all(
             0 <= t < cfg.vocab_size for o in outs for t in o.token_ids):
@@ -717,6 +847,7 @@ def serve_phase(torch, rp, serving, LlamaConfig, LlamaForCausalLM):
          total_tokens_per_s=(out_tokens + sum(map(len, prompts))) / wall,
          mean_ttft_s=ttft, mean_itl_s=itl,
          engine_steps=steps, kernel_launches=launches,
+         route_launches=routes,
          buckets=sorted({b for b in eng.ragged_buckets}),
          preemptions=eng.metrics.counters["preemptions"],
          max_memory_allocated=torch.cuda.max_memory_allocated(),
@@ -874,15 +1005,17 @@ def share(kernels, marks):
 # (B, Sq, Sk, H, Hkv, D) of the flash checks at small shapes: those of
 # tests/test_torch_flash_attention.py, on the card and against the Pallas
 # kernels (ragged edges, one token, rectangular, GQA 8:1 / 4:1 / 2:1 / 1:1
-# at head dims 64 and 128, S up to 512), and the edges of the TMA kernels'
-# 64- and 128-row tiles (S = 130 and 4000)
+# at head dims 64 and 128, S up to 512), the edges of the TMA kernels'
+# 64- and 128-row tiles (S = 130 and 4000), and GQA 7:1 and 3:1, groups
+# that fill 126 of a block's 128 rows
 FLASH_TINY = [(1, 128, 128, 4, 1, 128), (2, 100, 100, 4, 2, 64),
               (1, 70, 70, 2, 2, 128), (1, 1, 1, 2, 1, 64),
               (2, 200, 200, 8, 2, 128), (1, 96, 160, 4, 2, 64),
               (1, 256, 256, 4, 1, 128), (2, 128, 128, 2, 2, 64),
               (1, 512, 512, 2, 1, 64), (1, 130, 130, 8, 1, 128),
               (1, 200, 200, 16, 2, 64), (1, 130, 130, 2, 2, 64),
-              (1, 4000, 4000, 4, 1, 64), (1, 4000, 4000, 8, 2, 128)]
+              (1, 4000, 4000, 4, 1, 64), (1, 4000, 4000, 8, 2, 128),
+              (1, 200, 200, 28, 4, 128), (1, 130, 130, 6, 2, 64)]
 TRAIN_B, TRAIN_S = 2, 4096     # the train phase's batch and sequence
 
 
@@ -1017,9 +1150,9 @@ def flash_library(torch, q, k, v, do):
 
 def flash_copy_route_check(torch, flash, checks):
     """bf16 q, k, v and dO as views whose rows start off 16 bytes (rows D + 1
-    apart), which TMA cannot read: the forward and dK/dV wrappers must copy
-    them to contiguous tensors first (route "copy", counted once a launch),
-    hold the twins, and give what contiguous inputs give, bit for bit."""
+    apart), which TMA cannot read: the three wrappers must copy them to
+    contiguous tensors first (route "copy", counted once a launch), hold the
+    twins, and give what contiguous inputs give, bit for bit."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(8)
     B, S, H, Hkv, D = 2, 130, 8, 2, 128
@@ -1037,12 +1170,13 @@ def flash_copy_route_check(torch, flash, checks):
         out, lse = flash.fwd_kernel(q, k, v, True)
         delta = torch.einsum("bshd,bshd->bhs", do.float(),
                              out.float()).contiguous()
-        outs.append((out, lse, *flash.bwd_dkv_kernel(q, k, v, do, lse, delta,
-                                                     True)))
+        outs.append((out, lse,
+                     flash.bwd_dq_kernel(q, k, v, do, lse, delta, True),
+                     *flash.bwd_dkv_kernel(q, k, v, do, lse, delta, True)))
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(*outs))
-    if routed != {"copies": 2, "route": "copy"} or not same:
-        raise AssertionError(f"flash copy route: {routed} (due 2 copies on "
+    if routed != {"copies": 3, "route": "copy"} or not same:
+        raise AssertionError(f"flash copy route: {routed} (due 3 copies on "
                              f"route 'copy'), bit-equal to contiguous: "
                              f"{same}")
     return {**routed, "bit_equal_to_contiguous": same}
@@ -1306,10 +1440,13 @@ def train_profile_phase(torch, trainer, steps=2):
     train_steps(model, criterion, opt, batches[:steps], sched)
     torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
+    before = gpu_sample()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         train_steps(model, criterion, opt, batches[steps:], sched)
         torch.cuda.synchronize()
+    emit("train_clocks", before=before, after=gpu_sample(),
+         note="nvidia-smi before and after the profiled window")
     kernels = device_kernels(prof)
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
@@ -1325,6 +1462,7 @@ def train_profile_phase(torch, trainer, steps=2):
          flash_share=sum(v or 0.0 for v in flash_shares.values()),
          matmul_share=share(kernels, MATMUL_MARKS),
          top_kernels=[{"name": k[:120], "us": us} for k, us in top])
+    return flash_device_ms
 
 
 # --- custom-op phase ----------------------------------------------------------
@@ -1548,7 +1686,7 @@ def main() -> int:
         torch, sc, cpp_extension,
         str(_build.BUILD_DIR / "extensions"))
 
-    summary = kernel_phase(torch, rp)
+    summary = kernel_phase(torch, rp, flash)
     decode_summary = decode_kernel_phase(torch, pd)
     model, prompts, unified_tokens = identity_phase(
         torch, rp, serving, LlamaConfig, LlamaForCausalLM)
@@ -1578,12 +1716,15 @@ def main() -> int:
         CosineAnnealingDecay=CosineAnnealingDecay)
     train_identity_phase(torch, flash, fa, port)
     train_launches, trainer = train_phase(torch, flash, fa, port)
-    train_profile_phase(torch, trainer)
+    # the flash kernels' device time a launch, read by the profiler inside
+    # a training step (a back-to-back window of the flash phase recorded
+    # no flash kernel: PERF.md section 7)
+    flash_device = train_profile_phase(torch, trainer)
     flash_rows = [{
         "name": f"flash_attention_{key}", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/flash_attention.cu",
         "replaces": f"paddle_tpu/ops/pallas_flash.py:{line}",
-        "launches": train_launches[key],
+        "launches": train_launches[key], "device_ms": flash_device[key],
         **{f: flash_summary[key][f] for f in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")}}
@@ -1594,7 +1735,8 @@ def main() -> int:
         "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
         "replaces": "paddle_tpu/ops/ragged_paged.py:111",
         "launches": launches, "max_abs_err": summary["max_abs_err"],
-        "ms": summary["ms"], "plain_ms": summary["plain_ms"],
+        "ms": summary["ms"], "device_ms": summary["device_ms"],
+        "plain_ms": summary["plain_ms"],
         "bound_ms": summary["bound_ms"], "bound_by": summary["bound_by"],
         "library_ms": summary["library_ms"]}, {
         "name": DECODE_NAME, "route": "cuda",

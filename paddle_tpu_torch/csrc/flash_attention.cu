@@ -26,14 +26,11 @@
 // 4096, D = 128) each kernel does O(S^2 D) multiply-adds on O(S D) bytes,
 // hundreds of operations a byte, far above the card's ridge.  What the design
 // does about it:
-//   * bf16 forward and dK/dV (training) are Hopper kernels: a producer warp
-//     keeps TMA loads in flight in a ring of shared-memory stages, two
-//     consumer warpgroups multiply on wgmma, and the forward packs a GQA
-//     group's query heads into one block, so each K/V tile is loaded once
-//     per group (see the section "bf16 forward and dK/dV on Hopper");
-//   * bf16 dQ takes the tensor cores through mma.sync m16n8k16 with fp32
-//     accumulators, 4 warps of 16 rows each, dS kept in registers between
-//     the two products of a tile;
+//   * bf16 inputs (training) take Hopper kernels: TMA loads in flight in a
+//     ring of shared-memory stages, two consumer warpgroups multiplying on
+//     wgmma; the forward and dQ pack a GQA group's query heads into one
+//     block, so each K/V tile is loaded once per group (see the section
+//     "bf16 forward, dQ and dK/dV on Hopper");
 //   * fp32 inputs take fp32 FMAs from shared memory (fp32 has no tensor-core
 //     path that keeps its precision): the tiles live in shared memory as fp32
 //     rows padded by one word, so a warp's reads fall in distinct banks or
@@ -44,7 +41,6 @@
 //   * dK/dV has one block per (batch, KV tile, KV head) that walks the group's
 //     query heads and the query tiles from the diagonal on, accumulating in
 //     registers and writing once: no atomics, so results are deterministic.
-// Left to later work: dQ on TMA and wgmma.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -52,7 +48,6 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <initializer_list>
 #include <type_traits>
 
 #include "hopper.cuh"
@@ -420,255 +415,17 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ===========================================================================
-// bf16 dQ on the tensor cores (mma.sync m16n8k16, bf16 operands, fp32
-// accumulators).  A block of 4 warps owns a 64-row tile; each warp owns 16
-// of its rows and the whole 64-column tile of the other side.
-// Tiles stay bf16 in shared memory, rows padded by 8 elements so that the
-// fragment loads of a warp fall in distinct banks.  A score tile comes out
-// of the tensor core in the C-fragment layout, which is the A-fragment
-// layout of the next product: P (or dS) is rounded to bf16 in registers and
-// multiplied without going through shared memory.  The B operands of the
-// second products (V, K, dO, Q, read along their rows' other axis) come from
-// the same row-major tiles through ldmatrix.trans.
-// ===========================================================================
-
 using bf16 = __nv_bfloat16;
-constexpr int kMmaThreads = 128;
-
-// d += a * b over one m16n8k16 step (row-major A, column-major B).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two values rounded to bf16 in one register, the first in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// The A fragment of rows [m0, m0 + 16) and columns [k0, k0 + 16) of a
-// row-major tile with row stride ST (g = lane / 4, t = lane % 4).
-template <int ST>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile,
-                                       int m0, int k0, int g, int t) {
-  const bf16* p = tile + (m0 + g) * ST + k0 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ST);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ST + 8);
-}
-
-// B = X^T for rows [n0, n0 + 8) and columns [k0, k0 + 16) of a row-major
-// tile X: the B fragment of a product against the tile's rows.
-template <int ST>
-__device__ __forceinline__ void load_bt(uint32_t& b0, uint32_t& b1,
-                                        const bf16* tile, int n0, int k0,
-                                        int g, int t) {
-  const bf16* p = tile + (n0 + g) * ST + k0 + 2 * t;
-  b0 = ld32(p);
-  b1 = ld32(p + 8);
-}
-
-// B = X for rows [k0, k0 + 16) and columns [n0, n0 + 16) of a row-major tile
-// X, as the B fragments of two 8-column steps: b[0], b[1] for n0 and b[2],
-// b[3] for n0 + 8.
-template <int ST>
-__device__ __forceinline__ void load_b_trans(uint32_t (&b)[4], const bf16* tile,
-                                             int k0, int n0, int lane) {
-  const bf16* p =
-      tile + (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ST + n0 + (lane >> 4) * 8;
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-      : "r"(addr));
-}
-
-// Rows [r0, r0 + 64) of head h, batch b, into a [64][D + 8] bf16 tile; rows
-// at or past S are zeros.  vec: every row starts on 16 bytes (one 16-byte
-// load per 8 values), else element loads.
-template <int D>
-__device__ __forceinline__ void load_tile_bf16(bf16* dst,
-                                               const bf16* __restrict__ src,
-                                               Strides st, int b, int h, int r0,
-                                               int S, int vec) {
-  constexpr int ST = D + 8;
-  constexpr int kChunks = D / 8;
-  const bf16* base = src + b * st.b + h * st.h;
-  for (int idx = threadIdx.x; idx < kTile * kChunks; idx += kMmaThreads) {
-    const int r = idx / kChunks;
-    const int c = idx - r * kChunks;
-    const int row = r0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < S) {
-      const bf16* p = base + row * st.s + c * 8;
-      if (vec) {
-        val = *reinterpret_cast<const uint4*>(p);
-      } else {
-        __align__(16) bf16 tmp[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) tmp[i] = p[i];
-        val = *reinterpret_cast<const uint4*>(tmp);
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * ST + c * 8) = val;
-  }
-}
-
-// The sum of x over the 4 threads (t = lane % 4) that hold one row of a C
-// fragment, and their max.
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-// s[j] (n-tile j of 8 columns, C layout) = A rows [m0, m0 + 16) of tile At
-// times the rows of tile Bt, over D: a 16 x 64 tile of At . Bt^T.
-template <int D>
-__device__ __forceinline__ void mma_rows(float (&s)[8][4], const bf16* At,
-                                         int m0, const bf16* Bt, int g,
-                                         int t) {
-  constexpr int ST = D + 8;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    load_a<ST>(a, At, m0, kk * 16, g, t);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      uint32_t b0, b1;
-      load_bt<ST>(b0, b1, Bt, j * 8, kk * 16, g, t);
-      mma_bf16(s[j], a, b0, b1);
-    }
-  }
-}
-
-// acc[n] (n-tile n of 8 columns of D) += P . X, with P the 16 x 64 tile held
-// in C layout in p (rounded to bf16 here) and X rows [0, 64) of a tile.
-template <int D>
-__device__ __forceinline__ void mma_pv(float (&acc)[D / 8][4],
-                                       const float (&p)[8][4], const bf16* X,
-                                       int lane) {
-  constexpr int ST = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                           pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                           pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                           pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int n2 = 0; n2 < D / 16; ++n2) {
-      uint32_t b[4];
-      load_b_trans<ST>(b, X, kk * 16, n2 * 16, lane);
-      mma_bf16(acc[2 * n2], a, b[0], b[1]);
-      mma_bf16(acc[2 * n2 + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// dQ, bf16: grid (n_q, H, B), 4 warps.
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
-                            const bf16* __restrict__ k,
-                            const bf16* __restrict__ v,
-                            const bf16* __restrict__ dout,
-                            const float* __restrict__ lse,
-                            const float* __restrict__ delta,
-                            bf16* __restrict__ dq, Strides qs, Strides ks,
-                            Strides vs, Strides dos, Strides dqs, int H,
-                            int Hkv, int Sq, int Sk, float scale, int causal,
-                            int vec) {
-  constexpr int ST = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_bytes[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_bytes);
-  bf16* dOs = Qs + kTile * ST;
-  bf16* Ks = dOs + kTile * ST;
-  bf16* Vs = Ks + kTile * ST;
-
-  const int qi = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kv = h / (H / Hkv);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int q0 = qi * kTile;
-  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  const long long stat = (static_cast<long long>(b) * H + h) * Sq;
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    lse_r[hf] = rows[hf] < Sq ? lse[stat + rows[hf]] : 0.f;
-    delta_r[hf] = rows[hf] < Sq ? delta[stat + rows[hf]] : 0.f;
-  }
-
-  load_tile_bf16<D>(Qs, q, qs, b, h, q0, Sq, vec);
-  load_tile_bf16<D>(dOs, dout, dos, b, h, q0, Sq, vec);
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  const int nk = key_tiles(qi, Sk, causal);
-  for (int kj = 0; kj < nk; ++kj) {
-    __syncthreads();
-    load_tile_bf16<D>(Ks, k, ks, b, kv, kj * kTile, Sk, vec);
-    load_tile_bf16<D>(Vs, v, vs, b, kv, kj * kTile, Sk, vec);
-    __syncthreads();
-    float s[8][4], dp[8][4];
-    mma_rows<D>(s, Qs, warp * 16, Ks, g, t);
-    mma_rows<D>(dp, dOs, warp * 16, Vs, g, t);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int hf = c >> 1;
-        const int col = kj * kTile + j * 8 + 2 * t + (c & 1);
-        const float sc = (!causal || rows[hf] >= col) ? s[j][c] * scale : kNegInf;
-        const float p =
-            (col < Sk && rows[hf] < Sq) ? expf(sc - lse_r[hf]) : 0.f;
-        s[j][c] = p * (dp[j][c] - delta_r[hf]) * scale;  // dS
-      }
-    mma_pv<D>(acc, s, Ks, lane);
-  }
-
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int row = rows[hf];
-    if (row >= Sq) continue;
-    bf16* o = dq + b * dqs.b + row * dqs.s + h * dqs.h + 2 * t;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(o + n * 8) =
-          pack_bf16(acc[n][2 * hf], acc[n][2 * hf + 1]);
-  }
-}
 
 // ===========================================================================
-// bf16 forward and dK/dV on Hopper: TMA loads into a ring of shared-memory
+// bf16 forward, dQ and dK/dV on Hopper: TMA loads into a ring of shared-memory
 // stages, consumed by wgmma.  A block has two consumer warpgroups, each
 // owning 64 rows of the block's tile.  Stage s of the ring has a `full`
 // mbarrier (the issuing thread's arrival plus the TMA bytes) and an `empty`
 // one (one arrival from each consumer warp once its wgmmas have read the
 // stage).  One thread issues every TMA load: in the forward, the first
-// thread of a ninth warp, the producer; in dK/dV, consumer thread 0, which
-// refills a stage once every warp has released it.  The register file is
+// thread of a ninth warp, the producer; in dQ and dK/dV, consumer thread 0,
+// which refills a stage once every warp has released it.  The register file is
 // split in four quarters over which the warps are spread, so a ninth warp
 // caps every thread at 168 registers: the forward fits (168, no spills),
 // dK/dV's two D-wide accumulators do not (at D = 128 it takes over 220 of
@@ -692,6 +449,8 @@ constexpr int kFwdRows = 128;             // rows of a forward block
 constexpr int kFwdKeys = 128;             // keys of a forward K/V tile
 constexpr int kDkvKeys = 128;             // keys of a dK/dV block
 constexpr int kDkvRows = 64;              // query rows of a dK/dV Q/dO tile
+constexpr int kDqRows = 128;              // rows of a dQ block
+constexpr int kDqKeys = 64;               // keys of a dQ K/V tile
 // A TMA box may only start on 16 bytes, so the lse and delta slice of a
 // query tile is loaded from its start rounded down to 4 floats, 68 floats
 // long, into a slot of 96 (128-byte-aligned slots).
@@ -699,54 +458,6 @@ constexpr int kStatBox = kDkvRows + 4;
 constexpr int kStatSlot = 96;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  const uint32_t a = hopper::smem_addr(p);
-  return p + ((1024u - (a & 1023u)) & 1023u);
-}
-
-// A score tile (m64n{8 kSteps * 2}) in accumulator layout, rounded to bf16
-// as the A fragments of kSteps k16 steps.
-template <int kSteps>
-__device__ __forceinline__ void to_a_frags(uint32_t (&a)[kSteps][4],
-                                           const float* s) {
-#pragma unroll
-  for (int kk = 0; kk < kSteps; ++kk) {
-    a[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
-    a[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-    a[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-    a[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-  }
-#pragma unroll
-  for (int kk = 0; kk < kSteps; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[kk][r]) :: "memory");
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
-                                         const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (D == 64)
-    hopper::wgmma_rs_n64(d, a, b);
-  else
-    hopper::wgmma_rs_n128(d, a, b);
-}
-
-// The 128-byte-swizzled tile descriptors: K-major at shared address a
-// (8-row groups 1024 bytes apart), and MN-major at a with the next 64
-// columns `box` bytes on.
-__device__ __forceinline__ uint64_t kmajor(uint32_t a) {
-  return hopper::smem_desc(a, 16, 1024);
-}
-__device__ __forceinline__ uint64_t mnmajor(uint32_t a, int box) {
-  return hopper::smem_desc(a, box, 1024);
-}
 
 // Forward: replaces paddle_tpu/ops/pallas_flash.py::_fwd_kernel for bf16.
 //
@@ -1153,6 +864,193 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
   }
 }
 
+// dQ: replaces paddle_tpu/ops/pallas_flash.py::_bwd_dq_kernel for bf16.
+//
+// Bound on an H100: the operations.  At the training shape the three
+// products (S, dP, dQ) are 412 GFLOP on 1.6 MB; at 989 TFLOP/s 0.42 ms.
+// What the design does about it:
+//   * the forward's block: one per (batch, KV head, 128 / rep query
+//     positions), the group's rep heads packed into its 128 rows, so one
+//     TMA box loads Q (and one dO) and each K/V tile crosses from device
+//     memory once per GQA group;
+//   * Q, dO and each row's lse and delta are loaded once; lse and delta by
+//     plain loads into registers (two rows a thread);
+//   * K and V stream through a 2-stage TMA ring of 64-key tiles.  For each
+//     tile, S = Q.K^T and dP = dO.V^T on SS wgmma m64n64k16; P =
+//     exp2(s * log2(e) * scale - lse * log2(e)) and dS = P * (dP - delta) *
+//     scale in registers; dS rounded to bf16 (k's dtype) is the A operand
+//     of dQ += dS.K on RS wgmma, with K read MN-major as the forward reads
+//     V, from the tile already in shared memory;
+//   * the dQ accumulator (64 x D fp32 a warpgroup), S and dP take about
+//     180 registers a thread, over the 168 a ninth warp allows, so the
+//     block is dK/dV's: 8 warps, consumer thread 0 issuing the loads and
+//     refilling a stage once all 8 warps have released it;
+//   * causal blocks visit only the key tiles at or below their last row
+//     and mask only the tiles that cross the diagonal or Sk; the blocks of
+//     the last query tiles (the most key tiles) are launched first;
+//   * each row's dQ is written once: no atomics, so the result is
+//     deterministic, and dK/dV stays a kernel of its own.
+template <int D>
+__global__ void __launch_bounds__(kDkvThreads, 1)
+    flash_bwd_dq_tma_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            bf16* __restrict__ dq, Strides dqs, int B, int H,
+                            int Hkv, int Sq, int Sk, float scale, int causal) {
+  using namespace hopper;
+  constexpr int kBoxes = D / kBox;
+  constexpr int kQBox = kDqRows * 128;   // bytes of one box of Q or dO
+  constexpr int kKBox = kDqKeys * 128;   // ... of a K or V tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = align1024(smem_raw);
+  unsigned char* dOs = Qs + kBoxes * kQBox;
+  unsigned char* Ks = dOs + kBoxes * kQBox;              // [stage][box]
+  unsigned char* Vs = Ks + kStages * kBoxes * kKBox;     // [stage][box]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + kStages * kBoxes * kKBox);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int rep = H / Hkv;
+  const int per = kDqRows / rep;      // query positions of the block
+  const int rows = per * rep;         // rows in use (128 when rep | 128)
+  const int n_bh = Hkv * B;
+  const int n_q = (Sq + per - 1) / per;
+  const int qt = n_q - 1 - static_cast<int>(blockIdx.x) / n_bh;
+  const int g = static_cast<int>(blockIdx.x) % n_bh % Hkv;
+  const int b = static_cast<int>(blockIdx.x) % n_bh / Hkv;
+  const int q0 = qt * per;
+  const int q_last = min(q0 + per, Sq) - 1;
+  const int key_end = causal ? min(Sk, q_last + 1) : Sk;
+  const int nk = (key_end + kDqKeys - 1) / kDqKeys;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  auto issue = [&](int it) {
+    const int st = it % kStages;
+    mbar_arrive_expect(full + st, 2 * kDqKeys * D * 2);
+    for (int x = 0; x < kBoxes; ++x) {
+      tma_load_4d(Ks + (st * kBoxes + x) * kKBox, &tk, full + st, x * kBox, g,
+                  it * kDqKeys, b);
+      tma_load_4d(Vs + (st * kBoxes + x) * kKBox, &tv, full + st, x * kBox, g,
+                  it * kDqKeys, b);
+    }
+  };
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect(q_full, 2 * rows * D * 2);
+    for (int x = 0; x < kBoxes; ++x) {
+      tma_load_4d(Qs + x * kQBox, &tq, q_full, x * kBox, g * rep, q0, b);
+      tma_load_4d(dOs + x * kQBox, &tdo, q_full, x * kBox, g * rep, q0, b);
+    }
+    for (int it = 0; it < min(kStages, nk); ++it) issue(it);
+  }
+  __syncwarp();
+
+  // consumer warpgroup cw owns rows [64 cw, 64 cw + 64) of the block
+  const int cw = threadIdx.x / 128;
+  const int t = threadIdx.x % 128;
+  const int lane = t & 31;
+  const int c = lane & 3;
+  int pos[2], head[2];
+  bool live[2];
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = cw * 64 + (t >> 5) * 16 + (lane >> 2) + 8 * i;
+    pos[i] = q0 + r / rep;
+    head[i] = g * rep + r % rep;
+    live[i] = r < rows && pos[i] < Sq;
+    const long long at =
+        (static_cast<long long>(b) * H + head[i]) * Sq + pos[i];
+    lse2[i] = live[i] ? lse[at] * kLog2e : 0.f;
+    dl[i] = live[i] ? delta[at] : 0.f;
+  }
+  const float scale_log2 = scale * kLog2e;
+  float acc[D / 2];
+#pragma unroll
+  for (int n = 0; n < D / 2; ++n) acc[n] = 0.f;
+
+  mbar_wait(q_full, 0);
+  for (int it = 0; it < nk; ++it) {
+    const int k0 = it * kDqKeys;
+    const int st = it % kStages;
+    const uint32_t ph = (it / kStages) & 1;
+    float s[kDqKeys / 2], dp[kDqKeys / 2];
+    const uint32_t qa = smem_addr(Qs) + cw * 64 * 128;
+    const uint32_t doa = smem_addr(dOs) + cw * 64 * 128;
+    const uint32_t ka = smem_addr(Ks) + st * kBoxes * kKBox;
+    const uint32_t va = smem_addr(Vs) + st * kBoxes * kKBox;
+    mbar_wait(full + st, ph);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(s, kmajor(qa + (kk / 4) * kQBox + (kk % 4) * 32),
+                   kmajor(ka + (kk / 4) * kKBox + (kk % 4) * 32), kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(dp, kmajor(doa + (kk / 4) * kQBox + (kk % 4) * 32),
+                   kmajor(va + (kk / 4) * kKBox + (kk % 4) * 32), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // s = S (rows: this block's queries, columns: the tile's keys) -> P,
+    // dp = dP -> dS
+    const bool edge = k0 + kDqKeys > Sk || (causal && k0 + kDqKeys - 1 > q0);
+#pragma unroll
+    for (int j = 0; j < kDqKeys / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = k0 + 8 * j + 2 * c + e;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int x = 4 * j + 2 * i + e;
+          float p = ex2(fmaf(s[x], scale_log2, -lse2[i]));
+          if (edge && (col >= Sk || (causal && col > pos[i]))) p = 0.f;
+          dp[x] = p * (dp[x] - dl[i]) * scale;
+        }
+      }
+    uint32_t da[kDqKeys / 16][4];
+    to_a_frags<kDqKeys / 16>(da, dp);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDqKeys / 16; ++kk)
+      wgmma_rs<D>(acc, da[kk], mnmajor(ka + kk * 16 * 128, kKBox));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (lane == 0) mbar_arrive(empty + st);
+    // refill this stage with tile it + kStages once every warp is done
+    if (threadIdx.x == 0 && it + kStages < nk) {
+      mbar_wait(empty + st, ph);
+      issue(it + kStages);
+    }
+    __syncwarp();   // the wgmmas ahead need the whole warp
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!live[i]) continue;
+    bf16* o = dq + b * dqs.b + pos[i] * dqs.s + head[i] * dqs.h + 2 * c;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(o + 8 * n) =
+          pack_bf16(acc[4 * n + 2 * i], acc[4 * n + 2 * i + 1]);
+  }
+}
+
 // Shared memory of each kernel: fp32 tiles of 64 rows padded to D + 1, the
 // 64 x 65 P / dS tile and, for dK/dV, the tile's lse and delta.
 constexpr int tile_bytes(int D) { return kTile * (D + 1) * 4; }
@@ -1169,52 +1067,6 @@ Strides strides_at(const long long* st, int i) {
   return Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
 }
 
-// Whether every row of the input tensors starts on 16 bytes (the pointer
-// and the b, s and head strides): the bf16 kernels then load 16 bytes at a
-// time.  `st` holds the inputs' strides first, in the same order.
-int rows_aligned(std::initializer_list<const void*> inputs,
-                 const long long* st) {
-  int i = 0;
-  for (const void* p : inputs) {
-    if (reinterpret_cast<uintptr_t>(p) % 16) return 0;
-    for (int j = 0; j < 3; ++j)
-      if (st[3 * i + j] % 8) return 0;
-    ++i;
-  }
-  return 1;
-}
-
-// bf16 shared memory of the dQ kernel: tiles of 64 rows padded to D + 8.
-constexpr int mma_tile_bytes(int D) { return kTile * (D + 8) * 2; }
-
-// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query
-// so that the library needs no -lcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // The tensor map of a bf16 [B, S, heads, D] tensor with element strides st:
 // dims (D, heads, S, B), boxes of (64, box_heads, box_rows, 1) with the
 // 128-byte swizzle; rows past S read as zeros.  TMA needs a 16-byte-aligned
@@ -1223,13 +1075,9 @@ EncodeTiled encoder() {
 // used and is replaced by its contiguous value.
 cudaError_t bf16_map(CUtensorMap* map, const void* ptr, Strides st, int B,
                      int S, int heads, int D, int box_heads, int box_rows) {
-  const EncodeTiled encode = encoder();
-  if (encode == nullptr) return cudaErrorSymbolNotFound;
   const long long sh = heads > 1 ? st.h : D;
   const long long ss = S > 1 ? st.s : sh * heads;
   const long long sb = B > 1 ? st.b : ss * S;
-  if (reinterpret_cast<uintptr_t>(ptr) % 16 || (sh | ss | sb) % 8)
-    return cudaErrorMisalignedAddress;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(S),
@@ -1239,21 +1087,14 @@ cudaError_t bf16_map(CUtensorMap* map, const void* ptr, Strides st, int B,
                                  static_cast<cuuint64_t>(sb) * 2};
   const cuuint32_t box[4] = {kBox, static_cast<cuuint32_t>(box_heads),
                              static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
-             ? cudaSuccess
-             : cudaErrorInvalidValue;
+  return hopper::bf16_map_4d(map, ptr, dims, strides, box);
 }
 
 // The tensor map of a flat fp32 array of n values (lse or delta, [B, H, Sq]
 // contiguous) in boxes of kStatBox values, one dK/dV query tile's slice and
 // the up to 3 values before it; values past n read as zeros.
 cudaError_t stat_map(CUtensorMap* map, const void* ptr, long long n) {
-  const EncodeTiled encode = encoder();
+  const hopper::EncodeTiled encode = hopper::encoder();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
   if (reinterpret_cast<uintptr_t>(ptr) % 16) return cudaErrorMisalignedAddress;
   const cuuint64_t dims[1] = {static_cast<cuuint64_t>(n)};
@@ -1279,10 +1120,15 @@ constexpr int dkv_tma_bytes(int D) {
   return 1024 + (2 * kDkvKeys + 2 * kStages * kDkvRows) * D * 2 +
          2 * kStages * kStatSlot * 4 + (1 + 2 * kStages) * 8;
 }
+constexpr int dq_tma_bytes(int D) {
+  return 1024 + (2 * kDqRows + 2 * kStages * kDqKeys) * D * 2 +
+         (1 + 2 * kStages) * 8;
+}
 
-// The host side of each kernel: fp32 inputs take the FMA kernels; bf16
-// inputs take the TMA/wgmma kernels (forward, dK/dV) and the mma.sync one
-// (dQ).
+// The host side of each kernel: fp32 inputs take the FMA kernels, bf16
+// inputs the TMA/wgmma kernels.  A GQA group packs into one block's 128
+// rows, so the bf16 forward and dQ take at most 128 query heads a KV head
+// (the wrapper refuses more before a launch).
 template <typename T, int D>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
                 void* lse, const long long* st, int B, int H, int Hkv, int Sq,
@@ -1327,20 +1173,31 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v,
                    void* dq, const long long* st, int B, int H, int Hkv,
                    int Sq, int Sk, float scale, int causal,
                    cudaStream_t stream) {
-  const dim3 grid((Sq + kTile - 1) / kTile, H, B);
   cudaError_t err;
   if constexpr (std::is_same_v<T, bf16>) {
-    const int bytes = 4 * mma_tile_bytes(D);
-    auto kernel = flash_bwd_dq_mma_kernel<D>;
+    const int rep = H / Hkv;
+    const int per = kDqRows / rep;
+    if (per < 1) return cudaErrorInvalidValue;
+    CUtensorMap tq, tk, tv, tdo;
+    if ((err = bf16_map(&tq, q, strides_at(st, 0), B, Sq, H, D, rep, per)) !=
+            cudaSuccess ||
+        (err = bf16_map(&tk, k, strides_at(st, 1), B, Sk, Hkv, D, 1,
+                        kDqKeys)) != cudaSuccess ||
+        (err = bf16_map(&tv, v, strides_at(st, 2), B, Sk, Hkv, D, 1,
+                        kDqKeys)) != cudaSuccess ||
+        (err = bf16_map(&tdo, dout, strides_at(st, 3), B, Sq, H, D, rep,
+                        per)) != cudaSuccess)
+      return err;
+    const int bytes = dq_tma_bytes(D);
+    auto kernel = flash_bwd_dq_tma_kernel<D>;
     if ((err = allow_smem(kernel, bytes)) != cudaSuccess) return err;
-    kernel<<<grid, kMmaThreads, bytes, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<bf16*>(dq), strides_at(st, 0), strides_at(st, 1),
-        strides_at(st, 2), strides_at(st, 3), strides_at(st, 4), H, Hkv, Sq,
-        Sk, scale, causal, rows_aligned({q, k, v, dout}, st));
+    const int blocks = (Sq + per - 1) / per * Hkv * B;
+    kernel<<<blocks, kDkvThreads, bytes, stream>>>(
+        tq, tk, tv, tdo, static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<bf16*>(dq),
+        strides_at(st, 4), B, H, Hkv, Sq, Sk, scale, causal);
   } else {
+    const dim3 grid((Sq + kTile - 1) / kTile, H, B);
     const int bytes = 4 * tile_bytes(D) + p_bytes();
     auto kernel = flash_bwd_dq_kernel<D>;
     if ((err = allow_smem(kernel, bytes)) != cudaSuccess) return err;

@@ -13,12 +13,26 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The first 1024-byte boundary at or after p (a swizzled tile's start).
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_addr(p);
+  return p + ((1024u - (a & 1023u)) & 1023u);
+}
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// async-proxy accesses (TMA writes, wgmma reads) of the same bytes.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // --- mbarriers ----------------------------------------------------------------
@@ -257,5 +271,121 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// --- fragments and arithmetic ------------------------------------------------
+
+// The 128-byte-swizzled tile descriptors: K-major at shared address a
+// (8-row groups 1024 bytes apart), and MN-major at a with the next 64
+// columns `box` bytes on.
+__device__ __forceinline__ uint64_t kmajor(uint32_t a) {
+  return smem_desc(a, 16, 1024);
+}
+__device__ __forceinline__ uint64_t mnmajor(uint32_t a, int box) {
+  return smem_desc(a, box, 1024);
+}
+
+// d += A . B over N = D columns, A from registers, B MN-major.
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (D == 64)
+    wgmma_rs_n64(d, a, b);
+  else
+    wgmma_rs_n128(d, a, b);
+}
+
+// Two values rounded to bf16 in one register, the first in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The sum of x over the 4 threads (lane % 4) that hold one row of an
+// accumulator, and their max.
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// A score tile (m64n{8 kSteps * 2}) in accumulator layout, rounded to bf16
+// as the A fragments of kSteps k16 steps.
+template <int kSteps>
+__device__ __forceinline__ void to_a_frags(uint32_t (&a)[kSteps][4],
+                                           const float* s) {
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk) {
+    a[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+    a[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    a[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    a[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[kk][r]) :: "memory");
+}
+
+// --- host: tensor maps --------------------------------------------------------
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query
+// so that a library needs no -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The 4-d tensor map of a bf16 tensor with dims (innermost first) `dims`
+// and byte strides `strides` of dims 1..3, in boxes `box` with the
+// 128-byte swizzle (box[0] = 64 elements, 128 bytes); coordinates past a
+// dim read as zeros.  TMA needs a 16-byte-aligned base and strides that are
+// multiples of 16 bytes.
+inline cudaError_t bf16_map_4d(CUtensorMap* map, const void* ptr,
+                               const cuuint64_t (&dims)[4],
+                               const cuuint64_t (&strides)[3],
+                               const cuuint32_t (&box)[4]) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  if (reinterpret_cast<uintptr_t>(ptr) % 16 || strides[0] % 16 ||
+      strides[1] % 16 || strides[2] % 16)
+    return cudaErrorMisalignedAddress;
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
 
 }  // namespace hopper

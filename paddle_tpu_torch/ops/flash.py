@@ -22,8 +22,11 @@ Written twice against this one interface:
   mode; on the card they are what the kernels are compared with.
 * the hand-written CUDA kernels of ``csrc/flash_attention.cu``
   (:func:`fwd_kernel`, :func:`bwd_dq_kernel`, :func:`bwd_dkv_kernel`), which
-  replace the three Pallas kernels: bf16 forward and dK/dV on Hopper's TMA
-  and ``wgmma``, bf16 dQ on ``mma.sync``, fp32 inputs on fp32 FMAs.
+  replace the three Pallas kernels: bf16 inputs on Hopper's TMA and
+  ``wgmma``, fp32 inputs on fp32 FMAs.  The forward and dQ pack a GQA
+  group's query heads into a block's 128 rows, so the kernels take at most
+  :data:`MAX_GROUP` query heads a KV head; :func:`kernels_take` says so, and
+  a wrapper refuses a larger group before any launch.
 
 :func:`route` is the rule that picks among them, a pure function of the
 device, dtype, head dim, pointers and strides.  TMA reads a tensor in
@@ -35,9 +38,10 @@ that took that route.
 :class:`FlashAttention` is the ``torch.autograd.Function`` that mirrors the
 JAX ``custom_vjp``: the forward saves ``(q, k, v, out, lse)``; the backward
 computes ``delta = rowsum(dO * O)`` in fp32 as a torch op, then dQ, then
-dK/dV.  The tensor's device alone chooses: on a CUDA tensor it launches
-the kernels (or raises — there is no fallback and no switch to turn them
-off), on a CPU tensor the twins run.  The one switch is the dispatcher's
+dK/dV.  On a CUDA tensor whose group the kernels take it launches them (or
+raises — there is no fallback and no switch to turn them off); on a CPU
+tensor, and for a group of more than :data:`MAX_GROUP` heads, the twins
+run.  The one switch is the dispatcher's
 ``use_pallas`` (``ops/flash_attention.py``), which pins the composite paths.
 
 :func:`rowwise_error` is the measure by which the card's checks hold a
@@ -60,14 +64,15 @@ last_path: Optional[str] = None
 fwd_launches = 0
 dq_launches = 0
 dkv_launches = 0
-# Forward and dK/dV launches whose bf16 inputs were copied to contiguous
-# tensors first (route "copy"), and the route of the most recent one.
+# Launches whose bf16 inputs were copied to contiguous tensors first (route
+# "copy"), and the route of the most recent launch.
 copy_launches = 0
 last_route: Optional[str] = None
 
 _KERNEL = "flash_attention"
 DTYPES = (torch.float32, torch.bfloat16)   # the dtypes the kernels take
 HEAD_DIMS = (64, 128)        # the head dims the kernels are built for
+MAX_GROUP = 128              # query heads a KV head, at most: a block's rows
 _NEG_INF = -1e30
 
 
@@ -154,7 +159,13 @@ def _check(op, named, stats=()):
     """Raise on what the kernels do not take; ``named`` are the
     ``[B, S, heads, D]`` tensors (q first), ``stats`` the fp32 ``[B, H, Sq]``
     ones."""
-    q = named[0][1]
+    q, k = named[0][1], named[1][1]
+    if q.dim() == 4 and k.dim() == 4 and k.shape[2] >= 1 \
+            and q.shape[2] // k.shape[2] > MAX_GROUP:
+        raise ValueError(f"flash {op} kernel: a GQA group of "
+                         f"{q.shape[2] // k.shape[2]} query heads a KV head "
+                         f"is over the kernels' limit of {MAX_GROUP} (a "
+                         f"block packs the group into its {MAX_GROUP} rows)")
     for name, t in list(named) + list(stats):
         if t.device != q.device or t.device.type != "cuda":
             raise ValueError(f"flash {op} kernel: {name} is on {t.device}; "
@@ -174,7 +185,6 @@ def _check(op, named, stats=()):
         raise TypeError(f"flash {op} kernel: inputs must be float32 or "
                         f"bfloat16, got {q.dtype}")
     B, Sq, H, D = q.shape
-    k = named[1][1]
     Sk, Hkv = k.shape[1], k.shape[2]
     if D not in HEAD_DIMS:
         raise ValueError(f"flash {op} kernel: head dim {D} is not one of "
@@ -197,6 +207,13 @@ def _check(op, named, stats=()):
     if min(B, Sq, Sk) < 1:
         raise ValueError(f"flash {op} kernel: empty input {tuple(q.shape)}, "
                          f"{tuple(k.shape)}")
+
+
+def kernels_take(device_type, H, Hkv):
+    """Whether :class:`FlashAttention` runs the kernels: on a CUDA tensor
+    whose GQA group fits a block (``H / Hkv <= MAX_GROUP``); otherwise the
+    twins compute."""
+    return device_type == "cuda" and H // Hkv <= MAX_GROUP
 
 
 def _tma_ready(ptr, shape, stride):
@@ -291,10 +308,13 @@ def fwd_kernel(q, k, v, causal):
 
 
 def bwd_dq_kernel(q, k, v, do, lse, delta, causal):
-    """Launch the dQ kernel; returns dQ ``[B, Sq, H, D]`` in q's dtype."""
+    """Launch the dQ kernel; returns dQ ``[B, Sq, H, D]`` in q's dtype.
+    bf16 inputs that TMA cannot read in place are copied first
+    (:func:`route`)."""
     global dq_launches
     _check("dq", [("q", q), ("k", k), ("v", v), ("do", do)],
            [("lse", lse), ("delta", delta)])
+    q, k, v, do = _routed([q, k, v, do])
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     lib = _lib()
     with torch.cuda.device(q.device):
@@ -362,7 +382,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal):
         global last_path
-        kernels = q.device.type == "cuda"
+        kernels = kernels_take(q.device.type, q.shape[2], k.shape[2])
         if kernels:
             out, lse = fwd_kernel(q, k, v, causal)
         else:
@@ -395,8 +415,9 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, causal=False):
     """Fused attention over ``[B, Sq, H, D]`` q and ``[B, Sk, Hkv, D]`` k/v
     (GQA: H a multiple of Hkv), scale ``1/sqrt(D)``; differentiable.  The
-    CUDA kernels on a CUDA tensor (a failure raises), the plain twins on a
-    CPU tensor."""
+    CUDA kernels on a CUDA tensor whose group they take (a failure raises),
+    the plain twins on a CPU tensor and for a group of more than
+    :data:`MAX_GROUP` heads."""
     if q.shape[2] % k.shape[2]:
         raise ValueError(f"query heads {q.shape[2]} not divisible by kv "
                          f"heads {k.shape[2]}")

@@ -5,10 +5,12 @@ Layout ``[B, S, H, D]`` (k/v ``[B, Sk, Hkv, D]``, GQA).  Three paths:
 
 * ``"cuda"`` — the hand-written flash kernels behind
   ``ops/flash.py::FlashAttention``: on a CUDA tensor for every shape they
-  take (head dim 64 or 128, any sequence length; causal only with
-  ``Sq == Sk``, because the kernels mask top-left and the composite paths
-  bottom-right).  The JAX gate's ``seq >= 1024``, ``seq % 128 == 0`` and
-  TPU check are Mosaic tiling and XLA-on-TPU choices and do not carry over.
+  take (head dim 64 or 128, any sequence length, at most 128 query heads a
+  KV head; causal only with ``Sq == Sk``, because the kernels mask top-left
+  and the composite paths bottom-right).  :func:`takes_kernels` is the
+  rule, a pure function of the call's device, dtype and shape.  The JAX
+  gate's ``seq >= 1024``, ``seq % 128 == 0`` and TPU check are Mosaic
+  tiling and XLA-on-TPU choices and do not carry over.
 * ``"chunked"`` — ``ops/chunked_attention.py`` when ``Sq · Sk >= 1024²``;
 * ``"reference"`` — :func:`_reference_attention`, the composite, below it.
 
@@ -38,13 +40,24 @@ _CHUNKED_MIN_AREA = 1024 * 1024  # Sq*Sk at which S^2 scores become the
 last_path: Optional[str] = None
 
 
+def takes_kernels(device_type, dtype, head_dim, H, Hkv, causal, Sq,
+                  Sk) -> bool:
+    """Whether the CUDA kernels take a call: a CUDA tensor of a dtype and
+    head dim they are built for, a GQA group of at most ``flash.MAX_GROUP``
+    query heads a KV head (a block packs the group into its rows), and
+    ``Sq == Sk`` when causal (the kernels mask top-left, the composite
+    bottom-right).  Every other call takes the composite."""
+    return (device_type == "cuda" and dtype in flash.DTYPES
+            and head_dim in flash.HEAD_DIMS and H // Hkv <= flash.MAX_GROUP
+            and (not causal or Sq == Sk))
+
+
 def use_flash(q, k, causal: bool) -> bool:
-    """Whether the CUDA kernels take this call."""
-    if q.dim() != 4 or q.device.type != "cuda":
+    """Whether the CUDA kernels take this call (:func:`takes_kernels`)."""
+    if q.dim() != 4:
         return False
-    if q.shape[-1] not in flash.HEAD_DIMS or q.dtype not in flash.DTYPES:
-        return False
-    return not causal or q.shape[1] == k.shape[1]
+    return takes_kernels(q.device.type, q.dtype, q.shape[-1], q.shape[2],
+                         k.shape[2], causal, q.shape[1], k.shape[1])
 
 
 def _reference_attention(q, k, v, causal: bool):

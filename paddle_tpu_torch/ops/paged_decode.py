@@ -67,17 +67,22 @@ def _heads_per_block(rep: int) -> int:
     return 1 if rep == 1 else 2 if rep == 2 else 4
 
 
+def sm_count(device) -> int:
+    """The SM count of a CUDA device, read once a device."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = \
+            torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sm_counts[idx]
+
+
 def num_splits(device, B: int, H: int, Hkv: int) -> int:
     """How many blocks share one (row, head chunk): enough for about two
     blocks on every SM.  It depends on the batch and head shapes only —
     never on the table width or the lengths — so a row's result does not
     depend on how far its table is padded."""
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    sms = _sm_counts.get(idx)
-    if sms is None:
-        sms = _sm_counts[idx] = \
-            torch.cuda.get_device_properties(idx).multi_processor_count
+    sms = sm_count(device)
     head_chunks = -(-(H // Hkv) // _heads_per_block(H // Hkv))
     blocks = B * Hkv * head_chunks
     return max(1, min(_MAX_SPLITS, -(-2 * sms // blocks)))

@@ -18,7 +18,12 @@ On the CPU (fp32, inputs from numpy seeds):
 * ``flash.route``, the wrappers' rule, as a pure function of device, dtype,
   head dim, pointer alignment and strides: aligned bf16 takes the TMA
   kernels, unaligned bf16 a contiguous copy and then the TMA kernels, fp32
-  the FMA kernels, a CPU tensor the twins.
+  the FMA kernels, a CPU tensor the twins;
+* ``flash_attention.takes_kernels``, the dispatcher's rule, as a pure
+  function of device, dtype, head dim, heads and lengths: a GQA group of
+  more than 128 query heads a KV head goes to the composite, as causal
+  Sq != Sk does, and a direct kernel call on it raises ``ValueError``
+  naming the limit before anything is built.
 
 The tests marked ``cuda`` hold the three CUDA kernels to the twins on the
 card by ``flash.rowwise_error`` (fp32 within 1e-4; bf16 within 2e-2 of the
@@ -296,6 +301,41 @@ def test_route_rule(device, dtype, layouts, want):
     assert flash.route(device, dtype, D, layouts) == want
 
 
+@pytest.mark.parametrize("H, Hkv, want", [
+    (1, 1, True), (8, 2, True), (28, 4, True), (128, 1, True),
+    (256, 2, True), (256, 1, False), (129, 1, False), (512, 2, False)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dispatch_sends_large_groups_to_the_composite(H, Hkv, want, dtype):
+    """A block packs a GQA group into its 128 rows: ratios 1-128 take the
+    kernels on a CUDA tensor, larger ones the composite, on the branch that
+    causal Sq != Sk takes; a CPU tensor never takes the kernels."""
+    args = (dtype, 64, H, Hkv, False, 256, 256)
+    assert fa.takes_kernels("cuda", *args) is want
+    assert fa.takes_kernels("cpu", *args) is False
+    assert flash.kernels_take("cuda", H, Hkv) is want
+    assert flash.kernels_take("cpu", H, Hkv) is False
+    assert fa.takes_kernels("cuda", dtype, 64, H, Hkv, True, 256, 200) \
+        is False
+    assert fa.takes_kernels("cuda", dtype, 96, H, Hkv, False, 256, 256) \
+        is False
+
+
+def test_kernel_wrappers_refuse_a_group_over_the_limit():
+    """A direct kernel call with 256 query heads on one KV head raises
+    ValueError naming the limit before any device check or build."""
+    tq, tk, tv, tdo = map(torch.from_numpy, _qkv(1, 8, 256, 1, 64, seed=3))
+    stats = torch.zeros(1, 256, 8)
+    counts = (flash.fwd_launches, flash.dq_launches, flash.dkv_launches)
+    with pytest.raises(ValueError, match="limit of 128"):
+        flash.fwd_kernel(tq, tk, tv, True)
+    with pytest.raises(ValueError, match="limit of 128"):
+        flash.bwd_dq_kernel(tq, tk, tv, tdo, stats, stats, True)
+    with pytest.raises(ValueError, match="limit of 128"):
+        flash.bwd_dkv_kernel(tq, tk, tv, tdo, stats, stats, True)
+    assert (flash.fwd_launches, flash.dq_launches,
+            flash.dkv_launches) == counts
+
+
 def test_route_rule_raises_on_what_no_kernel_takes():
     lay = [_layout((1, 64, 2, 96))]
     with pytest.raises(ValueError, match="head dim 96"):
@@ -317,12 +357,14 @@ def cuda():
 
 # (B, Sq, Sk, H, Hkv, D): tile-aligned, ragged edges (S not a multiple of
 # the 64- and 128-row tiles: 70, 100, 130, 200, 4000), rectangular, GQA
-# 8:1 / 4:1 / 2:1 / 1:1 at head dims 64 and 128
+# 8:1 / 4:1 / 2:1 / 1:1 at head dims 64 and 128, and 7:1 and 3:1, groups
+# that do not divide a block's 128 rows (126 rows in use)
 CUDA_CASES = [(1, 128, 128, 4, 1, 128), (2, 100, 100, 4, 2, 64),
               (1, 70, 70, 2, 2, 128), (1, 1, 1, 2, 1, 64),
               (2, 200, 200, 8, 2, 128), (1, 96, 160, 4, 2, 64),
               (1, 130, 130, 8, 1, 128), (1, 200, 200, 16, 2, 64),
-              (1, 130, 130, 2, 2, 64), (1, 4000, 4000, 4, 1, 64)]
+              (1, 130, 130, 2, 2, 64), (1, 4000, 4000, 4, 1, 64),
+              (1, 200, 200, 28, 4, 128), (1, 130, 130, 6, 2, 64)]
 
 
 def _cuda_inputs(dev, case, dtype, seed=0):
@@ -374,8 +416,8 @@ def test_cuda_kernels_read_through_strides(cuda, dtype, layout):
     """q/k/v/dO as views (no copy) into one packed [B, S, 4, H, D] buffer,
     or with rows that do not start on 16 bytes: all three kernels give what
     they give on contiguous copies, bit for bit.  TMA reads the packed bf16
-    views in place; the unaligned bf16 ones take the counted copy route
-    (forward and dK/dV; dQ reads them with element loads)."""
+    views in place; the unaligned bf16 ones take the counted copy route,
+    once for each of the three kernels."""
     B, S, H, D = 2, 130, 4, 128
     if layout == "packed":
         buf = torch.randn(B, S, 4, H, D, device=cuda).to(dtype)
@@ -401,7 +443,7 @@ def test_cuda_kernels_read_through_strides(cuda, dtype, layout):
     elif layout == "packed":
         assert routes == [("tma", 0), ("tma", 0)]
     else:
-        assert routes == [("copy", 2), ("tma", 0)]
+        assert routes == [("copy", 3), ("tma", 0)]
     torch.cuda.synchronize()
     for got, want in zip(*results):
         assert torch.equal(got, want)
@@ -434,6 +476,25 @@ def test_cuda_autograd_and_dispatch(cuda, dtype):
     for got, want in zip(grads[None], grads[False]):
         norm = want.abs().max() + 1e-9
         assert float(((got - want) / norm).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_large_group_takes_the_composite(cuda):
+    """bf16 at a GQA ratio of 256 on the card computes through the
+    composite (the JAX package computes it too) and launches nothing; the
+    autograd function takes the twins there."""
+    q, k, v, _ = _cuda_inputs(cuda, (1, 64, 64, 256, 1, 64), torch.bfloat16)
+    counts = (flash.fwd_launches, flash.dq_launches, flash.dkv_launches)
+    out = fa.flash_attention_fwd(q, k, v, True)
+    assert fa.last_path == "reference"
+    want = fa._reference_attention(q, k, v, True)
+    assert torch.equal(out, want)
+    xs = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    flash.flash_attention(*xs, True).float().sum().backward()
+    assert flash.last_path == "reference"
+    assert all(torch.isfinite(t.grad.float()).all() for t in xs)
+    assert (flash.fwd_launches, flash.dq_launches,
+            flash.dkv_launches) == counts
 
 
 @pytest.mark.cuda

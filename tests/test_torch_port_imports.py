@@ -1,6 +1,7 @@
 """Boundaries of the PyTorch port.
 
-* No module of ``paddle_tpu_torch`` and not ``chip_smoke.py`` imports
+* No module of ``paddle_tpu_torch``, not ``chip_smoke.py`` and not
+  ``chip_ab.py`` imports
   ``jax``, ``jaxlib`` or ``paddle_tpu`` (an AST walk over every import).
 * The package imports with no ``nvcc`` and no ``triton``, builds nothing
   and loads no JAX while doing so.
@@ -38,7 +39,8 @@ MUST_CHECK = ("utils/__init__.py", "utils/extension.py",
 
 
 def _port_files():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                          REPO / "chip_ab.py"]
     assert len(files) > 20 and all(f.exists() for f in files)
     assert {PORT / m for m in MUST_CHECK} <= set(files)
     return files
@@ -102,6 +104,17 @@ def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path, alone):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_chip_ab_fails_without_a_card(tmp_path):
+    """chip_ab.py exits nonzero and prints no summary where there is no
+    CUDA device, before it starts any run."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "chip_ab.py", str(tmp_path)],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert '"summary"' not in out.stdout
 
 
 def test_model_without_a_card_raises_instead_of_using_the_cpu(monkeypatch):
