@@ -23,7 +23,9 @@ these phases, printing one JSON line for each:
              torch.profiler, whose ``my_scaled`` range must hold the
              kernel; the kernel, the op, its twin and ``torch.mul`` timed
              at that shape by CUDA events, the kernel and ``torch.mul``
-             also by profiler device time, beside the bound; a
+             also by profiler device time, beside the bound, and the two
+             in turns (40 rounds of 5 calls each, order reversed every
+             round; medians and spread by both clocks); a
              ``cpp_extension.load`` host op on a CUDA tensor.
 ``kernels``  the ragged kernel against its plain PyTorch version on the same
              inputs, each (token, head) row against its twin row by
@@ -46,15 +48,24 @@ these phases, printing one JSON line for each:
              peak rate and the bytes over its memory rate; at T=512 bf16
              also the profiler's device time of every device function of
              the call (work list, chunk, decode and combine kernels).
-``decode_kernels``  the paged decode kernel against its plain version
-             (fp32 within 1e-4, bf16 within 2e-2 of the plain version in
-             fp32 on the same bf16 inputs), over the CPU tests' decode
-             buckets B x W in {1,2,4,8}^2 and Llama-3-8B's decode shapes
-             (H=32, Hkv=8, D=128, bs=16, B in {1, 4, 16}, random lengths up
-             to 2112 tokens in tables padded to 256 pages), timed like the
-             ragged kernel, plus the kernel's device time per call read
-             from torch.profiler (at small batches the CUDA-event time of
-             back-to-back calls is the host's cost of issuing them).
+``decode_kernels``  the paged decode kernel against its plain version,
+             each (row, head) row against its twin row by
+             ``flash.rowwise_error`` and absolutely (fp32 within 1e-4, bf16
+             within 2e-2 of the plain version in fp32 on the same bf16
+             inputs), over the CPU tests' decode buckets B x W in {1,2,4,8}^2
+             and Llama-3-8B's decode shapes (H=32, Hkv=8, D=128, bs=16, B in
+             {1, 4, 16}, random lengths up to 2112 tokens in tables padded
+             to 256 pages; bf16 takes the mma route, fp32 the simple one);
+             a planted fault, the twin with each row's last span dropped,
+             which the row check must refuse at B=16; each row's bits alone
+             (B=1), inside B=16, at table width 2W and on a second run;
+             timed like the ragged kernel, plus the kernel's device time per
+             call read from torch.profiler (walk and combine), the host's
+             cost a call (event time minus device time, and the wrapper's
+             own CPU time by time.perf_counter), the span plan's work items
+             and, at B=1 and 16 bf16, the device time at spans of 32 and 64
+             tokens beside the 128 the kernel uses; the launches of each
+             route.
 ``identity`` Llama-3-8B at full width cut to 4 layers, fp32, random weights
              from a seeded generator: 8 prompts sharing a 64-token prefix
              through the engine with the kernel and with the plain version;
@@ -75,11 +86,12 @@ these phases, printing one JSON line for each:
              kernel and the plain version give identical greedy tokens, so
              do decode bursts of 8 with strictly fewer host round trips, and
              the decode kernel launched (decode steps + burst iterations) x
-             layers times.
+             layers times, all on the simple route (fp32).
 ``serve_legacy``  the serve model and prompts through the legacy ``LLM``
              in bf16, without and with decode bursts of 8: the serve
              numbers, the steps of each family and the mean wall time of
-             one launch of each, the launch rule and peak memory.  Then a
+             one launch of each, the launch rule (every launch on the mma
+             route) and peak memory.  Then a
              profile window on each of the two engines: the decode
              kernel's, the matrix products' and the idle shares.
 ``flash_kernels``  the three flash kernels (forward, dQ, dK/dV) against
@@ -152,7 +164,7 @@ FLASH_NAME = "flash_attention"
 SCALED_NAME = "scaled"
 # the device functions of each kernel, as a profiler names them
 KERNEL_MARKS = ("ragged_",)   # work list, chunk, decode, combine, simple
-DECODE_MARKS = ("paged_decode_kernel", "combine_splits_kernel")
+DECODE_MARKS = ("paged_decode_",)   # the walks (simple, mma), the combine
 # (flash_fwd_kernel for fp32 inputs, flash_fwd_tma_kernel for bf16, ...)
 FLASH_MARKS = {"fwd": ("flash_fwd_",), "dq": ("flash_bwd_dq_",),
                "dkv": ("flash_bwd_dkv_",)}
@@ -518,15 +530,17 @@ def decode_tables(rng, lens, W, bs, num_blocks):
     return tables
 
 
-def decode_kernel_phase(torch, pd):
-    """The decode kernel against decode_reference: the CPU tests' bucket
-    lattice, then Llama-3-8B's decode shapes with times.  At the 8B shapes
-    each timed launch takes the next of several table sets over distinct
-    pages of a large pool, so the pages come from device memory and not
-    from L2, as they do for a decode step that walks all the layers."""
+def decode_kernel_phase(torch, pd, flash):
+    """The decode kernel against decode_reference, each (row, head) against
+    its twin row: the CPU tests' bucket lattice, then Llama-3-8B's decode
+    shapes with times.  At the 8B shapes each timed launch takes the next of
+    several table sets over distinct pages of a large pool, so the pages
+    come from device memory and not from L2, as they do for a decode step
+    that walks all the layers."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(4)
     checks = []
+    pd.launches = pd.simple_launches = pd.mma_launches = 0
 
     def check(label, q, k, v, tables, lens):
         out = pd.decode_kernel(q, k, v, tables, lens)
@@ -534,14 +548,19 @@ def decode_kernel_phase(torch, pd):
         ref = pd.decode_reference(q.float(), k.float(), v.float(), tables,
                                   lens)
         err = float((out.float() - ref).abs().max())
+        row = flash.rowwise_error(out, ref)
         tol = 1e-4 if q.dtype == torch.float32 else 2e-2
-        if not (err <= tol and torch.isfinite(out.float()).all()):
+        way = pd.route("cuda", q.dtype, k.dtype, q.shape[2], k.shape[1])
+        if not (err <= tol and row <= tol and pd.last_route == way
+                and torch.isfinite(out.float()).all()):
             raise AssertionError(f"decode kernel disagrees with the plain "
                                  f"version on {label} {q.dtype}: max abs "
-                                 f"err {err} > {tol}")
+                                 f"err {err}, row err {row} (tol {tol}), "
+                                 f"route {pd.last_route} (due {way})")
         checks.append({"case": label, "dtype": str(q.dtype).split(".")[-1],
-                       "max_abs_err": err, "tol": tol})
-        return err
+                       "route": way, "max_abs_err": err, "max_row_err": row,
+                       "tol": tol})
+        return out, ref, err
 
     for B in (1, 2, 4, 8):
         for W in (1, 2, 4, 8):
@@ -552,11 +571,13 @@ def decode_kernel_phase(torch, pd):
                 check(f"tiny B={B} W={W}", q, k, v, *arrays[3:])
 
     H, Hkv, D, bs, W, max_len, n_sets = 32, 8, 128, 16, 256, 2112, 12
+    span = pd.span_tokens(bs)
     num_blocks = n_sets * 16 * (max_len // bs) + 1
     k32 = torch.randn(num_blocks, bs, Hkv, D, device=dev)
     v32 = torch.randn(num_blocks, bs, Hkv, D, device=dev)
     timings = []
-    summary = None
+    summary = planted = None
+    bit_equal = {}
     for B in (1, 4, 16):
         lens = rng.integers(1, max_len + 1, B).astype(np.int32)
         sets = [decode_tables(rng, lens, W, bs, num_blocks)
@@ -566,8 +587,44 @@ def decode_kernel_phase(torch, pd):
         q32 = torch.randn(B, H, D, device=dev)
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
+            name = str(dtype).split(".")[-1]
             label = f"8b B={B}"
-            err = max(check(label, q, k, v, t, lens_t) for t in tables[:2])
+            out, ref, err = check(label, q, k, v, tables[0], lens_t)
+            err = max(err, check(label, q, k, v, tables[1], lens_t)[2])
+            tol = 1e-4 if dtype == torch.float32 else 2e-2
+            if B == 16:
+                # the planted fault: each row's walk without its last span
+                # (the twin with the last span dropped) must fail the check
+                cut = torch.clamp((lens_t - 1) // span * span, min=0).int()
+                bad = pd.decode_split_reference(q.float(), k.float(),
+                                                v.float(), tables[0], cut)
+                planted = {"dtype": name, "tol": tol,
+                           "row": flash.rowwise_error(bad, ref),
+                           "abs": float((bad - ref).abs().max())}
+                if not planted["row"] > tol:
+                    raise AssertionError(f"decode: each row without its last "
+                                         f"span passed the row check: "
+                                         f"{planted}")
+                # a row's bits alone (B=1), inside B=16 and at width 2W
+                wide = torch.zeros(B, 2 * W, dtype=torch.int32, device=dev)
+                wide[:, :W] = tables[0]
+                doubled = pd.decode_kernel(q, k, v, wide, lens_t)
+                alone = [pd.decode_kernel(q[i:i + 1].contiguous(), k, v,
+                                          tables[0][i:i + 1].contiguous(),
+                                          lens_t[i:i + 1].contiguous())[0]
+                         for i in range(B)]
+                again = pd.decode_kernel(q, k, v, tables[0], lens_t)
+                torch.cuda.synchronize()
+                bit_equal[name] = {
+                    "width_2W": bool(torch.equal(doubled, out)),
+                    "alone_B1": all(torch.equal(a, out[i])
+                                    for i, a in enumerate(alone)),
+                    "rerun": bool(torch.equal(again, out))}
+                if not all(bit_equal[name].values()):
+                    raise AssertionError(f"decode: rows moved across B, W or "
+                                         f"runs: {bit_equal[name]}")
+                del bad, wide, doubled, alone, again
+            del out, ref
             flops, nbytes = work(q, k, sets[0], lens, np.arange(B),
                                  lens - 1)
             # one query token per row, at position len - 1
@@ -591,16 +648,23 @@ def decode_kernel_phase(torch, pd):
                     state["i"] += 1
                 return call
 
-            name = str(dtype).split(".")[-1]
             t_flops = flops / PEAK_FLOPS[name] * 1e3
             t_bytes = nbytes / PEAK_BYTES * 1e3
             kernel = cycle(lambda i: pd.decode_kernel(q, k, v, tables[i],
                                                       lens_t))
+            ms = time_ms(kernel, 4 * n_sets)
+            parts = device_times(kernel, 2 * n_sets, DECODE_MARKS)
+            device = sum(parts.values())
             row = {
                 "B": B, "dtype": name, "lens": lens.tolist(), "W": W,
                 "max_abs_err": err,
-                "ms": time_ms(kernel, 4 * n_sets),
-                "device_ms": device_ms(kernel, 2 * n_sets, DECODE_MARKS),
+                "ms": ms, "device_ms": device,
+                "device_ms_by_kernel": parts,   # the walk and the combine
+                # the host's cost of a call that the device does not hide:
+                # CUDA-event time of back-to-back calls minus device time
+                "host_gap_ms": ms - device,
+                # the wrapper's own CPU time a call, its launch included
+                "wrapper_cpu_ms": wrapper_cpu_ms(torch, kernel, 200),
                 "plain_ms": time_ms(cycle(lambda i: pd.decode_reference(
                     q, k, v, tables[i], lens_t)), n_sets, 1),
                 "library_ms": time_ms(cycle(lambda i: library[i]()),
@@ -609,8 +673,21 @@ def decode_kernel_phase(torch, pd):
                 "bound_ms": max(t_flops, t_bytes),
                 "bound_by": "operations" if t_flops > t_bytes else "bytes",
                 "flops": flops, "bytes": nbytes,
-                "splits": pd.num_splits(dev, B, H, Hkv),
+                "route": pd.last_route, "span": span,
+                # work items: (row, head group, span)
+                "items": len(pd.span_plan(lens, span))
+                * pd.head_groups(H, Hkv, pd.last_route)[0],
             }
+            if dtype == torch.bfloat16 and B in (1, 16):
+                # the span's choice: device time at shorter spans
+                row["device_ms_by_span"] = {}
+                for sp in (32, 64, pd.SPAN_TOKENS):
+                    chosen, pd.SPAN_TOKENS = pd.SPAN_TOKENS, sp
+                    try:
+                        row["device_ms_by_span"][str(sp)] = device_ms(
+                            kernel, 2 * n_sets, DECODE_MARKS)
+                    finally:
+                        pd.SPAN_TOKENS = chosen
             timings.append(row)
             if B == 16 and dtype == torch.bfloat16:
                 summary = row   # the serve_legacy decode step's shape
@@ -619,9 +696,32 @@ def decode_kernel_phase(torch, pd):
     del k32, v32
     torch.cuda.empty_cache()
     emit("decode_kernels", name=DECODE_NAME, checks=len(checks),
-         worst=max(checks, key=lambda c: c["max_abs_err"] / c["tol"]),
-         timings=timings)
+         worst=max(checks, key=lambda c: max(c["max_abs_err"],
+                                             c["max_row_err"]) / c["tol"]),
+         planted_dropped_span=planted, bit_equal=bit_equal,
+         launches=pd.launches,
+         route_launches={"simple": pd.simple_launches,
+                         "mma": pd.mma_launches},
+         timings=timings,
+         note="max_row_err is flash.rowwise_error over (row, head) rows; "
+              "planted: the twin with each row's last span dropped at B=16, "
+              "read by the row check (must exceed tol); launches and "
+              "route_launches count every launch of this phase, checks and "
+              "timing loops included")
     return summary
+
+
+def wrapper_cpu_ms(torch, fn, n):
+    """The host's time a call of ``fn`` by time.perf_counter over ``n``
+    calls, with no synchronisation inside (the device runs behind)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e3
 
 
 # --- engine phases ------------------------------------------------------------
@@ -734,7 +834,7 @@ def identity_legacy_phase(torch, pd, serving, model, prompts,
         if eng._unified:
             raise AssertionError("identity_legacy: LLM(model, ...) did not "
                                  "build the legacy families")
-        pd.launches = 0
+        pd.launches = pd.simple_launches = pd.mma_launches = 0
         t0 = time.perf_counter()
         outs = llm.generate(prompts, serving.SamplingParams(
             max_new_tokens=16))
@@ -743,6 +843,8 @@ def identity_legacy_phase(torch, pd, serving, model, prompts,
         results[name] = dict(
             counts, tokens=[o.token_ids for o in outs],
             launches=pd.launches, seconds=time.perf_counter() - t0,
+            route_launches={"simple": pd.simple_launches,
+                            "mma": pd.mma_launches},
             prefix_hit_tokens=eng.metrics.counters["prefix_cache_hit_tokens"],
             buckets={"decode": sorted(eng.decode_buckets),
                      "prefill": sorted(eng.prefill_buckets),
@@ -764,11 +866,14 @@ def identity_legacy_phase(torch, pd, serving, model, prompts,
                              f"{kern['roundtrips']} without bursts")
     for name in ("kernel", "burst"):
         r = results[name]
-        if r["launches"] != r["decode_launches_due"]:
+        if (r["launches"] != r["decode_launches_due"]
+                or r["route_launches"]["simple"] != r["launches"]):
             raise AssertionError(
                 f"identity_legacy {name}: {r['launches']} decode-kernel "
                 f"launches, not (decode steps {r['decode_steps']} + burst "
-                f"iterations {r['burst_iterations']}) x {layers} layers")
+                f"iterations {r['burst_iterations']}) x {layers} layers, or "
+                f"not all on the simple route (fp32): "
+                f"{r['route_launches']}")
     if plain["launches"]:
         raise AssertionError("identity_legacy: the plain run launched the "
                              "decode kernel")
@@ -883,20 +988,23 @@ def serve_legacy_phase(torch, pd, serving, model, prompts, warm,
         families = {n: eng.metrics.histogram(n) for n in (
             "prefill_step", "decode_step", "burst_step")}
         fam_seen = {n: (h.count, h.sum) for n, h in families.items()}
-        pd.launches = 0
+        pd.launches = pd.simple_launches = pd.mma_launches = 0
         t0 = time.perf_counter()
         outs = llm.generate(prompts, serving.SamplingParams(
             max_new_tokens=new_tokens))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = pd.launches
+        routes = {"simple": pd.simple_launches, "mma": pd.mma_launches}
         after = legacy_counts(eng)
         steps = {k: after[k] - before[k] for k in after}
-        if launches != steps["decode_launches_due"]:
+        if launches != steps["decode_launches_due"] or \
+                routes["mma"] != launches:
             raise AssertionError(
                 f"serve_legacy {name}: {launches} decode-kernel launches, "
                 f"not (decode steps {steps['decode_steps']} + burst "
-                f"iterations {steps['burst_iterations']}) x {layers} layers")
+                f"iterations {steps['burst_iterations']}) x {layers} layers, "
+                f"or not all on the mma route (bf16): {routes}")
         out_tokens = sum(len(o.token_ids) for o in outs)
         if out_tokens != len(prompts) * new_tokens or not all(
                 0 <= t < model.config.vocab_size
@@ -921,6 +1029,7 @@ def serve_legacy_phase(torch, pd, serving, model, prompts, warm,
             output_tokens_per_s=out_tokens / wall,
             total_tokens_per_s=(out_tokens + sum(map(len, prompts))) / wall,
             mean_ttft_s=ttft, mean_itl_s=itl, decode_kernel_launches=launches,
+            route_launches=routes,
             tokens=[o.token_ids for o in outs],
             preemptions=eng.metrics.counters["preemptions"],
             max_memory_allocated=torch.cuda.max_memory_allocated(),
@@ -1527,6 +1636,63 @@ def scaled_sweep(torch, sc):
     return checks, worst
 
 
+def spread(values):
+    """Median, 10th and 90th percentiles and extremes of ``values``."""
+    v = np.sort(np.asarray(values, dtype=np.float64))
+    return {"n": int(v.size), "median": float(np.median(v)),
+            "p10": float(np.percentile(v, 10)),
+            "p90": float(np.percentile(v, 90)),
+            "min": float(v[0]), "max": float(v[-1])}
+
+
+def interleaved_times(torch, fns, rounds, calls):
+    """The functions of ``fns`` ({name: (fn, kernel mark)}) timed in turns
+    on one card, the order reversed every round (A B, B A, ...).  By CUDA
+    events: ``calls`` back-to-back calls of each a turn, ms a call.  By the
+    profiler, in a second pass of the same turns: each launch's device time
+    in the kernels whose names hold the function's mark.  Returns each
+    name's :func:`spread` by both clocks; raises when the profiler records
+    no launch of one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    names = list(fns)
+    for name in names:
+        fns[name][0]()
+    torch.cuda.synchronize()
+    events = {name: [] for name in names}
+    for r in range(rounds):
+        for name in names if r % 2 == 0 else names[::-1]:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(calls):
+                fns[name][0]()
+            end.record()
+            end.synchronize()
+            events[name].append(start.elapsed_time(end) / calls)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for r in range(rounds):
+            for name in names if r % 2 == 0 else names[::-1]:
+                for _ in range(calls):
+                    fns[name][0]()
+        torch.cuda.synchronize()
+    device = {name: [] for name in names}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for name in names:
+            if fns[name][1] in e.name:
+                device[name].append(e.time_range.elapsed_us() / 1e3)
+    if not all(device.values()):
+        raise AssertionError(f"interleaved timing: the profiler recorded "
+                             f"{ {n: len(v) for n, v in device.items()} } "
+                             f"launches")
+    return {name: {"event_ms": spread(events[name]),
+                   "device_ms": spread(device[name])} for name in names}
+
+
 def custom_op_phase(torch, sc, cpp_extension, build_dir):
     """The custom-op path: the sweep, then the JAX docstring example as a
     user imports it, ``ops/scaled.py::my_scaled`` (``register_custom_op(
@@ -1613,6 +1779,11 @@ def custom_op_phase(torch, sc, cpp_extension, build_dir):
         "bound_ms": max(t_flops, t_bytes),
         "bound_by": "operations" if t_flops > t_bytes else "bytes",
         "flops": float(x.numel()), "bytes": nbytes,
+        # the kernel and torch.mul in turns, each call by both clocks
+        "interleaved": interleaved_times(torch, {
+            "kernel": (lambda: sc.scaled_kernel(x, alpha), "scaled_kernel"),
+            "torch_mul": (lambda: torch.mul(x, alpha), "elementwise_kernel"),
+        }, rounds=40, calls=5),
     }
 
     os.makedirs(build_dir, exist_ok=True)
@@ -1687,7 +1858,7 @@ def main() -> int:
         str(_build.BUILD_DIR / "extensions"))
 
     summary = kernel_phase(torch, rp, flash)
-    decode_summary = decode_kernel_phase(torch, pd)
+    decode_summary = decode_kernel_phase(torch, pd, flash)
     model, prompts, unified_tokens = identity_phase(
         torch, rp, serving, LlamaConfig, LlamaForCausalLM)
     identity_legacy_phase(torch, pd, serving, model, prompts, unified_tokens)
@@ -1744,7 +1915,8 @@ def main() -> int:
         "replaces": "paddle_tpu/ops/pallas_paged.py:45",
         "launches": decode_launches,
         "max_abs_err": decode_summary["max_abs_err"],
-        "ms": decode_summary["ms"], "plain_ms": decode_summary["plain_ms"],
+        "ms": decode_summary["ms"], "device_ms": decode_summary["device_ms"],
+        "plain_ms": decode_summary["plain_ms"],
         "bound_ms": decode_summary["bound_ms"],
         "bound_by": decode_summary["bound_by"],
         "library_ms": decode_summary["library_ms"]}, *flash_rows, {
