@@ -26,7 +26,9 @@ Every JSON line of a run is printed with ``checkout`` and ``run`` fields
 added; the last line is a summary of each run's output tokens/s, serve
 seconds, idle shares, the decode kernel's device ms at B=16 bf16, the
 legacy path's tokens/s, idle and decode-kernel shares, ms a train step and
-MFU.  Exits nonzero when a run fails or there is no CUDA device.
+MFU; and, for a checkout with the step graphs, the tokens/s of its warm
+(replays only) and eager serve passes.  Exits nonzero when a run fails or
+there is no CUDA device.
 """
 
 from __future__ import annotations
@@ -51,6 +53,21 @@ from paddle_tpu_torch.ops import paged_decode as pd
 from paddle_tpu_torch.ops import ragged_paged as rp
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.optimizer.lr import CosineAnnealingDecay
+try:
+    from paddle_tpu_torch.serving import graphs
+except ImportError:    # a checkout from before the step graphs
+    graphs = None
+
+
+# a checkout's own phase: its serving phases take the graphs module after
+# `serving` since the step graphs came
+def phase(fn, *args):
+    names = list(inspect.signature(fn).parameters)
+    if "graphs" in names:
+        i = names.index("graphs")
+        args = args[:i] + (graphs,) + args[i:]
+    return fn(*args)
+
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -60,18 +77,18 @@ _build.build(["ragged_paged_attention", "paged_decode_attention",
 decode_args = (torch, pd, flash)[:len(inspect.signature(
     cs.decode_kernel_phase).parameters)]
 cs.decode_kernel_phase(*decode_args)
-_, llm, prompts, warm, new_tokens = cs.serve_phase(
-    torch, rp, serving, LlamaConfig, LlamaForCausalLM)
+_, llm, prompts, warm, new_tokens = phase(
+    cs.serve_phase, torch, rp, serving, LlamaConfig, LlamaForCausalLM)
 model = llm.engine.model
 vocab = model.config.vocab_size
-cs.profile_phase(torch, serving, llm, vocab)
+phase(cs.profile_phase, torch, serving, llm, vocab)
 del llm
 torch.cuda.empty_cache()
-_, llms = cs.serve_legacy_phase(torch, pd, serving, model, prompts, warm,
-                                new_tokens)
+_, llms = phase(cs.serve_legacy_phase, torch, pd, serving, model, prompts,
+                warm, new_tokens)
 for name in llms:
-    cs.profile_phase(torch, serving, llms[name], vocab, window_name=name,
-                     label="decode", marks=cs.DECODE_MARKS, new_tokens=32)
+    phase(cs.profile_phase, torch, serving, llms[name], vocab, name,
+          "decode", cs.DECODE_MARKS, 32)
 del llms, model
 gc.collect()
 torch.cuda.empty_cache()
@@ -147,6 +164,16 @@ def main() -> int:
             "legacy_decode_share": p["profile:legacy"]["decode_kernel_share"],
             "legacy_burst_idle_share":
                 p["profile:legacy_burst"]["idle_share"],
+            # warm (replays only) and eager passes, where the checkout
+            # has them
+            "warm_tokens_per_s": p["serve"].get("warm", {}).get(
+                "output_tokens_per_s"),
+            "eager_tokens_per_s": p["serve"].get("eager", {}).get(
+                "output_tokens_per_s"),
+            "legacy_warm_tokens_per_s": legacy["legacy"].get(
+                "warm", {}).get("output_tokens_per_s"),
+            "legacy_burst_warm_tokens_per_s": legacy["legacy_burst"].get(
+                "warm", {}).get("output_tokens_per_s"),
             "train_ms_per_step": p["train"]["ms_per_step"],
             "mfu": p["train"]["mfu"],
             "train_idle_share": p["train_profile"]["idle_share"],

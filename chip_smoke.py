@@ -68,32 +68,50 @@ these phases, printing one JSON line for each:
              route.
 ``identity`` Llama-3-8B at full width cut to 4 layers, fp32, random weights
              from a seeded generator: 8 prompts sharing a 64-token prefix
-             through the engine with the kernel and with the plain version;
-             the greedy tokens must be identical and the kernel must have
-             launched once per layer per engine step, on the simple route.
+             through the unified engine with the kernel and with the plain
+             version, and with the step graphs and under
+             ``graphs.disable_graphs()`` (greedy and seeded sampled; and a
+             bf16 model of the same widths on the tma route, graphs against
+             eager); the tokens of each pair must be identical, the kernel
+             must have launched once per layer per engine step through the
+             replays (fp32 on the simple route, bf16 on the tma route) and
+             each run's ``ragged_trace_count`` must equal its bucket set
+             (0 eagerly).  A planted fault: replays whose static inputs are
+             never refreshed must give other tokens.
 ``serve``    Llama-3-8B at full width and depth, bf16 weights and pools:
              16 prompts of 256-2048 tokens, 64 greedy tokens each, through
-             ``LLM.generate``; output tokens/s, mean TTFT, mean inter-token
-             latency, engine steps, kernel launches (= steps x layers, every
-             one on the tma route) and peak device memory.
+             ``LLM.generate`` with the step graphs (the cold pass: the
+             captures happen inside it); output tokens/s, mean TTFT, mean
+             inter-token latency, the mean wall time of one unified step,
+             engine steps, kernel launches (= steps x layers, every one on
+             the tma route), captures and their seconds, replays, and peak
+             device memory (allocated and reserved).  Then the same on
+             fresh prompts of the same lengths twice: a warm pass (replays
+             only) and an eager pass.
 ``profile``  torch.profiler over a short window of the same engine: device
              time by kernel, the ragged kernel's and the matrix products'
-             shares, and the device's idle share.
+             shares, and the device's idle share, with the captures and
+             replays of the window (a kernel share of 0 fails the phase:
+             the kernels must show inside graph replays).
 ``identity_legacy``  the identity model and prompts through the JAX
              package's default serving call, ``LLM(model, num_blocks=...,
              block_size=16, max_num_seqs=8)`` (the legacy prefill / chunk /
-             decode families) with a 256-token prefill budget: the decode
-             kernel and the plain version give identical greedy tokens, so
-             do decode bursts of 8 with strictly fewer host round trips, and
-             the decode kernel launched (decode steps + burst iterations) x
-             layers times, all on the simple route (fp32).
+             decode families) with a 256-token prefill budget, and through
+             an LLM with decode bursts of 8: the decode kernel and the plain
+             version give identical greedy tokens, so do bursts with
+             strictly fewer host round trips, and so do the step graphs
+             and ``disable_graphs()`` with and without bursts, greedy and
+             seeded sampled; the decode kernel launched (decode steps +
+             burst iterations) x layers times through the replays, all on
+             the simple route (fp32); ``decode_trace_count`` and
+             ``burst_trace_count`` equal their bucket sets.
 ``serve_legacy``  the serve model and prompts through the legacy ``LLM``
-             in bf16, without and with decode bursts of 8: the serve
-             numbers, the steps of each family and the mean wall time of
-             one launch of each, the launch rule (every launch on the mma
-             route) and peak memory.  Then a
-             profile window on each of the two engines: the decode
-             kernel's, the matrix products' and the idle shares.
+             in bf16, without and with decode bursts of 8, each as the
+             serve phase's three passes: the serve numbers, the steps of
+             each family and the mean wall time of one launch of each, the
+             launch rule (every launch on the mma route), captures and peak
+             memory.  Then a profile window on each of the two engines: the
+             decode kernel's, the matrix products' and the idle shares.
 ``flash_kernels``  the three flash kernels (forward, dQ, dK/dV) against
              their twins on the same inputs by ``flash.rowwise_error``,
              each output row against its twin row (fp32 within 1e-4; bf16
@@ -146,6 +164,7 @@ script without the package.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import re
@@ -283,27 +302,30 @@ def device_times(fn, iters, marks):
     ``marks``, from torch.profiler: {function name: ms}.  Unlike
     :func:`time_ms` it leaves out the host's cost of issuing each call,
     which sets the pace of back-to-back calls when the kernels are shorter
-    than that cost.  Raises when it records none in those kernels."""
+    than that cost.  A profile that recorded none of those kernels is taken
+    again, twice at most (a profiler session of a long process sometimes
+    records no device activity); then it raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    times = {}
-    for k, us in device_kernels(prof).items():
-        if any(m in k.lower() for m in marks):
-            name = re.search(r"(\w+)(<[^>(]*>)?\(", k.split("::")[-1])
-            key = name.group(0)[:-1] if name else k[:60]
-            times[key] = times.get(key, 0.0) + us / iters / 1e3
-    if not times:
-        raise AssertionError(f"the profiler recorded no device time in "
-                             f"kernels named {marks}")
-    return times
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        times = {}
+        for k, us in device_kernels(prof).items():
+            if any(m in k.lower() for m in marks):
+                name = re.search(r"(\w+)(<[^>(]*>)?\(", k.split("::")[-1])
+                key = name.group(0)[:-1] if name else k[:60]
+                times[key] = times.get(key, 0.0) + us / iters / 1e3
+        if times:
+            return times
+    raise AssertionError(f"the profiler recorded no device time in kernels "
+                         f"named {marks} in three profiles")
 
 
 def device_ms(fn, iters, marks):
@@ -732,29 +754,98 @@ def prompts_with_prefix(rng, n, lo, hi, prefix_len, vocab):
                                   - prefix_len).tolist() for _ in range(n)]
 
 
-def identity_phase(torch, rp, serving, LlamaConfig, LlamaForCausalLM):
+SAMPLED = dict(temperature=0.8, top_k=20, top_p=0.9)
+
+
+def sampling(serving, n, new_tokens, sampled):
+    """One SamplingParams a prompt: greedy, or seeded sampling (seed 100 +
+    the prompt's index)."""
+    return [serving.SamplingParams(max_new_tokens=new_tokens,
+                                   **(dict(SAMPLED, seed=100 + i)
+                                      if sampled else {}))
+            for i in range(n)]
+
+
+def graph_counts(eng):
+    """The captures of each graphed family (the JAX engine's trace
+    counters) and the step-program cache's totals."""
+    g = eng.graphs
+    return {"decode": eng.decode_trace_count,
+            "burst": eng.burst_trace_count,
+            "ragged": eng.ragged_trace_count, "captures": g.captures,
+            "capture_s": g.capture_seconds, "replays": g.replays}
+
+
+def check_traces(label, eng, families):
+    """On a greedy or all-sampled run each family in ``families`` was
+    captured once per bucket of its set (and ran), and its *_jit_traces
+    metric says so; any other family (all of them in an eager run) was
+    never captured."""
+    sets = {"decode": eng.decode_buckets, "burst": eng.burst_buckets,
+            "ragged": eng.ragged_buckets}
+    for family, buckets in sets.items():
+        count = getattr(eng, f"{family}_trace_count")
+        want = len(buckets) if family in families else 0
+        if (count != want or (family in families and not count)
+                or eng.metrics.counters[f"{family}_jit_traces"] != count):
+            raise AssertionError(
+                f"{label}: {count} {family} captures for {len(buckets)} "
+                f"buckets (graphed families here: {families})")
+
+
+@contextlib.contextmanager
+def stale_inputs(graphs):
+    """A planted fault: replays whose static inputs are never refreshed."""
+    fill = graphs.StepGraphs._fill
+    graphs.StepGraphs._fill = lambda *a: None
+    try:
+        yield
+    finally:
+        graphs.StepGraphs._fill = fill
+
+
+def identity_phase(torch, rp, serving, graphs, LlamaConfig,
+                   LlamaForCausalLM):
+    """The unified engine at 8B widths cut to 4 layers: the ragged kernel
+    against its plain version, graphs against eager (greedy and seeded
+    sampled, fp32 on the simple route and bf16 on the tma route), and the
+    planted stale-input fault."""
     layers = 4
     cfg = LlamaConfig.llama3_8b(num_hidden_layers=layers)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.float32,
-                             generator=gen)
+    models = {}
+    for dtype, seed in ((torch.float32, 0), (torch.bfloat16, 4)):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        models[dtype] = LlamaForCausalLM(cfg, device="cuda", dtype=dtype,
+                                         generator=gen)
     rng = np.random.default_rng(1)
     prompts = prompts_with_prefix(rng, 8, 100, 700, 64, cfg.vocab_size)
     need = sum(-(-(len(p) + 16) // 16) for p in prompts) + 1
+    runs = {   # name: (dtype, kernel route, eager, sampled, stale inputs)
+        "kernel": (torch.float32, None, False, False, False),
+        "plain": (torch.float32, False, False, False, False),
+        "eager": (torch.float32, None, True, False, False),
+        "sampled": (torch.float32, None, False, True, False),
+        "sampled_eager": (torch.float32, None, True, True, False),
+        "bf16": (torch.bfloat16, None, False, False, False),
+        "bf16_eager": (torch.bfloat16, None, True, False, False),
+        "stale": (torch.float32, None, False, False, True),
+    }
     results = {}
-    for route in (None, False):
-        eng = serving.EngineCore(model, config=serving.EngineConfig(
-            num_blocks=need + 16, block_size=16, dtype=torch.float32,
+    for name, (dtype, route, eager, sampled, stale) in runs.items():
+        eng = serving.EngineCore(models[dtype], config=serving.EngineConfig(
+            num_blocks=need + 16, block_size=16, dtype=dtype,
             unified_step=True, use_pallas_paged=route,
             scheduler=serving.SchedulerConfig(max_num_seqs=8,
                                               max_tokens_per_step=256)))
         rp.launches = rp.simple_launches = rp.tma_launches = 0
-        reqs = [eng.add_request(p, serving.SamplingParams(max_new_tokens=16))
-                for p in prompts]
+        reqs = [eng.add_request(p, sp) for p, sp in zip(
+            prompts, sampling(serving, len(prompts), 16, sampled))]
         t0 = time.perf_counter()
-        eng.run(max_steps=2000)
+        with graphs.disable_graphs() if eager else \
+                stale_inputs(graphs) if stale else contextlib.nullcontext():
+            eng.run(max_steps=2000)
         torch.cuda.synchronize()
-        results[route] = {
+        results[name] = {
             "tokens": [list(r.output_tokens) for r in reqs],
             "launches": rp.launches, "steps": eng.ragged_launches,
             "route_launches": {"simple": rp.simple_launches,
@@ -762,32 +853,67 @@ def identity_phase(torch, rp, serving, LlamaConfig, LlamaForCausalLM):
             "seconds": time.perf_counter() - t0,
             "prefix_hit_tokens": eng.metrics.counters[
                 "prefix_cache_hit_tokens"],
-            "buckets": sorted(eng.ragged_buckets)}
+            "buckets": sorted(eng.ragged_buckets),
+            "graphs": graph_counts(eng)}
         if eng.kv.occupancy() != 0.0:
-            raise AssertionError("identity: the pool is not empty at the end")
-    kern, plain = results[None], results[False]
-    if kern["tokens"] != plain["tokens"]:
-        raise AssertionError("identity: kernel and plain engines emitted "
-                             "different greedy tokens")
-    if (kern["launches"] != kern["steps"] * layers or plain["launches"]
-            or kern["route_launches"]["simple"] != kern["launches"]):
-        raise AssertionError(f"identity: {kern['launches']} kernel launches "
-                             f"for {kern['steps']} steps x {layers} layers, "
-                             f"by route {kern['route_launches']} (fp32: all "
-                             f"simple; plain run: {plain['launches']})")
+            raise AssertionError(f"identity {name}: the pool is not empty "
+                                 f"at the end")
+        if not stale:
+            check_traces(f"identity {name}", eng,
+                         () if eager else ("ragged",))
+        del eng
+    r = results
+    for a, b in (("kernel", "plain"), ("kernel", "eager"),
+                 ("sampled", "sampled_eager"), ("bf16", "bf16_eager")):
+        if r[a]["tokens"] != r[b]["tokens"]:
+            raise AssertionError(f"identity: the {a} and {b} engines "
+                                 f"emitted different tokens")
+    if r["sampled"]["tokens"] == r["kernel"]["tokens"]:
+        raise AssertionError("identity: seeded sampling gave the greedy "
+                             "tokens")
+    if r["stale"]["tokens"] == r["kernel"]["tokens"]:
+        raise AssertionError("identity: replays on stale static inputs gave "
+                             "the right tokens: the identity check does not "
+                             "bite")
+    for name in ("kernel", "eager", "sampled", "sampled_eager", "bf16",
+                 "bf16_eager"):
+        x = r[name]
+        route = "tma" if name.startswith("bf16") else "simple"
+        if (x["launches"] != x["steps"] * layers
+                or x["route_launches"][route] != x["launches"]):
+            raise AssertionError(
+                f"identity {name}: {x['launches']} kernel launches for "
+                f"{x['steps']} steps x {layers} layers, by route "
+                f"{x['route_launches']} (all due on the {route} route)")
+    if r["plain"]["launches"]:
+        raise AssertionError(f"identity: the plain run launched the kernel "
+                             f"{r['plain']['launches']} times")
+    kern = r["kernel"]
     if kern["prefix_hit_tokens"] <= 0:
         raise AssertionError("identity: no prefix fork happened")
     if any(len(t) != 16 or not all(0 <= x < cfg.vocab_size for x in t)
-           for t in kern["tokens"]):
+           for x in r.values() for t in x["tokens"]):
         raise AssertionError("identity: malformed token streams")
-    emit("identity", layers=layers, dtype="float32",
+    model = models.pop(torch.float32)
+    del models
+    stale_diff = sum(a != b for ta, tb in zip(r["stale"]["tokens"],
+                                              kern["tokens"])
+                     for a, b in zip(ta, tb))
+    emit("identity", layers=layers, dtype="float32 (bf16 runs: bfloat16)",
          prompt_lens=[len(p) for p in prompts],
-         greedy_identical=True, kernel_launches=kern["launches"],
+         greedy_identical=True, graphs_identical=True,
+         sampled_graphs_identical=True, bf16_graphs_identical=True,
+         stale_tokens_differing=stale_diff,
+         kernel_launches=kern["launches"],
          route_launches=kern["route_launches"],
-         ragged_launches=kern["steps"], plain_launches=plain["launches"],
+         ragged_launches=kern["steps"], plain_launches=r["plain"]["launches"],
          prefix_hit_tokens=kern["prefix_hit_tokens"],
-         buckets=kern["buckets"], kernel_s=kern["seconds"],
-         plain_s=plain["seconds"], first_tokens=kern["tokens"][0][:8])
+         buckets=kern["buckets"], first_tokens=kern["tokens"][0][:8],
+         **{name: {k: v for k, v in x.items()
+                   if k not in ("tokens", "buckets")}
+            for name, x in r.items()})
+    gc.collect()
+    torch.cuda.empty_cache()
     return model, prompts, kern["tokens"]
 
 
@@ -808,27 +934,38 @@ def legacy_counts(eng):
             * eng.model.config.num_hidden_layers}
 
 
-def identity_legacy_phase(torch, pd, serving, model, prompts,
+def identity_legacy_phase(torch, pd, serving, graphs, model, prompts,
                           unified_tokens):
     """The identity model and prompts through the JAX package's default
     serving call, the keyword form of LLM, which builds the legacy
-    families.  Its prefill budget is set on the scheduler's config: the
-    keyword form takes max_num_seqs only."""
+    families, and through an LLM with decode bursts of 8: the decode kernel
+    against its plain version, and graphs against eager (greedy and seeded
+    sampled, with and without bursts).  Its prefill budget is set on the
+    scheduler's config: the keyword form takes max_num_seqs only."""
     layers = model.config.num_hidden_layers
     need = sum(-(-(len(p) + 16) // 16) for p in prompts) + 1
     budget = 256
+    runs = {   # name: (bursts, kernel route, eager, sampled)
+        "kernel": (False, None, False, False),
+        "plain": (False, False, False, False),
+        "burst": (True, None, False, False),
+        "eager": (False, None, True, False),
+        "burst_eager": (True, None, True, False),
+        "sampled": (False, None, False, True),
+        "sampled_eager": (False, None, True, True),
+        "burst_sampled": (True, None, False, True),
+        "burst_sampled_eager": (True, None, True, True),
+    }
     results = {}
-    for name in ("kernel", "plain", "burst"):
-        if name == "burst":
+    for name, (burst, route, eager, sampled) in runs.items():
+        if burst:
             llm = serving.LLM(model, config=serving.EngineConfig(
                 num_blocks=need + 16, block_size=16, burst_steps=8,
                 scheduler=serving.SchedulerConfig(
                     max_num_seqs=8, max_prefill_tokens_per_step=budget)))
         else:
             llm = serving.LLM(model, num_blocks=need + 16, block_size=16,
-                              max_num_seqs=8,
-                              use_pallas_paged=None if name == "kernel"
-                              else False)
+                              max_num_seqs=8, use_pallas_paged=route)
             llm.engine.scheduler.config.max_prefill_tokens_per_step = budget
         eng = llm.engine
         if eng._unified:
@@ -836,8 +973,9 @@ def identity_legacy_phase(torch, pd, serving, model, prompts,
                                  "build the legacy families")
         pd.launches = pd.simple_launches = pd.mma_launches = 0
         t0 = time.perf_counter()
-        outs = llm.generate(prompts, serving.SamplingParams(
-            max_new_tokens=16))
+        with graphs.disable_graphs() if eager else contextlib.nullcontext():
+            outs = llm.generate(prompts, sampling(serving, len(prompts), 16,
+                                                  sampled))
         torch.cuda.synchronize()
         counts = legacy_counts(eng)
         results[name] = dict(
@@ -848,53 +986,123 @@ def identity_legacy_phase(torch, pd, serving, model, prompts,
             prefix_hit_tokens=eng.metrics.counters["prefix_cache_hit_tokens"],
             buckets={"decode": sorted(eng.decode_buckets),
                      "prefill": sorted(eng.prefill_buckets),
-                     "burst": sorted(eng.burst_buckets)})
+                     "burst": sorted(eng.burst_buckets)},
+            graphs=graph_counts(eng))
         if eng.kv.occupancy() != 0.0:
             raise AssertionError(f"identity_legacy {name}: the pool is not "
                                  f"empty at the end")
+        check_traces(f"identity_legacy {name}", eng,
+                     () if eager else ("decode", "burst") if burst
+                     else ("decode",))
         del llm, eng
-    kern, plain, burst = results["kernel"], results["plain"], results["burst"]
-    if kern["tokens"] != plain["tokens"]:
-        raise AssertionError("identity_legacy: the decode kernel and the "
-                             "plain version emitted different greedy tokens")
-    if burst["tokens"] != kern["tokens"]:
-        raise AssertionError("identity_legacy: decode bursts changed the "
+    r = results
+    kern, burst = r["kernel"], r["burst"]
+    for a, b in (("kernel", "plain"), ("kernel", "burst"),
+                 ("kernel", "eager"), ("burst", "burst_eager"),
+                 ("sampled", "sampled_eager"), ("sampled", "burst_sampled"),
+                 ("burst_sampled", "burst_sampled_eager")):
+        if r[a]["tokens"] != r[b]["tokens"]:
+            raise AssertionError(f"identity_legacy: the {a} and {b} engines "
+                                 f"emitted different tokens")
+    if r["sampled"]["tokens"] == kern["tokens"]:
+        raise AssertionError("identity_legacy: seeded sampling gave the "
                              "greedy tokens")
-    if not burst["roundtrips"] < kern["roundtrips"] or burst["bursts"] == 0:
-        raise AssertionError(f"identity_legacy: {burst['bursts']} bursts, "
-                             f"{burst['roundtrips']} round trips against "
-                             f"{kern['roundtrips']} without bursts")
-    for name in ("kernel", "burst"):
-        r = results[name]
-        if (r["launches"] != r["decode_launches_due"]
-                or r["route_launches"]["simple"] != r["launches"]):
+    for name in ("burst", "burst_eager", "burst_sampled",
+                 "burst_sampled_eager"):
+        if not r[name]["roundtrips"] < kern["roundtrips"] or \
+                r[name]["bursts"] == 0:
             raise AssertionError(
-                f"identity_legacy {name}: {r['launches']} decode-kernel "
-                f"launches, not (decode steps {r['decode_steps']} + burst "
-                f"iterations {r['burst_iterations']}) x {layers} layers, or "
+                f"identity_legacy {name}: {r[name]['bursts']} bursts, "
+                f"{r[name]['roundtrips']} round trips against "
+                f"{kern['roundtrips']} without bursts")
+    for name, x in r.items():
+        if name == "plain":
+            continue
+        if (x["launches"] != x["decode_launches_due"]
+                or x["route_launches"]["simple"] != x["launches"]):
+            raise AssertionError(
+                f"identity_legacy {name}: {x['launches']} decode-kernel "
+                f"launches, not (decode steps {x['decode_steps']} + burst "
+                f"iterations {x['burst_iterations']}) x {layers} layers, or "
                 f"not all on the simple route (fp32): "
-                f"{r['route_launches']}")
-    if plain["launches"]:
+                f"{x['route_launches']}")
+    if r["plain"]["launches"]:
         raise AssertionError("identity_legacy: the plain run launched the "
                              "decode kernel")
     if kern["chunk_steps"] <= 0 or kern["prefix_hit_tokens"] <= 0:
         raise AssertionError("identity_legacy: the chunk family or the "
                              "prefix fork did not run")
-    if any(len(t) != 16 or not all(0 <= x < model.config.vocab_size
-                                   for x in t) for t in kern["tokens"]):
+    if any(len(t) != 16 or not all(0 <= v < model.config.vocab_size
+                                   for v in t)
+           for x in r.values() for t in x["tokens"]):
         raise AssertionError("identity_legacy: malformed token streams")
     agree = sum(a == b for ta, tb in zip(kern["tokens"], unified_tokens)
                 for a, b in zip(ta, tb))
     emit("identity_legacy", layers=layers, dtype="float32",
          prefill_budget=budget, greedy_identical=True,
-         burst_identical=True,
+         burst_identical=True, graphs_identical=True,
+         sampled_graphs_identical=True,
          tokens_agreeing_with_unified=agree,
          tokens_total=sum(map(len, unified_tokens)),
-         **{name: {k: v for k, v in r.items() if k != "tokens"}
-            for name, r in results.items()})
+         **{name: {k: v for k, v in x.items() if k != "tokens"}
+            for name, x in r.items()})
 
 
-def serve_phase(torch, rp, serving, LlamaConfig, LlamaForCausalLM):
+def serve_pass(torch, serving, graphs, llm, prompts, new_tokens,
+               eager=False):
+    """One timed ``LLM.generate`` of greedy requests on a warm engine, with
+    the step graphs or eagerly (``disable_graphs``).  Returns the pass's
+    numbers — means over its own observations only — and its outputs."""
+    eng = llm.engine
+    names = ("time_to_first_token", "inter_token_latency", "prefill_step",
+             "decode_step", "burst_step", "unified_step")
+    hists = {n: eng.metrics.histogram(n) for n in names}
+    seen = {n: (h.count, h.sum) for n, h in hists.items()}
+    g0 = graph_counts(eng)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with graphs.disable_graphs() if eager else contextlib.nullcontext():
+        outs = llm.generate(prompts, serving.SamplingParams(
+            max_new_tokens=new_tokens))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    g1 = graph_counts(eng)
+    mean = {n: (h.sum - seen[n][1]) / (h.count - seen[n][0])
+            for n, h in hists.items() if h.count > seen[n][0]}
+    out_tokens = sum(len(o.token_ids) for o in outs)
+    if out_tokens != len(prompts) * new_tokens or not all(
+            0 <= t < eng.model.config.vocab_size
+            for o in outs for t in o.token_ids):
+        raise AssertionError("serve: malformed token streams")
+    if eng.kv.occupancy() != 0.0:
+        raise AssertionError("serve: the pool is not empty at the end")
+    return {
+        "graphs": not eager, "seconds": wall,
+        "output_tokens_per_s": out_tokens / wall,
+        "total_tokens_per_s": (out_tokens + sum(map(len, prompts))) / wall,
+        "mean_ttft_s": mean["time_to_first_token"],
+        "mean_itl_s": mean["inter_token_latency"],
+        # mean wall time of one launch of each family (the host's work
+        # included: each ends when its tokens reach the host)
+        "mean_step_ms": {n: mean[n] * 1e3 for n in names[2:] if n in mean},
+        "captures": g1["captures"] - g0["captures"],
+        "capture_s": g1["capture_s"] - g0["capture_s"],
+        "replays": g1["replays"] - g0["replays"],
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "max_memory_reserved": torch.cuda.max_memory_reserved()}, outs
+
+
+def same_lengths(rng, prompts, vocab):
+    """Fresh prompts of the same lengths: the same schedule and buckets, no
+    prefix-cache hit on the earlier ones."""
+    return [rng.integers(0, vocab, len(p)).tolist() for p in prompts]
+
+
+def serve_phase(torch, rp, serving, graphs, LlamaConfig, LlamaForCausalLM):
+    """Llama-3-8B, bf16, through the unified LLM: a cold pass with the step
+    graphs (the captures inside it), a warm pass on fresh prompts of the
+    same lengths (replays only), and an eager pass."""
     cfg = LlamaConfig.llama3_8b()
     layers = cfg.num_hidden_layers
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -917,56 +1125,47 @@ def serve_phase(torch, rp, serving, LlamaConfig, LlamaForCausalLM):
                                           max_tokens_per_step=512)))
     eng = llm.engine
     llm.generate(warm, serving.SamplingParams(max_new_tokens=2))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    steps0 = eng.ragged_launches
-    hists = [eng.metrics.histogram(n) for n in ("time_to_first_token",
-                                                 "inter_token_latency")]
-    before = [(h.count, h.sum) for h in hists]
-    rp.launches = rp.simple_launches = rp.tma_launches = 0
-    t0 = time.perf_counter()
-    outs = llm.generate(prompts, serving.SamplingParams(
-        max_new_tokens=new_tokens))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = rp.launches
-    routes = {"simple": rp.simple_launches, "tma": rp.tma_launches}
-    steps = eng.ragged_launches - steps0
-    if launches != steps * layers or routes["tma"] != launches:
-        raise AssertionError(f"serve: {launches} kernel launches for "
-                             f"{steps} steps x {layers} layers, by route "
-                             f"{routes} (every one due on the tma route)")
-    out_tokens = sum(len(o.token_ids) for o in outs)
-    if out_tokens != 16 * new_tokens or not all(
-            0 <= t < cfg.vocab_size for o in outs for t in o.token_ids):
-        raise AssertionError("serve: malformed token streams")
-    if eng.kv.occupancy() != 0.0:
-        raise AssertionError("serve: the pool is not empty at the end")
-    # means over this run's observations only (the warm-up's are excluded)
-    ttft, itl = ((h.sum - s0) / (h.count - c0)
-                 for h, (c0, s0) in zip(hists, before))
+    passes = {}
+    for name, batch, eager in (
+            ("cold", prompts, False),
+            ("warm", same_lengths(rng, prompts, cfg.vocab_size), False),
+            ("eager", same_lengths(rng, prompts, cfg.vocab_size), True)):
+        steps0 = eng.ragged_launches
+        rp.launches = rp.simple_launches = rp.tma_launches = 0
+        passes[name], _ = serve_pass(torch, serving, graphs, llm, batch,
+                                     new_tokens, eager)
+        steps = eng.ragged_launches - steps0
+        routes = {"simple": rp.simple_launches, "tma": rp.tma_launches}
+        if rp.launches != steps * layers or routes["tma"] != rp.launches:
+            raise AssertionError(
+                f"serve {name}: {rp.launches} kernel launches for {steps} "
+                f"steps x {layers} layers, by route {routes} (every one "
+                f"due on the tma route)")
+        passes[name].update(engine_steps=steps, kernel_launches=rp.launches,
+                            route_launches=routes)
+    cold = passes.pop("cold")
+    check_traces("serve", eng, ("ragged",))
     emit("serve", model="llama3_8b", layers=layers, dtype="bfloat16",
          prompts=len(prompts), prompt_tokens=sum(map(len, prompts)),
-         new_tokens_each=new_tokens, seconds=wall,
-         output_tokens_per_s=out_tokens / wall,
-         total_tokens_per_s=(out_tokens + sum(map(len, prompts))) / wall,
-         mean_ttft_s=ttft, mean_itl_s=itl,
-         engine_steps=steps, kernel_launches=launches,
-         route_launches=routes,
-         buckets=sorted({b for b in eng.ragged_buckets}),
+         new_tokens_each=new_tokens, **cold, **passes,
+         trace_counts=graph_counts(eng),
+         buckets=sorted(eng.ragged_buckets),
          preemptions=eng.metrics.counters["preemptions"],
-         max_memory_allocated=torch.cuda.max_memory_allocated(),
          model_build_s=build_s, num_blocks=eng.num_blocks)
-    return launches, llm, prompts, warm, new_tokens
+    return cold["kernel_launches"], llm, prompts, warm, new_tokens
 
 
-def serve_legacy_phase(torch, pd, serving, model, prompts, warm,
+def serve_legacy_phase(torch, pd, serving, graphs, model, prompts, warm,
                        new_tokens):
     """The serve model and prompts through the legacy LLM in bf16, without
-    and with decode bursts of 8.  Returns the decode-kernel launches of the
-    burst-free run and the two LLMs."""
+    and with decode bursts of 8, each as a cold pass with the step graphs,
+    a warm pass on fresh prompts of the same lengths and an eager pass.
+    Returns the decode-kernel launches of the burst-free cold pass and the
+    two LLMs."""
     layers = model.config.num_hidden_layers
+    vocab = model.config.vocab_size
     need = sum(-(-(len(p) + new_tokens) // 16) for p in prompts + warm) + 1
+    rng = np.random.default_rng(5)
     rows, llms = {}, {}
     for name, burst in (("legacy", 0), ("legacy_burst", 8)):
         kw = {}
@@ -979,64 +1178,44 @@ def serve_legacy_phase(torch, pd, serving, model, prompts, warm,
                           dtype=torch.bfloat16, max_num_seqs=16, **kw)
         eng = llm.engine
         llm.generate(warm, serving.SamplingParams(max_new_tokens=2))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        before = legacy_counts(eng)
-        hists = [eng.metrics.histogram(n) for n in ("time_to_first_token",
-                                                     "inter_token_latency")]
-        seen = [(h.count, h.sum) for h in hists]
-        families = {n: eng.metrics.histogram(n) for n in (
-            "prefill_step", "decode_step", "burst_step")}
-        fam_seen = {n: (h.count, h.sum) for n, h in families.items()}
-        pd.launches = pd.simple_launches = pd.mma_launches = 0
-        t0 = time.perf_counter()
-        outs = llm.generate(prompts, serving.SamplingParams(
-            max_new_tokens=new_tokens))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = pd.launches
-        routes = {"simple": pd.simple_launches, "mma": pd.mma_launches}
-        after = legacy_counts(eng)
-        steps = {k: after[k] - before[k] for k in after}
-        if launches != steps["decode_launches_due"] or \
-                routes["mma"] != launches:
-            raise AssertionError(
-                f"serve_legacy {name}: {launches} decode-kernel launches, "
-                f"not (decode steps {steps['decode_steps']} + burst "
-                f"iterations {steps['burst_iterations']}) x {layers} layers, "
-                f"or not all on the mma route (bf16): {routes}")
-        out_tokens = sum(len(o.token_ids) for o in outs)
-        if out_tokens != len(prompts) * new_tokens or not all(
-                0 <= t < model.config.vocab_size
-                for o in outs for t in o.token_ids):
-            raise AssertionError(f"serve_legacy {name}: malformed token "
-                                 f"streams")
-        if eng.kv.occupancy() != 0.0:
-            raise AssertionError(f"serve_legacy {name}: the pool is not "
-                                 f"empty at the end")
-        if burst and steps["bursts"] == 0:
-            raise AssertionError("serve_legacy: no burst launched")
-        ttft, itl = ((h.sum - s0) / (h.count - c0)
-                     for h, (c0, s0) in zip(hists, seen))
-        # mean wall time of one launch of each family in this run (the
-        # host's work included: each ends when its tokens reach the host)
-        step_ms = {n: (h.sum - fam_seen[n][1]) / (h.count - fam_seen[n][0])
-                   * 1e3 for n, h in families.items()
-                   if h.count > fam_seen[n][0]}
+        passes, tokens = {}, None
+        for label, batch, eager in (
+                ("cold", prompts, False),
+                ("warm", same_lengths(rng, prompts, vocab), False),
+                ("eager", same_lengths(rng, prompts, vocab), True)):
+            before = legacy_counts(eng)
+            pd.launches = pd.simple_launches = pd.mma_launches = 0
+            passes[label], outs = serve_pass(torch, serving, graphs, llm,
+                                             batch, new_tokens, eager)
+            after = legacy_counts(eng)
+            steps = {k: after[k] - before[k] for k in after}
+            routes = {"simple": pd.simple_launches, "mma": pd.mma_launches}
+            if pd.launches != steps["decode_launches_due"] or \
+                    routes["mma"] != pd.launches:
+                raise AssertionError(
+                    f"serve_legacy {name} {label}: {pd.launches} "
+                    f"decode-kernel launches, not (decode steps "
+                    f"{steps['decode_steps']} + burst iterations "
+                    f"{steps['burst_iterations']}) x {layers} layers, or "
+                    f"not all on the mma route (bf16): {routes}")
+            if burst and steps["bursts"] == 0:
+                raise AssertionError(f"serve_legacy {label}: no burst "
+                                     f"launched")
+            passes[label].update(decode_kernel_launches=pd.launches,
+                                 route_launches=routes, **steps)
+            if label == "cold":
+                tokens = [o.token_ids for o in outs]
+        check_traces(f"serve_legacy {name}", eng,
+                     ("decode", "burst") if burst else ("decode",))
+        cold = passes.pop("cold")
         rows[name] = dict(
-            mean_step_ms=step_ms,
-            burst_steps=burst, seconds=wall,
-            output_tokens_per_s=out_tokens / wall,
-            total_tokens_per_s=(out_tokens + sum(map(len, prompts))) / wall,
-            mean_ttft_s=ttft, mean_itl_s=itl, decode_kernel_launches=launches,
-            route_launches=routes,
-            tokens=[o.token_ids for o in outs],
+            cold, burst_steps=burst, tokens=tokens,
+            trace_counts=graph_counts(eng),
             preemptions=eng.metrics.counters["preemptions"],
-            max_memory_allocated=torch.cuda.max_memory_allocated(),
             num_blocks=eng.num_blocks,
             buckets={"decode": sorted(eng.decode_buckets),
                      "prefill": sorted(eng.prefill_buckets),
-                     "burst": sorted(eng.burst_buckets)}, **steps)
+                     "burst": sorted(eng.burst_buckets)}, **passes)
         llms[name] = llm
     legacy, bursty = rows["legacy"], rows["legacy_burst"]
     if not bursty["roundtrips"] < legacy["roundtrips"]:
@@ -1051,17 +1230,67 @@ def serve_legacy_phase(torch, pd, serving, model, prompts, warm,
     return legacy["decode_kernel_launches"], llms
 
 
-def profile_phase(torch, serving, llm, vocab, window_name="unified",
+FAMILIES = ("prefill_step", "decode_step", "burst_step", "unified_step")
+
+
+@contextlib.contextmanager
+def host_split(graphs, eng, out):
+    """Time the host's parts of every engine step inside the block (by
+    time.perf_counter, no synchronisation added): the whole step, the
+    scheduler, each family's call (the StepTimer histograms: for a graphed
+    family the copy into its static buffers, the replay's enqueue and the
+    wait for its tokens), the copies and the replays alone; what is left of
+    a step outside its families is the host's packing of the step's arrays
+    and its emission bookkeeping.  Fills ``out`` with ms per step."""
+    acc = dict.fromkeys(("step", "schedule", "copy_in", "replay_enqueue"),
+                        0.0)
+
+    def timed(fn, part):
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                acc[part] += time.perf_counter() - t0
+        return wrapper
+
+    sums = {n: eng.metrics.histogram(n).sum for n in FAMILIES}
+    steps0 = eng.step_seq
+    fill, replay = graphs.StepGraphs._fill, graphs.StepGraphs._replay
+    eng.step = timed(eng.step, "step")
+    eng.scheduler.schedule = timed(eng.scheduler.schedule, "schedule")
+    graphs.StepGraphs._fill = timed(fill, "copy_in")
+    graphs.StepGraphs._replay = timed(replay, "replay_enqueue")
+    try:
+        yield
+    finally:
+        graphs.StepGraphs._fill, graphs.StepGraphs._replay = fill, replay
+        del eng.step, eng.scheduler.schedule
+    n = eng.step_seq - steps0
+    fam = {f: (eng.metrics.histogram(f).sum - sums[f]) for f in FAMILIES}
+    in_families = sum(fam.values())
+    ms = {k: v / n * 1e3 for k, v in acc.items()}
+    ms.update({f: v / n * 1e3 for f, v in fam.items() if v})
+    ms["outside_families"] = (acc["step"] - acc["schedule"]
+                              - in_families) / n * 1e3
+    out.update(steps=n, host_ms_per_step=ms)
+
+
+def profile_phase(torch, serving, graphs, llm, vocab, window_name="unified",
                   label="ragged", marks=KERNEL_MARKS, new_tokens=8):
     """torch.profiler over a short window of a warm serve engine (4
     prompts of 1024 tokens, ``new_tokens`` new tokens each): device time by
     kernel and the shares of the attention kernel and of the matrix
-    products.  The same window runs once without the profiler first; its
-    wall time against the profiled device time gives the device's idle
-    share (the profiler's own host cost would inflate it)."""
+    products, with the step graphs and (``eager``) without.  A first
+    window captures the keys new to it; then each mode's window runs once
+    without the profiler, timing the host's parts of a step
+    (:func:`host_split`), and its wall time against the profiled device
+    time gives the device's idle share (the profiler's own host cost would
+    inflate it)."""
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(3)
+    eng = llm.engine
 
     def window():
         # fresh prompts each time: no prefix-cache hits
@@ -1073,19 +1302,49 @@ def profile_phase(torch, serving, llm, vocab, window_name="unified",
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e6
 
-    wall_us = window()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        profiled_us = window()
-    kernels = device_kernels(prof)
-    busy = sum(kernels.values())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    rows = {}
+    window()   # captures any key new to this window before it is timed
+    for mode in ("graphs", "eager"):
+        row = {}
+        with graphs.disable_graphs() if mode == "eager" \
+                else contextlib.nullcontext():
+            g0 = graph_counts(eng)
+            with host_split(graphs, eng, row):
+                wall_us = window()
+            g1 = graph_counts(eng)
+            # a window whose profile holds no attention kernel is profiled
+            # again, twice at most, as in device_times; a kernel replayed
+            # inside a graph must show in the trace
+            for attempt in range(3):
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    profiled_us = window()
+                kernels = device_kernels(prof)
+                kernel_share = share(kernels, marks)
+                if kernel_share:
+                    break
+            g2 = graph_counts(eng)
+        if not kernel_share:
+            raise AssertionError(
+                f"profile {window_name} {mode}: no {label} kernel in the "
+                f"device traces of three windows ({len(kernels)} kernels, "
+                f"{g2['replays'] - g1['replays']} replays)")
+        busy = sum(kernels.values())
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+        rows[mode] = dict(
+            row, window_wall_us=wall_us, profiled_wall_us=profiled_us,
+            device_busy_us=busy,
+            idle_share=(1 - busy / wall_us) if busy else None,
+            **{f"{label}_kernel_share": kernel_share},
+            matmul_share=share(kernels, MATMUL_MARKS),
+            captures={"unprofiled": g1["captures"] - g0["captures"],
+                      "profiled": g2["captures"] - g1["captures"]},
+            replays={"unprofiled": g1["replays"] - g0["replays"],
+                     "profiled": g2["replays"] - g1["replays"]},
+            profiled_windows=attempt + 1,
+            top_kernels=[{"name": k[:120], "us": us} for k, us in top])
     emit("profile", window=window_name, new_tokens=new_tokens,
-         window_wall_us=wall_us, profiled_wall_us=profiled_us,
-         device_busy_us=busy, idle_share=(1 - busy / wall_us) if busy else None,
-         **{f"{label}_kernel_share": share(kernels, marks)},
-         matmul_share=share(kernels, MATMUL_MARKS),
-         top_kernels=[{"name": k[:120], "us": us} for k, us in top])
+         **rows["graphs"], eager=rows["eager"])
 
 
 def device_kernels(prof):
@@ -1816,6 +2075,7 @@ def main() -> int:
         import torch
 
         from paddle_tpu_torch import serving
+        from paddle_tpu_torch.serving import graphs
         from paddle_tpu_torch.models import (
             LlamaConfig,
             LlamaForCausalLM,
@@ -1860,21 +2120,24 @@ def main() -> int:
     summary = kernel_phase(torch, rp, flash)
     decode_summary = decode_kernel_phase(torch, pd, flash)
     model, prompts, unified_tokens = identity_phase(
-        torch, rp, serving, LlamaConfig, LlamaForCausalLM)
-    identity_legacy_phase(torch, pd, serving, model, prompts, unified_tokens)
+        torch, rp, serving, graphs, LlamaConfig, LlamaForCausalLM)
+    identity_legacy_phase(torch, pd, serving, graphs, model, prompts,
+                          unified_tokens)
     del model
+    gc.collect()
     torch.cuda.empty_cache()
     launches, llm, prompts, warm, new_tokens = serve_phase(
-        torch, rp, serving, LlamaConfig, LlamaForCausalLM)
+        torch, rp, serving, graphs, LlamaConfig, LlamaForCausalLM)
     model = llm.engine.model
     vocab = model.config.vocab_size
-    profile_phase(torch, serving, llm, vocab)
+    profile_phase(torch, serving, graphs, llm, vocab)
     del llm   # frees the unified engine's pools; the model stays
     torch.cuda.empty_cache()
-    decode_launches, llms = serve_legacy_phase(torch, pd, serving, model,
-                                               prompts, warm, new_tokens)
+    decode_launches, llms = serve_legacy_phase(
+        torch, pd, serving, graphs, model, prompts, warm, new_tokens)
     for name in llms:
-        profile_phase(torch, serving, llms[name], vocab, window_name=name,
+        profile_phase(torch, serving, graphs, llms[name], vocab,
+                      window_name=name,
                       label="decode", marks=DECODE_MARKS, new_tokens=32)
     del llms, model
     gc.collect()

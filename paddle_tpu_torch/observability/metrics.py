@@ -5,8 +5,9 @@ uses).
 Every aggregate is an exact streaming one — count, sum, max, min, fixed
 histogram buckets — so a metric's memory is O(1) however many observations
 a long-lived server records.  Series cardinality is capped
-(``max_series``).  The Prometheus/JSON renderings, scrape-time collect
-hooks and the HTTP/push exporters are ROADMAP A8.
+(``max_series``).  ``snapshot()`` is the JAX registry's JSON rendering;
+the Prometheus text, scrape-time collect hooks and the HTTP/push exporters
+are ROADMAP A8.
 """
 
 from __future__ import annotations
@@ -60,6 +61,9 @@ class Counter(_Metric):
     def value(self) -> float:
         return self._value
 
+    def snap(self):
+        return {"type": "counter", "value": self._value}
+
 
 class Gauge(_Metric):
     """Point-in-time value plus exact streaming aggregates over every
@@ -91,6 +95,12 @@ class Gauge(_Metric):
     @property
     def avg(self) -> float:
         return self.total / self.samples if self.samples else 0.0
+
+    def snap(self):
+        return {"type": "gauge", "value": self._value,
+                "samples": self.samples, "avg": self.avg,
+                "max": None if self.samples == 0 else self.max,
+                "min": None if self.samples == 0 else self.min}
 
 
 class Histogram(_Metric):
@@ -148,6 +158,43 @@ class Histogram(_Metric):
                 lo = bound
             return self.max
 
+    def bucket_counts(self) -> Dict[str, int]:
+        """Cumulative counts keyed by ``le`` bound (incl. ``+Inf``)."""
+        out, cum = {}, 0
+        for b, c in zip(self.bounds, self._counts):
+            cum += c
+            out[_format(b)] = cum
+        out["+Inf"] = cum + self._counts[-1]
+        return out
+
+    def snap(self):
+        return {"type": "histogram", "count": self.count, "sum": self.sum,
+                "avg": self.avg,
+                "max": None if self.count == 0 else self.max,
+                "min": None if self.count == 0 else self.min,
+                "p50": self.quantile(0.50), "p95": self.quantile(0.95),
+                "p99": self.quantile(0.99), "buckets": self.bucket_counts()}
+
+
+def _format(v: float) -> str:
+    if v == math.inf:
+        return "+Inf"
+    if float(v).is_integer() and abs(v) < 1e15:
+        return str(int(v))
+    return repr(float(v))
+
+
+def _escape_label(value: str) -> str:
+    return (value.replace("\\", r"\\").replace("\n", r"\n")
+            .replace('"', r"\""))
+
+
+def _label_suffix(labels: Tuple[Tuple[str, str], ...]) -> str:
+    if not labels:
+        return ""
+    inner = ",".join(f'{k}="{_escape_label(str(v))}"' for k, v in labels)
+    return "{" + inner + "}"
+
 
 _KINDS = {"counter": Counter, "gauge": Gauge, "histogram": Histogram}
 
@@ -191,6 +238,13 @@ class MetricsRegistry:
                   buckets: Tuple[float, ...] = DEFAULT_BUCKETS,
                   **labels) -> Histogram:
         return self._get("histogram", name, help, labels, buckets=buckets)
+
+    def snapshot(self) -> Dict[str, Dict]:
+        """JSON-able ``{name or name{labels}: summary}`` of every series,
+        as the JAX registry's ``snapshot()`` gives it."""
+        with self._lock:
+            series = list(self._series.values())
+        return {m.name + _label_suffix(m.labels): m.snap() for m in series}
 
     @contextlib.contextmanager
     def atomic(self):

@@ -18,9 +18,9 @@ of three ways, as the JAX engine does:
   attention is the CUDA ragged kernel on the card.
 * **A decode burst** (``burst_steps >= 2``, either mode): when the running
   set is a decode-only resident cohort, up to ``burst_steps`` decode steps
-  run back to back on the device (``_burst_fn`` →
-  ``ops/decode_burst.run_burst``), and only the ``[B, N]`` token buffer
-  comes back to the host.
+  run back to back on the device, one burst iteration (``_burst_fn`` →
+  ``ops/decode_burst.burst_iteration``) after another, and only the
+  ``[B, N]`` token buffer comes back to the host.
 
 All sequences share ONE paged KV pool per layer (``[num_blocks,
 block_size, Hkv, D]``, allocated once on the device and written in place);
@@ -31,10 +31,17 @@ bounded sets (``decode_buckets``, ``prefill_buckets``, ``ragged_buckets``,
 arrival first) and recomputes instead of failing the request.  Pad rows
 and pad tokens write their K/V into the null page (block 0) and read it.
 
-Every family runs eagerly on the device of the model's parameters and
-ends in the sampling epilogue; only sampled token ids come back to the
-host.  ``serving_host_roundtrips_total`` counts family launches (a burst
-counts once).  Speculative decoding, disaggregation, AOT artifacts, the
+Every family runs on the device of the model's parameters and ends in
+the sampling epilogue; only sampled token ids come back to the host.  The
+decode step, the burst iteration and the unified step are compiled once
+per bucket, as the JAX engine jits them: ``serving/graphs.py`` captures
+each as a CUDA graph at its first ``(family, buckets, any_sampled)`` key
+and replays it from then on, counting captures in
+``decode_trace_count`` / ``burst_trace_count`` / ``ragged_trace_count``
+and the ``*_jit_traces`` metrics (``graphs.disable_graphs()`` runs them
+eagerly).  The prefill families run eagerly: they take their positions as
+Python ints.  ``serving_host_roundtrips_total`` counts family launches (a
+burst counts once).  Speculative decoding, disaggregation, AOT artifacts, the
 auditor and the lifecycle/step-profile/cache-stat/history hooks belong to
 later slices of the port: the :class:`EngineConfig` fields that ask for
 them raise ``NotImplementedError`` naming the ROADMAP item.
@@ -42,6 +49,7 @@ them raise ``NotImplementedError`` naming the ROADMAP item.
 
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional
@@ -50,11 +58,12 @@ import numpy as np
 import torch
 
 from ..observability.audit import logit_stats
-from ..ops.decode_burst import run_burst
+from ..ops.decode_burst import BurstState, burst_iteration
 from ..ops.paged_attention import PagedCache, PoolExhausted
 from ..ops.sampling import sample_tokens
 from .burst import burst_eligible, clamp_burst
 from .burst import register_metrics as _register_burst_metrics
+from .graphs import StepGraphs, host_tensor
 from .kv_manager import KVCacheManager
 from .metrics import ServingMetrics, StepTimer
 from .request import FinishReason, Request, RequestState, SamplingParams
@@ -207,6 +216,14 @@ class EngineCore:
         self.ragged_buckets = set()
         self.burst_buckets = set()
         self.ragged_launches = 0
+        # captures of each graphed family (the JAX engine's retrace
+        # counters): once per (buckets, any_sampled) key
+        self.decode_trace_count = 0
+        self.burst_trace_count = 0
+        self.ragged_trace_count = 0
+        self.graphs = StepGraphs(self.device, on_capture=self._on_capture)
+        # each rows bucket's last-logits buffer of the burst iteration
+        self._burst_last: Dict[int, torch.Tensor] = {}
         # decode bursts: the tables of a burst are padded to ONE width (the
         # full pool's width bucket), so rows crossing block boundaries
         # mid-burst never change it; the kernel reads only live pages
@@ -252,15 +269,16 @@ class EngineCore:
                                   any_sampled)
             return tokens, last, logit_stats(last)
 
-    def _burst_fn(self, ids, pos, tables, lens, slot_blocks, slot_offsets,
-                  n_steps: int, active, eos_ids, temps, top_ks, top_ps, keys,
-                  any_sampled: bool):
-        """A decode burst: ``n_steps`` chained decode steps through
-        :func:`~paddle_tpu_torch.ops.decode_burst.run_burst` — each
-        iteration is the ``_decode_fn`` body (route, forward, sampling)
-        with the sampled token fed straight back as the next input.
-        Returns the ``[B, Nb]`` token buffer (``-1`` = not emitted), the
-        last logits and their stats, on the device."""
+    def _burst_fn(self, ids, pos, lens, act, buf, last, j, tables,
+                  slot_blocks, slot_offsets, eos_ids, temps, top_ks, top_ps,
+                  keys, any_sampled: bool):
+        """One iteration of a decode burst: the ``_decode_fn`` body (route,
+        forward, sampling) through
+        :func:`~paddle_tpu_torch.ops.decode_burst.burst_iteration`, which
+        feeds the sampled token straight back as the next input and
+        updates the burst state (``ids`` .. ``j``) in place.  A burst of
+        ``n`` steps is ``n`` calls.  Returns the ``[B, Nb]`` token buffer
+        (``-1`` = not emitted), on the device."""
 
         def model_step(ids_j, pos_j, lens_j, sb, so, kp, vp):
             # kp / vp are the engine's pools, written in place
@@ -269,12 +287,12 @@ class EngineCore:
             return logits[:, -1, :].float(), kp, vp
 
         with torch.no_grad():
-            buf, last, _, _ = run_burst(
-                model_step, n_steps, self.model.config.vocab_size, ids, pos,
-                lens, active, eos_ids, slot_blocks, slot_offsets, temps,
-                top_ks, top_ps, keys, self._k_pools, self._v_pools,
-                any_sampled=any_sampled)
-            return buf, last, logit_stats(last)
+            burst_iteration(model_step,
+                            BurstState(ids, pos, lens, act, buf, last, j),
+                            eos_ids, slot_blocks, slot_offsets, temps, top_ks,
+                            top_ps, keys, self._k_pools, self._v_pools,
+                            any_sampled=any_sampled)
+        return (buf,)
 
     def _prefill_fn(self, ids, last_pos: int, blocks, offs, temps, top_ks,
                     top_ps, keys, any_sampled: bool):
@@ -339,6 +357,28 @@ class EngineCore:
             tokens = self._sample(logits, temps, top_ks, top_ps, keys,
                                   any_sampled)
             return tokens, last, logit_stats(last)
+
+    def _tokens_fn(self, family, any_sampled: bool):
+        """The graphed form of a one-step family: its sampled tokens alone,
+        as a 1-tuple.  The last logits and their stats are still computed,
+        as in the JAX program, but no graph keeps them as outputs: a
+        unified bucket's are ``[Tb, vocab]`` fp32."""
+        fn = functools.partial(family, any_sampled=any_sampled)
+        return lambda *args: fn(*args)[:1]
+
+    def _on_capture(self, key) -> None:
+        """A step program was captured (the JAX engine's retrace): the
+        family's trace counter, its ``*_jit_traces`` metric and a ``jit``
+        tracer instant, as the traced bodies of the JAX engine record."""
+        family, dims = key[0], key[1:-1]
+        setattr(self, f"{family}_trace_count",
+                getattr(self, f"{family}_trace_count") + 1)
+        self.metrics.count(f"{family}_jit_traces")
+        names = {"decode": ("batch", "table_width"),
+                 "burst": ("batch", "burst_bucket"),
+                 "ragged": ("token_bucket", "table_bucket")}[family]
+        self.tracer.instant(f"{family}_jit_trace", cat="jit",
+                            any_sampled=key[-1], **dict(zip(names, dims)))
 
     # --- request lifecycle --------------------------------------------------
     def _on_pool_evict(self, block: int, depth: int, lifetime: int,
@@ -468,8 +508,7 @@ class EngineCore:
     def _on_device(self, *arrays):
         """Host arrays to the engine's device (u32 sampling keys as
         int64: the sampler masks them back to 32 bits)."""
-        return [torch.from_numpy(a.astype(np.int64) if a.dtype == np.uint32
-                                 else a).to(self.device) for a in arrays]
+        return [host_tensor(a).to(self.device) for a in arrays]
 
     def _prefill(self, req: Request) -> None:
         """Run one prefill program for ``req`` — the whole prompt (cold
@@ -563,16 +602,17 @@ class EngineCore:
             slot_blocks[i], slot_offsets[i] = r._slot
             pack.set_request(i, r)
         self.decode_buckets.add(("decode", Bb, Wb))
-        args = self._on_device(ids, poss, tables, lens, slot_blocks,
-                               slot_offsets, *pack.arrays())
+        sampled = bool((pack.temps > 0).any())
         with self.tracer.span("decode_step", cat="serving", batch=B,
                               batch_bucket=Bb, width_bucket=Wb,
                               requests=",".join(str(r.request_id)
                                                 for r in reqs)):
             with StepTimer(self.metrics, "decode_step"):
-                toks, _last, _stats = self._step_call(
-                    self._decode_fn, *args,
-                    any_sampled=bool((pack.temps > 0).any()))
+                (toks,) = self._step_call(
+                    self.graphs.run, ("decode", Bb, Wb, sampled),
+                    self._tokens_fn(self._decode_fn, sampled),
+                    [ids, poss, tables, lens, slot_blocks, slot_offsets,
+                     *pack.arrays()])
                 toks = toks.cpu().numpy()
         result = {}
         for i, r in enumerate(reqs):
@@ -632,20 +672,27 @@ class EngineCore:
                 eos_ids[i] = int(r.sampling.eos_token_id)
             pack.set_request(i, r)
         self.burst_buckets.add(("burst", Bb, Nb))
-        (ids_t, pos_t, tables_t, lens_t, sb_t, so_t, active_t, eos_t,
-         *quartet) = self._on_device(ids, poss, tables, lens, slot_blocks,
-                                     slot_offsets, active, eos_ids,
-                                     *pack.arrays())
+        sampled = bool((pack.temps > 0).any())
+        last = self._burst_last.get(Bb)
+        if last is None:
+            last = self._burst_last[Bb] = torch.zeros(
+                (Bb, self.model.config.vocab_size), dtype=torch.float32,
+                device=self.device)
+        # the burst state (ids .. j) starts from the host each burst; the
+        # iterations update it in place
+        state = [ids, poss, lens, active, np.full((Bb, Nb), -1, np.int32),
+                 last, np.zeros((1,), np.int64)]
         with self.tracer.span("burst_step", cat="serving", batch=B,
                               batch_bucket=Bb, burst_len=n_steps,
                               burst_bucket=Nb,
                               requests=",".join(str(r.request_id)
                                                 for r in reqs)):
             with StepTimer(self.metrics, "burst_step"):
-                buf, _last, _stats = self._step_call(
-                    self._burst_fn, ids_t, pos_t, tables_t, lens_t, sb_t,
-                    so_t, n_steps, active_t, eos_t, *quartet,
-                    any_sampled=bool((pack.temps > 0).any()))
+                (buf,) = self._step_call(
+                    self.graphs.run, ("burst", Bb, Nb, sampled),
+                    functools.partial(self._burst_fn, any_sampled=sampled),
+                    [*state, tables, slot_blocks, slot_offsets, eos_ids,
+                     *pack.arrays()], steps=n_steps)
                 buf = buf.cpu().numpy()
         result = {}
         emitted_total = 0
@@ -739,14 +786,15 @@ class EngineCore:
             last_idx[i] = cursor - 1
         self.ragged_buckets.add(("ragged", Tb, TWb))
         self.metrics.count("unified_steps")
-        args = self._on_device(ids, pos, seg, last_idx, tables, lens,
-                               slot_blocks, slot_offsets, *pack.arrays())
+        sampled = bool((pack.temps > 0).any())
         with self.tracer.span("unified_step", cat="serving", tokens=T,
                               rows=R, token_bucket=Tb, table_bucket=TWb):
             with StepTimer(self.metrics, "unified_step"):
-                toks, _last, _stats = self._step_call(
-                    self._unified_fn, *args,
-                    any_sampled=bool((pack.temps > 0).any()))
+                (toks,) = self._step_call(
+                    self.graphs.run, ("ragged", Tb, TWb, sampled),
+                    self._tokens_fn(self._unified_fn, sampled),
+                    [ids, pos, seg, last_idx, tables, lens, slot_blocks,
+                     slot_offsets, *pack.arrays()])
                 toks = toks.cpu().numpy()
         self.ragged_launches += 1
         emitted: Dict[object, int] = {}

@@ -1,0 +1,212 @@
+"""Compile-once step programs: one captured CUDA graph per bucket key.
+
+The counterpart of the ``jax.jit`` wrappers of
+``paddle_tpu/serving/engine.py``.  The JAX engine traces each bucketed step
+family once per shape bucket and runs the compiled program from then on;
+here each family is captured once per bucket key as a CUDA graph and
+replayed from then on.  :class:`StepGraphs` is the cache of those
+programs, one per engine.
+
+* **The first call of a key** copies the host inputs into static buffers
+  it allocates, runs the family EAGERLY on them — that run is this step's
+  result, and it warms the kernels' one-time setup (library load,
+  shared-memory opt-in, occupancy queries) outside the capture — and then
+  captures the family into a graph.  A capture executes nothing, so no
+  step runs twice on the live state.
+* **Later calls** copy the host inputs into the same static buffers and
+  replay the graph.
+* **Counting.**  A capture is what the JAX engine's trace is: the engine's
+  ``*_trace_count`` attributes and ``*_jit_traces`` metrics move once per
+  capture, through ``on_capture``.  The kernel wrappers count launches in
+  Python, which a replay does not run, so the counters' change over the
+  first (eager) run is recorded and added again on every replay:
+  ``launches`` stays "steps × layers" through replays.
+* **One memory pool for all graphs** (``torch.cuda.graph_pool_handle()``).
+  The engine replays one graph at a time, so one pool is enough; a pool
+  per graph would hold a ``[Tb, vocab]`` fp32 logits buffer (263 MB at Tb =
+  512 for Llama-3's vocabulary) for every unified bucket.  Because the pool
+  is shared, a graph's outputs live in it and the next replay of ANY graph
+  may overwrite them: the caller reads the outputs back before its next
+  call, as every engine call site does.
+* **On a CPU device** the same cache runs the same static-buffer path
+  without a graph: copy in, call, copy the results into the static
+  outputs (so outputs alias across calls as they do on the card), add the
+  recorded counter change.  That is the CPU's own path, tested like the
+  JAX trace counters are on the CPU, not a fallback: on a CUDA device a
+  failure to capture or to replay raises.
+* :func:`disable_graphs` — the counterpart of ``jax.disable_jit()`` — runs
+  the families eagerly on fresh tensors and leaves the counters alone; the
+  identity checks hold graphs against it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+import time
+from typing import Callable, Dict, Hashable, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..ops import paged_decode, ragged_paged
+
+# the kernel wrappers' launch counters, which a replay must advance
+COUNTERS = (
+    (paged_decode, ("launches", "simple_launches", "mma_launches")),
+    (ragged_paged, ("launches", "simple_launches", "tma_launches")),
+)
+
+_local = threading.local()
+
+
+@contextlib.contextmanager
+def disable_graphs():
+    """Run every step family eagerly inside this block (on this thread):
+    no capture, no replay, no counter moves."""
+    prev = graphs_enabled()
+    _local.enabled = False
+    try:
+        yield
+    finally:
+        _local.enabled = prev
+
+
+def graphs_enabled() -> bool:
+    return getattr(_local, "enabled", True)
+
+
+def _read_counters() -> Tuple[int, ...]:
+    return tuple(getattr(mod, name) for mod, names in COUNTERS
+                 for name in names)
+
+
+def _write_counters(values: Sequence[int]) -> None:
+    it = iter(values)
+    for mod, names in COUNTERS:
+        for name in names:
+            setattr(mod, name, next(it))
+
+
+def host_tensor(a) -> torch.Tensor:
+    """A host array as a CPU tensor (u32 sampling keys as int64: the
+    sampler masks them back to 32 bits)."""
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.asarray(a)
+    return torch.from_numpy(a.astype(np.int64) if a.dtype == np.uint32
+                            else np.ascontiguousarray(a))
+
+
+class StepProgram:
+    """One step family at one bucket key: its static inputs and outputs,
+    its graph (None on the CPU), and the kernel-counter change of one
+    run."""
+
+    def __init__(self, fn, inputs, outputs, delta, graph=None):
+        self.fn = fn
+        self.inputs = inputs
+        self.outputs = outputs
+        self.delta = delta
+        self.graph = graph
+
+
+class StepGraphs:
+    """The cache of one engine's step programs, keyed by ``(family,
+    bucket..., any_sampled)``.
+
+    ``on_capture(key)`` is called once per new key, after its capture.
+    ``captures`` and ``capture_seconds`` (the wall time of the captures,
+    the eager first runs excluded) and ``replays`` count what happened."""
+
+    def __init__(self, device, on_capture: Optional[Callable] = None):
+        self.device = torch.device(device)
+        self.on_capture = on_capture
+        self.programs: Dict[Hashable, StepProgram] = {}
+        self.captures = 0
+        self.capture_seconds = 0.0
+        self.replays = 0
+        self._pool = None
+
+    def run(self, key: Hashable, fn: Callable, inputs: Sequence,
+            steps: int = 1) -> Tuple[torch.Tensor, ...]:
+        """Run ``fn(*inputs)`` ``steps`` times and return its outputs (a
+        tuple of tensors).  ``inputs`` are host arrays, copied in, or
+        device tensors, used in place (state a family keeps on the
+        device).  ``fn`` must depend on nothing but its inputs and the key:
+        a replay repeats the first call's work.  ``steps > 1`` runs a
+        family that updates its inputs in place (a burst iteration) that
+        many times."""
+        if not graphs_enabled():
+            args = [host_tensor(a).to(self.device) for a in inputs]
+            for _ in range(steps):
+                out = tuple(fn(*args))
+            return out
+        prog = self.programs.get(key)
+        if prog is None:
+            prog, out = self._capture(key, fn, inputs)
+            steps -= 1
+            if not steps:
+                return out
+        else:
+            self._fill(key, prog, inputs)
+        for _ in range(steps):
+            self._replay(prog)
+        return prog.outputs
+
+    def _capture(self, key, fn, inputs):
+        static = [a if isinstance(a, torch.Tensor)
+                  else host_tensor(a).to(self.device, copy=True)
+                  for a in inputs]
+        before = _read_counters()
+        out = tuple(fn(*static))
+        after = _read_counters()
+        delta = tuple(b - a for a, b in zip(before, after))
+        graph = None
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            if self._pool is None:
+                # one pool for every graph of this cache: any replay may
+                # overwrite any graph's outputs, so callers read theirs
+                # back before their next call
+                self._pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(graph, pool=self._pool):
+                    outputs = tuple(fn(*static))
+            finally:
+                # the capture executed nothing: its wrapper calls
+                # launched no kernel
+                _write_counters(after)
+        else:
+            outputs = out
+        self.capture_seconds += time.perf_counter() - t0
+        prog = self.programs[key] = StepProgram(fn, static, outputs, delta,
+                                                graph)
+        self.captures += 1
+        if self.on_capture is not None:
+            self.on_capture(key)
+        return prog, out
+
+    def _fill(self, key, prog, inputs):
+        for buf, a in zip(prog.inputs, inputs):
+            if a is buf:
+                continue
+            src = host_tensor(a)
+            if src.shape != buf.shape or src.dtype != buf.dtype:
+                raise ValueError(
+                    f"step program {key}: an input of {tuple(src.shape)} "
+                    f"{src.dtype} for a static buffer of "
+                    f"{tuple(buf.shape)} {buf.dtype}")
+            buf.copy_(src)
+
+    def _replay(self, prog):
+        if prog.graph is not None:
+            prog.graph.replay()
+        else:
+            mark = _read_counters()
+            for o, r in zip(prog.outputs, prog.fn(*prog.inputs)):
+                o.copy_(r)
+            _write_counters(mark)
+        _write_counters([c + d for c, d in zip(_read_counters(), prog.delta)])
+        self.replays += 1

@@ -12,7 +12,8 @@ in a :class:`~paddle_tpu_torch.observability.metrics.MetricsRegistry`
   once per engine step;
 * counters: admitted, finished-by-reason, preemptions, recompute
   prefills, prefix-cache hits and misses, chunked-prefill and unified
-  steps.
+  steps, and the captures of each graphed step family
+  (``serving_{decode,ragged,burst}_jit_traces_total``).
 
 The per-op dispatch timer, step-profiler tables and the mesh-collective
 series of the JAX module are ROADMAP A8 and A11.
@@ -47,6 +48,11 @@ _COUNTER_NAMES = (
     "slo",                        # finished requests that carried slo_ms
     "slo_good",                   # ... and met it
     "unified_steps",              # packed ragged step launches
+    # captures of the graphed step families (the JAX engine's in-trace
+    # retrace counters), bounded by their bucket sets
+    "decode_jit_traces",
+    "ragged_jit_traces",
+    "burst_jit_traces",
 )
 
 _GAUGE_NAMES = ("queue_depth", "num_running", "kv_pool_occupancy",

@@ -32,10 +32,11 @@ REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "paddle_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "paddle_tpu"}
 # modules whose JAX counterparts reach into the JAX package's core (run_op,
-# Tensor, pure_callback): they must be among the files checked
+# Tensor, pure_callback) or into jax.jit itself (serving/graphs.py): they
+# must be among the files checked
 MUST_CHECK = ("utils/__init__.py", "utils/extension.py",
               "utils/cpp_extension.py", "utils/host_build.py",
-              "ops/scaled.py", "version.py")
+              "ops/scaled.py", "version.py", "serving/graphs.py")
 
 
 def _port_files():
