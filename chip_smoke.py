@@ -78,6 +78,24 @@ these phases, printing one JSON line for each:
              each run's ``ragged_trace_count`` must equal its bucket set
              (0 eagerly).  A planted fault: replays whose static inputs are
              never refreshed must give other tokens.
+``identity_telemetry``  the identity model (fp32, simple route) and a bf16
+             model of the same widths (tma and mma routes), through the
+             unified engine and the legacy one with decode bursts of 8, each
+             with every telemetry hook on (the defaults, the numerics
+             auditor at ``sample_every=1``, a metrics history with the
+             default alert rules, a flight recorder) and with every one off:
+             greedy tokens and capture counts equal, launches = steps x
+             layers both ways; the step profiler's scheduled tokens equal
+             the scheduler's and its bucket sets the engine's; the pool
+             invariant on the timeline; the fp32 runs audit clean at the
+             default 1e-4 tolerance (0 divergences, 0 oracle failures; the
+             largest logit gap printed), no oracle failure anywhere.
+``audit_fault``  a planted fault: the decode and ragged wrappers' output
+             negated (a call pinning the plain twin, the oracle's, left
+             alone); an fp32 unified and an fp32 legacy engine (no bursts:
+             a burst is not audited) go degraded with exactly one repro
+             under ``max_repro_bytes``, and ``replay_repro`` of it on a clean
+             engine re-executes the step on the card and reproduces it.
 ``serve``    Llama-3-8B at full width and depth, bf16 weights and pools:
              16 prompts of 256-2048 tokens, 64 greedy tokens each, through
              ``LLM.generate`` with the step graphs (the cold pass: the
@@ -93,6 +111,20 @@ these phases, printing one JSON line for each:
              shares, and the device's idle share, with the captures and
              replays of the window (a kernel share of 0 fails the phase:
              the kernels must show inside graph replays).
+``serve_telemetry``  on the serve engine (telemetry on by default): the
+             pool invariant and the step profiler against the scheduler and
+             the bucket sets; a capture window of 4 steps with
+             ``device_trace=True`` whose chrome trace holds 4
+             ``engine_step`` spans and whose torch.profiler trace under
+             ``log_dir`` names the ragged kernel inside graph replays
+             (three windows at most, as the profile phase); a GET of
+             ``/metrics`` from ``start_metrics_server(port=0)``; then warm
+             passes with the defaults and with every telemetry field off in
+             turns (on, off, off, on) and one with the auditor at its
+             default ``sample_every=16``: tokens/s, mean ITL, the warm
+             unified step's ms, ``host_split`` with its ``telemetry`` part,
+             and the auditor's snapshot bytes and peak memory over the
+             defaults.
 ``identity_legacy``  the identity model and prompts through the JAX
              package's default serving call, ``LLM(model, num_blocks=...,
              block_size=16, max_num_seqs=8)`` (the legacy prefill / chunk /
@@ -110,7 +142,8 @@ these phases, printing one JSON line for each:
              serve phase's three passes: the serve numbers, the steps of
              each family and the mean wall time of one launch of each, the
              launch rule (every launch on the mma route), captures and peak
-             memory.  Then a profile window on each of the two engines: the
+             memory, the step profiler against the scheduler and the pool
+             invariant.  Then a profile window on each of the two engines: the
              decode kernel's, the matrix products' and the idle shares.
 ``flash_kernels``  the three flash kernels (forward, dQ, dK/dV) against
              their twins on the same inputs by ``flash.rowwise_error``,
@@ -166,10 +199,13 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import http.client
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from types import SimpleNamespace
 
@@ -1207,6 +1243,8 @@ def serve_legacy_phase(torch, pd, serving, graphs, model, prompts, warm,
                 tokens = [o.token_ids for o in outs]
         check_traces(f"serve_legacy {name}", eng,
                      ("decode", "burst") if burst else ("decode",))
+        passes["stepprof"] = check_stepprof(f"serve_legacy {name}", eng)
+        passes["pool"] = check_pool_rows(f"serve_legacy {name}", eng)
         cold = passes.pop("cold")
         rows[name] = dict(
             cold, burst_steps=burst, tokens=tokens,
@@ -1239,11 +1277,15 @@ def host_split(graphs, eng, out):
     time.perf_counter, no synchronisation added): the whole step, the
     scheduler, each family's call (the StepTimer histograms: for a graphed
     family the copy into its static buffers, the replay's enqueue and the
-    wait for its tokens), the copies and the replays alone; what is left of
-    a step outside its families is the host's packing of the step's arrays
-    and its emission bookkeeping.  Fills ``out`` with ms per step."""
-    acc = dict.fromkeys(("step", "schedule", "copy_in", "replay_enqueue"),
-                        0.0)
+    wait for its tokens), the copies and the replays alone, and the
+    telemetry hooks (``TELEMETRY_HOOKS``: the step profiler, the pool
+    tracker, the lifecycle tracker, the auditor, the history; the
+    auditor's calls inside a family's StepTimer are counted there too);
+    what is left of a step outside its families is the host's packing of
+    the step's arrays and its emission bookkeeping, telemetry included.
+    Fills ``out`` with ms per step."""
+    acc = dict.fromkeys(("step", "schedule", "copy_in", "replay_enqueue",
+                         "telemetry"), 0.0)
 
     def timed(fn, part):
         def wrapper(*args, **kw):
@@ -1261,11 +1303,18 @@ def host_split(graphs, eng, out):
     eng.scheduler.schedule = timed(eng.scheduler.schedule, "schedule")
     graphs.StepGraphs._fill = timed(fill, "copy_in")
     graphs.StepGraphs._replay = timed(replay, "replay_enqueue")
+    hooked = [(obj, name) for attr, names in TELEMETRY_HOOKS
+              for obj in [getattr(eng, attr)] if obj is not None
+              for name in names]
+    for obj, name in hooked:
+        setattr(obj, name, timed(getattr(obj, name), "telemetry"))
     try:
         yield
     finally:
         graphs.StepGraphs._fill, graphs.StepGraphs._replay = fill, replay
         del eng.step, eng.scheduler.schedule
+        for obj, name in hooked:
+            delattr(obj, name)
     n = eng.step_seq - steps0
     fam = {f: (eng.metrics.histogram(f).sum - sums[f]) for f in FAMILIES}
     in_families = sum(fam.values())
@@ -1366,6 +1415,461 @@ def share(kernels, marks):
     return (sum(us for k, us in kernels.items()
                 if any(m in k.lower() for m in marks)) / busy
             if busy else None)
+
+
+# --- observability phases -----------------------------------------------------
+
+# the category of a device kernel's events in torch.profiler's chrome trace
+TRACE_KERNEL_CAT = "kernel"
+# every telemetry field of EngineConfig off (the auditor is off by default)
+TELEMETRY_OFF = dict(lifecycle_events=False, step_profile=False,
+                     cache_stats=False, history=False)
+
+
+def telemetry_on(obs, eng, dump_dir):
+    """Everything on beyond the defaults: a metrics history with the
+    default alert rules, and a flight recorder bound to the engine's
+    lifecycle, step profiler, pool tracker and auditor."""
+    reg = eng.metrics.registry
+    hist = obs.HistoryStore(reg)
+    alerts = obs.AlertEngine(hist, registry=reg)
+    eng.set_history(hist)
+    fr = obs.FlightRecorder(registry=reg, lifecycle=eng.lifecycle,
+                            config=obs.FlightConfig(dump_dir=dump_dir))
+    fr.bind_step_profilers({"0": eng.stepprof})
+    fr.bind_cache_trackers({"0": eng.cachestat})
+    eng.audit.bind_flight(fr)
+    return hist, alerts, fr
+
+
+def bucket_strs(eng):
+    """The engine's bucket sets as the step profiler names them."""
+    out = {p: set() for p in ("prefill", "chunk", "decode", "ragged",
+                              "burst")}
+    for b in (eng.prefill_buckets | eng.decode_buckets | eng.ragged_buckets
+              | eng.burst_buckets):
+        out[b[0]].add("x".join(str(int(v)) for v in b[1:]))
+    return out
+
+
+def check_stepprof(label, eng):
+    """The step profiler's scheduled tokens equal the scheduler's planned
+    tokens, and its bucket set of each family is the engine's."""
+    sp = eng.stepprof
+    if sp.scheduled_tokens() != eng.scheduler.tokens_planned:
+        raise AssertionError(
+            f"{label}: the step profiler scheduled {sp.scheduled_tokens()} "
+            f"tokens, the scheduler planned {eng.scheduler.tokens_planned}")
+    want = bucket_strs(eng)
+    for program, buckets in want.items():
+        if sp.bucket_set(program) != buckets:
+            raise AssertionError(
+                f"{label}: step-profiler buckets of {program} "
+                f"{sorted(sp.bucket_set(program))} against the engine's "
+                f"{sorted(buckets)}")
+    return {"scheduled_tokens": sp.scheduled_tokens(),
+            "tokens_planned": eng.scheduler.tokens_planned,
+            "bucket_sets": {p: sorted(b) for p, b in want.items() if b},
+            "compiles": sp.compile_totals()}
+
+
+def check_pool_rows(label, eng):
+    """Every row of the pool timeline has free + reuse + allocated ==
+    num_blocks (sample_pool checks it at every step and raises; the ring
+    keeps the last 256 rows, which are checked again here)."""
+    rows = eng.cachestat.timeline()
+    bad = [r for r in rows
+           if r["free"] + r["reuse"] + r["allocated"] != eng.num_blocks]
+    if not rows or bad or len(rows) != min(eng.step_seq, 256):
+        raise AssertionError(f"{label}: pool timeline of {len(rows)} rows "
+                             f"for {eng.step_seq} steps, {len(bad)} broken")
+    return {"steps_sampled": eng.step_seq, "rows_rechecked": len(rows),
+            "free_min": min(r["free"] for r in rows),
+            "allocated_max": max(r["allocated"] for r in rows)}
+
+
+def obs_engine(serving, model, need, family, **fields):
+    """An engine of the observability checks over ``need`` + 16 pages:
+    ``unified`` (a 256-token step budget), ``legacy`` (decode bursts of 8)
+    or ``decode`` (the legacy families without bursts), prefills budgeted
+    at 256 tokens."""
+    sched = (serving.SchedulerConfig(max_num_seqs=8, max_tokens_per_step=256)
+             if family == "unified" else
+             serving.SchedulerConfig(max_num_seqs=8,
+                                     max_prefill_tokens_per_step=256))
+    fam = {"unified": dict(unified_step=True),
+           "legacy": dict(burst_steps=8), "decode": {}}[family]
+    dtype = next(model.parameters()).dtype
+    return serving.EngineCore(model, config=serving.EngineConfig(
+        num_blocks=need + 16, block_size=16, dtype=dtype, scheduler=sched,
+        **fam, **fields))
+
+
+def launch_counts(rp, pd, eng, family):
+    """The kernel launches of a run and those due: the ragged kernel once
+    per layer per unified step, the decode kernel once per layer per
+    decode step or burst iteration."""
+    layers = eng.model.config.num_hidden_layers
+    if family == "unified":
+        return rp.launches, eng.ragged_launches * layers, {
+            "simple": rp.simple_launches, "tma": rp.tma_launches}
+    return pd.launches, legacy_counts(eng)["decode_launches_due"], {
+        "simple": pd.simple_launches, "mma": pd.mma_launches}
+
+
+def reset_launches(rp, pd):
+    rp.launches = rp.simple_launches = rp.tma_launches = 0
+    pd.launches = pd.simple_launches = pd.mma_launches = 0
+
+
+def identity_telemetry_phase(torch, rp, pd, serving, obs, model, prompts,
+                             LlamaForCausalLM):
+    """The identity model (fp32, simple route) and a bf16 model of the same
+    widths (tma and mma routes), unified and legacy with bursts of 8, each
+    with every telemetry hook on (the defaults, the auditor at
+    sample_every=1, a metrics history with alert rules, a flight recorder)
+    and with every one off: greedy tokens and captures equal, and launches
+    = steps x layers either way.  The fp32 runs must audit clean at
+    AuditConfig's default 1e-4 tolerance."""
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    bf16 = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                            generator=gen)
+    need = sum(-(-(len(p) + 16) // 16) for p in prompts) + 1
+    routes = {("float32", "unified"): "simple",
+              ("float32", "legacy"): "simple",
+              ("bfloat16", "unified"): "tma", ("bfloat16", "legacy"): "mma"}
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dtype, m in (("float32", model), ("bfloat16", bf16)):
+            for family in ("unified", "legacy"):
+                runs = {}
+                for tele in ("on", "off"):
+                    fields = (dict(audit=obs.AuditConfig(
+                        enabled=True, sample_every=1)) if tele == "on"
+                        else TELEMETRY_OFF)
+                    eng = obs_engine(serving, m, need, family, **fields)
+                    if tele == "on":
+                        telemetry_on(obs, eng, tmp)
+                    reset_launches(rp, pd)
+                    t0 = time.perf_counter()
+                    reqs = [eng.add_request(p, serving.SamplingParams(
+                        max_new_tokens=16)) for p in prompts]
+                    eng.run(max_steps=2000)
+                    torch.cuda.synchronize()
+                    launches, due, by_route = launch_counts(rp, pd, eng,
+                                                            family)
+                    route = routes[dtype, family]
+                    if launches != due or by_route[route] != launches \
+                            or not launches:
+                        raise AssertionError(
+                            f"identity_telemetry {dtype} {family} {tele}: "
+                            f"{launches} kernel launches, {due} due (steps "
+                            f"x {layers} layers), by route {by_route} (all "
+                            f"due on the {route} route)")
+                    g = graph_counts(eng)
+                    runs[tele] = {
+                        "tokens": [list(r.output_tokens) for r in reqs],
+                        "seconds": time.perf_counter() - t0,
+                        "kernel_launches": launches,
+                        "captures": {k: v for k, v in g.items()
+                                     if k not in ("capture_s", "replays")},
+                        "replays": g["replays"]}
+                    if tele == "on":
+                        snap = eng.audit.snapshot()
+                        runs[tele].update(
+                            audit={k: snap[k] for k in (
+                                "status", "steps", "audited_launches",
+                                "divergences", "oracle_failures")},
+                            max_logit_gap=eng.audit.max_abs_diff,
+                            stepprof=check_stepprof(
+                                f"identity_telemetry {dtype} {family}",
+                                eng),
+                            pool=check_pool_rows(
+                                f"identity_telemetry {dtype} {family}",
+                                eng),
+                            history_samples=eng.history.stats()["samples"],
+                            lifecycle_events=int(eng.metrics.registry
+                                                 .counter(
+                                "serving_lifecycle_events_total").value))
+                        if snap["oracle_failures"]:
+                            raise AssertionError(
+                                f"identity_telemetry {dtype} {family}: "
+                                f"{snap['oracle_failures']} shadow "
+                                f"re-executions failed")
+                        if sum(snap["audited_launches"].values()) == 0:
+                            raise AssertionError(
+                                f"identity_telemetry {dtype} {family}: "
+                                f"nothing was audited")
+                        if dtype == "float32" and (
+                                snap["status"] != "ok"
+                                or sum(snap["divergences"].values())):
+                            raise AssertionError(
+                                f"identity_telemetry {dtype} {family}: the "
+                                f"audit is {snap['status']} with "
+                                f"{snap['divergences']} (largest logit gap "
+                                f"{eng.audit.max_abs_diff})")
+                    del eng
+                on, off = runs["on"], runs["off"]
+                if on["tokens"] != off["tokens"]:
+                    raise AssertionError(
+                        f"identity_telemetry {dtype} {family}: telemetry "
+                        f"on and off gave different tokens")
+                if on["captures"] != off["captures"]:
+                    raise AssertionError(
+                        f"identity_telemetry {dtype} {family}: captures "
+                        f"{on['captures']} with telemetry on, "
+                        f"{off['captures']} off")
+                for r in runs.values():
+                    del r["tokens"]
+                rows[f"{dtype}_{family}"] = runs
+    del bf16
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("identity_telemetry", layers=layers, prompts=len(prompts),
+         tokens_identical=True, captures_equal=True,
+         launches_equal_steps_x_layers=True,
+         fp32_audit_clean=True,
+         max_logit_gap_fp32={
+             f: rows[f"float32_{f}"]["on"]["max_logit_gap"]
+             for f in ("unified", "legacy")},
+         **rows)
+
+
+@contextlib.contextmanager
+def corrupted_wrappers(rp, pd, torch):
+    """A planted fault: the decode and ragged wrappers' output negated,
+    except where a call pins the plain twin (the oracle's
+    ``use_pallas=False``)."""
+    saved = (rp.ragged_paged_attention, pd.paged_attention_decode)
+
+    def corrupt(real):
+        def wrapper(*args, use_pallas=None):
+            out = real(*args, use_pallas=use_pallas)
+            return out if use_pallas is False else torch.neg(out)
+        return wrapper
+
+    rp.ragged_paged_attention = corrupt(saved[0])
+    pd.paged_attention_decode = corrupt(saved[1])
+    try:
+        yield
+    finally:
+        rp.ragged_paged_attention, pd.paged_attention_decode = saved
+
+
+def audit_fault_phase(torch, rp, pd, serving, obs, model):
+    """The auditor must refuse a planted fault: with the kernels' output
+    negated, an fp32 unified and an fp32 legacy engine (one 20-token prompt,
+    4 new tokens, every step audited) go degraded with exactly one repro
+    under max_repro_bytes each, and replay_repro of it on a clean engine
+    on the card re-executes the step and reproduces the divergence.  (The
+    legacy engine runs without bursts here: a burst is not audited, in
+    either package.)"""
+    rng = np.random.default_rng(6)
+    prompt = rng.integers(0, model.config.vocab_size, 20).tolist()
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for family, program in (("unified", "ragged"),
+                                ("decode", "decode")):
+            cfg = obs.AuditConfig(enabled=True, sample_every=1,
+                                  repro_dir=f"{tmp}/{family}")
+            with corrupted_wrappers(rp, pd, torch):
+                eng = obs_engine(serving, model, 8, family, audit=cfg)
+                req = eng.add_request(prompt, serving.SamplingParams(
+                    max_new_tokens=4))
+                eng.run(max_steps=100)
+                torch.cuda.synchronize()
+            snap = eng.audit.snapshot()
+            repros = snap["repros"]
+            if snap["status"] != "degraded" or len(repros) != 1 \
+                    or snap["divergences"]["token"] == 0 \
+                    or snap["oracle_failures"]:
+                raise AssertionError(
+                    f"audit_fault {family}: status {snap['status']}, "
+                    f"{len(repros)} repros, divergences "
+                    f"{snap['divergences']}, oracle failures "
+                    f"{snap['oracle_failures']}")
+            size = os.path.getsize(repros[0])
+            meta = obs.load_repro(repros[0])["meta"]
+            if size > cfg.max_repro_bytes or meta["dropped"] \
+                    or meta["program"] != program:
+                raise AssertionError(
+                    f"audit_fault {family}: a repro of {size} bytes "
+                    f"(cap {cfg.max_repro_bytes}), program "
+                    f"{meta['program']}, dropped {meta['dropped']}")
+            clean = obs_engine(serving, model, 8, family)
+            verdict = obs.replay_repro(repros[0], clean)
+            if not (verdict["reproduced"] and verdict["replayed"]):
+                raise AssertionError(f"audit_fault {family}: the replay "
+                                     f"did not reproduce: {verdict}")
+            rows[family] = {"program": program, "repro_bytes": size,
+                            "divergences": snap["divergences"],
+                            "audited_launches": snap["audited_launches"],
+                            "replay": verdict,
+                            "tokens_served": len(req.output_tokens)}
+            del eng, clean
+    emit("audit_fault", degraded=True, one_repro_each=True,
+         replay_reproduced=True, **rows)
+
+
+# the engine's telemetry hooks (object attribute, methods) timed as the
+# host_split part "telemetry": the step profiler, the pool tracker, the
+# lifecycle tracker, the auditor and the metrics history
+TELEMETRY_HOOKS = (
+    ("stepprof", ("begin_step", "record_program", "record_compile",
+                  "end_step")),
+    ("cachestat", ("sample_pool", "record_admission", "record_prefix_hit",
+                   "close_request", "record_eviction", "record_revive")),
+    ("lifecycle", ("event",)),
+    ("audit", ("begin_step", "snapshot_pools", "observe_program")),
+    ("history", ("on_step",)),
+)
+
+
+def scrape(port):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    try:
+        conn.request("GET", "/metrics")
+        resp = conn.getresponse()
+        return resp.status, resp.getheader("Content-Type"), resp.read()
+    finally:
+        conn.close()
+
+
+def serve_telemetry_phase(torch, rp, serving, graphs, obs, llm, prompts,
+                          new_tokens, window_tokens=1024):
+    """On the full-width unified serve engine (telemetry on by default):
+    the pool invariant on its timeline, the step profiler against the
+    scheduler and the bucket sets, a capture window of 4 steps with
+    torch.profiler (over 4 prompts of ``window_tokens`` tokens) that must
+    name the ragged kernel inside graph replays,
+    and a scrape of /metrics.  Then the cost: warm passes with the
+    defaults and with every telemetry field off, in turns (on, off, off,
+    on), and a warm pass with the auditor at its default sample_every=16;
+    tokens/s, mean ITL, warm step ms, the telemetry hooks' host ms a step,
+    and the auditor's snapshot memory."""
+    eng = llm.engine
+    model = eng.model
+    vocab = model.config.vocab_size
+    out = {"pool": check_pool_rows("serve_telemetry", eng),
+           "stepprof": check_stepprof("serve_telemetry", eng)}
+    rng = np.random.default_rng(8)
+    with tempfile.TemporaryDirectory() as tmp:
+        for attempt in range(3):
+            g0 = graph_counts(eng)
+            window = eng.stepprof.arm_capture(4, device_trace=True,
+                                              log_dir=f"{tmp}/{attempt}")
+            llm.generate([rng.integers(0, vocab, window_tokens).tolist()
+                          for _ in range(4)],
+                         serving.SamplingParams(max_new_tokens=8))
+            torch.cuda.synchronize()
+            g1 = graph_counts(eng)
+            res = window.result
+            if res is None or "deviceTraceError" in res:
+                raise AssertionError(f"serve_telemetry: capture window "
+                                     f"{res and res['deviceTraceError']}")
+            steps = [e for e in res["traceEvents"]
+                     if e["name"] == "engine_step"]
+            with open(res["deviceTraceFile"]) as f:
+                trace = json.load(f)
+            kernels = [e["name"] for e in trace["traceEvents"]
+                       if e.get("cat") == TRACE_KERNEL_CAT]
+            ragged = sorted({k for k in kernels
+                             if any(m in k for m in KERNEL_MARKS)})
+            if len(steps) != 4 or res["captureSteps"] != 4:
+                raise AssertionError(f"serve_telemetry: the window holds "
+                                     f"{len(steps)} engine_step spans")
+            if ragged and g1["replays"] > g0["replays"]:
+                break
+        else:
+            raise AssertionError(
+                f"serve_telemetry: no ragged kernel in the profiler traces "
+                f"of three capture windows ({len(kernels)} kernels, "
+                f"{g1['replays'] - g0['replays']} replays)")
+    out["capture_window"] = {
+        "engine_step_spans": len(steps), "windows": attempt + 1,
+        "replays": g1["replays"] - g0["replays"],
+        "device_kernels": len(kernels), "ragged_kernels": ragged,
+        "program_spans": sum(1 for e in res["traceEvents"]
+                             if e.get("cat") == "stepprof"
+                             and e["name"] != "engine_step")}
+    reg = eng.metrics.registry
+    srv = obs.start_metrics_server(reg, port=0)
+    try:
+        status, ctype, body = scrape(srv.port)
+    finally:
+        srv.close()
+    text = body.decode()
+    needed = ("serving_step_seconds_bucket", "serving_scheduled_tokens_total",
+              "serving_compiles_total", "serving_pool_free_blocks",
+              "serving_pool_allocated_blocks",
+              "serving_prefix_cache_hit_tokens_total",
+              "serving_lifecycle_events_total")
+    missing = [n for n in needed if n not in text]
+    if status != 200 or not ctype.startswith("text/plain; version=0.0.4") \
+            or missing:
+        raise AssertionError(f"serve_telemetry: /metrics answered {status} "
+                             f"{ctype}, missing {missing}")
+    out["scrape"] = {"status": status, "bytes": len(body),
+                     "series_lines": sum(1 for ln in text.splitlines()
+                                         if ln and not ln.startswith("#")),
+                     "has": list(needed)}
+
+    # the cost of telemetry: the same config with every field off, and
+    # with the auditor on at its default schedule
+    base = eng.engine_config
+    llms = {"on": llm}
+    for name, fields in (("off", TELEMETRY_OFF),
+                         ("audit16", dict(audit=obs.AuditConfig(
+                             enabled=True)))):
+        llms[name] = serving.LLM(model, config=serving.EngineConfig(
+            num_blocks=base.num_blocks, block_size=base.block_size,
+            dtype=base.dtype, unified_step=True, scheduler=base.scheduler,
+            **fields))
+        # a cold pass captures this engine's buckets before it is timed
+        serve_pass(torch, serving, graphs, llms[name],
+                   same_lengths(rng, prompts, vocab), new_tokens)
+    passes = []
+    for name in ("on", "off", "off", "on", "audit16"):
+        row = {}
+        e = llms[name].engine
+        steps0 = e.ragged_launches
+        rp.launches = rp.simple_launches = rp.tma_launches = 0
+        with host_split(graphs, e, row):
+            res, _ = serve_pass(torch, serving, graphs, llms[name],
+                                same_lengths(rng, prompts, vocab),
+                                new_tokens)
+        steps = e.ragged_launches - steps0
+        if rp.launches != steps * model.config.num_hidden_layers:
+            raise AssertionError(f"serve_telemetry {name}: {rp.launches} "
+                                 f"launches for {steps} steps")
+        passes.append({
+            "telemetry": name,
+            "output_tokens_per_s": res["output_tokens_per_s"],
+            "mean_itl_s": res["mean_itl_s"],
+            "mean_unified_step_ms": res["mean_step_ms"]["unified_step"],
+            "max_memory_allocated": res["max_memory_allocated"],
+            "captures": res["captures"], "engine_steps": steps,
+            "host_ms_per_step": row["host_ms_per_step"]})
+    a16 = llms["audit16"].engine
+    snap = a16.audit.snapshot()
+    if snap["oracle_failures"] or not sum(snap["audited_launches"].values()):
+        raise AssertionError(f"serve_telemetry audit16: {snap}")
+    out["cost"] = passes
+    out["audit16"] = {
+        "status": snap["status"], "steps": snap["steps"],
+        "audited_launches": snap["audited_launches"],
+        "divergences": snap["divergences"],
+        "max_logit_gap": a16.audit.max_abs_diff,
+        "snapshot_bytes_max": a16.audit.snapshot_bytes_max,
+        "peak_allocated_over_on": passes[4]["max_memory_allocated"]
+        - max(p["max_memory_allocated"] for p in passes
+              if p["telemetry"] == "on")}
+    del llms["off"], llms["audit16"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("serve_telemetry", **out)
 
 
 # --- training phases ----------------------------------------------------------
@@ -2074,6 +2578,7 @@ def main() -> int:
     try:
         import torch
 
+        from paddle_tpu_torch import observability as obs
         from paddle_tpu_torch import serving
         from paddle_tpu_torch.serving import graphs
         from paddle_tpu_torch.models import (
@@ -2123,6 +2628,9 @@ def main() -> int:
         torch, rp, serving, graphs, LlamaConfig, LlamaForCausalLM)
     identity_legacy_phase(torch, pd, serving, graphs, model, prompts,
                           unified_tokens)
+    identity_telemetry_phase(torch, rp, pd, serving, obs, model, prompts,
+                             LlamaForCausalLM)
+    audit_fault_phase(torch, rp, pd, serving, obs, model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2131,6 +2639,8 @@ def main() -> int:
     model = llm.engine.model
     vocab = model.config.vocab_size
     profile_phase(torch, serving, graphs, llm, vocab)
+    serve_telemetry_phase(torch, rp, serving, graphs, obs, llm, prompts,
+                          new_tokens)
     del llm   # frees the unified engine's pools; the model stays
     torch.cuda.empty_cache()
     decode_launches, llms = serve_legacy_phase(

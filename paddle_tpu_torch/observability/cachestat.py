@@ -1,0 +1,456 @@
+"""KV-cache & memory observability for the serving engine (the port of
+``paddle_tpu/observability/cachestat.py``).
+
+The observability stack sees requests (lifecycle), step programs
+(stepprof) and numerics (audit) — this module watches the **memory
+subsystem** that actually gates throughput: the shared
+:class:`~paddle_tpu_torch.ops.paged_attention.BlockPool` behind every replica.
+Three layers, all host-side (nothing here runs inside a step program or
+a captured graph, so ``cache_stats`` on vs off captures the same graphs —
+token-identical with equal capture counts, tested):
+
+* **pool timeline** — every engine step samples the pool into a bounded
+  ring: free / reuse-parked / allocated block counts, the scheduler's
+  promised-block pledge, and occupancy — with the exact invariant
+  ``free + reuse + allocated == num_blocks`` asserted on EVERY sample
+  (``allocated`` includes the permanently-reserved null page, block 0).
+  Exported as the ``serving_pool_{free,reuse,allocated}_blocks`` gauges
+  plus the ring behind ``GET /v1/debug/cache``; flight bundles embed the
+  owning replica's last-K samples.
+* **prefix-heat analytics** — a bounded *decayed top-K* table keyed by
+  the prefix-cache chain hashes (hit count, hit tokens, last-hit step,
+  chain depth; cold entries evicted by decayed score, so the table is
+  structurally bounded), a reuse-LRU **hit-depth** histogram
+  (``serving_reuse_hit_depth`` — the LRU position a revived block sat
+  at, counted from the EVICTION end: a small depth means the hit was
+  one allocation away from being clobbered, the saturation
+  early-warning), a block **park-lifetime** histogram
+  (``serving_block_lifetime_steps`` — engine steps from refcount-0 park
+  to revive or clobber), and per-cause eviction accounting
+  (``serving_pool_evictions_total{cause}``) fed by the pool's
+  event-driven hooks.
+* **per-request cache attribution** — cached vs computed prompt tokens
+  accumulated per admission (recompute admissions included), with the
+  exact cross-check ``sum(per-request cached) ==
+  prefix_cache_hit_tokens`` asserted in tests and bench.
+
+Boundedness: the
+timeline is a ``deque(maxlen=)``; the heat table is capped at
+``heat_entries`` (decayed-score eviction); active attribution rows are
+bounded by the upstream admission caps and move to a bounded recent
+ring when the engine closes the request; the hit-depth / eviction-depth
+count maps hold at most one entry per distinct depth ≤ ``num_blocks``.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Dict, List, Optional
+
+from .metrics import MetricsRegistry
+
+# the metric names this module registers
+METRIC_NAMES = (
+    "serving_pool_free_blocks",
+    "serving_pool_reuse_blocks",
+    "serving_pool_available_blocks",
+    "serving_pool_allocated_blocks",
+    "serving_reuse_hit_depth",
+    "serving_block_lifetime_steps",
+    "serving_pool_evictions_total",
+)
+
+#: Eviction causes the pool hooks report (the allocation that clobbered
+#: a reuse-parked block): ``decode_slot`` (per-token append),
+#: ``prefill_chunk`` (chunk/one-shot prefill allocation), ``other``
+#: (direct pool users).  Bounded label set — unknown causes collapse
+#: into ``other``.
+EVICTION_CAUSES = ("decode_slot", "prefill_chunk", "other")
+
+# reuse-LRU depth of a revived block, counted from the eviction end
+# (0 = it would have been clobbered by the very next allocation)
+_HIT_DEPTH_BUCKETS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0)
+
+# engine steps a block sat parked before revive/clobber
+_LIFETIME_BUCKETS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0,
+                     1024.0, 4096.0)
+
+
+class CacheStatTracker:
+    """Per-engine KV-cache statistics: pool timeline, prefix heat,
+    reuse-LRU telemetry, and per-request cache attribution.
+
+    One instance per :class:`~paddle_tpu_torch.serving.EngineCore` (the fleet
+    router hands each replica's tracker to the flight recorder keyed by
+    replica index).  The engine thread is the only writer; HTTP handler
+    threads read snapshots under the tracker lock.  Disabled
+    (``EngineConfig.cache_stats=False``): never touches the registry —
+    ``/metrics`` stays free of every ``serving_pool_*`` /
+    ``serving_reuse_*`` / ``serving_block_*`` series — and every hook
+    below is a cheap early-return."""
+
+    def __init__(self, pool, registry: Optional[MetricsRegistry] = None,
+                 labels: Optional[Dict[str, str]] = None,
+                 enabled: bool = True,
+                 timeline_len: int = 256,
+                 heat_entries: int = 64,
+                 heat_top_k: int = 16,
+                 heat_decay: float = 0.98,
+                 recent_requests: int = 64):
+        self.enabled = enabled
+        self.pool = pool
+        self.labels: Dict[str, str] = dict(labels or {})
+        self.registry = registry
+        self.heat_entries = max(1, int(heat_entries))
+        self.heat_top_k = max(1, int(heat_top_k))
+        self.heat_decay = float(heat_decay)
+        self.epoch_offset = time.time() - time.perf_counter()
+        self._lock = threading.Lock()
+        # pool timeline: last-K per-step samples (flight bundles embed
+        # these; /v1/debug/cache serves the ring)
+        self._timeline: deque = deque(maxlen=max(1, timeline_len))
+        # prefix-heat: chain hash -> entry; capped at heat_entries by
+        # decayed-score eviction in _evict_coldest
+        self._heat: Dict[bytes, Dict] = {}  # unbounded-ok: capped at heat_entries (decayed-score eviction below)
+        # per-request attribution: active rows move to the bounded
+        # recent ring when the engine closes the request
+        self._attr_active: Dict[object, Dict] = {}  # unbounded-ok: bounded by the upstream admission caps; evicted by close_request
+        self._attr_recent: deque = deque(maxlen=max(1, recent_requests))
+        self.attributed_cached_tokens = 0    # exact invariant side:
+        self.attributed_computed_tokens = 0  # == the engine counters
+        self.revives = 0
+        self._hit_depths: Dict[int, int] = {}  # unbounded-ok: ≤ one entry per distinct LRU depth ≤ num_blocks
+        self._evict_causes: Dict[str, int] = {c: 0 for c in EVICTION_CAUSES}
+        self._evict_depths: Dict[int, int] = {}  # unbounded-ok: ≤ one entry per distinct chain depth ≤ num_blocks
+        if not enabled or registry is None:
+            self._g_free = self._g_reuse = self._g_alloc = None
+            self._g_avail = None
+            self._hit_depth_h = self._lifetime_h = None
+            self._evict_c = None
+            return
+        g = registry.gauge
+        self._g_free = g("serving_pool_free_blocks",
+                         "KV-pool blocks on the free list proper",
+                         **self.labels)
+        # free + reuse: what the pool can actually serve an allocation
+        # from.  A warm prefix cache parks every refcount-0 block in the
+        # reuse LRU, so the free list alone drains to ~0 on a healthy
+        # fleet — an exhaustion alert must floor on THIS series
+        self._g_avail = g("serving_pool_available_blocks",
+                          "blocks the pool can serve an allocation from "
+                          "(free list + revivable reuse-parked)",
+                          **self.labels)
+        self._g_reuse = g("serving_pool_reuse_blocks",
+                          "refcount-0 cached blocks parked in the reuse "
+                          "LRU (revivable, evictable)", **self.labels)
+        self._g_alloc = g("serving_pool_allocated_blocks",
+                          "blocks held by live sequences (+ the reserved "
+                          "null page)", **self.labels)
+        self._hit_depth_h = registry.histogram(
+            "serving_reuse_hit_depth",
+            "reuse-LRU position of a revived block, from the eviction "
+            "end (small = near-clobber, the saturation early-warning)",
+            buckets=_HIT_DEPTH_BUCKETS, **self.labels)
+        self._lifetime_h = registry.histogram(
+            "serving_block_lifetime_steps",
+            "engine steps from refcount-0 park to revive or clobber",
+            buckets=_LIFETIME_BUCKETS, **self.labels)
+        self._evict_c = {
+            c: registry.counter(
+                "serving_pool_evictions_total",
+                "reuse-parked blocks clobbered for allocation, by the "
+                "allocation cause",
+                **dict(self.labels, cause=c))
+            for c in EVICTION_CAUSES}
+        # initialize the pool gauges from the REAL pool state: a
+        # replica that has not stepped yet must read as "pool full of
+        # free blocks", not as the gauge default 0.0 — an alert rule
+        # with a free-blocks floor would otherwise fire on
+        # every idle replica at boot
+        self._g_free.set(len(pool._free))
+        self._g_reuse.set(len(pool._reuse))
+        self._g_avail.set(len(pool._free) + len(pool._reuse))
+        self._g_alloc.set(1 + len(pool._ref))
+
+    # --- pool timeline (engine thread, once per step) -----------------------
+    def sample_pool(self, step: int, promised: int = 0) -> Optional[Dict]:
+        """Sample the pool into the bounded timeline ring + gauges.
+
+        Asserts the exact pool invariant on EVERY sample:
+        ``free + reuse + allocated == num_blocks``, where ``allocated``
+        counts the refcount-held blocks plus the permanently-reserved
+        null page (block 0).  A violation means the free list /
+        refcount / reuse-LRU bookkeeping tore — fail loudly.
+
+        ``promised`` is the scheduler's prefill-chunk pledge from this
+        step's planning pass — a planning-pressure indicator.  The
+        engine executes the plan within the same step, so at the
+        end-of-step sample those blocks are typically already inside
+        ``allocated``: do NOT sum ``promised`` with ``allocated``."""
+        if not self.enabled:
+            return None
+        pool = self.pool
+        free = len(pool._free)
+        reuse = len(pool._reuse)
+        allocated = 1 + len(pool._ref)  # + the reserved null page
+        if free + reuse + allocated != pool.num_blocks:
+            raise AssertionError(
+                f"pool invariant broken: free={free} + reuse={reuse} + "
+                f"allocated={allocated} != num_blocks={pool.num_blocks}")
+        usable = pool.num_blocks - 1
+        rec = {
+            "step": int(step),
+            "t": round(time.perf_counter() + self.epoch_offset, 6),
+            "free": free,
+            "reuse": reuse,
+            "allocated": allocated,
+            "promised": int(promised),
+            "occupancy": round((allocated - 1) / usable, 4) if usable
+            else 0.0,
+        }
+        with self._lock:
+            self._timeline.append(rec)
+        if self._g_free is not None:
+            self._g_free.set(free)
+            self._g_reuse.set(reuse)
+            self._g_avail.set(free + reuse)
+            self._g_alloc.set(allocated)
+        return rec
+
+    def timeline(self) -> List[Dict]:
+        """Last-K pool samples, oldest first (the flight recorder embeds
+        these in post-mortem bundles)."""
+        with self._lock:
+            return [dict(r) for r in self._timeline]
+
+    def timeline_summary(self) -> Dict:
+        """Compact JSON-able view over the ring (bench phases embed this
+        instead of the full sample list)."""
+        with self._lock:
+            samples = list(self._timeline)
+        if not samples:
+            return {"samples": 0}
+        occ = [s["occupancy"] for s in samples]
+        return {
+            "samples": len(samples),
+            "free_min": min(s["free"] for s in samples),
+            "free_max": max(s["free"] for s in samples),
+            "reuse_max": max(s["reuse"] for s in samples),
+            "allocated_max": max(s["allocated"] for s in samples),
+            "promised_max": max(s["promised"] for s in samples),
+            "occupancy_max": max(occ),
+            "occupancy_last": occ[-1],
+            "last": dict(samples[-1]),
+        }
+
+    # --- pool hook receivers (engine-wired) ---------------------------------
+    def record_revive(self, lru_depth: int, lifetime_steps: int) -> None:
+        """A reuse-parked block was revived by a prefix fork at LRU
+        position ``lru_depth`` (from the eviction end) after sitting
+        parked for ``lifetime_steps`` engine steps."""
+        if not self.enabled:
+            return
+        with self._lock:
+            self.revives += 1
+            d = int(lru_depth)
+            self._hit_depths[d] = self._hit_depths.get(d, 0) + 1
+        if self._hit_depth_h is not None:
+            self._hit_depth_h.observe(float(lru_depth))
+            self._lifetime_h.observe(float(lifetime_steps))
+
+    def record_eviction(self, chain_depth: int, lifetime_steps: int,
+                        cause: str) -> None:
+        """A reuse-parked block was clobbered for an allocation: its
+        chain depth and park lifetime feed the eviction-cause series."""
+        if not self.enabled:
+            return
+        cause = cause if cause in EVICTION_CAUSES else "other"
+        with self._lock:
+            self._evict_causes[cause] += 1
+            d = int(chain_depth)
+            self._evict_depths[d] = self._evict_depths.get(d, 0) + 1
+        if self._evict_c is not None:
+            self._evict_c[cause].inc()
+            self._lifetime_h.observe(float(lifetime_steps))
+
+    # --- prefix-heat analytics ----------------------------------------------
+    def record_prefix_hit(self, chain_hash: Optional[bytes], depth: int,
+                          hit_tokens: int, step: int) -> None:
+        """One admission-time prefix-cache hit: ``chain_hash`` is the
+        DEEPEST matched block's chain hash (commits to the whole cached
+        prefix), ``depth`` its chain depth in blocks."""
+        if not self.enabled or chain_hash is None:
+            return
+        step = int(step)
+        with self._lock:
+            e = self._heat.get(chain_hash)
+            if e is None:
+                if len(self._heat) >= self.heat_entries:
+                    self._evict_coldest(step)
+                e = self._heat[chain_hash] = {
+                    "hits": 0, "hit_tokens": 0, "last_hit_step": step,
+                    "depth": int(depth), "score": 0.0}
+            # decay the standing score to NOW, then add this hit's tokens
+            e["score"] = (e["score"] * self.heat_decay
+                          ** max(0, step - e["last_hit_step"])
+                          + int(hit_tokens))
+            e["hits"] += 1
+            e["hit_tokens"] += int(hit_tokens)
+            e["last_hit_step"] = step
+            e["depth"] = int(depth)
+
+    def _evict_coldest(self, step: int) -> None:
+        """Drop the entry with the lowest decayed score (lock held) —
+        what keeps the heat table structurally bounded."""
+        def eff(h):
+            e = self._heat[h]
+            return e["score"] * self.heat_decay \
+                ** max(0, step - e["last_hit_step"])
+        del self._heat[min(self._heat, key=eff)]
+
+    def heat_table(self, step: Optional[int] = None,
+                   top_k: Optional[int] = None) -> List[Dict]:
+        """Top-K prefix-heat rows by decayed score (hot first).  Each
+        row: hash prefix (hex), chain depth, hit count/tokens, last-hit
+        step, decayed score."""
+        k = self.heat_top_k if top_k is None else int(top_k)
+        with self._lock:
+            rows = []
+            for h, e in self._heat.items():
+                score = e["score"]
+                if step is not None:
+                    score *= self.heat_decay \
+                        ** max(0, int(step) - e["last_hit_step"])
+                rows.append({
+                    "prefix": h.hex()[:16], "depth": e["depth"],
+                    "hits": e["hits"], "hit_tokens": e["hit_tokens"],
+                    "last_hit_step": e["last_hit_step"],
+                    "score": round(score, 3)})
+        rows.sort(key=lambda r: (-r["score"], r["prefix"]))
+        return rows[:k]
+
+    def hot_prefixes(self, top_k: Optional[int] = None,
+                     step: Optional[int] = None) -> List[Dict]:
+        """Actuator view over the heat table (hot-prefix migration,
+        disaggregated fleets): top-K rows hot first, each carrying the FULL deepest
+        chain digest (``chain``, hex — :meth:`heat_table` only exposes
+        a display prefix) plus the chain's leading digests root-first
+        (``lead``, hex) so a router can recompute the ring key without
+        the prompt tokens.  Rows whose chain broke in the pool (an
+        ancestor was evicted) are dropped — they are not migratable.
+        Engine-thread callers only: the chain walk reads live pool
+        indexes."""
+        if not self.enabled:
+            return []
+        k = self.heat_top_k if top_k is None else int(top_k)
+        with self._lock:
+            rows = []
+            for h, e in self._heat.items():
+                score = e["score"]
+                if step is not None:
+                    score *= self.heat_decay \
+                        ** max(0, int(step) - e["last_hit_step"])
+                rows.append((h, e["depth"], score))
+        rows.sort(key=lambda r: (-r[2], r[0]))
+        out: List[Dict] = []
+        walk = getattr(self.pool, "chain_lead", None)
+        for h, depth, score in rows[:k]:
+            lead = walk(h) if walk is not None else None
+            if not lead:
+                continue
+            out.append({"chain": h.hex(), "depth": int(depth),
+                        "score": round(score, 3),
+                        "lead": [x.hex() for x in lead]})
+        return out
+
+    # --- per-request cache attribution --------------------------------------
+    def record_admission(self, rid, cached_tokens: int,
+                         computed_tokens: int, prompt_tokens: int,
+                         recompute: bool = False) -> None:
+        """One scheduler admission of ``rid``: ``cached_tokens`` came
+        from the prefix cache for free, ``computed_tokens`` need prefill
+        compute.  Recompute admissions accumulate onto the same row, so
+        the per-request sums cross-check EXACTLY against the engine's
+        ``prefix_cache_hit_tokens`` / ``prefix_cache_miss_tokens``
+        counters (asserted in tests and bench)."""
+        if not self.enabled:
+            return
+        with self._lock:
+            self.attributed_cached_tokens += int(cached_tokens)
+            self.attributed_computed_tokens += int(computed_tokens)
+            row = self._attr_active.get(rid)
+            if row is None:
+                row = self._attr_active[rid] = {
+                    "id": str(rid), "admissions": 0, "cached_tokens": 0,
+                    "computed_tokens": 0,
+                    "prompt_tokens": int(prompt_tokens),
+                    "recomputes": 0}
+            row["admissions"] += 1
+            row["cached_tokens"] += int(cached_tokens)
+            row["computed_tokens"] += int(computed_tokens)
+            if recompute:
+                row["recomputes"] += 1
+
+    def close_request(self, rid) -> None:
+        """Move ``rid``'s attribution row to the bounded recent ring
+        (the engine calls this on every finish path, so the active map
+        stays bounded by the admission caps)."""
+        if not self.enabled:
+            return
+        with self._lock:
+            row = self._attr_active.pop(rid, None)
+            if row is not None:
+                self._attr_recent.append(row)
+
+    def attribution(self) -> Dict:
+        """Totals + per-request rows (active and recently finished).
+        ``cached_tokens_total`` is the exact invariant side the engine's
+        ``prefix_cache_hit_tokens`` counter must equal."""
+        with self._lock:
+            return {
+                "cached_tokens_total": self.attributed_cached_tokens,
+                "computed_tokens_total": self.attributed_computed_tokens,
+                "active": [dict(r) for r in self._attr_active.values()],
+                "recent": [dict(r) for r in self._attr_recent],
+            }
+
+    # --- inspection ---------------------------------------------------------
+    def hit_depth_distribution(self) -> Dict[int, int]:
+        """{lru_depth: revive count} — the host-side mirror of the
+        ``serving_reuse_hit_depth`` histogram."""
+        with self._lock:
+            return dict(sorted(self._hit_depths.items()))
+
+    def eviction_report(self) -> Dict:
+        """Eviction-cause accounting + clobbered-chain-depth counts."""
+        with self._lock:
+            return {
+                "causes": dict(self._evict_causes),
+                "by_chain_depth": dict(sorted(self._evict_depths.items())),
+                "total": sum(self._evict_causes.values()),
+            }
+
+    def snapshot(self) -> Dict:
+        """The ``GET /v1/debug/cache`` per-replica body: enabled flag,
+        pool shape, latest sample + timeline, heat top-K, hit-depth
+        distribution, eviction report, attribution."""
+        pool = self.pool
+        timeline = self.timeline()
+        return {
+            "enabled": self.enabled,
+            "num_blocks": pool.num_blocks,
+            "block_size": pool.block_size,
+            "prefix_cache": pool.prefix_cache_enabled,
+            "pool": timeline[-1] if timeline else None,
+            "timeline": timeline,
+            "heat": self.heat_table(),
+            "hit_depths": {str(k): v
+                           for k, v in self.hit_depth_distribution()
+                           .items()},
+            "revives": self.revives,
+            "reuse_hits": pool.reuse_hits,
+            "evictions": self.eviction_report(),
+            "attribution": self.attribution(),
+        }

@@ -1,0 +1,363 @@
+"""Fleet flight recorder: always-on crash capture for the serving stack
+(the port of ``paddle_tpu/observability/flight.py``).
+
+A production fleet needs to answer "what happened in the 2 s before the
+engine thread died" *after the fact*, without a profiler attached.  This
+module keeps a **bounded ring of recent lifecycle events per replica**
+(fed by a :class:`~paddle_tpu_torch.observability.lifecycle.LifecycleTracker`
+listener) and, when an anomaly trigger fires, atomically dumps a
+**post-mortem bundle** to a configurable directory:
+
+* the last-K events of the affected replica's ring (all rings for
+  fleet-wide triggers),
+* a full metrics snapshot of the shared registry,
+* the per-request timelines of every in-flight request (the dying
+  request's timeline included),
+* a thread dump of the whole process.
+
+Triggers (``serving_flight_dumps_total{trigger=...}`` counts the dumps):
+
+========================  ====================================================
+``engine_death``          a replica's engine thread raised (fired once per
+                          replica — dict-deduped)
+``watchdog``              a step watchdog section expired
+                          (``attach_watchdog``; any object with an
+                          ``on_timeout`` attribute)
+``preemption_storm``      ≥ ``storm_threshold`` preemptions inside
+                          ``storm_window_s`` on one replica
+``rejection_burst``       ≥ ``burst_threshold`` HTTP 429s inside
+                          ``burst_window_s``
+``drain_overrun``         a graceful drain hit its deadline with requests
+                          still in flight (stragglers TIMEOUT-aborted)
+``nonfinite``             the numerics auditor saw NaN/Inf in a step
+                          program's logits (``observability/audit.py``)
+``divergence``            the shadow-oracle re-execution disagreed with the
+                          primary program (token or logit divergence); the
+                          ``.npz`` repro path rides ``detail``
+``quarantine``            the fleet supervisor quarantined an audit-degraded
+                          replica for replacement (``serving/resilience.py``)
+``crash_loop``            a replica hit its restart cap inside the crash-loop
+                          window and was permanently excluded
+``alert``                 an :class:`~paddle_tpu_torch.observability.alerts
+                          .AlertEngine` rule transitioned to firing; the
+                          bundle's ``alert`` key embeds the rule, the breach
+                          value, and the offending series' history window
+========================  ====================================================
+
+In the port the engine and its auditor fire ``nonfinite``, ``divergence``
+and ``alert``; the fleet-level triggers come from the fleet, server and
+supervisor of ROADMAP A9, which call :meth:`FlightRecorder.trigger` the
+same way; the cross-process ``distrib`` block of a bundle comes with
+them.
+
+Boundedness: each
+replica's ring is a ``deque(maxlen=ring_events)``; trigger windows are
+``deque(maxlen=threshold)``; at most ``max_bundles`` bundles are written
+per process (then counted, not written); repeat triggers inside
+``cooldown_s`` are suppressed.  Bundles are written tmp-then-rename so a
+crash mid-dump never leaves a torn file.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import threading
+import time
+import traceback
+from collections import deque
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+from .lifecycle import LifecycleTracker
+from .metrics import MetricsRegistry
+
+TRIGGERS = ("engine_death", "watchdog", "preemption_storm",
+            "rejection_burst", "drain_overrun", "nonfinite", "divergence",
+            "quarantine", "crash_loop", "alert")
+
+# the metric names this module registers
+METRIC_NAMES = ("serving_flight_dumps_total",)
+
+
+@dataclass
+class FlightConfig:
+    """Recorder knobs.  ``dump_dir=None`` keeps the rings (cheap, always
+    on) but writes no bundles — triggers still count on ``/metrics``."""
+
+    dump_dir: Optional[str] = None
+    ring_events: int = 512        # per-replica event ring
+    max_bundles: int = 16         # per-process write cap (disk bound)
+    cooldown_s: float = 30.0      # min spacing between same-key dumps
+    storm_threshold: int = 8      # preemptions ...
+    storm_window_s: float = 2.0   # ... within this window => storm
+    burst_threshold: int = 16     # 429s ...
+    burst_window_s: float = 2.0   # ... within this window => burst
+
+
+class FlightRecorder:
+    """Bounded per-replica event rings + anomaly-triggered bundles."""
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None,
+                 lifecycle: Optional[LifecycleTracker] = None,
+                 config: Optional[FlightConfig] = None):
+        self.cfg = config or FlightConfig()
+        self.registry = registry
+        self.lifecycle = lifecycle
+        self._lock = threading.Lock()
+        self._rings: Dict[str, deque] = {}  # replica -> bounded ring;
+        # key count is bounded by the fleet's replica set (+ "router")
+        self._windows: Dict[str, deque] = {}  # trigger-key -> timestamps
+        self._last_dump: Dict[str, float] = {}  # trigger-key -> ts
+        self._once: set = set()   # (trigger, replica) fired-once keys
+        self._bundles: List[str] = []  # unbounded-ok: capped at cfg.max_bundles by trigger()
+        self._seq = 0
+        self._remove_listener = None
+        # replica -> StepProfiler: bundles embed the owning
+        # replica's last-K per-step records, so a post-mortem shows what
+        # the engine was computing (program/bucket/utilization) when it
+        # died.  Bounded by the fleet's replica set.
+        self._stepprofs: Dict[str, object] = {}
+        # replica -> CacheStatTracker: bundles embed the
+        # owning replica's last-K pool-timeline samples, so a post-
+        # mortem shows how free/reuse/allocated evolved into the
+        # anomaly.  Bounded by the fleet's replica set.
+        self._cachestats: Dict[str, object] = {}
+        self._dumps = {
+            t: (registry.counter(
+                "serving_flight_dumps_total",
+                "flight-recorder post-mortem bundles dumped",
+                trigger=t) if registry is not None else None)
+            for t in TRIGGERS
+        }
+        if lifecycle is not None:
+            self._remove_listener = lifecycle.add_listener(self._on_event)
+
+    def bind_step_profilers(self, profilers: Dict[str, object]) -> None:
+        """Register per-replica step profilers (``{replica_index_str:
+        StepProfiler}``) — the fleet router calls this at build so
+        post-mortem bundles carry each replica's recent step records."""
+        self._stepprofs = dict(profilers)
+
+    def bind_cache_trackers(self, trackers: Dict[str, object]) -> None:
+        """Register per-replica cache-stat trackers
+        (``{replica_index_str: CacheStatTracker}``) — the fleet router
+        calls this at build (and the supervisor after a rebuild) so
+        post-mortem bundles carry each replica's recent pool-timeline
+        samples."""
+        self._cachestats = dict(trackers)
+
+    def bind_lifecycle(self, lifecycle: LifecycleTracker) -> None:
+        """(Re)subscribe this recorder to a tracker — the fleet router
+        uses this when handed a pre-built recorder, so its rings follow
+        the fleet's tracker."""
+        if self._remove_listener is not None:
+            self._remove_listener()
+        self.lifecycle = lifecycle
+        self._remove_listener = lifecycle.add_listener(self._on_event)
+
+    # --- ring feed ----------------------------------------------------------
+    def _ring(self, replica: str) -> deque:
+        ring = self._rings.get(replica)
+        if ring is None:
+            ring = self._rings[replica] = deque(
+                maxlen=self.cfg.ring_events)
+        return ring
+
+    def _on_event(self, rid, name: str, ts: float, tid: int,
+                  attrs: Dict) -> None:
+        """LifecycleTracker listener: mirror every event into the
+        owning replica's ring and run the storm detector.  Events
+        without a replica stamp (the router thread's ``submitted`` /
+        router-side rejects) file under the dedicated ``router`` ring —
+        fleet-wide routing noise must not evict replica 0's own engine
+        events from the window a death bundle exists to preserve."""
+        replica = str(attrs.get("replica", "router"))
+        with self._lock:
+            self._ring(replica).append(
+                {"t": round(ts, 6), "name": name,
+                 "request": None if rid is None else str(rid), "tid": tid,
+                 **{k: v for k, v in attrs.items() if k != "replica"},
+                 "replica": replica})
+        if name == "preempted":
+            self._window_hit(f"preemption_storm:{replica}",
+                             self.cfg.storm_threshold,
+                             self.cfg.storm_window_s,
+                             "preemption_storm", replica)
+
+    def note_rejection(self) -> None:
+        """One HTTP 429 (the frontend calls this): feeds the
+        ``rejection_burst`` trigger window."""
+        with self._lock:
+            self._ring("router").append(
+                {"t": round(time.perf_counter(), 6),
+                 "name": "admission_rejected_http", "replica": "router"})
+        self._window_hit("rejection_burst", self.cfg.burst_threshold,
+                         self.cfg.burst_window_s, "rejection_burst", None)
+
+    def _window_hit(self, key: str, threshold: int, window_s: float,
+                    trigger: str, replica: Optional[str]) -> None:
+        now = time.perf_counter()
+        with self._lock:
+            w = self._windows.get(key)
+            if w is None:
+                w = self._windows[key] = deque(maxlen=max(1, threshold))
+            w.append(now)
+            span = now - w[0]
+            full = len(w) == threshold and span <= window_s
+        if full:
+            self.trigger(trigger, replica=replica,
+                         detail=f"{threshold} events in "
+                                f"{span:.3f}s (window {window_s}s)")
+
+    # --- watchdog bridge ----------------------------------------------------
+    def attach_watchdog(self, watchdog) -> None:
+        """Chain a :class:`StepWatchdog`'s ``on_timeout`` so an expired
+        section also dumps a flight bundle."""
+        prev = watchdog.on_timeout
+
+        def chained(label, timeout_s):
+            self.trigger("watchdog", detail=f"section {label!r} exceeded "
+                                            f"{timeout_s}s")
+            if prev is not None:
+                prev(label, timeout_s)
+
+        watchdog.on_timeout = chained
+
+    def reset_once(self, trigger: str, replica: str) -> None:
+        """Re-arm a fired-once trigger key (and clear its cooldown) for
+        one replica.  The fleet supervisor calls this after rebuilding a
+        replica: the NEXT ``engine_death`` of that index is a new
+        incident and must dump its own bundle — exactly one bundle per
+        recovery action, not one per process lifetime."""
+        key = f"{trigger}:{replica}"
+        with self._lock:
+            self._once.discard(key)
+            self._last_dump.pop(key, None)
+
+    # --- triggers / bundles -------------------------------------------------
+    @property
+    def bundles(self) -> List[str]:
+        """Paths of every bundle written this process."""
+        with self._lock:
+            return list(self._bundles)
+
+    def trigger(self, trigger: str, replica: Optional[str] = None,
+                detail: Optional[str] = None, key: Optional[str] = None,
+                extra: Optional[Dict] = None) -> Optional[str]:
+        """Fire one anomaly trigger; returns the bundle path (``None``
+        when deduped/cooling down/disabled/capped).  ``engine_death``
+        fires at most once per replica; every trigger key cools down for
+        ``cooldown_s`` between dumps.  ``key`` overrides the dedupe/
+        cooldown suffix when the natural key is not a replica (the alert
+        engine passes the rule name — two different rules firing
+        back-to-back must not dedupe each other).  ``extra`` keys are
+        embedded into the bundle (existing bundle fields win)."""
+        key = (f"{trigger}:{key}" if key is not None
+               else f"{trigger}:{replica}" if replica is not None
+               else trigger)
+        now = time.perf_counter()
+        with self._lock:
+            if trigger == "engine_death":
+                if key in self._once:
+                    return None
+                self._once.add(key)
+            last = self._last_dump.get(key)
+            if last is not None and now - last < self.cfg.cooldown_s:
+                return None
+            self._last_dump[key] = now
+            self._seq += 1
+            seq = self._seq
+            capped = len(self._bundles) >= self.cfg.max_bundles
+        c = self._dumps.get(trigger)
+        if c is not None:
+            c.inc()
+        if self.cfg.dump_dir is None or capped:
+            if capped:
+                sys.stderr.write(
+                    f"[flight] bundle cap ({self.cfg.max_bundles}) reached; "
+                    f"trigger {trigger!r} counted but not written\n")
+            return None
+        path = os.path.join(self.cfg.dump_dir,
+                            f"flight_{trigger}_{seq:04d}.json")
+        try:
+            bundle = self._build_bundle(trigger, replica, detail)
+            if extra:
+                for k, v in extra.items():
+                    bundle.setdefault(k, v)
+            os.makedirs(self.cfg.dump_dir, exist_ok=True)
+            tmp = path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(bundle, f, indent=1, default=str)
+            os.replace(tmp, path)  # atomic: no torn bundle on crash
+        except Exception:
+            sys.stderr.write("[flight] bundle dump failed:\n"
+                             + traceback.format_exc())
+            return None
+        with self._lock:
+            self._bundles.append(path)
+        sys.stderr.write(f"[flight] {trigger}: post-mortem bundle -> "
+                         f"{path}\n")
+        return path
+
+    def _build_bundle(self, trigger: str, replica: Optional[str],
+                      detail: Optional[str]) -> Dict:
+        epoch = (self.lifecycle.epoch_offset
+                 if self.lifecycle is not None
+                 else time.time() - time.perf_counter())
+        with self._lock:
+            if replica is not None:
+                events = list(self._rings.get(str(replica), ()))
+            else:
+                events = sorted(
+                    (ev for ring in self._rings.values() for ev in ring),
+                    key=lambda ev: ev["t"])
+        requests = {}
+        if self.lifecycle is not None:
+            for tl in self.lifecycle.active():
+                if replica is not None and tl.replica is not None \
+                        and str(tl.replica) != str(replica):
+                    continue
+                requests[str(tl.request_id)] = tl.to_dict(epoch)
+        threads = {}
+        for tid, frame in sys._current_frames().items():
+            threads[str(tid)] = "".join(traceback.format_stack(frame))
+        # last-K step records of the affected replica (all replicas for
+        # fleet-wide triggers): what the engine was computing when the
+        # anomaly fired, with program/bucket/utilization per step
+        step_profile = {}
+        for rep, sp in self._stepprofs.items():
+            if replica is not None and str(replica) != rep:
+                continue
+            recs = sp.records()
+            if recs:
+                step_profile[rep] = recs
+        # last-K pool-timeline samples of the affected replica 
+        # free/reuse/allocated block counts leading into the anomaly
+        cache_stats = {}
+        for rep, tr in self._cachestats.items():
+            if replica is not None and str(replica) != rep:
+                continue
+            samples = tr.timeline()
+            if samples:
+                cache_stats[rep] = samples
+        return {
+            "bundle": "paddle_tpu.flight",
+            "trigger": trigger,
+            "replica": replica,
+            "detail": detail,
+            "time_unix": round(time.time(), 6),
+            "events": events,
+            "in_flight_requests": requests,
+            "step_profile": step_profile,
+            "cache_stats": cache_stats,
+            "metrics": (self.registry.snapshot()
+                        if self.registry is not None else {}),
+            "threads": threads,
+        }
+
+    def close(self) -> None:
+        if self._remove_listener is not None:
+            self._remove_listener()
+            self._remove_listener = None

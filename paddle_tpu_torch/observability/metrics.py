@@ -1,21 +1,29 @@
 """Metrics registry: Counter / Gauge / Histogram with bounded memory (the
-subset of ``paddle_tpu/observability/metrics.py`` the serving engine
-uses).
+port of ``paddle_tpu/observability/metrics.py``: the same series, the same
+Prometheus text byte for byte, the same JSON snapshot).
 
 Every aggregate is an exact streaming one — count, sum, max, min, fixed
-histogram buckets — so a metric's memory is O(1) however many observations
-a long-lived server records.  Series cardinality is capped
-(``max_series``).  ``snapshot()`` is the JAX registry's JSON rendering;
-the Prometheus text, scrape-time collect hooks and the HTTP/push exporters
-are ROADMAP A8.
+histogram buckets — so a metric's memory is O(1) no matter how many
+observations a long-lived server records.  Rendering targets:
+
+* :meth:`MetricsRegistry.prometheus_text` — Prometheus text exposition
+  format 0.0.4 (``# HELP`` / ``# TYPE`` lines, label escaping,
+  cumulative ``_bucket{le=...}`` histogram series);
+* :meth:`MetricsRegistry.snapshot` — a JSON-able dict.
+
+Series cardinality is capped (``max_series``): creating a metric beyond
+the cap raises instead of silently growing, because unbounded label
+values are the classic production-metrics leak.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
+import sys
 import threading
-from typing import Dict, Optional, Tuple
+import traceback
+from typing import Callable, Dict, List, Optional, Tuple
 
 DEFAULT_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
                    0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
@@ -30,7 +38,25 @@ def _check_name(name: str) -> str:
     return name
 
 
+def _escape_help(text: str) -> str:
+    return text.replace("\\", r"\\").replace("\n", r"\n")
+
+
+def _escape_label(value: str) -> str:
+    return (value.replace("\\", r"\\").replace("\n", r"\n")
+            .replace('"', r"\""))
+
+
+def _label_suffix(labels: Tuple[Tuple[str, str], ...]) -> str:
+    if not labels:
+        return ""
+    inner = ",".join(f'{k}="{_escape_label(str(v))}"' for k, v in labels)
+    return "{" + inner + "}"
+
+
 class _Metric:
+    """Base: name + sorted label pairs + a lock shared per instance."""
+
     kind = "untyped"
 
     def __init__(self, name: str, labels: Tuple[Tuple[str, str], ...],
@@ -42,7 +68,7 @@ class _Metric:
 
 
 class Counter(_Metric):
-    """Monotonically non-decreasing count."""
+    """Monotonically non-decreasing count (Prometheus ``counter``)."""
 
     kind = "counter"
 
@@ -52,8 +78,9 @@ class Counter(_Metric):
 
     def inc(self, n: float = 1.0) -> None:
         if n < 0:
-            raise ValueError(f"counter {self.name!r} is monotonic; "
-                             f"inc({n}) is negative")
+            raise ValueError(
+                f"counter {self.name!r} is monotonic; inc({n}) is negative "
+                "(use a Gauge for values that go down)")
         with self._lock:
             self._value += n
 
@@ -61,13 +88,18 @@ class Counter(_Metric):
     def value(self) -> float:
         return self._value
 
+    def expose(self) -> List[str]:
+        return [f"{self.name}{_label_suffix(self.labels)} "
+                f"{_format(self._value)}"]
+
     def snap(self):
         return {"type": "counter", "value": self._value}
 
 
 class Gauge(_Metric):
-    """Point-in-time value plus exact streaming aggregates over every
-    sample set (n / sum / max / min)."""
+    """Point-in-time value, plus exact streaming aggregates over every
+    sample ever set (n / sum / max / min) so summaries stay exact while
+    memory stays constant."""
 
     kind = "gauge"
 
@@ -80,13 +112,23 @@ class Gauge(_Metric):
         self.min = math.inf
 
     def set(self, v: float) -> None:
-        v = float(v)
         with self._lock:
-            self._value = v
-            self.samples += 1
-            self.total += v
-            self.max = max(self.max, v)
-            self.min = min(self.min, v)
+            self.set_locked(float(v))
+
+    def inc(self, n: float = 1.0) -> None:
+        with self._lock:
+            self.set_locked(self._value + n)
+
+    def dec(self, n: float = 1.0) -> None:
+        self.inc(-n)
+
+    def set_locked(self, v: float) -> None:
+        # caller holds self._lock
+        self._value = v
+        self.samples += 1
+        self.total += v
+        self.max = max(self.max, v)
+        self.min = min(self.min, v)
 
     @property
     def value(self) -> float:
@@ -96,6 +138,10 @@ class Gauge(_Metric):
     def avg(self) -> float:
         return self.total / self.samples if self.samples else 0.0
 
+    def expose(self) -> List[str]:
+        return [f"{self.name}{_label_suffix(self.labels)} "
+                f"{_format(self._value)}"]
+
     def snap(self):
         return {"type": "gauge", "value": self._value,
                 "samples": self.samples, "avg": self.avg,
@@ -104,8 +150,11 @@ class Gauge(_Metric):
 
 
 class Histogram(_Metric):
-    """Fixed-bucket histogram with exact sum/count/max/min; no raw samples
-    are kept."""
+    """Fixed-bucket histogram with exact sum/count/max/min.
+
+    Bucket counts are NON-cumulative internally; exposition renders the
+    cumulative ``le`` series Prometheus expects.  No raw samples are
+    retained — memory is ``len(buckets) + O(1)`` forever."""
 
     kind = "histogram"
 
@@ -140,8 +189,11 @@ class Histogram(_Metric):
         return self.sum / self.count if self.count else 0.0
 
     def quantile(self, q: float) -> Optional[float]:
-        """Bucket-interpolated quantile estimate, clamped to the observed
-        range; ``None`` while empty."""
+        """Bucket-based quantile estimate (the Prometheus
+        ``histogram_quantile`` method): find the bucket holding the
+        q-th observation, interpolate linearly inside it.  Exact
+        streaming ``min``/``max`` clamp the ends — the estimate never
+        leaves the observed range.  ``None`` while empty."""
         if not 0.0 <= q <= 1.0:
             raise ValueError(f"quantile must be in [0, 1], got {q}")
         with self._lock:
@@ -152,10 +204,13 @@ class Histogram(_Metric):
             lo = 0.0 if self.min >= 0 else self.min
             for bound, c in zip(self.bounds, self._counts):
                 if cum + c >= rank and c:
-                    est = lo + (bound - lo) * (rank - cum) / c
+                    frac = (rank - cum) / c
+                    est = lo + (bound - lo) * frac
                     return min(max(est, self.min), self.max)
                 cum += c
                 lo = bound
+            # the +Inf overflow bucket has no upper bound to interpolate
+            # against; the exact streaming max is the honest answer
             return self.max
 
     def bucket_counts(self) -> Dict[str, int]:
@@ -167,36 +222,47 @@ class Histogram(_Metric):
         out["+Inf"] = cum + self._counts[-1]
         return out
 
+    def expose(self) -> List[str]:
+        lines = []
+        for le, cum in self.bucket_counts().items():
+            labels = self.labels + (("le", le),)
+            lines.append(f"{self.name}_bucket{_label_suffix(labels)} {cum}")
+        suffix = _label_suffix(self.labels)
+        lines.append(f"{self.name}_sum{suffix} {_format(self.sum)}")
+        lines.append(f"{self.name}_count{suffix} {self.count}")
+        return lines
+
     def snap(self):
         return {"type": "histogram", "count": self.count, "sum": self.sum,
                 "avg": self.avg,
                 "max": None if self.count == 0 else self.max,
                 "min": None if self.count == 0 else self.min,
-                "p50": self.quantile(0.50), "p95": self.quantile(0.95),
-                "p99": self.quantile(0.99), "buckets": self.bucket_counts()}
+                # bucket-interpolated estimates (None while empty); the
+                # Prometheus text exposition is unchanged — these ride
+                # only the JSON snapshot / summary surfaces
+                "p50": self.quantile(0.50),
+                "p95": self.quantile(0.95),
+                "p99": self.quantile(0.99),
+                "buckets": self.bucket_counts()}
 
 
 def _format(v: float) -> str:
     if v == math.inf:
         return "+Inf"
+    if v == -math.inf:
+        return "-Inf"
     if float(v).is_integer() and abs(v) < 1e15:
         return str(int(v))
     return repr(float(v))
 
 
-def _escape_label(value: str) -> str:
-    return (value.replace("\\", r"\\").replace("\n", r"\n")
-            .replace('"', r"\""))
-
-
-def _label_suffix(labels: Tuple[Tuple[str, str], ...]) -> str:
-    if not labels:
-        return ""
-    inner = ",".join(f'{k}="{_escape_label(str(v))}"' for k, v in labels)
-    return "{" + inner + "}"
-
-
 _KINDS = {"counter": Counter, "gauge": Gauge, "histogram": Histogram}
+
+
+# collect hooks are a small, fixed-purpose set (fleet gauge refresh,
+# maybe a process collector) — a registry accumulating them past this is
+# a leak, not a feature
+_MAX_COLLECT_HOOKS = 16
 
 
 class MetricsRegistry:
@@ -205,8 +271,19 @@ class MetricsRegistry:
     def __init__(self, max_series: int = 4096):
         self.max_series = max_series
         self._series: Dict[Tuple[str, Tuple], _Metric] = {}
+        self._help: Dict[str, str] = {}
+        self._kinds: Dict[str, str] = {}
         self._lock = threading.Lock()
+        # scrape-time collectors: gauges that are *derived*
+        # from live object state (fleet replica occupancy, cache
+        # imbalance) register a hook here so EVERY consumer of the
+        # registry — /metrics, the push gateway, JSON snapshots, the
+        # history sampler — observes freshly collected values instead of
+        # whatever the last explicit refresh left behind
+        self._collect_hooks: List[Callable[[], None]] = []  # unbounded-ok: add_collect_hook refuses past _MAX_COLLECT_HOOKS
+        self._collecting = threading.local()
 
+    # --- creation -----------------------------------------------------------
     def _get(self, kind: str, name: str, help: str, labels: Dict[str, str],
              **kwargs) -> _Metric:
         _check_name(name)
@@ -222,10 +299,14 @@ class MetricsRegistry:
                 return m
             if len(self._series) >= self.max_series:
                 raise RuntimeError(
-                    f"metrics registry is full ({self.max_series} series) "
-                    "— unbounded label cardinality?")
+                    f"metrics registry is full ({self.max_series} series) — "
+                    "unbounded label cardinality? (every label value creates "
+                    "a new series)")
             m = _KINDS[kind](name, lk, help=help, **kwargs)
             self._series[key] = m
+            if help:
+                self._help.setdefault(name, help)
+            self._kinds.setdefault(name, kind)
             return m
 
     def counter(self, name: str, help: str = "", **labels) -> Counter:
@@ -239,17 +320,125 @@ class MetricsRegistry:
                   **labels) -> Histogram:
         return self._get("histogram", name, help, labels, buckets=buckets)
 
-    def snapshot(self) -> Dict[str, Dict]:
-        """JSON-able ``{name or name{labels}: summary}`` of every series,
-        as the JAX registry's ``snapshot()`` gives it."""
+    # --- scrape-time collection ----------------------------------
+    def add_collect_hook(self, fn: Callable[[], None]) -> Callable[[], None]:
+        """Register a zero-arg collector run before every rendering of
+        this registry (:meth:`prometheus_text`, :meth:`snapshot`) and by
+        the history sampler.  Bounded (at most ``_MAX_COLLECT_HOOKS``);
+        a hook that raises is reported to stderr and skipped — a broken
+        collector must never take down a scrape.  Returns a zero-arg
+        remover (idempotent)."""
         with self._lock:
-            series = list(self._series.values())
-        return {m.name + _label_suffix(m.labels): m.snap() for m in series}
+            if len(self._collect_hooks) >= _MAX_COLLECT_HOOKS:
+                raise RuntimeError(
+                    f"registry already has {_MAX_COLLECT_HOOKS} collect "
+                    "hooks — a hook registered per scrape/request (rather "
+                    "than once per collector object) is a leak")
+            self._collect_hooks.append(fn)
+
+        def remove() -> None:
+            with self._lock:
+                try:
+                    self._collect_hooks.remove(fn)
+                except ValueError:
+                    pass  # swallow-ok: already removed — the remover is idempotent by contract
+
+        return remove
+
+    def run_collect_hooks(self) -> None:
+        """Run every registered collect hook once (exceptions swallowed
+        with a stderr report).  Re-entrancy-guarded per thread: a hook
+        that itself renders the registry (e.g. dumps a snapshot into a
+        flight bundle) must not recurse into the hook list."""
+        if getattr(self._collecting, "active", False):
+            return
+        with self._lock:
+            hooks = tuple(self._collect_hooks)
+        if not hooks:
+            return
+        self._collecting.active = True
+        try:
+            for fn in hooks:
+                try:
+                    fn()
+                except Exception:
+                    # swallow-ok: a broken collector is reported loudly but
+                    # must never take down the scrape/push/sample it rides
+                    sys.stderr.write("[metrics] collect hook failed:\n"
+                                     + traceback.format_exc())
+        finally:
+            self._collecting.active = False
 
     @contextlib.contextmanager
     def atomic(self):
         """Hold the registry lock across a multi-series read or write so
-        related series stay pairwise-consistent (the SLO goodput pair).
-        Do not create series inside the block."""
+        related series stay pairwise-consistent — e.g. the SLO goodput
+        pair: the writer increments ``serving_slo_total`` and
+        ``serving_slo_good_total`` inside one ``atomic()`` block, and the
+        burn-rate sampler reads every series value inside another, so a
+        sample can never observe good > total (a transient goodput > 1.0
+        would trip the burn rule spuriously).  Do NOT create series or
+        render the registry inside the block (the lock is not
+        re-entrant)."""
         with self._lock:
             yield
+
+    # --- inspection ---------------------------------------------------------
+    def series(self) -> List[_Metric]:
+        with self._lock:
+            return list(self._series.values())
+
+    def families(self) -> Dict[str, List[_Metric]]:
+        out: Dict[str, List[_Metric]] = {}
+        for m in self.series():
+            out.setdefault(m.name, []).append(m)
+        return out
+
+    # --- rendering ----------------------------------------------------------
+    def prometheus_text(self) -> str:
+        """Text exposition format 0.0.4 (the ``/metrics`` page body).
+        Collect hooks run first, so derived gauges are fresh on every
+        scrape AND every push-gateway export."""
+        self.run_collect_hooks()
+        lines = []
+        for name, members in sorted(self.families().items()):
+            help = self._help.get(name, "")
+            if help:
+                lines.append(f"# HELP {name} {_escape_help(help)}")
+            lines.append(f"# TYPE {name} {self._kinds.get(name, 'untyped')}")
+            for m in members:
+                lines.extend(m.expose())
+        return "\n".join(lines) + ("\n" if lines else "")
+
+    def snapshot(self, kinds: Optional[Tuple[str, ...]] = None) -> Dict:
+        """JSON-able {name or name{labels}: summary} dict.  Collect
+        hooks run first (see :meth:`prometheus_text`)."""
+        self.run_collect_hooks()
+        out = {}
+        for m in self.series():
+            if kinds is not None and m.kind not in kinds:
+                continue
+            out[m.name + _label_suffix(m.labels)] = m.snap()
+        return out
+
+
+_global_registry: Optional[MetricsRegistry] = None
+_global_lock = threading.Lock()
+
+
+def get_registry() -> MetricsRegistry:
+    """The process-wide default registry (created on first use)."""
+    global _global_registry
+    if _global_registry is None:
+        with _global_lock:
+            if _global_registry is None:
+                _global_registry = MetricsRegistry()
+    return _global_registry
+
+
+def set_registry(registry: Optional[MetricsRegistry]):
+    """Swap the process-wide registry; returns the previous one."""
+    global _global_registry
+    with _global_lock:
+        prev, _global_registry = _global_registry, registry
+    return prev

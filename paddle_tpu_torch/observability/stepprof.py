@@ -1,0 +1,564 @@
+"""Step-level performance introspection for the serving engine (the port
+of ``paddle_tpu/observability/stepprof.py``).
+
+The bucketed fixed-shape step programs that make serving capture-bounded
+buy that bound with **padding**: a 5-row decode batch runs the 8-row
+bucket, a 9-token chunk runs the 16-token program.  This module measures
+that cost:
+
+* **bucket-utilization & padding-waste accounting** — EngineCore feeds
+  a :class:`StepProfiler` on every program launch with the program
+  identity (one-shot ``prefill`` / ``chunk``\\ ed prefill / ``decode``
+  / ``ragged`` / ``burst``), the bucket shape it dispatched, the *actual*
+  scheduled token count vs the *padded* bucket capacity, and the wall
+  time.  Per-program/bucket ``serving_step_seconds{program,bucket}``
+  histograms, ``serving_scheduled_tokens_total`` /
+  ``serving_padding_tokens_total`` counters and a
+  ``serving_bucket_utilization`` histogram land on the engine's
+  registry, with an exact invariant: the scheduled-token sum across
+  steps equals the tokens the scheduler planned
+  (``ContinuousBatchingScheduler.tokens_planned``) — tested.
+* **compile-time attribution** — a graphed step family is captured
+  once per bucket key (``serving/graphs.py``); the capture's wall time
+  is recorded into a bounded compile table and the
+  ``serving_compile_seconds_total{program}`` /
+  ``serving_compiles_total{program}`` counters.  The eager prefill
+  families have no capture and record no compile.
+* **on-demand profile capture** — :meth:`StepProfiler.arm_capture`
+  arms a bounded window that records the next N engine steps as tracer
+  :class:`Span` objects — each step span annotated with
+  program/bucket/utilization, each program launch a child span —
+  exported through the ``observability.export`` chrome machinery.  With
+  ``device_trace`` the window also runs ``torch.profiler`` (CPU and CUDA
+  activities) and writes its chrome trace under ``log_dir``, so host step
+  spans and the device's kernels (graph replays included) can be read
+  side by side.
+
+Overhead contract: gated by ``EngineConfig.step_profile`` (default on).
+Everything outside an armed capture window is O(1) per program launch —
+counter/histogram increments and a bounded last-K record ring (the
+flight recorder embeds it in post-mortem bundles).  Span objects are
+built only while a capture window is armed.  Nothing here runs inside a
+step program, so the profiler adds **zero** graph captures (tested).
+
+Boundedness: the per-step record ring and the compile table are
+``deque(maxlen=)``; a capture window holds at most ``max_capture_steps``
+steps of spans; the per-(program, bucket) aggregate map is capped at
+``_MAX_BUCKET_KEYS`` (the engine's power-of-two bucket sets keep it in
+the tens — the cap is a safety net, overflow collapses into an
+``"other"`` bucket instead of growing).
+"""
+
+from __future__ import annotations
+
+import os
+import tempfile
+import threading
+import time
+from collections import deque
+from typing import Dict, List, Optional, Tuple
+
+from .metrics import MetricsRegistry
+from .tracer import Span
+
+# the bucketed program families the engine dispatches: the legacy three
+# (one-shot prefill, chunked/resumed prefill, batched decode),
+# "ragged", the unified packed prefill+decode program that
+# replaces them under EngineConfig.unified_step, and "burst", the
+# device-resident multi-step decode loop
+STEP_PROGRAMS = ("prefill", "chunk", "decode", "ragged", "burst")
+
+# the metric names this module registers
+METRIC_NAMES = (
+    "serving_step_seconds",
+    "serving_scheduled_tokens_total",
+    "serving_padding_tokens_total",
+    "serving_bucket_utilization",
+    "serving_compile_seconds_total",
+    "serving_compiles_total",
+)
+
+# utilization lives in (0, 1]: scheduled >= 1 whenever a program runs
+# and the bucket capacity is >= scheduled by construction
+UTILIZATION_BUCKETS = (0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0)
+
+# program wall times: the serving latency bucket ladder
+_STEP_SECONDS_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+                         0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
+
+# safety cap on distinct (program, bucket) aggregate keys / histogram
+# label pairs: the engine's power-of-two bucket sets bound this in the
+# tens; past the cap, launches collapse into the "other" bucket label
+_MAX_BUCKET_KEYS = 64
+
+
+def _bucket_str(bucket: Tuple[int, ...]) -> str:
+    return "x".join(str(int(b)) for b in bucket)
+
+
+def _start_device_trace():
+    """A running ``torch.profiler`` session over the host and, when a CUDA
+    device is present, the device (CUPTI: kernels inside graph replays
+    included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_device_trace(prof, log_dir: str) -> str:
+    """Stop ``prof`` and write its chrome trace under ``log_dir``;
+    returns the file's path."""
+    prof.stop()
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, f"device_trace_{os.getpid()}_"
+                                 f"{time.time_ns()}.json")
+    prof.export_chrome_trace(path)
+    return path
+
+
+class CaptureWindow:
+    """One armed profile-capture window: the next ``steps`` engine
+    steps recorded as annotated spans, finalized into a chrome
+    trace-event dict (``result``).  ``done`` is set on finalize —
+    waiters (the HTTP handler) poll it; the engine thread never
+    blocks."""
+
+    __slots__ = ("steps", "remaining", "spans", "done", "result",
+                 "device_trace", "log_dir", "complete", "_ids",
+                 "device_profile", "device_trace_file",
+                 "device_trace_error")
+
+    def __init__(self, steps: int, device_trace: bool, log_dir: str):
+        self.steps = steps
+        self.remaining = steps
+        # bounded: at most (1 + programs-per-step) spans per step for a
+        # window capped at max_capture_steps steps
+        self.spans: List[Span] = []
+        self.done = threading.Event()
+        self.result: Optional[Dict] = None
+        self.device_trace = device_trace
+        self.log_dir = log_dir
+        self.complete = False
+        self._ids = iter(range(1, 1 << 30)).__next__
+        # the running torch.profiler session, the chrome trace it wrote
+        # under log_dir, and why a device trace did not start or stop
+        self.device_profile = None
+        self.device_trace_file: Optional[str] = None
+        self.device_trace_error: Optional[str] = None
+
+    def next_id(self) -> int:
+        return self._ids()
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        return self.done.wait(timeout)
+
+
+class CaptureBusy(RuntimeError):
+    """A capture window is already armed (one at a time — the window
+    owns the process's ``torch.profiler`` session when it traces the
+    device)."""
+
+
+class StepProfiler:
+    """Per-engine step/program introspection: padding-waste accounting,
+    compile attribution, and on-demand capture windows.
+
+    One instance per :class:`~paddle_tpu_torch.serving.EngineCore` (the fleet
+    router hands each replica's profiler to the flight recorder keyed by
+    replica index).  The engine thread is the only writer of step/
+    program records; HTTP handler threads read snapshots and arm
+    capture windows under the profiler lock."""
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None,
+                 labels: Optional[Dict[str, str]] = None,
+                 enabled: bool = True,
+                 last_k: int = 128,
+                 compile_table_max: int = 256,
+                 max_capture_steps: int = 512):
+        self.enabled = enabled
+        self.labels: Dict[str, str] = dict(labels or {})
+        self.registry = registry
+        self.max_capture_steps = int(max_capture_steps)
+        self.epoch_offset = time.time() - time.perf_counter()
+        self._lock = threading.Lock()
+        # last-K per-step records (flight bundles embed these)
+        self._records: deque = deque(maxlen=max(1, last_k))
+        # one row per observed compile (capture); bounded — the engine's
+        # bucket sets bound real entries far below the cap
+        self._compiles: deque = deque(maxlen=max(8, compile_table_max))
+        # (program, bucket_str) -> aggregate dict; capped at
+        # _MAX_BUCKET_KEYS (bucket sets are power-of-two-bounded)
+        self._programs: Dict[Tuple[str, str], Dict] = {}
+        self._step_hists: Dict[Tuple[str, str], object] = {}
+        self._steps = 0
+        self._cur: Optional[List[Dict]] = None
+        self._cur_t0 = 0.0
+        self._capture: Optional[CaptureWindow] = None
+        self.last_capture: Optional[CaptureWindow] = None
+        if not enabled or registry is None:
+            # disabled: never touch the registry, so /metrics stays free
+            # of every serving_step_*/serving_compile_*/serving_padding_*
+            # series (tested)
+            self._sched_c = self._pad_c = self._util_h = None
+            self._compile_s = self._compile_c = None
+            return
+        self._sched_c = {
+            p: registry.counter(
+                "serving_scheduled_tokens_total",
+                "tokens/rows actually computed by bucketed step programs",
+                **dict(self.labels, program=p))
+            for p in STEP_PROGRAMS}
+        self._pad_c = {
+            p: registry.counter(
+                "serving_padding_tokens_total",
+                "bucket-capacity tokens/rows wasted on padding",
+                **dict(self.labels, program=p))
+            for p in STEP_PROGRAMS}
+        self._util_h = {
+            p: registry.histogram(
+                "serving_bucket_utilization",
+                "scheduled/capacity fraction per program launch (1.0 = "
+                "no padding waste)",
+                buckets=UTILIZATION_BUCKETS,
+                **dict(self.labels, program=p))
+            for p in STEP_PROGRAMS}
+        self._compile_s = {
+            p: registry.counter(
+                "serving_compile_seconds_total",
+                "wall seconds spent tracing+compiling step programs",
+                **dict(self.labels, program=p))
+            for p in STEP_PROGRAMS}
+        self._compile_c = {
+            p: registry.counter(
+                "serving_compiles_total",
+                "trace+compile events per step-program family",
+                **dict(self.labels, program=p))
+            for p in STEP_PROGRAMS}
+
+    # --- per-step recording (engine thread) ---------------------------------
+    def begin_step(self) -> None:
+        """Engine step opened: start accumulating this step's program
+        launches (cheap — one list; Spans only while captured)."""
+        if not self.enabled:
+            return
+        self._cur = []
+        self._cur_t0 = time.perf_counter()
+
+    def record_program(self, program: str, bucket: Tuple[int, ...],
+                       scheduled: int, capacity: int, wall_s: float,
+                       **attrs) -> None:
+        """One bucketed program launch: ``scheduled`` real tokens/rows
+        ran inside a ``capacity``-token/row bucket in ``wall_s``."""
+        if not self.enabled:
+            return
+        scheduled = int(scheduled)
+        capacity = int(capacity)
+        util = scheduled / capacity if capacity else 1.0
+        bstr = _bucket_str(bucket)
+        key = (program, bstr)
+        with self._lock:
+            agg = self._programs.get(key)
+            if agg is None:
+                if len(self._programs) >= _MAX_BUCKET_KEYS:
+                    key = (program, "other")
+                    agg = self._programs.get(key)
+                if agg is None:
+                    agg = self._programs[key] = {
+                        "program": program, "bucket": key[1],
+                        "launches": 0, "scheduled_tokens": 0,
+                        "capacity_tokens": 0, "wall_s": 0.0}
+            agg["launches"] += 1
+            agg["scheduled_tokens"] += scheduled
+            agg["capacity_tokens"] += capacity
+            agg["wall_s"] += wall_s
+        if self.registry is not None:
+            self._sched_c[program].inc(scheduled)
+            self._pad_c[program].inc(capacity - scheduled)
+            self._util_h[program].observe(util)
+            h = self._step_hists.get(key)
+            if h is None:
+                h = self._step_hists[key] = self.registry.histogram(
+                    "serving_step_seconds",
+                    "wall time of one bucketed step-program launch",
+                    buckets=_STEP_SECONDS_BUCKETS,
+                    **dict(self.labels, program=program, bucket=key[1]))
+            h.observe(wall_s)
+        if self._cur is not None:
+            self._cur.append(dict(
+                attrs, program=program, bucket=bstr,
+                scheduled_tokens=scheduled, capacity_tokens=capacity,
+                utilization=round(util, 4), wall_s=round(wall_s, 6),
+                t=time.perf_counter()))
+
+    def end_step(self) -> None:
+        """Engine step closed: fold the accumulated launches into one
+        per-step record (last-K ring) and, inside an armed capture
+        window, one annotated step span + per-program child spans."""
+        if not self.enabled or self._cur is None:
+            return
+        now = time.perf_counter()
+        programs, self._cur = self._cur, None
+        wall = now - self._cur_t0
+        sched = sum(p["scheduled_tokens"] for p in programs)
+        cap = sum(p["capacity_tokens"] for p in programs)
+        self._steps += 1
+        rec = {
+            "step": self._steps,
+            "t": round(self._cur_t0 + self.epoch_offset, 6),
+            "wall_s": round(wall, 6),
+            "programs": programs,
+            "scheduled_tokens": sched,
+            "capacity_tokens": cap,
+            "utilization": round(sched / cap, 4) if cap else None,
+        }
+        finalize = None
+        with self._lock:
+            self._records.append(rec)
+            capw = self._capture
+            if capw is not None:
+                # mutate the window ONLY while it is still the armed
+                # capture and under the lock: a concurrent
+                # cancel_capture claims the window under this same lock
+                # first, so a finalized trace can never gain a step
+                # span without its children (or a stale step count)
+                sp = Span("engine_step", "stepprof", self._cur_t0,
+                          threading.get_ident(), capw.next_id(), None, {
+                              "step": self._steps,
+                              "program": ",".join(p["program"]
+                                                  for p in programs)
+                              or "idle",
+                              "bucket": ",".join(p["bucket"]
+                                                 for p in programs),
+                              "scheduled_tokens": sched,
+                              "capacity_tokens": cap,
+                              "utilization": rec["utilization"],
+                          })
+                sp.duration = max(wall, 1e-9)
+                capw.spans.append(sp)
+                for p in programs:
+                    child = Span(p["program"], "stepprof",
+                                 p["t"] - p["wall_s"], sp.tid,
+                                 capw.next_id(), sp.span_id,
+                                 {k: v for k, v in p.items()
+                                  if k != "t"})
+                    child.duration = max(p["wall_s"], 1e-9)
+                    capw.spans.append(child)
+                capw.remaining -= 1
+                if capw.remaining <= 0:
+                    finalize = capw
+        if finalize is not None:
+            # a device trace is stopped and written here, on the thread
+            # that ran the window's steps (torch.profiler's session
+            # is not handed to another thread)
+            self._finalize_capture(finalize, complete=True)
+
+    # --- compile attribution ------------------------------------------------
+    def record_compile(self, program: str, bucket: Tuple[int, ...],
+                       seconds: float) -> None:
+        """One compile of a step program: ``serving/graphs.py`` captured
+        this (program, bucket) as a CUDA graph, and ``seconds`` is the
+        capture's wall time (the JAX engine's trace+compile; the eager
+        first run that precedes a capture is not in it).  (The JAX rows'
+        ``aot`` flag comes with serving artifacts, ROADMAP A9.)"""
+        if not self.enabled:
+            return
+        row = {"program": program, "bucket": _bucket_str(bucket),
+               "seconds": round(seconds, 6),
+               "unix": round(time.time(), 6)}
+        with self._lock:
+            self._compiles.append(row)
+        if self.registry is not None:
+            self._compile_s[program].inc(seconds)
+            self._compile_c[program].inc()
+
+    def compile_table(self) -> List[Dict]:
+        """Every recorded compile, oldest first (bounded)."""
+        with self._lock:
+            return [dict(r) for r in self._compiles]
+
+    def compile_totals(self) -> Dict[str, Dict]:
+        """Per-program ``{"seconds": s, "count": n}`` over the table."""
+        out: Dict[str, Dict] = {}
+        for row in self.compile_table():
+            t = out.setdefault(row["program"], {"seconds": 0.0, "count": 0})
+            t["seconds"] = round(t["seconds"] + row["seconds"], 6)
+            t["count"] += 1
+        return out
+
+    # --- inspection ---------------------------------------------------------
+    @property
+    def steps(self) -> int:
+        return self._steps
+
+    def records(self) -> List[Dict]:
+        """Last-K per-step records, oldest first (the flight recorder
+        embeds these in post-mortem bundles)."""
+        with self._lock:
+            return [dict(r) for r in self._records]
+
+    def last_record(self) -> Optional[Dict]:
+        """Newest per-step record (``None`` before the first step) —
+        the cross-process worker piggybacks this onto its ``step_done``
+        reply so the router can attribute wire latency per-program
+        (``observability.distrib.WireStats``)."""
+        with self._lock:
+            return dict(self._records[-1]) if self._records else None
+
+    def bucket_set(self, program: str) -> set:
+        """Distinct bucket strings observed for ``program`` — tests
+        compare this against the engine's asserted jit-trace bounds."""
+        with self._lock:
+            return {b for (p, b) in self._programs if p == program}
+
+    def scheduled_tokens(self, program: Optional[str] = None) -> int:
+        """Total scheduled tokens/rows across every launch (optionally
+        one program family) — the invariant side the scheduler's
+        ``tokens_planned`` must equal."""
+        with self._lock:
+            return sum(a["scheduled_tokens"]
+                       for (p, _), a in self._programs.items()
+                       if program is None or p == program)
+
+    def program_table(self) -> List[Dict]:
+        """Per-(program, bucket) aggregate rows sorted for display:
+        launches, scheduled vs capacity tokens, padding ratio,
+        utilization, total wall."""
+        with self._lock:
+            rows = [dict(a) for a in self._programs.values()]
+        for r in rows:
+            cap = r["capacity_tokens"]
+            r["padding_tokens"] = cap - r["scheduled_tokens"]
+            r["padding_ratio"] = (round(r["padding_tokens"] / cap, 4)
+                                  if cap else None)
+            r["utilization"] = (round(r["scheduled_tokens"] / cap, 4)
+                                if cap else None)
+            r["wall_s"] = round(r["wall_s"], 6)
+        rows.sort(key=lambda r: (r["program"], r["bucket"]))
+        return rows
+
+    def utilization_report(self) -> Dict:
+        """JSON-able padding-waste report (``bench.py`` embeds this per
+        serving phase): per-program totals + per-bucket rows + the
+        overall scheduled/padding split."""
+        rows = self.program_table()
+        programs: Dict[str, Dict] = {}
+        for r in rows:
+            p = programs.setdefault(r["program"], {
+                "launches": 0, "scheduled_tokens": 0,
+                "capacity_tokens": 0, "wall_s": 0.0})
+            p["launches"] += r["launches"]
+            p["scheduled_tokens"] += r["scheduled_tokens"]
+            p["capacity_tokens"] += r["capacity_tokens"]
+            p["wall_s"] = round(p["wall_s"] + r["wall_s"], 6)
+        for p in programs.values():
+            cap = p["capacity_tokens"]
+            p["padding_tokens"] = cap - p["scheduled_tokens"]
+            p["padding_ratio"] = (round(p["padding_tokens"] / cap, 4)
+                                  if cap else None)
+            p["utilization"] = (round(p["scheduled_tokens"] / cap, 4)
+                                if cap else None)
+        sched = sum(p["scheduled_tokens"] for p in programs.values())
+        cap = sum(p["capacity_tokens"] for p in programs.values())
+        return {
+            "steps": self._steps,
+            "programs": programs,
+            "buckets": rows,
+            "scheduled_tokens": sched,
+            "capacity_tokens": cap,
+            "padding_tokens": cap - sched,
+            "padding_ratio": round((cap - sched) / cap, 4) if cap else None,
+            "compiles": self.compile_totals(),
+        }
+
+    # --- on-demand capture --------------------------------------------------
+    def arm_capture(self, steps: int,
+                    device_trace: Optional[bool] = None,
+                    log_dir: Optional[str] = None) -> CaptureWindow:
+        """Arm a bounded window capturing the next ``steps`` engine
+        steps as annotated spans.  ``device_trace``: ``None`` = auto
+        (on when a CUDA device is present), ``True``/``False`` force;
+        when on, the window runs ``torch.profiler`` and writes its
+        chrome trace under ``log_dir``.  Raises :class:`CaptureBusy` while another window is
+        armed and ``RuntimeError`` when profiling is disabled."""
+        if not self.enabled:
+            raise RuntimeError(
+                "step profiling is disabled (EngineConfig.step_profile)")
+        steps = int(steps)
+        if not 1 <= steps <= self.max_capture_steps:
+            raise ValueError(
+                f"steps must be in [1, {self.max_capture_steps}], "
+                f"got {steps}")
+        if device_trace is None:
+            import torch
+
+            device_trace = torch.cuda.is_available()
+        if log_dir is None:
+            log_dir = os.environ.get(
+                "PADDLE_TPU_PROFILE_DIR",
+                os.path.join(tempfile.gettempdir(),
+                             "paddle_tpu_torch_profile"))
+        window = CaptureWindow(steps, device_trace, log_dir)
+        with self._lock:
+            if self._capture is not None:
+                raise CaptureBusy("a capture window is already armed")
+            if device_trace:
+                # started BEFORE the window is published (and under the
+                # lock the finalize path claims), so a fast engine can
+                # never stop a session that has not started yet
+                try:
+                    window.device_profile = _start_device_trace()
+                except Exception as e:
+                    # reported, never hidden: the result carries
+                    # deviceTraceError and no deviceTraceFile
+                    window.device_trace = False
+                    window.device_trace_error = (
+                        f"start failed: {type(e).__name__}: {e}")
+            self._capture = window
+        return window
+
+    def cancel_capture(self, window: CaptureWindow) -> None:
+        """Finalize ``window`` early with whatever steps it captured
+        (the HTTP handler's wait-timeout path).  Safe to race the
+        engine thread's own finalize — first caller wins."""
+        self._finalize_capture(window, complete=False)
+
+    def _finalize_capture(self, window: CaptureWindow,
+                          complete: bool) -> None:
+        from .export import chrome_trace_dict
+
+        with self._lock:
+            if self._capture is not window:
+                return  # already finalized (engine/cancel race)
+            self._capture = None
+            if window.device_profile is not None:
+                # stopped under the SAME lock arm_capture starts under:
+                # a stop outside it could end a concurrently armed new
+                # window's session at step 0
+                try:
+                    window.device_trace_file = _stop_device_trace(
+                        window.device_profile, window.log_dir)
+                except Exception as e:
+                    window.device_trace_error = (
+                        f"stop failed: {type(e).__name__}: {e}")
+                window.device_profile = None
+        window.complete = complete
+        result = chrome_trace_dict(window.spans,
+                                   epoch_offset=self.epoch_offset)
+        # chrome viewers ignore unknown top-level keys; waiters read them
+        result["captureSteps"] = window.steps - window.remaining
+        result["requestedSteps"] = window.steps
+        result["complete"] = complete
+        if window.device_trace:
+            result["deviceTraceDir"] = window.log_dir
+            result["deviceTraceFile"] = window.device_trace_file
+        if window.device_trace_error is not None:
+            result["deviceTraceError"] = window.device_trace_error
+        window.result = result
+        self.last_capture = window
+        window.done.set()

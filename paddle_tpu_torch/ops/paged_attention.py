@@ -117,9 +117,18 @@ class BlockPool:
         # host-side hook, fired on the mutating thread; an exception in it
         # is swallowed so telemetry never tears the bookkeeping
         self.on_evict = None   # fn(block, chain_depth, lifetime_steps, cause)
+        self.on_revive = None  # fn(block, chain_depth, lru_depth, lifetime_steps)
         self.clock = 0         # caller-advanced step clock
         self._block_depth: dict = {}  # block -> chain depth (≤ num_blocks)
         self._park_step: dict = {}    # block -> clock at park (≤ num_blocks)
+        self._block_parent: dict = {}  # block -> parent chain hash
+                                       # (≤ num_blocks), for chain_lead
+
+    @property
+    def num_free(self) -> int:
+        """Blocks on the free list alone (with a warm prefix cache,
+        ``num_free < num_available``)."""
+        return len(self._free)
 
     @property
     def num_available(self) -> int:
@@ -156,6 +165,7 @@ class BlockPool:
     def _drop_hash(self, b: int) -> None:
         h = self._block_hash.pop(b, None)
         self._block_depth.pop(b, None)
+        self._block_parent.pop(b, None)
         if h is not None and self._hash_index.get(h) == b:
             del self._hash_index[h]
             self.cache_epoch += 1
@@ -249,11 +259,24 @@ class BlockPool:
         if blocks:
             self._chain_state[seq_id] = (
                 len(blocks), self._block_hash[blocks[-1]])
-        for b in blocks:
+        cb = self.on_revive
+        # each parked block's LRU position before any revival reorders
+        # them, counted from the eviction end (0 = the next allocation
+        # would have clobbered it); walked only when a hook listens and a
+        # revive is possible
+        lru_order = ({b: i for i, b in enumerate(self._reuse)}
+                     if cb is not None and blocks else None)
+        for i, b in enumerate(blocks):
             if b in self._reuse:
                 del self._reuse[b]
                 self._ref[b] = 1
-                self._park_step.pop(b, None)
+                lifetime = self.clock - self._park_step.pop(b, self.clock)
+                if cb is not None:
+                    try:
+                        cb(b, self._block_depth.get(b, i + 1),
+                           lru_order[b], lifetime)
+                    except Exception:
+                        pass  # telemetry must never tear the bookkeeping
             else:
                 self._ref[b] = self._ref.get(b, 0) + 1
         self.reuse_hits += len(blocks)
@@ -278,18 +301,50 @@ class BlockPool:
         bs = self.block_size
         added = 0
         for i in range(done, n_full):
+            parent = h
             h = _hash_block(h, token_ids[i * bs:(i + 1) * bs])
             b = table[i]
             if b in self._block_hash or h in self._hash_index:
                 continue
             self._block_hash[b] = h
             self._block_depth[b] = i + 1  # chain depth in blocks
+            self._block_parent[b] = parent
             self._hash_index[h] = b
             added += 1
         self._chain_state[seq_id] = (n_full, h)
         if added:
             self.cache_epoch += 1
         return added
+
+    def block_chain_hash(self, block: int) -> Optional[bytes]:
+        """Chain hash registered for ``block`` (``None`` when unhashed):
+        the prefix-heat table's key, since the deepest matched block's
+        hash commits to the whole cached prefix."""
+        return self._block_hash.get(block)
+
+    def chain_lead(self, chain_hash: bytes) -> Optional[List[bytes]]:
+        """Leading chain digests, root-first, of the indexed chain ending
+        at ``chain_hash`` (what a router needs to place a cached prefix
+        without its tokens); ``None`` when the chain is broken (an
+        ancestor was evicted).  Pure read."""
+        out: List[bytes] = []
+        h = chain_hash
+        while h != _HASH_ROOT:
+            b = self._hash_index.get(h)
+            if b is None:
+                return None
+            parent = self._block_parent.get(b)
+            if parent is None:
+                return None
+            out.append(h)
+            h = parent
+        out.reverse()
+        return out
+
+    def block_chain_depth(self, block: int) -> int:
+        """Chain depth (in blocks) ``block`` was registered at; 0 when
+        unhashed."""
+        return self._block_depth.get(block, 0)
 
 
 #: Dimension names of a ``[num_blocks, block_size, Hkv, D]`` KV pool under

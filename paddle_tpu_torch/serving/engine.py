@@ -41,10 +41,26 @@ and replays it from then on, counting captures in
 and the ``*_jit_traces`` metrics (``graphs.disable_graphs()`` runs them
 eagerly).  The prefill families run eagerly: they take their positions as
 Python ints.  ``serving_host_roundtrips_total`` counts family launches (a
-burst counts once).  Speculative decoding, disaggregation, AOT artifacts, the
-auditor and the lifecycle/step-profile/cache-stat/history hooks belong to
-later slices of the port: the :class:`EngineConfig` fields that ask for
-them raise ``NotImplementedError`` naming the ROADMAP item.
+burst counts once).
+
+Observability is the JAX engine's, recorded at the same points
+(``paddle_tpu_torch/observability/``): a :class:`StepProfiler`
+(``self.stepprof``: per-launch bucket utilization, each graph capture as
+a compile, capture windows), a :class:`CacheStatTracker`
+(``self.cachestat``: the pool timeline sampled every step, prefix heat,
+reuse-LRU telemetry fed by the pool's ``on_evict`` / ``on_revive`` hooks,
+per-request attribution), a :class:`LifecycleTracker`
+(``self.lifecycle``: per-request timelines), a :class:`NumericsAuditor`
+(``self.audit``: the NaN/Inf sentinel and the shadow re-execution through
+the kernels' plain twins) and, once :meth:`EngineCore.set_history` binds
+one, a metrics history ticked every step.  They use host-side numbers the
+step already has; the auditor alone reads the step's logit stats (and,
+on sampled steps, its logits) back from the device, so only with it on do
+the graphs keep those as outputs.  Speculative decoding, disaggregation
+and AOT artifacts (ROADMAP A9), tensor-parallel serving (A11) and the
+per-op dispatch timer (A12) belong to later slices of the port: the
+:class:`EngineConfig` fields that ask for them raise
+``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -57,7 +73,11 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
-from ..observability.audit import logit_stats
+from ..observability import lifecycle as _lc
+from ..observability.audit import AuditConfig, NumericsAuditor, logit_stats
+from ..observability.cachestat import CacheStatTracker
+from ..observability.lifecycle import LifecycleTracker
+from ..observability.stepprof import StepProfiler
 from ..ops.decode_burst import BurstState, burst_iteration
 from ..ops.paged_attention import PagedCache, PoolExhausted
 from ..ops.sampling import sample_tokens
@@ -75,6 +95,12 @@ from .scheduler import (
     bucket_size,
 )
 
+# per-step cap on individual prefix_cache_eviction lifecycle events: the
+# counters and histograms stay exact per eviction, but a pool-thrash step
+# must not flood the bounded flight-recorder ring — evictions past the cap
+# collapse into one prefix_cache_eviction_burst summary event
+_EVICT_EVENTS_PER_STEP = 8
+
 
 @dataclass
 class EngineConfig:
@@ -84,10 +110,15 @@ class EngineConfig:
     into one of these.
 
     Fields asking for what the port does not implement yet raise
-    ``NotImplementedError`` at engine build (see :func:`check_supported`);
-    ``lifecycle_events``, ``decode_event_sample``, ``step_profile``,
-    ``cache_stats`` and ``history`` select telemetry whose hooks do not
-    exist yet in the port (ROADMAP A8) and record nothing."""
+    ``NotImplementedError`` at engine build (see :func:`check_supported`).
+    The telemetry fields are the JAX engine's: ``lifecycle_events``
+    (per-request timelines; ``lifecycle`` shares a tracker across engines,
+    ``decode_event_sample`` records every Nth decode-token event),
+    ``step_profile`` (the :class:`StepProfiler`), ``audit`` (an
+    :class:`AuditConfig`; None = off), ``cache_stats`` (the
+    :class:`CacheStatTracker`) and ``history`` (whether this engine ticks
+    a bound :class:`HistoryStore`).  All default on except the auditor,
+    and none changes the tokens or the graphs captured."""
 
     num_blocks: int = 256
     block_size: int = 16
@@ -101,10 +132,10 @@ class EngineConfig:
     use_pallas_paged: Optional[bool] = None
     mp: Optional[int] = None
     lifecycle_events: bool = True
-    lifecycle: Optional[object] = None
+    lifecycle: Optional[LifecycleTracker] = None
     decode_event_sample: int = 8
     step_profile: bool = True
-    audit: Optional[object] = None
+    audit: Optional[AuditConfig] = None
     cache_stats: bool = True
     history: bool = True
     # ONE packed ragged step per engine step instead of the legacy
@@ -127,11 +158,8 @@ def check_supported(config: EngineConfig) -> None:
             f"EngineConfig.role must be 'unified', 'prefill' or 'decode'; "
             f"got {config.role!r}")
     todo = (
-        (config.audit is not None, "audit", "the numerics auditor", "A8"),
         (config.profile_ops, "profile_ops=True",
-         "the per-op dispatch timer", "A8"),
-        (config.lifecycle is not None, "lifecycle",
-         "shared lifecycle trackers", "A8"),
+         "the per-op dispatch timer (it rides the run_op op bus)", "A12"),
         (config.spec is not None, "spec", "speculative decoding", "A9"),
         (config.aot is not None or bool(config.aot_path), "aot/aot_path",
          "AOT serving artifacts", "A9"),
@@ -164,14 +192,20 @@ class EngineCore:
 
     ``ragged_launches`` counts packed steps run; with the CUDA kernels the
     ragged kernel launches once per layer per packed step, and the decode
-    kernel once per layer per decode step or burst iteration."""
+    kernel once per layer per decode step or burst iteration.
+
+    ``registry`` (default: a registry of the engine's own) and
+    ``metrics_labels`` (e.g. ``{"replica": "0"}``, riding every series)
+    let several engines publish on one Prometheus page."""
 
     def __init__(self, model, num_blocks: int = 256, block_size: int = 16,
                  dtype=torch.float32,
                  scheduler_config: Optional[SchedulerConfig] = None,
-                 profile_ops: bool = False, prefix_cache: bool = True,
+                 profile_ops: bool = False, registry=None,
+                 prefix_cache: bool = True,
                  config: Optional[EngineConfig] = None,
-                 use_pallas_paged: Optional[bool] = None):
+                 use_pallas_paged: Optional[bool] = None,
+                 metrics_labels: Optional[Dict[str, str]] = None):
         if config is None:
             config = EngineConfig(
                 num_blocks=num_blocks, block_size=block_size, dtype=dtype,
@@ -189,14 +223,50 @@ class EngineCore:
         self.num_blocks = num_blocks
         self.scheduler = ContinuousBatchingScheduler(
             config.scheduler or SchedulerConfig(), self.kv)
-        self.metrics = ServingMetrics()
+        self.metrics = ServingMetrics(registry=registry,
+                                      labels=metrics_labels)
         self.tracer = self.metrics.tracer
         self._sampling_counters = _register_sampling_metrics(
             self.metrics.registry)
-        self._burst_counters = _register_burst_metrics(self.metrics.registry)
+        # step-level introspection: bucket utilization and padding per
+        # launch, each graph capture as a compile, capture windows
+        self.stepprof = StepProfiler(registry=self.metrics.registry,
+                                     labels=metrics_labels,
+                                     enabled=config.step_profile)
+        self.metrics.attach_step_profiler(self.stepprof)
+        # KV-cache observability, fed by the pool's event-driven hooks
+        self.cachestat = CacheStatTracker(self.kv,
+                                          registry=self.metrics.registry,
+                                          labels=metrics_labels,
+                                          enabled=config.cache_stats)
+        self._evict_events_step = 0  # per-step lifecycle-event budget
         self.kv.on_evict = self._on_pool_evict
+        self.kv.on_revive = self._on_pool_revive
+        # the numerics auditor: sentinel on every launch, shadow
+        # re-execution through the kernels' plain twins on sampled steps
+        self.audit = NumericsAuditor(self, config=config.audit,
+                                     registry=self.metrics.registry,
+                                     labels=metrics_labels)
+        # request-lifecycle timelines; set_lifecycle() rebinds the engine
+        # onto a shared tracker
+        self._replica_label = (metrics_labels or {}).get("replica", "0")
+        self._lifecycle_on = config.lifecycle_events
+        if config.lifecycle is not None:
+            self.lifecycle = config.lifecycle
+        else:
+            self.lifecycle = LifecycleTracker(
+                registry=self.metrics.registry,
+                enabled=config.lifecycle_events,
+                decode_sample=config.decode_event_sample)
         self.requests: Dict[object, Request] = {}
         self.step_seq = 0
+        # metrics history: set_history() binds a HistoryStore that every
+        # step ticks (gated by EngineConfig.history)
+        self.history = None
+        self.mp = 1   # tensor-parallel serving is ROADMAP A11
+        self.metrics.set_mp_shards(self.mp)
+        self._burst_counters = _register_burst_metrics(
+            self.metrics.registry, labels=self.metrics.labels)
         self._unified = bool(config.unified_step)
         # attention-kernel routing of every family (PagedCache.use_pallas)
         self._use_pallas = config.use_pallas_paged
@@ -359,18 +429,27 @@ class EngineCore:
             return tokens, last, logit_stats(last)
 
     def _tokens_fn(self, family, any_sampled: bool):
-        """The graphed form of a one-step family: its sampled tokens alone,
-        as a 1-tuple.  The last logits and their stats are still computed,
-        as in the JAX program, but no graph keeps them as outputs: a
-        unified bucket's are ``[Tb, vocab]`` fp32."""
+        """The graphed form of a one-step family.  With the auditor off:
+        its sampled tokens alone, as a 1-tuple — the last logits and their
+        stats are still computed, as in the JAX program, but no graph keeps
+        them as outputs (a unified bucket's are ``[Tb, vocab]`` fp32).  With
+        the auditor on: ``(tokens, last logits, stats)``, all kept as
+        static outputs and read after the replay.  The key is the same
+        either way, so the auditor changes no capture count."""
         fn = functools.partial(family, any_sampled=any_sampled)
+        if self.audit.enabled:
+            return fn
         return lambda *args: fn(*args)[:1]
 
     def _on_capture(self, key) -> None:
         """A step program was captured (the JAX engine's retrace): the
         family's trace counter, its ``*_jit_traces`` metric and a ``jit``
-        tracer instant, as the traced bodies of the JAX engine record."""
+        tracer instant, as the traced bodies of the JAX engine record,
+        and the capture's wall time as the step profiler's compile of
+        this (program, bucket)."""
         family, dims = key[0], key[1:-1]
+        self.stepprof.record_compile(
+            family, dims, self.graphs.programs[key].capture_seconds)
         setattr(self, f"{family}_trace_count",
                 getattr(self, f"{family}_trace_count") + 1)
         self.metrics.count(f"{family}_jit_traces")
@@ -381,11 +460,65 @@ class EngineCore:
                             any_sampled=key[-1], **dict(zip(names, dims)))
 
     # --- request lifecycle --------------------------------------------------
+    def set_lifecycle(self, tracker: LifecycleTracker,
+                      replica: Optional[str] = None) -> None:
+        """Rebind this engine onto a shared lifecycle tracker (before any
+        request exists), so several engines' events land in one tracker.
+        ``replica`` pins the identity this engine stamps on every event.
+        ``EngineConfig.lifecycle_events`` still gates this engine."""
+        self.lifecycle = tracker
+        if replica is not None:
+            self._replica_label = str(replica)
+
+    def _lc(self, rid, name: str, **attrs) -> None:
+        """One lifecycle event, replica-stamped; no-op when gated off."""
+        if self._lifecycle_on:
+            self.lifecycle.event(rid, name, replica=self._replica_label,
+                                 **attrs)
+
     def _on_pool_evict(self, block: int, depth: int, lifetime: int,
                        cause: str) -> None:
         """BlockPool eviction hook: a reuse-parked cached block was
-        clobbered for an allocation."""
+        clobbered for an allocation.  The counter, the cause/depth series
+        and the lifecycle ``prefix_cache_eviction`` event (within the
+        per-step budget; the rest collapse into one burst summary at the
+        end of the step) fire here, at the eviction."""
         self.metrics.count("prefix_cache_evictions")
+        self.cachestat.record_eviction(depth, lifetime, cause)
+        self._evict_events_step += 1
+        if self._evict_events_step <= _EVICT_EVENTS_PER_STEP:
+            self._lc(None, "prefix_cache_eviction", block=int(block),
+                     depth=int(depth), lifetime_steps=int(lifetime),
+                     cause=cause)
+
+    def _flush_evict_burst(self) -> None:
+        """End of step: one summary event for evictions past the per-step
+        lifecycle-event budget, then reset the budget."""
+        suppressed = self._evict_events_step - _EVICT_EVENTS_PER_STEP
+        self._evict_events_step = 0
+        if suppressed > 0:
+            self._lc(None, "prefix_cache_eviction_burst",
+                     suppressed=suppressed,
+                     total=suppressed + _EVICT_EVENTS_PER_STEP)
+
+    def _on_pool_revive(self, block: int, depth: int, lru_depth: int,
+                        lifetime: int) -> None:
+        """BlockPool revive hook: a prefix fork revived a reuse-parked
+        block; its LRU position feeds the hit-depth histogram."""
+        self.cachestat.record_revive(lru_depth, lifetime)
+
+    def set_history(self, history) -> None:
+        """Bind a :class:`~paddle_tpu_torch.observability.HistoryStore`
+        that every step ticks.  Ignored when ``EngineConfig.history`` is
+        off."""
+        if self.engine_config.history:
+            self.history = history
+
+    def hot_prefixes(self, top_k=None):
+        """Heat-table-hot cached prefixes with full chain digests (see
+        :meth:`CacheStatTracker.hot_prefixes`).  Engine-thread callers
+        only."""
+        return self.cachestat.hot_prefixes(top_k)
 
     def add_request(self, prompt_ids, sampling: Optional[SamplingParams] = None,
                     request_id=None, priority: int = 0,
@@ -407,6 +540,9 @@ class EngineCore:
         self.requests[req.request_id] = req
         self.scheduler.add(req)
         self.metrics.count("requests_admitted")
+        self._lc(req.request_id, _lc.EV_ENQUEUED, trace_id=req.trace_id,
+                 prompt_tokens=len(req.prompt_ids), slo_ms=slo_ms,
+                 queue_depth=self.scheduler.queue_depth)
         return req
 
     def abort_request(self, request_id,
@@ -427,20 +563,31 @@ class EngineCore:
         req.finish_reason = reason
         req.finish_time = time.perf_counter()
         self.metrics.count(f"requests_finished_{reason.value}")
-        self.metrics.observe_finish(req.finish_time - req.arrival_time,
-                                    req.slo_ms)
+        e2e = req.finish_time - req.arrival_time
+        self.metrics.observe_finish(e2e, req.slo_ms)
+        self._lc(req.request_id, _lc.EV_FINISH, reason=reason.value,
+                 e2e_s=round(e2e, 6), generated=len(req.output_tokens),
+                 preemptions=req.num_preemptions)
+        # park the attribution row in the bounded recent ring
+        self.cachestat.close_request(req.request_id)
 
     def _emit(self, req: Request, tok: int) -> None:
         """Append one sampled token + finish-state bookkeeping."""
         now = time.perf_counter()
         if req.first_token_time is None:
             req.first_token_time = now
-            self.metrics.observe_ttft(now - req.arrival_time)
+            ttft = now - req.arrival_time
+            self.metrics.observe_ttft(ttft)
             if req.prefill_start_time is not None:
                 self.metrics.observe_prefill_phase(
                     now - req.prefill_start_time)
+            self._lc(req.request_id, _lc.EV_FIRST_TOKEN,
+                     ttft_s=round(ttft, 6))
         else:
-            self.metrics.observe_inter_token(now - req._last_emit)
+            itl = now - req._last_emit
+            self.metrics.observe_inter_token(itl)
+            self._lc(req.request_id, _lc.EV_DECODE_TOKEN,
+                     itl_s=round(itl, 6))
         req._last_emit = now
         req.append_token(tok)
         if req.hit_eos(tok):
@@ -483,12 +630,18 @@ class EngineCore:
         return ids_full, target, start, n, recompute
 
     def _finish_prefill_chunk(self, req: Request, ids_full, target: int,
-                              start: int, n: int, tok: int) -> None:
-        """Post-launch bookkeeping for one prefill chunk: commit, counters,
-        prefix-hash registration, and — when the prefill completes — the
-        emission of ``tok``, sampled off the chunk's last position."""
+                              start: int, n: int, recompute: bool,
+                              t0: float, tok: int) -> None:
+        """Post-launch bookkeeping for one prefill chunk: commit, lifecycle
+        event, counters, prefix-hash registration, and — when the prefill
+        completes — the emission of ``tok``, sampled off the chunk's last
+        position."""
         rid = req.request_id
         self.kv.commit(rid, n)
+        self._lc(rid, _lc.EV_PREFILL_CHUNK, start=start, tokens=n,
+                 target=target, chunk=bool(start or n != target),
+                 recompute=recompute,
+                 duration_s=round(time.perf_counter() - t0, 6))
         self.metrics.count("prefill_tokens_computed", n)
         if self.kv.prefix_cache_enabled:
             # index the fully-written blocks NOW, so a same-prefix request
@@ -516,7 +669,8 @@ class EngineCore:
         chunked prefill and/or resume past a prefix-cache hit) through the
         pools.  Emits the request's next token only when the prefill
         completes (the final chunk's last-position logits ARE that
-        token)."""
+        token).  The prefill families run eagerly: they record no compile
+        (a capture of them is ROADMAP A6)."""
         rid = req.request_id
         t0 = time.perf_counter()
         ids, target, start, n, recompute = self._begin_prefill_chunk(req, t0)
@@ -541,11 +695,16 @@ class EngineCore:
                                   request=str(rid), trace=req.trace_id,
                                   tokens=target, bucket=Tb,
                                   recompute=recompute):
-                with StepTimer(self.metrics, "prefill_step"):
-                    toks, _last, _stats = self._step_call(
+                with StepTimer(self.metrics, "prefill_step") as st:
+                    toks, last, stats = self._step_call(
                         self._prefill_fn, ids_t, target - 1, blocks_t,
                         offs_t, *quartet, any_sampled=sampled)
                     tok = int(toks[0])
+            program, bucket = "prefill", (Tb,)
+            self.stepprof.record_program(
+                program, bucket, scheduled=n, capacity=Tb, wall_s=st.dt,
+                request=str(rid))
+            audit_inputs = {"ids": ids_arr, "blocks": blocks, "offs": offs}
         else:
             Wb = bucket_size(n)
             TWb = bucket_size(len(table))
@@ -569,13 +728,43 @@ class EngineCore:
                                   tokens=n, bucket=Wb, chunk=True,
                                   start=start, cached=req.num_cached_tokens,
                                   recompute=recompute):
-                with StepTimer(self.metrics, "prefill_step"):
-                    toks, _last, _stats = self._step_call(
+                with StepTimer(self.metrics, "prefill_step") as st:
+                    toks, last, stats = self._step_call(
                         self._chunk_prefill_fn, ids_t, start, start_t, n - 1,
                         tables_t, lens_t, blocks_t, offs_t, *quartet,
                         any_sampled=sampled)
                     tok = int(toks[0])
-        self._finish_prefill_chunk(req, ids, target, start, n, tok)
+            program, bucket = "chunk", (Wb, TWb)
+            self.stepprof.record_program(
+                program, bucket, scheduled=n, capacity=Wb, wall_s=st.dt,
+                request=str(rid), start=start, table_width=len(table))
+            audit_inputs = {"ids": ids_arr, "start": np.int32(start),
+                            "tables": tables, "lens": lens,
+                            "slot_blocks": blocks, "slot_offsets": offs}
+        if self.audit.enabled:
+            self.audit.observe_program(
+                program, stats.cpu().numpy(), bucket,
+                logits=last.cpu().numpy()[None, :], inputs=audit_inputs,
+                requests=[{"id": str(rid),
+                           "greedy": req.sampling.temperature == 0.0}])
+        self._finish_prefill_chunk(req, ids, target, start, n, recompute,
+                                   t0, tok)
+
+    def _audit_launch(self, program: str, out, rows: int, bucket,
+                      inputs, pre_pools, reqs: List[Request]) -> None:
+        """Hand one graphed launch to the auditor: the stats of its
+        ``rows`` real rows (pad rows attend the null page), and its last
+        logits on a sampled step or when a row is non-finite.  The graph's
+        outputs are read here, before the next step program runs."""
+        stats = out[2][:rows].cpu().numpy()
+        logits = (out[1][:rows].cpu().numpy()
+                  if self.audit.sampled or stats[:, 0].any() else None)
+        self.audit.observe_program(
+            program, stats, bucket, logits=logits, inputs=inputs,
+            pre_pools=pre_pools,
+            requests=[{"id": str(r.request_id),
+                       "greedy": r.sampling.temperature == 0.0}
+                      for r in reqs])
 
     def _decode(self, reqs: List[Request]) -> Dict[object, int]:
         """One bucketed decode step for ``reqs`` (slots already reserved by
@@ -603,17 +792,32 @@ class EngineCore:
             pack.set_request(i, r)
         self.decode_buckets.add(("decode", Bb, Wb))
         sampled = bool((pack.temps > 0).any())
+        inputs = {"ids": ids, "pos": poss, "tables": tables, "lens": lens,
+                  "slot_blocks": slot_blocks, "slot_offsets": slot_offsets}
+        # shadow-oracle capture: on sampled audit steps the pages this step
+        # reads are copied on the device before it writes the pools
+        pre_pools, inputs = self.audit.snapshot_pools(
+            self._k_pools, self._v_pools, inputs)
         with self.tracer.span("decode_step", cat="serving", batch=B,
                               batch_bucket=Bb, width_bucket=Wb,
                               requests=",".join(str(r.request_id)
                                                 for r in reqs)):
-            with StepTimer(self.metrics, "decode_step"):
-                (toks,) = self._step_call(
+            with StepTimer(self.metrics, "decode_step") as st:
+                out = self._step_call(
                     self.graphs.run, ("decode", Bb, Wb, sampled),
                     self._tokens_fn(self._decode_fn, sampled),
                     [ids, poss, tables, lens, slot_blocks, slot_offsets,
                      *pack.arrays()])
-                toks = toks.cpu().numpy()
+                toks = out[0].cpu().numpy()
+        # token/row accounting: B real rows in the Bb row bucket (the
+        # scheduler's tokens_planned axis); width padding rides as attrs
+        self.stepprof.record_program(
+            "decode", (Bb, Wb), scheduled=B, capacity=Bb, wall_s=st.dt,
+            table_width=width,
+            requests=",".join(str(r.request_id) for r in reqs))
+        if self.audit.enabled:
+            self._audit_launch("decode", out, B, (Bb, Wb), inputs,
+                               pre_pools, reqs)
         result = {}
         for i, r in enumerate(reqs):
             self.kv.commit(r.request_id, 1)
@@ -687,7 +891,7 @@ class EngineCore:
                               burst_bucket=Nb,
                               requests=",".join(str(r.request_id)
                                                 for r in reqs)):
-            with StepTimer(self.metrics, "burst_step"):
+            with StepTimer(self.metrics, "burst_step") as st:
                 (buf,) = self._step_call(
                     self.graphs.run, ("burst", Bb, Nb, sampled),
                     functools.partial(self._burst_fn, any_sampled=sampled),
@@ -719,6 +923,10 @@ class EngineCore:
         # the scheduler planned one decode token per row; the burst's extra
         # emissions are decode work the engine added
         self.scheduler.tokens_planned_decode += emitted_total - B
+        self.stepprof.record_program(
+            "burst", (Bb, Nb), scheduled=emitted_total, capacity=Bb * Nb,
+            wall_s=st.dt, burst_len=n_steps,
+            requests=",".join(str(r.request_id) for r in reqs))
         c = self._burst_counters
         c["launches"].inc()
         c["tokens"].inc(emitted_total)
@@ -738,11 +946,12 @@ class EngineCore:
             rows.append({"req": r, "kind": "decode", "start": p, "n": 1,
                          "tokens": [r.last_token], "slot": r._slot})
         for req in prefills:
-            ids_full, target, start, n, _ = \
+            ids_full, target, start, n, recompute = \
                 self._begin_prefill_chunk(req, t0)
             rows.append({"req": req, "kind": "chunk", "start": start,
                          "n": n, "tokens": ids_full[start:start + n],
-                         "target": target, "ids_full": ids_full})
+                         "target": target, "recompute": recompute,
+                         "ids_full": ids_full})
         R = len(rows)
         T = sum(row["n"] for row in rows)
         Tb = bucket_size(T)
@@ -787,16 +996,30 @@ class EngineCore:
         self.ragged_buckets.add(("ragged", Tb, TWb))
         self.metrics.count("unified_steps")
         sampled = bool((pack.temps > 0).any())
+        inputs = {"ids": ids, "pos": pos, "seg_ids": seg,
+                  "last_idx": last_idx, "tables": tables, "lens": lens,
+                  "slot_blocks": slot_blocks, "slot_offsets": slot_offsets}
+        pre_pools, inputs = self.audit.snapshot_pools(
+            self._k_pools, self._v_pools, inputs)
         with self.tracer.span("unified_step", cat="serving", tokens=T,
                               rows=R, token_bucket=Tb, table_bucket=TWb):
-            with StepTimer(self.metrics, "unified_step"):
-                (toks,) = self._step_call(
+            with StepTimer(self.metrics, "unified_step") as st:
+                out = self._step_call(
                     self.graphs.run, ("ragged", Tb, TWb, sampled),
                     self._tokens_fn(self._unified_fn, sampled),
                     [ids, pos, seg, last_idx, tables, lens, slot_blocks,
                      slot_offsets, *pack.arrays()])
-                toks = toks.cpu().numpy()
+                toks = out[0].cpu().numpy()
         self.ragged_launches += 1
+        # scheduled = T real tokens (decode rows count 1 each) vs the Tb
+        # token bucket, the scheduler's tokens_planned axis
+        self.stepprof.record_program(
+            "ragged", (Tb, TWb), scheduled=T, capacity=Tb, wall_s=st.dt,
+            rows=R, table_width=width,
+            requests=",".join(str(row["req"].request_id) for row in rows))
+        if self.audit.enabled:
+            self._audit_launch("ragged", out, R, (Tb, TWb), inputs,
+                               pre_pools, [row["req"] for row in rows])
         emitted: Dict[object, int] = {}
         for row in rows:
             req = row["req"]
@@ -810,7 +1033,7 @@ class EngineCore:
                 continue
             before = len(req.output_tokens)
             self._finish_prefill_chunk(req, row["ids_full"], row["target"],
-                                       row["start"], n,
+                                       row["start"], n, row["recompute"], t0,
                                        int(toks[c0 + n - 1]))
             if len(req.output_tokens) > before:  # prefill completed
                 emitted[rid] = req.output_tokens[-1]
@@ -822,67 +1045,113 @@ class EngineCore:
         {request_id: last token} emitted this step."""
         self.step_seq += 1
         self.kv.clock = self.step_seq  # park lifetimes tick in steps
-        with self.tracer.span("engine_step", cat="serving") as sp:
-            plan = self.scheduler.schedule()
-            self.metrics.count("engine_steps")
-            self.metrics.count("preemptions", len(plan.preempted))
-            for req in plan.preempted:
-                self.tracer.instant(
-                    "preemption", cat="serving",
-                    request=str(req.request_id), trace=req.trace_id,
-                    generated=len(req.output_tokens))
-            for req in plan.aborted:
-                # unservable at admission: the scheduler set state/reason
-                self._finish(req, FinishReason.ABORT)
-                self.requests.pop(req.request_id, None)
-            for req in plan.admitted:
-                cached = req.num_cached_tokens
-                total = len(req.prompt_ids) + len(req.output_tokens)
-                self.metrics.count("prefix_cache_hit_tokens", cached)
-                self.metrics.count("prefix_cache_miss_tokens",
-                                   total - cached)
-                if req.prompt_cached_tokens is None:
-                    req.prompt_cached_tokens = cached
-                if cached:
+        self.stepprof.begin_step()
+        self.audit.begin_step()
+        try:
+            with self.tracer.span("engine_step", cat="serving") as sp:
+                plan = self.scheduler.schedule()
+                self.metrics.count("engine_steps")
+                self.metrics.count("preemptions", len(plan.preempted))
+                for req in plan.preempted:
                     self.tracer.instant(
-                        "prefix_cache_hit", cat="serving",
+                        "preemption", cat="serving",
                         request=str(req.request_id), trace=req.trace_id,
-                        cached_tokens=cached)
-            decodes = [r for r in plan.decodes
-                       if r.state is RequestState.RUNNING]
-            emitted: Dict[object, int] = {}
-            # a decode-only resident cohort with a clamped horizon >= 2
-            # runs as ONE burst; pending prefill work falls through to the
-            # per-step paths (host decisions stay at burst boundaries)
-            burst_n = 0
-            if self._burst_steps >= 2 and burst_eligible(
-                    self.scheduler, plan, decodes, None):
-                burst_n = clamp_burst(self._burst_steps, decodes,
-                                      plan.burst_capacity)
-            if burst_n >= 2:
-                emitted = self._burst_exec(decodes, burst_n)
-            elif self._unified:
-                if plan.prefills or decodes:
-                    emitted = self._unified_exec(plan.prefills, decodes)
-            else:
-                for req in plan.prefills:
-                    before = len(req.output_tokens)
-                    self._prefill(req)
-                    if len(req.output_tokens) > before:  # prefill done —
-                        # a partial chunk emits nothing yet
-                        emitted[req.request_id] = req.output_tokens[-1]
-                if decodes:
-                    emitted.update(self._decode(decodes))
-            for req in list(self.scheduler.running):
-                if req.finished:
-                    self._retire(req)
-            self.metrics.set_cached_token_ratio()
-            self.metrics.sample_gauges(self.scheduler.queue_depth,
-                                       self.scheduler.num_running,
-                                       self.kv.occupancy())
-            sp.set_attribute("step", self.step_seq)
-            sp.set_attribute("emitted", len(emitted))
-        return emitted
+                        generated=len(req.output_tokens))
+                    self._lc(req.request_id, _lc.EV_PREEMPTED,
+                             generated=len(req.output_tokens))
+                for req in plan.aborted:
+                    # unservable at admission: the scheduler set
+                    # state/reason
+                    self._lc(req.request_id, _lc.EV_ADMISSION_REJECTED,
+                             reason="abort", error=req.error)
+                    self._finish(req, FinishReason.ABORT)
+                    self.requests.pop(req.request_id, None)
+                for req in plan.admitted:
+                    self._admitted(req)
+                decodes = [r for r in plan.decodes
+                           if r.state is RequestState.RUNNING]
+                emitted: Dict[object, int] = {}
+                # a decode-only resident cohort with a clamped horizon >= 2
+                # runs as ONE burst; pending prefill work falls through to
+                # the per-step paths (host decisions stay at burst
+                # boundaries)
+                burst_n = 0
+                if self._burst_steps >= 2 and burst_eligible(
+                        self.scheduler, plan, decodes, None):
+                    burst_n = clamp_burst(self._burst_steps, decodes,
+                                          plan.burst_capacity)
+                if burst_n >= 2:
+                    emitted = self._burst_exec(decodes, burst_n)
+                elif self._unified:
+                    if plan.prefills or decodes:
+                        emitted = self._unified_exec(plan.prefills, decodes)
+                else:
+                    for req in plan.prefills:
+                        before = len(req.output_tokens)
+                        self._prefill(req)
+                        if len(req.output_tokens) > before:  # prefill done
+                            # — a partial chunk emits nothing yet
+                            emitted[req.request_id] = req.output_tokens[-1]
+                    if decodes:
+                        emitted.update(self._decode(decodes))
+                for req in list(self.scheduler.running):
+                    if req.finished:
+                        self._retire(req)
+                self._flush_evict_burst()
+                self.metrics.set_cached_token_ratio()
+                # pool timeline: one sample per engine step, the
+                # free + reuse + allocated == num_blocks invariant checked
+                # inside
+                self.cachestat.sample_pool(
+                    self.step_seq, promised=self.scheduler.promised_blocks)
+                self.metrics.sample_gauges(self.scheduler.queue_depth,
+                                           self.scheduler.num_running,
+                                           self.kv.occupancy())
+                if self.history is not None:
+                    self.history.on_step(self.step_seq)
+                sp.set_attribute(
+                    "step", int(self.metrics._counter("engine_steps").value))
+                sp.set_attribute("emitted", len(emitted))
+                sp.set_attribute("kv_occupancy",
+                                 round(self.kv.occupancy(), 4))
+            return emitted
+        finally:
+            # runs on the death path too: the partial step record still
+            # reaches the last-K ring a flight bundle embeds
+            self.stepprof.end_step()
+
+    def _admitted(self, req: Request) -> None:
+        """Admission bookkeeping for one request of this step's plan:
+        prefix-cache counters, the per-request cache attribution (at the
+        same points, so sum(per-request cached) == prefix_cache_hit_tokens
+        exactly), the lifecycle event and the prefix-heat hit."""
+        cached = req.num_cached_tokens
+        total = len(req.prompt_ids) + len(req.output_tokens)
+        self.metrics.count("prefix_cache_hit_tokens", cached)
+        self.metrics.count("prefix_cache_miss_tokens", total - cached)
+        if req.prompt_cached_tokens is None:
+            req.prompt_cached_tokens = cached
+        self.cachestat.record_admission(
+            req.request_id, cached, total - cached, len(req.prompt_ids),
+            recompute=bool(req.output_tokens))
+        self._lc(req.request_id, _lc.EV_ADMITTED, cached_tokens=cached,
+                 computed_tokens=total - cached,
+                 recompute=bool(req.output_tokens))
+        if cached:
+            self.tracer.instant(
+                "prefix_cache_hit", cat="serving",
+                request=str(req.request_id), trace=req.trace_id,
+                cached_tokens=cached)
+        if cached and self.cachestat.enabled:
+            # prefix heat, keyed by the DEEPEST matched block's chain hash
+            # (it commits to the whole cached prefix); guarded so a
+            # disabled tracker costs no table copy
+            depth = cached // self.block_size
+            table = self.kv.table(req.request_id)
+            self.cachestat.record_prefix_hit(
+                self.kv.block_chain_hash(table[depth - 1])
+                if 0 < depth <= len(table) else None,
+                depth, cached, self.step_seq)
 
     def run(self, max_steps: Optional[int] = None) -> None:
         """Drive ``step()`` until every request finishes."""

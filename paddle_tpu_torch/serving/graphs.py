@@ -100,22 +100,25 @@ def host_tensor(a) -> torch.Tensor:
 
 class StepProgram:
     """One step family at one bucket key: its static inputs and outputs,
-    its graph (None on the CPU), and the kernel-counter change of one
-    run."""
+    its graph (None on the CPU), the kernel-counter change of one run, and
+    the wall seconds its capture took (the eager first run excluded)."""
 
-    def __init__(self, fn, inputs, outputs, delta, graph=None):
+    def __init__(self, fn, inputs, outputs, delta, graph=None,
+                 capture_seconds=0.0):
         self.fn = fn
         self.inputs = inputs
         self.outputs = outputs
         self.delta = delta
         self.graph = graph
+        self.capture_seconds = capture_seconds
 
 
 class StepGraphs:
     """The cache of one engine's step programs, keyed by ``(family,
     bucket..., any_sampled)``.
 
-    ``on_capture(key)`` is called once per new key, after its capture.
+    ``on_capture(key)`` is called once per new key, after its capture;
+    the capture's wall seconds are on ``programs[key].capture_seconds``.
     ``captures`` and ``capture_seconds`` (the wall time of the captures,
     the eager first runs excluded) and ``replays`` count what happened."""
 
@@ -180,9 +183,10 @@ class StepGraphs:
                 _write_counters(after)
         else:
             outputs = out
-        self.capture_seconds += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.capture_seconds += dt
         prog = self.programs[key] = StepProgram(fn, static, outputs, delta,
-                                                graph)
+                                                graph, dt)
         self.captures += 1
         if self.on_capture is not None:
             self.on_capture(key)

@@ -1,22 +1,32 @@
 """Serving metrics: request-level latency + scheduler/pool health (the
-subset of ``paddle_tpu/serving/metrics.py`` the port's engine records).
+port of ``paddle_tpu/serving/metrics.py``).
 
 Registry-backed: every counter / gauge / latency distribution is a series
-in a :class:`~paddle_tpu_torch.observability.metrics.MetricsRegistry`
-(``serving_*`` namespace).  Tracked:
+in a :class:`~paddle_tpu_torch.observability.MetricsRegistry`
+(``serving_*`` namespace), so a serving process exposes TTFT/ITL
+histograms and KV-occupancy gauges on one Prometheus page — while the
+inspection surface (``metrics.counters`` dict view, ``metrics.latency``
+OpStat view, the ``summary()`` tables, with the step profiler's
+bucket-utilization table once :meth:`ServingMetrics.attach_step_profiler`
+bound one) is the JAX module's.
 
-* **time-to-first-token** (arrival → first emitted token), **inter-token
-  latency**, the queue-wait / prefill / e2e breakdown, and the wall time
-  of each step program (prefill, decode, unified, burst);
-* **queue depth**, **running-set size** and **KV-pool occupancy**, sampled
+Tracked:
+
+* **time-to-first-token** (admission-inclusive: arrival → first emitted
+  token) and **inter-token latency** per request, and the queue-wait /
+  prefill / decode-ITL / e2e SLO breakdown;
+* **prefill / decode / unified / burst step** wall times;
+* **queue depth**, **running-set size**, and **KV-pool occupancy** sampled
   once per engine step;
-* counters: admitted, finished-by-reason, preemptions, recompute
-  prefills, prefix-cache hits and misses, chunked-prefill and unified
-  steps, and the captures of each graphed step family
-  (``serving_{decode,ragged,burst}_jit_traces_total``).
+* counters: admitted, finished-by-reason (eos/length/abort), preemptions,
+  recompute prefills, prefix-cache hits and misses, and the captures of
+  each graphed step family (``serving_{decode,ragged,burst}_jit_traces``).
 
-The per-op dispatch timer, step-profiler tables and the mesh-collective
-series of the JAX module are ROADMAP A8 and A11.
+``labels`` (e.g. ``{"replica": "0"}``) ride every series, so engines can
+share one registry.  The per-op dispatch timer rides the JAX op bus, which
+the port has not (ROADMAP A12); the mesh-collective series wait for
+tensor-parallel serving (A11) and the cross-process wire stats for the
+fleet (A9).
 """
 
 from __future__ import annotations
@@ -24,8 +34,61 @@ from __future__ import annotations
 import time
 from typing import Dict, Optional, Tuple
 
-from ..observability.metrics import Counter, Gauge, Histogram, MetricsRegistry
-from ..observability.tracer import get_tracer
+from ..observability.metrics import (
+    Counter,
+    Gauge,
+    Histogram,
+    MetricsRegistry,
+)
+from ..observability.tracer import SpanTracer, get_tracer
+
+
+class OpStat:
+    """Call count and total / max / min wall time of one named latency
+    (the JAX package's ``profiler/statistic.OpStat``)."""
+
+    __slots__ = ("name", "calls", "total", "max", "min")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.calls = 0
+        self.total = 0.0
+        self.max = 0.0
+        self.min = float("inf")
+
+    @property
+    def avg(self) -> float:
+        return self.total / self.calls if self.calls else 0.0
+
+
+_UNIT = {"s": 1.0, "ms": 1e3, "us": 1e6, "ns": 1e9}
+
+
+def summary_table(stats: Dict[str, OpStat], title: str,
+                  time_unit: str = "ms") -> str:
+    """One stats table sorted by total time (the JAX package's
+    ``profiler/statistic.summary_table`` layout)."""
+    scale = _UNIT.get(time_unit, 1e3)
+    rows = sorted(stats.values(), key=lambda s: s.total, reverse=True)
+    grand = sum(s.total for s in stats.values()) or 1.0
+    name_w = max([len(s.name[:48]) for s in rows] + [len("Name"), 4])
+    header = (f"{'Name':{name_w}s} {'Calls':>7s} "
+              f"{'Total(' + time_unit + ')':>12s} "
+              f"{'Avg(' + time_unit + ')':>12s} "
+              f"{'Max(' + time_unit + ')':>12s} "
+              f"{'Min(' + time_unit + ')':>12s} {'Ratio(%)':>9s}")
+    bar = "-" * len(header)
+    lines = [bar, title, bar, header, bar]
+    for s in rows:
+        lines.append(
+            f"{s.name[:48]:{name_w}s} {s.calls:7d} "
+            f"{s.total * scale:12.4f} {s.avg * scale:12.4f} "
+            f"{s.max * scale:12.4f} "
+            f"{(0.0 if s.min == float('inf') else s.min) * scale:12.4f} "
+            f"{100.0 * s.total / grand:9.2f}")
+    lines.append(bar)
+    return "\n".join(lines)
+
 
 # sub-second serving latencies: finer low end than the registry default
 LATENCY_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
@@ -40,30 +103,41 @@ _COUNTER_NAMES = (
     "preemptions",
     "recompute_prefills",
     "engine_steps",
+    # prefix cache + chunked prefill
     "prefix_cache_hit_tokens",    # prompt tokens restored by fork (free)
     "prefix_cache_miss_tokens",   # prompt tokens that needed compute
     "prefix_cache_evictions",     # cached blocks clobbered for allocation
-    "prefill_tokens_computed",    # tokens the prefill rows actually ran
+    "prefill_tokens_computed",    # tokens the prefill programs actually ran
     "chunked_prefill_steps",      # chunk-program launches (vs one-shot)
-    "slo",                        # finished requests that carried slo_ms
-    "slo_good",                   # ... and met it
+    # SLO goodput pair: slo counts every finished request that
+    # carried a per-request slo_ms; slo_good the subset that met it
+    "slo",
+    "slo_good",
     "unified_steps",              # packed ragged step launches
     # captures of the graphed step families (the JAX engine's in-trace
-    # retrace counters), bounded by their bucket sets
+    # retrace counters), bounded by their bucket sets; decode's is
+    # registered up front too, so an engine whose decode family never
+    # ran reads 0
     "decode_jit_traces",
     "ragged_jit_traces",
     "burst_jit_traces",
 )
 
 _GAUGE_NAMES = ("queue_depth", "num_running", "kv_pool_occupancy",
-                "prefix_cached_token_ratio")
+                "prefix_cached_token_ratio", "mp_shards")
 
+# pre-registered so every latency surface shows on /metrics from the
+# first scrape.  The last four are the per-request SLO breakdown
+# derived from the lifecycle timestamps: arrival → first
+# prefill chunk (queue_wait) → first token (prefill) → finish (e2e),
+# with decode_itl the per-token gap (observed alongside the legacy
+# inter_token_latency series).
 _HISTOGRAM_NAMES = (
     "time_to_first_token",
     "inter_token_latency",
-    "prefill_step",   # wall time of one prefill or chunk program
-    "decode_step",    # wall time of one batched decode step
-    "unified_step",   # wall time of one packed ragged step
+    "prefill_step",
+    "decode_step",
+    "unified_step",   # wall time of one packed ragged launch
     "burst_step",     # wall time of one N-step decode burst
     "queue_wait",
     "prefill",
@@ -71,15 +145,32 @@ _HISTOGRAM_NAMES = (
     "e2e",
 )
 
-# the SLO breakdown, in pipeline order
+# the SLO breakdown quartet, in pipeline order
 SLO_PHASES = ("queue_wait", "prefill", "decode_itl", "e2e")
+
+# every full metric name this module pre-registers
+METRIC_NAMES = tuple(
+    [f"serving_{n}_total" for n in _COUNTER_NAMES]
+    + [f"serving_{n}" for n in _GAUGE_NAMES]
+    + [f"serving_{n}_seconds" for n in _HISTOGRAM_NAMES]
+)
 
 
 class ServingMetrics:
-    def __init__(self):
-        # one registry per engine, so counts stay per-engine
-        self.registry = MetricsRegistry(max_series=512)
-        self.tracer = get_tracer()
+    def __init__(self, registry: Optional[MetricsRegistry] = None,
+                 tracer: Optional[SpanTracer] = None,
+                 labels: Optional[Dict[str, str]] = None):
+        # own registry by default so per-engine counts stay per-engine;
+        # pass get_registry() to publish on the process-wide /metrics page.
+        # ``labels`` rides EVERY series this object creates — the fleet
+        # router builds each replica engine with
+        # ``labels={"replica": str(i)}`` on one shared registry, so
+        # /metrics exposes per-replica-labeled serving series side by
+        # side without name collisions.
+        self.registry = (registry if registry is not None
+                         else MetricsRegistry(max_series=512))
+        self.tracer = tracer if tracer is not None else get_tracer()
+        self.labels: Dict[str, str] = dict(labels or {})
         self._counters: Dict[str, Counter] = {}
         for name in _COUNTER_NAMES:
             self._counter(name)
@@ -88,16 +179,25 @@ class ServingMetrics:
             self._hist(name)
         self._gauges: Dict[str, Gauge] = {
             name: self.registry.gauge(f"serving_{name}",
-                                      f"per-engine-step {name}")
+                                      f"per-engine-step {name}",
+                                      **self.labels)
             for name in _GAUGE_NAMES
         }
+        self._stepprof = None  # StepProfiler, attached by the engine
+
+    def attach_step_profiler(self, stepprof) -> None:
+        """Bind the engine's :class:`~paddle_tpu_torch.observability.stepprof
+        .StepProfiler` so :meth:`summary` can render the per-program
+        bucket-utilization / padding-waste table."""
+        self._stepprof = stepprof
 
     # --- recording ----------------------------------------------------------
     def _counter(self, name: str) -> Counter:
         c = self._counters.get(name)
         if c is None:
             c = self._counters[name] = self.registry.counter(
-                f"serving_{name}_total", f"serving {name.replace('_', ' ')}")
+                f"serving_{name}_total", f"serving {name.replace('_', ' ')}",
+                **self.labels)
         return c
 
     def _hist(self, name: str) -> Histogram:
@@ -106,7 +206,7 @@ class ServingMetrics:
             h = self._hists[name] = self.registry.histogram(
                 f"serving_{name}_seconds",
                 f"serving {name.replace('_', ' ')} (seconds)",
-                buckets=LATENCY_BUCKETS)
+                buckets=LATENCY_BUCKETS, **self.labels)
         return h
 
     def count(self, name: str, n: int = 1) -> None:
@@ -119,21 +219,31 @@ class ServingMetrics:
         self.observe("time_to_first_token", seconds)
 
     def observe_inter_token(self, seconds: float) -> None:
+        # decode_itl is the SLO-breakdown name for the same measurement
+        #; the legacy inter_token_latency series is preserved
         self.observe("inter_token_latency", seconds)
         self.observe("decode_itl", seconds)
 
     def observe_queue_wait(self, seconds: float) -> None:
-        """Arrival → first prefill chunk."""
+        """Arrival → first prefill chunk (observed once per request, at
+        the moment its first prefill program launches)."""
         self.observe("queue_wait", seconds)
 
     def observe_prefill_phase(self, seconds: float) -> None:
-        """First prefill chunk → first emitted token."""
+        """First prefill chunk → first emitted token (the whole prefill
+        phase, chunks and recomputes included — distinct from the
+        per-program ``prefill_step`` wall time)."""
         self.observe("prefill", seconds)
 
     def observe_finish(self, e2e_seconds: float,
                        slo_ms: Optional[float] = None) -> None:
-        """End-to-end latency + the SLO goodput pair, incremented under
-        the registry lock so a reader never sees good > total."""
+        """End-to-end latency + the SLO goodput pair: every finished
+        request that carried an ``slo_ms`` counts toward
+        ``serving_slo_total``; the ones that met it toward
+        ``serving_slo_good_total`` (goodput = good/total).  The pair is
+        incremented under the registry lock so any reader that snapshots
+        under the same lock (:meth:`slo_counts`, the history sampler's
+        burn-rate windows) can never observe good > total."""
         self.observe("e2e", e2e_seconds)
         if slo_ms is not None:
             good = e2e_seconds * 1e3 <= slo_ms
@@ -144,19 +254,52 @@ class ServingMetrics:
                     good_c.inc()
 
     def slo_counts(self) -> Tuple[int, int]:
-        """(good, total), read under the registry lock."""
+        """(good, total) snapshotted under the registry lock — the
+        consistent read side of the goodput pair (a reader interleaving
+        the two bare counter reads could transiently see good > total)."""
         good_c, slo_c = self._counter("slo_good"), self._counter("slo")
         with self.registry.atomic():
             return int(good_c.value), int(slo_c.value)
 
+    def slo_breakdown(self) -> Dict[str, Dict]:
+        """JSON-able per-phase latency breakdown (the JAX package's
+        ``bench.py`` shape): count/avg/p50/p95/p99 for each SLO phase plus
+        the goodput pair."""
+        out: Dict[str, Dict] = {}
+        for name in SLO_PHASES:
+            h = self._hist(name)
+            out[name] = {
+                "count": h.count,
+                "avg_s": round(h.avg, 6) if h.count else None,
+                "p50_s": _round6(h.quantile(0.50)),
+                "p95_s": _round6(h.quantile(0.95)),
+                "p99_s": _round6(h.quantile(0.99)),
+            }
+        good, total = self.slo_counts()  # one consistent pair read
+        out["goodput"] = {
+            "slo_total": total, "slo_good": good,
+            "ratio": round(good / total, 4) if total else None,
+        }
+        return out
+
+    def set_mp_shards(self, mp: int) -> None:
+        """Publish the engine's tensor-parallel degree
+        (``serving_mp_shards``; 1 = single-chip)."""
+        self._gauges["mp_shards"].set(mp)
+
     def cached_token_ratio(self) -> Optional[float]:
-        """hit / (hit + computed) over the process life; ``None`` until
-        any prefill ran."""
+        """hit / (hit + computed) over the whole process life — the
+        fraction of prefill-bound tokens the prefix cache served for
+        free; ``None`` until any prefill ran.  The fleet's
+        ``serving_fleet_cache_imbalance`` gauge is the
+        max−min of this value across replicas."""
         hit = self._counter("prefix_cache_hit_tokens").value
         computed = self._counter("prefill_tokens_computed").value
         return hit / (hit + computed) if hit + computed else None
 
     def set_cached_token_ratio(self) -> None:
+        """Publish :meth:`cached_token_ratio` on the gauge.  A no-op
+        until any prefill ran."""
         ratio = self.cached_token_ratio()
         if ratio is not None:
             self._gauges["prefix_cached_token_ratio"].set(ratio)
@@ -167,44 +310,137 @@ class ServingMetrics:
         self._gauges["num_running"].set(num_running)
         self._gauges["kv_pool_occupancy"].set(kv_occupancy)
 
-    # --- inspection ---------------------------------------------------------
+    # --- legacy inspection views --------------------------------------------
     @property
     def counters(self) -> Dict[str, int]:
-        """{name: count} snapshot over the registry counters."""
+        """{legacy_name: count} snapshot over the registry counters."""
         return {name: int(c.value) for name, c in self._counters.items()}
 
     def histogram(self, name: str) -> Histogram:
+        """The latency histogram ``name`` (e.g. ``"decode_step"``)."""
         return self._hist(name)
 
-    def summary(self) -> str:
-        """Render counters, latencies and gauges as text tables (printed
-        AND returned)."""
-        bar = "-" * 72
-        lines = [bar, "Serving latency (ms)", bar,
-                 f"{'Name':24s} {'Count':>8s} {'Avg':>9s} {'p50':>9s} "
-                 f"{'p99':>9s} {'Max':>9s}", bar]
-        for name in _HISTOGRAM_NAMES:
-            h = self._hist(name)
-            cells = [f"{v * 1e3:9.3f}" if v is not None else f"{'-':>9s}"
-                     for v in (h.avg if h.count else None, h.quantile(0.5),
-                               h.quantile(0.99), h.max if h.count else None)]
-            lines.append(f"{name:24s} {h.count:8d} " + " ".join(cells))
-        lines += [bar, "Serving counters", bar]
-        for name, value in sorted(self.counters.items()):
-            lines.append(f"{name:32s} {value:12d}")
-        lines += [bar, "Scheduler/pool gauges (per engine step)", bar]
+    @property
+    def latency(self) -> Dict[str, OpStat]:
+        """{name: OpStat} view over the latency histograms (the shape
+        :func:`summary_table` renders)."""
+        out: Dict[str, OpStat] = {}
+        for name, h in self._hists.items():
+            st = OpStat(name)
+            st.calls = h.count
+            st.total = h.sum
+            if h.count:
+                st.max = h.max
+                st.min = h.min
+            out[name] = st
+        return out
+
+    # --- exporters ----------------------------------------------------------
+    def prometheus_text(self) -> str:
+        return self.registry.prometheus_text()
+
+    def snapshot(self) -> Dict:
+        return self.registry.snapshot()
+
+    # --- reporting ----------------------------------------------------------
+    def _gauge_rows(self):
+        rows = []
         for name in _GAUGE_NAMES:
             g = self._gauges[name]
-            lines.append(f"{name:28s} samples {g.samples:6d}  avg "
-                         f"{g.avg:8.3f}  max "
-                         f"{g.max if g.samples else 0.0:8.3f}")
+            if g.samples == 0:
+                rows.append((name, 0, "-", "-", "-"))
+            else:
+                rows.append((name, g.samples, f"{g.avg:.2f}",
+                             f"{g.max:.2f}", f"{g.min:.2f}"))
+        return rows
+
+    def summary(self, time_unit: str = "ms") -> str:
+        """Render the serving report in ``profiler/statistic.py`` table
+        style (printed AND returned, like ``Profiler.summary``)."""
+        parts = []
+        latency = self.latency
+        if latency:
+            parts.append(summary_table(
+                latency, "Serving latency summary (request-level)",
+                time_unit=time_unit))
+
+        counters = self.counters
+        header = f"{'Counter':32s} {'Value':>12s}"
+        bar = "-" * len(header)
+        lines = [bar, "Serving counters", bar, header, bar]
+        for name in sorted(counters):
+            lines.append(f"{name:32s} {counters[name]:12d}")
+        lines.append(bar)
+        parts.append("\n".join(lines))
+
+        header = (f"{'SLO phase':16s} {'Count':>8s} {'Avg(ms)':>10s} "
+                  f"{'p50(ms)':>10s} {'p95(ms)':>10s} {'p99(ms)':>10s}")
+        bar = "-" * len(header)
+        lines = [bar, "SLO breakdown (bucket-quantile estimates)", bar,
+                 header, bar]
+        for name in SLO_PHASES:
+            h = self._hist(name)
+            cells = [(f"{q * 1e3:10.3f}" if q is not None else
+                      f"{'-':>10s}")
+                     for q in (h.avg if h.count else None,
+                               h.quantile(0.50), h.quantile(0.95),
+                               h.quantile(0.99))]
+            lines.append(f"{name:16s} {h.count:8d} " + " ".join(cells))
         good, total = self.slo_counts()
-        lines += [bar, (f"goodput: {good}/{total} requests met their slo_ms"
-                        if total else
-                        "goodput: no request carried an slo_ms"), bar]
-        report = "\n".join(lines)
+        lines.append(bar)
+        lines.append(f"goodput: {int(good)}/{int(total)} requests met "
+                     "their slo_ms" if total else
+                     "goodput: no request carried an slo_ms")
+        lines.append(bar)
+        parts.append("\n".join(lines))
+
+        prog_rows = (self._stepprof.program_table()
+                     if self._stepprof is not None
+                     and self._stepprof.enabled else [])
+        if prog_rows:
+            header = (f"{'Program/bucket':20s} {'Launches':>8s} "
+                      f"{'Sched':>8s} {'Capacity':>8s} {'Util':>7s} "
+                      f"{'Waste':>7s} {'Wall(ms)':>10s}")
+            bar = "-" * len(header)
+            lines = [bar, "Bucket utilization / padding waste "
+                          "(per step program)", bar, header, bar]
+            for row in prog_rows:
+                lines.append(
+                    f"{row['program'] + '/' + row['bucket']:20s} "
+                    f"{row['launches']:8d} "
+                    f"{row['scheduled_tokens']:8d} "
+                    f"{row['capacity_tokens']:8d} "
+                    f"{row['utilization']:7.3f} "
+                    f"{row['padding_ratio']:7.3f} "
+                    f"{row['wall_s'] * 1e3:10.3f}")
+            comp = self._stepprof.compile_totals()
+            lines.append(bar)
+            if comp:
+                lines.append("compile attribution: " + ", ".join(
+                    f"{p}: {t['count']}x {t['seconds'] * 1e3:.1f}ms"
+                    for p, t in sorted(comp.items())))
+            else:
+                lines.append("compile attribution: no traces observed")
+            lines.append(bar)
+            parts.append("\n".join(lines))
+
+        header = (f"{'Gauge':24s} {'Samples':>8s} {'Avg':>10s} "
+                  f"{'Max':>10s} {'Min':>10s}")
+        bar = "-" * len(header)
+        lines = [bar, "Scheduler/pool gauges (per engine step)", bar,
+                 header, bar]
+        for name, n, avg, mx, mn in self._gauge_rows():
+            lines.append(f"{name:24s} {n:8d} {avg:>10s} {mx:>10s} {mn:>10s}")
+        lines.append(bar)
+        parts.append("\n".join(lines))
+
+        report = "\n\n".join(parts)
         print(report)
         return report
+
+
+def _round6(v: Optional[float]) -> Optional[float]:
+    return None if v is None else round(v, 6)
 
 
 class StepTimer:
@@ -214,13 +450,15 @@ class StepTimer:
     def __init__(self, metrics: ServingMetrics, name: str):
         self.metrics = metrics
         self.name = name
-        self.dt: Optional[float] = None
+        self.dt: Optional[float] = None  # wall seconds, set on exit —
+        # the engine reads it for the StepProfiler record so step-level
+        # introspection shares this ONE timing path
 
     def __enter__(self):
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
-        self.dt = time.perf_counter() - self._t0
-        self.metrics.observe(self.name, self.dt)
+        dt = self.dt = time.perf_counter() - self._t0
+        self.metrics.observe(self.name, dt)
         return False

@@ -133,6 +133,11 @@ class ContinuousBatchingScheduler:
         # in a plan (a burst adds the extra decode tokens it emitted)
         self.tokens_planned_prefill = 0
         self.tokens_planned_decode = 0
+        # blocks pledged to the most recent planning pass's prefill chunks
+        # and admissions, which the pool-timeline sampler records per step
+        # (by the end of the step they are already in the pool's allocated
+        # count: promised is not extra capacity)
+        self.promised_blocks = 0
 
     # --- queue ops ----------------------------------------------------------
     def add(self, req: Request) -> None:
@@ -273,6 +278,7 @@ class ContinuousBatchingScheduler:
             out.prefills.append(req)
             out.admitted.append(req)
             admitted += 1
+        self.promised_blocks = promised
 
     def _preempt(self, victim: Request) -> None:
         """Evict ``victim``: free its blocks (shared prefix blocks stay

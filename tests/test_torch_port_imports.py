@@ -11,7 +11,8 @@
 * Every ``EngineConfig`` setting the port does not implement raises
   ``NotImplementedError`` naming its ROADMAP item, as do MoE layers,
   pipeline micro-batches, sep > 1 and gradient clipping; the legacy
-  families and decode bursts build and serve.
+  families, decode bursts, the auditor and a shared lifecycle tracker
+  build and serve.
 """
 
 import ast
@@ -24,6 +25,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.observability import AuditConfig, LifecycleTracker
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.parallel.ring_attention import ring_flash_attention
 from paddle_tpu_torch.serving import EngineConfig, EngineCore, SamplingParams
@@ -36,7 +38,16 @@ FORBIDDEN = {"jax", "jaxlib", "paddle_tpu"}
 # must be among the files checked
 MUST_CHECK = ("utils/__init__.py", "utils/extension.py",
               "utils/cpp_extension.py", "utils/host_build.py",
-              "ops/scaled.py", "version.py", "serving/graphs.py")
+              "ops/scaled.py", "version.py", "serving/graphs.py",
+              # the observability modules: their JAX counterparts import
+              # no JAX, and the port keeps its own copies of them
+              "observability/__init__.py", "observability/metrics.py",
+              "observability/tracer.py", "observability/export.py",
+              "observability/lifecycle.py", "observability/stepprof.py",
+              "observability/cachestat.py", "observability/audit.py",
+              "observability/flight.py", "observability/history.py",
+              "observability/alerts.py", "observability/httpd.py",
+              "observability/push.py")
 
 
 def _port_files():
@@ -134,15 +145,15 @@ def test_moe_layers_raise_at_construction():
 
 
 # ROADMAP items already ported: their settings build and serve
-PORTED = ("A7",)
+PORTED = ("A7", "A8")
 
 
 @pytest.mark.parametrize("fields, item", [
     (dict(unified_step=False), "A7"),
     (dict(burst_steps=4), "A7"),
-    (dict(audit=object()), "A8"),
-    (dict(profile_ops=True), "A8"),
-    (dict(lifecycle=object()), "A8"),
+    (dict(audit=AuditConfig(enabled=True, sample_every=1)), "A8"),
+    (dict(profile_ops=True), "A12"),
+    (dict(lifecycle=LifecycleTracker()), "A8"),
     (dict(spec=object()), "A9"),
     (dict(aot_path="artifact"), "A9"),
     (dict(aot=object()), "A9"),
@@ -152,8 +163,9 @@ PORTED = ("A7",)
 ])
 def test_unported_engine_settings_raise(fields, item):
     """A setting of an item not ported yet raises naming the item; those of
-    a ported item (A7: the legacy families, decode bursts) build an engine
-    that serves a request to its end."""
+    a ported item (A7: the legacy families, decode bursts; A8: the
+    auditor, a shared lifecycle tracker) build an engine that serves a
+    request to its end."""
     model = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1),
                              device="cpu")
     cfg = dict(num_blocks=16, block_size=4, unified_step=True)
