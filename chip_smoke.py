@@ -20,7 +20,8 @@ these phases, printing one JSON line for each:
              ``ops/scaled.py::my_scaled``, called 3 times on a [8192,
              4096] bf16 tensor with its backward (launches = 3, gradient
              exactly 9: three runs of the custom bwd); one call under
-             torch.profiler, whose ``my_scaled`` range must hold the
+             torch.profiler (taken again, twice at most, when it recorded
+             no scale kernel), whose ``my_scaled`` range must hold the
              kernel; the kernel, the op, its twin and ``torch.mul`` timed
              at that shape by CUDA events, the kernel and ``torch.mul``
              also by profiler device time, beside the bound, and the two
@@ -47,7 +48,13 @@ these phases, printing one JSON line for each:
              and the bound, the larger of the operations over the card's
              peak rate and the bytes over its memory rate; at T=512 bf16
              also the profiler's device time of every device function of
-             the call (work list, chunk, decode and combine kernels).
+             the call (work list, chunk, decode and combine kernels).  And
+             the packing speculative decoding gives it (``spec_packing``):
+             16 verify rows of 2-5 tokens starting mid-page at random
+             positions up to 2048, 4 decode rows and a 128-token chunk in a
+             T=256 bucket, bf16 on the tma route and fp32 on the simple
+             one, checked row by row and timed like the others, with the
+             launches of each route.
 ``decode_kernels``  the paged decode kernel against its plain version,
              each (row, head) row against its twin row by
              ``flash.rowwise_error`` and absolutely (fp32 within 1e-4, bf16
@@ -96,6 +103,28 @@ these phases, printing one JSON line for each:
              a burst is not audited) go degraded with exactly one repro
              under ``max_repro_bytes``, and ``replay_repro`` of it on a clean
              engine re-executes the step on the card and reproduces it.
+``spec_identity``  the identity model (fp32, simple route): 8 prompts of
+             100-600 tokens, each ``R + S + O + S`` (``R`` and ``S`` seeded
+             random texts, ``O`` the model's own greedy continuation of
+             ``R + S``, so the n-gram proposer drafts ``O`` again), 32 new
+             tokens each, through the unified engine with speculative
+             decoding off and on (``SpecConfig(k=4)``, 256 tokens a step),
+             greedy and seeded sampled: identical tokens, strictly fewer
+             steps greedy, drafts accepted, the ragged kernel launched once
+             per layer per step through the replays.
+``disagg_identity``  the same prompts through a prefill and a decode
+             replica (``roles=["prefill", "decode"]``, both unified, one
+             shared model module, not scaled): the tokens of one unified
+             engine, one KV hand-off per request served on the decode
+             replica from the imported pages (its admission found every
+             handed-off block cached) by replayed graphs, both pools'
+             invariant, one capture per key on each replica, the launch
+             rule over both replicas (counters set to 0 just before the
+             fleet runs).
+``server_identity``  the same prompts as completions (plain and streamed)
+             through ``CompletionServer`` over a dp=1 unified fleet with
+             the supervisor on: the tokens of ``LLM.generate`` on the same
+             engine config; the launch rule on the simple route.
 ``serve``    Llama-3-8B at full width and depth, bf16 weights and pools:
              16 prompts of 256-2048 tokens, 64 greedy tokens each, through
              ``LLM.generate`` with the step graphs (the cold pass: the
@@ -145,6 +174,50 @@ these phases, printing one JSON line for each:
              memory, the step profiler against the scheduler and the pool
              invariant.  Then a profile window on each of the two engines: the
              decode kernel's, the matrix products' and the idle shares.
+``spec``     the serve model (full depth, bf16, unified, 512 tokens a
+             step, ``SpecConfig(k=4)``): 16 ``R + S + O + S`` prompts of
+             256-2048 tokens, 128 new tokens each, greedy and seeded sampled
+             (temperature 0.8, top_p 0.95), spec off then spec on, each a
+             cold pass (the captures) and a warm pass of the same prompts
+             (prefix cache off, so both do the same work): steps,
+             tokens/s, mean TTFT and ITL, accept ratio (the runs here and
+             in spec_identity on the model with its token embedding scaled
+             by 65536 in bf16 and 4096 in fp32, a first-order chain that
+             writes its own continuation again after an echo, and sampled
+             runs with its LM head scaled by 8 too: a random model's
+             drafts are otherwise never accepted), captures and their
+             keys (one capture per key, none in the warm pass, every key
+             of the one unified family inside the plain plan's lattice,
+             and the keys spec off lacks listed and at most the verify
+             rows' token buckets, 32 to 128, at each table bucket); greedy
+             spec on takes strictly fewer steps; the launch rule on the
+             tma route; the share of tokens identical to spec off and, at
+             each request's first divergence, spec off's top-2 logit gap
+             (a no-cache forward of the prompt and the tokens before it).
+``disagg``   the spec prompts without spec through a prefill and a decode
+             replica on the one card (unified, bf16, the one model, not
+             scaled): one hand-off per request served from the imported
+             pages by replayed graphs, both pools' invariant, one capture
+             per key, the launch rule over both replicas (tma), blocks,
+             bytes and ms of each hand-off, the tokens, TTFT and ITL (from
+             the request timelines) against one unified engine on the same
+             prompts; then one 2048-token hand-off taken apart, each part
+             timed alone (gather, device-to-host copy, digest,
+             verification, pool import, scatter) and the scattered pages
+             compared bit for bit.
+``server``   ``CompletionServer`` on loopback with the supervisor on, over a
+             dp=1 unified fleet and a dp=2 legacy fleet with bursts of 8
+             (both replicas share the one model): two rounds of 24
+             concurrent completions of 64 tokens (8 streamed, 8 plain, 8
+             sharing a 256-token prefix), the first taking the captures;
+             a drain begins with all 24 of the second in flight and every
+             one must finish whole; the prefix-sharing ones on one
+             replica, ``/metrics`` with the fleet, per-replica and
+             hand-off series, ``/v1/debug/compiles`` listing captures,
+             ``/v1/requests/{id}`` a timeline, every replica captured;
+             the launch rule over the replicas and both rounds (the
+             ragged kernel on tma, the decode kernel on mma); tokens/s,
+             TTFT and ITL against the serve phase's warm pass.
 ``flash_kernels``  the three flash kernels (forward, dQ, dK/dV) against
              their twins on the same inputs by ``flash.rowwise_error``,
              each output row against its twin row (fp32 within 1e-4; bf16
@@ -543,18 +616,82 @@ def kernel_phase(torch, rp, flash):
               torch.randn(1024, bs, hkv, D, device=dev),
               torch.randn(1024, bs, hkv, D, device=dev), meta,
               torch.bfloat16, "tma")
+    spec = spec_packing(torch, rp, rng, check)
     routes = {"simple": rp.simple_launches, "tma": rp.tma_launches}
     emit("kernels", name=KERNEL_NAME, checks=len(checks),
          worst=max(checks, key=lambda c: max(c["max_abs_err"],
                                              c["max_row_err"]) / c["tol"]),
          planted_dropped_pages=planted, work_lists=work_lists,
-         route_launches=routes, timings=timings,
+         route_launches=routes, timings=timings, spec_packing=spec,
          note="max_row_err is flash.rowwise_error over (token, head) rows; "
               "planted: the kernel's output at T=512 bf16 with the last "
               "page of each chunk token's walk dropped, read by it (must "
               "exceed tol) and absolutely; route_launches counts every "
               "launch of this phase, checks and timing loops included")
     return summary
+
+
+def spec_packing(torch, rp, rng, check):
+    """The packing speculative decoding gives the ragged kernel at
+    Llama-3-8B's attention shapes (H=32, Hkv=8, D=128, bs=16): 16 verify
+    rows of 2-5 tokens, each starting mid-page at a random position up to
+    2048 (a work item of more than one token: the tma route's chunk path),
+    4 decode rows and one 128-token chunk, in a T=256 bucket.  Each
+    (token, head) row is checked against its twin row in bf16 (tma route)
+    and fp32 (simple route); the kernel, its plain version and the library
+    call are timed, with the bound and the launches of each route."""
+    dev = torch.device("cuda")
+    H, Hkv, D, bs, Tb, num_blocks = 32, 8, 128, 16, 256, 4096
+    rows = []
+    for n in [int(rng.integers(2, 6)) for _ in range(16)] + [1] * 4 + [128]:
+        if 1 < n < 6:   # a verify row: starts mid-page
+            start = int(rng.integers(1, 2048 // bs)) * bs \
+                + int(rng.integers(1, bs))
+        else:
+            start = int(rng.integers(0, 2048 - n + 1))
+        kv = start + n
+        pages = rng.choice(np.arange(1, num_blocks), -(-kv // bs),
+                           replace=False)
+        rows.append((pages, kv, list(range(start, kv))))
+    W = 1 << int(np.ceil(np.log2(max(len(r[0]) for r in rows))))
+    arrays = pack_rows(rows, Tb, W)
+    meta = [torch.from_numpy(a).to(dev) for a in arrays]
+    q32 = torch.randn(Tb, H, D, device=dev)
+    k32 = torch.randn(num_blocks, bs, Hkv, D, device=dev)
+    v32 = torch.randn(num_blocks, bs, Hkv, D, device=dev)
+    out = {"T": Tb, "table_width": W,
+           "verify_rows": [len(r[2]) for r in rows[:16]],
+           "verify_starts": [r[2][0] for r in rows[:16]],
+           "decode_rows": 4, "chunk": 128,
+           "tokens": sum(len(r[2]) for r in rows)}
+    for dtype, route in ((torch.bfloat16, "tma"), (torch.float32, "simple")):
+        name = str(dtype).split(".")[-1]
+        before = (rp.simple_launches, rp.tma_launches)
+        q, k, v, err, row_err, ref = check("spec packing T=256", q32, k32,
+                                           v32, meta, dtype, route)
+        flops, nbytes = work(q, k, *arrays)
+        library = library_call(q, k, v, *[meta[i] for i in (0, 2, 1, 3)])
+        t_flops = flops / PEAK_FLOPS[name] * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        out[name] = {
+            "route": route, "max_abs_err": err, "max_row_err": row_err,
+            "ms": time_ms(lambda: rp.ragged_kernel(q, k, v, *meta), 20),
+            "plain_ms": time_ms(
+                lambda: rp.ragged_reference(q, k, v, *meta), 5, 1),
+            "library_ms": time_ms(library, 10),
+            "bound_ms": max(t_flops, t_bytes),
+            "bound_by": "operations" if t_flops > t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+        if route == "tma":
+            out[name]["device_ms"] = device_ms(
+                lambda: rp.ragged_kernel(q, k, v, *meta), 20, KERNEL_MARKS)
+        out[name]["route_launches"] = {
+            "simple": rp.simple_launches - before[0],
+            "tma": rp.tma_launches - before[1]}
+        del q, k, v, ref, library
+    del k32, v32
+    torch.cuda.empty_cache()
+    return out
 
 
 # --- decode kernel phase ------------------------------------------------------
@@ -1188,7 +1325,8 @@ def serve_phase(torch, rp, serving, graphs, LlamaConfig, LlamaForCausalLM):
          buckets=sorted(eng.ragged_buckets),
          preemptions=eng.metrics.counters["preemptions"],
          model_build_s=build_s, num_blocks=eng.num_blocks)
-    return cold["kernel_launches"], llm, prompts, warm, new_tokens
+    return cold["kernel_launches"], llm, prompts, warm, new_tokens, \
+        passes["warm"]
 
 
 def serve_legacy_phase(torch, pd, serving, graphs, model, prompts, warm,
@@ -2493,11 +2631,17 @@ def custom_op_phase(torch, sc, cpp_extension, build_dir):
     x = x.detach()
     del y
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        sc.my_scaled(x, alpha=3.0)
-        torch.cuda.synchronize()
-    kernel_names = [k for k in device_kernels(prof) if "scaled_kernel" in k]
+    # a profile that recorded no scale kernel is taken again, twice at
+    # most, as in device_times
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sc.my_scaled(x, alpha=3.0)
+            torch.cuda.synchronize()
+        kernel_names = [k for k in device_kernels(prof)
+                        if "scaled_kernel" in k]
+        if kernel_names:
+            break
 
     def subtree(e):
         return [e] + [d for c in e.cpu_children for d in subtree(c)]
@@ -2574,6 +2718,825 @@ def custom_op_phase(torch, sc, cpp_extension, build_dir):
     return launches, timing
 
 
+# --- speculative decoding, disaggregation and the server ------------------------
+
+SPEC_SAMPLED = dict(temperature=0.8, top_p=0.95)
+
+
+def echo_prompts(torch, serving, model, rng, n, lo, hi, new_tokens, dtype):
+    """Prompts ``R + S + O + S`` of ``lo``-``hi`` tokens: ``R`` and ``S``
+    (16-64 tokens) seeded random texts, ``O`` the greedy continuation of
+    ``R + S`` by :func:`spec_model` (``new_tokens`` long, one unified
+    engine run).  After the second ``S`` the n-gram proposer finds ``O``
+    inside its 256-token window and drafts it again."""
+    vocab = model.config.vocab_size
+    heads = []
+    for _ in range(n):
+        s = rng.integers(0, vocab, int(rng.integers(16, 65))).tolist()
+        total = int(rng.integers(lo, hi + 1))
+        r = rng.integers(0, vocab, max(0, total - 2 * len(s)
+                                       - new_tokens)).tolist()
+        heads.append((r, s))
+    need = sum(-(-(len(r) + len(s) + new_tokens) // 16)
+               for r, s in heads) + 1
+    eng = spec_engine(serving, model, need + 16, dtype, False, 512, n)
+    reqs = [eng.add_request(r + s, serving.SamplingParams(
+        max_new_tokens=new_tokens)) for r, s in heads]
+    with spec_model(model, False):
+        eng.run(max_steps=20000)
+    torch.cuda.synchronize()
+    del eng
+    return [r + s + list(q.output_tokens) + s
+            for (r, s), q in zip(heads, reqs)]
+
+
+def spec_sampling(serving, n, new_tokens, sampled):
+    return [serving.SamplingParams(max_new_tokens=new_tokens,
+                                   **(dict(SPEC_SAMPLED, seed=200 + i)
+                                      if sampled else {}))
+            for i in range(n)]
+
+
+def pool_invariant(label, eng):
+    """free + reuse + held + the null page == num_blocks, now."""
+    kv = eng.kv
+    if len(kv._free) + len(kv._reuse) + len(kv._ref) + 1 != kv.num_blocks:
+        raise AssertionError(f"{label}: the pool invariant is broken")
+
+
+def launch_rule(label, rp, pd, engines, ragged_route, decode_route):
+    """The kernels' launches since the counters were reset, against the
+    steps of ``engines`` (one engine, or the replicas of one fleet, each
+    stepping on its own thread): the ragged kernel once per layer per
+    unified step, the decode kernel once per layer per decode step and
+    burst iteration, each all on its route.  The eager families (prefill,
+    chunked prefill, the hand-off's gather and scatter) launch neither.
+    Returns the counts for the phase's line."""
+    got = {"ragged": {"all": rp.launches, "simple": rp.simple_launches,
+                      "tma": rp.tma_launches},
+           "decode": {"all": pd.launches, "simple": pd.simple_launches,
+                      "mma": pd.mma_launches}}
+    due = {"ragged": sum(e.ragged_launches
+                         * e.model.config.num_hidden_layers
+                         for e in engines),
+           "decode": sum(legacy_counts(e)["decode_launches_due"]
+                         for e in engines)}
+    for kernel, route in (("ragged", ragged_route),
+                          ("decode", decode_route)):
+        if got[kernel]["all"] != due[kernel] or \
+                got[kernel][route] != due[kernel]:
+            raise AssertionError(
+                f"{label}: {got[kernel]} {kernel} launches for "
+                f"{due[kernel]} due (on {route})")
+    return {"launches": got, "launches_due": due}
+
+
+def spec_engine(serving, model, num_blocks, dtype, spec, budget, seqs,
+                prefix_cache=True):
+    return serving.EngineCore(model, config=serving.EngineConfig(
+        num_blocks=num_blocks, block_size=16, dtype=dtype, unified_step=True,
+        prefix_cache=prefix_cache,
+        spec=serving.SpecConfig(k=4) if spec else None,
+        scheduler=serving.SchedulerConfig(max_num_seqs=seqs,
+                                          max_tokens_per_step=budget)))
+
+
+# The spec runs' model: a random-weight model neither continues a pattern
+# nor repeats its own continuation once its context changes, so no draft
+# would ever be accepted.  Scaling the token embedding makes the residual
+# stream follow the current token (the layers' outputs become small beside
+# it), so the next token is mostly a function of the current one: the
+# model is a first-order chain, and after an echo of its own earlier text
+# it writes the same continuation again (R + S + O + S below).  bf16
+# needs the larger scale: its coarse residual otherwise keeps enough of
+# attention's context to flip near-ties.  Sampled runs also scale the LM
+# head, so draws at temperature 0.8 are peaked as a trained model's are,
+# not near uniform over 128k tokens.  Powers of two: undone exactly.
+CHAIN = {"float32": 4096.0, "bfloat16": 65536.0}
+SHARPEN = 8.0
+
+
+def chain_scale(model):
+    return CHAIN[str(model.lm_head.weight.dtype).split(".")[-1]]
+
+
+@contextlib.contextmanager
+def spec_model(model, sampled):
+    weights = [(model.llama.embed_tokens.weight, chain_scale(model))]
+    if sampled:
+        weights.append((model.lm_head.weight, SHARPEN))
+    for w, s in weights:
+        w.data.mul_(s)
+    try:
+        yield
+    finally:
+        for w, s in weights:
+            w.data.div_(s)
+
+
+def spec_pass(torch, serving, eng, prompts, new_tokens, sampled, tag):
+    """One timed pass of ``prompts`` through ``eng``: its tokens and its
+    own numbers (counter and histogram changes over the pass; TTFT and
+    ITL also from its request timelines)."""
+    m = eng.metrics
+    hists = {n: m.histogram(n)
+             for n in ("time_to_first_token", "inter_token_latency")}
+    seen = {n: (h.count, h.sum) for n, h in hists.items()}
+    before = (m.counters["engine_steps"], eng.graphs.captures,
+              eng.graphs.capture_seconds,
+              eng.spec.drafted_total if eng.spec else 0,
+              eng.spec.accepted_total if eng.spec else 0)
+    reqs = [eng.add_request(p, sp, request_id=f"{tag}{i}")
+            for i, (p, sp) in enumerate(zip(prompts, spec_sampling(
+                serving, len(prompts), new_tokens, sampled)))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run(max_steps=20000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tokens = [list(r.output_tokens) for r in reqs]
+    if any(len(t) != new_tokens or not all(
+            0 <= x < eng.model.config.vocab_size for x in t)
+           for t in tokens):
+        raise AssertionError("spec: malformed token streams")
+    after = (m.counters["engine_steps"], eng.graphs.captures,
+             eng.graphs.capture_seconds,
+             eng.spec.drafted_total if eng.spec else 0,
+             eng.spec.accepted_total if eng.spec else 0)
+    d = [b - a for a, b in zip(before, after)]
+    row = {"steps": d[0], "seconds": wall,
+           "output_tokens_per_s": len(prompts) * new_tokens / wall,
+           **{f"mean_{k}_s": (h.sum - seen[n][1]) / (h.count - seen[n][0])
+              for k, n, h in (("ttft", "time_to_first_token",
+                               hists["time_to_first_token"]),
+                              ("itl", "inter_token_latency",
+                               hists["inter_token_latency"]))},
+           **{"timeline_" + k: v for k, v in timeline_means(
+               eng.lifecycle, [r.request_id for r in reqs],
+               new_tokens).items()},
+           "captures": d[1], "capture_s": d[2]}
+    if eng.spec is not None:
+        row.update(drafted=d[3], accepted=d[4],
+                   accept_ratio=d[4] / d[3] if d[3] else 0.0)
+    return tokens, row
+
+
+def spec_run(torch, rp, pd, serving, model, prompts, new_tokens, sampled,
+             spec, dtype, budget, seqs, chain=True, warm=False):
+    """``prompts`` through a fresh unified engine (on :func:`spec_model`
+    unless ``chain`` is False): one pass, or with ``warm`` a cold pass
+    (the captures inside it) and a warm one on the same prompts, the
+    prefix cache off so both do the same work.  Returns the engine, the
+    tokens and the numbers (the warm pass's, the cold one's under
+    ``cold``), with the engine's launch, capture and pool checks."""
+    need = sum(-(-(len(p) + new_tokens + 8) // 16) for p in prompts) + 1
+    eng = spec_engine(serving, model, need + 16, dtype, spec, budget, seqs,
+                      prefix_cache=not warm)
+    reset_launches(rp, pd)
+    with spec_model(model, sampled) if chain else contextlib.nullcontext():
+        tokens, row = spec_pass(torch, serving, eng, prompts, new_tokens,
+                                sampled, "cold")
+        if warm:
+            again, warm_row = spec_pass(torch, serving, eng, prompts,
+                                        new_tokens, sampled, "warm")
+            if again != tokens:
+                raise AssertionError("spec: the warm pass emitted other "
+                                     "tokens than the cold one")
+            row = dict(warm_row, cold=row)
+    if eng.kv.occupancy() != 0.0:
+        raise AssertionError("spec: the pool is not empty at the end")
+    pool_invariant("spec", eng)
+    check_traces("spec", eng, ("ragged",))
+    if eng.graphs.captures != len(eng.graphs.programs):
+        raise AssertionError("spec: a key was captured twice")
+    row.update(keys=sorted(eng.graphs.programs, key=str),
+               preemptions=eng.metrics.counters["preemptions"],
+               launches=rp.launches)
+    return eng, tokens, row
+
+
+def spec_key_gate(label, serving, off, on, prompts, new_tokens, seqs, k,
+                  budget):
+    """Spec on's captures against spec off's (one capture per key is
+    checked by :func:`spec_run`): the warm pass captures nothing; every
+    key ``(ragged, Tb, TWb, sampled)`` is a point of the plain plan's
+    lattice (Tb and TWb powers of two, Tb at most the step's token
+    budget, TWb at most the bucket of the longest sequence's pages with
+    ``k`` drafted slots); and the keys spec off lacks are at most what
+    verify rows can add: a decode-only step of ``seqs`` rows holds up to
+    ``seqs`` tokens spec off and ``seqs * (k + 1)`` spec on, so the Tb
+    buckets between the two, at each table bucket spec on uses.  Returns
+    the keys spec off lacks."""
+    b = serving.bucket_size
+    widest = b(-(-(max(map(len, prompts)) + new_tokens + k) // 16))
+    for key in on["keys"]:
+        _, tb, twb, _ = key
+        if (key[0] != "ragged" or tb > budget or twb > widest
+                or b(tb) != tb or b(twb) != twb):
+            raise AssertionError(f"{label}: {key} is outside the unified "
+                                 f"lattice (Tb <= {budget}, TWb <= "
+                                 f"{widest})")
+    if on["captures"]:
+        raise AssertionError(f"{label}: the warm pass captured "
+                             f"{on['captures']} keys")
+    new_keys = sorted(set(map(tuple, on["keys"]))
+                      - set(map(tuple, off["keys"])), key=str)
+    verify_tbs = sum(1 for i in range(b(seqs).bit_length(),
+                                      b(seqs * (k + 1)).bit_length()))
+    bound = verify_tbs * len({key[2] for key in on["keys"]})
+    if len(new_keys) > bound:
+        raise AssertionError(f"{label}: {len(new_keys)} keys spec off "
+                             f"lacks, more than the {bound} verify rows "
+                             f"can add: {new_keys}")
+    on["extra_keys_bound"] = bound
+    return [list(key) for key in new_keys]
+
+
+def top2_gap(torch, model, ids):
+    """The gap between the two largest last-position logits of ``ids``
+    (the model's no-cache forward, fp32 logits)."""
+    with torch.no_grad():
+        logits = model(torch.tensor([ids], device="cuda"))[0, -1].float()
+    top = torch.topk(logits, 2).values
+    return float(top[0] - top[1]), int(logits.argmax())
+
+
+def spec_identity_phase(torch, rp, pd, serving, model):
+    """The identity model (Llama-3-8B widths, 4 layers, fp32, the simple
+    route): spec on token-identical to spec off, greedy and seeded
+    sampled, in strictly fewer steps (greedy), the ragged kernel launched
+    once per layer per step through the replays."""
+    rng = np.random.default_rng(11)
+    prompts = echo_prompts(torch, serving, model, rng, 8, 100, 600, 32,
+                           torch.float32)
+    rows, toks = {}, {}
+    for sampled in (False, True):
+        for spec in (False, True):
+            name = ("sampled" if sampled else "greedy") + \
+                ("_spec" if spec else "")
+            eng, toks[name], rows[name] = spec_run(
+                torch, rp, pd, serving, model, prompts, 32, sampled,
+                spec, torch.float32, 256, 8)
+            launch_rule(f"spec_identity {name}", rp, pd, [eng], "simple",
+                        "simple")
+            rows[name].pop("keys")
+            del eng
+    for mode in ("greedy", "sampled"):
+        if toks[mode] != toks[mode + "_spec"]:
+            raise AssertionError(f"spec_identity: spec on and off emitted "
+                                 f"different {mode} tokens (fp32)")
+        if not rows[mode + "_spec"]["drafted"] > 0:
+            raise AssertionError(f"spec_identity: nothing drafted ({mode})")
+    if not rows["greedy_spec"]["accepted"] > 0:
+        raise AssertionError("spec_identity: no greedy draft accepted")
+    if not rows["greedy_spec"]["steps"] < rows["greedy"]["steps"]:
+        raise AssertionError("spec_identity: spec on took no fewer steps")
+    emit("spec_identity", layers=model.config.num_hidden_layers,
+         dtype="float32", embedding_scale=chain_scale(model),
+         sampled_head_scale=SHARPEN, prompts=len(prompts),
+         prompt_lens=[len(p) for p in prompts], new_tokens_each=32,
+         identical=True, **rows)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return prompts
+
+
+def spec_phase(torch, rp, pd, serving, model):
+    """Llama-3-8B, full depth, bf16, unified, 512 tokens a step, k=4: spec
+    off and spec on over 16 R + S + O + S prompts of 256-2048 tokens, 128 new
+    tokens each, greedy and seeded sampled."""
+    layers = model.config.num_hidden_layers
+    rng = np.random.default_rng(12)
+    new_tokens = 128
+    prompts = echo_prompts(torch, serving, model, rng, 16, 256, 2048,
+                           new_tokens, torch.bfloat16)
+    rows, toks, divergences = {}, {}, {}
+    for sampled in (False, True):
+        mode = "sampled" if sampled else "greedy"
+        for spec in (False, True):
+            name = mode + ("_spec" if spec else "")
+            eng, toks[name], rows[name] = spec_run(
+                torch, rp, pd, serving, model, prompts, new_tokens, sampled,
+                spec, torch.bfloat16, 512, 16, warm=True)
+            launch_rule(f"spec {name}", rp, pd, [eng], "tma", "mma")
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        off, on = rows[mode], rows[mode + "_spec"]
+        # the step gate is the greedy run's; a sampled run's acceptance
+        # depends on how peaked the draws are, and is reported
+        if not sampled and not on["steps"] < off["steps"]:
+            raise AssertionError(f"spec {mode}: spec on took {on['steps']} "
+                                 f"steps, spec off {off['steps']}")
+        on["keys_spec_off_lacks"] = spec_key_gate(
+            f"spec {mode}", serving, off, on, prompts, new_tokens, seqs=16,
+            k=4, budget=512)
+        same = sum(a == b for ta, tb in zip(toks[mode], toks[mode + "_spec"])
+                   for a, b in zip(ta, tb))
+        gaps = []
+        for p, ta, tb in zip(prompts, toks[mode], toks[mode + "_spec"]):
+            j = next((i for i, (a, b) in enumerate(zip(ta, tb)) if a != b),
+                     None)
+            if j is not None:
+                with spec_model(model, sampled):
+                    gap, top = top2_gap(torch, model, p + ta[:j])
+                gaps.append({"position": j, "top2_gap": gap,
+                             "spec_off": ta[j], "spec_on": tb[j],
+                             "forward_argmax": top})
+        divergences[mode] = {"identical_tokens": same,
+                             "tokens": len(prompts) * new_tokens,
+                             "identical_share": same
+                             / (len(prompts) * new_tokens),
+                             "first_divergences": gaps}
+        for r in (off, on):
+            r["keys"] = [list(k) for k in r["keys"]]
+    emit("spec", model="llama3_8b", layers=layers, dtype="bfloat16",
+         embedding_scale=chain_scale(model), sampled_head_scale=SHARPEN,
+         prompts=len(prompts), prompt_tokens=sum(map(len, prompts)),
+         new_tokens_each=new_tokens, k=4, max_tokens_per_step=512,
+         bf16=divergences, **rows,
+         note="top2_gap: spec off's two largest logits at the first "
+              "divergence, from a no-cache forward of prompt + spec off's "
+              "tokens before it")
+    return prompts
+
+
+def timeline_means(lc, rids, new_tokens):
+    """Mean TTFT (submission to the first token) and mean ITL (first token
+    to finish over the tokens after it) over the timelines of ``rids``, as
+    a client sees them: a hand-off's gap counts in the ITL."""
+    ttft, itl = [], []
+    for rid in rids:
+        ev = lc.get(rid).to_dict()["events"]
+        first = next(e["t"] for e in ev if e["name"] == "first_token")
+        end = next(e["t"] for e in reversed(ev) if e["name"] == "finish")
+        ttft.append(first - ev[0]["t"])
+        itl.append((end - first) / (new_tokens - 1))
+    return {"mean_ttft_s": float(np.mean(ttft)),
+            "mean_itl_s": float(np.mean(itl))}
+
+
+def role_fleet(serving, model, num_blocks, dtype, seqs, budget):
+    roles = ["prefill", "decode"]
+
+    def make(i, registry):
+        return serving.EngineCore(model, config=serving.EngineConfig(
+            num_blocks=num_blocks, block_size=16, dtype=dtype,
+            unified_step=True, role=roles[i],
+            scheduler=serving.SchedulerConfig(max_num_seqs=seqs,
+                                              max_tokens_per_step=budget)),
+            registry=registry, metrics_labels={"replica": str(i)})
+
+    return serving.FleetRouter.build(
+        make, dp=2, config=serving.FleetConfig(roles=roles))
+
+
+def disagg_run(torch, rp, pd, serving, model, prompts, new_tokens, dtype,
+               seqs, budget, route):
+    """``prompts`` through a prefill and a decode replica, the kernels'
+    counters set to 0 just before.  Gates: one hand-off per request, each
+    served on the decode replica from the imported pages (its admission
+    found every handed-off block cached) by graphs it replayed, both pools'
+    invariant, one capture per key, and the launch rule over both
+    replicas on ``route``."""
+    need = sum(-(-(len(p) + new_tokens + 8) // 16) for p in prompts) + 1
+    fleet = role_fleet(serving, model, need + 16, dtype, seqs, budget)
+    reset_launches(rp, pd)
+    fleet.start()
+    try:
+        t0 = time.perf_counter()
+        hs = [fleet.submit_request(p, serving.SamplingParams(
+            max_new_tokens=new_tokens), request_id=f"d{i}")
+            for i, p in enumerate(prompts)]
+        fleet.wait(hs, timeout=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tokens = [h.output_tokens for h in hs]
+        snap = fleet.registry.snapshot()
+        handoffs = snap["serving_handoff_total"]["value"]
+        if handoffs != len(prompts) or any(h.replica.index != 1 for h in hs):
+            raise AssertionError(f"disagg: {handoffs} hand-offs for "
+                                 f"{len(prompts)} requests")
+        if any(h.finish_reason != "length" for h in hs):
+            raise AssertionError("disagg: a request did not finish")
+        events = {h.rid: e for h in hs for e in
+                  fleet.lifecycle.get(h.rid).to_dict()["events"]
+                  if e["name"] == "kv_handoff"}
+    finally:
+        fleet.shutdown(drain_timeout=60.0)
+    if any(r.thread.is_alive() for r in fleet.replicas):
+        raise AssertionError("disagg: a replica outlived the shutdown")
+    decode = fleet.replicas[1].engine
+    attribution = decode.cachestat.attribution()
+    cached = {row["id"]: row["cached_tokens"] for row in
+              attribution["active"] + attribution["recent"]}
+    # a failed import degrades to a re-prefill on the decode replica: its
+    # admission would find fewer cached tokens than the run carried
+    short = {rid: (cached.get(str(rid)), e["blocks"] * 16)
+             for rid, e in events.items()
+             if not e["blocks"] or cached.get(str(rid), 0) < e["blocks"] * 16}
+    if len(events) != len(prompts) or short:
+        raise AssertionError(f"disagg: {len(events)} hand-off events; "
+                             f"imports not served from the pages "
+                             f"(cached, carried): {short}")
+    if not decode.graphs.replays:
+        raise AssertionError("disagg: the decode replica replayed no graph")
+    for r in fleet.replicas:
+        pool_invariant(f"disagg replica {r.index}", r.engine)
+        check_pool_rows(f"disagg replica {r.index}", r.engine)
+        # one capture per key: a hand-off captured nothing under a key the
+        # replica had already seen
+        if r.engine.graphs.captures != len(r.engine.graphs.programs):
+            raise AssertionError("disagg: a key was captured twice")
+    row = {"seconds": wall,
+           "output_tokens_per_s": len(prompts) * new_tokens / wall,
+           "handoffs": handoffs,
+           "blocks_each": [e["blocks"] for e in events.values()],
+           "bytes_each": [e["bytes"] for e in events.values()],
+           "handoff_ms_each": [e["duration_ms"] for e in events.values()],
+           "decode_cached_tokens_each": [cached[str(rid)] for rid in events],
+           "captures": {r.index: r.engine.graphs.captures
+                        for r in fleet.replicas},
+           "replays": {r.index: r.engine.graphs.replays
+                       for r in fleet.replicas},
+           **launch_rule("disagg", rp, pd,
+                               [r.engine for r in fleet.replicas], route,
+                               "simple"),
+           **timeline_means(fleet.lifecycle, [h.rid for h in hs],
+                            new_tokens)}
+    return fleet, tokens, row
+
+
+def disagg_identity_phase(torch, rp, pd, serving, model, prompts):
+    """The identity model (fp32): the prefill/decode fleet gives one
+    unified engine's tokens, one hand-off per request."""
+    eng, unified_tokens, _ = spec_run(torch, rp, pd, serving, model, prompts,
+                                      32, False, False, torch.float32, 256,
+                                      8, chain=False)
+    del eng
+    fleet, tokens, row = disagg_run(torch, rp, pd, serving, model, prompts,
+                                    32, torch.float32, 8, 256, "simple")
+    if tokens != unified_tokens:
+        raise AssertionError("disagg_identity: the prefill/decode fleet "
+                             "emitted other tokens than one engine (fp32)")
+    emit("disagg_identity", layers=model.config.num_hidden_layers,
+         dtype="float32", prompts=len(prompts), identical=True, **row)
+    del fleet
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def handoff_parts(torch, serving, model, prompt):
+    """The parts of one hand-off of ``prompt``'s prefill, each timed alone
+    (synchronised): gather on the donor, the device-to-host copy, the
+    digest, the recipient's verification (digest again), the pool import
+    and the scatter into the recipient's pools."""
+    from paddle_tpu_torch.serving import handoff
+
+    blocks = -(-(len(prompt) + 16) // 16) + 4
+    donor, recipient = (spec_engine(serving, model, blocks, torch.bfloat16,
+                                    False, 512, 1) for _ in range(2))
+    req = donor.add_request(prompt, serving.SamplingParams(max_new_tokens=2))
+    while not req.output_tokens:
+        donor.step()
+    kv = donor.kv
+    hashes = [kv.block_chain_hash(b) for b in kv.table(req.request_id)]
+    records = kv.export_blocks([h for h in hashes if h is not None])
+    ms = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    pages = timed("gather", lambda: handoff.gather_pages(
+        donor, [r["block"] for r in records]))
+    payload = timed("device_to_host", lambda: handoff.pages_to_host(pages))
+    run = dict(handoff.pool_meta(donor), blocks=records, payload=payload,
+               tokens_total=len(records) * 16)
+    run["digest"] = timed("digest", lambda: handoff.payload_digest(payload))
+    meta = handoff.check_header(recipient, run)
+    timed("verify", lambda: handoff.check_payload(run, meta))
+    placed = timed("import", lambda: recipient.kv.import_blocks(records))
+    timed("scatter", lambda: handoff.scatter_pages(
+        recipient, [placed[r["hash"]] for r in records], payload))
+    dst = [placed[r["hash"]] for r in records]
+    for a, b in zip(donor._k_pools + donor._v_pools,
+                    recipient._k_pools + recipient._v_pools):
+        if not torch.equal(a[[r["block"] for r in records]], b[dst]):
+            raise AssertionError("disagg: the scattered pages differ")
+    return {"prompt_tokens": len(prompt), "blocks": len(records),
+            "bytes": int(payload.nbytes), "ms": ms,
+            "total_ms": sum(ms.values())}
+
+
+def disagg_phase(torch, rp, pd, serving, model, prompts):
+    """Llama-3-8B, full depth, bf16: a prefill and a decode replica on one
+    card, both on the unified step, sharing one model module; the spec
+    phase's prompts, greedy, no spec.  Against one unified engine (dp=1)
+    on the same prompts: tokens, TTFT and ITL.  Then one 2048-token
+    hand-off taken apart and timed."""
+    eng, unified_tokens, unified = spec_run(
+        torch, rp, pd, serving, model, prompts, 128, False, False,
+        torch.bfloat16, 512, 16, chain=False)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    fleet, tokens, row = disagg_run(torch, rp, pd, serving, model, prompts,
+                                    128, torch.bfloat16, 16, 512, "tma")
+    same = sum(a == b for ta, tb in zip(tokens, unified_tokens)
+               for a, b in zip(ta, tb))
+    del fleet
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(13)
+    parts = handoff_parts(torch, serving, model, rng.integers(
+        0, model.config.vocab_size, 2048).tolist())
+    emit("disagg", model="llama3_8b", layers=model.config.num_hidden_layers,
+         dtype="bfloat16", prompts=len(prompts), new_tokens_each=128,
+         identical_tokens=same, tokens=len(prompts) * 128, **row,
+         dp1_unified={k: unified[k] for k in (
+             "timeline_mean_ttft_s", "timeline_mean_itl_s",
+             "output_tokens_per_s")},
+         handoff_2048=parts,
+         note="TTFT and ITL are means over the request timelines (ITL: "
+              "first token to finish, the hand-off's gap included); "
+              "handoff_ms_each spans export + detach + resubmit on the "
+              "donor's thread, the import runs on the decode replica's")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def http_call(port, method, path, body=None, stream=False):
+    """One loopback request: (status, headers, body bytes) or, streamed,
+    (status, headers, tokens, saw [DONE])."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        payload = None if body is None else json.dumps(
+            dict(body, stream=True) if stream else body)
+        conn.request(method, path, payload,
+                     {"Content-Type": "application/json"} if payload else {})
+        resp = conn.getresponse()
+        headers = {k.lower(): v for k, v in resp.getheaders()}
+        data = resp.read()
+    finally:
+        conn.close()
+    if not stream:
+        return resp.status, headers, data
+    tokens, done = [], False
+    for line in data.split(b"\n"):
+        if line == b"data: [DONE]":
+            done = True
+        elif line.startswith(b"data: "):
+            tokens += json.loads(line[6:])["choices"][0]["token_ids"]
+    return resp.status, headers, tokens, done
+
+
+class ServerThread:
+    """A CompletionServer (over a fleet with the supervisor on, as the
+    CLI runs it) on an asyncio loop in a thread of its own."""
+
+    def __init__(self, serving, fleet):
+        import asyncio
+        import threading
+
+        from paddle_tpu_torch.serving.server import (CompletionServer,
+                                                     ServerConfig)
+
+        self.asyncio = asyncio
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.fleet = fleet
+        self.supervisor = serving.FleetSupervisor(
+            fleet, config=serving.SupervisorConfig(max_restarts=5))
+        self.server = CompletionServer(fleet, ServerConfig(
+            max_queue=fleet.cfg.max_queue, drain_timeout_s=300.0))
+        self.call(self.server.start())
+        self.supervisor.start()
+        self.port = self.server.port
+
+    def call(self, coro, timeout=600):
+        return self.asyncio.run_coroutine_threadsafe(coro, self.loop).result(
+            timeout)
+
+    def close(self):
+        try:
+            if not self.server._draining:
+                self.call(self.server.shutdown())
+        finally:
+            self.loop.call_soon_threadsafe(self.loop.stop)
+            self.thread.join(60)
+            self.loop.close()
+        if self.thread.is_alive() or any(r.thread.is_alive()
+                                         for r in self.fleet.replicas):
+            raise AssertionError("server: a thread outlived the shutdown")
+
+
+def fleet_of(serving, model, dp, num_blocks, dtype, unified, burst):
+    def make(i, registry):
+        return serving.EngineCore(model, config=serving.EngineConfig(
+            num_blocks=num_blocks, block_size=16, dtype=dtype,
+            unified_step=unified, burst_steps=burst,
+            scheduler=serving.SchedulerConfig(
+                max_num_seqs=16,
+                max_tokens_per_step=512 if unified else None)),
+            registry=registry, metrics_labels={"replica": str(i)})
+
+    return serving.FleetRouter.build(make, dp=dp,
+                                     config=serving.FleetConfig(max_queue=64))
+
+
+def server_identity_phase(torch, rp, pd, serving, model, prompts):
+    """The identity model (fp32): completions through the server over a
+    dp=1 unified fleet, plain and streamed, equal LLM.generate on the same
+    engine config; the launch rule on the simple route."""
+    need = sum(-(-(len(p) + 40) // 16) for p in prompts) + 1
+    llm = serving.LLM(model, config=serving.EngineConfig(
+        num_blocks=need + 16, block_size=16, dtype=torch.float32,
+        unified_step=True, scheduler=serving.SchedulerConfig(
+            max_num_seqs=16, max_tokens_per_step=512)))
+    want = [o.token_ids for o in llm.generate(
+        prompts, serving.SamplingParams(max_new_tokens=24))]
+    del llm
+    srv = ServerThread(serving, fleet_of(serving, model, 1, need + 16,
+                                         torch.float32, True, 0))
+    reset_launches(rp, pd)
+    try:
+        got = []
+        for i, p in enumerate(prompts):
+            body = {"prompt": p, "max_tokens": 24}
+            if i % 2:
+                status, _, toks, done = http_call(
+                    srv.port, "POST", "/v1/completions", body, stream=True)
+                if not done:
+                    raise AssertionError("server_identity: SSE without "
+                                         "[DONE]")
+            else:
+                status, _, data = http_call(srv.port, "POST",
+                                            "/v1/completions", body)
+                toks = json.loads(data)["choices"][0]["token_ids"]
+            if status != 200:
+                raise AssertionError(f"server_identity: status {status}")
+            got.append(toks)
+    finally:
+        srv.close()
+    if got != want:
+        raise AssertionError("server_identity: the server's completions "
+                             "differ from LLM.generate (fp32)")
+    counts = launch_rule("server_identity", rp, pd,
+                               [r.engine for r in srv.fleet.replicas],
+                               "simple", "simple")
+    emit("server_identity", layers=model.config.num_hidden_layers,
+         dtype="float32", completions=len(prompts), identical=True,
+         **counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def server_round(srv, bodies, new_tokens, drain):
+    """``bodies`` (``(body, streamed)``) posted concurrently to ``srv``;
+    with ``drain``, a drain begins once all are in flight (after reading
+    ``/readyz``, ``/metrics`` and ``/v1/debug/compiles``).  Returns the
+    round's numbers, its request ids and what the routes answered."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    seen = {}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(bodies)) as pool:
+        futs = [pool.submit(http_call, srv.port, "POST", "/v1/completions",
+                            b, stream=s) for b, s in bodies]
+        if drain:
+            deadline = time.monotonic() + 120
+            while (len(srv.server._handles) < len(bodies)
+                   and time.monotonic() < deadline):
+                time.sleep(0.01)
+            seen["in_flight_at_drain"] = len(srv.server._handles)
+            for route in ("/readyz", "/metrics", "/v1/debug/compiles"):
+                seen[route] = http_call(srv.port, "GET", route)
+            stop = srv.asyncio.run_coroutine_threadsafe(
+                srv.server.shutdown(), srv.loop)
+        results = [f.result(timeout=600) for f in futs]
+        if drain:
+            stop.result(timeout=600)
+    wall = time.perf_counter() - t0
+    rids, out_tokens = [], 0
+    for (body, s), res in zip(bodies, results):
+        if res[0] != 200:
+            raise AssertionError(f"server: status {res[0]}")
+        if s:
+            toks, done = res[2], res[3]
+            if not done:
+                raise AssertionError("server: SSE without [DONE]")
+        else:
+            toks = json.loads(res[2])["choices"][0]["token_ids"]
+        if len(toks) != new_tokens:
+            raise AssertionError(f"server: a completion was cut "
+                                 f"({len(toks)} tokens)")
+        rids.append(res[1]["x-request-id"])
+        out_tokens += len(toks)
+    return {"seconds": wall, "output_tokens_per_s": out_tokens / wall,
+            **timeline_means(srv.fleet.lifecycle, rids, new_tokens)}, \
+        rids, seen
+
+
+def server_phase(torch, rp, pd, serving, model, prompts, serve_warm):
+    """Llama-3-8B, full depth, bf16: the CompletionServer on loopback over
+    a dp=1 unified fleet and over a dp=2 legacy fleet with bursts of 8
+    (the two replicas share the one model module), the supervisor on.
+    Two rounds of 24 concurrent completions: 8 streamed and 8 plain over
+    the serve phase's prompt lengths, and 8 sharing a 256-token prefix;
+    the first round takes the captures, the second (fresh prompts of the
+    same lengths) is measured, and a drain begins while all its
+    completions are in flight and must finish every one."""
+    vocab = model.config.vocab_size
+    rng = np.random.default_rng(14)
+    new_tokens = 64
+
+    def round_bodies():
+        batch = same_lengths(rng, prompts, vocab)
+        prefix = rng.integers(0, vocab, 256).tolist()
+        shared = [prefix + rng.integers(0, vocab, int(rng.integers(
+            16, 257))).tolist() for _ in range(8)]
+        return [({"prompt": p, "max_tokens": new_tokens}, i % 2 == 0)
+                for i, p in enumerate(batch)] + [
+            ({"prompt": p, "max_tokens": new_tokens}, False) for p in shared]
+
+    rounds = [round_bodies(), round_bodies()]
+    need = max(sum(-(-(len(b["prompt"]) + new_tokens) // 16)
+                   for b, _ in bodies) for bodies in rounds) + 1
+    rows = {}
+    for name, dp, unified, burst in (("dp1_unified", 1, True, 0),
+                                     ("dp2_legacy_burst8", 2, False, 8)):
+        fleet = fleet_of(serving, model, dp, need + 16, torch.bfloat16,
+                         unified, burst)
+        srv = ServerThread(serving, fleet)
+        reset_launches(rp, pd)
+        try:
+            cold, _, _ = server_round(srv, rounds[0], new_tokens, False)
+            row, rids, seen = server_round(srv, rounds[1], new_tokens, True)
+            lc = fleet.lifecycle
+            replicas = [lc.get(r).summary()["replica"] for r in rids]
+            if len(set(replicas[16:])) != 1:
+                raise AssertionError(f"server {name}: the prefix-sharing "
+                                     f"requests split over {replicas[16:]}")
+            tl = lc.get(rids[0]).to_dict()
+            if not tl["events"] or tl["summary"]["generated_tokens"] \
+                    != new_tokens:
+                raise AssertionError(f"server {name}: no timeline")
+            status, _, ready = seen["/readyz"]
+            page = seen["/metrics"][2]
+            want = [b"serving_fleet_replicas", b"serving_fleet_in_flight",
+                    b'serving_fleet_replica_alive{replica="0"}',
+                    b"serving_handoff_total", b"serving_handoff_seconds",
+                    b'serving_engine_steps_total{replica="0"}',
+                    b"serving_replica_restarts_total"]
+            missing = [w.decode() for w in want if w not in page]
+            captures = json.loads(seen["/v1/debug/compiles"][2])["data"]
+            if status != 200 or missing or not captures:
+                raise AssertionError(f"server {name}: /readyz {status}, "
+                                     f"/metrics missing {missing}, "
+                                     f"{len(captures)} captures listed")
+            # each replica captured its own graphs from its own engine
+            # thread (at its own moments) and both completed
+            by_replica = {str(r.index): r.engine.graphs.captures
+                          for r in fleet.replicas}
+            if not all(by_replica.values()):
+                raise AssertionError(f"server {name}: a replica captured "
+                                     f"nothing: {by_replica}")
+            rows[name] = dict(
+                row, cold=cold, captures_by_replica=by_replica,
+                in_flight_at_drain=seen["in_flight_at_drain"],
+                readyz=ready.decode().strip(),
+                prefix_replica=replicas[16], captures_listed=len(captures),
+                replica_of_each=replicas)
+        finally:
+            srv.close()
+        # both rounds: the ragged kernel (tma) on the unified replica, the
+        # decode kernel (mma) per decode step and burst iteration on the
+        # legacy ones (a supervisor restart would have replaced an engine
+        # and its step counts with it, and fails the rule)
+        rows[name].update(launch_rule(
+            f"server {name}", rp, pd, [r.engine for r in fleet.replicas],
+            "tma", "mma"))
+        del fleet, srv
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit("server", model="llama3_8b", layers=model.config.num_hidden_layers,
+         dtype="bfloat16", completions=len(rounds[1]), streamed=8,
+         new_tokens_each=new_tokens, **rows,
+         serve_warm_in_process={k: serve_warm[k] for k in (
+             "output_tokens_per_s", "mean_ttft_s", "mean_itl_s")},
+         note="the measured round's numbers (the first round, 'cold', "
+              "takes the captures); TTFT and ITL are means over the "
+              "server's request timelines; every completion was in flight "
+              "when the drain began and finished with all its tokens")
+
+
 def main() -> int:
     try:
         import torch
@@ -2631,10 +3594,15 @@ def main() -> int:
     identity_telemetry_phase(torch, rp, pd, serving, obs, model, prompts,
                              LlamaForCausalLM)
     audit_fault_phase(torch, rp, pd, serving, obs, model)
+    # the fp32 identity gates of speculative decoding, the prefill/decode
+    # fleet and the server, on the identity model
+    spec_prompts = spec_identity_phase(torch, rp, pd, serving, model)
+    disagg_identity_phase(torch, rp, pd, serving, model, spec_prompts)
+    server_identity_phase(torch, rp, pd, serving, model, spec_prompts)
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    launches, llm, prompts, warm, new_tokens = serve_phase(
+    launches, llm, prompts, warm, new_tokens, serve_warm = serve_phase(
         torch, rp, serving, graphs, LlamaConfig, LlamaForCausalLM)
     model = llm.engine.model
     vocab = model.config.vocab_size
@@ -2649,7 +3617,13 @@ def main() -> int:
         profile_phase(torch, serving, graphs, llms[name], vocab,
                       window_name=name,
                       label="decode", marks=DECODE_MARKS, new_tokens=32)
-    del llms, model
+    del llms
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec_prompts = spec_phase(torch, rp, pd, serving, model)
+    disagg_phase(torch, rp, pd, serving, model, spec_prompts)
+    server_phase(torch, rp, pd, serving, model, prompts, serve_warm)
+    del model
     gc.collect()
     torch.cuda.empty_cache()
 

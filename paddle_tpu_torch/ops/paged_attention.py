@@ -20,8 +20,9 @@ allocation.
 * :func:`paged_prefill_attention` — chunked-prefill attention over the
   pools, plain PyTorch on every device (XLA code in the JAX package).
 
-The block-transfer methods of the JAX ``BlockPool`` come with the KV
-hand-off (ROADMAP A9).
+The block-transfer methods (:meth:`BlockPool.export_blocks`,
+:meth:`~BlockPool.export_chain`, :meth:`~BlockPool.import_blocks`) carry the
+chain-hash records of a KV hand-off (``serving/handoff.py``).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from __future__ import annotations
 import hashlib
 import math
 from collections import OrderedDict
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -123,6 +124,10 @@ class BlockPool:
         self._park_step: dict = {}    # block -> clock at park (≤ num_blocks)
         self._block_parent: dict = {}  # block -> parent chain hash
                                        # (≤ num_blocks), for chain_lead
+        # block -> the tokens its chain hash committed to (≤ num_blocks):
+        # what export_blocks ships so a recipient pool re-verifies the
+        # chain from the root before admitting foreign KV
+        self._block_tokens: dict = {}
 
     @property
     def num_free(self) -> int:
@@ -165,6 +170,7 @@ class BlockPool:
     def _drop_hash(self, b: int) -> None:
         h = self._block_hash.pop(b, None)
         self._block_depth.pop(b, None)
+        self._block_tokens.pop(b, None)
         self._block_parent.pop(b, None)
         if h is not None and self._hash_index.get(h) == b:
             del self._hash_index[h]
@@ -308,6 +314,8 @@ class BlockPool:
                 continue
             self._block_hash[b] = h
             self._block_depth[b] = i + 1  # chain depth in blocks
+            self._block_tokens[b] = tuple(
+                int(t) for t in token_ids[i * bs:(i + 1) * bs])
             self._block_parent[b] = parent
             self._hash_index[h] = b
             added += 1
@@ -345,6 +353,97 @@ class BlockPool:
         """Chain depth (in blocks) ``block`` was registered at; 0 when
         unhashed."""
         return self._block_depth.get(block, 0)
+
+    # --- block transfer -----------------------------------------------------
+    def export_blocks(self, hashes) -> Optional[List[dict]]:
+        """The pool-side records of the chain addressed by ``hashes``
+        (leading chain digests, root-first, as :func:`prefix_chain_hashes`
+        gives them): one ``{"hash", "depth", "tokens", "block"}`` per
+        block, or ``None`` when any hash is unindexed (nothing to
+        transfer).  Pure read: the caller gathers the pages at the
+        returned ``block`` indices while the donor keeps serving."""
+        records: List[dict] = []
+        for h in hashes:
+            b = self._hash_index.get(h)
+            if b is None:
+                return None
+            tokens = self._block_tokens.get(b)
+            if tokens is None:
+                return None
+            records.append({"hash": h, "depth": self._block_depth.get(b, 0),
+                            "tokens": tokens, "block": b})
+        return records
+
+    def export_chain(self, chain_hash: bytes) -> Optional[List[dict]]:
+        """:meth:`export_blocks` addressed by the DEEPEST chain digest
+        alone (the prefix-heat table's key): the full leading chain,
+        root-first, or ``None`` when it is broken (an ancestor was
+        evicted)."""
+        out: List[dict] = []
+        h = chain_hash
+        while h != _HASH_ROOT:
+            b = self._hash_index.get(h)
+            if b is None:
+                return None
+            tokens = self._block_tokens.get(b)
+            parent = self._block_parent.get(b)
+            if tokens is None or parent is None:
+                return None
+            out.append({"hash": h, "depth": self._block_depth.get(b, 0),
+                        "tokens": tokens, "block": b})
+            h = parent
+        out.reverse()
+        return out
+
+    def import_blocks(self, records) -> Optional[Dict[bytes, int]]:
+        """Admit a foreign block run (the :meth:`export_blocks` record
+        shape, root-first) into this pool's prefix cache.  The chain is
+        re-verified from the root over the shipped tokens before anything
+        mutates: a digest mismatch raises ``ValueError`` and the pool is
+        untouched.  All or nothing: ``None`` (no mutation) when the fresh
+        blocks outnumber :attr:`num_available`; otherwise every fresh
+        block is taken, registered and parked in the reuse LRU (refcount
+        0, revivable by :meth:`fork_prefix` like a prefix computed here),
+        and the ``{hash: block}`` placement map is returned for the
+        caller to scatter the pages into.  Hashes already indexed are
+        skipped.  Blocks move free -> reuse only, so
+        ``free + reuse + allocated == num_blocks`` holds throughout."""
+        if not self.prefix_cache_enabled:
+            raise ValueError("import_blocks needs the prefix cache enabled")
+        h = _HASH_ROOT
+        parent_of: Dict[bytes, bytes] = {}
+        for i, rec in enumerate(records):
+            tokens = tuple(int(t) for t in rec["tokens"])
+            if len(tokens) != self.block_size:
+                raise ValueError(
+                    f"imported block {i} carries {len(tokens)} tokens; "
+                    f"this pool's block_size is {self.block_size}")
+            parent = h
+            h = _hash_block(h, tokens)
+            if h != rec["hash"]:
+                raise ValueError(
+                    f"imported block {i} (depth {i + 1}) fails chain-hash "
+                    "verification: content does not match its digest")
+            parent_of[h] = parent
+        fresh = [rec for rec in records
+                 if rec["hash"] not in self._hash_index]
+        if len(fresh) > self.num_available:
+            return None
+        placed: Dict[bytes, int] = {}
+        taken = [self._take_block("kv_import") for _ in fresh]
+        for b, rec in zip(taken, fresh):
+            hh = rec["hash"]
+            self._block_hash[b] = hh
+            self._block_depth[b] = int(rec["depth"])
+            self._block_tokens[b] = tuple(int(t) for t in rec["tokens"])
+            self._block_parent[b] = parent_of[hh]
+            self._hash_index[hh] = b
+            self._reuse[b] = hh
+            self._park_step[b] = self.clock
+            placed[hh] = b
+        if placed:
+            self.cache_epoch += 1
+        return placed
 
 
 #: Dimension names of a ``[num_blocks, block_size, Hkv, D]`` KV pool under

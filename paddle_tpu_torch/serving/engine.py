@@ -56,11 +56,23 @@ the kernels' plain twins) and, once :meth:`EngineCore.set_history` binds
 one, a metrics history ticked every step.  They use host-side numbers the
 step already has; the auditor alone reads the step's logit stats (and,
 on sampled steps, its logits) back from the device, so only with it on do
-the graphs keep those as outputs.  Speculative decoding, disaggregation
-and AOT artifacts (ROADMAP A9), tensor-parallel serving (A11) and the
-per-op dispatch timer (A12) belong to later slices of the port: the
-:class:`EngineConfig` fields that ask for them raise
-``NotImplementedError`` naming the ROADMAP item.
+the graphs keep those as outputs.
+
+**Speculative decoding** (``EngineConfig(spec=SpecConfig(...))``, with
+``unified_step=True`` and a ``max_tokens_per_step`` budget): the n-gram
+proposer of ``serving/spec.py`` upgrades decode rows to verify rows
+``[last_token, d1..dk]`` packed as short chunks into the same unified
+step and bucket lattice; the longest prefix of drafts that matches the
+per-token targets the step samples is accepted, and the rejected tail's
+slots roll back (``kv.commit`` / ``kv.truncate``).  **Disaggregation**:
+``EngineConfig.role`` is the replica's routing role in a fleet
+(``serving/fleet.py``); :meth:`EngineCore.export_kv_run` /
+:meth:`EngineCore.import_kv_run` move a request's computed prompt KV
+between engines (``serving/handoff.py``), writing the pools in place, so
+the captured graphs read the imported pages.  AOT artifacts (ROADMAP A9
+rest), tensor-parallel serving (A11) and the per-op dispatch timer (A12)
+belong to later slices of the port: the :class:`EngineConfig` fields that
+ask for them raise ``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -94,6 +106,7 @@ from .scheduler import (
     SchedulerConfig,
     bucket_size,
 )
+from .spec import SpecDecoder
 
 # per-step cap on individual prefix_cache_eviction lifecycle events: the
 # counters and histograms stay exact per eviction, but a pool-thrash step
@@ -143,10 +156,16 @@ class EngineConfig:
     unified_step: bool = False
     aot_path: Optional[str] = None
     aot: Optional[object] = None
+    # speculative decoding (a serving.spec.SpecConfig; None = off):
+    # needs unified_step=True and SchedulerConfig.max_tokens_per_step
     spec: Optional[object] = None
     # decode bursts: up to this many decode steps per host round trip for
     # a decode-only resident cohort; 0/1 = off
     burst_steps: int = 0
+    # the replica's role in a role-aware fleet: "prefill" specialists
+    # admit and prefill, "decode" specialists take requests handed off at
+    # their first token, "unified" replicas do both.  Routing policy only:
+    # every engine runs the whole pipeline
     role: str = "unified"
 
 
@@ -160,11 +179,8 @@ def check_supported(config: EngineConfig) -> None:
     todo = (
         (config.profile_ops, "profile_ops=True",
          "the per-op dispatch timer (it rides the run_op op bus)", "A12"),
-        (config.spec is not None, "spec", "speculative decoding", "A9"),
         (config.aot is not None or bool(config.aot_path), "aot/aot_path",
-         "AOT serving artifacts", "A9"),
-        (config.role != "unified", f"role={config.role!r}",
-         "prefill/decode disaggregation", "A9"),
+         "AOT serving artifacts", "A9 rest"),
         (config.mp not in (None, 1), f"mp={config.mp}",
          "tensor-parallel serving", "A11"),
     )
@@ -299,6 +315,27 @@ class EngineCore:
         # mid-burst never change it; the kernel reads only live pages
         self._burst_steps = max(0, int(config.burst_steps or 0))
         self._burst_width = bucket_size(max(1, num_blocks - 1))
+        # the fault injector a fleet binds (set_fault_injector); None = off
+        self._fault = None
+        # speculative decoding: the host-side proposer and verify-row
+        # bookkeeping; drafts pack into the unified step as short chunks,
+        # so spec on and off share one step family and bucket lattice
+        self.spec = None
+        if config.spec is not None and config.spec.enabled:
+            if not self._unified:
+                raise ValueError(
+                    "EngineConfig.spec requires unified_step=True: draft "
+                    "verification packs into the unified ragged step "
+                    "(there is no legacy-family verify path)")
+            if self.scheduler.config.max_tokens_per_step is None:
+                raise ValueError(
+                    "EngineConfig.spec requires "
+                    "SchedulerConfig.max_tokens_per_step: draft tokens "
+                    "compete for the step's leftover token budget — an "
+                    "unbounded budget would unbound the packed bucket")
+            self.spec = SpecDecoder(config.spec,
+                                    registry=self.metrics.registry,
+                                    labels=metrics_labels)
         model.eval()
 
     # --- the step families (run on the device) -------------------------------
@@ -514,6 +551,13 @@ class EngineCore:
         if self.engine_config.history:
             self.history = history
 
+    def set_fault_injector(self, injector) -> None:
+        """Bind a :class:`~paddle_tpu_torch.serving.faultinject.FaultInjector`,
+        consulted at the named injection points inside :meth:`step`.  The
+        fleet router owns the instance, so its exactly-once schedule
+        survives supervisor rebuilds."""
+        self._fault = injector
+
     def hot_prefixes(self, top_k=None):
         """Heat-table-hot cached prefixes with full chain digests (see
         :meth:`CacheStatTracker.hot_prefixes`).  Engine-thread callers
@@ -524,11 +568,17 @@ class EngineCore:
                     request_id=None, priority: int = 0,
                     trace_id: Optional[str] = None,
                     prefix_hashes: Optional[List[bytes]] = None,
-                    slo_ms: Optional[float] = None) -> Request:
+                    slo_ms: Optional[float] = None,
+                    resume_tokens: Optional[List[int]] = None) -> Request:
         """Enqueue a request (admission happens inside ``step``).
         ``prefix_hashes`` carries leading-block chain hashes already
         computed over this prompt at this engine's block size
-        (``ops.paged_attention.prefix_chain_hashes``)."""
+        (``ops.paged_attention.prefix_chain_hashes``).  ``resume_tokens``
+        seeds already-emitted output tokens of a request migrating in
+        mid-stream (the prefill -> decode hand-off): the prefill target
+        becomes prompt + outputs and the recompute discipline continues
+        the stream from the next position; with the donor's KV imported
+        first, that prefill is a prefix-cache hit."""
         req = Request(prompt_ids=list(np.asarray(prompt_ids).reshape(-1)),
                       sampling=sampling or SamplingParams(),
                       request_id=request_id, priority=priority,
@@ -536,6 +586,8 @@ class EngineCore:
                       slo_ms=slo_ms)
         if req.request_id in self.requests:
             raise ValueError(f"request id {req.request_id!r} already exists")
+        if resume_tokens:
+            req.output_tokens.extend(int(t) for t in resume_tokens)
         req.arrival_time = time.perf_counter()
         self.requests[req.request_id] = req
         self.scheduler.add(req)
@@ -759,6 +811,11 @@ class EngineCore:
         stats = out[2][:rows].cpu().numpy()
         logits = (out[1][:rows].cpu().numpy()
                   if self.audit.sampled or stats[:, 0].any() else None)
+        if (self._fault is not None and self.audit.sampled
+                and logits is not None):
+            # kernel_corrupt: a corrupted COPY reaches the auditor only;
+            # the tokens were sampled on the device from the real logits
+            logits = self._fault.corrupt_logits(self.step_seq, logits)
         self.audit.observe_program(
             program, stats, bucket, logits=logits, inputs=inputs,
             pre_pools=pre_pools,
@@ -934,17 +991,34 @@ class EngineCore:
         return result
 
     def _unified_exec(self, prefills: List[Request],
-                      decodes: List[Request]) -> Dict[object, int]:
+                      decodes: List[Request],
+                      draft_budget: int = 0) -> Dict[object, int]:
         """Pack this step's whole plan — decode rows + prefill chunks —
         into ONE ragged step.  The token dim buckets on the TOTAL scheduled
         token count and the row/table arrays are padded to the same bucket,
-        so the shapes come from (token-bucket × table-bucket) pairs."""
+        so the shapes come from (token-bucket × table-bucket) pairs.
+
+        With speculative decoding on, decode rows may become ``verify``
+        rows: the proposer's k drafts ride as a short chunk
+        ``[last_token, d1..dk]`` at positions ``p..p+k``, inside the
+        step's leftover ``draft_budget``.  The step samples a target at
+        every position; the longest ``d_{j+1} == T_j`` prefix is accepted,
+        ``T_0..T_a`` are emitted (a+1 tokens in one step) and the KV tail
+        past the last consumed position rolls back (``kv.truncate``)."""
         rows: List[Dict] = []
         t0 = time.perf_counter()
         for r in decodes:
             p = self.kv.seq_len(r.request_id)
             rows.append({"req": r, "kind": "decode", "start": p, "n": 1,
                          "tokens": [r.last_token], "slot": r._slot})
+        if self.spec is not None and draft_budget > 0:
+            # upgrade decode rows to verify rows in place (proposer +
+            # all-or-nothing draft-slot allocation; a row whose slots
+            # cannot be covered stays a plain decode row)
+            drafts = self.spec.plan_drafts(self.kv, rows, draft_budget)
+            # the scheduler planned one token per decode row; the drafts
+            # packed on top are decode work too
+            self.scheduler.tokens_planned_decode += drafts
         for req in prefills:
             ids_full, target, start, n, recompute = \
                 self._begin_prefill_chunk(req, t0)
@@ -986,11 +1060,19 @@ class EngineCore:
             if row["kind"] == "decode":
                 slot_blocks[cursor], slot_offsets[cursor] = row["slot"]
             else:
+                # chunk and verify rows: every position scatters into its
+                # own table-derived slot (plan_drafts allocated a verify
+                # row's draft slots)
                 slot_blocks[cursor:cursor + n] = [
                     table[x // self.block_size] for x in pp]
                 slot_offsets[cursor:cursor + n] = pp % self.block_size
-            # only a row's last position is ever read
-            pack.set_request(cursor + n - 1, req)
+            if row["kind"] == "verify":
+                # each position draws at its own output position
+                for j in range(n):
+                    pack.set_request(cursor + j, req, offset=j)
+            else:
+                # only a row's last position is ever read
+                pack.set_request(cursor + n - 1, req)
             cursor += n
             last_idx[i] = cursor - 1
         self.ragged_buckets.add(("ragged", Tb, TWb))
@@ -1031,6 +1113,38 @@ class EngineCore:
                 self._emit_device(req, tok)
                 emitted[rid] = tok
                 continue
+            if row["kind"] == "verify":
+                # position j's target T_j is the token the plain decode
+                # path would sample at that output position (same logits
+                # prefix, same (seed, draw) key), so exact-match
+                # acceptance keeps spec on token-identical to spec off
+                drafts = row["drafts"]
+                accepted = 0
+                for j, d in enumerate(drafts):
+                    if int(toks[c0 + j]) != int(d):
+                        break
+                    accepted += 1
+                emitted_n = 0
+                for j in range(accepted + 1):
+                    tok = int(toks[c0 + j])
+                    self._emit_device(req, tok)
+                    emitted[rid] = tok
+                    emitted_n += 1
+                    if req.finished:
+                        break   # later targets are tokens the plain
+                        # path would never have drawn
+                # the emitted tokens' consumed inputs (last_token + the
+                # accepted drafts) hold valid KV; the newest token's KV is
+                # written by the step that consumes it
+                self.kv.commit(rid, emitted_n)
+                if not req.finished:
+                    # roll the rejected draft tail back: its fresh blocks
+                    # return to the free list
+                    self.kv.truncate(rid, row["start"] + emitted_n)
+                self.spec.record(len(drafts), accepted)
+                self._lc(rid, "spec_verify", drafted=len(drafts),
+                         accepted=accepted, emitted=emitted_n)
+                continue
             before = len(req.output_tokens)
             self._finish_prefill_chunk(req, row["ids_full"], row["target"],
                                        row["start"], n, row["recompute"], t0,
@@ -1047,9 +1161,23 @@ class EngineCore:
         self.kv.clock = self.step_seq  # park lifetimes tick in steps
         self.stepprof.begin_step()
         self.audit.begin_step()
+        fi = self._fault
         try:
+            if fi is not None:
+                # the named injection points: slow_step sleeps here
+                # (inside the replica's watched section), engine_step_raise
+                # raises (the engine thread dies through the real death
+                # path), pool_exhaust arms one planning pass of refusal
+                fi.begin_step(self.step_seq)
             with self.tracer.span("engine_step", cat="serving") as sp:
-                plan = self.scheduler.schedule()
+                if fi is not None and fi.pool_exhausted:
+                    self.kv.refuse_allocations = True
+                try:
+                    plan = self.scheduler.schedule()
+                finally:
+                    # refusal applies to planning only: the launches below
+                    # still allocate what the (starved) plan holds
+                    self.kv.refuse_allocations = False
                 self.metrics.count("engine_steps")
                 self.metrics.count("preemptions", len(plan.preempted))
                 for req in plan.preempted:
@@ -1077,14 +1205,16 @@ class EngineCore:
                 # boundaries)
                 burst_n = 0
                 if self._burst_steps >= 2 and burst_eligible(
-                        self.scheduler, plan, decodes, None):
+                        self.scheduler, plan, decodes, self.spec):
                     burst_n = clamp_burst(self._burst_steps, decodes,
                                           plan.burst_capacity)
                 if burst_n >= 2:
                     emitted = self._burst_exec(decodes, burst_n)
                 elif self._unified:
                     if plan.prefills or decodes:
-                        emitted = self._unified_exec(plan.prefills, decodes)
+                        # draft tokens compete for the leftover budget
+                        emitted = self._unified_exec(plan.prefills, decodes,
+                                                     plan.draft_budget)
                 else:
                     for req in plan.prefills:
                         before = len(req.output_tokens)
@@ -1186,3 +1316,45 @@ class EngineCore:
                     self.abort_request(req.request_id)
 
         return _gen()
+
+    # --- KV hand-off ----------------------------------------------------------
+    def export_kv_run(self, request_id):
+        """Serialize ``request_id``'s computed prompt KV (its hashed
+        leading blocks) as a hand-off run; ``None`` when nothing is
+        transferable.  Pure read: the request keeps running here until
+        :meth:`detach_request`."""
+        from . import handoff
+
+        return handoff.export_request_run(self, request_id)
+
+    def export_prefix_chain(self, chain_hash, max_blocks=None):
+        """Serialize the cached prefix chain addressed by its deepest
+        digest; ``None`` on a broken chain."""
+        from . import handoff
+
+        return handoff.export_prefix_run(self, chain_hash,
+                                         max_blocks=max_blocks)
+
+    def import_kv_run(self, run):
+        """Admit a hand-off run into this engine's pool (verified, atomic,
+        written into the pools in place; see
+        :func:`~paddle_tpu_torch.serving.handoff.import_run`).  Returns the
+        fresh-block count, or ``None`` on a capacity refusal."""
+        from . import handoff
+
+        return handoff.import_run(self, run)
+
+    def detach_request(self, request_id) -> bool:
+        """Drop a request WITHOUT finishing it — the donor half of a
+        hand-off: the request migrates (same id, open timeline) to another
+        replica, so no finish event fires here.  Its blocks are freed;
+        with the prefix cache on, the hashed prompt blocks park warm in
+        the reuse LRU, so a failed migration that re-admits here revives
+        them at no recompute."""
+        req = self.requests.pop(request_id, None)
+        if req is None:
+            return False
+        self.scheduler.remove(req)
+        self.cachestat.close_request(request_id)
+        self.kv.free(request_id)
+        return True

@@ -1,0 +1,287 @@
+"""Deterministic fault injection for the serving fleet (the port of
+``paddle_tpu/serving/faultinject.py``, host code carried over).
+
+Self-healing is only trustworthy if it is *testable*, and the faults a
+fleet must survive — a dying engine thread, a wedged step, a drained
+pool, a silently drifting kernel — cannot be waited for in CI.  This
+module makes them **schedulable**: a :class:`FaultPlan` is a frozen,
+fleet-config-style value (the :class:`~paddle_tpu_torch.observability.audit
+.AuditConfig` discipline — comparable across replicas, no wall-clock,
+no randomness) listing *exactly when* each fault fires, keyed by the
+target replica's deterministic engine-step counter.  The same plan on
+the same request stream produces the same chaos run every time, which
+is what lets the chaos tests assert greedy token identity *across* injected failures.
+
+Named injection points, threaded through :class:`~paddle_tpu_torch.serving
+.EngineCore` (see ``engine.step()``):
+
+======================  ======================================================
+``engine_step_raise``   ``step()`` raises :class:`InjectedFault` — the engine
+                        thread dies exactly the way a real bug kills it (the
+                        ``EngineReplica`` loop's except path, ``engine_death``
+                        flight trigger and all)
+``pool_exhaust``        one step of temporary allocation refusal: the KV
+                        manager reports zero available blocks while the
+                        scheduler plans, so decode-slot reservation preempts
+                        and admission defers — recompute makes it
+                        token-identical, and the preemption telemetry fires
+``slow_step``           ``time.sleep(duration_s)`` inside the step, visible
+                        to the replica's :class:`~paddle_tpu_torch.distributed
+                        .StepWatchdog` (the stall the supervisor escalates)
+``kernel_corrupt``      the forced-corruption hook: the logits copy
+                        handed to the numerics auditor is corrupted (sign-
+                        flipped row), driving a ``token`` divergence and the
+                        ``degraded`` state that triggers quarantine.  The
+                        logits the sampler consumes are untouched, so served
+                        tokens stay correct — only the audit net trips.
+                        Requires ``EngineConfig.audit`` enabled; fires on
+                        the first **sampled** decode/ragged launch at/after
+                        the scheduled step (an unsampled launch never runs
+                        the shadow compare, so consuming the exactly-once
+                        entry there would validate nothing).
+======================  ======================================================
+
+Every firing is recorded: the ``serving_faults_injected_total{point}``
+counter moves and a ``fault_injected`` lifecycle event (rid-less, so it
+lands in the owning replica's flight ring) carries the point, the
+scheduled step and the actual firing step — a post-mortem bundle from a
+chaos run shows exactly which fault produced it, making the run
+replayable from the bundle alone.
+
+Exactly-once: each plan entry fires at most once per
+:class:`FaultInjector` view, and the injector is owned by the ROUTER
+(one per replica index, surviving engine rebuilds), so a restarted
+replica does not re-fire entries the crashed engine already consumed.
+An entry fires at the first step ``>= spec.step`` — an idle replica
+whose step counter skips the exact value still fires deterministically
+at its next step.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+INJECTION_POINTS = ("engine_step_raise", "pool_exhaust", "slow_step",
+                    "kernel_corrupt")
+
+# pre-registered metric names this module owns
+METRIC_NAMES = ("serving_faults_injected_total",)
+
+
+class InjectedFault(RuntimeError):
+    """Raised by the ``engine_step_raise`` injection point — the engine
+    thread dies through the exact code path a real step failure takes."""
+
+
+@dataclass(frozen=True)
+class FaultSpec:
+    """One scheduled fault: ``point`` fires on replica ``replica`` at
+    its first engine step ``>= step`` (1-based, the engine's own
+    deterministic step counter — no wall-clock)."""
+
+    point: str
+    step: int
+    replica: str = "0"
+    duration_s: float = 0.25   # slow_step stall length (seconds)
+
+    def __post_init__(self):
+        if self.point not in INJECTION_POINTS:
+            raise ValueError(
+                f"unknown injection point {self.point!r}; expected one "
+                f"of {INJECTION_POINTS}")
+        if self.step < 1:
+            raise ValueError(f"step must be >= 1, got {self.step}")
+        if self.duration_s < 0:
+            raise ValueError(
+                f"duration_s must be >= 0, got {self.duration_s}")
+        # JSON plans naturally carry integer replica indexes; normalize
+        # so plan equality and replica matching are string-keyed like
+        # the flight rings
+        object.__setattr__(self, "replica", str(self.replica))
+
+
+@dataclass(frozen=True)
+class FaultPlan:
+    """A frozen, ordered fault schedule (fleet-config value: compare by
+    ``==`` like :class:`AuditConfig`).  ``seed`` is carried verbatim
+    into telemetry so a chaos run's bundles name the plan they ran."""
+
+    faults: Tuple[FaultSpec, ...] = ()
+    seed: int = 0
+
+    def __post_init__(self):
+        object.__setattr__(self, "faults", tuple(self.faults))
+
+    @classmethod
+    def from_obj(cls, obj) -> "FaultPlan":
+        """Build from the JSON shape (``--fault-plan`` CLI)::
+
+            {"seed": 0, "faults": [
+                {"point": "engine_step_raise", "replica": 1, "step": 6},
+                {"point": "kernel_corrupt", "replica": 0, "step": 9}]}
+
+        A bare list is accepted as the ``faults`` array."""
+        if isinstance(obj, list):
+            obj = {"faults": obj}
+        if not isinstance(obj, dict):
+            raise ValueError(
+                f"fault plan must be a JSON object or list, got "
+                f"{type(obj).__name__}")
+        faults = []
+        for entry in obj.get("faults", ()):
+            if not isinstance(entry, dict):
+                raise ValueError(
+                    f"each fault must be an object, got {entry!r}")
+            faults.append(FaultSpec(
+                point=entry.get("point", ""),
+                step=int(entry.get("step", 0)),
+                replica=str(entry.get("replica", "0")),
+                duration_s=float(entry.get("duration_s", 0.25))))
+        return cls(faults=tuple(faults), seed=int(obj.get("seed", 0)))
+
+    @classmethod
+    def from_json(cls, path: str) -> "FaultPlan":
+        with open(path) as f:
+            return cls.from_obj(json.load(f))
+
+    def to_obj(self) -> Dict:
+        return {
+            "seed": self.seed,
+            "faults": [
+                {"point": s.point, "step": s.step, "replica": s.replica,
+                 "duration_s": s.duration_s}
+                for s in self.faults
+            ],
+        }
+
+    def for_replica(self, replica) -> List[Tuple[int, FaultSpec]]:
+        """(plan-index, spec) entries targeting ``replica``."""
+        r = str(replica)
+        return [(i, s) for i, s in enumerate(self.faults)
+                if s.replica == r]
+
+
+class FaultInjector:
+    """One replica's live view of a :class:`FaultPlan`.
+
+    Owned by the :class:`~paddle_tpu_torch.serving.fleet.FleetRouter` (one per
+    replica index) and re-bound onto every engine the supervisor builds
+    for that index, so the fired-once bookkeeping survives restarts —
+    each plan entry fires exactly once per chaos run, not once per
+    engine incarnation.  The engine thread is the only caller of the
+    firing hooks; the lock exists for the inspection surface."""
+
+    def __init__(self, plan: FaultPlan, replica,
+                 lifecycle=None, registry=None,
+                 labels: Optional[Dict[str, str]] = None):
+        self.plan = plan
+        self.replica = str(replica)
+        self.lifecycle = lifecycle
+        self._specs = plan.for_replica(self.replica)
+        self._fired: set = set()       # plan indexes already consumed
+        self._lock = threading.Lock()
+        self.pool_exhausted = False    # set for the duration of ONE
+        # scheduler-planning pass by begin_step, consumed by the engine
+        self._counters = None
+        if registry is not None:
+            lbls = dict(labels or {}, replica=self.replica)
+            self._counters = {
+                p: registry.counter(
+                    "serving_faults_injected_total",
+                    "deterministic fault injections fired",
+                    **dict(lbls, point=p))
+                for p in INJECTION_POINTS
+            }
+
+    # --- firing (engine thread) ---------------------------------------------
+    def _take(self, point: str, step: int) -> Optional[FaultSpec]:
+        """Consume the first unfired plan entry for ``point`` whose
+        scheduled step has arrived; records the firing."""
+        with self._lock:
+            for idx, spec in self._specs:
+                if (spec.point == point and idx not in self._fired
+                        and step >= spec.step):
+                    self._fired.add(idx)
+                    break
+            else:
+                return None
+        if self._counters is not None:
+            self._counters[point].inc()
+        if self.lifecycle is not None:
+            # rid-less event: lands in THIS replica's flight ring, so a
+            # post-mortem bundle names the fault that produced it
+            self.lifecycle.event(
+                None, "fault_injected", replica=self.replica,
+                point=point, step=step, scheduled_step=spec.step,
+                plan_index=idx, plan_seed=self.plan.seed)
+        return spec
+
+    def begin_step(self, step: int) -> None:
+        """Engine-step hook (called with the engine's step counter
+        BEFORE any scheduling): fires ``slow_step`` (sleeps in place,
+        watchdog-visible), arms ``pool_exhaust`` for this step's
+        planning pass, and fires ``engine_step_raise`` (raises)."""
+        self.pool_exhausted = False
+        spec = self._take("slow_step", step)
+        if spec is not None:
+            time.sleep(spec.duration_s)
+        if self._take("pool_exhaust", step) is not None:
+            self.pool_exhausted = True
+        spec = self._take("engine_step_raise", step)
+        if spec is not None:
+            raise InjectedFault(
+                f"injected engine_step_raise on replica {self.replica} "
+                f"at step {step} (scheduled {spec.step}, plan seed "
+                f"{self.plan.seed})")
+
+    def corrupt_logits(self, step: int, logits: np.ndarray) -> np.ndarray:
+        """``kernel_corrupt``: return a corrupted COPY of the logits the
+        engine hands to the numerics auditor (sign-flipped first row —
+        a guaranteed greedy-argmax flip, so the shadow oracle reports a
+        ``token`` divergence).  The engine samples from the original
+        array, so served tokens are untouched."""
+        spec = self._take("kernel_corrupt", step)
+        if spec is None:
+            return logits
+        out = np.array(logits, dtype=np.float32, copy=True)
+        flat = out.reshape(-1, out.shape[-1])
+        flat[0] = -flat[0]
+        return out
+
+    def mark_fired(self, indexes) -> None:
+        """Record plan ``indexes`` as already consumed WITHOUT counting
+        an injection: when a worker process is respawned, the
+        router transfers the previous incarnation's fired set into the
+        fresh worker's injector so each plan entry still fires exactly
+        once per chaos run — across process incarnations, not just
+        engine rebuilds."""
+        with self._lock:
+            self._fired.update(int(i) for i in indexes)
+
+    # --- inspection ---------------------------------------------------------
+    @property
+    def fired_count(self) -> int:
+        with self._lock:
+            return len(self._fired)
+
+    @property
+    def remaining(self) -> int:
+        with self._lock:
+            return len(self._specs) - len(self._fired)
+
+    def snapshot(self) -> Dict:
+        with self._lock:
+            fired = sorted(self._fired)
+        return {
+            "replica": self.replica,
+            "plan_seed": self.plan.seed,
+            "scheduled": len(self._specs),
+            "fired": len(fired),
+            "fired_plan_indexes": fired,
+        }

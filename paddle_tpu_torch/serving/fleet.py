@@ -1,0 +1,1408 @@
+"""``paddle_tpu_torch.serving.fleet`` — the in-process data-parallel
+serving fleet (the port of ``paddle_tpu/serving/fleet.py``, host code
+carried over).
+
+A single HTTP frontend drives one engine thread; this module adds the
+horizontal layer: a :class:`FleetRouter` that owns N :class:`EngineCore`
+replicas — each on its own engine thread with its own ``BlockPool`` /
+prefix cache and its own bounded submit/abort queues (the frontend's bridge
+pattern, instantiated per replica) — behind one routing decision:
+
+**Prefix-affinity consistent-hash routing.**  The router chain-hashes
+the request's leading full prompt blocks (the SAME
+``h_i = sha256(h_{i-1} || block_tokens_i)`` chain the prefix cache
+registers — :func:`~paddle_tpu_torch.ops.paged_attention.prefix_chain_hashes`)
+and maps the last digest onto a consistent-hash ring of replica vnodes.
+Identical prefixes therefore deterministically land on the SAME replica,
+whose prefix cache is warm — multiplying the cached-token ratio
+instead of diluting it round-robin — while distinct prefixes spread
+uniformly.  The hashes are handed down with the request
+(``Request.prefix_hashes``) so the replica's admission probe does not
+re-hash the same blocks.  Consistent hashing (vnodes + clockwise walk)
+means a dead replica only remaps ITS keys; everyone else's affinity is
+untouched.
+
+**Least-loaded fallback + per-replica admission.**  When the affinity
+target is saturated (per-replica in-flight cap) or unhealthy (engine
+thread dead), the request falls back to the least-loaded eligible
+replica (``serving_fleet_fallback_routed_total`` vs
+``serving_fleet_affinity_hit_total``).  Admission is per replica: a
+request is rejected (:class:`FleetSaturated` → HTTP 429) only when
+EVERY eligible replica is at its cap, and refused
+(:class:`FleetDown` → HTTP 503) only when the whole fleet is down or
+draining.
+
+**Per-replica health + fleet drain.**  A replica whose engine thread
+died is excluded from routing (its in-flight handles are marked done and
+its engine requests aborted, so no handler hangs); the fleet keeps
+serving on the survivors.  ``shutdown()`` drains fleet-wide: stop
+admission instantly, let in-flight work finish to the deadline, abort
+stragglers through their OWNING replica, stop every engine thread —
+leaving zero pool occupancy on every replica (tested).
+
+**Self-healing.**  With a
+:class:`~paddle_tpu_torch.serving.resilience.FleetSupervisor` attached, a
+dead replica's handles are CLAIMED by the supervisor instead of being
+terminally marked (``EngineReplica.supervised``): recoverable requests
+re-dispatch through normal routing and the replica is rebuilt on the
+same index; watchdog-stalled or quarantined replicas carry
+``unhealthy`` (the ``healthy`` property is what routing consults).
+``FleetConfig.fault_plan`` threads a deterministic
+:class:`~paddle_tpu_torch.serving.faultinject.FaultPlan` through every
+replica's engine so the whole failure surface is injectable in tests.
+
+**Observability.**  All replicas share ONE
+:class:`~paddle_tpu_torch.observability.MetricsRegistry`: each engine's
+``serving_*`` series carries a ``replica="i"`` label
+(``EngineCore(metrics_labels=...)``), and the router adds the
+``serving_fleet_*`` family — replica occupancy / queue / in-flight
+gauges, alive gauges, and the affinity-hit vs fallback-routed counters.
+
+Threading model (N engine threads, lock-free bridges)::
+
+    handler / caller threads          engine thread i (owns replica i)
+    ────────────────────────          ───────────────────────────────
+    router.submit(handle) ──ring──▶   replica.submit_q (bounded)
+      · owner[rid] = replica i          drain → EngineCore.add_request
+    router.abort(rid) ──owner map─▶   replica.abort_q (bounded)
+    read handle.req.output_tokens     step(); evict finished handles
+                                      (owner map entry evicted too)
+
+The request→replica **owner map** is how an abort/timeout/disconnect
+reaches the replica that actually holds the request's blocks; entries
+are evicted when the request finishes, so the map is bounded by the sum
+of per-replica admission caps.
+
+Everything is CPU-provable with host threads: dp=2 greedy output is
+token-identical to dp=1 (each replica keeps the established
+batch-composition-independence contract), per-replica capture counts
+stay within the single-engine bucket bound, and a full-fleet drain
+leaves every pool empty.  On one card the replicas' step programs
+serialize on one process-wide lock (``serving/graphs.py``), and the
+replicas may share ONE model module: the port's step writes no module
+state.
+"""
+
+from __future__ import annotations
+
+import bisect
+import hashlib
+import itertools
+import queue
+import threading
+import time
+import traceback
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Sequence
+
+from ..observability import lifecycle as _lc
+from ..observability.alerts import AlertEngine, AlertRuleSet
+from ..observability.flight import FlightConfig, FlightRecorder
+from ..observability.history import HistoryConfig, HistoryStore
+from ..observability.lifecycle import LifecycleTracker
+from ..observability.metrics import MetricsRegistry
+from ..ops.paged_attention import prefix_chain_hashes
+from .engine import EngineCore
+from .faultinject import FaultInjector, FaultPlan
+from .handoff import register_handoff_metrics
+from .request import FinishReason, SamplingParams
+
+# pre-registered metric names this module owns
+METRIC_NAMES = (
+    "serving_fleet_replicas",
+    "serving_fleet_replicas_alive",
+    "serving_fleet_in_flight",
+    "serving_fleet_affinity_hit_total",
+    "serving_fleet_fallback_routed_total",
+    "serving_fleet_replica_alive",
+    "serving_fleet_replica_in_flight",
+    "serving_fleet_replica_occupancy",
+    "serving_fleet_replica_queue_depth",
+    # max − min per-replica cached-token ratio, sampled per
+    # scrape — the cache-aware rebalancing trigger signal
+    "serving_fleet_cache_imbalance",
+)
+
+
+class FleetSaturated(RuntimeError):
+    """Every eligible replica rejected the request (per-replica
+    admission caps all hit) — the HTTP frontend answers 429."""
+
+
+class FleetDown(RuntimeError):
+    """No live replica to route to (all engine threads dead, or the
+    fleet is draining) — the HTTP frontend answers 503."""
+
+
+@dataclass
+class FleetConfig:
+    """Router-level knobs (per-replica engine knobs ride
+    :class:`~paddle_tpu_torch.serving.EngineConfig` in the factory)."""
+
+    max_queue: int = 64       # per-replica in-flight admission cap
+    affinity_blocks: int = 2  # leading FULL prompt blocks hashed into the
+                              # affinity key: requests sharing at least
+                              # this much prefix co-locate.  Shorter
+                              # prompts hash the full blocks they have;
+                              # prompts under one block have no key and
+                              # route least-loaded.
+    vnodes: int = 16          # ring points per replica (smoother spread
+                              # + smaller remap slice on replica death)
+    drain_timeout_s: float = 5.0  # shutdown(): grace for in-flight work
+    # flight recorder: None keeps the bounded per-replica
+    # event rings (cheap, always on) but writes no post-mortem bundles;
+    # a directory enables atomic bundle dumps on anomaly triggers
+    flight_dir: Optional[str] = None
+    flight: Optional[FlightRecorder] = None  # pre-built recorder wins
+                                             # over flight_dir
+    # deterministic fault injection: a frozen FaultPlan
+    # schedules named faults by (replica, engine-step); the router
+    # builds one FaultInjector per replica index (surviving supervisor
+    # rebuilds, so each plan entry fires exactly once per chaos run)
+    fault_plan: Optional[FaultPlan] = None
+    # metrics history + alerting: None = defaults.  The
+    # router builds ONE HistoryStore + AlertEngine over the shared
+    # registry when the engines' EngineConfig.history gate is on
+    # (refused when heterogeneous); alert_rules=None evaluates the
+    # default serving rule set (pool exhaustion, goodput burn, compile
+    # storms, restart/quarantine churn, ...)
+    history: Optional[HistoryConfig] = None
+    alert_rules: Optional[AlertRuleSet] = None
+    # prefill/decode disaggregation: the EXPECTED per-replica
+    # role list (``["prefill", "decode", ...]`` — parse_roles builds it
+    # from the ``--roles prefill:N,decode:M`` CLI form).  Roles live on
+    # each engine's EngineConfig.role; this field is the deployment
+    # assertion — a mismatch against the engines actually built fails
+    # loudly at router construction instead of silently mis-routing.
+    # None = accept whatever the engines declare (all-unified legacy).
+    roles: Optional[Sequence[str]] = None
+
+
+def parse_roles(spec: str) -> List[str]:
+    """Parse the ``--roles`` CLI form: ``"prefill:1,decode:2"`` →
+    ``["prefill", "decode", "decode"]`` (replica index order follows the
+    spec left to right).  Accepts ``unified`` counts too."""
+    out: List[str] = []
+    for part in str(spec).split(","):
+        part = part.strip()
+        if not part:
+            continue
+        name, _, count = part.partition(":")
+        name = name.strip()
+        if name not in ("unified", "prefill", "decode"):
+            raise ValueError(
+                f"unknown role {name!r} in --roles (expected "
+                "unified|prefill|decode)")
+        try:
+            n = int(count) if count.strip() else 1
+        except ValueError:
+            raise ValueError(f"bad replica count in --roles part {part!r}")
+        if n < 0:
+            raise ValueError(f"negative replica count in --roles {part!r}")
+        out.extend([name] * n)
+    if not out:
+        raise ValueError(f"--roles {spec!r} names no replicas")
+    return out
+
+
+def _build_ring(dp: int, vnodes: int,
+                weights: Optional[Dict[int, float]] = None) -> List:
+    """Consistent-hash ring: ``vnodes`` points per replica, sorted by
+    the 64-bit prefix of each vnode's SHA-256 (over the JAX package's key
+    strings, so both packages place a prompt on the same replica).
+    ``weights`` scales a replica's vnode count — weight 2.0 doubles the key space routed to it, 0.5 halves it;
+    every replica keeps at least one vnode so it never silently leaves
+    the ring.  Vnode hashes depend only on ``(replica, j)``, so
+    reweighting MOVES no surviving vnode: only the added/removed points
+    remap keys."""
+    weights = weights or {}
+    return sorted(
+        (int.from_bytes(hashlib.sha256(
+            f"paddle_tpu.fleet.replica.{i}.{j}".encode()).digest()[:8],
+            "big"), i)
+        for i in range(dp)
+        for j in range(max(1, int(round(max(1, vnodes)
+                                        * weights.get(i, 1.0))))))
+
+
+def _key_int(hashes: List[bytes]) -> int:
+    """Ring position of an affinity key: the 64-bit prefix of the
+    deepest leading-block chain hash."""
+    return int.from_bytes(hashes[-1][:8], "big")
+
+
+def _ring_walk(ring: List, ring_keys: List[int], key_int: int,
+               eligible: set) -> Optional[int]:
+    """First ring point clockwise of ``key_int`` owned by an eligible
+    replica index.  Skipping ineligible vnodes (instead of rebuilding
+    the ring) is what makes the hash consistent: a dead replica only
+    remaps ITS keys."""
+    n = len(ring)
+    start = bisect.bisect_left(ring_keys, key_int)
+    for step in range(n):
+        _, idx = ring[(start + step) % n]
+        if idx in eligible:
+            return idx
+    return None
+
+
+def affinity_replica_index(prompt_ids, dp: int, block_size: int,
+                           affinity_blocks: Optional[int] = None,
+                           vnodes: Optional[int] = None) -> Optional[int]:
+    """Pure routing preview (no engines): the replica index a prompt's
+    affinity key maps to on a healthy dp-replica ring, or ``None`` when
+    the prompt has no full block (those route least-loaded).  Benchmarks
+    and capacity planning use this to predict placement; it shares the
+    chain hash, ring construction, and walk with
+    :meth:`FleetRouter.submit`.  The defaults mirror ``FleetConfig()`` —
+    for a fleet built with non-default knobs pass them explicitly, or
+    use :meth:`FleetRouter.predict_replica`, which reads the live
+    config."""
+    cfg = FleetConfig()
+    if affinity_blocks is None:
+        affinity_blocks = cfg.affinity_blocks
+    if vnodes is None:
+        vnodes = cfg.vnodes
+    hashes = prefix_chain_hashes(prompt_ids, block_size,
+                                 max_blocks=affinity_blocks)
+    if not hashes:
+        return None
+    ring = _build_ring(dp, vnodes)
+    return _ring_walk(ring, [k for k, _ in ring], _key_int(hashes),
+                      set(range(dp)))
+
+
+class SubmitHandle:
+    """One in-flight request as the router, the owning replica's engine
+    thread, and the caller all see it.  ``req`` is the engine-side
+    :class:`~paddle_tpu_torch.serving.Request` once the replica admits it;
+    ``done`` covers the admission-less terminal paths (cancelled before
+    admission, or the owning engine thread died).  ``event`` is an
+    optional waker the HTTP frontend attaches (an ``asyncio.Event`` set
+    via ``call_soon_threadsafe``); direct callers poll instead."""
+
+    __slots__ = ("rid", "prompt_ids", "sampling", "priority",
+                 "prefix_hashes", "req", "done", "cancel_reason", "event",
+                 "replica", "slo_ms", "retryable", "kv_run",
+                 "resume_tokens", "arrival")
+
+    def __init__(self, rid, prompt_ids: List[int],
+                 sampling: Optional[SamplingParams] = None,
+                 priority: int = 0, event=None,
+                 slo_ms: Optional[float] = None,
+                 retryable: bool = False):
+        self.rid = rid
+        self.prompt_ids = [int(t) for t in prompt_ids]
+        self.sampling = sampling or SamplingParams()
+        self.priority = priority
+        self.slo_ms = slo_ms
+        # opt-in transparent retry-from-scratch when the
+        # owning replica dies mid-stream — greedy recompute regenerates
+        # the already-delivered tokens identically, so the supervisor
+        # may re-dispatch instead of failing with replica_failed
+        self.retryable = bool(retryable)
+        self.prefix_hashes: Optional[List[bytes]] = None  # router-stamped
+        self.req = None                  # engine Request, set by engine thread
+        self.done = False                # terminal without admission
+        self.cancel_reason: Optional[FinishReason] = None
+        self.event = event
+        self.replica: Optional["EngineReplica"] = None
+        # prefill→decode migration state, router-stamped at
+        # the hand-off: the exported KV run the recipient imports before
+        # re-admission, the already-emitted tokens that seed the new
+        # engine Request, and the original arrival stamp (so e2e latency
+        # spans the WHOLE request, not just its post-migration life)
+        self.kv_run = None
+        self.resume_tokens: Optional[List[int]] = None
+        self.arrival: Optional[float] = None
+
+    @property
+    def finished(self) -> bool:
+        return self.done or (self.req is not None and self.req.finished)
+
+    @property
+    def output_tokens(self) -> List[int]:
+        return list(self.req.output_tokens) if self.req is not None else []
+
+    @property
+    def finish_reason(self) -> Optional[str]:
+        if self.req is not None and self.req.finish_reason is not None:
+            return self.req.finish_reason.value
+        if self.done:
+            return (self.cancel_reason.value if self.cancel_reason
+                    else FinishReason.ABORT.value)
+        return None
+
+
+class EngineReplica:
+    """One :class:`EngineCore` + its engine thread + the bounded-queue
+    bridge, instantiated per fleet replica.
+
+    The engine is NOT thread-safe and its steps block, so each
+    replica runs its own background thread; callers talk to it only
+    through the bounded ``submit_q`` / ``abort_q`` and the append-only
+    per-request state (safe under the GIL).  The replica's ``handles``
+    dict (rid → handle) is its in-flight set: admission counts it,
+    engine death marks every entry done, and the engine thread evicts
+    entries as their requests finish (also evicting the router's
+    owner-map entry — bounded maps, no long-server leak)."""
+
+    def __init__(self, index: int, engine: EngineCore, max_queue: int,
+                 notify: Callable[["EngineReplica"], None],
+                 on_finish: Callable[[object, "EngineReplica"], None]):
+        self.index = index
+        self.engine = engine
+        self.max_queue = max(1, max_queue)
+        self.submit_q: "queue.Queue" = queue.Queue(maxsize=self.max_queue)
+        # aborts are bounded by in-flight requests; 2x leaves room for
+        # drain-time aborts racing handler-deadline aborts
+        self.abort_q: "queue.Queue" = queue.Queue(
+            maxsize=2 * self.max_queue + 8)
+        self.wake = threading.Event()
+        self.handles: Dict[object, SubmitHandle] = {}  # rid -> handle;
+        # bounded by max_queue (try_submit refuses past the cap) and
+        # evicted on finish by the engine thread
+        # engine-thread task inbox: callables other threads
+        # post() to run ON this replica's engine thread — the pool and
+        # device tensors are engine-thread-only, so cross-replica work
+        # (hot-prefix migration exports/imports) rides this queue
+        # instead of touching the engine from a foreign thread
+        self.task_q: "queue.Queue" = queue.Queue(maxsize=64)
+        self.thread: Optional[threading.Thread] = None
+        self.error: Optional[str] = None
+        self.flight: Optional[FlightRecorder] = None  # router-stamped
+        self._stop = False
+        # --- self-healing surface -------------------------------
+        # supervised: a FleetSupervisor owns this replica's failure
+        # handling — on death the handle set is LEFT IN PLACE for the
+        # supervisor to claim (re-dispatch / replica_failed triage)
+        # instead of being terminally marked here
+        self.supervised = False
+        # unhealthy: excluded from routing while the engine thread is
+        # still alive (watchdog stall, quarantine); `healthy` is the
+        # routing eligibility the router consults
+        self.unhealthy = False
+        self.watchdog = None          # StepWatchdog, supervisor-armed
+        self.steps_done = 0           # completed eng.step() calls — the
+        # stall detector's progress signal (GIL-atomic increments)
+        self.stall = None             # (steps_done, t) stamped by the
+        # watchdog's on-fire handler; cleared when progress resumes
+        # notify/on_finish are scoped to THIS replica: the frontend
+        # wakes only the handlers whose requests this replica owns (so
+        # wakeup work per step stays per-replica instead of dp x
+        # fleet-wide), and an owner-map eviction names its replica so a
+        # stale eviction can never drop another replica's entry
+        self._notify = lambda: notify(self)
+        self._on_finish = lambda rid: on_finish(rid, self)
+
+    # --- caller-side surface ------------------------------------------------
+    @property
+    def alive(self) -> bool:
+        return (self.thread is not None and self.thread.is_alive()
+                and self.error is None)
+
+    @property
+    def healthy(self) -> bool:
+        """Routing eligibility: a live engine thread that is neither
+        watchdog-stalled nor quarantined."""
+        return self.alive and not self.unhealthy
+
+    @property
+    def role(self) -> str:
+        """The replica's disaggregation role: ``prefill`` /
+        ``decode`` specialist or ``unified`` (the default).  Read from
+        the engine's config so supervisor rebuilds (same factory, same
+        config) keep the role automatically."""
+        cfg = getattr(self.engine, "engine_config", None)
+        return getattr(cfg, "role", "unified") or "unified"
+
+    def post(self, fn: Callable[[], None]) -> bool:
+        """Enqueue ``fn`` to run on this replica's engine thread (next
+        loop iteration).  False when the bounded inbox is full — posted
+        work is best-effort by contract (callers re-post or drop)."""
+        try:
+            self.task_q.put_nowait(fn)
+        except queue.Full:  # swallow-ok: surfaced as the False return —
+            # the documented best-effort contract (callers re-post or
+            # drop and count on their side)
+            return False
+        self.wake.set()
+        return True
+
+    @property
+    def in_flight(self) -> int:
+        return len(self.handles)
+
+    def start(self) -> None:
+        self.thread = threading.Thread(
+            target=self._loop, name=f"serving-engine-{self.index}",
+            daemon=True)
+        self.thread.start()
+
+    def try_submit(self, handle: SubmitHandle) -> bool:
+        """Admit ``handle`` onto this replica, or refuse (cap hit /
+        dead).  The handle enters ``handles`` BEFORE the queue so the
+        in-flight count can never undercount a queued request."""
+        if not self.healthy or self._stop \
+                or self.in_flight >= self.max_queue:
+            return False
+        self.handles[handle.rid] = handle
+        try:
+            self.submit_q.put_nowait(handle)
+        except queue.Full:
+            if self.handles.pop(handle.rid, None) is None:
+                # a death sweep claimed the handle while it was briefly
+                # visible: it is being terminated, not reroutable
+                return True
+            return False
+        self.wake.set()
+        if not self.alive:
+            # the engine thread died between the liveness check and the
+            # hand-off.  Ownership rule: whoever POPS the handle from
+            # ``handles`` owns its fate (dict.pop is the atomic claim).
+            # If WE win the pop, the terminal sweep can never touch this
+            # handle again, so reclaiming + refusing is safe and the
+            # router retries elsewhere.  If the sweep won, it marks the
+            # handle done (terminal, like death right after admission) —
+            # report it submitted.
+            if self.handles.pop(handle.rid, None) is not None:
+                return False
+        return True
+
+    def request_abort(self, rid, reason: FinishReason) -> None:
+        h = self.handles.get(rid)
+        if h is not None and h.cancel_reason is None:
+            h.cancel_reason = reason
+        try:
+            self.abort_q.put_nowait((rid, reason))
+        except queue.Full:
+            pass  # swallow-ok: sized to 2x the in-flight bound; a drop only delays cleanup until the next abort/drain sweep
+        self.wake.set()
+
+    def request_stop(self) -> None:
+        self._stop = True
+        self.wake.set()
+
+    def join(self, timeout: float = 10.0) -> None:
+        if self.thread is not None:
+            self.thread.join(timeout)
+
+    # --- engine thread ------------------------------------------------------
+    def _loop(self) -> None:
+        eng = self.engine
+        try:
+            while True:
+                self._drain_submissions()
+                self._drain_aborts()
+                self._drain_tasks()
+                self._evict_finished()
+                if self._stop and not eng.scheduler.has_work():
+                    break
+                if eng.scheduler.has_work():
+                    # local read: FleetSupervisor.close() nulls the
+                    # attribute from its own thread while we step
+                    wd = self.watchdog
+                    if wd is not None:
+                        # supervisor-armed step watchdog: a
+                        # wedged step marks this replica unhealthy the
+                        # moment the section expires
+                        with wd.watch(f"engine-step-r{self.index}"):
+                            eng.step()
+                    else:
+                        eng.step()
+                    self.steps_done += 1
+                    self._notify()
+                else:
+                    self.wake.wait(timeout=0.02)
+                    self.wake.clear()
+        except Exception:
+            # fail loudly but leave no handler hanging and no block held
+            err = traceback.format_exc()
+            if self.flight is not None:
+                # post-mortem BEFORE the aborts below: the bundle then
+                # captures the dying requests' timelines while they are
+                # still in flight, plus the last-K events of THIS
+                # replica's ring (fired once per replica).  Written
+                # BEFORE ``self.error`` flips ``alive`` False, so a
+                # watcher that observes the death always finds the
+                # bundle already on disk — never a dead replica whose
+                # post-mortem is still being serialized.
+                try:
+                    self.flight.trigger("engine_death",
+                                        replica=str(self.index),
+                                        detail=err)
+                except Exception:
+                    pass  # swallow-ok: telemetry must never mask the death handling
+            self.error = err
+            if not (self.supervised and not self._stop):
+                # unsupervised (or draining) death: abort everything so
+                # no block is held.  Under a supervisor the engine is
+                # torn down wholesale and its in-flight requests are
+                # triaged for RE-DISPATCH — an abort here would finish
+                # them out from under the supervisor's claim.
+                for req in list(eng.requests.values()):
+                    eng.abort_request(req.request_id)
+        finally:
+            if self.supervised and self.error is not None \
+                    and not self._stop:
+                # supervised death: leave the handle set in
+                # place — the FleetSupervisor claims it (dict.pop is
+                # the atomic ownership rule) and re-dispatches or fails
+                # each request; marking them done here would lose the
+                # queued-but-unstarted work a self-healing fleet must
+                # preserve
+                pass
+            else:
+                for rid, h in list(self.handles.items()):
+                    if self.handles.pop(rid, None) is None:
+                        # a racing try_submit reclaimed it (atomic pop
+                        # wins ownership): it is being re-routed — not
+                        # ours to end
+                        continue
+                    h.done = True
+                    if h.req is None:
+                        # never admitted: the engine's finish path will
+                        # not close this timeline — do it here so it
+                        # moves to the tracker's bounded recent ring
+                        eng._lc(rid, _lc.EV_FINISH, reason="abort",
+                                error="engine thread exited before "
+                                      "admission")
+                    self._on_finish(rid)
+            self._notify()
+
+    def _drain_submissions(self) -> None:
+        while True:
+            try:
+                h = self.submit_q.get_nowait()
+            except queue.Empty:
+                return  # swallow-ok: Empty IS the loop exit condition, not a fault
+            if self.handles.get(h.rid) is not h:
+                # the supervisor claimed this handle off a stalled/dying
+                # incarnation of this replica — it has been
+                # re-dispatched elsewhere and is no longer ours to admit
+                # OR terminate (presence in ``handles`` is the ownership
+                # rule)
+                continue
+            if h.cancel_reason is not None or self._stop:
+                # deadline fired (or drain began) before admission: the
+                # request never enters the scheduler (timeline closed
+                # here — no engine finish path will ever see it)
+                h.done = True
+                self.engine._lc(
+                    h.rid, _lc.EV_FINISH,
+                    reason=(h.cancel_reason.value if h.cancel_reason
+                            else FinishReason.TIMEOUT.value))
+                self._notify()
+                continue
+            if h.kv_run is not None:
+                # prefill→decode migration: admit the donor's
+                # exported KV into this pool BEFORE re-admission, so the
+                # scheduler's prefix probe finds the whole computed
+                # prompt cached.  Best-effort by contract: a refused or
+                # failed import degrades to re-prefill — the prompt
+                # tokens always travel with the handle.
+                try:
+                    self.engine.import_kv_run(h.kv_run)
+                except Exception:
+                    pass  # swallow-ok: import failure degrades to re-prefill; losing the request here would be the real bug
+                h.kv_run = None
+            req = self.engine.add_request(
+                h.prompt_ids, sampling=h.sampling, request_id=h.rid,
+                priority=h.priority, trace_id=str(h.rid),
+                prefix_hashes=h.prefix_hashes, slo_ms=h.slo_ms,
+                resume_tokens=h.resume_tokens)
+            if h.arrival is not None:
+                # the migrated request's e2e span starts at its ORIGINAL
+                # arrival, not at re-admission (perf_counter is
+                # CLOCK_MONOTONIC machine-wide, so the stamp transfers
+                # across localhost worker processes too)
+                req.arrival_time = h.arrival
+                h.arrival = None
+            h.resume_tokens = None
+            h.req = req
+
+    def _drain_tasks(self) -> None:
+        """Run posted engine-thread tasks (hot-prefix migration).
+        Best-effort: a failing task must not kill the engine thread that
+        serves live traffic."""
+        while True:
+            try:
+                fn = self.task_q.get_nowait()
+            except queue.Empty:
+                return  # swallow-ok: Empty IS the loop exit condition, not a fault
+            try:
+                fn()
+            except Exception:
+                pass  # swallow-ok: posted tasks are best-effort cache work; a failure must never tear down the serving thread
+
+    def _drain_aborts(self) -> None:
+        did = False
+        while True:
+            try:
+                rid, reason = self.abort_q.get_nowait()
+            except queue.Empty:
+                break  # swallow-ok: Empty IS the loop exit condition, not a fault
+            if self.engine.abort_request(rid, reason):
+                did = True
+            else:
+                h = self.handles.get(rid)
+                if h is not None and h.req is None:
+                    h.done = True
+                    self.engine._lc(rid, _lc.EV_FINISH,
+                                    reason=reason.value)
+                    did = True
+        if did:
+            self._notify()
+
+    def _evict_finished(self) -> None:
+        """Drop finished requests from the in-flight set (and the
+        router's owner map) — this is what keeps both maps bounded and
+        what the abort routing relies on: an abort can only be routed
+        while the request is actually live on this replica."""
+        for rid, h in list(self.handles.items()):
+            if h.done or (h.req is not None and h.req.finished):
+                self.handles.pop(rid, None)
+                self._on_finish(rid)
+
+
+class FleetRouter:
+    """N engine replicas behind one prefix-affinity routing decision.
+
+    Construction: pass pre-built engines (``FleetRouter(engines)``) or
+    use :meth:`build` with an ``engine_factory(i, registry)`` that
+    constructs replica ``i``'s :class:`EngineCore` on the shared
+    registry (conventionally with ``metrics_labels={"replica": str(i)}``
+    so /metrics separates the replicas).  Replicas may share one model
+    module: a step reads the parameters and writes only the engine's own
+    pools (the JAX fleet needs a model per replica because its engine
+    swaps parameter values during a traced step).
+
+    ``start()`` spawns the engine threads; ``submit()`` routes;
+    ``shutdown()`` drains the whole fleet.  :meth:`from_engine` wraps a
+    single engine as a fleet of one — the dp=1 compatibility path the
+    HTTP frontend uses when handed a bare ``EngineCore``."""
+
+    def __init__(self, engines: Sequence[EngineCore],
+                 config: Optional[FleetConfig] = None,
+                 registry: Optional[MetricsRegistry] = None):
+        if not engines:
+            raise ValueError("a fleet needs at least one engine replica")
+        self.cfg = config or FleetConfig()
+        self.engines: List[EngineCore] = list(engines)
+        bs = {e.block_size for e in self.engines}
+        if len(bs) != 1:
+            raise ValueError(
+                f"all replicas must share one block_size (affinity hashes "
+                f"are computed once, fleet-wide); got {sorted(bs)}")
+        self.block_size = self.engines[0].block_size
+        mps = {e.mp for e in self.engines}
+        if len(mps) != 1:
+            raise ValueError(f"replicas disagree on mp degree: {sorted(mps)}")
+        self.mp = self.engines[0].mp
+        self._notify_cb: Callable[[Optional[EngineReplica]], None] = \
+            lambda replica=None: None
+        if len(self.engines) > 1:
+            # replicas sharing one registry MUST carry distinct metric
+            # labels — identical (name, labels) keys get-or-create the
+            # SAME series, so every "per-replica" counter would silently
+            # double-count fleet totals
+            seen: Dict[int, set] = {}
+            for e in self.engines:
+                lbls = tuple(sorted(e.metrics.labels.items()))
+                reg_seen = seen.setdefault(id(e.metrics.registry), set())
+                if lbls in reg_seen:
+                    raise ValueError(
+                        "replicas sharing a metrics registry need "
+                        "distinct metrics_labels (e.g. EngineCore("
+                        "metrics_labels={'replica': str(i)})); duplicate "
+                        f"label set {dict(lbls)}")
+                reg_seen.add(lbls)
+        self.registry = (registry if registry is not None
+                         else self.engines[0].metrics.registry)
+        # --- request-lifecycle tracing + flight recorder ----------
+        # ONE tracker for the whole fleet: the router's routing events
+        # (caller thread) and each replica's execution events (engine
+        # thread) land in the same per-request timeline, keyed by rid —
+        # the router's duplicate-rid admission check guarantees
+        # uniqueness across replicas.  Replicas are rebound before any
+        # request exists, with their ring/ trigger identity pinned to
+        # the replica INDEX (metrics labels are free-form and need not
+        # match it).  The engines' lifecycle knobs must agree — the
+        # router's own events ride the same tracker, so a per-replica
+        # disagreement would silently half-apply (e.g. a gated-off
+        # engine never closing timelines the router opened).
+        gates = {e.engine_config.lifecycle_events for e in self.engines}
+        samples = {e.engine_config.decode_event_sample
+                   for e in self.engines}
+        if len(gates) != 1 or len(samples) != 1:
+            raise ValueError(
+                "replicas disagree on lifecycle config: "
+                f"lifecycle_events={sorted(gates)}, "
+                f"decode_event_sample={sorted(samples)} — the fleet "
+                "shares ONE tracker, so every replica must use the "
+                "same EngineConfig knobs")
+        cstats = {e.engine_config.cache_stats for e in self.engines}
+        if len(cstats) != 1:
+            # same failure shape as the gates below: /v1/debug/cache
+            # reports fleet-wide, so a half-tracked fleet would read as
+            # "replica i has no cache pressure"
+            raise ValueError(
+                f"replicas disagree on cache_stats={sorted(cstats)}; "
+                "the cache debug surface reports fleet-wide, so every "
+                "replica must use the same EngineConfig knob")
+        sprof = {e.engine_config.step_profile for e in self.engines}
+        if len(sprof) != 1:
+            # same failure shape as the lifecycle gate: a half-profiled
+            # fleet would read as "replica i never captured / never
+            # padded" on /v1/debug/compiles and in flight bundles
+            raise ValueError(
+                f"replicas disagree on step_profile={sorted(sprof)}; "
+                "the debug surfaces report fleet-wide, so every "
+                "replica must use the same EngineConfig knob")
+        audits = {e.audit.cfg for e in self.engines}
+        if len(audits) != 1:
+            # a half-audited fleet would read as "replica i never
+            # diverged" on /v1/debug/audit and silently skip the oracle
+            # on some replicas — refuse heterogeneous audit configs
+            raise ValueError(
+                "replicas disagree on audit config "
+                f"({sorted(repr(a) for a in audits)}); the audit "
+                "surface reports fleet-wide, so every replica must use "
+                "the same EngineConfig.audit")
+        gate = gates.pop()
+        explicit = [e.engine_config.lifecycle for e in self.engines]
+        if explicit[0] is not None and \
+                all(t is explicit[0] for t in explicit):
+            # every engine was built onto the SAME caller-supplied
+            # tracker: adopt it — but its enabled flag must match the
+            # engines' gate, or the router would open timelines (enabled
+            # tracker) that the gated-off engines never close
+            if explicit[0].enabled != gate:
+                raise ValueError(
+                    f"EngineConfig.lifecycle tracker has enabled="
+                    f"{explicit[0].enabled} but the engines set "
+                    f"lifecycle_events={gate}; the two must agree")
+            self.lifecycle = explicit[0]
+        else:
+            self.lifecycle = LifecycleTracker(
+                registry=self.registry, enabled=gate,
+                decode_sample=samples.pop())
+        for i, eng in enumerate(self.engines):
+            eng.set_lifecycle(self.lifecycle, replica=str(i))
+        if self.cfg.flight is not None:
+            self.flight = self.cfg.flight
+            self.flight.bind_lifecycle(self.lifecycle)
+        else:
+            self.flight = FlightRecorder(
+                registry=self.registry, lifecycle=self.lifecycle,
+                config=FlightConfig(dump_dir=self.cfg.flight_dir))
+        # per-replica step profilers: post-mortem bundles embed
+        # the owning replica's last-K step records, keyed by the same
+        # replica index the flight rings use
+        self.flight.bind_step_profilers(
+            {str(i): e.stepprof for i, e in enumerate(self.engines)})
+        # cache-stat trackers: post-mortem bundles embed the
+        # owning replica's last-K pool-timeline samples, same keying
+        self.flight.bind_cache_trackers(
+            {str(i): e.cachestat for i, e in enumerate(self.engines)})
+        # numerics auditors: divergence/nonfinite triggers and
+        # .npz repros carry the replica INDEX, matching the flight rings
+        for i, e in enumerate(self.engines):
+            e.audit.bind_flight(self.flight, replica=str(i))
+        # deterministic fault injection: one injector per
+        # replica INDEX, owned here so the exactly-once bookkeeping
+        # survives supervisor engine rebuilds
+        self.fault_injectors: Dict[int, FaultInjector] = {}
+        if self.cfg.fault_plan is not None and self.cfg.fault_plan.faults:
+            for i, eng in enumerate(self.engines):
+                fi = FaultInjector(self.cfg.fault_plan, replica=str(i),
+                                   lifecycle=self.lifecycle,
+                                   registry=self.registry)
+                self.fault_injectors[i] = fi
+                eng.set_fault_injector(fi)
+        # self-healing supervisor: attached via
+        # FleetSupervisor(router, ...); None = legacy semantics (a dead
+        # replica stays excluded until an operator acts)
+        self.supervisor = None
+        self._engine_factory = None  # remembered by build() so the
+        # supervisor can rebuild replicas without re-plumbing a factory
+        self.replicas: List[EngineReplica] = [
+            EngineReplica(i, eng, self.cfg.max_queue,
+                          notify=self._notify, on_finish=self._release)
+            for i, eng in enumerate(self.engines)
+        ]
+        for r in self.replicas:
+            r.flight = self.flight
+        # --- prefill/decode disaggregation ------------------------
+        # roles are a ROUTING policy, deliberately NOT one of the
+        # homogeneity gates above: a mixed prefill/decode fleet is the
+        # point.  FleetConfig.roles (when set) is a deployment
+        # assertion — it must match what the engines actually declare.
+        self.roles: List[str] = [r.role for r in self.replicas]
+        if self.cfg.roles is not None:
+            declared = [str(x) for x in self.cfg.roles]
+            if declared != self.roles:
+                raise ValueError(
+                    f"FleetConfig.roles={declared} does not match the "
+                    f"engines' declared roles {self.roles}; the role an "
+                    "engine was built with (EngineConfig.role) is "
+                    "authoritative — fix the factory or the fleet spec")
+        if "decode" in self.roles and \
+                not any(x in ("prefill", "unified") for x in self.roles):
+            raise ValueError(
+                "a fleet of only decode specialists can never admit a "
+                "request (admission routes to prefill/unified replicas); "
+                "add at least one prefill or unified replica")
+        self._handoff_metrics = register_handoff_metrics(self.registry)
+        self._owner: Dict[object, EngineReplica] = {}  # rid -> replica;
+        # bounded by dp * max_queue (entries exist only while the request
+        # is in flight on its replica) — evicted on finish/death
+        self._submit_lock = threading.Lock()  # serializes submitters:
+        # the duplicate-rid check and the owner-map write must be one
+        # atomic step when several caller threads submit concurrently
+        self._ids = itertools.count(1)
+        self._draining = False
+        # consistent-hash ring: vnodes per replica, clockwise walk skips
+        # dead replicas so only the dead replica's keys remap
+        self._ring: List = _build_ring(len(self.replicas), self.cfg.vnodes)
+        self._ring_keys = [k for k, _ in self._ring]
+        # --- serving_fleet_* observability ---------------------------------
+        g, c = self.registry.gauge, self.registry.counter
+        self._g_replicas = g("serving_fleet_replicas",
+                             "configured data-parallel replica count")
+        self._g_alive = g("serving_fleet_replicas_alive",
+                          "replicas with a live engine thread")
+        self._g_in_flight = g("serving_fleet_in_flight",
+                              "in-flight requests fleet-wide")
+        self._g_cache_imbalance = g(
+            "serving_fleet_cache_imbalance",
+            "max - min per-replica cached-token ratio (prefix-affinity "
+            "placement imbalance; the cache-aware rebalancing signal)")
+        self._affinity_hit = c(
+            "serving_fleet_affinity_hit_total",
+            "requests routed to their prefix-affinity replica")
+        self._fallback = c(
+            "serving_fleet_fallback_routed_total",
+            "requests routed least-loaded (no key, or affinity target "
+            "saturated/unhealthy)")
+        self._g_replica_alive = {
+            r.index: g("serving_fleet_replica_alive",
+                       "1 while the replica's engine thread is live",
+                       replica=str(r.index))
+            for r in self.replicas}
+        self._g_replica_in_flight = {
+            r.index: g("serving_fleet_replica_in_flight",
+                       "in-flight requests on the replica",
+                       replica=str(r.index))
+            for r in self.replicas}
+        self._g_replica_occupancy = {
+            r.index: g("serving_fleet_replica_occupancy",
+                       "replica KV-pool occupancy fraction",
+                       replica=str(r.index))
+            for r in self.replicas}
+        self._g_replica_queue = {
+            r.index: g("serving_fleet_replica_queue_depth",
+                       "replica scheduler waiting-queue depth",
+                       replica=str(r.index))
+            for r in self.replicas}
+        self._g_replicas.set(len(self.replicas))
+        self.sample_gauges()
+        # --- scrape-time collection + metrics history ------------
+        # the fleet gauges above are DERIVED from live replica state, so
+        # their refresh rides a registry collect hook: /metrics scrapes,
+        # push-gateway exports, JSON snapshots and the history sampler
+        # all observe freshly collected values (previously only the HTTP
+        # /metrics handler refreshed them — the push gateway exported
+        # stale fleet gauges)
+        hist_gates = {e.engine_config.history for e in self.engines}
+        if len(hist_gates) != 1:
+            raise ValueError(
+                f"replicas disagree on history={sorted(hist_gates)}; "
+                "the fleet samples ONE shared history, so every replica "
+                "must use the same EngineConfig knob")
+        self.history: Optional[HistoryStore] = None
+        self.alerts: Optional[AlertEngine] = None
+        if hist_gates.pop():
+            # ONE fleet-wide store: every replica's engine thread ticks
+            # the same sampler, and the alert engine evaluates the
+            # threshold / rate / SLO burn-rate rules after every sample
+            self.history = HistoryStore(self.registry,
+                                        config=self.cfg.history)
+            self.alerts = AlertEngine(
+                self.history, rules=self.cfg.alert_rules,
+                registry=self.registry, lifecycle=self.lifecycle,
+                flight=self.flight)
+            for eng in self.engines:
+                eng.set_history(self.history)
+        # register the hook LAST, after everything above that can raise
+        # (gate validation, history/alert series creation on a shared
+        # registry near its max_series cap): an aborted __init__ never
+        # runs stop(), so a hook registered earlier would keep walking
+        # this half-built router's replicas on every later scrape of a
+        # caller-owned registry
+        self._remove_collect_hook = self.registry.add_collect_hook(
+            self.sample_gauges)
+
+    # --- constructors -------------------------------------------------------
+    @classmethod
+    def build(cls, engine_factory: Callable[[int, MetricsRegistry],
+                                            EngineCore],
+              dp: int, config: Optional[FleetConfig] = None,
+              registry: Optional[MetricsRegistry] = None) -> "FleetRouter":
+        """Build a dp-replica fleet on one shared registry.  The factory
+        gets ``(replica_index, registry)`` and should construct the
+        engine with ``registry=registry,
+        metrics_labels={"replica": str(index)}``."""
+        if dp < 1:
+            raise ValueError(f"dp must be >= 1, got {dp}")
+        registry = (registry if registry is not None
+                    else MetricsRegistry(max_series=4096))
+        engines = [engine_factory(i, registry) for i in range(dp)]
+        router = cls(engines, config=config, registry=registry)
+        # the supervisor rebuilds crashed replicas through this exact
+        # factory (same weights, same config — the factory must be
+        # deterministic, e.g. seed before building the model)
+        router._engine_factory = engine_factory
+        return router
+
+    @classmethod
+    def from_engine(cls, engine: EngineCore,
+                    max_queue: int = 64) -> "FleetRouter":
+        """Wrap ONE pre-built engine as a fleet of one (the dp=1 compat
+        path): the engine keeps its own registry and its ``serving_*``
+        series stay unlabeled, exactly as before.  The ``serving_fleet_*``
+        family IS added to that registry (dp=1 reports itself as a
+        one-replica fleet — the selftest asserts it), so budget ~12
+        extra series."""
+        return cls([engine], config=FleetConfig(max_queue=max_queue))
+
+    # --- lifecycle ----------------------------------------------------------
+    @property
+    def dp(self) -> int:
+        return len(self.replicas)
+
+    @property
+    def alive(self) -> bool:
+        return any(r.alive for r in self.replicas)
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    def attach_supervisor(self, supervisor) -> None:
+        """Bind a :class:`~paddle_tpu_torch.serving.resilience.FleetSupervisor`
+        (called by its constructor).  One supervisor per fleet."""
+        if self.supervisor is not None:
+            raise ValueError("a FleetSupervisor is already attached")
+        self.supervisor = supervisor
+
+    @property
+    def restarting_count(self) -> int:
+        """Replicas currently out of service that the attached
+        supervisor will bring back (dead/unhealthy, not permanently
+        excluded).  0 without a supervisor — the HTTP frontend uses this
+        to distinguish 'restarting, Retry-After' from a hard 503."""
+        sup = self.supervisor
+        if sup is None or self._draining:
+            return 0
+        return sum(1 for r in self.replicas
+                   if not r.healthy and r.index not in sup.excluded)
+
+    @property
+    def in_flight(self) -> int:
+        return len(self._owner)
+
+    def start(self,
+              notify: Optional[Callable[[Optional[EngineReplica]], None]]
+              = None) -> "FleetRouter":
+        """Spawn every replica's engine thread.  ``notify(replica)`` is
+        invoked (from engine threads) after any step/terminal transition
+        of that replica — the HTTP frontend wakes the handlers whose
+        requests it owns; direct callers poll."""
+        if notify is not None:
+            self._notify_cb = notify
+        for r in self.replicas:
+            if r.thread is None:
+                r.start()
+        self.sample_gauges()
+        return self
+
+    def begin_drain(self) -> None:
+        """Stop admitting instantly (submit() raises FleetDown); running
+        work keeps stepping until :meth:`stop`."""
+        self._draining = True
+
+    def stop(self, join_timeout: float = 10.0) -> None:
+        """Stop + join every engine thread (each exits once its
+        scheduler runs dry — callers abort stragglers first).  An
+        attached supervisor is closed FIRST so no restart races the
+        teardown."""
+        if self.supervisor is not None:
+            self.supervisor.close()
+        for r in self.replicas:
+            r.request_stop()
+        for r in self.replicas:
+            r.join(join_timeout)
+        self.sample_gauges()
+        # stop collecting from (and alerting on) a stopped fleet: the
+        # registry may outlive the router, and a later scrape must not
+        # walk retired replica objects
+        self._remove_collect_hook()
+        if self.alerts is not None:
+            self.alerts.close()
+
+    def shutdown(self, drain_timeout: Optional[float] = None) -> None:
+        """Synchronous fleet-wide graceful drain (direct/non-HTTP use;
+        the HTTP frontend orchestrates the same phases on its own loop):
+        stop admission now, wait for in-flight work up to the deadline,
+        abort stragglers through their owning replica, stop every engine
+        thread.  Leaves zero pool occupancy on every replica."""
+        self.begin_drain()
+        deadline = time.monotonic() + (
+            drain_timeout if drain_timeout is not None
+            else self.cfg.drain_timeout_s)
+        while self._owner and time.monotonic() < deadline:
+            time.sleep(0.005)
+        stragglers = list(self._owner)
+        if stragglers:
+            # drain-deadline overrun: capture the stragglers'
+            # timelines BEFORE the aborts end them
+            self.flight.trigger(
+                "drain_overrun",
+                detail=f"{len(stragglers)} request(s) still in flight "
+                       f"at the drain deadline")
+        for rid in stragglers:
+            self.abort(rid, FinishReason.TIMEOUT)
+        self.stop()
+
+    # --- routing ------------------------------------------------------------
+    def _notify(self, replica: Optional[EngineReplica] = None) -> None:
+        # prefill/decode disaggregation: each replica calls
+        # this from ITS engine thread right after every step, so this is
+        # the safe (and rebuild-surviving — the supervisor constructs
+        # replacement replicas with notify=self._notify) point to sweep
+        # a prefill specialist for requests that just crossed the
+        # first-token boundary and hand them to a decode specialist
+        if replica is not None:
+            self._migrate_first_tokens(replica)
+        self._notify_cb(replica)
+
+    def _migrate_first_tokens(self, donor: EngineReplica) -> None:
+        """Sweep a prefill specialist for in-flight requests that have
+        produced their first token and hand each off to a decode
+        specialist.  Runs on the DONOR's engine thread (between steps),
+        so reading/detaching its engine state is race-free."""
+        if donor.role != "prefill" or not donor.healthy or self._draining:
+            return
+        for h in list(donor.handles.values()):
+            req = h.req
+            if (req is None or h.done or req.finished
+                    or h.cancel_reason is not None
+                    or req.first_token_time is None):
+                continue
+            self._handoff(donor, h)
+
+    def _handoff(self, donor: EngineReplica, h: SubmitHandle) -> None:
+        """Migrate one first-token request off ``donor``: export its
+        computed prompt KV, detach it, and re-submit (run + generated
+        tokens + original arrival stamp riding the handle) to the
+        least-loaded healthy decode specialist.  Unified fallback: with
+        no healthy decode specialist the request simply KEEPS decoding
+        on the donor — a hand-off is an optimization, never a
+        prerequisite.  If every specialist refuses admission the request
+        is re-admitted on the donor with its KV still resident (the
+        hashed prompt blocks park warm across detach), so no path loses
+        the request."""
+        targets = [r for r in self.replicas
+                   if r is not donor and r.healthy and r.role == "decode"]
+        if not targets:
+            return
+        targets.sort(key=lambda r: r.in_flight)
+        rid = h.rid
+        req = h.req
+        t0 = time.perf_counter()
+        try:
+            run = donor.engine.export_kv_run(rid)
+        except Exception:  # pragma: no cover - defensive
+            run = None  # swallow-ok: an export failure degrades the hand-off to re-prefill at the destination; the request itself must still migrate or stay
+        # atomic claim: if the donor's own sweep (finish/abort/death)
+        # got here first, the handle is no longer ours to move
+        if donor.handles.pop(rid, None) is not h:
+            return
+        h.resume_tokens = list(req.output_tokens)
+        h.arrival = req.arrival_time
+        h.kv_run = run
+        # h.req deliberately KEEPS pointing at the detached (now frozen)
+        # request object: pollers reading handle.req.output_tokens
+        # mid-transit see the tokens generated so far; the recipient's
+        # admission overwrites h.req with the live resumed request
+        donor.engine.detach_request(rid)
+        placed = None
+        with self._submit_lock:
+            for target in targets:
+                h.replica = target
+                self._owner[rid] = target
+                if target.try_submit(h):
+                    placed = target
+                    break
+                self._owner.pop(rid, None)
+                h.replica = None
+        if placed is None:
+            # every decode specialist is at its admission cap: re-admit
+            # on the donor.  We ARE the donor's engine thread, so this
+            # is a direct re-add (its KV is still warm — resume is
+            # near-free); known accepted race: an abort() arriving in
+            # the claim→rewrite window is dropped and retried by the
+            # caller's timeout path.
+            with self._submit_lock:
+                self._owner[rid] = donor
+            h.replica = donor
+            donor.handles[rid] = h
+            h.req = donor.engine.add_request(
+                h.prompt_ids, sampling=h.sampling, request_id=rid,
+                priority=h.priority, trace_id=str(rid),
+                prefix_hashes=h.prefix_hashes, slo_ms=h.slo_ms,
+                resume_tokens=h.resume_tokens)
+            if h.arrival is not None:
+                h.req.arrival_time = h.arrival
+            h.kv_run = None
+            h.resume_tokens = None
+            h.arrival = None
+            return
+        dt = time.perf_counter() - t0
+        nblocks = len(run["blocks"]) if run else 0
+        nbytes = int(run["payload"].nbytes) if run else 0
+        self._handoff_metrics["total"].inc()
+        self._handoff_metrics["seconds"].observe(dt)
+        if nblocks:
+            self._handoff_metrics["blocks"].observe(float(nblocks))
+        self.lifecycle.event(
+            rid, _lc.EV_KV_HANDOFF, src=str(donor.index),
+            dst=str(placed.index), blocks=nblocks, bytes=nbytes,
+            duration_ms=round(dt * 1000.0, 3))
+
+    def _release(self, rid, replica: Optional[EngineReplica] = None) -> None:
+        """Evict an owner-map entry.  A replica-side eviction names its
+        replica and only drops the entry while it still points there —
+        a stale eviction racing a re-route must not orphan the entry the
+        router just wrote for another replica."""
+        if replica is None or self._owner.get(rid) is replica:
+            self._owner.pop(rid, None)
+
+    def _ring_target(self, key_int: int,
+                     eligible: List[EngineReplica]
+                     ) -> Optional[EngineReplica]:
+        """Consistent-hash affinity target among ``eligible`` replicas
+        (shared :func:`_ring_walk`)."""
+        idx = _ring_walk(self._ring, self._ring_keys, key_int,
+                         {r.index for r in eligible})
+        return None if idx is None else self.replicas[idx]
+
+    def affinity_key(self, prompt_ids) -> Optional[List[bytes]]:
+        """Leading-block chain hashes of the prompt (≤ affinity_blocks
+        full blocks); ``None`` when the prompt has no full block."""
+        hashes = prefix_chain_hashes(prompt_ids, self.block_size,
+                                     max_blocks=self.cfg.affinity_blocks)
+        return hashes or None
+
+    def predict_replica(self, prompt_ids) -> Optional[int]:
+        """Routing preview against THIS fleet's live config and ring
+        (all replicas eligible): the replica index an unloaded, healthy
+        fleet would pick, or ``None`` for a keyless (short) prompt."""
+        hashes = self.affinity_key(prompt_ids)
+        if hashes is None:
+            return None
+        return _ring_walk(self._ring, self._ring_keys, _key_int(hashes),
+                          set(range(len(self.replicas))))
+
+    @property
+    def routing_counts(self) -> Dict[str, int]:
+        """Public snapshot of the routing counters:
+        ``{"affinity_hit": n, "fallback_routed": m}``."""
+        return {"affinity_hit": int(self._affinity_hit.value),
+                "fallback_routed": int(self._fallback.value)}
+
+    def submit(self, handle: SubmitHandle) -> EngineReplica:
+        """Route ``handle``: affinity target first, least-loaded eligible
+        fallback.  Raises :class:`FleetDown` when no replica is live (or
+        the fleet drains) and :class:`FleetSaturated` when every eligible
+        replica is at its admission cap (per-replica 429 semantics: the
+        fleet rejects only when ALL of them reject).  Thread-safe: a
+        lock serializes submitters, so the duplicate-rid check, the
+        owner-map write, and the replica hand-off are one atomic step
+        (replica threads never take this lock — they only pop)."""
+        if self._draining:
+            raise FleetDown("fleet is draining")
+        with self._submit_lock:
+            if handle.rid in self._owner:
+                # reject duplicates HERE, synchronously — letting the id
+                # through would either silently orphan the first
+                # request's owner-map entry (different replicas) or
+                # raise inside the owning engine thread and kill the
+                # whole replica (same replica).  Mirrors
+                # EngineCore.add_request's own check.
+                raise ValueError(
+                    f"request id {handle.rid!r} is already in flight")
+            eligible = [r for r in self.replicas if r.healthy]
+            if not eligible:
+                raise FleetDown("no live engine replica")
+            # role-aware admission: new requests prefill, so
+            # they route to prefill specialists (and unified replicas);
+            # decode specialists only receive work via the first-token
+            # hand-off.  A handle carrying resume_tokens is PAST its
+            # first token (a supervisor re-dispatch recovered it mid-
+            # hand-off or off a dead decode specialist): it routes to
+            # decode/unified replicas — NEVER a prefill specialist.
+            # When none is healthy it saturates instead of falling
+            # back, so a supervised re-dispatch stays pending until the
+            # restarted decode replica rejoins.  Fresh admissions DO
+            # fall back to whatever is healthy (role is routing policy,
+            # not capability — every engine runs the full pipeline).
+            want = (("decode", "unified") if handle.resume_tokens
+                    else ("prefill", "unified"))
+            pool = [r for r in eligible if r.role in want]
+            if not pool:
+                if handle.resume_tokens:
+                    raise FleetSaturated(
+                        "no healthy decode/unified replica for a mid-"
+                        "decode resume (prefill specialists are never "
+                        "eligible)")
+                pool = eligible
+            # the timeline starts HERE, on the router/caller thread: a
+            # per-request trace shows routing before any engine thread
+            # touches the request.  Terminal rejects below finish the
+            # timeline (into the bounded recent ring) so nothing leaks.
+            self.lifecycle.event(
+                handle.rid, _lc.EV_SUBMITTED, trace_id=str(handle.rid),
+                prompt_tokens=len(handle.prompt_ids),
+                slo_ms=handle.slo_ms)
+            hashes = self.affinity_key(handle.prompt_ids)
+            handle.prefix_hashes = hashes
+            target = None
+            if hashes is not None:
+                target = self._ring_target(_key_int(hashes), pool)
+            order: List[EngineReplica] = \
+                [target] if target is not None else []
+            order += [r for r in sorted(pool,
+                                        key=lambda r: r.in_flight)
+                      if r is not target]
+            for r in order:
+                # the owner-map entry is written BEFORE the queue
+                # hand-off: once the replica can see the handle, its
+                # finish/death eviction path must be able to find (and
+                # pop) the entry — writing it after try_submit would let
+                # that eviction race ahead and leave a permanently
+                # leaked entry
+                handle.replica = r
+                self._owner[handle.rid] = r
+                if r.try_submit(handle):
+                    affinity = target is not None and r is target
+                    if affinity:
+                        self._affinity_hit.inc()
+                    else:
+                        self._fallback.inc()
+                    self._g_in_flight.set(len(self._owner))
+                    self.lifecycle.event(
+                        handle.rid, _lc.EV_ROUTE, replica=str(r.index),
+                        affinity=affinity,
+                        keyed=hashes is not None,
+                        in_flight=r.in_flight)
+                    return r
+                self._owner.pop(handle.rid, None)
+                handle.replica = None
+        if not any(r.healthy for r in self.replicas):
+            # every refusal was a death race, not a cap: report the
+            # fleet as down (HTTP 503), not saturated (429)
+            self.lifecycle.event(handle.rid, _lc.EV_ADMISSION_REJECTED,
+                                 reason="fleet_down")
+            raise FleetDown("no live engine replica")
+        self.lifecycle.event(handle.rid, _lc.EV_ADMISSION_REJECTED,
+                             reason="saturated")
+        raise FleetSaturated(
+            f"all {len(pool)} eligible replica(s) at their "
+            f"{self.cfg.max_queue}-request admission cap")
+
+    def submit_request(self, prompt_ids,
+                       sampling: Optional[SamplingParams] = None,
+                       request_id=None, priority: int = 0,
+                       slo_ms: Optional[float] = None,
+                       retryable: bool = False) -> SubmitHandle:
+        """Convenience for direct (non-HTTP) callers: build a handle,
+        route it, return it.  Poll ``handle.finished`` /
+        ``handle.output_tokens`` (or use :meth:`wait`)."""
+        rid = request_id if request_id is not None else \
+            f"fleet-{next(self._ids)}"
+        handle = SubmitHandle(rid, list(prompt_ids), sampling=sampling,
+                              priority=priority, slo_ms=slo_ms,
+                              retryable=retryable)
+        self.submit(handle)
+        return handle
+
+    def abort(self, rid, reason: FinishReason = FinishReason.ABORT) -> bool:
+        """Route an abort to the replica that OWNS ``rid`` (the
+        request→replica map; evicted on finish).  True if the request was
+        still owned — an already-finished rid is a no-op."""
+        owner = self._owner.get(rid)
+        if owner is None:
+            return False
+        owner.request_abort(rid, reason)
+        return True
+
+    def wait(self, handles: Sequence[SubmitHandle],
+             timeout: float = 120.0) -> None:
+        """Block until every handle reaches a terminal state."""
+        deadline = time.monotonic() + timeout
+        for h in handles:
+            while not h.finished:
+                if time.monotonic() > deadline:
+                    raise TimeoutError(
+                        f"request {h.rid!r} not finished in {timeout}s")
+                time.sleep(0.002)
+
+    # --- observability ------------------------------------------------------
+    def cached_token_ratios(self) -> Dict[str, Optional[float]]:
+        """Per-replica prefix-cache hit ratio (hit/(hit+computed) over
+        each replica's life; ``None`` before any prefill) — the rows the
+        cache-imbalance gauge and ``/v1/debug/cache``'s fleet view are
+        computed from."""
+        return {str(r.index): r.engine.metrics.cached_token_ratio()
+                for r in self.replicas}
+
+    def cache_imbalance(self) -> Optional[float]:
+        """max − min per-replica cached-token ratio: the
+        rebalancing trigger signal — one replica's reuse LRU saturating
+        while another idles shows up as this gap widening.  ``None``
+        until two replicas have prefilled anything (a one-replica fleet
+        reports 0.0 once it has data)."""
+        vals = [v for v in self.cached_token_ratios().values()
+                if v is not None]
+        if not vals:
+            return None
+        return max(vals) - min(vals)
+
+    def reweight_ring(self, weights: Dict[int, float]) -> None:
+        """Rebuild the consistent-hash ring with per-replica vnode
+        weights (the cache-aware rebalancer's actuator).  Taken under the
+        submit lock so no router thread ever walks a half-swapped ring; in-flight requests keep
+        their placement (affinity only guides NEW admissions)."""
+        with self._submit_lock:
+            self._ring = _build_ring(len(self.replicas), self.cfg.vnodes,
+                                     weights)
+            self._ring_keys = [k for k, _ in self._ring]
+
+    def sample_gauges(self) -> None:
+        """Refresh the serving_fleet_* gauges from replica state (the
+        HTTP frontend calls this on every /metrics scrape; direct
+        callers, whenever they snapshot)."""
+        self._g_alive.set(sum(1 for r in self.replicas if r.alive))
+        self._g_in_flight.set(len(self._owner))
+        imbalance = self.cache_imbalance()
+        if imbalance is not None:
+            self._g_cache_imbalance.set(imbalance)
+        for r in self.replicas:
+            self._g_replica_alive[r.index].set(1 if r.alive else 0)
+            self._g_replica_in_flight[r.index].set(r.in_flight)
+            self._g_replica_occupancy[r.index].set(
+                r.engine.kv.occupancy())
+            self._g_replica_queue[r.index].set(
+                r.engine.scheduler.queue_depth)

@@ -34,6 +34,21 @@ programs, one per engine.
   recorded counter change.  That is the CPU's own path, tested like the
   JAX trace counters are on the CPU, not a fallback: on a CUDA device a
   failure to capture or to replay raises.
+* **Several engines in one process** (the replicas of an in-process
+  fleet, each stepping on its own thread) share the kernel wrappers'
+  launch counters and the card.  One process-wide lock is held across a
+  whole :meth:`StepGraphs.run` (first run, capture, copy-in, replay and
+  the counter bookkeeping), so a capture never races another engine's
+  step program and the counters stay exact; a capture records in
+  ``thread_local`` mode, so another thread's host work outside a step
+  program (reading outputs back, eager prefill, a KV hand-off) neither
+  fails nor invalidates it.  That host work calls no counted kernel (the
+  eager prefill families attend in plain PyTorch), so no launch lands
+  between a first run's counter reads or is folded into a replay's
+  delta; ``tests/test_torch_fleet.py`` checks that every wrapper call of
+  a fleet holds the lock.  The garbage collector runs just before a
+  capture and not during it: collecting a dead engine's graph on the
+  capturing thread would invalidate the capture.
 * :func:`disable_graphs` — the counterpart of ``jax.disable_jit()`` — runs
   the families eagerly on fresh tensors and leaves the counters alone; the
   identity checks hold graphs against it.
@@ -42,6 +57,7 @@ programs, one per engine.
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 import time
 from typing import Callable, Dict, Hashable, Optional, Sequence, Tuple
@@ -58,6 +74,8 @@ COUNTERS = (
 )
 
 _local = threading.local()
+# held across every StepGraphs.run of the process (see the docstring)
+_RUN_LOCK = threading.RLock()
 
 
 @contextlib.contextmanager
@@ -140,6 +158,10 @@ class StepGraphs:
         a replay repeats the first call's work.  ``steps > 1`` runs a
         family that updates its inputs in place (a burst iteration) that
         many times."""
+        with _RUN_LOCK:
+            return self._run(key, fn, inputs, steps)
+
+    def _run(self, key, fn, inputs, steps):
         if not graphs_enabled():
             args = [host_tensor(a).to(self.device) for a in inputs]
             for _ in range(steps):
@@ -174,10 +196,19 @@ class StepGraphs:
                 # back before their next call
                 self._pool = torch.cuda.graph_pool_handle()
             graph = torch.cuda.CUDAGraph()
+            # a dead engine's graphs are freed here: a collection during
+            # the capture would destroy a graph on the capturing thread,
+            # which invalidates the capture
+            gc.collect()
+            collecting = gc.isenabled()
+            gc.disable()
             try:
-                with torch.cuda.graph(graph, pool=self._pool):
+                with torch.cuda.graph(graph, pool=self._pool,
+                                      capture_error_mode="thread_local"):
                     outputs = tuple(fn(*static))
             finally:
+                if collecting:
+                    gc.enable()
                 # the capture executed nothing: its wrapper calls
                 # launched no kernel
                 _write_counters(after)

@@ -38,6 +38,17 @@ class KVCacheManager(BlockPool):
                  enable_prefix_cache: bool = True):
         super().__init__(num_blocks, block_size,
                          enable_prefix_cache=enable_prefix_cache)
+        # the ``pool_exhaust`` fault-injection point: while True the pool
+        # reports no available block; the engine arms it for ONE
+        # scheduler-planning pass, so the refusal surfaces as a
+        # preemption or a deferred admission, never as a failed launch
+        self.refuse_allocations = False
+
+    @property
+    def num_available(self) -> int:
+        if self.refuse_allocations:
+            return 0
+        return super().num_available
 
     def occupancy(self) -> float:
         """Fraction of the usable pool currently held by sequences
@@ -75,9 +86,11 @@ class KVCacheManager(BlockPool):
 
     def truncate(self, seq_id, new_len: int) -> int:
         """Roll the sequence back to ``new_len`` committed tokens and hand
-        surplus tail blocks back (a burst's unused pre-allocated tail).  A
-        tail block whose refcount reaches 0 goes to the free list (its
-        content is never cacheable prefix); a shared one only loses this
+        surplus tail blocks back (a burst's unused pre-allocated tail, a
+        rejected speculative draft's slots).  A tail block whose refcount
+        reaches 0 goes to the free list (its content is never cacheable
+        prefix) and loses any chain-hash registration, so the prefix cache
+        never names a rolled-back page; a shared one only loses this
         owner.  Stale K/V past ``new_len`` in the kept tail block is never
         attended (``lens`` routing) and the next slot overwrites it.
         Returns the number of blocks freed."""
@@ -108,6 +121,9 @@ class KVCacheManager(BlockPool):
 
     def seq_len(self, seq_id) -> int:
         return self._lens.get(seq_id, 0)
+
+    def has(self, seq_id) -> bool:
+        return seq_id in self._tables
 
     def num_owned_blocks(self, seq_id) -> int:
         return len(self._tables.get(seq_id, ()))

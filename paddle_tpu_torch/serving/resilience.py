@@ -1,0 +1,630 @@
+"""Self-healing fleet supervisor (the port of
+``paddle_tpu/serving/resilience.py``, host code carried over).
+
+Without it the dp fleet survives a replica death only by excluding it
+forever: a dead engine stays out of the ring until an operator acts, its
+queued-but-unstarted requests are lost, and an audit-``degraded``
+replica keeps serving drifting numerics.  This module closes the
+loop the observability stack was built for: a :class:`FleetSupervisor`
+monitor thread on the router consumes the failure signals the fleet
+already emits and **acts** on them —
+
+* **engine death** → tear down the dead :class:`~paddle_tpu_torch.serving
+  .fleet.EngineReplica`, re-dispatch its recoverable requests through
+  normal routing (the consistent-hash ring already remaps the dead
+  replica's keys), then rebuild a fresh engine + thread on the SAME
+  replica index under a capped-exponential-backoff restart policy.
+  ``max_restarts`` failures inside ``restart_window_s`` is a crash loop:
+  the replica is permanently excluded and a ``crash_loop`` flight bundle
+  dumps the evidence.
+* **audit degraded** (a shadow-oracle divergence) → **quarantine**:
+  stop routing to the replica, let its in-flight work drain (the engine
+  still runs — only its numerics are suspect), abort stragglers with
+  ``finish_reason="replica_failed"``, replace the engine with a clean
+  one.  ``GET /v1/debug/audit`` returns to ``ok`` because the degraded
+  auditor is gone with the engine it judged.
+* **watchdog stall** → the per-replica :class:`~paddle_tpu_torch.distributed
+  .StepWatchdog` (armed around every ``eng.step()``) marks the replica
+  **unhealthy on fire** — excluded from routing immediately, not only
+  when the thread eventually dies — and the supervisor escalates to a
+  full restart after ``watchdog_grace_s`` if the step counter still has
+  not advanced (a stall that resolves inside the grace re-includes the
+  replica untouched).
+
+**Request triage on a dying replica.**  The replica's in-flight handle
+set is claimed by the supervisor (``dict.pop`` is the atomic ownership
+claim, the same rule ``try_submit`` uses) and triaged:
+
+* *queued-but-unstarted* (never admitted) and *zero-output* (admitted,
+  no token emitted yet) requests are **re-dispatched** through
+  ``router.submit`` — nothing was delivered, so the retry is invisible
+  and greedy tokens are identical to a fault-free run;
+* requests that already streamed tokens re-dispatch too when they opted
+  in (``retryable=true``): greedy recompute regenerates the SAME prefix
+  tokens, the streaming cursor skips what was already delivered, and
+  the client sees a seamless token-identical continuation;
+* everything else finishes with the new
+  ``finish_reason="replica_failed"`` — an honest verdict instead of a
+  hang.
+
+Re-dispatches that cannot place immediately (every survivor saturated,
+or the whole fleet mid-restart) park in a pending queue the monitor
+retries every tick — **zero queued-but-unstarted requests are ever
+lost** while the supervisor lives.  If the router is draining, the
+supervisor stops healing (a replica that dies mid-``shutdown()`` is NOT
+resurrected) and terminally fails any orphans so the drain completes.
+
+Everything is deterministic-testable: ``serving/faultinject.py``
+schedules the faults, and the CPU tests prove the headline contract — injected engine death mid-stream at dp=2 →
+reroute + auto-restart within the backoff bound, zero lost requests,
+greedy token identity vs the fault-free run.
+
+Observability: ``serving_replica_restarts_total{cause}``,
+``serving_requests_redispatched_total``,
+``serving_requests_replica_failed_total``, ``serving_quarantines_total``
+and the ``serving_recovery_seconds`` histogram (detection → replacement
+serving), plus ``quarantine`` / ``crash_loop`` flight triggers — exactly
+one bundle per recovery action (the restart action's bundle is the
+``engine_death`` dump the dying thread already fired; the supervisor
+re-arms that trigger after each rebuild so the NEXT death of the same
+index dumps again).
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import threading
+import time
+import traceback
+from collections import deque
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+from ..distributed.watchdog import StepWatchdog
+from ..observability import lifecycle as _lc
+from .fleet import EngineReplica, FleetDown, FleetRouter, FleetSaturated
+from .request import FinishReason
+
+RESTART_CAUSES = ("engine_death", "watchdog", "quarantine")
+
+# pre-registered metric names this module owns (tools/check_metrics_docs
+# lints that each appears in README's metrics table)
+METRIC_NAMES = (
+    "serving_replica_restarts_total",
+    "serving_requests_redispatched_total",
+    "serving_requests_replica_failed_total",
+    "serving_quarantines_total",
+    "serving_recovery_seconds",
+)
+
+_RECOVERY_BUCKETS = (0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
+                     10.0, 30.0)
+
+
+@dataclass
+class SupervisorConfig:
+    """Restart/quarantine policy knobs."""
+
+    poll_interval_s: float = 0.02   # monitor tick
+    backoff_initial_s: float = 0.05  # first restart delay ...
+    backoff_factor: float = 2.0      # ... doubling per recent failure ...
+    backoff_max_s: float = 2.0       # ... capped here
+    max_restarts: int = 5           # restarts allowed inside the window;
+                                    # one MORE failure within it = crash
+                                    # loop -> permanent exclusion
+    restart_window_s: float = 60.0
+    quarantine: bool = True         # audit degraded -> replace the engine
+    quarantine_drain_s: float = 2.0  # grace for in-flight work to finish
+                                     # on a quarantined (live) replica
+    watchdog_timeout_s: Optional[float] = None  # arm a per-replica step
+    # watchdog; None = no watchdog (stalls only surface as deaths)
+    watchdog_grace_s: float = 0.25  # stall persisting past this after the
+    # watchdog fired escalates to a restart
+
+    def __post_init__(self):
+        if self.max_restarts < 1:
+            raise ValueError(
+                f"max_restarts must be >= 1, got {self.max_restarts}")
+        if self.backoff_factor < 1.0:
+            raise ValueError(
+                f"backoff_factor must be >= 1, got {self.backoff_factor}")
+
+
+class FleetSupervisor:
+    """Monitor loop that keeps a :class:`FleetRouter` serving through
+    replica failures.
+
+    ``engine_factory(index, registry)`` must build a replacement engine
+    identical to the original (same weights — e.g. seed before build —
+    same EngineConfig); fleets built via :meth:`FleetRouter.build`
+    remember their factory, so the argument is optional there.  Call
+    :meth:`start` after ``router.start()``; :meth:`close` stops the
+    monitor (``router.stop()``/``shutdown()`` call it automatically)."""
+
+    def __init__(self, router: FleetRouter, engine_factory=None,
+                 config: Optional[SupervisorConfig] = None):
+        self.router = router
+        self.cfg = config or SupervisorConfig()
+        self.factory = (engine_factory if engine_factory is not None
+                        else router._engine_factory)
+        if self.factory is None:
+            raise ValueError(
+                "FleetSupervisor needs an engine_factory(index, registry) "
+                "to rebuild replicas; pass one, or build the fleet via "
+                "FleetRouter.build (which remembers its factory)")
+        router.attach_supervisor(self)
+        self._stop_ev = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._excluded: set = set()     # permanently excluded indexes
+        self._history: Dict[int, deque] = {
+            r.index: deque(maxlen=self.cfg.max_restarts)
+            for r in router.replicas}
+        # scheduled (non-blocking) restarts: index -> (not-before time,
+        # cause, detection t0).  The monitor never sleeps through a
+        # backoff — a second replica failing during another's backoff is
+        # triaged on the very next tick.  Bounded by the replica set.
+        self._restart_at: Dict[int, tuple] = {}
+        # in-progress quarantine drains: index -> (drain deadline,
+        # detection t0).  Tick-based for the same reason — the monitor
+        # keeps serving other replicas' failures while one drains.
+        # Bounded by the replica set.
+        self._quarantining: Dict[int, tuple] = {}
+        self._pending: deque = deque()  # unbounded-ok: live re-dispatch work queue, bounded by dp x max_queue in-flight handles
+        reg = router.registry
+        self._restarts = {
+            c: reg.counter("serving_replica_restarts_total",
+                           "supervisor replica restarts", cause=c)
+            for c in RESTART_CAUSES}
+        self._redis_c = reg.counter(
+            "serving_requests_redispatched_total",
+            "requests re-routed off a dying/quarantined replica")
+        self._failed_c = reg.counter(
+            "serving_requests_replica_failed_total",
+            "in-flight requests finished with replica_failed")
+        self._quar_c = reg.counter(
+            "serving_quarantines_total",
+            "audit-degraded replicas quarantined and replaced")
+        self._recovery_h = reg.histogram(
+            "serving_recovery_seconds",
+            "failure detected -> replacement replica serving",
+            buckets=_RECOVERY_BUCKETS)
+
+    # --- lifecycle ----------------------------------------------------------
+    def start(self) -> "FleetSupervisor":
+        for r in self.router.replicas:
+            self._adopt(r)
+        if self._thread is None:
+            self._thread = threading.Thread(
+                target=self._loop, name="fleet-supervisor", daemon=True)
+            self._thread.start()
+        return self
+
+    def close(self) -> None:
+        """Stop the monitor; terminally fail anything still pending and
+        restore the legacy (unsupervised) death semantics on every
+        replica so a later death cannot strand handles in limbo."""
+        self._stop_ev.set()
+        if self._thread is not None:
+            self._thread.join(10.0)
+            self._thread = None
+        for r in self.router.replicas:
+            r.supervised = False
+            if r.watchdog is not None:
+                r.watchdog.shutdown()
+                r.watchdog = None
+            if not r.alive and r.handles:
+                # died while supervised but before the monitor acted:
+                # sweep the orphans terminally (legacy semantics)
+                self._triage(r, terminal=True)
+        self._fail_pending("abort")
+        self.router._notify(None)
+
+    @property
+    def excluded(self) -> set:
+        return set(self._excluded)
+
+    @property
+    def pending(self) -> int:
+        return len(self._pending)
+
+    # --- replica adoption ---------------------------------------------------
+    def _adopt(self, replica: EngineReplica) -> None:
+        replica.supervised = True
+        if self.cfg.watchdog_timeout_s is not None \
+                and replica.watchdog is None:
+            replica.watchdog = self._make_watchdog(replica)
+
+    def _make_watchdog(self, replica: EngineReplica) -> StepWatchdog:
+        wd = StepWatchdog(timeout=self.cfg.watchdog_timeout_s)
+
+        def fired(label, timeout_s, replica=replica):
+            # mark unhealthy ON FIRE: the replica leaves the
+            # routing set the moment the stall is detected — a truly
+            # hung thread must not keep receiving traffic just because
+            # it has not died
+            replica.stall = (replica.steps_done, time.monotonic())
+            replica.unhealthy = True
+            self.router.lifecycle.event(
+                None, "watchdog_stall", replica=str(replica.index),
+                section=label, timeout_s=timeout_s)
+            self.router.flight.trigger(
+                "watchdog", replica=str(replica.index),
+                detail=f"section {label!r} exceeded {timeout_s}s; "
+                       "replica excluded from routing")
+
+        wd.on_timeout = fired
+        return wd
+
+    # --- monitor loop -------------------------------------------------------
+    def _loop(self) -> None:
+        while not self._stop_ev.is_set():
+            try:
+                self._tick()
+            except Exception:
+                # the healer must never die silently: a broken tick is
+                # reported and the next tick tries again
+                sys.stderr.write("[supervisor] tick failed:\n"
+                                 + traceback.format_exc())
+            self._stop_ev.wait(self.cfg.poll_interval_s)
+
+    def _tick(self) -> None:
+        router = self.router
+        if router.draining:
+            # drain mode: NO healing (a replica dying mid-shutdown is
+            # not resurrected) — but orphans of a supervised death must
+            # still terminate so the drain can complete
+            acted = False
+            for r in list(router.replicas):
+                if not r.alive and r.thread is not None and r.handles:
+                    r.join(1.0)
+                    self._triage(r, terminal=True)
+                    acted = True
+            if self._pending:
+                self._fail_pending("abort")
+                acted = True
+            if acted:
+                router._notify(None)
+            return
+        self._flush_pending()
+        for r in list(router.replicas):
+            i = r.index
+            if i in self._excluded or r.thread is None:
+                continue
+            if i in self._restart_at:
+                # rebuild already scheduled — checked BEFORE the _stop
+                # guard below: an escalated replica was request_stop()ed
+                # by the supervisor itself
+                self._maybe_rebuild(i)
+                continue
+            if i in self._quarantining:
+                self._continue_quarantine(r)
+                continue
+            if r._stop:
+                continue  # stopped for drain/shutdown: not a failure
+            if not r.alive:
+                self._recover(r, cause="engine_death")
+            elif r.stall is not None:
+                self._check_stall(r)
+            elif self.cfg.quarantine and r.engine.audit.degraded:
+                self._begin_quarantine(r)
+
+    # --- handle triage ------------------------------------------------------
+    def _triage(self, replica: EngineReplica, terminal: bool) -> None:
+        """Claim and disposition every handle still owned by
+        ``replica``.  ``terminal=False`` re-dispatches recoverable
+        requests (unstarted / zero-output / retryable) and fails the
+        rest with ``replica_failed``; ``terminal=True`` (drain / close)
+        fails everything un-finished with abort."""
+        lc = self.router.lifecycle
+        rep = str(replica.index)
+        # with the engine thread confirmed dead its request objects are
+        # frozen: a failed handle may keep its req so direct callers
+        # still see the partial output.  A thread that may still run
+        # (watchdog escalation) could mutate/finish the old req out
+        # from under the verdict, so there the handle detaches.
+        thread_dead = (replica.thread is not None
+                       and not replica.thread.is_alive())
+        for rid, h in list(replica.handles.items()):
+            if replica.handles.pop(rid, None) is None:
+                continue  # a racing claimer won the pop — not ours
+            self.router._release(rid, replica)
+            req = h.req
+            if h.done or (req is not None and req.finished):
+                continue  # already terminal; the handler reads it fine
+            if h.cancel_reason is not None:
+                # a deadline/disconnect abort raced the failure: honor it
+                if not thread_dead:
+                    h.req = None
+                h.done = True
+                lc.event(rid, _lc.EV_FINISH, replica=rep,
+                         reason=h.cancel_reason.value)
+                continue
+            if self._recoverable(h) and not terminal:
+                if (req is not None and req.output_tokens
+                        and h.resume_tokens is None):
+                    # mid-decode death: carry the emitted
+                    # tokens so re-dispatch RESUMES instead of replaying
+                    # — and so FleetRouter.submit routes this handle to
+                    # a same-role/unified replica, never a prefill
+                    # specialist.  The KV itself is unexportable (the
+                    # engine thread is dead); the recipient recomputes
+                    # the prompt+resume tail, which preserves greedy
+                    # token identity.
+                    h.resume_tokens = [int(t) for t in req.output_tokens]
+                    h.arrival = req.arrival_time
+                h.req = None
+                lc.event(rid, "redispatch", replica=rep,
+                         had_output=bool(req and req.output_tokens))
+                self._pending.append(h)
+            else:
+                if not thread_dead:
+                    h.req = None
+                h.cancel_reason = (FinishReason.ABORT if terminal
+                                   else FinishReason.REPLICA_FAILED)
+                h.done = True
+                if not terminal:
+                    self._failed_c.inc()
+                lc.event(rid, _lc.EV_FINISH, replica=rep,
+                         reason=h.cancel_reason.value)
+
+    def _flush_pending(self) -> None:
+        """Re-dispatch parked handles through normal routing; a handle
+        that still cannot place (fleet saturated / mid-restart) stays
+        parked for the next tick — zero lost."""
+        if not self._pending:
+            return
+        routed = False
+        for _ in range(len(self._pending)):
+            h = self._pending.popleft()
+            if self.router.draining:
+                self._pending.append(h)
+                break
+            if all(r.index in self._excluded
+                   for r in self.router.replicas):
+                # nothing will ever come back: fail honestly.
+                # cancel_reason BEFORE done: a concurrent poller that
+                # sees done must never read a missing reason as "abort"
+                h.cancel_reason = FinishReason.REPLICA_FAILED
+                h.done = True
+                self._failed_c.inc()
+                self.router.lifecycle.event(
+                    h.rid, _lc.EV_FINISH,
+                    reason=FinishReason.REPLICA_FAILED.value)
+                routed = True
+                continue
+            try:
+                self.router.submit(h)
+            except (FleetSaturated, FleetDown):
+                self._pending.append(h)  # retry next tick
+            else:
+                self._redis_c.inc()
+                routed = True
+        if routed:
+            self.router._notify(None)
+
+    def _fail_pending(self, reason: str) -> None:
+        while self._pending:
+            h = self._pending.popleft()
+            # cancel_reason BEFORE done (concurrent pollers read done
+            # first and must see the final reason with it)
+            h.cancel_reason = (FinishReason.REPLICA_FAILED
+                               if reason == "replica_failed"
+                               else FinishReason.ABORT)
+            h.done = True
+            self.router.lifecycle.event(h.rid, _lc.EV_FINISH,
+                                        reason=h.cancel_reason.value)
+
+    # --- recovery actions ---------------------------------------------------
+    def _recover(self, replica: EngineReplica, cause: str) -> None:
+        """First observation of a dead replica: triage its handles NOW,
+        then SCHEDULE the rebuild after the backoff (non-blocking — the
+        monitor keeps ticking, so a second replica failing during this
+        one's backoff is triaged immediately, not after it)."""
+        i = replica.index
+        t0 = time.monotonic()
+        if replica.watchdog is not None:
+            replica.watchdog.shutdown()
+        replica.join(2.0)
+        self._triage(replica, terminal=False)
+        self._flush_pending()
+        self.router._notify(None)
+        hist = self._history[i]
+        now = time.monotonic()
+        recent = [t for t in hist if now - t <= self.cfg.restart_window_s]
+        if len(recent) >= self.cfg.max_restarts:
+            self._exclude(i, cause)
+            return
+        delay = min(self.cfg.backoff_max_s,
+                    self.cfg.backoff_initial_s
+                    * self.cfg.backoff_factor ** len(recent))
+        hist.append(now)
+        self._restart_at[i] = (now + delay, cause, t0)
+
+    def _maybe_rebuild(self, index: int) -> None:
+        """Scheduled-restart tick: rebuild once the backoff deadline has
+        passed."""
+        not_before, cause, t0 = self._restart_at[index]
+        if time.monotonic() < not_before or self.router.draining:
+            return
+        del self._restart_at[index]
+        if self._rebuild(index, cause):
+            self._recovery_h.observe(time.monotonic() - t0)
+
+    @staticmethod
+    def _recoverable(h) -> bool:
+        """THE re-dispatch eligibility rule, shared by death triage and
+        quarantine stragglers: nothing delivered yet (never admitted or
+        zero output), or the request opted in with ``retryable``."""
+        req = h.req
+        return req is None or not req.output_tokens or h.retryable
+
+    def _check_stall(self, replica: EngineReplica) -> None:
+        steps0, t_fire = replica.stall
+        if replica.steps_done > steps0 \
+                or not replica.engine.scheduler.has_work():
+            # the stall resolved inside the grace: re-include untouched.
+            # The idle check covers the stamp race — a step can complete
+            # between the watchdog popping the expired section and the
+            # handler recording steps_done, and an excluded idle replica
+            # would otherwise never "advance" again.
+            replica.stall = None
+            replica.unhealthy = False
+            self.router.lifecycle.event(
+                None, "watchdog_stall_recovered",
+                replica=str(replica.index))
+            return
+        if time.monotonic() - t_fire < self.cfg.watchdog_grace_s:
+            return
+        # still wedged past the grace: escalate to a restart.  The hung
+        # thread cannot be killed — it is marked dead (error set), its
+        # handles are claimed, and it is left to finish into the void
+        # (its notify/evict paths are replica-scoped no-ops once the
+        # owner map points at the replacement).
+        replica.error = (f"watchdog escalation: step stalled past "
+                         f"{self.cfg.watchdog_grace_s}s grace")
+        replica.request_stop()
+        self.router.lifecycle.event(
+            None, "watchdog_escalation", replica=str(replica.index))
+        self._recover(replica, cause="watchdog")
+
+    def _begin_quarantine(self, replica: EngineReplica) -> None:
+        """First observation of an audit-degraded replica: stop routing
+        to it NOW and start the drain clock.  The drain itself is
+        tick-based (:meth:`_continue_quarantine`) so the monitor keeps
+        serving every other replica's failures while this one drains."""
+        i = replica.index
+        now = time.monotonic()
+        replica.unhealthy = True
+        self._quar_c.inc()
+        snap = replica.engine.audit.snapshot()
+        self.router.lifecycle.event(
+            None, "quarantine", replica=str(i),
+            divergences=sum(snap["divergences"].values()))
+        self.router.flight.trigger(
+            "quarantine", replica=str(i),
+            detail=json.dumps(snap.get("last_divergence"), default=str))
+        self._quarantining[i] = (now + self.cfg.quarantine_drain_s, now)
+
+    def _continue_quarantine(self, replica: EngineReplica) -> None:
+        i = replica.index
+        deadline, t0 = self._quarantining[i]
+        if not replica.alive:
+            # died mid-drain: this is a death now — triage + scheduled
+            # rebuild through the normal recovery path
+            del self._quarantining[i]
+            self._recover(replica, cause="quarantine")
+            return
+        if replica.handles and time.monotonic() < deadline:
+            return  # still draining; other replicas keep being served
+        self._finish_quarantine(replica, t0)
+
+    def _finish_quarantine(self, replica: EngineReplica,
+                           t0: float) -> None:
+        """Drain over (or empty): disposition stragglers, stop the old
+        engine, replace it with a clean one."""
+        i = replica.index
+        # stragglers: recoverable ones re-dispatch (their engine-side
+        # twins are aborted so the old engine frees their blocks and
+        # runs dry); the rest finish replica_failed THROUGH the live
+        # engine so its pool empties before the teardown
+        for rid, h in list(replica.handles.items()):
+            req = h.req
+            if h.done or (req is not None and req.finished):
+                continue  # completed during the drain; engine evicts it
+            if self._recoverable(h):
+                if not self._park(replica, rid, h, quarantine=True):
+                    continue
+                if req is not None:
+                    # free the abandoned twin's blocks on the old engine
+                    try:
+                        replica.abort_q.put_nowait(
+                            (rid, FinishReason.ABORT))
+                    except Exception:
+                        pass  # swallow-ok: queue full only delays the old engine's cleanup; the engine is being torn down
+                    replica.wake.set()
+            else:
+                replica.request_abort(rid, FinishReason.REPLICA_FAILED)
+                self._failed_c.inc()
+        self._flush_pending()
+        replica.request_stop()
+        replica.join(5.0)
+        if replica.watchdog is not None:
+            replica.watchdog.shutdown()
+        del self._quarantining[i]
+        if self._stop_ev.is_set() or self.router.draining:
+            return
+        if self._rebuild(i, cause="quarantine"):
+            self._recovery_h.observe(time.monotonic() - t0)
+
+    def _park(self, replica: EngineReplica, rid, h, **event_attrs) -> bool:
+        """Claim one recoverable handle off ``replica`` (dict.pop is the
+        ownership rule) and park it for re-dispatch; False when a racing
+        claimer won the pop."""
+        if replica.handles.pop(rid, None) is None:
+            return False
+        self.router._release(rid, replica)
+        had = bool(h.req is not None and h.req.output_tokens)
+        h.req = None
+        self.router.lifecycle.event(
+            rid, "redispatch", replica=str(replica.index),
+            had_output=had, **event_attrs)
+        self._pending.append(h)
+        return True
+
+    def _exclude(self, index: int, cause: str) -> None:
+        self._excluded.add(index)
+        self.router.lifecycle.event(
+            None, "crash_loop_excluded", replica=str(index), cause=cause,
+            restarts=len(self._history[index]))
+        self.router.flight.trigger(
+            "crash_loop", replica=str(index),
+            detail=f"{self.cfg.max_restarts} restart(s) within "
+                   f"{self.cfg.restart_window_s}s after {cause}; replica "
+                   "permanently excluded")
+        # handles parked for this replica route elsewhere; if this was
+        # the last replica, the next flush fails them honestly
+        self._flush_pending()
+
+    def _rebuild(self, index: int, cause: str) -> bool:
+        """Fresh engine + replica + thread on the same index, rewired
+        onto the fleet's shared tracker/flight/injector exactly like
+        :meth:`FleetRouter.__init__` wired the original.  Returns True
+        (the JAX supervisor's False, a rebuild that cannot match the
+        fleet's AOT artifact, comes with artifacts, ROADMAP A9 rest)."""
+        router = self.router
+        eng = self.factory(index, router.registry)
+        eng.set_lifecycle(router.lifecycle, replica=str(index))
+        eng.audit.bind_flight(router.flight, replica=str(index))
+        if router.history is not None:
+            # the rebuilt engine keeps ticking the fleet's ONE history
+            # store — its registry counters continue from the
+            # shared totals, so rate windows see no reset here; engine-
+            # local resets are clamped by HistoryStore.increase anyway
+            eng.set_history(router.history)
+        fi = router.fault_injectors.get(index)
+        if fi is not None:
+            eng.set_fault_injector(fi)
+        new = EngineReplica(index, eng, router.cfg.max_queue,
+                            notify=router._notify,
+                            on_finish=router._release)
+        new.flight = router.flight
+        self._adopt(new)
+        router.engines[index] = eng
+        router.replicas[index] = new
+        router.flight.bind_step_profilers(
+            {str(r.index): r.engine.stepprof for r in router.replicas})
+        router.flight.bind_cache_trackers(
+            {str(r.index): r.engine.cachestat for r in router.replicas})
+        # re-arm the fired-once engine_death trigger (and its cooldown)
+        # for this index: the NEXT death is a new incident and must dump
+        # its own bundle — exactly one bundle per recovery action
+        router.flight.reset_once("engine_death", str(index))
+        new.start()
+        self._restarts[cause].inc()
+        self.router.lifecycle.event(
+            None, "replica_restarted", replica=str(index), cause=cause)
+        sys.stderr.write(f"[supervisor] replica {index} restarted "
+                         f"(cause: {cause})\n")
+        router.sample_gauges()
+        return True

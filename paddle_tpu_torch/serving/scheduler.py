@@ -26,8 +26,9 @@ request that can never fit the pool is finished as ABORT instead of
 live-locking the queue; the engine pads each step to a size bucket
 (:func:`bucket_size`).  Each plan carries the decode-burst headroom
 (``burst_capacity``), and the scheduler keeps the planned-token ledger
-(``tokens_planned``).  The speculative-decode draft budget and the AOT
-sequence cap of the JAX scheduler come with their consumers (ROADMAP A9).
+(``tokens_planned``) and the speculative-decode draft budget
+(``draft_budget``).  The AOT sequence cap of the JAX scheduler comes with
+AOT artifacts (ROADMAP A9 rest).
 """
 
 from __future__ import annotations
@@ -113,6 +114,12 @@ class SchedulerOutput:
     decodes: List[Request] = field(default_factory=list)
     preempted: List[Request] = field(default_factory=list)
     aborted: List[Request] = field(default_factory=list)
+    # speculative-decode headroom: tokens left of ``max_tokens_per_step``
+    # after this plan's decode rows and prefill chunks — the engine packs
+    # at most this many DRAFT tokens into the unified step, so the packed
+    # token count never outgrows the plain plan's bucket bound.  0 when
+    # no combined budget is configured (spec requires one)
+    draft_budget: int = 0
     # decode-burst headroom: the largest per-row burst length the pool can
     # back for THIS plan's decode rows, from the ONE
     # ``KVCacheManager.burst_capacity`` accessor — the engine's launch
@@ -347,6 +354,14 @@ class ContinuousBatchingScheduler:
         # burst headroom after slot reservation and chunk planning: it
         # reflects the pool this plan leaves behind
         out.burst_capacity = self.kv.burst_capacity(len(out.decodes))
+        total = self.config.max_tokens_per_step
+        if total is not None:
+            # leftover of the ONE step budget after decode rows and
+            # planned prefill chunks: the speculative-draft allowance (the
+            # engine ledgers the drafts it actually packs)
+            used = len(out.decodes) + sum(
+                r._chunk_tokens or 0 for r in out.prefills)
+            out.draft_budget = max(0, int(total) - used)
         self.tokens_planned_prefill += sum(
             r._chunk_tokens or 0 for r in out.prefills)
         self.tokens_planned_decode += len(out.decodes)

@@ -11,8 +11,8 @@
 * Every ``EngineConfig`` setting the port does not implement raises
   ``NotImplementedError`` naming its ROADMAP item, as do MoE layers,
   pipeline micro-batches, sep > 1 and gradient clipping; the legacy
-  families, decode bursts, the auditor and a shared lifecycle tracker
-  build and serve.
+  families, decode bursts, the auditor, a shared lifecycle tracker,
+  speculative decoding and the prefill/decode roles build and serve.
 """
 
 import ast
@@ -28,7 +28,13 @@ from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.observability import AuditConfig, LifecycleTracker
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.parallel.ring_attention import ring_flash_attention
-from paddle_tpu_torch.serving import EngineConfig, EngineCore, SamplingParams
+from paddle_tpu_torch.serving import (
+    EngineConfig,
+    EngineCore,
+    SamplingParams,
+    SchedulerConfig,
+    SpecConfig,
+)
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "paddle_tpu_torch"
@@ -47,7 +53,14 @@ MUST_CHECK = ("utils/__init__.py", "utils/extension.py",
               "observability/cachestat.py", "observability/audit.py",
               "observability/flight.py", "observability/history.py",
               "observability/alerts.py", "observability/httpd.py",
-              "observability/push.py")
+              "observability/push.py",
+              # the fleet and its server: their JAX counterparts import no
+              # JAX either (handoff.py does), and the port keeps its own
+              "serving/spec.py", "serving/handoff.py", "serving/wire.py",
+              "serving/faultinject.py", "serving/fleet.py",
+              "serving/resilience.py", "serving/protocol.py",
+              "serving/server.py", "distributed/__init__.py",
+              "distributed/watchdog.py")
 
 
 def _port_files():
@@ -145,7 +158,7 @@ def test_moe_layers_raise_at_construction():
 
 
 # ROADMAP items already ported: their settings build and serve
-PORTED = ("A7", "A8")
+PORTED = ("A7", "A8", "A9")
 
 
 @pytest.mark.parametrize("fields, item", [
@@ -154,9 +167,11 @@ PORTED = ("A7", "A8")
     (dict(audit=AuditConfig(enabled=True, sample_every=1)), "A8"),
     (dict(profile_ops=True), "A12"),
     (dict(lifecycle=LifecycleTracker()), "A8"),
-    (dict(spec=object()), "A9"),
-    (dict(aot_path="artifact"), "A9"),
-    (dict(aot=object()), "A9"),
+    (dict(spec=SpecConfig(k=4),
+          scheduler=SchedulerConfig(max_tokens_per_step=16)), "A9"),
+    # explicit ids keep these cases' names stable
+    pytest.param(dict(aot_path="artifact"), "A9 rest", id="fields6-A9"),
+    pytest.param(dict(aot=object()), "A9 rest", id="fields7-A9"),
     (dict(role="prefill"), "A9"),
     (dict(role="decode"), "A9"),
     (dict(mp=2), "A11"),
@@ -164,8 +179,9 @@ PORTED = ("A7", "A8")
 def test_unported_engine_settings_raise(fields, item):
     """A setting of an item not ported yet raises naming the item; those of
     a ported item (A7: the legacy families, decode bursts; A8: the
-    auditor, a shared lifecycle tracker) build an engine that serves a
-    request to its end."""
+    auditor, a shared lifecycle tracker; A9: speculative decoding, the
+    prefill and decode roles) build an engine that serves a request to its
+    end."""
     model = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1),
                              device="cpu")
     cfg = dict(num_blocks=16, block_size=4, unified_step=True)
