@@ -3,6 +3,7 @@
 one NVIDIA GPU, in one call, so that both run on the same card.
 
     python3 chip_ab.py PARENT_DIR [CHANGE_DIR]
+    python3 chip_ab.py --whole PARENT_DIR [CHANGE_DIR]
 
 ``CHANGE_DIR`` defaults to this script's directory.  Each run is a process
 of its own that puts one checkout first on the path, builds its kernels
@@ -29,6 +30,12 @@ legacy path's tokens/s, idle and decode-kernel shares, ms a train step and
 MFU; and, for a checkout with the step graphs, the tokens/s of its warm
 (replays only) and eager serve passes.  Exits nonzero when a run fails or
 there is no CUDA device.
+
+With ``--whole``, each checkout's entire ``chip_smoke.py`` runs once,
+parent then change, as its own process: a line per phase with the
+seconds since that run began (taken as the line arrives), then a summary
+of each run's seconds to its last line and its exit code — the script's
+own wall time, which each slice keeps within its budget.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 CHILD = r"""
 import gc, inspect, json, os, sys
@@ -125,13 +133,39 @@ def run(checkout: str, label: str, index: int) -> dict:
     return phases
 
 
+def whole(checkout: str, label: str) -> dict:
+    """``checkout``'s whole ``chip_smoke.py`` in a process of its own:
+    each phase line's arrival in seconds since the start, printed as it
+    comes; returns the run's seconds and exit code."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "chip_smoke.py"], cwd=checkout,
+                            stdout=subprocess.PIPE, text=True)
+    last = 0.0
+    for line in proc.stdout:
+        last = time.perf_counter() - t0
+        try:
+            rec = json.loads(line)
+        except ValueError:
+            continue
+        if isinstance(rec, dict) and ("phase" in rec or "ok" in rec):
+            print(json.dumps({"checkout": label,
+                              "phase": rec.get("phase", "ok"),
+                              "seconds": round(last, 1)}), flush=True)
+    code = proc.wait()
+    return {"checkout": label, "seconds": round(last, 1), "exit": code}
+
+
 def main() -> int:
-    if len(sys.argv) not in (2, 3):
+    args = sys.argv[1:]
+    whole_runs = args[:1] == ["--whole"]
+    if whole_runs:
+        args = args[1:]
+    if len(args) not in (1, 2):
         print(__doc__, file=sys.stderr)
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
-    dirs = {"parent": os.path.abspath(sys.argv[1]),
-            "change": os.path.abspath(sys.argv[2] if len(sys.argv) == 3
+    dirs = {"parent": os.path.abspath(args[0]),
+            "change": os.path.abspath(args[1] if len(args) == 2
                                       else here)}
     import torch
 
@@ -142,6 +176,10 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     print(json.dumps({"phase": "device", "nvidia_smi": smi}), flush=True)
+    if whole_runs:
+        runs = [whole(dirs[label], label) for label in ("parent", "change")]
+        print(json.dumps({"whole": runs, "nvidia_smi": smi}))
+        return 0 if all(r["exit"] == 0 for r in runs) else 1
     summary = []
     for i, label in enumerate(("parent", "change", "change", "parent")):
         p = run(dirs[label], label, i)

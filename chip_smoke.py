@@ -11,7 +11,10 @@ these phases, printing one JSON line for each:
 
 ``device``   the card (``nvidia-smi`` name and power limit, torch's name).
 ``build``    the four kernel sources in one build (one nvcc each, started
-             together); nvcc's ptxas report goes to standard error.
+             together), and beside it the decode kernel in the worker
+             processes' kernel directory (their ``--compile-cache``);
+             nvcc's ptxas report goes to standard error.  Every line also
+             carries ``script_s``, the script's wall seconds so far.
 ``custom_op`` the custom-op path: the scale kernel (``csrc/scaled.cu``)
              against its twin bit for bit (``torch.equal``) over fp32, bf16
              and fp16, alpha in {2, 3, 0.1, -3.5}, 1 to 1,000,003
@@ -218,6 +221,35 @@ these phases, printing one JSON line for each:
              the launch rule over the replicas and both rounds (the
              ragged kernel on tma, the decode kernel on mma); tokens/s,
              TTFT and ITL against the serve phase's warm pass.
+``procfleet_identity``  the identity model built in worker processes
+             (``python -m paddle_tpu_torch.serving.worker``, preset
+             ``llama3_8b`` at 4 layers, fp32, the same seeded generator):
+             a ``ProcessFleet`` of 2 unified workers gives one in-process
+             engine's greedy tokens on the spec prompts (32 new tokens);
+             a second wave with the stream's worker killed by SIGKILL
+             mid-stream loses no request and gives the same tokens, with
+             exactly one ``engine_death`` bundle embedding the dead
+             worker's mirrored events and the worker respawned under a
+             new pid; then a prefill + decode worker pair: every request
+             handed off across processes and served on the decode worker
+             from the imported pages (blocks x 16 tokens cached), the same
+             tokens.  Per worker, read over the wire (``describe``): ragged
+             launches = its unified steps x layers on the simple route.
+``procfleet``  the serve model (seed 1, full depth, bf16) built in each
+             worker: ``CompletionServer`` with the supervisor over
+             ``--workers`` fleets of 2 unified workers and of 2 legacy
+             workers with bursts of 8, each on the server phase's two
+             rounds (the second drained in flight): every completion
+             whole, ``/readyz`` ``dp=2``, ``/metrics`` with both replicas'
+             merged series, ``/v1/debug/wire`` enabled with its host /
+             wire / engine shares, zero restarts, respawns and heartbeat
+             timeouts, the launch rule per worker (unified: ragged on tma
+             and no decode launch; legacy: decode on mma and no ragged
+             launch); tokens/s, TTFT and ITL beside the server phase's,
+             each worker's boot seconds and ``PADDLE_TPU_COMPILE_CACHE``
+             counts (every fleet boots on the one kernel directory the
+             identity fleet filled first).  Then one 2048-token hand-off
+             from a prefill worker to a decode worker, by part.
 ``flash_kernels``  the three flash kernels (forward, dQ, dK/dV) against
              their twins on the same inputs by ``flash.rowwise_error``,
              each output row against its twin row (fp32 within 1e-4; bf16
@@ -276,6 +308,8 @@ import http.client
 import json
 import os
 import re
+import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -299,8 +333,13 @@ FLASH_MARKS = {"fwd": ("flash_fwd_",), "dq": ("flash_bwd_dq_",),
 MATMUL_MARKS = ("gemm", "xmma", "cutlass", "nvjet", "matmul")
 
 
+_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line, with the script's wall seconds so far."""
+    print(json.dumps({"phase": phase, **fields,
+                      "script_s": time.perf_counter() - _START}), flush=True)
 
 
 def gpu_sample() -> dict:
@@ -3398,11 +3437,12 @@ def server_identity_phase(torch, rp, pd, serving, model, prompts):
     torch.cuda.empty_cache()
 
 
-def server_round(srv, bodies, new_tokens, drain):
+def server_round(srv, bodies, new_tokens, drain,
+                 routes=("/readyz", "/metrics", "/v1/debug/compiles")):
     """``bodies`` (``(body, streamed)``) posted concurrently to ``srv``;
     with ``drain``, a drain begins once all are in flight (after reading
-    ``/readyz``, ``/metrics`` and ``/v1/debug/compiles``).  Returns the
-    round's numbers, its request ids and what the routes answered."""
+    ``routes``).  Returns the round's numbers, its request ids and what
+    the routes answered."""
     from concurrent.futures import ThreadPoolExecutor
 
     seen = {}
@@ -3416,7 +3456,7 @@ def server_round(srv, bodies, new_tokens, drain):
                    and time.monotonic() < deadline):
                 time.sleep(0.01)
             seen["in_flight_at_drain"] = len(srv.server._handles)
-            for route in ("/readyz", "/metrics", "/v1/debug/compiles"):
+            for route in routes:
                 seen[route] = http_call(srv.port, "GET", route)
             stop = srv.asyncio.run_coroutine_threadsafe(
                 srv.server.shutdown(), srv.loop)
@@ -3444,6 +3484,18 @@ def server_round(srv, bodies, new_tokens, drain):
         rids, seen
 
 
+def server_bodies(rng, prompts, vocab, new_tokens):
+    """One round of 24 completions: 8 streamed and 8 plain over fresh
+    prompts of ``prompts``' lengths, and 8 sharing a 256-token prefix."""
+    batch = same_lengths(rng, prompts, vocab)
+    prefix = rng.integers(0, vocab, 256).tolist()
+    shared = [prefix + rng.integers(0, vocab, int(rng.integers(
+        16, 257))).tolist() for _ in range(8)]
+    return [({"prompt": p, "max_tokens": new_tokens}, i % 2 == 0)
+            for i, p in enumerate(batch)] + [
+        ({"prompt": p, "max_tokens": new_tokens}, False) for p in shared]
+
+
 def server_phase(torch, rp, pd, serving, model, prompts, serve_warm):
     """Llama-3-8B, full depth, bf16: the CompletionServer on loopback over
     a dp=1 unified fleet and over a dp=2 legacy fleet with bursts of 8
@@ -3456,17 +3508,8 @@ def server_phase(torch, rp, pd, serving, model, prompts, serve_warm):
     vocab = model.config.vocab_size
     rng = np.random.default_rng(14)
     new_tokens = 64
-
-    def round_bodies():
-        batch = same_lengths(rng, prompts, vocab)
-        prefix = rng.integers(0, vocab, 256).tolist()
-        shared = [prefix + rng.integers(0, vocab, int(rng.integers(
-            16, 257))).tolist() for _ in range(8)]
-        return [({"prompt": p, "max_tokens": new_tokens}, i % 2 == 0)
-                for i, p in enumerate(batch)] + [
-            ({"prompt": p, "max_tokens": new_tokens}, False) for p in shared]
-
-    rounds = [round_bodies(), round_bodies()]
+    rounds = [server_bodies(rng, prompts, vocab, new_tokens)
+              for _ in range(2)]
     need = max(sum(-(-(len(b["prompt"]) + new_tokens) // 16)
                    for b, _ in bodies) for bodies in rounds) + 1
     rows = {}
@@ -3535,6 +3578,404 @@ def server_phase(torch, rp, pd, serving, model, prompts, serve_warm):
               "takes the captures); TTFT and ITL are means over the "
               "server's request timelines; every completion was in flight "
               "when the drain began and finished with all its tokens")
+    return rows
+
+
+# --- the cross-process fleet --------------------------------------------------
+
+def process_fleet(serving, model, dp, num_blocks, unified, burst=0,
+                  roles=None, compile_cache=None, flight_dir=None, seqs=16,
+                  budget=512):
+    """A ``ProcessFleet`` of ``dp`` worker processes (``python -m
+    paddle_tpu_torch.serving.worker``), each building the model ``model``
+    names (``preset``, ``layers``, ``dtype``, ``seed``; the card unless
+    ``device`` says otherwise) on the serve phases' engine shape, with the
+    default heartbeats (every 0.25 s, dead after 2 s of silence)."""
+    return serving.ProcessFleet(serving.ProcessFleetConfig(
+        dp=dp, num_blocks=num_blocks, block_size=16, max_num_seqs=seqs,
+        max_prefill_tokens_per_step=None,
+        max_tokens_per_step=budget if unified else None,
+        unified=unified, burst_steps=burst, roles=roles,
+        compile_cache=compile_cache, **model,
+        fleet=serving.FleetConfig(max_queue=64, flight_dir=flight_dir,
+                                  roles=roles)))
+
+
+def child_gone(pid) -> bool:
+    """True once the worker process ``pid`` has exited and been reaped."""
+    try:
+        done, _ = os.waitpid(pid, os.WNOHANG)
+    except ChildProcessError:
+        return True
+    return done == pid
+
+
+def stop_process_fleet(label, pf, pids=()):
+    """Stop ``pf``; no worker process (the live ones and ``pids``) and no
+    replica or heartbeat thread may outlive it."""
+    proxies = list(pf.shared.active.values())
+    pids = {p.pid for p in proxies if p.pid} | set(pids)
+    pf.stop()
+    for p in proxies:
+        if p._hb_thread is not None:
+            p._hb_thread.join(10)
+    deadline = time.monotonic() + 30
+    while not all(child_gone(pid) for pid in pids) \
+            and time.monotonic() < deadline:
+        time.sleep(0.05)
+    if not all(child_gone(pid) for pid in pids) or any(
+            r.thread is not None and r.thread.is_alive()
+            for r in pf.router.replicas) or any(
+            p._hb_thread is not None and p._hb_thread.is_alive()
+            for p in proxies):
+        raise AssertionError(f"{label}: a worker process or thread "
+                             "outlived the fleet's stop")
+
+
+def series_sum(registry, name):
+    return sum(m.value for m in registry.series() if m.name == name)
+
+
+def boot_rows(pf):
+    """Each worker's boot: its own boot seconds (engine build and kernel
+    load), launch to ready line on the parent's clock, and its
+    ``PADDLE_TPU_COMPILE_CACHE`` counts."""
+    return {str(i): {"pid": p.pid, "boot_s": p.worker.boot_s,
+                     "ready_s": p.worker.ready_s,
+                     "compile_cache": p.worker.compile_cache}
+            for i, p in sorted(pf.shared.active.items())}
+
+
+def worker_launch_rule(label, pf, ragged_route, decode_route):
+    """The launch rule per worker process, read over the wire
+    (``describe``): each worker's kernel launches since its boot equal
+    those its engine's steps call for (the ragged kernel once per layer
+    per unified step, the decode kernel once per layer per decode step
+    and burst iteration), each all on its route; a kernel whose route is
+    ``None`` launched nothing."""
+    rows = {}
+    for r in pf.router.replicas:
+        desc = pf.proxy(r.index).debug_fetch("describe")
+        if desc is None:
+            raise AssertionError(f"{label}: worker {r.index} did not "
+                                 "answer describe")
+        got = desc["launches"]
+        for kernel, route in (("ragged", ragged_route),
+                              ("decode", decode_route)):
+            due = got["due"][kernel] if route else 0
+            if got[kernel]["all"] != due or (
+                    route and got[kernel][route] != due):
+                raise AssertionError(
+                    f"{label} worker {r.index}: {got[kernel]} {kernel} "
+                    f"launches for {due} due (on {route})")
+        rows[str(r.index)] = {"pid": desc["pid"], **got}
+    return rows
+
+
+def procfleet_identity_phase(torch, serving, model, prompts, spec,
+                             cache_dir):
+    """The identity model (fp32, the simple route) in worker processes
+    built from ``spec`` (``preset``/``layers``/``dtype``/``seed``, which
+    draw the same weights as ``model``): a ProcessFleet of 2 unified
+    workers gives one in-process engine's greedy tokens on ``prompts``;
+    a second wave with the stream's worker killed by SIGKILL mid-stream
+    loses nothing and gives the same tokens, with one ``engine_death``
+    bundle embedding the dead worker's mirrored events and a respawned
+    worker under a new pid; then a prefill + decode worker pair hands
+    every request off across processes, each served on the decode worker
+    from the imported pages.  The launch rule per worker, over the wire."""
+    new_tokens = 32
+    dtype = getattr(torch, spec["dtype"])
+    need = sum(-(-(len(p) + new_tokens) // 16) for p in prompts) + 1
+    eng = serving.EngineCore(model, config=serving.EngineConfig(
+        num_blocks=need + 16, block_size=16, dtype=dtype, unified_step=True,
+        scheduler=serving.SchedulerConfig(max_num_seqs=16,
+                                          max_tokens_per_step=512)))
+    reqs = [eng.add_request(p, serving.SamplingParams(
+        max_new_tokens=new_tokens)) for p in prompts]
+    eng.run(max_steps=20000)
+    want = [list(r.output_tokens) for r in reqs]
+    del eng, reqs
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    flight_dir = tempfile.mkdtemp(prefix="procfleet_flight_")
+    out = {}
+
+    def wave(router, tag):
+        return [router.submit_request(p, serving.SamplingParams(
+            max_new_tokens=new_tokens), request_id=f"{tag}{i}",
+            retryable=True) for i, p in enumerate(prompts)]
+
+    pf = process_fleet(serving, spec, 2, need + 16, True,
+                       compile_cache=cache_dir, flight_dir=flight_dir)
+    pf.supervise(serving.SupervisorConfig(max_restarts=5))
+    pf.start()
+    router = pf.router
+    out["boot"] = boot_rows(pf)
+    pids = {pf.worker_pid(i) for i in range(2)}
+    try:
+        t0 = time.perf_counter()
+        hs = wave(router, "a")
+        router.wait(hs, timeout=600)
+        out["fault_free_s"] = time.perf_counter() - t0
+        if [list(h.output_tokens) for h in hs] != want or any(
+                h.finish_reason != "length" for h in hs):
+            raise AssertionError("procfleet_identity: the worker fleet's "
+                                 "tokens differ from one in-process "
+                                 "engine's (fp32)")
+        out["served_by"] = [h.replica.index for h in hs]
+        out["launch_rule"] = worker_launch_rule(
+            "procfleet_identity", pf, "simple", None)
+        quiet = (series_sum(pf.registry, "serving_replica_restarts_total"),
+                 series_sum(pf.registry,
+                            "serving_fleet_worker_respawns_total"))
+        if quiet != (0, 0):
+            raise AssertionError(f"procfleet_identity: restarts and "
+                                 f"respawns {quiet} in a fault-free run")
+        # --- kill -9 the worker holding the stream, mid-stream
+        hs = wave(router, "b")
+        deadline = time.monotonic() + 300
+        while not any(h.output_tokens for h in hs) \
+                and time.monotonic() < deadline:
+            time.sleep(0.002)
+        victim = next((r.index for r in router.replicas if r.in_flight),
+                      None)
+        if victim is None:
+            raise AssertionError("procfleet_identity: nothing in flight to "
+                                 "kill")
+        vpid = pf.worker_pid(victim)
+        tokens_at_kill = sum(len(h.output_tokens) for h in hs)
+        os.kill(vpid, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        router.wait(hs, timeout=600)
+        lost = [h.rid for h in hs if h.finish_reason != "length"]
+        if lost or [list(h.output_tokens) for h in hs] != want:
+            raise AssertionError(f"procfleet_identity: kill -9 lost {lost} "
+                                 "or changed the tokens")
+        deadline = time.monotonic() + 300
+        while not (all(r.healthy for r in router.replicas)
+                   and pf.worker_pid(victim) != vpid) \
+                and time.monotonic() < deadline:
+            time.sleep(0.02)
+        healed_s = time.perf_counter() - t_kill
+        new_pid = pf.worker_pid(victim)
+        pids.add(new_pid)
+        if new_pid == vpid or not all(r.healthy for r in router.replicas):
+            raise AssertionError("procfleet_identity: the killed worker "
+                                 "was not respawned")
+        bundles = [b for b in router.flight.bundles if "engine_death" in b]
+        if len(bundles) != 1:
+            raise AssertionError(f"procfleet_identity: {len(bundles)} "
+                                 "engine_death bundles for one kill")
+        with open(bundles[0]) as f:
+            dead = json.load(f)["distrib"][str(victim)]
+        if dead["pid"] != vpid or not dead["mirror"]["events"]:
+            raise AssertionError("procfleet_identity: the engine_death "
+                                 "bundle holds no mirrored events of the "
+                                 "dead worker")
+        out["kill9"] = {
+            "victim": victim, "pid": vpid, "new_pid": new_pid,
+            "tokens_at_kill": tokens_at_kill, "healed_s": healed_s,
+            "respawns": series_sum(pf.registry,
+                                   "serving_fleet_worker_respawns_total"),
+            "mirrored_events": len(dead["mirror"]["events"]),
+            "respawn_boot": boot_rows(pf)[str(victim)],
+            "launch_rule_after": worker_launch_rule(
+                "procfleet_identity kill9", pf, "simple", None)}
+    finally:
+        stop_process_fleet("procfleet_identity", pf, pids)
+        shutil.rmtree(flight_dir, ignore_errors=True)
+    # --- the hand-off across processes
+    roles = ["prefill", "decode"]
+    pf = process_fleet(serving, spec, 2, need + 16, True, roles=roles,
+                       compile_cache=cache_dir)
+    pf.start()
+    try:
+        hs = wave(pf.router, "h")
+        pf.router.wait(hs, timeout=600)
+        if [list(h.output_tokens) for h in hs] != want or any(
+                h.replica.index != 1 for h in hs):
+            raise AssertionError("procfleet_identity: the prefill/decode "
+                                 "workers' tokens differ from one engine's "
+                                 "or a request did not finish on decode")
+        events = {h.rid: e for h in hs for e in
+                  pf.router.lifecycle.get(h.rid).to_dict()["events"]
+                  if e["name"] == "kv_handoff"}
+        att = pf.proxy(1).cachestat.snapshot()["attribution"]
+        cached = {row["id"]: row["cached_tokens"]
+                  for row in att["active"] + att["recent"]}
+        short = {rid: (cached.get(str(rid)), e["blocks"] * 16)
+                 for rid, e in events.items() if not e["blocks"]
+                 or cached.get(str(rid), 0) < e["blocks"] * 16}
+        if len(events) != len(prompts) or short:
+            raise AssertionError(f"procfleet_identity: {len(events)} "
+                                 f"hand-offs; not served from the imported "
+                                 f"pages (cached, carried): {short}")
+        out["handoff"] = {
+            "handoffs": len(events),
+            "blocks_each": [e["blocks"] for e in events.values()],
+            "handoff_ms_each": [e["duration_ms"] for e in events.values()],
+            "decode_cached_tokens_each": [cached[str(r)] for r in events],
+            "launch_rule": worker_launch_rule(
+                "procfleet_identity handoff", pf, "simple", None)}
+    finally:
+        stop_process_fleet("procfleet_identity handoff", pf)
+    emit("procfleet_identity", model=spec["preset"], layers=spec["layers"],
+         dtype=spec["dtype"], prompts=len(prompts),
+         new_tokens_each=new_tokens, identical=True, lost=0, **out)
+
+
+def procfleet_handoff(serving, spec, prompt, cache_dir):
+    """One hand-off of ``prompt``'s prefill from a prefill worker to a
+    decode worker over the wire, each part timed: the donor's gather,
+    device-to-host copy, digest and framing (reported by the worker on
+    its ``kv_run_begin`` frame), the rest of that round trip (each
+    frame's JSON and the socket), the router's assembly, its framing for
+    the recipient, and the recipient's receive, assembly, verification,
+    pool import and scatter (reported on ``kv_import_ok``)."""
+    from paddle_tpu_torch.serving import handoff
+
+    blocks = -(-(len(prompt) + 16) // 16) + 4
+    pf = process_fleet(serving, spec, 2, blocks + 16, True,
+                       roles=["prefill", "decode"], compile_cache=cache_dir,
+                       seqs=1)
+    try:
+        donor, recipient = pf.proxy(0), pf.proxy(1)
+        donor.add_request(prompt, serving.SamplingParams(max_new_tokens=2),
+                          request_id="handoff")
+        while not donor.requests["handoff"].output_tokens:
+            donor.step()
+        conn = donor._engine_conn
+        t0 = time.perf_counter()
+        conn.send({"type": "kv_export", "rid": "handoff"})
+        begin = conn.recv()
+        chunks = [conn.recv() for _ in range(int(begin["chunks"]))]
+        t1 = time.perf_counter()
+        run = handoff.run_from_frames(begin, chunks)
+        t2 = time.perf_counter()
+        donor.detach_request("handoff")
+        conn = recipient._engine_conn
+        t3 = time.perf_counter()
+        frames = handoff.run_to_frames(run)
+        t4 = time.perf_counter()
+        for f in frames:
+            conn.send(f)
+        reply = conn.recv()
+        t5 = time.perf_counter()
+        if reply.get("type") != "kv_import_ok" \
+                or reply.get("placed") != len(run["blocks"]):
+            raise AssertionError(f"procfleet handoff: import answered "
+                                 f"{reply.get('type')} placing "
+                                 f"{reply.get('placed')} of "
+                                 f"{len(run['blocks'])} blocks")
+        out_t, in_t = begin["t"], reply["t"]
+        ms = {"gather": out_t["gather_s"],
+              "device_to_host": out_t["device_to_host_s"],
+              "digest": out_t["digest_s"], "framing": out_t["framing_s"],
+              "socket_out": (t1 - t0) - sum(out_t.values()),
+              "assemble": t2 - t1, "reframe": t4 - t3,
+              "socket_in": in_t["receive_s"],
+              "assemble_in": in_t["assemble_s"], "verify": in_t["verify_s"],
+              "import": in_t["import_s"], "scatter": in_t["scatter_s"]}
+        return {"prompt_tokens": len(prompt), "blocks": len(run["blocks"]),
+                "bytes": int(begin["bytes"]), "frames": len(frames),
+                "ms": {k: v * 1e3 for k, v in ms.items()},
+                "total_ms": ((t2 - t0) + (t5 - t3)) * 1e3,
+                "boot": boot_rows(pf)}
+    finally:
+        stop_process_fleet("procfleet handoff", pf)
+
+
+def procfleet_phase(torch, serving, prompts, spec, cache_dir, in_process):
+    """Llama-3-8B (full depth, bf16, built in each worker from ``spec``)
+    through ``CompletionServer`` over ``--workers`` fleets: 2 unified
+    workers, then 2 legacy workers with bursts of 8, each on the server
+    phase's two rounds of 24 completions (the second drained in flight),
+    the supervisor on, kernels built in ``cache_dir``.  Gates: every
+    completion whole, ``/readyz`` ``dp=2``, ``/metrics`` with both
+    replicas' merged series, ``/v1/debug/wire`` enabled, zero restarts
+    and respawns, the launch rule per worker (unified: ragged on tma, no
+    decode launch; legacy: decode on mma, no ragged launch).  Then one
+    2048-token hand-off between two worker processes, by part."""
+    vocab = 128256 if spec["preset"] == "llama3_8b" else 256
+    rng = np.random.default_rng(15)
+    new_tokens = 64
+    rounds = [server_bodies(rng, prompts, vocab, new_tokens)
+              for _ in range(2)]
+    need = max(sum(-(-(len(b["prompt"]) + new_tokens) // 16)
+                   for b, _ in bodies) for bodies in rounds) + 1
+    rows = {}
+    for name, unified, burst, routes in (
+            ("workers2_unified", True, 0, ("tma", None)),
+            ("workers2_legacy_burst8", False, 8, (None, "mma"))):
+        pf = process_fleet(serving, spec, 2, need + 16, unified, burst,
+                           compile_cache=cache_dir)
+        boots = boot_rows(pf)
+        pids = {b["pid"] for b in boots.values()}
+        srv = ServerThread(serving, pf.router)
+        try:
+            cold, _, _ = server_round(srv, rounds[0], new_tokens, False)
+            row, rids, seen = server_round(
+                srv, rounds[1], new_tokens, True,
+                routes=("/readyz", "/metrics", "/v1/debug/wire"))
+            status, _, ready = seen["/readyz"]
+            page = seen["/metrics"][2]
+            want = [b'serving_engine_steps_total{replica="0"}',
+                    b'serving_engine_steps_total{replica="1"}',
+                    b"serving_wire_frames_total",
+                    b"serving_distrib_events_streamed_total",
+                    b"serving_fleet_active_workers 2"]
+            missing = [w.decode() for w in want if w not in page]
+            wire = json.loads(seen["/v1/debug/wire"][2])
+            if status != 200 or b"dp=2" not in ready or missing \
+                    or not wire.get("enabled") or not wire.get("steps"):
+                raise AssertionError(
+                    f"procfleet {name}: /readyz {status} {ready!r}, "
+                    f"/metrics missing {missing}, /v1/debug/wire "
+                    f"{wire.get('enabled')} with {wire.get('steps')} steps")
+            launches = worker_launch_rule(f"procfleet {name}", pf, *routes)
+            restarts = (
+                series_sum(pf.registry, "serving_replica_restarts_total"),
+                series_sum(pf.registry,
+                           "serving_fleet_worker_respawns_total"),
+                series_sum(pf.registry,
+                           "serving_fleet_heartbeat_timeouts_total"))
+            if restarts != (0, 0, 0) or {pf.worker_pid(i)
+                                         for i in range(2)} != pids:
+                raise AssertionError(f"procfleet {name}: restarts, "
+                                     f"respawns, heartbeat timeouts "
+                                     f"{restarts} in a fault-free run")
+            rows[name] = dict(
+                row, cold=cold, boot=boots,
+                in_flight_at_drain=seen["in_flight_at_drain"],
+                readyz=ready.decode().strip(),
+                wire={k: wire[k] for k in ("shares", "steps")},
+                wire_per_worker={
+                    i: {"shares": st["wire"]["shares"],
+                        "steps": st["wire"]["steps"],
+                        "clock": st["clock"]}
+                    for i, st in wire["replicas"].items()},
+                launch_rule=launches, restarts=0)
+        finally:
+            srv.close()
+            stop_process_fleet(f"procfleet {name}", pf, pids)
+    parts = procfleet_handoff(serving, spec, np.random.default_rng(13)
+                              .integers(0, vocab, 2048).tolist(), cache_dir)
+    emit("procfleet", model=spec["preset"], layers=spec["layers"],
+         dtype=spec["dtype"], completions=len(rounds[1]),
+         new_tokens_each=new_tokens, **rows,
+         in_process={k: {f: v[f] for f in ("output_tokens_per_s",
+                                           "mean_ttft_s", "mean_itl_s")}
+                     for k, v in in_process.items()},
+         handoff_2048=parts,
+         note="the measured round's numbers (the first round, 'cold', "
+              "takes the captures in each worker); TTFT and ITL are means "
+              "over the router's request timelines, into which the "
+              "workers' events are merged; in_process is this run's "
+              "server phase on the same rounds' shapes; boot_s is the "
+              "worker's own (engine build + kernel load), ready_s launch "
+              "to ready line on the parent's clock")
 
 
 def main() -> int:
@@ -3576,10 +4017,26 @@ def main() -> int:
 
     t0 = time.perf_counter()
     built = [KERNEL_NAME, DECODE_NAME, FLASH_NAME, SCALED_NAME]
+    # the worker processes' kernel directory (their --compile-cache): the
+    # decode kernel is built there beside this build, so no fleet boot
+    # waits on it; the first fleet's two workers race for the ragged
+    # kernel there (one nvcc under the directory lock)
+    procfleet_cache = tempfile.mkdtemp(prefix="procfleet_kernels_")
+    prebuild = subprocess.Popen(
+        [sys.executable, "-c",
+         "import sys; from paddle_tpu_torch.ops import _build; "
+         "_build.set_build_dir(sys.argv[1]); _build.build([sys.argv[2]])",
+         procfleet_cache, DECODE_NAME],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
     _build.build(built)
+    _, prebuild_err = prebuild.communicate(timeout=900)
+    if prebuild.returncode != 0:
+        raise AssertionError(f"build: the decode kernel did not build in "
+                             f"the workers' directory:\n{prebuild_err}")
     for name, log in _build.build_logs.items():
         print(f"--- nvcc {name} ---\n{log}", file=sys.stderr)
-    emit("build", kernels=built, seconds=time.perf_counter() - t0)
+    emit("build", kernels=built, seconds=time.perf_counter() - t0,
+         worker_directory=_build.count_libraries(procfleet_cache))
 
     scaled_launches, scaled_summary = custom_op_phase(
         torch, sc, cpp_extension,
@@ -3599,6 +4056,12 @@ def main() -> int:
     spec_prompts = spec_identity_phase(torch, rp, pd, serving, model)
     disagg_identity_phase(torch, rp, pd, serving, model, spec_prompts)
     server_identity_phase(torch, rp, pd, serving, model, spec_prompts)
+    # the cross-process fleet: worker processes build the same seeded
+    # model and load their kernels from one directory shared by every
+    # fleet
+    procfleet_identity_phase(torch, serving, model, spec_prompts, {
+        "preset": "llama3_8b", "layers": model.config.num_hidden_layers,
+        "dtype": "float32", "seed": 0}, procfleet_cache)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3622,10 +4085,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     spec_prompts = spec_phase(torch, rp, pd, serving, model)
     disagg_phase(torch, rp, pd, serving, model, spec_prompts)
-    server_phase(torch, rp, pd, serving, model, prompts, serve_warm)
+    server_rows = server_phase(torch, rp, pd, serving, model, prompts,
+                               serve_warm)
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    # the serve model (seed 1, full depth, bf16) in each worker process
+    procfleet_phase(torch, serving, prompts, {
+        "preset": "llama3_8b", "layers": 32, "dtype": "bfloat16",
+        "seed": 1}, procfleet_cache, server_rows)
+    shutil.rmtree(procfleet_cache, ignore_errors=True)
 
     flash_summary = flash_kernel_phase(torch, flash)
     port = SimpleNamespace(

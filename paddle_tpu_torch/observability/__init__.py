@@ -27,7 +27,11 @@ engine (the JAX package's public names, in PyTorch and stdlib idiom).
   (``alerts.py``) — metrics history sampled per engine step and rules
   evaluated over it.
 
-Not here yet: the cross-process layer (``distrib.py``, ROADMAP A9), the
+* ``distrib.py`` — the cross-process layer of a process fleet:
+  :class:`ClockSync`, :class:`TelemetryOutbox`, :class:`DeltaMerger`,
+  :class:`MirrorRing` and :class:`WireStats`.
+
+Not here yet: the
 op-bus subscribers ``subscribe_ops`` / ``trace_dispatch`` (the ``run_op``
 bus, A12) and ``TrainStepTelemetry`` (A10).
 
@@ -52,6 +56,13 @@ from .audit import (  # noqa: F401
 )
 from .cachestat import (  # noqa: F401
     CacheStatTracker,
+)
+from .distrib import (  # noqa: F401
+    ClockSync,
+    DeltaMerger,
+    MirrorRing,
+    TelemetryOutbox,
+    WireStats,
 )
 from .export import (  # noqa: F401
     ProfilerResult,

@@ -46,9 +46,10 @@ Triggers (``serving_flight_dumps_total{trigger=...}`` counts the dumps):
 
 In the port the engine and its auditor fire ``nonfinite``, ``divergence``
 and ``alert``; the fleet-level triggers come from the fleet, server and
-supervisor of ROADMAP A9, which call :meth:`FlightRecorder.trigger` the
-same way; the cross-process ``distrib`` block of a bundle comes with
-them.
+supervisor, which call :meth:`FlightRecorder.trigger` the same way.  A
+cross-process fleet (``serving/procfleet.py``) binds its workers'
+telemetry (:meth:`FlightRecorder.bind_distrib`), so a bundle's
+``distrib`` block carries a dead worker's mirrored events.
 
 Boundedness: each
 replica's ring is a ``deque(maxlen=ring_events)``; trigger windows are
@@ -124,6 +125,9 @@ class FlightRecorder:
         # mortem shows how free/reuse/allocated evolved into the
         # anomaly.  Bounded by the fleet's replica set.
         self._cachestats: Dict[str, object] = {}
+        # zero-arg callable -> per-replica cross-process telemetry
+        # (mirror rings / stderr tails / clock state), see bind_distrib
+        self._distrib_fetch = None
         self._dumps = {
             t: (registry.counter(
                 "serving_flight_dumps_total",
@@ -147,6 +151,15 @@ class FlightRecorder:
         post-mortem bundles carry each replica's recent pool-timeline
         samples."""
         self._cachestats = dict(trackers)
+
+    def bind_distrib(self, fetch) -> None:
+        """Register a zero-arg callable returning the cross-process
+        telemetry state (``{replica_index_str: {...}}`` — mirror-ring
+        events, stderr tail, clock snapshot, merge state) so post-mortem
+        bundles after a worker kill -9 embed the dead worker's events up
+        to its last streamed delta.  A closure over the fleet's CURRENT
+        proxies, so supervisor rebuilds need no rebind."""
+        self._distrib_fetch = fetch
 
     def bind_lifecycle(self, lifecycle: LifecycleTracker) -> None:
         """(Re)subscribe this recorder to a tracker — the fleet router
@@ -342,6 +355,17 @@ class FlightRecorder:
             samples = tr.timeline()
             if samples:
                 cache_stats[rep] = samples
+        # cross-process telemetry: the dead worker's mirrored events up
+        # to its last delta, stderr tail, and clock state — the worker's
+        # own rings died with the process
+        distrib = {}
+        if self._distrib_fetch is not None:
+            try:
+                fetched = self._distrib_fetch() or {}
+                distrib = {rep: state for rep, state in fetched.items()
+                           if replica is None or str(replica) == str(rep)}
+            except Exception:  # swallow-ok: a broken telemetry fetch must not lose the rest of the post-mortem bundle
+                distrib = {"error": traceback.format_exc()}
         return {
             "bundle": "paddle_tpu.flight",
             "trigger": trigger,
@@ -352,6 +376,7 @@ class FlightRecorder:
             "in_flight_requests": requests,
             "step_profile": step_profile,
             "cache_stats": cache_stats,
+            "distrib": distrib,
             "metrics": (self.registry.snapshot()
                         if self.registry is not None else {}),
             "threads": threads,

@@ -5,9 +5,12 @@ compiled by ``nvcc`` into its own shared library, which is loaded with
 ``ctypes``.  No PyTorch header is compiled, so a build takes seconds.
 
 The library lands in ``paddle_tpu_torch/_build/`` (listed in
-``.gitignore``), keyed by a hash of the source, every ``csrc/*.cuh`` header
-and the flags: the first use after a change to any of them builds it,
-later uses load it.  Nothing is built when this
+``.gitignore``), or in the directory :func:`set_build_dir` names (a worker
+process's ``--compile-cache``), keyed by a hash of the source, every
+``csrc/*.cuh`` header and the flags: the first use after a change to any
+of them builds it, later uses load it.  A build holds an exclusive
+``fcntl`` lock on the directory, so processes sharing one directory run
+``nvcc`` once per source; the lock is released by a process's death.  Nothing is built when this
 module is imported; a kernel wrapper calls :func:`load` the first time it
 launches.  When ``nvcc`` fails, :class:`KernelBuildFailed` carries its
 standard error.
@@ -15,14 +18,16 @@ standard error.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -40,6 +45,36 @@ build_logs: Dict[str, str] = {}   # ptxas report (registers, shared memory,
 
 class KernelBuildFailed(RuntimeError):
     """``nvcc`` is missing or refused a kernel source."""
+
+
+def set_build_dir(path) -> Path:
+    """Build and load this process's kernels in ``path`` from now on (made
+    if missing).  Call it before the first kernel loads."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path).resolve()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return BUILD_DIR
+
+
+def count_libraries(path: Optional[str]) -> int:
+    """The built kernel libraries (``.so`` files) in ``path``; 0 for a
+    missing directory or ``None``."""
+    if not path or not os.path.isdir(path):
+        return 0
+    return sum(1 for f in os.listdir(path) if f.endswith(".so"))
+
+
+@contextlib.contextmanager
+def _directory_lock(directory: Path):
+    """An exclusive lock on ``directory`` shared with every process that
+    builds there.  ``flock`` dies with its holder, so a process killed
+    mid-build leaves no stale lock behind."""
+    with open(directory / ".lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
 
 
 def nvcc_path() -> str:
@@ -83,22 +118,33 @@ def build(names: Iterable[str]) -> None:
     source, all started together.  Raises :class:`KernelBuildFailed` with
     nvcc's standard error for the first source that fails."""
     with _lock:
-        jobs = {name: _start(name) for name in names}
-        errors = []
-        for name, job in jobs.items():
-            if job is None:
-                continue
-            proc, tmp, out = job
-            stdout, stderr = proc.communicate()
-            build_logs[name] = stdout + stderr
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                errors.append(f"nvcc failed on csrc/{name}.cu "
-                              f"(exit {proc.returncode}):\n{stderr}")
-                continue
-            os.replace(tmp, out)  # atomic: a reader never sees half a file
-        if errors:
-            raise KernelBuildFailed("\n".join(errors))
+        names = [n for n in names if not library_path(n).exists()]
+        if not names:
+            return
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with _directory_lock(BUILD_DIR):
+            _build_locked(names)
+
+
+def _build_locked(names) -> None:
+    # under the directory lock: a sibling may have built some meanwhile,
+    # and _start skips those
+    jobs = {name: _start(name) for name in names}
+    errors = []
+    for name, job in jobs.items():
+        if job is None:
+            continue
+        proc, tmp, out = job
+        stdout, stderr = proc.communicate()
+        build_logs[name] = stdout + stderr
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            errors.append(f"nvcc failed on csrc/{name}.cu "
+                          f"(exit {proc.returncode}):\n{stderr}")
+            continue
+        os.replace(tmp, out)  # atomic: a reader never sees half a file
+    if errors:
+        raise KernelBuildFailed("\n".join(errors))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -21,9 +21,14 @@ engine and the in-process serving fleet.
   threads behind prefix-affinity routing, with prefill/decode roles;
   :class:`FleetSupervisor` (``resilience.py``) heals it;
   :class:`FaultPlan` (``faultinject.py``) injects faults into it.
+* :class:`ProcessFleet` (``procfleet.py``) — the same router and
+  supervisor over worker processes (``python -m
+  paddle_tpu_torch.serving.worker``, ``worker.py``) speaking ``wire.py``,
+  with the :class:`FleetAutoscaler` and the :class:`CacheRebalancer`.
 * :class:`CompletionServer` (``server.py`` + ``protocol.py``) — the
   asyncio HTTP/SSE frontend; ``python -m paddle_tpu_torch.serving.server``
-  serves a toy model.
+  serves a toy model, in process (``--dp``) or over worker processes
+  (``--workers``).
 """
 
 from ..observability.alerts import (  # noqa: F401
@@ -52,6 +57,16 @@ from .fleet import (  # noqa: F401
 from .handoff import HandoffError  # noqa: F401
 from .kv_manager import KVCacheManager, PoolExhausted  # noqa: F401
 from .metrics import ServingMetrics  # noqa: F401
+from .procfleet import (  # noqa: F401
+    AutoscalerConfig,
+    CacheRebalancer,
+    FleetAutoscaler,
+    ProcessFleet,
+    ProcessFleetConfig,
+    RebalancerConfig,
+    ScaleDecider,
+    WorkerDied,
+)
 from .protocol import (  # noqa: F401
     CompletionRequest,
     ProtocolError,

@@ -34,7 +34,10 @@ bytes, so a run of either package imports into the other.
 
 Cross-process, the same run ships as ``wire.py`` block-stream frames
 (``kv_run_begin`` + chunked base64 ``kv_run_chunk``), converted by
-:func:`run_to_frames` / :func:`run_from_frames`.
+:func:`run_to_frames` / :func:`run_from_frames`.  Given a ``timings``
+dict, :func:`export_request_run` and :func:`import_run` record the wall
+seconds of each part there (the device synchronised after each), which a
+worker process reports on its hand-off frames.
 
 A refused or failed import never loses a request: the fleet falls back to
 re-prefill on the recipient (the prompt tokens always travel with the
@@ -44,6 +47,7 @@ request), so the hand-off is an optimisation layer.
 from __future__ import annotations
 
 import hashlib
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -177,12 +181,31 @@ def scatter_pages(engine, dst: List[int], pages: np.ndarray) -> None:
             p.index_copy_(0, idx, t[kv, layer])
 
 
+def _lap(timings: Optional[Dict], name: str, t0: float, device=None
+         ) -> float:
+    """Record the wall seconds since ``t0`` under ``name`` in
+    ``timings`` (after ``device``'s queued work, so each part's device
+    time lands in that part) and return the new start; no-op without
+    ``timings``."""
+    if timings is None:
+        return t0
+    if device is not None and device.type == "cuda":
+        torch.cuda.synchronize(device)
+    now = time.perf_counter()
+    timings[name] = now - t0
+    return now
+
+
 # --- run construction (donor side) ------------------------------------------
-def build_run(engine, records: List[dict]) -> Dict:
+def build_run(engine, records: List[dict],
+              timings: Optional[Dict] = None) -> Dict:
     """Gather the pages of ``records`` (the ``BlockPool.export_blocks``
     record shape) into one serialized run.  Pure read on the donor."""
-    payload = pages_to_host(gather_pages(engine,
-                                         [r["block"] for r in records]))
+    t = time.perf_counter()
+    pages = gather_pages(engine, [r["block"] for r in records])
+    t = _lap(timings, "gather_s", t, engine.device)
+    payload = pages_to_host(pages)
+    t = _lap(timings, "device_to_host_s", t)
     run = pool_meta(engine)
     run["blocks"] = [{"hash": r["hash"], "depth": int(r["depth"]),
                       "tokens": tuple(int(t) for t in r["tokens"])}
@@ -190,10 +213,12 @@ def build_run(engine, records: List[dict]) -> Dict:
     run["payload"] = payload
     run["digest"] = payload_digest(payload)
     run["tokens_total"] = len(records) * engine.block_size
+    _lap(timings, "digest_s", t)
     return run
 
 
-def export_request_run(engine, request_id) -> Optional[Dict]:
+def export_request_run(engine, request_id,
+                       timings: Optional[Dict] = None) -> Optional[Dict]:
     """Serialize the hashed leading blocks of ``request_id``'s KV (the
     computed prompt prefix a decode specialist resumes from); ``None``
     when nothing is transferable (no table, nothing hashed yet)."""
@@ -211,7 +236,7 @@ def export_request_run(engine, request_id) -> Optional[Dict]:
     records = kv.export_blocks(hashes)
     if not records:
         return None
-    return build_run(engine, records)
+    return build_run(engine, records, timings)
 
 
 def export_prefix_run(engine, chain_hash: bytes,
@@ -263,7 +288,8 @@ def check_payload(run: Dict, meta: Dict) -> np.ndarray:
     return payload
 
 
-def import_run(engine, run: Dict) -> Optional[int]:
+def import_run(engine, run: Dict,
+               timings: Optional[Dict] = None) -> Optional[int]:
     """Admit a KV run into ``engine``'s pool: verify the header and the
     payload (:class:`HandoffError` on any mismatch — the pool is
     untouched), place the fresh blocks atomically through
@@ -271,15 +297,18 @@ def import_run(engine, run: Dict) -> Optional[int]:
     in place.  Returns the number of freshly placed blocks (0 =
     everything was already cached here), or ``None`` on a capacity
     refusal — the caller re-prefills."""
+    t = time.perf_counter()
     meta = check_header(engine, run)
     records = run.get("blocks") or []
     if not records:
         return 0
     payload = check_payload(run, meta)
+    t = _lap(timings, "verify_s", t)
     try:
         placed = engine.kv.import_blocks(records)
     except ValueError as e:
         raise HandoffError(f"kv run rejected by the pool: {e}") from e
+    t = _lap(timings, "import_s", t)
     if placed is None:
         return None
     if not placed:
@@ -287,6 +316,7 @@ def import_run(engine, run: Dict) -> Optional[int]:
     src = [i for i, r in enumerate(records) if r["hash"] in placed]
     scatter_pages(engine, [placed[records[i]["hash"]] for i in src],
                   payload[:, :, src])
+    _lap(timings, "scatter_s", t, engine.device)
     return len(placed)
 
 

@@ -25,8 +25,9 @@ Tracked:
 ``labels`` (e.g. ``{"replica": "0"}``) ride every series, so engines can
 share one registry.  The per-op dispatch timer rides the JAX op bus, which
 the port has not (ROADMAP A12); the mesh-collective series wait for
-tensor-parallel serving (A11) and the cross-process wire stats for the
-fleet (A9).
+tensor-parallel serving (A11).  A replica of a cross-process fleet binds
+its wire stats (:meth:`ServingMetrics.attach_wire_stats`), and
+``summary()`` then renders its host-vs-wire-vs-engine shares.
 """
 
 from __future__ import annotations
@@ -184,12 +185,21 @@ class ServingMetrics:
             for name in _GAUGE_NAMES
         }
         self._stepprof = None  # StepProfiler, attached by the engine
+        self._wire = None      # distrib.WireStats, attached by a
+        # cross-process WorkerEngineProxy
 
     def attach_step_profiler(self, stepprof) -> None:
         """Bind the engine's :class:`~paddle_tpu_torch.observability.stepprof
         .StepProfiler` so :meth:`summary` can render the per-program
         bucket-utilization / padding-waste table."""
         self._stepprof = stepprof
+
+    def attach_wire_stats(self, wire_stats) -> None:
+        """Bind a cross-process replica's
+        :class:`~paddle_tpu_torch.observability.distrib.WireStats` so
+        :meth:`summary` can render the host-vs-wire-vs-engine share of
+        every step's wall time."""
+        self._wire = wire_stats
 
     # --- recording ----------------------------------------------------------
     def _counter(self, name: str) -> Counter:
@@ -421,6 +431,28 @@ class ServingMetrics:
                     for p, t in sorted(comp.items())))
             else:
                 lines.append("compile attribution: no traces observed")
+            lines.append(bar)
+            parts.append("\n".join(lines))
+
+        wire_report = (self._wire.report()
+                       if self._wire is not None
+                       and self._wire.steps else None)
+        if wire_report:
+            shares = wire_report["shares"]
+            header = (f"{'Program':20s} {'Steps':>8s} {'Wire':>7s} "
+                      f"{'Engine':>7s} {'Host':>7s}")
+            bar = "-" * len(header)
+            lines = [bar, "Cross-process step time shares "
+                          "(wire vs engine vs host)", bar, header, bar]
+            lines.append(f"{'ALL':20s} {wire_report['steps']:8d} "
+                         f"{shares['wire']:7.3f} "
+                         f"{shares['engine']:7.3f} "
+                         f"{shares['host']:7.3f}")
+            for prog, row in wire_report["per_program"].items():
+                s = row["shares"]
+                lines.append(f"{prog[:20]:20s} {row['steps']:8d} "
+                             f"{s['wire']:7.3f} {s['engine']:7.3f} "
+                             f"{s['host']:7.3f}")
             lines.append(bar)
             parts.append("\n".join(lines))
 

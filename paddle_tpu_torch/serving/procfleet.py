@@ -1,0 +1,1732 @@
+"""Cross-process serving fleet (the port of
+``paddle_tpu/serving/procfleet.py``).
+
+The in-process fleet's router and supervisor (``serving/fleet.py``,
+``serving/resilience.py``) already contain the hard parts of a serving
+control plane — prefix-affinity routing, atomic handle-ownership triage,
+backoff/quarantine healing, exactly-once chaos bookkeeping.  This module
+makes them run over PROCESS-isolated replicas **without forking any of
+that logic**: the factory handed to :meth:`FleetRouter.build` returns a
+:class:`WorkerEngineProxy` that presents the exact ``EngineCore`` surface
+the router, the supervisor, and the stock
+:class:`~paddle_tpu_torch.serving.fleet.EngineReplica` loop drive — but
+every call crosses the wire (``serving/wire.py``) to a
+``python -m paddle_tpu_torch.serving.worker`` process.
+
+The translation table:
+
+============================  =========================================
+in-process mechanism           cross-process equivalent
+============================  =========================================
+engine construction            worker process spawn (``subprocess``,
+                               never ``fork``: the parent has threads
+                               and, on the card, a CUDA context)
+``engine_step_raise``          worker reports ``step_error`` and exits;
+                               ``kill -9`` produces the same death shape
+thread-liveness                heartbeat timeout on the control
+                               connection (``scheduler.has_work()``
+                               raises :class:`WorkerDied` once marked)
+shared-registry metrics        per-step worker registry dump, merged
+                               under the existing ``replica="i"`` labels
+supervisor ``_rebuild``        same code path: the factory closes the
+                               old proxy (killing its process) and
+                               spawns a replacement worker
+============================  =========================================
+
+Because the supervisor's triage/rebuild state machine is untouched, the
+chaos contract transfers: ``kill -9`` a worker mid-stream → reroute,
+respawn, zero lost requests, greedy token identity, exactly one
+``engine_death`` flight bundle, which embeds the dead worker's mirrored
+events.  Replicas in separate processes have separate CUDA contexts and
+separate step locks (``serving/graphs.py``'s lock is per process).
+
+The actuators act on the fleet's signals: :class:`FleetAutoscaler` maps
+AlertEngine rule firings (goodput burn, pool exhaustion, restart churn)
+to bounded scale-up/drain actions on the process pool via a pure,
+replay-deterministic :class:`ScaleDecider`; :class:`CacheRebalancer`
+turns the ``serving_fleet_cache_imbalance`` gauge into consistent-hash
+vnode re-weighting (:meth:`FleetRouter.reweight_ring`).
+
+The port's departures: the worker spec carries the model the workers
+build (``preset``, ``dtype``, ``device``, ``weights``, ``max_seq_len``;
+see ``serving/worker.py``); the initial workers boot in parallel (each
+:class:`WorkerHandle` is launched before any ready line is awaited); and
+``compile_cache`` is the kernels' build directory.  AOT artifacts
+(``aot_path``, ``warm_boot``) raise, naming ROADMAP "A9 rest", and
+``mp`` > 1 raises, naming A11.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import queue
+import socket
+import subprocess
+import sys
+import threading
+import time
+import traceback
+from collections import deque
+from dataclasses import dataclass, replace as _dc_replace
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from ..observability import distrib
+from ..observability import lifecycle as _lc
+from ..observability.audit import AuditConfig
+from ..observability.metrics import MetricsRegistry
+from . import wire
+from .engine import EngineConfig
+from .fleet import EngineReplica, FleetConfig, FleetRouter, _key_int
+from .metrics import ServingMetrics
+from .request import FinishReason, SamplingParams
+from .resilience import FleetSupervisor, SupervisorConfig
+from .wire import CACHE_PREFIX, READY_PREFIX
+
+# metric names this module owns
+METRIC_NAMES = (
+    "serving_fleet_scale_events_total",
+    "serving_fleet_worker_respawns_total",
+    "serving_fleet_heartbeat_timeouts_total",
+    "serving_fleet_ring_reweights_total",
+    "serving_fleet_prefix_migrations_total",
+    "serving_fleet_active_workers",
+)
+
+_REPO_ROOT = os.path.dirname(os.path.dirname(
+    os.path.dirname(os.path.abspath(__file__))))
+
+
+class WorkerDied(RuntimeError):
+    """The replica's worker process is gone (socket death, heartbeat
+    timeout, reported step failure, or kill -9).  Raised into the stock
+    ``EngineReplica`` loop so the EXISTING death path runs: flight
+    bundle, supervisor triage, re-dispatch, respawn."""
+
+
+class _MirrorRequest:
+    """Router-side mirror of one in-flight request on a worker: the
+    object :meth:`WorkerEngineProxy.add_request` returns, presenting the
+    fields the replica loop, the supervisor's triage
+    (``req.output_tokens`` emptiness = re-dispatchable) and the HTTP
+    handle surface read.  Token frames append to ``output_tokens``;
+    ``step_done``'s finished map closes it."""
+
+    __slots__ = ("request_id", "prompt_ids", "output_tokens", "finished",
+                 "finish_reason", "first_token_time", "arrival_time")
+
+    def __init__(self, request_id, prompt_ids: List[int]):
+        self.request_id = request_id
+        self.prompt_ids = list(prompt_ids)
+        self.output_tokens: List[int] = []
+        self.finished = False
+        self.finish_reason: Optional[FinishReason] = None
+        # first-token boundary marker: the router's
+        # prefill→decode migration sweep triggers on this going
+        # non-None, exactly like the in-process Request field
+        self.first_token_time: Optional[float] = None
+        self.arrival_time: float = time.perf_counter()
+
+
+@dataclass
+class ProcessFleetConfig:
+    """Knobs for a process-isolated fleet.  Engine-shape fields mirror
+    the toy-engine factory in ``serving/server.py`` — the SAME spec is
+    sent to every worker (``--spec``) and templates the proxies' gate
+    attributes, so the router's homogeneity gates hold by construction.
+    ``preset`` / ``dtype`` / ``device`` / ``weights`` / ``max_seq_len``
+    are the port's: the model every worker builds (``serving/worker.py``),
+    and part of the handshake's deployment identity."""
+
+    dp: int = 2
+    layers: int = 2
+    num_blocks: int = 64
+    block_size: int = 4
+    max_num_seqs: int = 4
+    max_prefill_tokens_per_step: Optional[int] = 8
+    max_tokens_per_step: Optional[int] = None
+    unified: bool = False
+    # the model every worker builds: LlamaConfig preset ("tiny" or
+    # "llama3_8b"), model and pool dtype ("float32" / "bfloat16"),
+    # device (None = the card, "cpu"), an .npz of the JAX model's numpy
+    # parameters (None = drawn from a generator seeded with ``seed``),
+    # and max_position_embeddings (None = the preset's)
+    preset: str = "tiny"
+    dtype: str = "float32"
+    device: Optional[str] = None
+    weights: Optional[str] = None
+    max_seq_len: Optional[int] = None
+    # tensor-parallel workers: mp > 1 is ROADMAP A11 and raises
+    mp: int = 1
+    # speculative decoding: JSON-able SpecConfig kwargs dict
+    # forwarded to every worker (requires unified + max_tokens_per_step);
+    # its manifest_dict() also rides the handshake deployment identity
+    spec: Optional[Dict] = None
+    # device-resident decode bursts: forwarded to every
+    # worker engine; the step_done emission batch already carries
+    # multi-token rows, so a burst costs one wire round-trip
+    burst_steps: int = 0
+    # prefill/decode disaggregation: per-index replica roles
+    # (length dp, e.g. ["prefill", "decode"] or serving.fleet.parse_roles
+    # output).  None = every worker unified.  Each worker's role rides
+    # its --spec AND its handshake deployment identity, so a drifted
+    # worker answers deploy_mismatch at connect time.
+    roles: Optional[List[str]] = None
+    audit_enabled: bool = False
+    audit_sample_every: int = 1
+    seed: int = 0
+    aot_path: Optional[str] = None     # AOT artifacts: ROADMAP A9 rest
+    compile_cache: Optional[str] = None  # the kernels' build directory:
+    # N sibling workers on one directory run nvcc once
+    warm_boot: bool = False            # AOT warm boot: ROADMAP A9 rest
+    heartbeat_interval_s: float = 0.25
+    heartbeat_timeout_s: float = 2.0   # silent control conn -> dead
+    boot_timeout_s: float = 180.0
+    # cross-process tracing: workers run their engines with
+    # lifecycle events ON and stream sequence-numbered deltas back; the
+    # router merges them into its ONE tracker and mirrors them per
+    # worker so a kill -9 post-mortem still has the engine's last events
+    telemetry: bool = True
+    decode_event_sample: int = 8       # forwarded to the worker engine
+    mirror_ring_events: int = 512      # host-side per-worker mirror
+    stderr_tail_lines: int = 100       # per-worker stderr tail ring
+    clock_window: int = 64             # NTP-style min-RTT filter window
+    python: str = sys.executable
+    fleet: Optional[FleetConfig] = None  # router knobs (fault plan,
+                                         # alert rules, flight dir, ...)
+
+
+class WorkerHandle:
+    """One spawned worker process: ready-line parse, log pump, teardown.
+
+    The worker prints ``PADDLE_TPU_WORKER_READY port=...`` once
+    listening; everything before it is boot logging (captured — the
+    compile-cache line in particular is how a sibling's kernel builds
+    are observed).  :meth:`launch` starts the process and
+    :meth:`wait_ready` reads up to its ready line, so a fleet can launch
+    all its workers before it waits on any; :meth:`spawn` is both."""
+
+    def __init__(self, proc: subprocess.Popen, index: int,
+                 stderr_tail_lines: int = 100):
+        self.proc = proc
+        self.index = index
+        self.pid = proc.pid
+        self.port: Optional[int] = None
+        self.aot_hash: Optional[str] = None
+        self.boot_s = 0.0    # the worker's own boot wall (ready line)
+        self.ready_s = 0.0   # launch to ready line, on this process's clock
+        self._t_launch = time.perf_counter()
+        self._cfg: Optional[ProcessFleetConfig] = None
+        self.compile_cache: Optional[Dict] = None  # parsed cache line
+        self.log_tail: deque = deque(maxlen=200)
+        # bounded stderr tail: a worker that dies in native code leaves its last words HERE — the engine_death
+        # / crash_loop flight bundles embed this ring
+        self.stderr_tail: deque = deque(
+            maxlen=max(10, int(stderr_tail_lines)))
+        self._pump: Optional[threading.Thread] = None
+        self._pump_err: Optional[threading.Thread] = None
+
+    @classmethod
+    def spawn(cls, cfg: ProcessFleetConfig, index: int,
+              spec: Dict) -> "WorkerHandle":
+        return cls.launch(cfg, index, spec).wait_ready()
+
+    @classmethod
+    def launch(cls, cfg: ProcessFleetConfig, index: int,
+               spec: Dict) -> "WorkerHandle":
+        """Start the worker process (``subprocess``, never ``fork``) and
+        its stderr pump; :meth:`wait_ready` reads its ready line."""
+        cmd = [cfg.python, "-m", "paddle_tpu_torch.serving.worker",
+               "--replica", str(index), "--spec", json.dumps(spec)]
+        if cfg.compile_cache:
+            cmd += ["--compile-cache", cfg.compile_cache]
+        env = dict(os.environ)
+        env["PYTHONPATH"] = _REPO_ROOT + (
+            os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH")
+            else "")
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True,
+                                env=env)
+        h = cls(proc, index, stderr_tail_lines=cfg.stderr_tail_lines)
+        h._cfg = cfg
+        # stderr pump starts BEFORE the ready-line wait: boot warnings
+        # can fill the stderr pipe and deadlock a worker that never
+        # reaches its ready line if nobody drains it
+        h._pump_err = threading.Thread(target=h._pump_stderr,
+                                       daemon=True,
+                                       name=f"worker-stderr-{index}")
+        h._pump_err.start()
+        return h
+
+    def wait_ready(self) -> "WorkerHandle":
+        """Read the boot log up to the ready line (the port, pid and boot
+        seconds); a worker that exits or hangs first is killed and
+        raises :class:`WorkerDied` with its log tail."""
+        proc, index = self.proc, self.index
+        # readline has no timeout: a watchdog timer kills a hung boot so
+        # the read loop sees EOF instead of blocking forever
+        killer = threading.Timer(self._cfg.boot_timeout_s,
+                                 self._boot_timeout)
+        killer.daemon = True
+        killer.start()
+        try:
+            for line in proc.stdout:
+                line = line.rstrip("\n")
+                self.log_tail.append(line)
+                if line.startswith(CACHE_PREFIX):
+                    kv = dict(p.split("=", 1) for p in line.split()[1:])
+                    self.compile_cache = {
+                        "dir": kv.get("dir"),
+                        "entries_before": int(kv.get("entries_before", 0)),
+                        "entries_after": int(kv.get("entries_after", 0)),
+                    }
+                elif line.startswith(READY_PREFIX):
+                    kv = dict(p.split("=", 1) for p in line.split()[1:])
+                    self.port = int(kv["port"])
+                    self.aot_hash = (None if kv.get("aot_hash") in
+                                     (None, "None") else kv["aot_hash"])
+                    self.boot_s = float(kv.get("boot_s", 0.0))
+                    self.ready_s = time.perf_counter() - self._t_launch
+                    break
+        finally:
+            killer.cancel()
+        if self.port is None:
+            self.stop(grace_s=0.5)
+            tail = "\n".join(list(self.log_tail) + list(self.stderr_tail))
+            raise WorkerDied(
+                f"worker {index} (pid {self.pid}) exited/hung before its "
+                f"ready line; log tail:\n{tail}")
+        self._pump = threading.Thread(target=self._pump_output,
+                                      daemon=True,
+                                      name=f"worker-log-{index}")
+        self._pump.start()
+        return self
+
+    def _boot_timeout(self) -> None:
+        try:
+            self.proc.kill()
+        except OSError:
+            pass  # swallow-ok: the worker already exited; the read loop sees EOF either way
+
+    def _pump_output(self) -> None:
+        try:
+            for line in self.proc.stdout:
+                self.log_tail.append(line.rstrip("\n"))
+        except (OSError, ValueError):
+            pass  # swallow-ok: stdout closed during teardown; the tail captured what there was
+        finally:
+            try:
+                self.proc.stdout.close()
+            except OSError:
+                pass  # swallow-ok: double-close during teardown
+
+    def _pump_stderr(self) -> None:
+        try:
+            for line in self.proc.stderr:
+                self.stderr_tail.append(line.rstrip("\n"))
+        except (OSError, ValueError):
+            pass  # swallow-ok: stderr closed during teardown; the tail captured what there was
+        finally:
+            try:
+                self.proc.stderr.close()
+            except OSError:
+                pass  # swallow-ok: double-close during teardown
+
+    @property
+    def alive(self) -> bool:
+        return self.proc.poll() is None
+
+    def stop(self, grace_s: float = 2.0) -> None:
+        """Terminate (SIGTERM, then SIGKILL past the grace)."""
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(grace_s)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(10)
+        if self._pump is not None:
+            self._pump.join(1.0)
+        if self._pump_err is not None:
+            self._pump_err.join(1.0)
+
+
+class _SchedulerProxy:
+    """The two members the replica loop and the fleet gauges read.
+    ``has_work`` doubles as the death surface: the replica loop polls it
+    every ≤20 ms, so raising here once the heartbeat marks the worker
+    dead routes an IDLE worker's death through the standard
+    engine-thread death path within one poll interval."""
+
+    def __init__(self, proxy: "WorkerEngineProxy"):
+        self._p = proxy
+
+    def has_work(self) -> bool:
+        p = self._p
+        if p._closed:
+            return False  # orderly teardown: let the loop drain out
+        if p._dead.is_set():
+            raise WorkerDied(
+                f"worker {p.index} (pid {p.pid}) is dead: "
+                f"{p._death_detail}")
+        return p._has_work
+
+    @property
+    def queue_depth(self) -> int:
+        return self._p._queue_depth
+
+
+class _KvProxy:
+    def __init__(self, proxy: "WorkerEngineProxy"):
+        self._p = proxy
+        self.num_blocks = proxy.num_blocks
+
+    def occupancy(self) -> float:
+        # cached from the last step reply: registry collect hooks call
+        # this and must NEVER block on the wire
+        return self._p._occupancy
+
+
+class _AuditProxy:
+    """Mirrors the ``NumericsAuditor`` surface the router/supervisor/
+    HTTP layers read.  ``cfg`` is the fleet-shared template (the
+    router's same-config gate compares these by value); ``degraded`` is
+    cached from step replies so the supervisor's quarantine scan stays
+    wire-free; ``snapshot`` fetches live detail over the control
+    connection."""
+
+    def __init__(self, proxy: "WorkerEngineProxy", cfg: AuditConfig):
+        self._p = proxy
+        self.cfg = cfg
+        self.enabled = bool(getattr(cfg, "enabled", False))
+        self._flight = None
+        self._flight_replica: Optional[str] = None
+
+    @property
+    def degraded(self) -> bool:
+        return self._p._degraded
+
+    @property
+    def status(self) -> str:
+        return "degraded" if self.degraded else "ok"
+
+    def snapshot(self) -> Dict:
+        data = self._p.debug_fetch("audit")
+        if not isinstance(data, dict):
+            return {"enabled": self.enabled, "status": "restarting"}
+        return data
+
+    def bind_flight(self, recorder, replica: Optional[str] = None) -> None:
+        # divergence .npz repros live worker-side; the binding is kept
+        # so the fleet wiring sequence is identical either way
+        self._flight = recorder
+        self._flight_replica = replica
+
+
+class _StepProfProxy:
+    def __init__(self, proxy: "WorkerEngineProxy"):
+        self._p = proxy
+        self.enabled = bool(proxy.engine_config.step_profile)
+        self.max_capture_steps = 512  # advertised bound; arm refuses
+
+    def records(self) -> List[Dict]:
+        data = self._p.debug_fetch("records", [])
+        return data if isinstance(data, list) else []
+
+    def compile_table(self) -> List[Dict]:
+        data = self._p.debug_fetch("compile_table", [])
+        return data if isinstance(data, list) else []
+
+    def compile_totals(self) -> Dict:
+        data = self._p.debug_fetch("compile_totals", {})
+        return data if isinstance(data, dict) else {}
+
+    def arm_capture(self, steps: int):
+        # RuntimeError -> HTTP 400 on /v1/debug/profile: a capture
+        # window needs the in-process profiler object
+        raise RuntimeError(
+            "step capture is not available over the process wire "
+            "(replica runs out-of-process); use an in-process fleet "
+            "(--dp without --workers) to capture traces")
+
+    def cancel_capture(self) -> None:
+        return None
+
+
+class _CacheStatProxy:
+    def __init__(self, proxy: "WorkerEngineProxy"):
+        self._p = proxy
+        self.enabled = bool(proxy.engine_config.cache_stats)
+
+    def snapshot(self) -> Dict:
+        data = self._p.debug_fetch("cache")
+        if not isinstance(data, dict):
+            return {"enabled": self.enabled, "status": "restarting"}
+        return data
+
+    def timeline(self) -> List[Dict]:
+        data = self._p.debug_fetch("cache_timeline", [])
+        return data if isinstance(data, list) else []
+
+
+class WorkerEngineProxy:
+    """The ``EngineCore`` surface, served by a worker process.
+
+    The stock :class:`~paddle_tpu_torch.serving.fleet.EngineReplica` thread
+    drives ``add_request``/``abort_request``/``step``/``requests`` over
+    the dedicated *engine* connection (strictly serial — it is the only
+    user).  Heartbeats and HTTP debug handlers share the *control*
+    connection under a lock.  State the router reads on hot/collect
+    paths (``has_work``, ``queue_depth``, ``occupancy``, ``degraded``,
+    ``step_seq``) is cached from step replies — never fetched.
+
+    Metrics: ``metrics`` is a REAL :class:`ServingMetrics` on the shared
+    router registry under ``replica=str(index)`` labels (pre-registering
+    the full series family exactly like an in-process replica, which is
+    also what satisfies the router's distinct-labels gate).  Each
+    ``step_done`` carries the worker's full registry dump; a
+    :class:`~paddle_tpu_torch.serving.wire.RegistryMerger` folds the
+    replica-labeled rows in delta-monotonically, so counters survive
+    worker respawns without regressing."""
+
+    def __init__(self, shared: "_SharedState", index: int,
+                 live: bool = True):
+        self._shared = shared
+        cfg = shared.cfg
+        self.index = index
+        # --- fleet-gate surface (shared template objects) -------------------
+        self.engine_config = shared.engine_cfg_for(index)
+        self.block_size = cfg.block_size
+        self.num_blocks = cfg.num_blocks
+        self.mp = int(cfg.mp)
+        self.device = torch.device(cfg.device or "cuda")
+        self.metrics = ServingMetrics(registry=shared.registry,
+                                      labels={"replica": str(index)})
+        # host-side span tracer: the HTTP frontend wraps every request
+        # in `engine.tracer.span(...)` — those are frontend spans, so
+        # the proxy serves the host process tracer (the worker keeps
+        # its own engine tracer in-process)
+        self.tracer = self.metrics.tracer
+        self.audit = _AuditProxy(self, shared.template_audit)
+        self.stepprof = _StepProfProxy(self)
+        self.cachestat = _CacheStatProxy(self)
+        self.kv = _KvProxy(self)
+        self.scheduler = _SchedulerProxy(self)
+        self.requests: Dict[object, _MirrorRequest] = {}  # rid ->
+        # mirror; bounded by the replica admission cap, evicted on finish
+        self.lifecycle = None
+        self._replica_label = str(index)
+        self._history = None
+        self._router_fi = None
+        # --- cached worker state (updated from step replies) ----------------
+        self.step_seq = 0
+        self._has_work = False
+        self._queue_depth = 0
+        self._occupancy = 0.0
+        self._degraded = False
+        # --- process/wire state ---------------------------------------------
+        self.worker: Optional[WorkerHandle] = None
+        self.is_live = False     # a process was spawned (vs parked)
+        self._engine_conn: Optional[wire.Connection] = None
+        self._control_conn: Optional[wire.Connection] = None
+        self._control_lock = threading.RLock()
+        self._dead = threading.Event()
+        self._death_detail = ""
+        self._closed = False
+        self._merger: Optional[wire.RegistryMerger] = None
+        self._hb_thread: Optional[threading.Thread] = None
+        self._hb_fail_c = shared.registry.counter(
+            "serving_fleet_heartbeat_timeouts_total",
+            "worker heartbeats that failed/timed out, marking the "
+            "replica dead", replica=str(index))
+        # --- cross-process telemetry ---------------------------------------
+        self._telemetry = bool(cfg.telemetry)
+        self.clock = distrib.ClockSync(window=cfg.clock_window)
+        self.mirror = distrib.MirrorRing(capacity=cfg.mirror_ring_events)
+        self.wire_stats = distrib.WireStats(
+            registry=shared.registry, labels={"replica": str(index)})
+        # summary() prints this replica's host/wire/engine share table
+        self.metrics.attach_wire_stats(self.wire_stats)
+        self._delta: Optional[distrib.DeltaMerger] = None  # per spawn
+        self._dropped_seen = 0
+        self._c_streamed = shared.registry.counter(
+            "serving_distrib_events_streamed_total",
+            "worker lifecycle events streamed over the wire and merged "
+            "into the router tracker", replica=str(index))
+        self._c_dropped = shared.registry.counter(
+            "serving_distrib_events_dropped_total",
+            "telemetry events dropped (worker outbox or host mirror "
+            "ring full)", replica=str(index))
+        self._g_clock_off = shared.registry.gauge(
+            "serving_distrib_clock_offset_seconds",
+            "estimated worker-minus-router monotonic clock offset "
+            "(min-RTT NTP sample)", replica=str(index))
+        self._g_clock_rtt = shared.registry.gauge(
+            "serving_distrib_clock_rtt_seconds",
+            "round-trip time of the best clock-sync sample",
+            replica=str(index))
+        if live:
+            self.spawn()
+
+    @property
+    def pid(self) -> Optional[int]:
+        return self.worker.pid if self.worker is not None else None
+
+    # --- process lifecycle --------------------------------------------------
+    def spawn(self) -> None:
+        shared = self._shared
+        cfg = shared.cfg
+        # a worker the fleet launched ahead (parallel boot) is adopted;
+        # a respawn or a scale-up launches its own
+        handle = shared.take_launched(self.index)
+        if handle is None:
+            handle = WorkerHandle.launch(cfg, self.index,
+                                         shared.worker_spec(self.index))
+        self.worker = handle
+        handle.wait_ready()
+        labels = {"replica": str(self.index)}
+        deploy = shared.deploy(self.index)
+        self._engine_conn = wire.connect(
+            "127.0.0.1", self.worker.port, role="engine",
+            aot_hash=None, registry=shared.registry, labels=labels,
+            side="router", deploy=deploy)
+        self._control_conn = wire.connect(
+            "127.0.0.1", self.worker.port, role="control",
+            aot_hash=None, registry=shared.registry, labels=labels,
+            side="router", deploy=deploy)
+        # fresh merger per incarnation: its delta baselines reset with
+        # the new worker's (zeroed) counters, so shared-registry totals
+        # only ever move forward across respawns
+        self._merger = wire.RegistryMerger(shared.registry,
+                                           str(self.index))
+        # fresh delta merger per incarnation: the new worker's outbox
+        # restarts its sequence numbers at 0, so the applied-seq
+        # intervals must reset with it (idempotency is per incarnation).
+        # The lifecycle is read through a getter because the router
+        # calls set_lifecycle AFTER the factory returns.
+        self._delta = distrib.DeltaMerger(
+            str(self.index), self.worker.pid, self.clock, self.mirror,
+            lambda: self.lifecycle)
+        self.is_live = True
+        if self._router_fi is not None:
+            self._send_fault_plan()
+        self._hb_thread = threading.Thread(
+            target=self._hb_loop, daemon=True,
+            name=f"worker-heartbeat-{self.index}")
+        self._hb_thread.start()
+
+    def close(self, graceful: bool = True) -> None:
+        """Tear the worker down.  Idempotent; never raises."""
+        if self._closed:
+            return
+        self._closed = True
+        self._dead.set()  # stops the heartbeat; has_work answers False
+        if graceful and self._control_conn is not None \
+                and self.worker is not None and self.worker.alive:
+            try:
+                with self._control_lock:
+                    self._control_conn.settimeout(2.0)
+                    self._control_conn.request({"type": "shutdown"})
+            except (socket.timeout, OSError, wire.WireError):
+                pass  # swallow-ok: best-effort graceful stop; SIGTERM/SIGKILL below is the guarantee
+        for conn in (self._engine_conn, self._control_conn):
+            if conn is not None:
+                conn.close()
+        if self.worker is not None:
+            self.worker.stop()
+
+    def _mark_dead(self, detail: str) -> None:
+        if self._dead.is_set():
+            return
+        self._death_detail = detail
+        self._dead.set()
+        self._shared.update_gauge()
+
+    def _hb_loop(self) -> None:
+        cfg = self._shared.cfg
+        conn = self._control_conn
+        while not self._dead.is_set() and not self._closed:
+            try:
+                t0 = time.perf_counter()
+                with self._control_lock:
+                    conn.settimeout(cfg.heartbeat_timeout_s)
+                    reply = conn.request({"type": "health", "t0": t0})
+                t3 = time.perf_counter()
+                if reply.get("type") != "health_ok":
+                    raise WorkerDied(f"bad health reply: {reply!r}")
+                # each heartbeat doubles as an NTP-style clock probe
+                # (t0/t3 router clock, t1/t2 echoed worker clock)
+                t1, t2 = reply.get("t1"), reply.get("t2")
+                if reply.get("t0") == t0 and t1 is not None \
+                        and t2 is not None:
+                    self.clock.observe(t0, float(t1), float(t2), t3)
+                    self._g_clock_off.set(self.clock.offset)
+                    self._g_clock_rtt.set(self.clock.rtt)
+                self._absorb_telemetry(reply)
+            except (socket.timeout, wire.WireError, WorkerDied,
+                    OSError) as e:
+                if self._closed or self._dead.is_set():
+                    return
+                self._hb_fail_c.inc()
+                self._mark_dead(
+                    f"heartbeat failed after "
+                    f"{cfg.heartbeat_timeout_s}s: {e}")
+                return
+            self._dead.wait(cfg.heartbeat_interval_s)
+
+    def _require_live(self) -> None:
+        if self._dead.is_set() or self._engine_conn is None:
+            raise WorkerDied(
+                f"worker {self.index} is not serving "
+                f"({self._death_detail or 'never spawned (parked)'})")
+
+    # --- EngineCore surface: wiring hooks -----------------------------------
+    def set_lifecycle(self, tracker, replica: Optional[str] = None) -> None:
+        self.lifecycle = tracker
+        if replica is not None:
+            self._replica_label = str(replica)
+
+    def _lc(self, rid, name: str, **attrs) -> None:
+        if self.lifecycle is None \
+                or not self.engine_config.lifecycle_events:
+            return
+        if self._telemetry:
+            # telemetry streaming replaces the router-synthesized
+            # enqueued/finish stand-ins with the worker engine's REAL
+            # events (correct engine-side timestamps, full attrs)
+            return
+        self.lifecycle.event(rid, name, replica=self._replica_label,
+                             **attrs)
+
+    def set_history(self, history) -> None:
+        if self.engine_config.history:
+            self._history = history
+
+    def set_fault_injector(self, injector) -> None:
+        self._router_fi = injector
+        if self.is_live and not self._dead.is_set():
+            self._send_fault_plan()
+
+    def _send_fault_plan(self) -> None:
+        fi = self._router_fi
+        frame: Dict = {"type": "set_fault", "plan": None}
+        if fi is not None:
+            frame["plan"] = fi.plan.to_obj()
+            # transfer the exactly-once bookkeeping: entries already
+            # fired by a previous incarnation must not re-fire in the
+            # respawned worker
+            frame["fired"] = fi.snapshot()["fired_plan_indexes"]
+        try:
+            with self._control_lock:
+                self._control_conn.settimeout(10.0)
+                reply = self._control_conn.request(frame)
+        except (socket.timeout, wire.WireError) as e:
+            self._mark_dead(f"fault-plan push failed: {e}")
+            raise WorkerDied(
+                f"worker {self.index} died during fault-plan push: {e}"
+            ) from e
+        if reply.get("type") != "ok":
+            raise WorkerDied(
+                f"worker {self.index} rejected the fault plan: {reply!r}")
+
+    # --- EngineCore surface: request path (engine thread only) --------------
+    def add_request(self, prompt_ids, sampling: Optional[SamplingParams]
+                    = None, request_id=None, priority: int = 0,
+                    trace_id: Optional[str] = None, prefix_hashes=None,
+                    slo_ms: Optional[float] = None,
+                    resume_tokens: Optional[List[int]] = None
+                    ) -> _MirrorRequest:
+        self._require_live()
+        sp = sampling if sampling is not None else SamplingParams()
+        frame = {
+            "type": "submit", "rid": request_id,
+            "prompt_ids": [int(t) for t in prompt_ids],
+            "sampling": {
+                "max_new_tokens": sp.max_new_tokens,
+                "temperature": sp.temperature, "top_k": sp.top_k,
+                "top_p": sp.top_p,
+                "eos_token_id": sp.eos_token_id, "seed": sp.seed},
+            "priority": priority, "trace_id": trace_id,
+            "prefix_hashes": ([h.hex() for h in prefix_hashes]
+                              if prefix_hashes else None),
+            "slo_ms": slo_ms,
+            "resume_tokens": ([int(t) for t in resume_tokens]
+                              if resume_tokens else None),
+        }
+        try:
+            reply = self._engine_conn.request(frame)
+        except wire.WireError as e:
+            self._mark_dead(f"submit failed: {e}")
+            raise WorkerDied(
+                f"worker {self.index} died during submit: {e}") from e
+        if reply.get("type") != "submit_ok":
+            self._mark_dead(f"submit rejected: {reply!r}")
+            raise WorkerDied(
+                f"worker {self.index} refused submit: {reply!r}")
+        self._absorb_telemetry(reply)
+        mirror = _MirrorRequest(request_id, frame["prompt_ids"])
+        if resume_tokens:
+            # migrated request: the mirror's stream includes
+            # the donor-side tokens — the worker only emits FRESH ones
+            mirror.output_tokens.extend(int(t) for t in resume_tokens)
+        self.requests[request_id] = mirror
+        self._has_work = True
+        self._lc(request_id, _lc.EV_ENQUEUED, trace_id=trace_id,
+                 prompt_tokens=len(mirror.prompt_ids))
+        return mirror
+
+    def abort_request(self, request_id,
+                      reason: FinishReason = FinishReason.ABORT) -> bool:
+        m = self.requests.get(request_id)
+        if m is None:
+            return False
+        ok = True
+        if not self._dead.is_set() and self._engine_conn is not None:
+            try:
+                reply = self._engine_conn.request(
+                    {"type": "abort", "rid": request_id,
+                     "reason": reason.value})
+                ok = bool(reply.get("ok"))
+                self._absorb_telemetry(reply)
+            except wire.WireError as e:
+                # dead worker: the request dies with it — finish the
+                # mirror locally so no handle waits on a ghost
+                self._mark_dead(f"abort failed: {e}")
+        if ok:
+            m.finished = True
+            m.finish_reason = reason
+            self.requests.pop(request_id, None)
+            self._lc(request_id, _lc.EV_FINISH, reason=reason.value)
+        return ok
+
+    # --- KV hand-off (engine thread only) -----------------------------------
+    def _kv_export(self, req_frame: Dict):
+        """Send one ``kv_export`` request frame and reassemble the
+        streamed ``kv_run_begin``/``kv_run_chunk`` reply.  ``None`` when
+        the worker answers empty/refusal (the caller re-prefills);
+        :class:`WorkerDied` on wire death."""
+        from . import handoff
+
+        self._require_live()
+        conn = self._engine_conn
+        try:
+            conn.send(req_frame)
+            begin = conn.recv()
+            t = begin.get("type")
+            if t in ("kv_export_ok", "error"):
+                return None  # untransferable / typed refusal: re-prefill
+            if t != "kv_run_begin":
+                self._mark_dead(f"protocol desync on kv export: {t!r}")
+                raise WorkerDied(
+                    f"worker {self.index} protocol desync: got {t!r} "
+                    "during a kv export")
+            declared = max(0, min(int(begin.get("chunks", 0) or 0), 4096))
+            chunks = [conn.recv() for _ in range(declared)]
+        except wire.WireError as e:
+            self._mark_dead(f"kv export failed: {e}")
+            raise WorkerDied(
+                f"worker {self.index} died during kv export: {e}") from e
+        return handoff.run_from_frames(begin, chunks)
+
+    def export_kv_run(self, request_id):
+        """Fetch the worker-side KV run for ``request_id``; ``None``
+        when nothing is transferable."""
+        return self._kv_export({"type": "kv_export", "rid": request_id})
+
+    def export_prefix_chain(self, chain_hash, max_blocks=None):
+        """Fetch the worker-side cached prefix chain addressed by its
+        deepest digest (hot-prefix migration); ``None`` on a broken
+        chain or refusal."""
+        return self._kv_export({
+            "type": "kv_export", "chain": bytes(chain_hash).hex(),
+            "max_blocks": max_blocks})
+
+    def hot_prefixes(self, top_k=None):
+        """Worker-side heat-table-hot prefixes with full chain digests
+        (see :meth:`EngineCore.hot_prefixes`)."""
+        self._require_live()
+        try:
+            reply = self._engine_conn.request(
+                {"type": "hot_prefixes", "k": top_k})
+        except wire.WireError as e:
+            self._mark_dead(f"hot_prefixes failed: {e}")
+            raise WorkerDied(
+                f"worker {self.index} died listing hot prefixes: {e}"
+            ) from e
+        if reply.get("type") != "hot_prefixes_ok":
+            return []
+        return list(reply.get("rows") or [])
+
+    def import_kv_run(self, run):
+        """Stream a KV run to the worker as block-stream frames and
+        admit it.  Mirrors ``EngineCore.import_kv_run``: placed-count on
+        success, ``None`` on a capacity refusal,
+        :class:`~paddle_tpu_torch.serving.handoff.HandoffError` when the
+        worker answers a typed refusal (the caller degrades to
+        re-prefill), :class:`WorkerDied` on wire death."""
+        from . import handoff
+
+        self._require_live()
+        conn = self._engine_conn
+        try:
+            for frame in handoff.run_to_frames(run):
+                conn.send(frame)
+            reply = conn.recv()
+        except wire.WireError as e:
+            self._mark_dead(f"kv import failed: {e}")
+            raise WorkerDied(
+                f"worker {self.index} died during kv import: {e}") from e
+        t = reply.get("type")
+        if t == "kv_import_ok":
+            placed = reply.get("placed")
+            return None if placed is None else int(placed)
+        if t == "error":
+            raise handoff.HandoffError(
+                f"worker {self.index} refused the kv run "
+                f"({reply.get('code')}): {reply.get('detail')}")
+        self._mark_dead(f"protocol desync on kv import: {t!r}")
+        raise WorkerDied(
+            f"worker {self.index} protocol desync: got {t!r} during a "
+            "kv import")
+
+    def detach_request(self, request_id) -> bool:
+        """Drop ``request_id`` from the worker WITHOUT a finish event
+        (its hashed prompt blocks park warm) — the donor half of a
+        hand-off.  The mirror is popped so no step reply resurrects
+        it."""
+        m = self.requests.pop(request_id, None)
+        self._require_live()
+        try:
+            reply = self._engine_conn.request(
+                {"type": "kv_detach", "rid": request_id})
+        except wire.WireError as e:
+            self._mark_dead(f"kv detach failed: {e}")
+            raise WorkerDied(
+                f"worker {self.index} died during kv detach: {e}") from e
+        return bool(reply.get("ok")) and m is not None
+
+    def step(self) -> Dict:
+        """One worker engine step, one wire round-trip: the ``step_done``
+        frame carries the step's full emission batch (``emitted``:
+        rid -> [tokens] — a decode burst ships all N tokens per row in
+        this one frame) plus state + metrics dump; absorb it, tick the
+        shared history.  Legacy per-token ``token`` frames are still
+        absorbed for mixed-version fleets.  Any wire failure or
+        worker-reported step error surfaces as :class:`WorkerDied` — the
+        stock replica death path."""
+        self._require_live()
+        conn = self._engine_conn
+        try:
+            t0 = time.perf_counter()
+            conn.send({"type": "step"})
+            while True:
+                frame = conn.recv()
+                t = frame.get("type")
+                if t == "token":
+                    m = self.requests.get(frame["rid"])
+                    if m is not None:
+                        m.output_tokens.append(int(frame["token"]))
+                        if m.first_token_time is None:
+                            m.first_token_time = time.perf_counter()
+                elif t == "step_done":
+                    t3 = time.perf_counter()
+                    self._absorb_wire(frame, t0, t3)
+                    self._absorb_step(frame)
+                    if frame.get("stepped") and self._history is not None:
+                        self._history.on_step(self.step_seq)
+                    return {}
+                elif t == "step_error":
+                    # the worker reported its own engine failure (e.g.
+                    # an injected engine_step_raise) and is exiting;
+                    # absorb the final metrics/fired bookkeeping first
+                    self._absorb_metrics(frame)
+                    self._mark_dead("worker engine step failed")
+                    raise WorkerDied(
+                        f"worker {self.index} engine step failed:\n"
+                        f"{frame.get('error', '')}")
+                else:
+                    self._mark_dead(
+                        f"protocol desync mid-step: {t!r}")
+                    raise WorkerDied(
+                        f"worker {self.index} protocol desync: got "
+                        f"{t!r} during a step")
+        except wire.WireError as e:
+            # includes the kill -9 signature: EOF mid-frame (truncated)
+            self._mark_dead(f"step wire failure: {e}")
+            raise WorkerDied(
+                f"worker {self.index} (pid {self.pid}) died mid-step: "
+                f"{e}") from e
+
+    def _absorb_metrics(self, frame: Dict) -> None:
+        rows = frame.get("metrics")
+        if rows and self._merger is not None:
+            self._merger.merge(rows)
+        fired = frame.get("fired") or []
+        if fired and self._router_fi is not None:
+            self._router_fi.mark_fired(fired)
+        self._absorb_telemetry(frame)
+
+    def _absorb_telemetry(self, frame: Dict) -> None:
+        """Merge a piggybacked lifecycle-event delta (idempotent across
+        replay/reorder — see :class:`distrib.DeltaMerger`) and keep the
+        streamed/dropped counters in step."""
+        if self._delta is None:
+            return
+        delta = frame.get("telemetry")
+        if delta:
+            applied = self._delta.merge(delta)
+            if applied:
+                self._c_streamed.inc(applied)
+        dropped = self._delta.worker_dropped + self.mirror.dropped
+        if dropped > self._dropped_seen:
+            self._c_dropped.inc(dropped - self._dropped_seen)
+            self._dropped_seen = dropped
+
+    def _absorb_wire(self, frame: Dict, t0: float, t3: float) -> None:
+        """Fold one step round-trip's timestamps into the wire-latency
+        attribution and the clock estimator (a step IS a valid NTP
+        probe: the RTT formula subtracts worker processing time)."""
+        stamps = frame.get("t")
+        if not stamps:
+            return
+        try:
+            recv, reply = float(stamps["recv"]), float(stamps["reply"])
+        except (KeyError, TypeError, ValueError):
+            return  # swallow-ok: stamps are an OPTIONAL protocol field — an old/partial worker reply just skips wire attribution for this step
+        self.clock.observe(t0, recv, reply, t3)
+        rec = frame.get("step_record")
+        program = None
+        if isinstance(rec, dict):
+            progs = rec.get("programs") or ()
+            program = ",".join(p.get("program", "?")
+                               for p in progs) or None
+        self.wire_stats.observe(t0, t3, stamps, program=program)
+        if isinstance(rec, dict):
+            # mirror the step record next to the lifecycle events: the
+            # engine_death bundle shows what the worker was computing
+            self.mirror.append({
+                "name": "step_record",
+                "ts": self.clock.to_router(reply),
+                "record": rec,
+            })
+
+    def distrib_state(self) -> Dict:
+        """Per-worker cross-process telemetry snapshot: the flight
+        recorder embeds this (via ``bind_distrib``) into post-mortem
+        bundles, and ``/v1/debug/wire`` serves it live."""
+        return {
+            "pid": self.pid,
+            "telemetry": self._telemetry,
+            "clock": self.clock.snapshot(),
+            "merge": (self._delta.snapshot()
+                      if self._delta is not None else None),
+            "mirror": self.mirror.snapshot(),
+            "stderr_tail": (list(self.worker.stderr_tail)
+                            if self.worker is not None else []),
+            "wire": self.wire_stats.report(),
+        }
+
+    def _absorb_step(self, frame: Dict) -> None:
+        self._absorb_metrics(frame)
+        self.step_seq = int(frame.get("step_seq", self.step_seq))
+        self._has_work = bool(frame.get("has_work", False))
+        self._queue_depth = int(frame.get("queue_depth", 0))
+        self._occupancy = float(frame.get("occupancy", 0.0))
+        self._degraded = bool(frame.get("degraded", False))
+        # emission batch BEFORE the finished map: a finishing request's
+        # EV_FINISH token count must include this step's (burst) tokens
+        for rid, toks in (frame.get("emitted") or {}).items():
+            m = self.requests.get(rid)
+            if m is not None:
+                m.output_tokens.extend(int(t) for t in toks)
+                if m.first_token_time is None and toks:
+                    # first-token boundary: the migration
+                    # sweep keys off this, same as in-process Request
+                    m.first_token_time = time.perf_counter()
+        for rid, reason in (frame.get("finished") or {}).items():
+            m = self.requests.pop(rid, None)
+            if m is None:
+                continue
+            m.finish_reason = (FinishReason(reason) if reason else None)
+            m.finished = True
+            self._lc(rid, _lc.EV_FINISH, reason=reason,
+                     tokens=len(m.output_tokens))
+
+    # --- control-plane fetches (any thread) ---------------------------------
+    def debug_fetch(self, what: str, default=None):
+        """Fetch a debug snapshot over the control connection; returns
+        ``default`` when the worker is dead/parked (debug surfaces
+        degrade to 'restarting' rows instead of erroring)."""
+        if self._dead.is_set() or self._control_conn is None:
+            return default
+        try:
+            with self._control_lock:
+                self._control_conn.settimeout(10.0)
+                reply = self._control_conn.request(
+                    {"type": "debug", "what": what})
+        except (socket.timeout, wire.WireError) as e:
+            self._mark_dead(f"debug fetch {what!r} failed: {e}")
+            return default
+        if reply.get("type") != "debug_ok":
+            return default
+        return reply.get("data", default)
+
+
+class _SharedState:
+    """Everything the per-index factory closes over: the config, the
+    shared registry, the template gate objects, the workers launched
+    ahead of the router's build, and the live proxy map (index → proxy)
+    through which old workers are reaped when the supervisor respawns an
+    index."""
+
+    def __init__(self, cfg: ProcessFleetConfig,
+                 registry: MetricsRegistry):
+        if cfg.aot_path or cfg.warm_boot:
+            raise NotImplementedError(
+                "ProcessFleetConfig aot_path/warm_boot: AOT serving "
+                "artifacts are not ported to paddle_tpu_torch yet "
+                "(ROADMAP A9 rest)")
+        if int(cfg.mp) > 1:
+            raise NotImplementedError(
+                f"ProcessFleetConfig mp={cfg.mp}: tensor-parallel "
+                "serving is not ported to paddle_tpu_torch yet "
+                "(ROADMAP A11)")
+        self.cfg = cfg
+        self.registry = registry
+        # ONE template per fleet: the router's homogeneity gates compare
+        # these across proxies (audit cfg by value, engine knobs by
+        # field)
+        self.template_audit = (
+            AuditConfig(enabled=True,
+                        sample_every=max(1, cfg.audit_sample_every))
+            if cfg.audit_enabled else AuditConfig())
+        self.template_engine_cfg = EngineConfig(
+            num_blocks=cfg.num_blocks, block_size=cfg.block_size,
+            unified_step=cfg.unified,
+            burst_steps=cfg.burst_steps,
+            spec=self.spec_config(),
+            audit=(self.template_audit if cfg.audit_enabled else None))
+        if cfg.roles is not None and len(cfg.roles) != cfg.dp:
+            raise ValueError(
+                f"ProcessFleetConfig.roles has {len(cfg.roles)} "
+                f"entrie(s) for dp={cfg.dp}; give one role per replica "
+                "index (serving.fleet.parse_roles builds the list)")
+        self._launched: Dict[int, WorkerHandle] = {}  # index -> worker
+        # launched ahead of FleetRouter.build; bounded by dp
+        self.active: Dict[int, WorkerEngineProxy] = {}  # index ->
+        # current proxy; bounded by dp
+        self.lock = threading.RLock()
+        self.initial_live = cfg.dp
+        self.built = False  # set once FleetRouter.build returns: later
+        # factory calls are supervisor respawns / scale-ups — always live
+        self._respawn_c = registry.counter(
+            "serving_fleet_worker_respawns_total",
+            "worker processes replaced (supervisor respawn or "
+            "autoscaler churn)")
+        self._g_active = registry.gauge(
+            "serving_fleet_active_workers",
+            "live (spawned, not dead/closed) worker processes")
+
+    def spec_config(self):
+        """The fleet's :class:`~paddle_tpu_torch.serving.spec.SpecConfig`, or
+        ``None`` when spec decoding is off.  Built from the SAME kwargs
+        dict each worker receives, so the router's deployment identity
+        and every worker's engine-derived one agree by construction."""
+        if not self.cfg.spec:
+            return None
+        from .spec import SpecConfig
+
+        sc = SpecConfig(**self.cfg.spec)
+        return sc if sc.enabled else None
+
+    def role_for(self, index: int) -> str:
+        """Replica ``index``'s role: ``unified`` unless the
+        fleet config assigns specialists."""
+        if self.cfg.roles is None:
+            return "unified"
+        return str(self.cfg.roles[index])
+
+    def engine_cfg_for(self, index: int) -> EngineConfig:
+        """The proxy's gate-surface EngineConfig: the shared template,
+        with the per-index role folded in (roles are deliberately NOT a
+        homogeneity gate, so per-index copies are safe — audit/spec/aot
+        members stay the SAME objects the gates compare)."""
+        role = self.role_for(index)
+        if role == "unified":
+            return self.template_engine_cfg
+        return _dc_replace(self.template_engine_cfg, role=role)
+
+    def deploy(self, index: Optional[int] = None) -> Dict:
+        """Deployment identity presented in every wire handshake:
+        mesh-slice shape + spec config + the replica's role + the port's
+        model identity (:func:`wire.model_identity`)."""
+        sc = self.spec_config()
+        deploy = {"mp": int(self.cfg.mp),
+                  "spec": (sc.manifest_dict() if sc is not None else None),
+                  "role": (self.role_for(index)
+                           if index is not None else "unified")}
+        model = wire.model_identity(self.worker_spec(index))
+        if model is not None:
+            deploy["model"] = model
+        return deploy
+
+    def worker_spec(self, index: Optional[int] = None) -> Dict:
+        cfg = self.cfg
+        spec = {"role": self.role_for(index)} if index is not None else {}
+        return {
+            **spec,
+            "layers": cfg.layers, "num_blocks": cfg.num_blocks,
+            "block_size": cfg.block_size,
+            "max_num_seqs": cfg.max_num_seqs,
+            "max_prefill_tokens_per_step":
+                cfg.max_prefill_tokens_per_step,
+            "max_tokens_per_step": cfg.max_tokens_per_step,
+            "mp": cfg.mp, "spec": cfg.spec,
+            "burst_steps": cfg.burst_steps,
+            "unified_step": cfg.unified, "seed": cfg.seed,
+            "audit_enabled": cfg.audit_enabled,
+            "audit_sample_every": cfg.audit_sample_every,
+            "preset": cfg.preset, "dtype": cfg.dtype,
+            "device": cfg.device, "weights": cfg.weights,
+            "max_seq_len": cfg.max_seq_len,
+            # telemetry streaming: workers run their engines
+            # with lifecycle events ON and stream deltas back; the
+            # router still owns the ONE merged timeline and the ONE
+            # history store ("history" stays False).  telemetry=False
+            # restores the old dark-worker behavior.
+            "lifecycle_events": bool(cfg.telemetry),
+            "decode_event_sample": cfg.decode_event_sample,
+            "telemetry": bool(cfg.telemetry),
+            "history": False,
+        }
+
+    def launch_ahead(self, indexes) -> None:
+        """Launch the workers of ``indexes`` now, all at once, so their
+        boots (model build, kernel load) overlap; each proxy's spawn
+        adopts its handle and waits for its ready line."""
+        for i in indexes:
+            self._launched[i] = WorkerHandle.launch(
+                self.cfg, i, self.worker_spec(i))
+
+    def take_launched(self, index: int) -> Optional[WorkerHandle]:
+        with self.lock:
+            return self._launched.pop(index, None)
+
+    def factory(self, index: int, registry) -> WorkerEngineProxy:
+        """The ``engine_factory(i, registry)`` handed to
+        :meth:`FleetRouter.build` — and therefore the SAME callable the
+        supervisor's ``_rebuild`` and the autoscaler's provisioning use.
+        Replacing an index closes (kills) the previous incarnation's
+        process first: respawn == in-process engine reconstruction."""
+        with self.lock:
+            old = self.active.pop(index, None)
+            live = True if self.built else index < self.initial_live
+        if old is not None:
+            old.close(graceful=False)
+            if old.is_live:
+                self._respawn_c.inc()
+        proxy = WorkerEngineProxy(self, index, live=live)
+        with self.lock:
+            self.active[index] = proxy
+        self.update_gauge()
+        return proxy
+
+    def update_gauge(self) -> None:
+        with self.lock:
+            n = sum(1 for p in self.active.values()
+                    if p.is_live and not p._closed
+                    and not p._dead.is_set())
+        self._g_active.set(n)
+
+    def close_all(self) -> None:
+        with self.lock:
+            proxies = list(self.active.values())
+            launched = list(self._launched.values())
+            self._launched.clear()
+        for p in proxies:
+            p.close()
+        for h in launched:   # launched ahead, never adopted
+            h.stop(grace_s=0.5)
+        self.update_gauge()
+
+
+class ProcessFleet:
+    """A process-isolated dp fleet: the stock :class:`FleetRouter` (and
+    optional :class:`FleetSupervisor`) over :class:`WorkerEngineProxy`
+    replicas.  ``initial_replicas < dp`` parks the tail indexes (no
+    process, no engine thread — routed around via ``healthy=False`` and
+    skipped by the supervisor via ``thread is None``) as the
+    autoscaler's headroom."""
+
+    def __init__(self, config: Optional[ProcessFleetConfig] = None,
+                 registry: Optional[MetricsRegistry] = None,
+                 initial_replicas: Optional[int] = None):
+        self.cfg = config or ProcessFleetConfig()
+        self.registry = (registry if registry is not None
+                         else MetricsRegistry(max_series=4096))
+        self.shared = _SharedState(self.cfg, self.registry)
+        self.shared.initial_live = (
+            self.cfg.dp if initial_replicas is None
+            else max(1, min(int(initial_replicas), self.cfg.dp)))
+        try:
+            self.shared.launch_ahead(range(self.shared.initial_live))
+            self.router = FleetRouter.build(
+                self.shared.factory, dp=self.cfg.dp,
+                config=self.cfg.fleet or FleetConfig(),
+                registry=self.registry)
+        except BaseException:
+            self.shared.close_all()  # no orphan worker processes
+            raise
+        self.shared.built = True
+        # flight bundles embed the per-worker telemetry mirrors/stderr
+        # tails; a closure over shared.active reads the CURRENT proxies,
+        # so supervisor respawns need no rebind — and at engine_death
+        # time the DEAD proxy is still the active entry, so its mirror
+        # (the dead worker's last events) is exactly what gets dumped
+        self.router.flight.bind_distrib(self._distrib_state)
+        self.supervisor: Optional[FleetSupervisor] = None
+        self.autoscaler: Optional["FleetAutoscaler"] = None
+        self.rebalancer: Optional["CacheRebalancer"] = None
+
+    def _distrib_state(self) -> Dict:
+        with self.shared.lock:
+            proxies = dict(self.shared.active)
+        return {str(i): p.distrib_state() for i, p in proxies.items()}
+
+    # --- lifecycle ----------------------------------------------------------
+    def supervise(self, config: Optional[SupervisorConfig] = None
+                  ) -> FleetSupervisor:
+        self.supervisor = FleetSupervisor(self.router, config=config)
+        return self.supervisor
+
+    def start(self, notify=None) -> "ProcessFleet":
+        """Start the live replicas' engine threads (parked replicas stay
+        threadless — that is what keeps them out of routing and out of
+        the supervisor's healing scan) and the supervisor if attached."""
+        if notify is not None:
+            self.router._notify_cb = notify
+        for r in self.router.replicas:
+            proxy = self.shared.active.get(r.index)
+            if proxy is not None and proxy.is_live and r.thread is None:
+                r.start()
+        if self.supervisor is not None:
+            self.supervisor.start()
+        self.router.sample_gauges()
+        return self
+
+    def stop(self, join_timeout: float = 10.0) -> None:
+        for actor in (self.autoscaler, self.rebalancer):
+            if actor is not None:
+                actor.close()
+        self.router.stop(join_timeout)
+        self.shared.close_all()
+
+    def shutdown(self, drain_timeout: Optional[float] = None) -> None:
+        for actor in (self.autoscaler, self.rebalancer):
+            if actor is not None:
+                actor.close()
+        self.router.shutdown(drain_timeout)
+        self.shared.close_all()
+
+    # --- actuators ----------------------------------------------------------
+    def enable_autoscaler(self, config: Optional["AutoscalerConfig"]
+                          = None) -> "FleetAutoscaler":
+        self.autoscaler = FleetAutoscaler(self, config=config)
+        return self.autoscaler
+
+    def enable_rebalancer(self, config: Optional["RebalancerConfig"]
+                          = None) -> "CacheRebalancer":
+        self.rebalancer = CacheRebalancer(self.router, config=config,
+                                          registry=self.registry)
+        return self.rebalancer
+
+    # --- inspection (tests/bench) -------------------------------------------
+    def proxy(self, index: int) -> Optional[WorkerEngineProxy]:
+        return self.shared.active.get(index)
+
+    def worker_pid(self, index: int) -> Optional[int]:
+        p = self.shared.active.get(index)
+        return p.pid if p is not None else None
+
+    def live_replica_count(self) -> int:
+        return sum(1 for r in self.router.replicas
+                   if r.thread is not None)
+
+
+@dataclass
+class AutoscalerConfig:
+    """Bounds and pacing for the SLO-driven autoscaling actuator.
+    Cooldowns are measured in HISTORY SAMPLE indexes, not wall time —
+    the decision function consumes only ``(sample_index, firing)``
+    pairs, which is what makes a recorded run replayable bit-for-bit
+    under the frozen rule set."""
+
+    min_replicas: int = 1
+    max_replicas: int = 0  # 0 = the fleet's dp (index space is fixed)
+    scale_up_rules: Tuple[str, ...] = (
+        "goodput_burn", "pool_exhaustion", "restart_churn")
+    cooldown_samples: int = 25   # min samples between any two actions
+    calm_samples: int = 100      # firing-free samples after a breach
+                                 # before draining back down
+
+
+class ScaleDecider:
+    """The pure decision core: feed ``(sample_index, firing-rule set)``
+    pairs in order, get ``"up"`` / ``"down"`` / ``None`` out.  No
+    clocks, no fleet reads, no randomness — state is the tracked replica
+    count and two sample indexes, so replaying a recorded input stream
+    through a fresh instance reproduces the decision sequence exactly."""
+
+    def __init__(self, cfg: AutoscalerConfig, start_replicas: int,
+                 min_replicas: int, max_replicas: int):
+        self.cfg = cfg
+        self.replicas = int(start_replicas)
+        self.min_replicas = int(min_replicas)
+        self.max_replicas = int(max_replicas)
+        self._last_action: Optional[int] = None
+        self._last_breach: Optional[int] = None
+        self.decisions: deque = deque(maxlen=256)
+
+    def decide(self, sample_idx: int, firing) -> Optional[str]:
+        firing = frozenset(firing)
+        breach = any(r in firing for r in self.cfg.scale_up_rules)
+        if breach:
+            self._last_breach = sample_idx
+        cooled = (self._last_action is None
+                  or sample_idx - self._last_action
+                  >= self.cfg.cooldown_samples)
+        direction = None
+        if breach and cooled and self.replicas < self.max_replicas:
+            direction = "up"
+            self.replicas += 1
+        elif (not firing and cooled
+              and self.replicas > self.min_replicas
+              and self._last_breach is not None
+              and sample_idx - self._last_breach
+              >= self.cfg.calm_samples):
+            direction = "down"
+            self.replicas -= 1
+        if direction is not None:
+            self._last_action = sample_idx
+            self.decisions.append({
+                "sample": sample_idx, "direction": direction,
+                "firing": sorted(firing), "replicas": self.replicas})
+        return direction
+
+
+class FleetAutoscaler:
+    """AlertEngine firings → bounded scale actions on the process pool.
+
+    Wiring: a history listener registered AFTER the router's AlertEngine
+    (listener order is registration order, so each sample's rule states
+    are already updated when we read them).  The listener runs on an
+    engine thread, so it only *decides* (pure, fast); actuation —
+    spawning/draining worker processes — happens on a dedicated actuator
+    thread.  Scale-up provisions the lowest parked index with the exact
+    wiring sequence ``FleetSupervisor._rebuild`` uses (minus the restart
+    accounting: provisioning is not failure triage); scale-down stops
+    the highest live index only when it has zero in-flight work, closing
+    the submit race under the router's submit lock."""
+
+    def __init__(self, fleet: ProcessFleet,
+                 config: Optional[AutoscalerConfig] = None):
+        router = fleet.router
+        if router.history is None or router.alerts is None:
+            raise ValueError(
+                "the autoscaler consumes alert-rule firings: build the "
+                "fleet with EngineConfig.history=True (the default) so "
+                "the router carries a HistoryStore + AlertEngine")
+        self.fleet = fleet
+        self.cfg = config or AutoscalerConfig()
+        self.min_replicas = max(1, self.cfg.min_replicas)
+        self.max_replicas = (self.cfg.max_replicas or router.dp)
+        self.max_replicas = min(self.max_replicas, router.dp)
+        self.start_replicas = fleet.live_replica_count()
+        self.decider = ScaleDecider(self.cfg, self.start_replicas,
+                                    self.min_replicas, self.max_replicas)
+        self.inputs: deque = deque(maxlen=512)  # (idx, firing) replay log
+        reg = router.registry
+        self._scale_c = {
+            d: reg.counter("serving_fleet_scale_events_total",
+                           "autoscaler actions applied to the process "
+                           "pool", direction=d)
+            for d in ("up", "down")}
+        self._q: "queue.Queue" = queue.Queue(maxsize=8)
+        self._stop_ev = threading.Event()
+        self._thread = threading.Thread(target=self._actuate_loop,
+                                        daemon=True,
+                                        name="fleet-autoscaler")
+        self._thread.start()
+        self._remove = router.history.add_listener(self._on_sample)
+
+    def close(self) -> None:
+        self._remove()
+        self._stop_ev.set()
+        self._thread.join(5.0)
+
+    # --- decision (engine thread; must stay wire-free) ----------------------
+    def _on_sample(self, sample_idx: int, step: int) -> None:
+        firing = tuple(sorted(
+            self.fleet.router.alerts.snapshot()["firing"]))
+        self.inputs.append((sample_idx, firing))
+        direction = self.decider.decide(sample_idx, firing)
+        if direction is not None:
+            try:
+                self._q.put_nowait(direction)
+            except queue.Full:
+                pass  # swallow-ok: an action backlog this deep means the actuator is already reshaping the pool; the next sample re-decides
+
+    def replay(self, inputs=None) -> List[Optional[str]]:
+        """Re-run the frozen decision function over recorded
+        ``(sample_index, firing)`` inputs (default: this instance's own
+        log).  Equality with the live decision sequence is the
+        replay-determinism contract the tests assert."""
+        d = ScaleDecider(self.cfg, self.start_replicas,
+                         self.min_replicas, self.max_replicas)
+        return [d.decide(i, f)
+                for i, f in (self.inputs if inputs is None else inputs)]
+
+    # --- actuation (dedicated thread) ---------------------------------------
+    def _actuate_loop(self) -> None:
+        while not self._stop_ev.is_set():
+            try:
+                direction = self._q.get(timeout=0.1)
+            except queue.Empty:
+                continue  # swallow-ok: Empty IS the stop-flag poll cadence
+            try:
+                if direction == "up":
+                    self._scale_up()
+                else:
+                    self._scale_down()
+            except Exception:
+                sys.stderr.write("[autoscaler] action failed:\n"
+                                 + traceback.format_exc())
+
+    def _scale_up(self) -> None:
+        router = self.fleet.router
+        sup = router.supervisor
+        excluded = sup.excluded if sup is not None else set()
+        target = None
+        for i, r in enumerate(router.replicas):
+            if r.thread is None and i not in excluded:
+                target = i
+                break
+        if target is None:
+            return  # nothing parked: already at the pool's edge
+        self._provision(target)
+        self._scale_c["up"].inc()
+        router.lifecycle.event(
+            None, "scale_event", direction="up", replica=str(target),
+            replicas=self.fleet.live_replica_count())
+        sys.stderr.write(f"[autoscaler] scaled up: provisioned replica "
+                         f"{target}\n")
+
+    def _provision(self, index: int) -> None:
+        """Bring a parked index live: factory (spawns the worker) + the
+        same rewiring sequence ``FleetSupervisor._rebuild`` performs —
+        shared tracker, flight, history, per-index fault injector —
+        WITHOUT the restart counters/lifecycle (this is provisioning,
+        not failure recovery; ``serving_replica_restarts_total`` must
+        not count scale-ups)."""
+        router = self.fleet.router
+        eng = router._engine_factory(index, router.registry)
+        eng.set_lifecycle(router.lifecycle, replica=str(index))
+        eng.audit.bind_flight(router.flight, replica=str(index))
+        if router.history is not None:
+            eng.set_history(router.history)
+        fi = router.fault_injectors.get(index)
+        if fi is not None:
+            eng.set_fault_injector(fi)
+        new = EngineReplica(index, eng, router.cfg.max_queue,
+                            notify=router._notify,
+                            on_finish=router._release)
+        new.flight = router.flight
+        sup = router.supervisor
+        if sup is not None:
+            sup._adopt(new)
+        router.engines[index] = eng
+        router.replicas[index] = new
+        router.flight.bind_step_profilers(
+            {str(r.index): r.engine.stepprof for r in router.replicas})
+        router.flight.bind_cache_trackers(
+            {str(r.index): r.engine.cachestat for r in router.replicas})
+        router.flight.reset_once("engine_death", str(index))
+        new.start()
+        router.sample_gauges()
+
+    def _scale_down(self) -> None:
+        router = self.fleet.router
+        # highest live index with no in-flight work; the submit lock
+        # closes the race where a router thread admits onto the replica
+        # between the idle check and request_stop
+        for r in reversed(router.replicas):
+            if r.thread is None:
+                continue
+            with router._submit_lock:
+                if r.in_flight:
+                    continue
+                r.request_stop()
+            r.join(10.0)
+            r.thread = None  # parked again: invisible to routing and
+            # to the supervisor's healing scan, reclaimable by scale-up
+            proxy = self.fleet.shared.active.get(r.index)
+            if proxy is not None:
+                proxy.close()
+            self._scale_c["down"].inc()
+            router.lifecycle.event(
+                None, "scale_event", direction="down",
+                replica=str(r.index),
+                replicas=self.fleet.live_replica_count())
+            router.sample_gauges()
+            self.fleet.shared.update_gauge()
+            sys.stderr.write(f"[autoscaler] scaled down: drained "
+                             f"replica {r.index}\n")
+            return
+        sys.stderr.write("[autoscaler] scale-down skipped: every live "
+                         "replica busy or at the floor\n")
+
+
+@dataclass
+class RebalancerConfig:
+    """Cache-aware vnode re-weighting knobs."""
+
+    threshold: float = 0.15        # act only past this imbalance
+    min_interval_samples: int = 50  # history samples between reweights
+    min_weight: float = 0.25
+    max_weight: float = 4.0
+    # hot-prefix migration: after a reweight, heat-table-hot
+    # prefix chains whose ring key now routes AWAY from the replica
+    # holding them warm are copied to the new target over the hand-off
+    # block streams, so the first affinity-routed request there hits
+    # the prefix cache instead of recomputing
+    migrate_prefixes: bool = True
+    migrate_top_k: int = 4          # hot chains considered per donor
+    migrate_max_blocks: int = 16    # block budget per donor per reweight
+
+
+class CacheRebalancer:
+    """The cache-aware rebalancing actuator over the
+    ``serving_fleet_cache_imbalance`` signal.  On each history sample past the threshold, per-replica
+    vnode weights are set inversely to cached-token ratio — a COLD
+    replica (low ratio) gets more ring points, so new affinity keys
+    migrate toward it and warm it up, narrowing the gap instead of
+    letting placement luck compound.  Works over any
+    :class:`FleetRouter` — in-process or :class:`ProcessFleet`."""
+
+    def __init__(self, router: FleetRouter,
+                 config: Optional[RebalancerConfig] = None,
+                 registry: Optional[MetricsRegistry] = None):
+        if router.history is None:
+            raise ValueError(
+                "the rebalancer rides history samples: build the fleet "
+                "with EngineConfig.history=True (the default)")
+        self.router = router
+        self.cfg = config or RebalancerConfig()
+        reg = registry if registry is not None else router.registry
+        self._c = reg.counter(
+            "serving_fleet_ring_reweights_total",
+            "cache-aware consistent-hash vnode reweights applied")
+        self._mig_c = reg.counter(
+            "serving_fleet_prefix_migrations_total",
+            "heat-table-hot prefix chains copied to their post-reweight "
+            "ring target over the hand-off block streams")
+        self._last: Optional[int] = None
+        self.last_weights: Optional[Dict[int, float]] = None
+        self._remove = router.history.add_listener(self._on_sample)
+
+    def close(self) -> None:
+        self._remove()
+
+    def _on_sample(self, sample_idx: int, step: int) -> None:
+        cfg = self.cfg
+        if self._last is not None \
+                and sample_idx - self._last < cfg.min_interval_samples:
+            return
+        router = self.router
+        imbalance = router.cache_imbalance()
+        if imbalance is None or imbalance < cfg.threshold:
+            return
+        ratios = router.cached_token_ratios()
+        vals = [v for v in ratios.values() if v is not None]
+        if len(vals) < 2:
+            return
+        mean = sum(vals) / len(vals)
+        weights: Dict[int, float] = {}
+        for key, ratio in ratios.items():
+            if ratio is None:
+                continue
+            w = 1.0 + (mean - ratio)  # cold (below mean) -> heavier
+            weights[int(key)] = min(cfg.max_weight,
+                                    max(cfg.min_weight, w))
+        router.reweight_ring(weights)
+        self._c.inc()
+        router.lifecycle.event(
+            None, "ring_reweighted", imbalance=round(imbalance, 4),
+            weights={str(k): round(w, 3) for k, w in weights.items()})
+        self._last = sample_idx
+        self.last_weights = weights
+        self._migrate_hot_prefixes()
+
+    # --- hot-prefix migration ------------------------------------------------
+    def _migrate_hot_prefixes(self) -> None:
+        """Schedule one bounded hot-prefix sweep per healthy replica.
+        All pool and wire work rides the replicas' own engine threads
+        (:meth:`EngineReplica.post`): the heat walk and export run on
+        the donor's thread, the import on the recipient's — the
+        rebalancer thread only enqueues."""
+        if not self.cfg.migrate_prefixes:
+            return
+        for donor in list(self.router.replicas):
+            if donor.healthy:
+                donor.post(lambda d=donor: self._donor_sweep(d))
+
+    def _donor_sweep(self, donor: EngineReplica) -> None:
+        """On ``donor``'s engine thread: walk its heat table hot-first
+        and export any chain whose ring key now routes elsewhere, within
+        the per-donor block budget.  Prefix hits matter at PREFILL, so
+        ring targets are computed over the same prefill/unified pool
+        admissions route through."""
+        cfg, router = self.cfg, self.router
+        rows = donor.engine.hot_prefixes(cfg.migrate_top_k)
+        budget = cfg.migrate_max_blocks
+        pool = [r for r in router.replicas
+                if r.healthy and r.role in ("prefill", "unified")] \
+            or [r for r in router.replicas if r.healthy]
+        for row in rows:
+            if budget <= 0:
+                break
+            lead = row.get("lead")
+            if not lead:
+                continue
+            key_depth = min(router.cfg.affinity_blocks, len(lead))
+            key = _key_int([bytes.fromhex(lead[key_depth - 1])])
+            target = router._ring_target(key, pool)
+            if target is None or target is donor:
+                continue
+            run = donor.engine.export_prefix_chain(
+                bytes.fromhex(str(row["chain"])), max_blocks=budget)
+            if not run or not run.get("blocks"):
+                continue
+            budget -= len(run["blocks"])
+            if not target.post(
+                    lambda t=target, d=donor, r=run:
+                    self._import_migrated(d, t, r)):
+                budget += len(run["blocks"])  # recipient queue full
+
+    def _import_migrated(self, donor: EngineReplica,
+                         target: EngineReplica, run: Dict) -> None:
+        """On ``target``'s engine thread: admit one migrated prefix run
+        (content-verified, atomic).  A refusal or typed error just
+        degrades to recompute-on-miss — posted tasks are best-effort."""
+        try:
+            placed = target.engine.import_kv_run(run)
+        except Exception:
+            return  # swallow-ok: a refused/failed import degrades to recompute-on-miss at the target; the donor copy is untouched
+        if placed:
+            self._mig_c.inc()
+            self.router.lifecycle.event(
+                None, "prefix_migrated", src=str(donor.index),
+                dst=str(target.index), blocks=len(run["blocks"]),
+                placed=int(placed))

@@ -79,10 +79,16 @@ supervisor on by default::
     python -m paddle_tpu_torch.serving.server --device cpu --layers 2 \
         --selftest
 
-The cross-process fleet (``--workers``, with its autoscaler and
-rebalancer) and AOT artifacts (``--aot-*``, ``--compile-cache``) are
-ROADMAP A9 rest, tensor-parallel serving (``--mp`` > 1) is A11: those
-flags exit non-zero naming their item.
+``--workers N`` serves the same router and supervisor over N worker
+processes (``serving/procfleet.py``; ``--autoscale``, ``--rebalance`` and
+``--compile-cache`` act on that pool); ``/v1/debug/wire`` then attributes
+each step's wall to host, wire and engine::
+
+    python -m paddle_tpu_torch.serving.server --workers 2 --device cpu \
+        --layers 2 --selftest
+
+AOT artifacts (``--aot-*``) are ROADMAP A9 rest, tensor-parallel serving
+(``--mp`` > 1) is A11: those flags exit non-zero naming their item.
 """
 
 from __future__ import annotations
@@ -593,11 +599,18 @@ class CompletionServer:
         return 200
 
     def _timeline_source(self) -> Tuple[str, bool]:
-        """Honesty marker for the timeline endpoints: an in-process
-        fleet's tracker holds every replica's events (the JAX server's
-        router-only view belongs to the cross-process fleet, ROADMAP A9
-        rest)."""
-        return "in-process", True
+        """Honesty marker for the timeline endpoints: in ``--workers``
+        mode WITHOUT telemetry streaming the router's tracker holds
+        router-synthesized stand-ins only, so the response must say
+        ``complete: false`` instead of presenting a router-only view as
+        the whole story."""
+        proxies = [r.engine for r in self.fleet.replicas
+                   if hasattr(r.engine, "distrib_state")]
+        if not proxies:
+            return "in-process", True
+        if all(getattr(p, "_telemetry", False) for p in proxies):
+            return "router+workers", True
+        return "router-only", False
 
     # --- step-level introspection routes --------------------------
     def _debug_int(self, params, name: str, default: int,
@@ -845,14 +858,41 @@ class CompletionServer:
                 keep_alive=keep_alive)
             return 200
         if path == "/v1/debug/wire":
-            # wire-latency attribution belongs to the cross-process fleet
-            # (ROADMAP A9 rest): an in-process fleet answers the JAX
-            # server's "disabled" shape, never a 404
+            # per-worker wire-latency attribution + clock-sync +
+            # telemetry-merge state.  In-process fleets answer a crisp
+            # "disabled" shape (there is no wire), mirroring the other
+            # debug endpoints' degrade-not-404 discipline.
+            rows: Dict[str, Dict] = {}
+            for r in self.fleet.replicas:
+                eng = r.engine
+                if not hasattr(eng, "distrib_state"):
+                    continue
+                try:
+                    rows[str(r.index)] = eng.distrib_state()
+                except Exception:
+                    rows[str(r.index)] = {"status": "restarting"}
+            if not rows:
+                await self._respond(
+                    writer, 200,
+                    {"object": "wire", "enabled": False,
+                     "reason": "in-process fleet: no process wire to "
+                               "attribute (use --workers)"},
+                    keep_alive=keep_alive)
+                return 200
+            from ..observability.distrib import WireStats
+
+            agg = {"steps": 0, "wire_s": 0.0, "queue_s": 0.0,
+                   "engine_s": 0.0, "total_s": 0.0}
+            for state in rows.values():
+                w = state.get("wire") or {}
+                for k in agg:
+                    agg[k] += w.get(k, 0) or 0
             await self._respond(
                 writer, 200,
-                {"object": "wire", "enabled": False,
-                 "reason": "in-process fleet: no process wire to "
-                           "attribute"},
+                {"object": "wire", "enabled": True,
+                 "shares": WireStats._shares(agg),
+                 "steps": agg["steps"],
+                 "replicas": rows},
                 keep_alive=keep_alive)
             return 200
         if path != "/v1/debug/profile":
@@ -1110,21 +1150,10 @@ class CompletionServer:
 # CLI flags of the JAX server that wait for later items of the port: each
 # one exits non-zero naming its ROADMAP item, none is silently ignored
 _WAITING_FLAGS = (
-    ("workers", "--workers", "the cross-process worker fleet", "A9 rest"),
-    ("autoscale", "--autoscale", "the autoscaler of the cross-process "
-     "fleet", "A9 rest"),
-    ("autoscale_min", "--autoscale-min", "the autoscaler of the "
-     "cross-process fleet", "A9 rest"),
-    ("autoscale_max", "--autoscale-max", "the autoscaler of the "
-     "cross-process fleet", "A9 rest"),
-    ("rebalance", "--rebalance", "the prefix-cache rebalancer of the "
-     "cross-process fleet", "A9 rest"),
     ("aot_save", "--aot-save", "AOT serving artifacts", "A9 rest"),
     ("aot_path", "--aot-path", "AOT serving artifacts", "A9 rest"),
     ("aot_warm", "--aot-warm", "AOT serving artifacts", "A9 rest"),
     ("aot_max_seq", "--aot-max-seq", "AOT serving artifacts", "A9 rest"),
-    ("compile_cache", "--compile-cache", "the compile cache of the "
-     "cross-process fleet", "A9 rest"),
     ("mp", "--mp > 1", "tensor-parallel serving", "A11"),
 )
 
@@ -1293,6 +1322,93 @@ def _spec_dict(args) -> Optional[dict]:
     return {"enabled": True, "k": args.spec_k}
 
 
+def _build_procfleet(args, fault_plan=None, alert_rules=None):
+    """N worker processes behind the SAME router/supervisor stack,
+    reached over the wire protocol; each worker builds the CLI's toy
+    model (``LlamaConfig.tiny``, a generator seeded with 0) on
+    ``--device``."""
+    from .procfleet import ProcessFleet, ProcessFleetConfig
+
+    pf = ProcessFleet(ProcessFleetConfig(
+        dp=args.workers, layers=args.layers, num_blocks=args.blocks,
+        max_num_seqs=8, max_prefill_tokens_per_step=None,
+        max_tokens_per_step=args.max_tokens_per_step,
+        spec=_spec_dict(args), burst_steps=args.burst,
+        unified=args.unified, device=args.device,
+        audit_enabled=bool(args.audit_sample),
+        audit_sample_every=args.audit_sample or 1,
+        compile_cache=args.compile_cache,
+        roles=args.roles_list,
+        fleet=FleetConfig(max_queue=args.max_queue,
+                          flight_dir=args.flight_dir,
+                          fault_plan=fault_plan,
+                          alert_rules=alert_rules)))
+    if args.autoscale:
+        from .procfleet import AutoscalerConfig
+
+        pf.enable_autoscaler(AutoscalerConfig(
+            min_replicas=args.autoscale_min,
+            max_replicas=args.autoscale_max))
+        print(f"autoscaler: live (min={pf.autoscaler.min_replicas}, "
+              f"max={pf.autoscaler.max_replicas})", flush=True)
+    if args.rebalance:
+        pf.enable_rebalancer()
+        print("rebalancer: live", flush=True)
+    return pf
+
+
+async def _selftest_procfleet_async(args) -> int:
+    """Boot ``--workers`` worker processes, serve one completion over
+    HTTP, and check the cross-process surfaces: the timeline honesty
+    markers, the wire attribution and (with ``--autoscale``) a live
+    autoscaler."""
+    loop = asyncio.get_running_loop()
+    pf = _build_procfleet(args)
+    fleet = pf.router
+    server = CompletionServer(fleet, ServerConfig(
+        port=0, max_queue=args.max_queue))
+    try:
+        await server.start()
+        status, data = await loop.run_in_executor(
+            None, _http, server.port, "GET", "/readyz", None)
+        if status != 200 or f"dp={args.workers}".encode() not in data:
+            raise RuntimeError(f"/readyz {status}: {data!r}")
+        status, data = await loop.run_in_executor(
+            None, _http, server.port, "POST", "/v1/completions",
+            {"prompt": [5, 9, 23, 7], "max_tokens": 4})
+        if status != 200:
+            raise RuntimeError(f"completions {status}: {data!r}")
+        choice = json.loads(data)["choices"][0]
+        if len(choice["token_ids"]) != 4:
+            raise RuntimeError(f"unexpected completion {choice}")
+        # honesty markers: --workers mode with telemetry streaming
+        # answers /v1/requests with the full cross-process story
+        status, data = await loop.run_in_executor(
+            None, _http, server.port, "GET", "/v1/requests?state=recent",
+            None)
+        listing = json.loads(data) if status == 200 else {}
+        if listing.get("source") != "router+workers" \
+                or listing.get("complete") is not True:
+            raise RuntimeError(f"/v1/requests {status}: {listing}")
+        # wire-latency attribution is queryable after one completion
+        status, data = await loop.run_in_executor(
+            None, _http, server.port, "GET", "/v1/debug/wire", None)
+        wire = json.loads(data) if status == 200 else {}
+        if not wire.get("enabled") or wire.get("steps", 0) < 1:
+            raise RuntimeError(f"/v1/debug/wire {status}: {wire}")
+        if args.autoscale and (pf.autoscaler is None
+                               or not pf.autoscaler._thread.is_alive()):
+            raise RuntimeError("autoscaler actuator thread is not live")
+        print(f"selftest: OK (port {server.port}, workers={args.workers},"
+              f" device {server.engine.device}, tokens "
+              f"{choice['token_ids']}, wire steps {wire['steps']}"
+              + (", autoscaler live" if args.autoscale else "") + ")")
+        return 0
+    finally:
+        await server.shutdown(drain_timeout=2.0)
+        pf.shared.close_all()
+
+
 async def _serve_cli(args) -> int:
     audit = None
     if args.audit_sample:
@@ -1309,21 +1425,29 @@ async def _serve_cli(args) -> int:
         from ..observability.alerts import AlertRuleSet
 
         alert_rules = AlertRuleSet.from_json(args.alert_rules)
-    spec = None
-    spec_kwargs = _spec_dict(args)
-    if spec_kwargs:
-        from .spec import SpecConfig
+    pf = None
+    if args.workers:
+        pf = _build_procfleet(args, fault_plan=fault_plan,
+                              alert_rules=alert_rules)
+        fleet = pf.router
+        for i in range(args.workers):
+            print(f"worker {i}: pid {pf.worker_pid(i)}", flush=True)
+    else:
+        spec = None
+        spec_kwargs = _spec_dict(args)
+        if spec_kwargs:
+            from .spec import SpecConfig
 
-        spec = SpecConfig(**spec_kwargs)
-    fleet = _toy_fleet(dp=args.dp, layers=args.layers,
-                       num_blocks=args.blocks,
-                       max_queue=args.max_queue,
-                       flight_dir=args.flight_dir, audit=audit,
-                       unified=args.unified, fault_plan=fault_plan,
-                       alert_rules=alert_rules,
-                       max_tokens_per_step=args.max_tokens_per_step,
-                       spec=spec, burst_steps=args.burst,
-                       roles=args.roles_list, device=args.device)
+            spec = SpecConfig(**spec_kwargs)
+        fleet = _toy_fleet(dp=args.dp, layers=args.layers,
+                           num_blocks=args.blocks,
+                           max_queue=args.max_queue,
+                           flight_dir=args.flight_dir, audit=audit,
+                           unified=args.unified, fault_plan=fault_plan,
+                           alert_rules=alert_rules,
+                           max_tokens_per_step=args.max_tokens_per_step,
+                           spec=spec, burst_steps=args.burst,
+                           roles=args.roles_list, device=args.device)
     supervisor = None
     if args.max_restarts > 0:
         # self-healing by default: dead replicas restart under capped
@@ -1368,6 +1492,8 @@ async def _serve_cli(args) -> int:
     finally:
         if pusher is not None:
             pusher.close()
+        if pf is not None:
+            pf.shared.close_all()  # reap the worker processes
     return 0
 
 
@@ -1465,21 +1591,42 @@ def main(argv=None) -> int:
                         "--dp.  Admissions route to prefill specialists; "
                         "each request migrates (with its computed prompt "
                         "KV) to a decode specialist at its first token")
+    p.add_argument("--workers", type=int, default=0, metavar="N",
+                   help="cross-process fleet: N worker PROCESSES (python "
+                        "-m paddle_tpu_torch.serving.worker) behind the "
+                        "same prefix-affinity router and self-healing "
+                        "supervisor, speaking the length-prefixed JSON "
+                        "wire protocol over localhost — kill -9 a worker "
+                        "and the fleet reroutes, respawns it and loses "
+                        "nothing.  0 = in-process replicas (--dp)")
+    p.add_argument("--autoscale", action="store_true",
+                   help="with --workers: enable the SLO-driven "
+                        "autoscaler (alert firings → bounded worker "
+                        "scale actions).  Bounds via --autoscale-min / "
+                        "--autoscale-max")
+    p.add_argument("--autoscale-min", type=int, default=1, metavar="N",
+                   help="autoscaler floor: never drain below N live "
+                        "workers (default 1)")
+    p.add_argument("--autoscale-max", type=int, default=0, metavar="N",
+                   help="autoscaler ceiling: never provision above N "
+                        "workers (0 = the fleet's --workers count; the "
+                        "index space is fixed at boot)")
+    p.add_argument("--rebalance", action="store_true",
+                   help="with --workers: enable the prefix-cache "
+                        "rebalancer (vnode reweighting and hot-prefix "
+                        "migration across replicas)")
+    p.add_argument("--compile-cache", default=None, metavar="DIR",
+                   help="with --workers: the build directory of the "
+                        "workers' CUDA kernels — sibling workers on one "
+                        "DIR run nvcc once, and a later boot on DIR "
+                        "builds nothing")
     waiting = p.add_argument_group(
         "flags of later items of the port (each exits naming its item)")
-    waiting.add_argument("--workers", type=int, default=0, metavar="N")
-    waiting.add_argument("--autoscale", action="store_true")
-    waiting.add_argument("--autoscale-min", type=int, default=None,
-                         metavar="N")
-    waiting.add_argument("--autoscale-max", type=int, default=None,
-                         metavar="N")
-    waiting.add_argument("--rebalance", action="store_true")
     waiting.add_argument("--aot-save", default=None, metavar="DIR")
     waiting.add_argument("--aot-path", default=None, metavar="DIR")
     waiting.add_argument("--aot-warm", action="store_true")
     waiting.add_argument("--aot-max-seq", type=int, default=None,
                          metavar="T")
-    waiting.add_argument("--compile-cache", default=None, metavar="DIR")
     p.add_argument("--selftest", action="store_true",
                    help="boot on an ephemeral port, serve one completion "
                         "against the toy fleet through the router path, "
@@ -1494,6 +1641,24 @@ def main(argv=None) -> int:
         p.error(f"--dp must be >= 1, got {args.dp}")
     if args.mp < 1:
         p.error(f"--mp must be >= 1, got {args.mp}")
+    if args.workers < 0:
+        p.error(f"--workers must be >= 0, got {args.workers}")
+    if args.workers:
+        if args.dp > 1:
+            p.error("--workers and --dp are the two fleet modes — pick "
+                    "one (cross-process: --workers N; in-process: "
+                    "--dp N)")
+        if args.autoscale_min < 1:
+            p.error(f"--autoscale-min must be >= 1, got "
+                    f"{args.autoscale_min}")
+        if args.autoscale_max < 0:
+            p.error(f"--autoscale-max must be >= 0, got "
+                    f"{args.autoscale_max}")
+        if args.autoscale_max and args.autoscale_max < args.autoscale_min:
+            p.error("--autoscale-max must be >= --autoscale-min")
+    elif args.autoscale or args.rebalance or args.compile_cache:
+        p.error("--autoscale/--rebalance/--compile-cache act on the "
+                "cross-process worker pool; they require --workers N")
     args.roles_list = None
     if args.roles:
         from .fleet import parse_roles
@@ -1502,9 +1667,10 @@ def main(argv=None) -> int:
             args.roles_list = parse_roles(args.roles)
         except ValueError as e:
             p.error(f"--roles: {e}")
-        if len(args.roles_list) != args.dp:
+        size = args.workers if args.workers else args.dp
+        if len(args.roles_list) != size:
             p.error(f"--roles names {len(args.roles_list)} replica(s) "
-                    f"but the fleet has {args.dp} (--dp)")
+                    f"but the fleet has {size} (--workers/--dp)")
     if args.audit_sample is not None and args.audit_sample < 1:
         p.error(f"--audit-sample must be >= 1, got {args.audit_sample}")
     if args.max_restarts < 0:
@@ -1521,6 +1687,8 @@ def main(argv=None) -> int:
     if args.burst < 0:
         p.error(f"--burst must be >= 0, got {args.burst}")
     if args.selftest:
+        if args.workers:
+            return asyncio.run(_selftest_procfleet_async(args))
         return asyncio.run(_selftest_async(
             dp=args.dp, audit_sample=args.audit_sample or 1,
             unified=args.unified, layers=args.layers, blocks=args.blocks,

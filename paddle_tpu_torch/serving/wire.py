@@ -1,9 +1,11 @@
 """Cross-process fleet wire protocol (the port of
-``paddle_tpu/serving/wire.py``, stdlib code carried over whole).  In this
-package the KV hand-off's frame codec (``kv_run_frames`` /
-``kv_run_assemble``, used by ``handoff.run_to_frames`` /
-``run_from_frames``) is live; the socket half waits for the worker
-processes and the process fleet (ROADMAP A9 rest), which speak it.
+``paddle_tpu/serving/wire.py``, stdlib code carried over whole).  Both
+halves are live: the socket half carries the cross-process fleet's
+traffic between the router (``serving/procfleet.py``) and its worker
+processes (``serving/worker.py``), and the KV hand-off's frame codec
+(``kv_run_frames`` / ``kv_run_assemble``, used by
+``handoff.run_to_frames`` / ``run_from_frames``) moves KV runs across
+that socket.
 
 Length-prefixed JSON frames over localhost sockets: every frame is a
 4-byte big-endian payload length followed by one UTF-8 JSON object
@@ -27,10 +29,10 @@ self-healing machinery keys off them:
   mid-payload raises :class:`FrameError` kind ``truncated`` (the peer
   died mid-frame — exactly what a ``kill -9`` looks like from the
   router's side, and what flips a ``WorkerEngineProxy``
-  (``serving/procfleet.py``, ROADMAP A9 rest) into its death path).
+  (``serving/procfleet.py``) into its death path).
 
-Frame vocabulary (``serving/worker.py``, ROADMAP A9 rest, gives the
-server-side semantics):
+Frame vocabulary (``serving/worker.py`` gives the server-side
+semantics):
 ``hello``/``hello_ok``, ``submit``/``submit_ok``, ``abort``/``abort_ok``,
 ``step`` → zero or more streamed ``token`` frames then ``step_done`` (or
 ``step_error``), ``health``/``health_ok``, ``drain``/``drain_ok``,
@@ -43,7 +45,7 @@ Telemetry piggybacking:
   may carry ``telemetry`` — a bounded, sequence-numbered delta of the
   worker engine's lifecycle events (``{"events": [...], "dropped": n}``)
   the router merges idempotently
-  (``DeltaMerger`` of ``observability/distrib.py``, A9 rest);
+  (``DeltaMerger`` of ``observability/distrib.py``);
 * ``step_done`` may carry ``t`` — worker-clock timestamps
   ``{"recv","eng0","eng1","reply"}`` feeding the router's
   host-vs-wire-vs-engine attribution
@@ -132,7 +134,8 @@ def error_frame(code: str, detail: str) -> Dict:
 
 def hello_frame(role: str, aot_hash: Optional[str],
                 deploy: Optional[Dict] = None) -> Dict:
-    """``deploy`` is the caller's deployment identity : ``{"mp": int, "spec": manifest_dict|None}``.  ``None``
+    """``deploy`` is the caller's deployment identity: ``{"mp": int,
+    "spec": manifest_dict|None, "role": str, "model": dict|None}``.  ``None``
     means "default single-chip, spec off" — an old peer that never sends
     the field is indistinguishable from one that runs the defaults,
     which is exactly the interop we want."""
@@ -146,7 +149,9 @@ def canonical_deploy(deploy: Optional[Dict]) -> Optional[Dict]:
     so a peer that predates the field and one that runs the defaults
     agree.  ``role`` rides the same rule: ``"unified"`` (or
     absent) drops out of the dict, so a role-less old peer and a
-    unified-role new peer still shake hands."""
+    unified-role new peer still shake hands.  ``model`` is the port's
+    own: the model a worker builds (:func:`model_identity`), absent
+    for the defaults."""
     if not deploy:
         return None
     out = {"mp": int(deploy.get("mp", 1) or 1),
@@ -154,13 +159,42 @@ def canonical_deploy(deploy: Optional[Dict]) -> Optional[Dict]:
     role = str(deploy.get("role") or "unified")
     if role != "unified":
         out["role"] = role
-    if out["mp"] == 1 and out["spec"] is None and "role" not in out:
+    if deploy.get("model"):
+        # the port's model identity (preset, dtype, device, weights file;
+        # :func:`model_identity`): a worker built from another spec
+        # than the router's must not shake hands either
+        out["model"] = {str(k): v for k, v in sorted(
+            deploy["model"].items())}
+    if out["mp"] == 1 and out["spec"] is None and "role" not in out \
+            and "model" not in out:
         return None
     if out["spec"] is not None:
         # JSON round-trips must compare equal: coerce the manifest's
         # values through int (they are all counts/flags by contract)
         out["spec"] = {str(k): int(v) for k, v in out["spec"].items()}
     return out
+
+
+# the port's worker-spec keys naming the model a worker builds, where and
+# from what weights (``serving/worker.py``)
+MODEL_KEYS = ("preset", "dtype", "device", "weights", "max_seq_len")
+
+
+def model_identity(spec: Dict) -> Optional[Dict]:
+    """The port's part of a worker's deployment identity: the model
+    preset, dtype, device, weights file and position limit a worker spec
+    asks for, or ``None`` for the defaults (tiny, float32, the card,
+    seeded weights).  The router and the worker compute it from the same
+    spec, so a worker built from another spec refuses the router's hello
+    with ``deploy_mismatch``."""
+    out = {k: spec[k] for k in MODEL_KEYS if spec.get(k) is not None}
+    if out.get("preset") == "tiny":
+        del out["preset"]
+    if out.get("dtype") == "float32":
+        del out["dtype"]
+    if "max_seq_len" in out:
+        out["max_seq_len"] = int(out["max_seq_len"])
+    return out or None
 
 
 def check_hello(frame: Dict, aot_hash: Optional[str],

@@ -13,6 +13,8 @@
   pipeline micro-batches, sep > 1 and gradient clipping; the legacy
   families, decode bursts, the auditor, a shared lifecycle tracker,
   speculative decoding and the prefill/decode roles build and serve.
+  So do a process fleet's AOT settings and mp > 1, before any worker
+  process starts.
 """
 
 import ast
@@ -60,7 +62,11 @@ MUST_CHECK = ("utils/__init__.py", "utils/extension.py",
               "serving/faultinject.py", "serving/fleet.py",
               "serving/resilience.py", "serving/protocol.py",
               "serving/server.py", "distributed/__init__.py",
-              "distributed/watchdog.py")
+              "distributed/watchdog.py",
+              # the cross-process fleet: the JAX worker imports JAX only
+              # for its platform pin, procfleet.py and distrib.py none
+              "serving/worker.py", "serving/procfleet.py",
+              "observability/distrib.py")
 
 
 def _port_files():
@@ -226,3 +232,17 @@ def test_supported_settings_build():
     with pytest.raises(ValueError, match="role"):
         EngineCore(model, config=EngineConfig(unified_step=True,
                                               role="router"))
+
+
+@pytest.mark.parametrize("fields, item", [
+    (dict(aot_path="artifact"), "A9 rest"),
+    (dict(warm_boot=True), "A9 rest"),
+    (dict(mp=2), "A11"),
+])
+def test_unported_process_fleet_settings_raise(fields, item):
+    """A process fleet's AOT artifact settings and mp > 1 raise naming
+    their item before any worker process is spawned."""
+    from paddle_tpu_torch.serving import ProcessFleet, ProcessFleetConfig
+
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        ProcessFleet(ProcessFleetConfig(dp=1, device="cpu", **fields))

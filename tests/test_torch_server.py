@@ -339,19 +339,38 @@ def test_dp2_fleet_server_matches_llm_generate(models):
     assert all(not r.thread.is_alive() for r in fleet.replicas)
 
 
-@pytest.mark.parametrize("args,item", [
-    (("--workers", "2"), "A9 rest"), (("--autoscale",), "A9 rest"),
-    (("--autoscale-min", "1"), "A9 rest"), (("--autoscale-max", "3"),
-                                            "A9 rest"),
-    (("--rebalance",), "A9 rest"), (("--aot-save", "d"), "A9 rest"),
-    (("--aot-path", "d"), "A9 rest"), (("--aot-warm",), "A9 rest"),
-    (("--aot-max-seq", "64"), "A9 rest"),
-    (("--compile-cache", "d"), "A9 rest"), (("--mp", "2"), "A11")])
-def test_waiting_flags_exit_naming_their_item(args, item, capsys):
+# The cross-process fleet's flags are live: their cases (ids kept from
+# when they waited for ROADMAP A9 rest) now hold the CLI's checks on them,
+# as the JAX server makes them.  The AOT flags and --mp > 1 still wait.
+_REQUIRES_WORKERS = "they require --workers N"
+
+
+@pytest.mark.parametrize("args,message", [
+    pytest.param(("--workers", "2", "--dp", "2"), "two fleet modes",
+                 id="args0-A9 rest"),
+    pytest.param(("--autoscale",), _REQUIRES_WORKERS, id="args1-A9 rest"),
+    pytest.param(("--workers", "2", "--autoscale-min", "0"),
+                 "--autoscale-min must be >= 1", id="args2-A9 rest"),
+    pytest.param(("--workers", "2", "--autoscale-min", "4",
+                  "--autoscale-max", "3"),
+                 "--autoscale-max must be >= --autoscale-min",
+                 id="args3-A9 rest"),
+    pytest.param(("--rebalance",), _REQUIRES_WORKERS, id="args4-A9 rest"),
+    pytest.param(("--aot-save", "d"), "(ROADMAP A9 rest)",
+                 id="args5-A9 rest"),
+    pytest.param(("--aot-path", "d"), "(ROADMAP A9 rest)",
+                 id="args6-A9 rest"),
+    pytest.param(("--aot-warm",), "(ROADMAP A9 rest)", id="args7-A9 rest"),
+    pytest.param(("--aot-max-seq", "64"), "(ROADMAP A9 rest)",
+                 id="args8-A9 rest"),
+    pytest.param(("--compile-cache", "d"), _REQUIRES_WORKERS,
+                 id="args9-A9 rest"),
+    pytest.param(("--mp", "2"), "(ROADMAP A11)", id="args10-A11")])
+def test_waiting_flags_exit_naming_their_item(args, message, capsys):
     with pytest.raises(SystemExit) as e:
         server_main(["--device", "cpu", *args])
     assert e.value.code != 0
-    assert f"(ROADMAP {item})" in capsys.readouterr().err
+    assert message in capsys.readouterr().err
 
 
 def test_cli_selftest_on_the_cpu():
@@ -361,3 +380,16 @@ def test_cli_selftest_on_the_cpu():
         cwd=_REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "selftest: OK" in proc.stdout and "device cpu" in proc.stdout
+
+
+def test_cli_workers_selftest_on_the_cpu():
+    """``--workers 2``: two worker processes behind the router, one
+    completion over HTTP, the cross-process timeline markers and the wire
+    attribution (``procfleet.py``, ``worker.py``)."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.serving.server", "--device",
+         "cpu", "--layers", "2", "--workers", "2", "--selftest"],
+        cwd=_REPO, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1"))
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "selftest: OK" in proc.stdout and "workers=2" in proc.stdout
