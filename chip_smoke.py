@@ -169,10 +169,32 @@ these phases, printing one JSON line for each:
              burst iterations) x layers times through the replays, all on
              the simple route (fp32); ``decode_trace_count`` and
              ``burst_trace_count`` equal their bucket sets.
+``prefill_identity``  the legacy prefill families as step programs on the
+             identity model: the identity prompts and two fresh prompts of
+             150 and 230 tokens (one one-shot bucket of 256 for two
+             lengths) through a legacy LLM with a 256-token prefill budget
+             and the prefix cache off, with the step graphs and under
+             ``disable_graphs()``: the same tokens;
+             ``prefill_trace_count`` and its metric equal to the prefill
+             and chunk keys in use, each captured once; a second pass of
+             the same prompts captures nothing and gives the same tokens.
+``aot_identity``  AOT artifacts on the identity model: a legacy engine with
+             decode bursts of 8 and a unified one (16 sequences, 512
+             tokens a step), each saved at max_seq_len 1024 from a saving
+             engine, loaded, bound and warmed on a fresh engine: the legacy
+             lattice's 138 keys (11 prefill, 77 chunk, 35 decode, 15
+             burst), 2 captures a saved bucket at the warm and none while
+             serving, the tokens of the same engine without an artifact,
+             every trace counter 0, the launch rule (simple routes), an
+             oversize request aborted at admission; the legacy artifact
+             with its device capability edited, and with its kernel's hash
+             edited, each refuses to load.
 ``serve_legacy``  the serve model and prompts through the legacy ``LLM``
              in bf16, without and with decode bursts of 8, each as the
              serve phase's three passes: the serve numbers, the steps of
-             each family and the mean wall time of one launch of each, the
+             each family, the mean wall time of one launch of each (and,
+             from the step profiler, of each program: the one-shot prefill
+             graphed in the warm pass against eager in the eager one), the
              launch rule (every launch on the mma route), captures and peak
              memory, the step profiler against the scheduler and the pool
              invariant.  Then a profile window on each of the two engines: the
@@ -221,6 +243,18 @@ these phases, printing one JSON line for each:
              the launch rule over the replicas and both rounds (the
              ragged kernel on tma, the decode kernel on mma); tokens/s,
              TTFT and ITL against the serve phase's warm pass.
+``aot_boot``  the serve model's architecture (full depth, bf16) in worker
+             processes booted off an AOT artifact saved in the run from an
+             in-process saving engine (legacy families, bursts of 8, at
+             the 2112-token max_seq_len the server rounds need): 2
+             workers with ``--aot-path --warm`` and a fresh, empty
+             ``--compile-cache`` (no ``nvcc``: it stays empty), 0 trace
+             counts and 2 captures a saved bucket each; a server round
+             (the full serve prompts) captures nothing after the ready
+             lines and keeps the launch rule (decode on mma); a
+             ``kill -9`` heals off the artifact (the respawn warms too),
+             and a second round captures nothing; boot, ready and warm
+             seconds, the heal's seconds.
 ``procfleet_identity``  the identity model built in worker processes
              (``python -m paddle_tpu_torch.serving.worker``, preset
              ``llama3_8b`` at 4 layers, fp32, the same seeded generator):
@@ -982,7 +1016,8 @@ def graph_counts(eng):
     """The captures of each graphed family (the JAX engine's trace
     counters) and the step-program cache's totals."""
     g = eng.graphs
-    return {"decode": eng.decode_trace_count,
+    return {"prefill": eng.prefill_trace_count,
+            "decode": eng.decode_trace_count,
             "burst": eng.burst_trace_count,
             "ragged": eng.ragged_trace_count, "captures": g.captures,
             "capture_s": g.capture_seconds, "replays": g.replays}
@@ -1260,6 +1295,216 @@ def identity_legacy_phase(torch, pd, serving, graphs, model, prompts,
             for name, x in r.items()})
 
 
+def prefill_identity_phase(torch, serving, graphs, model, prompts):
+    """The legacy prefill families as step programs, on the identity model
+    (fp32): the identity prompts and two fresh prompts of 150 and 230
+    tokens (one one-shot bucket, 256, for two lengths: a last position
+    baked into its graph would give the second the first's token) through
+    a legacy LLM with a 256-token prefill budget and the prefix cache off,
+    with the step graphs and under ``disable_graphs()``: the same tokens;
+    ``prefill_trace_count`` (and its metric) equal to the prefill and
+    chunk keys in use, each captured once; a second pass of the same
+    prompts captures nothing and gives the same tokens."""
+    vocab = model.config.vocab_size
+    rng = np.random.default_rng(21)
+    pair = [rng.integers(0, vocab, n).tolist() for n in (150, 230)]
+    batch = list(prompts) + pair
+    need = sum(-(-(len(p) + 16) // 16) for p in batch) + 1
+
+    def llm():
+        return serving.LLM(model, config=serving.EngineConfig(
+            num_blocks=need + 16, block_size=16, prefix_cache=False,
+            scheduler=serving.SchedulerConfig(
+                max_num_seqs=8, max_prefill_tokens_per_step=256)))
+
+    runs = {}
+    for name, eager in (("graphs", False), ("eager", True)):
+        lm = llm()
+        eng = lm.engine
+        t0 = time.perf_counter()
+        with graphs.disable_graphs() if eager else contextlib.nullcontext():
+            outs = lm.generate(batch, sampling(serving, len(batch), 16,
+                                               False))
+        torch.cuda.synchronize()
+        runs[name] = {"tokens": [o.token_ids for o in outs],
+                      "seconds": time.perf_counter() - t0,
+                      "graphs": graph_counts(eng), "llm": lm}
+    if runs["graphs"]["tokens"] != runs["eager"]["tokens"]:
+        raise AssertionError("prefill_identity: the graphed prefill "
+                             "families and disable_graphs() gave different "
+                             "tokens")
+    lm = runs["graphs"].pop("llm")
+    runs["eager"].pop("llm")
+    eng = lm.engine
+    keys = sorted(k for k in eng.graphs.programs
+                  if k[0] in ("prefill", "chunk"))
+    families = {k[0] for k in keys}
+    count = eng.prefill_trace_count
+    if (count != len(keys) or count != len(eng.prefill_buckets)
+            or families != {"prefill", "chunk"}
+            or eng.metrics.counters["prefill_jit_traces"] != count
+            or runs["eager"]["graphs"]["prefill"] != 0):
+        raise AssertionError(
+            f"prefill_identity: {count} prefill captures for {len(keys)} "
+            f"keys of {families} and {len(eng.prefill_buckets)} buckets")
+    oneshot = {r["bucket"]: r["launches"]
+               for r in eng.stepprof.program_table()
+               if r["program"] == "prefill"}
+    if oneshot.get("256", 0) < 2:
+        raise AssertionError(f"prefill_identity: the two prompts did not "
+                             f"share the 256 bucket: {oneshot}")
+    c0 = eng.graphs.captures
+    t0 = time.perf_counter()
+    again = lm.generate(batch, sampling(serving, len(batch), 16, False))
+    torch.cuda.synchronize()
+    second_s = time.perf_counter() - t0
+    if eng.graphs.captures != c0 or \
+            [o.token_ids for o in again] != runs["graphs"]["tokens"]:
+        raise AssertionError(
+            f"prefill_identity: the second pass captured "
+            f"{eng.graphs.captures - c0} step programs or changed tokens")
+    for r in runs.values():
+        r.pop("tokens")
+    emit("prefill_identity", layers=model.config.num_hidden_layers,
+         dtype="float32", prompts=len(batch), prefill_budget=256,
+         identical=True, prefill_keys=len(keys),
+         keys={f: sum(k[0] == f for k in keys) for f in ("prefill",
+                                                         "chunk")},
+         oneshot_launches_by_bucket=oneshot, second_pass_captures=0,
+         second_pass_s=second_s, **runs)
+
+
+def aot_identity_phase(torch, rp, pd, serving, model, prompts):
+    """AOT artifacts on the identity model (fp32, the simple routes): a
+    legacy engine with decode bursts of 8 and a unified one (16 sequences,
+    512 tokens a step), each saved at max_seq_len 1024 from a saving
+    engine, loaded, bound and warmed on a fresh engine: the lattice's
+    keys, 2 captures a saved (program, bucket) at the warm and none while
+    serving, the tokens of the same engine without an artifact, every
+    trace counter 0, the launch rule, an oversize request aborted at
+    admission.  Then the legacy artifact with its device capability
+    edited, and with its kernel's hash edited: each refuses to load."""
+    AotArtifact = serving.AotArtifact
+    need = sum(-(-(len(p) + 16) // 16) for p in prompts) + 1
+    num_blocks = max(need, 1024 // 16 + 1) + 16
+    configs = {
+        "legacy_burst8": (dict(burst_steps=8), (None, "simple")),
+        "unified": (dict(unified_step=True), ("simple", None)),
+    }
+    rows = {}
+    for name, (fields, routes) in configs.items():
+        def engine(aot=None):
+            budget = 512 if fields.get("unified_step") else None
+            return serving.EngineCore(model, config=serving.EngineConfig(
+                num_blocks=num_blocks, block_size=16, aot=aot,
+                scheduler=serving.SchedulerConfig(
+                    max_num_seqs=16, max_tokens_per_step=budget),
+                **fields))
+
+        def serve(eng):
+            reqs = [eng.add_request(p, serving.SamplingParams(
+                max_new_tokens=16)) for p in prompts]
+            eng.run(max_steps=20000)
+            return [list(r.output_tokens) for r in reqs]
+
+        ref = engine()
+        want = serve(ref)
+        del ref
+        path = tempfile.mkdtemp(prefix=f"aot_{name}_")
+        t0 = time.perf_counter()
+        AotArtifact.save(engine(), path, max_seq_len=1024)
+        save_s = time.perf_counter() - t0
+        art = AotArtifact.load(path, device="cuda")
+        eng = engine(aot=art)
+        warm_s = art.warm(eng)
+        warm_captures = eng.graphs.captures
+        if warm_captures != 2 * art.program_count:
+            raise AssertionError(f"aot_identity {name}: {warm_captures} "
+                                 f"captures at the warm for "
+                                 f"{art.program_count} saved buckets")
+        reset_launches(rp, pd)
+        t0 = time.perf_counter()
+        got = serve(eng)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        traces = {f: getattr(eng, f"{f}_trace_count")
+                  for f in ("prefill", "decode", "burst", "ragged")}
+        if got != want or any(traces.values()) or \
+                eng.graphs.captures != warm_captures:
+            raise AssertionError(
+                f"aot_identity {name}: tokens identical {got == want}, "
+                f"traces {traces}, serving captured "
+                f"{eng.graphs.captures - warm_captures}")
+        rule = launch_rule(f"aot_identity {name}", rp, pd, [eng],
+                           routes[0] or "tma", routes[1] or "mma")
+        big = eng.add_request(list(range(1000)), serving.SamplingParams(
+            max_new_tokens=100))
+        eng.run(max_steps=100)
+        if big.finish_reason is None or big.finish_reason.value != "abort" \
+                or "max_seq_len=1024" not in (big.error or ""):
+            raise AssertionError(f"aot_identity {name}: an oversize "
+                                 f"request was not rejected at admission "
+                                 f"({big.finish_reason}, {big.error})")
+        snap = eng.stepprof.aot_snapshot()
+        rows[name] = dict(
+            families={f: len(v) for f, v in art.bucket_sets.items()},
+            program_count=art.program_count, save_s=save_s,
+            load_s=art.load_seconds, warm_s=warm_s,
+            warm_captures=warm_captures, serve_s=serve_s,
+            serving_captures=0, hits=snap["hits"],
+            kernels=sorted(art.manifest["kernels"]), **rule)
+        del eng
+        if name == "legacy_burst8":
+            fams = rows[name]["families"]
+            if fams != {"prefill": 11, "chunk": 77, "decode": 35,
+                        "burst": 15}:
+                raise AssertionError(f"aot_identity: the legacy lattice "
+                                     f"is {fams}")
+            rows["refusals"] = refusals(serving, path)
+        shutil.rmtree(path, ignore_errors=True)
+    emit("aot_identity", layers=model.config.num_hidden_layers,
+         dtype="float32", prompts=len(prompts), max_seq_len=1024,
+         identical=True, traces=0, **rows)
+
+
+def refusals(serving, path):
+    """The artifact at ``path`` with its device capability edited, and with
+    its kernel's hash edited: each must refuse to load, naming it."""
+    out = {}
+    for what, edit, match in (
+            ("device_capability",
+             lambda m: m.update(device_capability="sm_80"),
+             "device capability"),
+            ("kernel_hash",
+             lambda m: [k.update(hash="0" * 16)
+                        for k in m["kernels"].values()], "kernel")):
+        copy = tempfile.mkdtemp(prefix="aot_edit_")
+        shutil.rmtree(copy)
+        shutil.copytree(path, copy)
+        mpath = os.path.join(copy, "manifest.json")
+        with open(mpath) as f:
+            m = json.load(f)
+        if what == "kernel_hash" and not m["kernels"]:
+            raise AssertionError("aot_identity: the artifact holds no "
+                                 "kernel")
+        edit(m)
+        with open(mpath, "w") as f:
+            json.dump(m, f)
+        try:
+            serving.AotArtifact.load(copy, device="cuda")
+        except serving.AotManifestMismatch as e:
+            if match not in str(e):
+                raise AssertionError(f"aot_identity: the {what} edit was "
+                                     f"refused for another reason: {e}")
+            out[what] = str(e).splitlines()[-1].strip()
+        else:
+            raise AssertionError(f"aot_identity: an artifact with its "
+                                 f"{what} edited loaded")
+        finally:
+            shutil.rmtree(copy, ignore_errors=True)
+    return out
+
+
 def serve_pass(torch, serving, graphs, llm, prompts, new_tokens,
                eager=False):
     """One timed ``LLM.generate`` of greedy requests on a warm engine, with
@@ -1368,6 +1613,15 @@ def serve_phase(torch, rp, serving, graphs, LlamaConfig, LlamaForCausalLM):
         passes["warm"]
 
 
+def program_walls(eng):
+    """{program: (launches, wall seconds)} of the step profiler so far."""
+    out = {}
+    for r in eng.stepprof.program_table():
+        n, w = out.get(r["program"], (0, 0.0))
+        out[r["program"]] = (n + r["launches"], w + r["wall_s"])
+    return out
+
+
 def serve_legacy_phase(torch, pd, serving, graphs, model, prompts, warm,
                        new_tokens):
     """The serve model and prompts through the legacy LLM in bf16, without
@@ -1397,10 +1651,16 @@ def serve_legacy_phase(torch, pd, serving, graphs, model, prompts, warm,
                 ("warm", same_lengths(rng, prompts, vocab), False),
                 ("eager", same_lengths(rng, prompts, vocab), True)):
             before = legacy_counts(eng)
+            walls = program_walls(eng)
             pd.launches = pd.simple_launches = pd.mma_launches = 0
             passes[label], outs = serve_pass(torch, serving, graphs, llm,
                                              batch, new_tokens, eager)
             after = legacy_counts(eng)
+            passes[label]["program_ms"] = {
+                prog: (w - walls.get(prog, (0, 0.0))[1]) * 1e3
+                / (n - walls.get(prog, (0, 0.0))[0])
+                for prog, (n, w) in program_walls(eng).items()
+                if n > walls.get(prog, (0, 0.0))[0]}
             steps = {k: after[k] - before[k] for k in after}
             routes = {"simple": pd.simple_launches, "mma": pd.mma_launches}
             if pd.launches != steps["decode_launches_due"] or \
@@ -3585,18 +3845,21 @@ def server_phase(torch, rp, pd, serving, model, prompts, serve_warm):
 
 def process_fleet(serving, model, dp, num_blocks, unified, burst=0,
                   roles=None, compile_cache=None, flight_dir=None, seqs=16,
-                  budget=512):
+                  budget=512, aot_path=None):
     """A ``ProcessFleet`` of ``dp`` worker processes (``python -m
     paddle_tpu_torch.serving.worker``), each building the model ``model``
     names (``preset``, ``layers``, ``dtype``, ``seed``; the card unless
     ``device`` says otherwise) on the serve phases' engine shape, with the
-    default heartbeats (every 0.25 s, dead after 2 s of silence)."""
+    default heartbeats (every 0.25 s, dead after 2 s of silence); with
+    ``aot_path``, each boots off that artifact and warms it
+    (``--aot-path --warm``)."""
     return serving.ProcessFleet(serving.ProcessFleetConfig(
         dp=dp, num_blocks=num_blocks, block_size=16, max_num_seqs=seqs,
         max_prefill_tokens_per_step=None,
         max_tokens_per_step=budget if unified else None,
         unified=unified, burst_steps=burst, roles=roles,
-        compile_cache=compile_cache, **model,
+        compile_cache=compile_cache, aot_path=aot_path,
+        warm_boot=aot_path is not None, **model,
         fleet=serving.FleetConfig(max_queue=64, flight_dir=flight_dir,
                                   roles=roles)))
 
@@ -3646,9 +3909,24 @@ def boot_rows(pf):
             for i, p in sorted(pf.shared.active.items())}
 
 
+def warm_seconds(pf):
+    """Each worker's warm seconds and the capturing part of them (the
+    rest is the captures' eager first runs), from the line its ``--warm``
+    printed before the ready line."""
+    out = {}
+    for i, p in sorted(pf.shared.active.items()):
+        for line in p.worker.log_tail:
+            m = re.search(r"warmed .* in ([0-9.]+)s, of which ([0-9.]+)s "
+                          "capturing", line)
+            if m:
+                out[str(i)] = {"warm_s": float(m.group(1)),
+                               "capturing_s": float(m.group(2))}
+    return out
+
+
 def worker_launch_rule(label, pf, ragged_route, decode_route):
     """The launch rule per worker process, read over the wire
-    (``describe``): each worker's kernel launches since its boot equal
+    (``describe``): each worker's kernel launches since its ready line equal
     those its engine's steps call for (the ragged kernel once per layer
     per unified step, the decode kernel once per layer per decode step
     and burst iteration), each all on its route; a kernel whose route is
@@ -3978,6 +4256,145 @@ def procfleet_phase(torch, serving, prompts, spec, cache_dir, in_process):
               "to ready line on the parent's clock")
 
 
+def aot_boot_save(torch, serving, model, prompts, spec):
+    """The artifact ``aot_boot_phase`` boots its workers off, saved from
+    an in-process saving engine over ``model`` (the workers'
+    architecture; weights are not hashed) with the legacy families and
+    decode bursts of 8 at the max_seq_len the server rounds need (the
+    longest serve prompt plus the new tokens), and those rounds.  Saved
+    before the phase so the caller can free ``model``: two full-depth
+    workers warming the 2112-token universe need the card to
+    themselves."""
+    vocab = 128256 if spec["preset"] == "llama3_8b" else 256
+    rng = np.random.default_rng(17)
+    new_tokens = 64
+    max_seq_len = max(len(p) for p in prompts) + new_tokens
+    rounds = [server_bodies(rng, prompts, vocab, new_tokens)
+              for _ in range(2)]
+    need = max(sum(-(-(len(b["prompt"]) + new_tokens) // 16)
+                   for b, _ in bodies) for bodies in rounds) + 1
+    num_blocks = need + 16
+    path = tempfile.mkdtemp(prefix="aot_boot_")
+    shutil.rmtree(path)
+    t0 = time.perf_counter()
+    saver = serving.EngineCore(model, config=serving.EngineConfig(
+        num_blocks=num_blocks, block_size=16,
+        dtype=getattr(torch, spec["dtype"]), burst_steps=8,
+        scheduler=serving.SchedulerConfig(max_num_seqs=16)))
+    art = serving.AotArtifact.save(saver, path, max_seq_len=max_seq_len)
+    return {"art": art, "path": path,
+            "save_s": time.perf_counter() - t0, "rounds": rounds,
+            "new_tokens": new_tokens, "num_blocks": num_blocks,
+            "max_seq_len": max_seq_len}
+
+
+def aot_boot_phase(serving, saved, spec):
+    """Llama-3-8B (full depth, bf16) worker processes booted off the AOT
+    artifact ``aot_boot_save`` saved in this run (legacy families,
+    bursts of 8, the max_seq_len the server rounds need, up to 2112),
+    then 2 workers with ``--aot-path --warm`` and a fresh, empty
+    ``--compile-cache``: no ``nvcc`` (the directory stays empty), 0 trace
+    counts, each worker's warm captures = 2 x the saved
+    buckets; the server phase's round shape (the full serve prompts)
+    through ``CompletionServer`` captures nothing after the ready lines
+    and keeps the launch rule; a ``kill -9`` of a worker heals off the
+    artifact (respawn with ``--warm``), and a second round captures
+    nothing either.  Each worker's warm seconds are read from the line it
+    printed before its ready line."""
+    art, path, rounds = saved["art"], saved["path"], saved["rounds"]
+    new_tokens, num_blocks = saved["new_tokens"], saved["num_blocks"]
+    cache = tempfile.mkdtemp(prefix="aot_boot_kernels_")
+    t0 = time.perf_counter()
+    pf = process_fleet(serving, spec, 2, num_blocks, False, 8,
+                       compile_cache=cache, aot_path=path)
+    fleet_s = time.perf_counter() - t0
+    boots = boot_rows(pf)
+    pids = {b["pid"] for b in boots.values()}
+    srv = ServerThread(serving, pf.router)
+    out = {"warm_s": warm_seconds(pf)}
+
+    def describe(label):
+        rows = {}
+        for r in pf.router.replicas:
+            d = pf.proxy(r.index).debug_fetch("describe")
+            aot = pf.proxy(r.index).debug_fetch("aot")
+            if d is None or any(d["traces"].values()) or \
+                    not aot.get("loaded"):
+                raise AssertionError(f"aot_boot {label}: worker {r.index} "
+                                     f"traces {d and d['traces']}, aot "
+                                     f"{aot}")
+            rows[str(r.index)] = {"pid": d["pid"], "captures": d["captures"],
+                                  "hits": aot["hits"]}
+        return rows
+
+    try:
+        first = describe("boot")
+        if any(w["captures"] != 2 * art.program_count
+               for w in first.values()):
+            raise AssertionError(f"aot_boot: warm captures {first} for "
+                                 f"{art.program_count} saved buckets")
+        row, _, _ = server_round(srv, rounds[0], new_tokens, False)
+        after = describe("round")
+        if any(after[i]["captures"] != first[i]["captures"]
+               for i in after):
+            raise AssertionError(f"aot_boot: the round captured: {first} "
+                                 f"-> {after}")
+        out["round"] = row
+        out["launch_rule"] = worker_launch_rule("aot_boot", pf, None,
+                                                "mma")
+        victim = 0
+        vpid = pf.worker_pid(victim)
+        os.kill(vpid, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        deadline = time.monotonic() + 300
+        while not (all(r.healthy for r in pf.router.replicas)
+                   and pf.worker_pid(victim) not in (None, vpid)) \
+                and time.monotonic() < deadline:
+            time.sleep(0.02)
+        healed_s = time.perf_counter() - t_kill
+        new_pid = pf.worker_pid(victim)
+        pids.add(new_pid)
+        if new_pid in (None, vpid):
+            raise AssertionError("aot_boot: the killed worker was not "
+                                 "respawned")
+        respawned = describe("respawn")
+        row2, _, _ = server_round(srv, rounds[1], new_tokens, False)
+        again = describe("round after the heal")
+        if pf.worker_pid(victim) != new_pid or any(
+                again[i]["captures"] != respawned[i]["captures"]
+                for i in again):
+            raise AssertionError(f"aot_boot: after the heal the round "
+                                 f"captured or the worker died: "
+                                 f"{respawned} -> {again}")
+        out["kill9"] = {"pid": vpid, "new_pid": new_pid,
+                        "healed_s": healed_s,
+                        "respawn_boot": boot_rows(pf)[str(victim)],
+                        "respawn_warm_s": warm_seconds(pf).get(str(victim)),
+                        "respawn_captures": respawned[str(victim)][
+                            "captures"]}
+        out["round_after_heal"] = row2
+    finally:
+        srv.close()
+        stop_process_fleet("aot_boot", pf, pids)
+    leftovers = os.listdir(cache)
+    if leftovers:
+        raise AssertionError(f"aot_boot: the workers built kernels into "
+                             f"their --compile-cache: {leftovers}")
+    shutil.rmtree(cache, ignore_errors=True)
+    shutil.rmtree(path, ignore_errors=True)
+    emit("aot_boot", model=spec["preset"], layers=spec["layers"],
+         dtype=spec["dtype"], max_seq_len=saved["max_seq_len"],
+         families={f: len(v) for f, v in art.bucket_sets.items()},
+         program_count=art.program_count, save_s=saved["save_s"],
+         kernels=sorted(art.manifest["kernels"]), fleet_build_s=fleet_s,
+         boot=boots, workers_at_boot=first, compile_cache_entries=0,
+         **out,
+         note="boot_s is the worker's own (engine build, artifact load, "
+              "kernel load, warm); ready_s launch to ready line on the "
+              "parent's clock; captures per worker read over the wire "
+              "(describe)")
+
+
 def main() -> int:
     try:
         import torch
@@ -4048,6 +4465,10 @@ def main() -> int:
         torch, rp, serving, graphs, LlamaConfig, LlamaForCausalLM)
     identity_legacy_phase(torch, pd, serving, graphs, model, prompts,
                           unified_tokens)
+    # the prefill families as step programs, and AOT artifacts, on the
+    # identity model
+    prefill_identity_phase(torch, serving, graphs, model, prompts)
+    aot_identity_phase(torch, rp, pd, serving, model, prompts)
     identity_telemetry_phase(torch, rp, pd, serving, obs, model, prompts,
                              LlamaForCausalLM)
     audit_fault_phase(torch, rp, pd, serving, obs, model)
@@ -4087,9 +4508,15 @@ def main() -> int:
     disagg_phase(torch, rp, pd, serving, model, spec_prompts)
     server_rows = server_phase(torch, rp, pd, serving, model, prompts,
                                serve_warm)
+    # worker processes booted off an AOT artifact saved over this model,
+    # which is freed before they boot
+    boot_spec = {"preset": "llama3_8b", "layers": 32, "dtype": "bfloat16",
+                 "seed": 1}
+    saved = aot_boot_save(torch, serving, model, prompts, boot_spec)
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    aot_boot_phase(serving, saved, boot_spec)
     # the serve model (seed 1, full depth, bf16) in each worker process
     procfleet_phase(torch, serving, prompts, {
         "preset": "llama3_8b", "layers": 32, "dtype": "bfloat16",

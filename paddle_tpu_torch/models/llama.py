@@ -220,13 +220,16 @@ class LlamaAttention(nn.Module):
         """``[B, S]`` (or ``[1, S]``) rope-table rows for ``pos``, as the JAX
         ``rope_at`` reads it: a scalar is a shared first position, ``[B]``
         per-row first positions, ``[B, S]`` every token's own position
-        (the packed ragged step)."""
+        (the packed ragged step).  A 0-d tensor is never read on the host,
+        so a captured step program takes its position as data."""
         dev = self._rope_cos.device
-        if not isinstance(pos, torch.Tensor) or pos.dim() == 0:
+        if not isinstance(pos, torch.Tensor):
             return (int(pos) + torch.arange(S, device=dev))[None, :]
         pos = pos.to(device=dev, dtype=torch.int64)
         if pos.dim() == 2:
             return pos
+        if pos.dim() == 0:
+            return (pos + torch.arange(S, device=dev))[None, :]
         return pos[:, None] + torch.arange(S, device=dev)[None, :]
 
     def _cached_attention(self, q, k, v, cache, pos, B, S, hd):
@@ -235,17 +238,25 @@ class LlamaAttention(nn.Module):
         version rebinds them), then grouped-query attention over the whole
         buffer with the causal mask ``col <= pos + row``.  Scores in fp32;
         the probabilities are cast to the buffers' dtype for the product
-        with V, as in the JAX version."""
+        with V, as in the JAX version.  ``pos`` is a Python int or a 0-d
+        tensor; a tensor is never read on the host (the write is an
+        ``index_copy_`` at ``pos + [0, S)``)."""
         k_buf, v_buf = cache
-        p = int(pos)
-        k_buf[:, p:p + S] = k.to(k_buf.dtype)
-        v_buf[:, p:p + S] = v.to(v_buf.dtype)
+        dev = q.device
+        if isinstance(pos, torch.Tensor):
+            p = pos.to(device=dev, dtype=torch.int64)
+            idx = p + torch.arange(S, device=dev)
+            k_buf.index_copy_(1, idx, k.to(k_buf.dtype))
+            v_buf.index_copy_(1, idx, v.to(v_buf.dtype))
+        else:
+            p = int(pos)
+            k_buf[:, p:p + S] = k.to(k_buf.dtype)
+            v_buf[:, p:p + S] = v.to(v_buf.dtype)
         rep = self.num_heads // self.num_kv_heads
         M = k_buf.shape[1]
         qg = q.reshape(B, S, self.num_kv_heads, rep, hd)
         logits = torch.einsum("bqhrd,bkhd->bhrqk", qg.float(),
                               k_buf.float()) / math.sqrt(hd)
-        dev = q.device
         col = torch.arange(M, device=dev)[None, :]
         row = torch.arange(S, device=dev)[:, None]
         logits.masked_fill_(~(col <= p + row), -1e30)

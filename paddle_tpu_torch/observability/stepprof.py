@@ -22,8 +22,12 @@ that cost:
   once per bucket key (``serving/graphs.py``); the capture's wall time
   is recorded into a bounded compile table and the
   ``serving_compile_seconds_total{program}`` /
-  ``serving_compiles_total{program}`` counters.  The eager prefill
-  families have no capture and record no compile.
+  ``serving_compiles_total{program}`` counters.
+* **AOT attribution** — once an AOT artifact is bound
+  (:meth:`StepProfiler.record_aot_load`), launches count
+  ``serving_aot_hits_total{program}``, the load lands once per registry
+  in ``serving_aot_load_seconds``, and a compile row that still lands is
+  flagged ``aot: true`` (the engine records none while bound).
 * **on-demand profile capture** — :meth:`StepProfiler.arm_capture`
   arms a bounded window that records the next N engine steps as tracer
   :class:`Span` objects — each step span annotated with
@@ -76,6 +80,10 @@ METRIC_NAMES = (
     "serving_bucket_utilization",
     "serving_compile_seconds_total",
     "serving_compiles_total",
+    # AOT attribution: registered only once an artifact is bound
+    # (serving/aot.py declares the same names as their owner)
+    "serving_aot_hits_total",
+    "serving_aot_load_seconds",
 )
 
 # utilization lives in (0, 1]: scheduled >= 1 whenever a program runs
@@ -85,6 +93,10 @@ UTILIZATION_BUCKETS = (0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0)
 # program wall times: the serving latency bucket ladder
 _STEP_SECONDS_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
                          0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
+
+# AOT artifact load wall times (manifest read, checks and kernel loads)
+_AOT_LOAD_BUCKETS = (0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+                     1.0, 2.5, 5.0, 10.0)
 
 # safety cap on distinct (program, bucket) aggregate keys / histogram
 # label pairs: the engine's power-of-two bucket sets bound this in the
@@ -201,6 +213,10 @@ class StepProfiler:
         self._cur_t0 = 0.0
         self._capture: Optional[CaptureWindow] = None
         self.last_capture: Optional[CaptureWindow] = None
+        # AOT attribution: set once an artifact is bound — launches count
+        # serving_aot_hits_total, and a compile row says aot: true
+        self._aot_state: Optional[Dict] = None
+        self._aot_hits_c: Optional[Dict[str, object]] = None
         if not enabled or registry is None:
             # disabled: never touch the registry, so /metrics stays free
             # of every serving_step_*/serving_compile_*/serving_padding_*
@@ -358,18 +374,69 @@ class StepProfiler:
             # is not handed to another thread)
             self._finalize_capture(finalize, complete=True)
 
+    # --- AOT attribution ----------------------------------------------------
+    def record_aot_load(self, seconds: float, programs: int,
+                        observe: bool = True) -> None:
+        """An AOT artifact was bound to this engine: ``seconds`` is its
+        load wall, ``programs`` its saved program count.  From here on,
+        launches count ``serving_aot_hits_total{program}`` and any compile
+        row carries ``aot: true``.  ``observe=False`` (a supervisor's
+        rebind of an already-loaded artifact) registers the hit counters
+        without sampling the load histogram."""
+        with self._lock:
+            rebind = self._aot_state is not None
+            self._aot_state = {"loaded": True,
+                               "load_seconds": round(seconds, 6),
+                               "programs": int(programs),
+                               "hits": {}}
+        if rebind or not self.enabled or self.registry is None:
+            return
+        if observe:
+            self.registry.histogram(
+                "serving_aot_load_seconds",
+                "AOT artifact load wall (manifest, checks and the kernels' "
+                "libraries)", buckets=_AOT_LOAD_BUCKETS,
+                **self.labels).observe(seconds)
+        self._aot_hits_c = {
+            p: self.registry.counter(
+                "serving_aot_hits_total",
+                "step launches served inside a bound AOT artifact's "
+                "universe (zero traces)",
+                **dict(self.labels, program=p))
+            for p in STEP_PROGRAMS}
+
+    def record_aot_hit(self, program: str) -> None:
+        """One step launch served inside the bound artifact's universe."""
+        st = self._aot_state
+        if st is None:
+            return
+        with self._lock:
+            st["hits"][program] = st["hits"].get(program, 0) + 1
+        c = self._aot_hits_c
+        if c is not None:
+            c[program].inc()
+
+    def aot_snapshot(self) -> Dict:
+        """``{"loaded": bool, ...}`` for ``GET /v1/debug/compiles``."""
+        with self._lock:
+            if self._aot_state is None:
+                return {"loaded": False}
+            return dict(self._aot_state, hits=dict(self._aot_state["hits"]))
+
     # --- compile attribution ------------------------------------------------
     def record_compile(self, program: str, bucket: Tuple[int, ...],
                        seconds: float) -> None:
         """One compile of a step program: ``serving/graphs.py`` captured
         this (program, bucket) as a CUDA graph, and ``seconds`` is the
         capture's wall time (the JAX engine's trace+compile; the eager
-        first run that precedes a capture is not in it).  (The JAX rows'
-        ``aot`` flag comes with serving artifacts, ROADMAP A9.)"""
+        first run that precedes a capture is not in it).  ``aot`` flags a
+        row recorded after an artifact was bound (the engine records
+        none then: such a row is a bug made visible)."""
         if not self.enabled:
             return
         row = {"program": program, "bucket": _bucket_str(bucket),
                "seconds": round(seconds, 6),
+               "aot": self._aot_state is not None,
                "unix": round(time.time(), 6)}
         with self._lock:
             self._compiles.append(row)
@@ -474,6 +541,7 @@ class StepProfiler:
             "padding_tokens": cap - sched,
             "padding_ratio": round((cap - sched) / cap, 4) if cap else None,
             "compiles": self.compile_totals(),
+            "aot": self.aot_snapshot(),
         }
 
     # --- on-demand capture --------------------------------------------------

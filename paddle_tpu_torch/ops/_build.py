@@ -13,7 +13,9 @@ of them builds it, later uses load it.  A build holds an exclusive
 ``nvcc`` once per source; the lock is released by a process's death.  Nothing is built when this
 module is imported; a kernel wrapper calls :func:`load` the first time it
 launches.  When ``nvcc`` fails, :class:`KernelBuildFailed` carries its
-standard error.
+standard error.  :func:`load_library` loads a kernel's library from a
+given file instead (an AOT artifact's ``kernels/``), with no ``nvcc``;
+:func:`source_hash` is the key both ways.
 """
 
 from __future__ import annotations
@@ -90,15 +92,21 @@ def nvcc_path() -> str:
         "with the CUDA toolkit")
 
 
-def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` is built: the name carries a
-    hash of the source, of every header in ``csrc/`` (name and bytes) and of
-    the flags, so an edit to any of them rebuilds it."""
+def source_hash(name: str) -> str:
+    """The hash a library of ``csrc/<name>.cu`` is keyed by: the source,
+    every header in ``csrc/`` (name and bytes) and the flags."""
     h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` is built: the name carries
+    its :func:`source_hash`, so an edit to the source, a header or the
+    flags rebuilds it."""
+    return BUILD_DIR / f"lib{name}-{source_hash(name)}.so"
 
 
 def _start(name: str):
@@ -145,6 +153,19 @@ def _build_locked(names) -> None:
         os.replace(tmp, out)  # atomic: a reader never sees half a file
     if errors:
         raise KernelBuildFailed("\n".join(errors))
+
+
+def load_library(name: str, path) -> ctypes.CDLL:
+    """Load the library of ``csrc/<name>.cu`` from the file ``path``, with
+    no ``nvcc``, and make it the one :func:`load` returns from now on.
+    The caller checks that the file was built from this tree's sources
+    (:func:`source_hash`).  Where to build other kernels does not change.
+    Raises ``OSError`` when the file does not load; nothing is rebuilt."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = _libs[name] = ctypes.CDLL(str(path))
+        return lib
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -29,6 +29,9 @@ engine and the in-process serving fleet.
   asyncio HTTP/SSE frontend; ``python -m paddle_tpu_torch.serving.server``
   serves a toy model, in process (``--dp``) or over worker processes
   (``--workers``).
+* :class:`AotArtifact` (``aot.py``) — AOT serving artifacts: save an
+  engine's closed bucket universe, load and bind it, and warm it, so an
+  engine, a fleet or a worker process captures nothing after boot.
 """
 
 from ..observability.alerts import (  # noqa: F401
@@ -37,6 +40,12 @@ from ..observability.alerts import (  # noqa: F401
     default_rule_set,
 )
 from ..observability.history import HistoryConfig, HistoryStore  # noqa: F401
+from .aot import (  # noqa: F401
+    AotArtifact,
+    AotBucketMissing,
+    AotError,
+    AotManifestMismatch,
+)
 from .engine import EngineConfig, EngineCore  # noqa: F401
 from .entrypoints import LLM, CompletionOutput, stream_generate  # noqa: F401
 from .faultinject import (  # noqa: F401

@@ -32,16 +32,16 @@ arrival first) and recomputes instead of failing the request.  Pad rows
 and pad tokens write their K/V into the null page (block 0) and read it.
 
 Every family runs on the device of the model's parameters and ends in
-the sampling epilogue; only sampled token ids come back to the host.  The
-decode step, the burst iteration and the unified step are compiled once
-per bucket, as the JAX engine jits them: ``serving/graphs.py`` captures
-each as a CUDA graph at its first ``(family, buckets, any_sampled)`` key
-and replays it from then on, counting captures in
-``decode_trace_count`` / ``burst_trace_count`` / ``ragged_trace_count``
+the sampling epilogue; only sampled token ids come back to the host.  Every
+family is compiled once per bucket, as the JAX engine jits them:
+``serving/graphs.py`` captures each as a CUDA graph at its first
+``(family, buckets, any_sampled)`` key and replays it from then on,
+counting captures in ``prefill_trace_count`` (one-shot and chunk prefill)
+/ ``decode_trace_count`` / ``burst_trace_count`` / ``ragged_trace_count``
 and the ``*_jit_traces`` metrics (``graphs.disable_graphs()`` runs them
-eagerly).  The prefill families run eagerly: they take their positions as
-Python ints.  ``serving_host_roundtrips_total`` counts family launches (a
-burst counts once).
+eagerly).  Positions a family takes as data are device tensors, never
+read on the host.  ``serving_host_roundtrips_total`` counts family
+launches (a burst counts once).
 
 Observability is the JAX engine's, recorded at the same points
 (``paddle_tpu_torch/observability/``): a :class:`StepProfiler`
@@ -69,10 +69,14 @@ slots roll back (``kv.commit`` / ``kv.truncate``).  **Disaggregation**:
 (``serving/fleet.py``); :meth:`EngineCore.export_kv_run` /
 :meth:`EngineCore.import_kv_run` move a request's computed prompt KV
 between engines (``serving/handoff.py``), writing the pools in place, so
-the captured graphs read the imported pages.  AOT artifacts (ROADMAP A9
-rest), tensor-parallel serving (A11) and the per-op dispatch timer (A12)
-belong to later slices of the port: the :class:`EngineConfig` fields that
-ask for them raise ``NotImplementedError`` naming the ROADMAP item.
+the captured graphs read the imported pages.  **AOT artifacts**
+(``EngineConfig(aot=...)`` / ``aot_path``, ``serving/aot.py``):
+:meth:`EngineCore.bind_aot` validates one and seals the step graphs to its
+saved universe; ``AotArtifact.warm`` captures every key of it before the
+engine serves.  Tensor-parallel serving (A11) and the per-op dispatch
+timer (A12) belong to later slices of the port: the :class:`EngineConfig`
+fields that ask for them raise ``NotImplementedError`` naming the ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -95,7 +99,7 @@ from ..ops.paged_attention import PagedCache, PoolExhausted
 from ..ops.sampling import sample_tokens
 from .burst import burst_eligible, clamp_burst
 from .burst import register_metrics as _register_burst_metrics
-from .graphs import StepGraphs, host_tensor
+from .graphs import StepGraphs
 from .kv_manager import KVCacheManager
 from .metrics import ServingMetrics, StepTimer
 from .request import FinishReason, Request, RequestState, SamplingParams
@@ -113,6 +117,19 @@ from .spec import SpecDecoder
 # must not flood the bounded flight-recorder ring — evictions past the cap
 # collapse into one prefix_cache_eviction_burst summary event
 _EVICT_EVENTS_PER_STEP = 8
+
+# each step program's inputs in launch order (the sampling quartet follows)
+_PROGRAM_INPUTS = {
+    "decode": ("ids", "pos", "tables", "lens", "slot_blocks",
+               "slot_offsets"),
+    "burst": ("ids", "pos", "lens", "active", "buf", "last", "j", "tables",
+              "slot_blocks", "slot_offsets", "eos_ids"),
+    "ragged": ("ids", "pos", "seg_ids", "last_idx", "tables", "lens",
+               "slot_blocks", "slot_offsets"),
+    "prefill": ("ids", "last_pos", "blocks", "offs"),
+    "chunk": ("ids", "start", "last_pos", "tables", "lens", "blocks",
+              "offs"),
+}
 
 
 @dataclass
@@ -154,6 +171,9 @@ class EngineConfig:
     # ONE packed ragged step per engine step instead of the legacy
     # prefill / chunk / decode families
     unified_step: bool = False
+    # AOT serving artifacts (serving/aot.py): a saved artifact directory
+    # loaded at build, or a loaded AotArtifact object (the fleet-sharing
+    # form, which wins)
     aot_path: Optional[str] = None
     aot: Optional[object] = None
     # speculative decoding (a serving.spec.SpecConfig; None = off):
@@ -179,8 +199,6 @@ def check_supported(config: EngineConfig) -> None:
     todo = (
         (config.profile_ops, "profile_ops=True",
          "the per-op dispatch timer (it rides the run_op op bus)", "A12"),
-        (config.aot is not None or bool(config.aot_path), "aot/aot_path",
-         "AOT serving artifacts", "A9 rest"),
         (config.mp not in (None, 1), f"mp={config.mp}",
          "tensor-parallel serving", "A11"),
     )
@@ -303,10 +321,14 @@ class EngineCore:
         self.burst_buckets = set()
         self.ragged_launches = 0
         # captures of each graphed family (the JAX engine's retrace
-        # counters): once per (buckets, any_sampled) key
+        # counters): once per (buckets, any_sampled) key; the one-shot and
+        # the chunk prefill both count in prefill_trace_count
+        self.prefill_trace_count = 0
         self.decode_trace_count = 0
         self.burst_trace_count = 0
         self.ragged_trace_count = 0
+        # the bound AOT artifact (bind_aot); set before any capture
+        self._aot = None
         self.graphs = StepGraphs(self.device, on_capture=self._on_capture)
         # each rows bucket's last-logits buffer of the burst iteration
         self._burst_last: Dict[int, torch.Tensor] = {}
@@ -337,6 +359,50 @@ class EngineCore:
                                     registry=self.metrics.registry,
                                     labels=metrics_labels)
         model.eval()
+        # AOT serving artifacts, bound LAST: validate() compares against
+        # the fully built engine.  A loaded artifact object (config.aot,
+        # the fleet-sharing form) wins over a path.
+        art = config.aot
+        if art is None and config.aot_path:
+            from .aot import AotArtifact
+
+            art = AotArtifact.load(config.aot_path, device=self.device)
+        if art is not None:
+            self.bind_aot(art)
+
+    # --- AOT artifact binding ------------------------------------------------
+    @property
+    def aot_artifact(self):
+        """The bound :class:`~paddle_tpu_torch.serving.aot.AotArtifact`, or
+        ``None``."""
+        return self._aot
+
+    def bind_aot(self, artifact, record_load: bool = True) -> None:
+        """Validate and bind an AOT artifact (as the JAX engine's
+        ``bind_aot``): admission caps sequences at the artifact's
+        ``max_seq_len``, bursts launch at its table width, the step
+        graphs are sealed to its universe (a key outside it raises
+        ``AotBucketMissing``), and the trace counters never move again.
+        ``record_load=False`` (a supervisor's rebind of an already-loaded
+        artifact) records no load sample.  Raises
+        ``AotManifestMismatch`` on any deployment disagreement, binding
+        nothing."""
+        artifact.validate(self)
+        self._aot = artifact
+        # admission-side guard (the backstop stays in AotArtifact.call)
+        self.scheduler.seq_len_cap = int(artifact.manifest["max_seq_len"])
+        # the burst programs' tables are as wide as the artifact's bound
+        cap = self.scheduler.seq_len_cap
+        self._burst_width = bucket_size(
+            max(1, (cap + self.block_size - 1) // self.block_size))
+        self.graphs.seal(artifact)
+        # one disk load = one serving_aot_load_seconds sample per registry
+        sp = self.stepprof
+        observe = record_load
+        if observe and sp.enabled and sp.registry is not None:
+            observe = artifact.mark_load_observed(sp.registry)
+        sp.record_aot_load(artifact.load_seconds, artifact.program_count,
+                           observe=observe)
 
     # --- the step families (run on the device) -------------------------------
     def _caches(self, tables, lens, slot_blocks, slot_offsets,
@@ -401,13 +467,16 @@ class EngineCore:
                             any_sampled=any_sampled)
         return (buf,)
 
-    def _prefill_fn(self, ids, last_pos: int, blocks, offs, temps, top_ks,
+    def _prefill_fn(self, ids, last_pos, blocks, offs, temps, top_ks,
                     top_ps, keys, any_sampled: bool):
         """One-shot prefill: the dense-cache forward over the (padded)
-        prompt, then every layer's K/V scattered into the sequence's pages
-        — pad positions scatter into the null page, whose content no real
-        row reads.  Returns the token sampled off the LAST REAL position,
-        its logits and their stats."""
+        prompt from position 0, then every layer's K/V scattered into the
+        sequence's pages — pad positions scatter into the null page, whose
+        content no real row reads.  ``last_pos`` (0-d, on the device) is
+        the last real position, read by a device index.  The dense caches
+        are allocated here, inside the program (from the graphs' pool when
+        captured).  Returns the token sampled off that position, its
+        logits and their stats."""
         cfg = self.model.config
         shape = (1, ids.shape[1], cfg.num_key_value_heads, cfg.head_dim)
         dense = [(torch.zeros(shape, dtype=self._pool_dtype,
@@ -417,32 +486,34 @@ class EngineCore:
                  for _ in range(cfg.num_hidden_layers)]
         with torch.no_grad():
             logits = self.model(ids, caches=dense, pos=0)
-            last = logits[0, last_pos].float()
+            last = logits[0].index_select(0, last_pos.reshape(1).long())
             del logits
-            tokens = self._sample(last[None], temps, top_ks, top_ps, keys,
+            last = last.float()
+            tokens = self._sample(last, temps, top_ks, top_ps, keys,
                                   any_sampled)
             for kp, vp, (kb, vb) in zip(self._k_pools, self._v_pools, dense):
                 kp.index_put_((blocks, offs), kb[0])
                 vp.index_put_((blocks, offs), vb[0])
-            return tokens, last, logit_stats(last)
+            return tokens, last[0], logit_stats(last[0])
 
-    def _chunk_prefill_fn(self, ids, start: int, start_t, last_pos: int,
-                          tables, lens, slot_blocks, slot_offsets, temps,
-                          top_ks, top_ps, keys, any_sampled: bool):
+    def _chunk_prefill_fn(self, ids, start, last_pos, tables, lens,
+                          slot_blocks, slot_offsets, temps, top_ks, top_ps,
+                          keys, any_sampled: bool):
         """Chunked / resumed prefill: ``ids`` (one bucketed chunk starting
-        at absolute position ``start``; ``start_t`` is the same on the
-        device) runs through the PAGED pools — the chunk's K/V scatters
-        into its slots and attention covers the computed prefix plus the
-        chunk itself.  Returns the token sampled off the chunk's LAST REAL
-        position, its logits and their stats."""
+        at absolute position ``start``, 0-d on the device) runs through
+        the PAGED pools — the chunk's K/V scatters into its slots and
+        attention covers the computed prefix plus the chunk itself.
+        Returns the token sampled off the chunk's last real position
+        (``last_pos``, 0-d on the device), its logits and their stats."""
         caches = self._caches(tables, lens, slot_blocks, slot_offsets,
-                              q_start=start_t)
+                              q_start=start)
         with torch.no_grad():
             logits = self.model(ids, caches=caches, pos=start)
-            last = logits[0, last_pos].float()
-            tokens = self._sample(last[None], temps, top_ks, top_ps, keys,
+            last = logits[0].index_select(0, last_pos.reshape(1).long())
+            last = last.float()
+            tokens = self._sample(last, temps, top_ks, top_ps, keys,
                                   any_sampled)
-            return tokens, last, logit_stats(last)
+            return tokens, last[0], logit_stats(last[0])
 
     def _unified_fn(self, ids, pos, seg_ids, last_idx, tables, lens,
                     slot_blocks, slot_offsets, temps, top_ks, top_ps, keys,
@@ -478,22 +549,40 @@ class EngineCore:
             return fn
         return lambda *args: fn(*args)[:1]
 
+    def _family_fn(self, program: str, any_sampled: bool):
+        """The function a step program of ``program`` captures."""
+        if program == "burst":
+            return functools.partial(self._burst_fn, any_sampled=any_sampled)
+        family = {"decode": self._decode_fn, "ragged": self._unified_fn,
+                  "prefill": self._prefill_fn,
+                  "chunk": self._chunk_prefill_fn}[program]
+        return self._tokens_fn(family, any_sampled)
+
     def _on_capture(self, key) -> None:
         """A step program was captured (the JAX engine's retrace): the
-        family's trace counter, its ``*_jit_traces`` metric and a ``jit``
-        tracer instant, as the traced bodies of the JAX engine record,
-        and the capture's wall time as the step profiler's compile of
-        this (program, bucket)."""
+        family's trace counter (``prefill_trace_count`` for the one-shot
+        and the chunk prefill alike, as in the JAX engine), its
+        ``*_jit_traces`` metric and a ``jit`` tracer instant, as the
+        traced bodies of the JAX engine record, and the capture's wall
+        time as the step profiler's compile of this (program, bucket).
+        With an AOT artifact bound none of these move — the capture of a
+        key of the saved universe is counted in ``graphs.captures`` only,
+        as the JAX engine's lazy compile of a loaded program is."""
+        if self._aot is not None:
+            return
         family, dims = key[0], key[1:-1]
         self.stepprof.record_compile(
             family, dims, self.graphs.programs[key].capture_seconds)
-        setattr(self, f"{family}_trace_count",
-                getattr(self, f"{family}_trace_count") + 1)
-        self.metrics.count(f"{family}_jit_traces")
+        counter = "prefill" if family == "chunk" else family
+        setattr(self, f"{counter}_trace_count",
+                getattr(self, f"{counter}_trace_count") + 1)
+        self.metrics.count(f"{counter}_jit_traces")
         names = {"decode": ("batch", "table_width"),
                  "burst": ("batch", "burst_bucket"),
-                 "ragged": ("token_bucket", "table_bucket")}[family]
-        self.tracer.instant(f"{family}_jit_trace", cat="jit",
+                 "ragged": ("token_bucket", "table_bucket"),
+                 "prefill": ("prompt_bucket",),
+                 "chunk": ("chunk_bucket", "table_bucket")}[family]
+        self.tracer.instant(f"{counter}_jit_trace", cat="jit",
                             any_sampled=key[-1], **dict(zip(names, dims)))
 
     # --- request lifecycle --------------------------------------------------
@@ -703,17 +792,101 @@ class EngineCore:
             self._emit_device(req, tok)
 
     # --- execution ----------------------------------------------------------
-    def _step_call(self, fn, *args, **kw):
-        """Launch one step family.  Every call is one host->device round
-        trip — the denominator of the burst saving — counted here so
-        per-step and burst launches share one ledger."""
-        self._burst_counters["roundtrips"].inc()
-        return fn(*args, **kw)
+    def _pad_inputs(self, program: str, bucket):
+        """The host inputs of one ``(program, bucket)`` launch with every
+        row a pad row, by the engine's pad convention: token 0, KV slots
+        in the null page 0, tables of null pages, lengths 1 (one token of
+        the null page, never 0), temperature 0.  Returns the named arrays
+        (the burst's last-logits buffer is the engine's device tensor for
+        that rows bucket) and the sampling pack.  The dispatch sites fill
+        the real rows in; :meth:`warm_program` launches them as they are,
+        so a warm launch writes the null page only."""
+        i32, i64 = np.int32, np.int64
+        if program == "decode":
+            B, W = bucket
+            rows = B
+            a = dict(ids=np.zeros((B, 1), i64), pos=np.zeros((B,), i32),
+                     tables=np.zeros((B, W), i32), lens=np.ones((B,), i32),
+                     slot_blocks=np.zeros((B,), i64),
+                     slot_offsets=np.zeros((B,), i64))
+        elif program == "burst":
+            B, N = bucket
+            rows = B
+            last = self._burst_last.get(B)
+            if last is None:
+                last = self._burst_last[B] = torch.zeros(
+                    (B, self.model.config.vocab_size), dtype=torch.float32,
+                    device=self.device)
+            a = dict(ids=np.zeros((B, 1), i64), pos=np.zeros((B,), i32),
+                     lens=np.ones((B,), i32),
+                     active=np.zeros((B,), np.bool_),
+                     buf=np.full((B, N), -1, i32), last=last,
+                     j=np.zeros((1,), i64),
+                     tables=np.zeros((B, self._burst_width), i32),
+                     slot_blocks=np.zeros((B, N), i64),
+                     slot_offsets=np.zeros((B, N), i64),
+                     eos_ids=np.full((B,), -1, i32))
+        elif program == "ragged":
+            T, W = bucket
+            rows = T
+            a = dict(ids=np.zeros((1, T), i64), pos=np.zeros((1, T), i32),
+                     seg_ids=np.zeros((T,), i32),
+                     last_idx=np.zeros((T,), i64),
+                     tables=np.zeros((T, W), i32), lens=np.ones((T,), i32),
+                     slot_blocks=np.zeros((T,), i64),
+                     slot_offsets=np.zeros((T,), i64))
+        elif program == "prefill":
+            (T,) = bucket
+            rows = 1
+            a = dict(ids=np.zeros((1, T), i64), last_pos=np.zeros((), i32),
+                     blocks=np.zeros((T,), i64),
+                     offs=np.arange(T, dtype=i64) % self.block_size)
+        elif program == "chunk":
+            W, TW = bucket
+            rows = 1
+            a = dict(ids=np.zeros((1, W), i64), start=np.zeros((), i32),
+                     last_pos=np.zeros((), i32),
+                     tables=np.zeros((1, TW), i32), lens=np.ones((1,), i32),
+                     blocks=np.zeros((1, W), i64),
+                     offs=np.zeros((1, W), i64))
+        else:
+            raise ValueError(f"unknown step program {program!r}")
+        return a, SamplingPack(rows)
 
-    def _on_device(self, *arrays):
-        """Host arrays to the engine's device (u32 sampling keys as
-        int64: the sampler masks them back to 32 bits)."""
-        return [host_tensor(a).to(self.device) for a in arrays]
+    def program_inputs(self, program: str, bucket) -> list:
+        """The ordered inputs of one ``(program, bucket)`` launch, every
+        row a pad row (:meth:`_pad_inputs`): what ``AotArtifact`` records
+        as the program's argument signature."""
+        a, pack = self._pad_inputs(program, bucket)
+        return [a[n] for n in _PROGRAM_INPUTS[program]] + list(pack.arrays())
+
+    def _step_call(self, program: str, bucket, sampled: bool, a, pack,
+                   steps: int = 1):
+        """Launch one step family through its step program (key
+        ``(program, bucket..., sampled)``).  Every call is one
+        host->device round trip — the denominator of the burst saving —
+        counted here so per-step and burst launches share one ledger.
+        With an AOT artifact bound, the artifact checks the launch
+        against its saved universe and signature first, and the launch
+        counts as a hit of ``program``."""
+        self._burst_counters["roundtrips"].inc()
+        inputs = [a[n] for n in _PROGRAM_INPUTS[program]] + list(
+            pack.arrays())
+        if self._aot is not None:
+            self._aot.call(program, bucket, *inputs)
+            self.stepprof.record_aot_hit(program)
+        return self.graphs.run((program, *bucket, sampled),
+                               self._family_fn(program, sampled), inputs,
+                               steps=steps)
+
+    def warm_program(self, program: str, bucket, any_sampled: bool) -> None:
+        """Capture the step program ``(program, bucket..., any_sampled)``
+        now, on pad inputs (:meth:`_pad_inputs`): its first run writes the
+        null page only.  ``AotArtifact.warm`` calls this for every key of
+        its universe before the engine serves."""
+        self.graphs.run((program, *bucket, any_sampled),
+                        self._family_fn(program, any_sampled),
+                        self.program_inputs(program, tuple(bucket)))
 
     def _prefill(self, req: Request) -> None:
         """Run one prefill program for ``req`` — the whole prompt (cold
@@ -721,82 +894,64 @@ class EngineCore:
         chunked prefill and/or resume past a prefix-cache hit) through the
         pools.  Emits the request's next token only when the prefill
         completes (the final chunk's last-position logits ARE that
-        token).  The prefill families run eagerly: they record no compile
-        (a capture of them is ROADMAP A6)."""
+        token).  Both families are step programs (keys ``("prefill", Tb,
+        any_sampled)`` and ``("chunk", Wb, TWb, any_sampled)``) whose
+        positions are device data."""
         rid = req.request_id
         t0 = time.perf_counter()
         ids, target, start, n, recompute = self._begin_prefill_chunk(req, t0)
         table = self.kv.table(rid)
         bs = self.block_size
         pos = np.arange(start, start + n)
-        # one sampling row: the final chunk's last-position draw
-        pack = SamplingPack(1)
-        pack.set_request(0, req)
-        sampled = bool((pack.temps > 0).any())
         if start == 0 and n == target:
             Tb = bucket_size(target)
-            ids_arr = np.zeros((1, Tb), np.int64)
-            ids_arr[0, :target] = ids
-            blocks = np.zeros((Tb,), np.int64)   # pads -> null page
-            blocks[:target] = [table[p // bs] for p in pos]
-            offs = np.arange(Tb, dtype=np.int64) % bs
-            self.prefill_buckets.add(("prefill", Tb))
-            ids_t, blocks_t, offs_t, *quartet = self._on_device(
-                ids_arr, blocks, offs, *pack.arrays())
-            with self.tracer.span("prefill_step", cat="serving",
-                                  request=str(rid), trace=req.trace_id,
-                                  tokens=target, bucket=Tb,
-                                  recompute=recompute):
-                with StepTimer(self.metrics, "prefill_step") as st:
-                    toks, last, stats = self._step_call(
-                        self._prefill_fn, ids_t, target - 1, blocks_t,
-                        offs_t, *quartet, any_sampled=sampled)
-                    tok = int(toks[0])
             program, bucket = "prefill", (Tb,)
-            self.stepprof.record_program(
-                program, bucket, scheduled=n, capacity=Tb, wall_s=st.dt,
-                request=str(rid))
-            audit_inputs = {"ids": ids_arr, "blocks": blocks, "offs": offs}
+            a, pack = self._pad_inputs(program, bucket)
+            a["ids"][0, :target] = ids
+            a["last_pos"][...] = target - 1
+            a["blocks"][:target] = [table[p // bs] for p in pos]   # pads ->
+            # null page
+            span = dict(tokens=target, bucket=Tb, recompute=recompute)
+            prog_attrs = dict(scheduled=n, capacity=Tb)
+            audit_inputs = {"ids": a["ids"], "blocks": a["blocks"],
+                            "offs": a["offs"]}
         else:
             Wb = bucket_size(n)
             TWb = bucket_size(len(table))
-            ids_arr = np.zeros((1, Wb), np.int64)
-            ids_arr[0, :n] = ids[start:start + n]
-            blocks = np.zeros((1, Wb), np.int64)   # pads -> null page
-            blocks[0, :n] = [table[p // bs] for p in pos]
-            offs = np.zeros((1, Wb), np.int64)
-            offs[0, :n] = pos % bs
-            tables = np.zeros((1, TWb), np.int32)
-            tables[0, :len(table)] = table
-            lens = np.array([start + n], np.int32)
-            self.prefill_buckets.add(("chunk", Wb, TWb))
-            self.metrics.count("chunked_prefill_steps")
-            (ids_t, start_t, tables_t, lens_t, blocks_t, offs_t,
-             *quartet) = self._on_device(
-                ids_arr, np.array(start, np.int32), tables, lens, blocks,
-                offs, *pack.arrays())
-            with self.tracer.span("prefill_step", cat="serving",
-                                  request=str(rid), trace=req.trace_id,
-                                  tokens=n, bucket=Wb, chunk=True,
-                                  start=start, cached=req.num_cached_tokens,
-                                  recompute=recompute):
-                with StepTimer(self.metrics, "prefill_step") as st:
-                    toks, last, stats = self._step_call(
-                        self._chunk_prefill_fn, ids_t, start, start_t, n - 1,
-                        tables_t, lens_t, blocks_t, offs_t, *quartet,
-                        any_sampled=sampled)
-                    tok = int(toks[0])
             program, bucket = "chunk", (Wb, TWb)
-            self.stepprof.record_program(
-                program, bucket, scheduled=n, capacity=Wb, wall_s=st.dt,
-                request=str(rid), start=start, table_width=len(table))
-            audit_inputs = {"ids": ids_arr, "start": np.int32(start),
-                            "tables": tables, "lens": lens,
-                            "slot_blocks": blocks, "slot_offsets": offs}
+            a, pack = self._pad_inputs(program, bucket)
+            a["ids"][0, :n] = ids[start:start + n]
+            a["start"][...] = start
+            a["last_pos"][...] = n - 1
+            a["tables"][0, :len(table)] = table
+            a["lens"][0] = start + n
+            a["blocks"][0, :n] = [table[p // bs] for p in pos]   # pads ->
+            # null page
+            a["offs"][0, :n] = pos % bs
+            self.metrics.count("chunked_prefill_steps")
+            span = dict(tokens=n, bucket=Wb, chunk=True, start=start,
+                        cached=req.num_cached_tokens, recompute=recompute)
+            prog_attrs = dict(scheduled=n, capacity=Wb, start=start,
+                              table_width=len(table))
+            audit_inputs = {"ids": a["ids"], "start": np.int32(start),
+                            "tables": a["tables"], "lens": a["lens"],
+                            "slot_blocks": a["blocks"],
+                            "slot_offsets": a["offs"]}
+        self.prefill_buckets.add((program, *bucket))
+        # one sampling row: the final chunk's last-position draw
+        pack.set_request(0, req)
+        sampled = bool((pack.temps > 0).any())
+        with self.tracer.span("prefill_step", cat="serving",
+                              request=str(rid), trace=req.trace_id, **span):
+            with StepTimer(self.metrics, "prefill_step") as st:
+                out = self._step_call(program, bucket, sampled, a, pack)
+                tok = int(out[0][0])
+        self.stepprof.record_program(
+            program, bucket, wall_s=st.dt, request=str(rid), **prog_attrs)
         if self.audit.enabled:
             self.audit.observe_program(
-                program, stats.cpu().numpy(), bucket,
-                logits=last.cpu().numpy()[None, :], inputs=audit_inputs,
+                program, out[2].cpu().numpy(), bucket,
+                logits=out[1].cpu().numpy()[None, :], inputs=audit_inputs,
                 requests=[{"id": str(rid),
                            "greedy": req.sampling.temperature == 0.0}])
         self._finish_prefill_chunk(req, ids, target, start, n, recompute,
@@ -830,27 +985,21 @@ class EngineCore:
         Bb = bucket_size(B)
         width = max(len(self.kv.table(r.request_id)) for r in reqs)
         Wb = bucket_size(width)
-        ids = np.zeros((Bb, 1), np.int64)
-        poss = np.zeros((Bb,), np.int32)
-        tables = np.zeros((Bb, Wb), np.int32)
-        lens = np.ones((Bb,), np.int32)    # pad rows: 1 token of null page
-        slot_blocks = np.zeros((Bb,), np.int64)
-        slot_offsets = np.zeros((Bb,), np.int64)
-        pack = SamplingPack(Bb)  # pad rows stay temp=0 → argmax, ignored
+        # pad rows: 1 token of the null page, temp 0 (argmax, ignored)
+        a, pack = self._pad_inputs("decode", (Bb, Wb))
         for i, r in enumerate(reqs):
             rid = r.request_id
             t = self.kv.table(rid)
             p = self.kv.seq_len(rid)
-            ids[i, 0] = r.last_token
-            poss[i] = p
-            tables[i, :len(t)] = t
-            lens[i] = p + 1                # cache length AFTER this token
-            slot_blocks[i], slot_offsets[i] = r._slot
+            a["ids"][i, 0] = r.last_token
+            a["pos"][i] = p
+            a["tables"][i, :len(t)] = t
+            a["lens"][i] = p + 1           # cache length AFTER this token
+            a["slot_blocks"][i], a["slot_offsets"][i] = r._slot
             pack.set_request(i, r)
         self.decode_buckets.add(("decode", Bb, Wb))
         sampled = bool((pack.temps > 0).any())
-        inputs = {"ids": ids, "pos": poss, "tables": tables, "lens": lens,
-                  "slot_blocks": slot_blocks, "slot_offsets": slot_offsets}
+        inputs = {n: a[n] for n in _PROGRAM_INPUTS["decode"]}
         # shadow-oracle capture: on sampled audit steps the pages this step
         # reads are copied on the device before it writes the pools
         pre_pools, inputs = self.audit.snapshot_pools(
@@ -860,11 +1009,7 @@ class EngineCore:
                               requests=",".join(str(r.request_id)
                                                 for r in reqs)):
             with StepTimer(self.metrics, "decode_step") as st:
-                out = self._step_call(
-                    self.graphs.run, ("decode", Bb, Wb, sampled),
-                    self._tokens_fn(self._decode_fn, sampled),
-                    [ids, poss, tables, lens, slot_blocks, slot_offsets,
-                     *pack.arrays()])
+                out = self._step_call("decode", (Bb, Wb), sampled, a, pack)
                 toks = out[0].cpu().numpy()
         # token/row accounting: B real rows in the Bb row bucket (the
         # scheduler's tokens_planned axis); width padding rides as attrs
@@ -907,53 +1052,36 @@ class EngineCore:
                 raise PoolExhausted(
                     f"burst pre-allocation failed for {rid!r}: "
                     f"burst_capacity promised {n_steps} steps x {B} rows")
-        ids = np.zeros((Bb, 1), np.int64)
-        poss = np.zeros((Bb,), np.int32)
-        tables = np.zeros((Bb, W), np.int32)
-        lens = np.ones((Bb,), np.int32)    # pad rows: 1 token of null page
-        slot_blocks = np.zeros((Bb, Nb), np.int64)
-        slot_offsets = np.zeros((Bb, Nb), np.int64)
-        active = np.zeros((Bb,), np.bool_)
-        eos_ids = np.full((Bb,), -1, np.int32)
-        pack = SamplingPack(Bb)
+        # the burst state (ids .. j) starts from the host each burst; the
+        # iterations update it in place
+        a, pack = self._pad_inputs("burst", (Bb, Nb))
+        assert a["tables"].shape[1] == W
         bs = self.block_size
         for i, r in enumerate(reqs):
             rid = r.request_id
             t = self.kv.table(rid)
             p = starts[rid]
-            ids[i, 0] = r.last_token
-            poss[i] = p
-            tables[i, :len(t)] = t
-            lens[i] = p + 1
+            a["ids"][i, 0] = r.last_token
+            a["pos"][i] = p
+            a["tables"][i, :len(t)] = t
+            a["lens"][i] = p + 1
             q = np.arange(p, p + n_steps)
-            slot_blocks[i, :n_steps] = [t[x // bs] for x in q]
-            slot_offsets[i, :n_steps] = q % bs
-            active[i] = True
+            a["slot_blocks"][i, :n_steps] = [t[x // bs] for x in q]
+            a["slot_offsets"][i, :n_steps] = q % bs
+            a["active"][i] = True
             if r.sampling.eos_token_id is not None:
-                eos_ids[i] = int(r.sampling.eos_token_id)
+                a["eos_ids"][i] = int(r.sampling.eos_token_id)
             pack.set_request(i, r)
         self.burst_buckets.add(("burst", Bb, Nb))
         sampled = bool((pack.temps > 0).any())
-        last = self._burst_last.get(Bb)
-        if last is None:
-            last = self._burst_last[Bb] = torch.zeros(
-                (Bb, self.model.config.vocab_size), dtype=torch.float32,
-                device=self.device)
-        # the burst state (ids .. j) starts from the host each burst; the
-        # iterations update it in place
-        state = [ids, poss, lens, active, np.full((Bb, Nb), -1, np.int32),
-                 last, np.zeros((1,), np.int64)]
         with self.tracer.span("burst_step", cat="serving", batch=B,
                               batch_bucket=Bb, burst_len=n_steps,
                               burst_bucket=Nb,
                               requests=",".join(str(r.request_id)
                                                 for r in reqs)):
             with StepTimer(self.metrics, "burst_step") as st:
-                (buf,) = self._step_call(
-                    self.graphs.run, ("burst", Bb, Nb, sampled),
-                    functools.partial(self._burst_fn, any_sampled=sampled),
-                    [*state, tables, slot_blocks, slot_offsets, eos_ids,
-                     *pack.arrays()], steps=n_steps)
+                (buf,) = self._step_call("burst", (Bb, Nb), sampled, a, pack,
+                                         steps=n_steps)
                 buf = buf.cpu().numpy()
         result = {}
         emitted_total = 0
@@ -1032,19 +1160,17 @@ class EngineCore:
         width = max(len(self.kv.table(row["req"].request_id))
                     for row in rows)
         TWb = bucket_size(width)
-        ids = np.zeros((1, Tb), np.int64)
-        pos = np.zeros((1, Tb), np.int32)
-        # pad tokens route to a pad row (all-null table, kv_len 1); when
-        # R == Tb every row is real and no pad token exists
-        seg = np.full((Tb,), min(R, Tb - 1), np.int32)
-        last_idx = np.zeros((Tb,), np.int64)
-        tables = np.zeros((Tb, TWb), np.int32)
-        lens = np.ones((Tb,), np.int32)   # pad rows: 1 token of null page
-        slot_blocks = np.zeros((Tb,), np.int64)  # pad tokens -> null page
-        slot_offsets = np.zeros((Tb,), np.int64)
-        # per-TOKEN sampling quartet: pad positions stay temp=0 (argmax
-        # over the null page, discarded)
-        pack = SamplingPack(Tb)
+        # pad rows: an all-null table, kv_len 1; pad tokens write the null
+        # page; the per-TOKEN sampling quartet keeps pad positions at
+        # temp=0 (argmax over the null page, discarded)
+        a, pack = self._pad_inputs("ragged", (Tb, TWb))
+        ids, pos, seg, last_idx = (a["ids"], a["pos"], a["seg_ids"],
+                                   a["last_idx"])
+        tables, lens = a["tables"], a["lens"]
+        slot_blocks, slot_offsets = a["slot_blocks"], a["slot_offsets"]
+        # pad tokens route to a pad row; when R == Tb every row is real
+        # and no pad token exists
+        seg[:] = min(R, Tb - 1)
         cursor = 0
         for i, row in enumerate(rows):
             req = row["req"]
@@ -1078,19 +1204,13 @@ class EngineCore:
         self.ragged_buckets.add(("ragged", Tb, TWb))
         self.metrics.count("unified_steps")
         sampled = bool((pack.temps > 0).any())
-        inputs = {"ids": ids, "pos": pos, "seg_ids": seg,
-                  "last_idx": last_idx, "tables": tables, "lens": lens,
-                  "slot_blocks": slot_blocks, "slot_offsets": slot_offsets}
+        inputs = {n: a[n] for n in _PROGRAM_INPUTS["ragged"]}
         pre_pools, inputs = self.audit.snapshot_pools(
             self._k_pools, self._v_pools, inputs)
         with self.tracer.span("unified_step", cat="serving", tokens=T,
                               rows=R, token_bucket=Tb, table_bucket=TWb):
             with StepTimer(self.metrics, "unified_step") as st:
-                out = self._step_call(
-                    self.graphs.run, ("ragged", Tb, TWb, sampled),
-                    self._tokens_fn(self._unified_fn, sampled),
-                    [ids, pos, seg, last_idx, tables, lens, slot_blocks,
-                     slot_offsets, *pack.arrays()])
+                out = self._step_call("ragged", (Tb, TWb), sampled, a, pack)
                 toks = out[0].cpu().numpy()
         self.ragged_launches += 1
         # scheduled = T real tokens (decode rows count 1 each) vs the Tb

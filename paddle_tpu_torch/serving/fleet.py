@@ -769,6 +769,20 @@ class FleetRouter:
                 f"({sorted(repr(a) for a in audits)}); the audit "
                 "surface reports fleet-wide, so every replica must use "
                 "the same EngineConfig.audit")
+        arts = {id(e.aot_artifact) for e in self.engines}
+        if len(arts) != 1:
+            # one loaded artifact a fleet: per-replica loads would load the
+            # kernels dp times, and a mixed AOT/open fleet would hide
+            # captures behind the AOT replicas' zero counters
+            raise ValueError(
+                "replicas disagree on the AOT artifact: a fleet shares "
+                "ONE loaded AotArtifact (load once, pass the same "
+                "EngineConfig.aot object to every replica — not "
+                "per-replica aot_path loads)")
+        # remembered for the supervisor: a rebuilt replica rebinds it,
+        # and warms it too once the fleet was warmed (warm_aot)
+        self.aot_artifact = self.engines[0].aot_artifact
+        self.aot_warmed = False
         gate = gates.pop()
         explicit = [e.engine_config.lifecycle for e in self.engines]
         if explicit[0] is not None and \
@@ -975,6 +989,20 @@ class FleetRouter:
         one-replica fleet — the selftest asserts it), so budget ~12
         extra series."""
         return cls([engine], config=FleetConfig(max_queue=max_queue))
+
+    def warm_aot(self) -> Dict[int, float]:
+        """Capture the fleet's artifact universe on every replica before
+        it serves (``AotArtifact.warm``); from then on a replica the
+        supervisor rebuilds is warmed before it serves too.  Returns each
+        replica's warm wall seconds."""
+        if self.aot_artifact is None:
+            raise ValueError("warm_aot: the fleet serves without an AOT "
+                             "artifact")
+        walls = {r.index: self.aot_artifact.warm(
+            r.engine, registry=self.registry,
+            labels={"replica": str(r.index)}) for r in self.replicas}
+        self.aot_warmed = True
+        return walls
 
     # --- lifecycle ----------------------------------------------------------
     @property

@@ -41,17 +41,22 @@ programs, one per engine.
   the counter bookkeeping), so a capture never races another engine's
   step program and the counters stay exact; a capture records in
   ``thread_local`` mode, so another thread's host work outside a step
-  program (reading outputs back, eager prefill, a KV hand-off) neither
-  fails nor invalidates it.  That host work calls no counted kernel (the
-  eager prefill families attend in plain PyTorch), so no launch lands
-  between a first run's counter reads or is folded into a replay's
+  program (reading outputs back, a KV hand-off) neither fails nor
+  invalidates it.  That host work calls no counted kernel, so no launch
+  lands between a first run's counter reads or is folded into a replay's
   delta; ``tests/test_torch_fleet.py`` checks that every wrapper call of
-  a fleet holds the lock.  The garbage collector runs just before a
-  capture and not during it: collecting a dead engine's graph on the
-  capturing thread would invalidate the capture.
+  a fleet holds the lock.  Every step family runs here, the prefill
+  families included, so one replica's prefill waits on the others'
+  steps.  The garbage collector runs just before a capture and not
+  during it: collecting a dead engine's graph on the capturing thread
+  would invalidate the capture.  Inside :func:`capture_batch` (a warm's
+  back-to-back captures on one thread) it runs once, at the start.
 * :func:`disable_graphs` — the counterpart of ``jax.disable_jit()`` — runs
   the families eagerly on fresh tensors and leaves the counters alone; the
   identity checks hold graphs against it.
+* **Sealed to an AOT artifact** (:meth:`StepGraphs.seal`, by
+  ``EngineCore.bind_aot``): a key outside the artifact's saved universe
+  raises ``AotBucketMissing`` and is never captured, graphs on or off.
 """
 
 from __future__ import annotations
@@ -94,6 +99,25 @@ def graphs_enabled() -> bool:
     return getattr(_local, "enabled", True)
 
 
+@contextlib.contextmanager
+def capture_batch():
+    """Back-to-back captures on this thread (``AotArtifact.warm``): the
+    garbage collector runs once here instead of before every capture (it
+    stays off during each capture)."""
+    gc.collect()
+    prev = getattr(_local, "batch", False)
+    _local.batch = True
+    try:
+        yield
+    finally:
+        _local.batch = prev
+
+
+def reset_counters() -> None:
+    """Set every kernel wrapper's launch counter to 0."""
+    _write_counters([0] * len(_read_counters()))
+
+
 def _read_counters() -> Tuple[int, ...]:
     return tuple(getattr(mod, name) for mod, names in COUNTERS
                  for name in names)
@@ -112,8 +136,9 @@ def host_tensor(a) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
         return a
     a = np.asarray(a)
+    # a 0-d array stays 0-d (a position a step program takes as data)
     return torch.from_numpy(a.astype(np.int64) if a.dtype == np.uint32
-                            else np.ascontiguousarray(a))
+                            else np.ascontiguousarray(a).reshape(a.shape))
 
 
 class StepProgram:
@@ -148,6 +173,14 @@ class StepGraphs:
         self.capture_seconds = 0.0
         self.replays = 0
         self._pool = None
+        # the AOT artifact this cache is sealed to (None = open)
+        self.artifact = None
+
+    def seal(self, artifact) -> None:
+        """Admit only the keys of ``artifact``'s saved universe from now
+        on: ``run`` asks ``artifact.check_key(key)``, which raises
+        ``AotBucketMissing`` for any other key, before anything runs."""
+        self.artifact = artifact
 
     def run(self, key: Hashable, fn: Callable, inputs: Sequence,
             steps: int = 1) -> Tuple[torch.Tensor, ...]:
@@ -158,6 +191,8 @@ class StepGraphs:
         a replay repeats the first call's work.  ``steps > 1`` runs a
         family that updates its inputs in place (a burst iteration) that
         many times."""
+        if self.artifact is not None:
+            self.artifact.check_key(key)
         with _RUN_LOCK:
             return self._run(key, fn, inputs, steps)
 
@@ -199,7 +234,8 @@ class StepGraphs:
             # a dead engine's graphs are freed here: a collection during
             # the capture would destroy a graph on the capturing thread,
             # which invalidates the capture
-            gc.collect()
+            if not getattr(_local, "batch", False):
+                gc.collect()
             collecting = gc.isenabled()
             gc.disable()
             try:

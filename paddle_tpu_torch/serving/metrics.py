@@ -20,7 +20,9 @@ Tracked:
   once per engine step;
 * counters: admitted, finished-by-reason (eos/length/abort), preemptions,
   recompute prefills, prefix-cache hits and misses, and the captures of
-  each graphed step family (``serving_{decode,ragged,burst}_jit_traces``).
+  each graphed step family
+  (``serving_{prefill,decode,ragged,burst}_jit_traces``; the one-shot and
+  the chunk prefill both count in ``prefill``).
 
 ``labels`` (e.g. ``{"replica": "0"}``) ride every series, so engines can
 share one registry.  The per-op dispatch timer rides the JAX op bus, which
@@ -118,7 +120,8 @@ _COUNTER_NAMES = (
     # captures of the graphed step families (the JAX engine's in-trace
     # retrace counters), bounded by their bucket sets; decode's is
     # registered up front too, so an engine whose decode family never
-    # ran reads 0
+    # ran reads 0; so is prefill's (the one-shot and the chunk prefill)
+    "prefill_jit_traces",
     "decode_jit_traces",
     "ragged_jit_traces",
     "burst_jit_traces",

@@ -51,9 +51,10 @@ The port's departures: the worker spec carries the model the workers
 build (``preset``, ``dtype``, ``device``, ``weights``, ``max_seq_len``;
 see ``serving/worker.py``); the initial workers boot in parallel (each
 :class:`WorkerHandle` is launched before any ready line is awaited); and
-``compile_cache`` is the kernels' build directory.  AOT artifacts
-(``aot_path``, ``warm_boot``) raise, naming ROADMAP "A9 rest", and
-``mp`` > 1 raises, naming A11.
+``compile_cache`` is the kernels' build directory (a worker booted with
+``aot_path`` loads its kernels from the artifact and builds nothing
+there); ``warm_boot`` captures the artifact's whole universe before the
+ready line.  ``mp`` > 1 raises, naming A11.
 """
 
 from __future__ import annotations
@@ -78,6 +79,7 @@ from ..observability import lifecycle as _lc
 from ..observability.audit import AuditConfig
 from ..observability.metrics import MetricsRegistry
 from . import wire
+from .aot import AotError, read_manifest
 from .engine import EngineConfig
 from .fleet import EngineReplica, FleetConfig, FleetRouter, _key_int
 from .metrics import ServingMetrics
@@ -177,10 +179,12 @@ class ProcessFleetConfig:
     audit_enabled: bool = False
     audit_sample_every: int = 1
     seed: int = 0
-    aot_path: Optional[str] = None     # AOT artifacts: ROADMAP A9 rest
+    aot_path: Optional[str] = None     # shared artifact every worker
+    # boots from (--aot-path); its model hash pins the handshake
     compile_cache: Optional[str] = None  # the kernels' build directory:
     # N sibling workers on one directory run nvcc once
-    warm_boot: bool = False            # AOT warm boot: ROADMAP A9 rest
+    warm_boot: bool = False            # --warm: capture the artifact's
+    # universe before the ready line
     heartbeat_interval_s: float = 0.25
     heartbeat_timeout_s: float = 2.0   # silent control conn -> dead
     boot_timeout_s: float = 180.0
@@ -196,6 +200,32 @@ class ProcessFleetConfig:
     python: str = sys.executable
     fleet: Optional[FleetConfig] = None  # router knobs (fault plan,
                                          # alert rules, flight dir, ...)
+
+
+class AotManifestHandle:
+    """Manifest-only stand-in for a loaded AOT artifact, shared by every
+    proxy.  The router process loads no kernel (only the workers serve);
+    it needs ONE object identity, so the fleet's same-artifact gate holds
+    across proxies, and the ``model_hash`` the wire handshake pins: a
+    router and a worker booted off different artifacts refuse each other
+    at connect time."""
+
+    def __init__(self, path: str, manifest: Dict):
+        self.path = path
+        self.manifest = manifest
+        self.load_seconds = 0.0
+
+    @classmethod
+    def load(cls, path: str) -> "AotManifestHandle":
+        return cls(path, read_manifest(path))
+
+    @property
+    def model_hash(self) -> str:
+        return self.manifest["model_hash"]
+
+    @property
+    def program_count(self) -> int:
+        return len(self.manifest.get("programs", []))
 
 
 class WorkerHandle:
@@ -240,6 +270,10 @@ class WorkerHandle:
         its stderr pump; :meth:`wait_ready` reads its ready line."""
         cmd = [cfg.python, "-m", "paddle_tpu_torch.serving.worker",
                "--replica", str(index), "--spec", json.dumps(spec)]
+        if cfg.aot_path:
+            cmd += ["--aot-path", cfg.aot_path]
+        if cfg.warm_boot:
+            cmd += ["--warm"]
         if cfg.compile_cache:
             cmd += ["--compile-cache", cfg.compile_cache]
         env = dict(os.environ)
@@ -443,6 +477,10 @@ class _StepProfProxy:
         data = self._p.debug_fetch("compile_totals", {})
         return data if isinstance(data, dict) else {}
 
+    def aot_snapshot(self) -> Dict:
+        data = self._p.debug_fetch("aot", {})
+        return data if isinstance(data, dict) else {}
+
     def arm_capture(self, steps: int):
         # RuntimeError -> HTTP 400 on /v1/debug/profile: a capture
         # window needs the in-process profiler object
@@ -510,6 +548,7 @@ class WorkerEngineProxy:
         # its own engine tracer in-process)
         self.tracer = self.metrics.tracer
         self.audit = _AuditProxy(self, shared.template_audit)
+        self.aot_artifact = shared.aot_handle
         self.stepprof = _StepProfProxy(self)
         self.cachestat = _CacheStatProxy(self)
         self.kv = _KvProxy(self)
@@ -586,15 +625,26 @@ class WorkerEngineProxy:
                                          shared.worker_spec(self.index))
         self.worker = handle
         handle.wait_ready()
+        # the same-artifact gate: every worker boots off the fleet's one
+        # artifact (its model hash), respawns included
+        expect = (shared.aot_handle.model_hash
+                  if shared.aot_handle is not None else None)
+        if handle.aot_hash != expect:
+            got = handle.aot_hash
+            handle.stop(grace_s=0.5)
+            raise WorkerDied(
+                f"worker {self.index} booted artifact hash {got!r} but "
+                f"the fleet shares {expect!r} — artifact drift between "
+                "router and worker")
         labels = {"replica": str(self.index)}
         deploy = shared.deploy(self.index)
         self._engine_conn = wire.connect(
             "127.0.0.1", self.worker.port, role="engine",
-            aot_hash=None, registry=shared.registry, labels=labels,
+            aot_hash=expect, registry=shared.registry, labels=labels,
             side="router", deploy=deploy)
         self._control_conn = wire.connect(
             "127.0.0.1", self.worker.port, role="control",
-            aot_hash=None, registry=shared.registry, labels=labels,
+            aot_hash=expect, registry=shared.registry, labels=labels,
             side="router", deploy=deploy)
         # fresh merger per incarnation: its delta baselines reset with
         # the new worker's (zeroed) counters, so shared-registry totals
@@ -730,6 +780,16 @@ class WorkerEngineProxy:
         if reply.get("type") != "ok":
             raise WorkerDied(
                 f"worker {self.index} rejected the fault plan: {reply!r}")
+
+    def bind_aot(self, artifact, record_load: bool = False) -> None:
+        """The supervisor's rebind: a worker proxy holds the fleet's one
+        manifest handle, and any other artifact is drift."""
+        if artifact is self.aot_artifact:
+            return
+        raise AotError(
+            "a process fleet shares ONE manifest handle; rebinding a "
+            "different artifact object onto a worker proxy is always "
+            "router/worker drift")
 
     # --- EngineCore surface: request path (engine thread only) --------------
     def add_request(self, prompt_ids, sampling: Optional[SamplingParams]
@@ -1083,11 +1143,9 @@ class _SharedState:
 
     def __init__(self, cfg: ProcessFleetConfig,
                  registry: MetricsRegistry):
-        if cfg.aot_path or cfg.warm_boot:
-            raise NotImplementedError(
-                "ProcessFleetConfig aot_path/warm_boot: AOT serving "
-                "artifacts are not ported to paddle_tpu_torch yet "
-                "(ROADMAP A9 rest)")
+        if cfg.warm_boot and not cfg.aot_path:
+            raise ValueError("ProcessFleetConfig warm_boot needs aot_path "
+                             "(it warms the artifact's universe)")
         if int(cfg.mp) > 1:
             raise NotImplementedError(
                 f"ProcessFleetConfig mp={cfg.mp}: tensor-parallel "
@@ -1095,6 +1153,9 @@ class _SharedState:
                 "(ROADMAP A11)")
         self.cfg = cfg
         self.registry = registry
+        # the fleet's artifact (ProcessFleet sets it from cfg.aot_path):
+        # ONE manifest handle shared by every proxy
+        self.aot_handle: Optional[AotManifestHandle] = None
         # ONE template per fleet: the router's homogeneity gates compare
         # these across proxies (audit cfg by value, engine knobs by
         # field)
@@ -1267,6 +1328,9 @@ class ProcessFleet:
         self.registry = (registry if registry is not None
                          else MetricsRegistry(max_series=4096))
         self.shared = _SharedState(self.cfg, self.registry)
+        if self.cfg.aot_path:
+            self.shared.aot_handle = AotManifestHandle.load(
+                self.cfg.aot_path)
         self.shared.initial_live = (
             self.cfg.dp if initial_replicas is None
             else max(1, min(int(initial_replicas), self.cfg.dp)))

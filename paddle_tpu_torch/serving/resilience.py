@@ -589,11 +589,46 @@ class FleetSupervisor:
     def _rebuild(self, index: int, cause: str) -> bool:
         """Fresh engine + replica + thread on the same index, rewired
         onto the fleet's shared tracker/flight/injector exactly like
-        :meth:`FleetRouter.__init__` wired the original.  Returns True
-        (the JAX supervisor's False, a rebuild that cannot match the
-        fleet's AOT artifact, comes with artifacts, ROADMAP A9 rest)."""
+        :meth:`FleetRouter.__init__` wired the original.  Returns False
+        when the replica was permanently excluded instead (the rebuild
+        cannot match the fleet's AOT artifact).  A rebuilt replica is
+        bound to the fleet's ONE loaded artifact (``record_load=False``:
+        no load happened here).  In a warmed fleet
+        (``FleetRouter.warm_aot``) it captures the whole universe before
+        it serves; otherwise its graphs capture each key at first use,
+        counted in ``graphs.captures`` only."""
+        from .aot import AotError
+
         router = self.router
-        eng = self.factory(index, router.registry)
+        try:
+            eng = self.factory(index, router.registry)
+            if router.aot_artifact is None:
+                if eng.aot_artifact is not None:
+                    # the build-time fleet gate, on rebuild: an open
+                    # fleet must not gain an AOT replica
+                    raise AotError(
+                        "rebuild factory bound an AOT artifact but the "
+                        "fleet serves without one — a mixed fleet is "
+                        "refused at build and on rebuild alike")
+            elif eng.aot_artifact is not router.aot_artifact:
+                # reuse the fleet's artifact even when the factory did
+                # not thread it through; validate() inside still fails
+                # loudly on a genuine deployment mismatch
+                eng.bind_aot(router.aot_artifact, record_load=False)
+        except AotError as e:
+            # deterministic drift between the rebuild factory and the
+            # fleet's artifact: retrying would fail the same way forever,
+            # so exclude the replica permanently and loudly
+            sys.stderr.write(
+                f"[supervisor] replica {index} rebuild cannot match "
+                f"the fleet's AOT configuration: {e}\n")
+            self._exclude(index, cause=f"aot_mismatch({cause})")
+            return False
+        if router.aot_warmed:
+            # a warmed fleet captures nothing while serving, the rebuilt
+            # replica included
+            router.aot_artifact.warm(eng, registry=router.registry,
+                                     labels={"replica": str(index)})
         eng.set_lifecycle(router.lifecycle, replica=str(index))
         eng.audit.bind_flight(router.flight, replica=str(index))
         if router.history is not None:

@@ -27,8 +27,9 @@ live-locking the queue; the engine pads each step to a size bucket
 (:func:`bucket_size`).  Each plan carries the decode-burst headroom
 (``burst_capacity``), and the scheduler keeps the planned-token ledger
 (``tokens_planned``) and the speculative-decode draft budget
-(``draft_budget``).  The AOT sequence cap of the JAX scheduler comes with
-AOT artifacts (ROADMAP A9 rest).
+(``draft_budget``).  An engine bound to an AOT artifact sets
+``seq_len_cap``: a request longer than the artifact's bound is rejected at
+admission.
 """
 
 from __future__ import annotations
@@ -145,6 +146,9 @@ class ContinuousBatchingScheduler:
         # (by the end of the step they are already in the pool's allocated
         # count: promised is not extra capacity)
         self.promised_blocks = 0
+        # the AOT bound (EngineCore.bind_aot): a request whose prompt +
+        # max_new_tokens outgrows it is aborted at admission.  None = no cap
+        self.seq_len_cap: Optional[int] = None
 
     # --- queue ops ----------------------------------------------------------
     def add(self, req: Request) -> None:
@@ -242,6 +246,23 @@ class ContinuousBatchingScheduler:
             req = self.waiting[0]
             ids = req.prompt_ids + req.output_tokens
             prompt_blocks = self.kv.blocks_for(len(ids))
+            target_len = len(req.prompt_ids) + req.sampling.max_new_tokens
+            if self.seq_len_cap is not None \
+                    and target_len > self.seq_len_cap:
+                # outside the AOT artifact's saved bucket universe: fail it
+                # at admission instead of raising AotBucketMissing from the
+                # engine thread mid-stream
+                self.waiting.popleft()
+                req.state = RequestState.FINISHED
+                req.finish_reason = FinishReason.ABORT
+                req.error = (
+                    f"request targets {target_len} tokens (prompt "
+                    f"{len(req.prompt_ids)} + max_new_tokens "
+                    f"{req.sampling.max_new_tokens}) but the AOT "
+                    f"artifact was saved for max_seq_len="
+                    f"{self.seq_len_cap}; re-save with a larger bound")
+                out.aborted.append(req)
+                continue
             if prompt_blocks > self._usable_blocks():
                 # can never fit, even with the whole pool: fail THIS request
                 # honestly rather than live-locking everyone behind it

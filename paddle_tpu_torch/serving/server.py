@@ -87,8 +87,20 @@ each step's wall to host, wire and engine::
     python -m paddle_tpu_torch.serving.server --workers 2 --device cpu \
         --layers 2 --selftest
 
-AOT artifacts (``--aot-*``) are ROADMAP A9 rest, tensor-parallel serving
-(``--mp`` > 1) is A11: those flags exit non-zero naming their item.
+AOT serving artifacts (``serving/aot.py``): ``--aot-save DIR`` saves the
+configured engine's bucket universe (bounded by ``--aot-max-seq``,
+default 128) and exits; ``--aot-path DIR`` serves every replica (in
+process, ``--selftest`` or ``--workers``) off that one artifact with no
+capture counted after boot; ``--aot-warm`` captures the whole universe at
+save (on the saving engine), or on every replica or worker at boot::
+
+    python -m paddle_tpu_torch.serving.server --device cpu --layers 2 \
+        --blocks 64 --aot-save /tmp/art --aot-max-seq 32
+    python -m paddle_tpu_torch.serving.server --device cpu --layers 2 \
+        --blocks 64 --aot-path /tmp/art --aot-warm --selftest
+
+Tensor-parallel serving (``--mp`` > 1) is ROADMAP A11: it exits non-zero
+naming its item.
 """
 
 from __future__ import annotations
@@ -838,9 +850,9 @@ class CompletionServer:
                     rows = [dict(row, replica=str(r.index))
                             for row in sp.compile_table()]
                     tots = list(sp.compile_totals().items())
-                    # AOT attribution: no artifact is ever bound here
-                    # (AOT serving artifacts are ROADMAP A9 rest)
-                    aot[str(r.index)] = {"loaded": False}
+                    # AOT attribution: with an artifact bound the
+                    # compile table stays empty and the hits count here
+                    aot[str(r.index)] = sp.aot_snapshot()
                 except Exception:
                     aot[str(r.index)] = {"status": "restarting"}
                     continue
@@ -1150,12 +1162,11 @@ class CompletionServer:
 # CLI flags of the JAX server that wait for later items of the port: each
 # one exits non-zero naming its ROADMAP item, none is silently ignored
 _WAITING_FLAGS = (
-    ("aot_save", "--aot-save", "AOT serving artifacts", "A9 rest"),
-    ("aot_path", "--aot-path", "AOT serving artifacts", "A9 rest"),
-    ("aot_warm", "--aot-warm", "AOT serving artifacts", "A9 rest"),
-    ("aot_max_seq", "--aot-max-seq", "AOT serving artifacts", "A9 rest"),
     ("mp", "--mp > 1", "tensor-parallel serving", "A11"),
 )
+
+# --aot-save's bound when --aot-max-seq is not given (the JAX CLI's)
+_AOT_MAX_SEQ = 128
 
 
 def _toy_model(layers: int = 2, device=None):
@@ -1181,7 +1192,7 @@ def _toy_engine(model, num_blocks: int = 64, block_size: int = 4,
                 unified: bool = False,
                 max_tokens_per_step: Optional[int] = None,
                 spec=None, burst_steps: int = 0,
-                role: str = "unified") -> EngineCore:
+                role: str = "unified", aot=None) -> EngineCore:
     from .engine import EngineConfig
     from .scheduler import SchedulerConfig
 
@@ -1197,7 +1208,7 @@ def _toy_engine(model, num_blocks: int = 64, block_size: int = 4,
                                           scheduler=scheduler,
                                           spec=spec,
                                           burst_steps=burst_steps,
-                                          role=role),
+                                          aot=aot, role=role),
                       registry=registry, metrics_labels=metrics_labels)
 
 
@@ -1208,11 +1219,13 @@ def _toy_fleet(dp: int = 1, layers: int = 2, num_blocks: int = 64,
                fault_plan=None, alert_rules=None,
                max_tokens_per_step: Optional[int] = None,
                spec=None, burst_steps: int = 0,
-               roles=None, device=None) -> FleetRouter:
+               roles=None, device=None, aot=None) -> FleetRouter:
     """A dp-replica fleet of toy engines on one shared registry, with
     per-replica-labeled serving series.  The replicas share ONE model
     module (the port's step writes no module state), so the supervisor's
-    rebuild through the same factory serves the same weights."""
+    rebuild through the same factory serves the same weights.  ``aot`` is
+    ONE loaded :class:`~paddle_tpu_torch.serving.aot.AotArtifact` shared
+    by every replica — the fleet refuses per-replica loads."""
     model = _toy_model(layers, device)
     return FleetRouter.build(
         lambda i, registry: _toy_engine(
@@ -1220,7 +1233,7 @@ def _toy_fleet(dp: int = 1, layers: int = 2, num_blocks: int = 64,
             metrics_labels={"replica": str(i)}, audit=audit,
             unified=unified, max_tokens_per_step=max_tokens_per_step,
             spec=spec, burst_steps=burst_steps,
-            role=(roles[i] if roles else "unified")),
+            role=(roles[i] if roles else "unified"), aot=aot),
         dp=dp, config=FleetConfig(max_queue=max_queue,
                                   flight_dir=flight_dir,
                                   fault_plan=fault_plan,
@@ -1243,20 +1256,52 @@ def _http(port: int, method: str, path: str, body: Optional[dict] = None):
     return status, data
 
 
+def _load_aot(path: Optional[str], device=None):
+    """ONE artifact load for the whole in-process fleet (every replica
+    and every supervisor rebuild binds it), or None.  ``device`` is the
+    replicas' (None: the card)."""
+    if not path:
+        return None
+    from ..device import resolve_device
+    from .aot import AotArtifact
+
+    aot = AotArtifact.load(path, device=resolve_device(device))
+    print(f"aot: loaded {aot.program_count} program(s) from {path} in "
+          f"{aot.load_seconds:.3f}s", flush=True)
+    return aot
+
+
+def _warm_fleet(fleet) -> None:
+    """``--aot-warm`` in process: capture the artifact's universe on
+    every replica before the server starts (and on every replica the
+    supervisor rebuilds, before it serves)."""
+    for i, wall in fleet.warm_aot().items():
+        print(f"aot-warm: replica {i} captured "
+              f"{fleet.engines[i].graphs.captures} step program(s) in "
+              f"{wall:.3f}s", flush=True)
+
+
 async def _selftest_async(dp: int = 1, audit_sample: int = 1,
                           unified: bool = False, layers: int = 2,
-                          blocks: int = 64, device=None) -> int:
+                          blocks: int = 64, device=None,
+                          aot_path: Optional[str] = None,
+                          aot_warm: bool = False) -> int:
     from ..observability.audit import AuditConfig
 
     loop = asyncio.get_running_loop()
     # the selftest always exercises the numerics-audit surface: every step
     # sampled by default, so the probe completion runs with the shadow
-    # oracle live and must come back divergence-free
+    # oracle live and must come back divergence-free.  With --aot-path the
+    # probe must then serve with zero traces (and, warmed, no capture)
+    aot = _load_aot(aot_path, device)
     fleet = _toy_fleet(dp=dp, layers=layers, num_blocks=blocks,
                        audit=AuditConfig(
                            enabled=True,
                            sample_every=max(1, audit_sample)),
-                       unified=unified, device=device)
+                       unified=unified, device=device, aot=aot)
+    if aot is not None and aot_warm:
+        _warm_fleet(fleet)
+    captures0 = sum(e.graphs.captures for e in fleet.engines)
     server = CompletionServer(fleet, ServerConfig(port=0))
     engine = server.engine
     await server.start()
@@ -1307,9 +1352,31 @@ async def _selftest_async(dp: int = 1, audit_sample: int = 1,
                 or any(sum(row["divergences"].values())
                        or row["oracle_failures"] for row in audit["data"])):
             raise RuntimeError(f"/v1/debug/audit {status}: {audit}")
+        if aot is not None:
+            # served inside the artifact's universe: no trace counter
+            # moved, the compile table is empty, every replica is bound
+            traces = sum(e.prefill_trace_count + e.decode_trace_count
+                         + e.ragged_trace_count + e.burst_trace_count
+                         for e in fleet.engines)
+            if traces:
+                raise RuntimeError(f"AOT selftest traced {traces} "
+                                   "program(s)")
+            if aot_warm and sum(e.graphs.captures for e in fleet.engines) \
+                    != captures0:
+                raise RuntimeError("a warmed AOT fleet captured while "
+                                   "serving")
+            status, data = await loop.run_in_executor(
+                None, _http, server.port, "GET", "/v1/debug/compiles",
+                None)
+            obj = json.loads(data)
+            if status != 200 or obj["data"] or not all(
+                    row["loaded"] for row in obj["aot"].values()):
+                raise RuntimeError(f"/v1/debug/compiles {status}: {obj}")
         print(f"selftest: OK (port {server.port}, dp={fleet.dp}, "
               f"mp={engine.mp}, device {engine.device}, tokens "
-              f"{choice['token_ids']}, audited launches {audited})")
+              f"{choice['token_ids']}, audited launches {audited}"
+              + (f", aot programs {aot.program_count}, zero traces"
+                 if aot is not None else "") + ")")
         return 0
     finally:
         await server.shutdown(drain_timeout=2.0)
@@ -1338,6 +1405,7 @@ def _build_procfleet(args, fault_plan=None, alert_rules=None):
         audit_enabled=bool(args.audit_sample),
         audit_sample_every=args.audit_sample or 1,
         compile_cache=args.compile_cache,
+        aot_path=args.aot_path, warm_boot=args.aot_warm,
         roles=args.roles_list,
         fleet=FleetConfig(max_queue=args.max_queue,
                           flight_dir=args.flight_dir,
@@ -1396,13 +1464,23 @@ async def _selftest_procfleet_async(args) -> int:
         wire = json.loads(data) if status == 200 else {}
         if not wire.get("enabled") or wire.get("steps", 0) < 1:
             raise RuntimeError(f"/v1/debug/wire {status}: {wire}")
+        if args.aot_path:
+            # every worker booted off the artifact and traced nothing
+            status, data = await loop.run_in_executor(
+                None, _http, server.port, "GET", "/v1/debug/compiles",
+                None)
+            obj = json.loads(data)
+            if status != 200 or obj["data"] or not all(
+                    row.get("loaded") for row in obj["aot"].values()):
+                raise RuntimeError(f"/v1/debug/compiles {status}: {obj}")
         if args.autoscale and (pf.autoscaler is None
                                or not pf.autoscaler._thread.is_alive()):
             raise RuntimeError("autoscaler actuator thread is not live")
         print(f"selftest: OK (port {server.port}, workers={args.workers},"
               f" device {server.engine.device}, tokens "
               f"{choice['token_ids']}, wire steps {wire['steps']}"
-              + (", autoscaler live" if args.autoscale else "") + ")")
+              + (", autoscaler live" if args.autoscale else "")
+              + (", aot zero traces" if args.aot_path else "") + ")")
         return 0
     finally:
         await server.shutdown(drain_timeout=2.0)
@@ -1439,6 +1517,7 @@ async def _serve_cli(args) -> int:
             from .spec import SpecConfig
 
             spec = SpecConfig(**spec_kwargs)
+        aot = _load_aot(args.aot_path, args.device)
         fleet = _toy_fleet(dp=args.dp, layers=args.layers,
                            num_blocks=args.blocks,
                            max_queue=args.max_queue,
@@ -1447,7 +1526,10 @@ async def _serve_cli(args) -> int:
                            alert_rules=alert_rules,
                            max_tokens_per_step=args.max_tokens_per_step,
                            spec=spec, burst_steps=args.burst,
-                           roles=args.roles_list, device=args.device)
+                           roles=args.roles_list, device=args.device,
+                           aot=aot)
+        if aot is not None and args.aot_warm:
+            _warm_fleet(fleet)
     supervisor = None
     if args.max_restarts > 0:
         # self-healing by default: dead replicas restart under capped
@@ -1620,13 +1702,29 @@ def main(argv=None) -> int:
                         "workers' CUDA kernels — sibling workers on one "
                         "DIR run nvcc once, and a later boot on DIR "
                         "builds nothing")
-    waiting = p.add_argument_group(
-        "flags of later items of the port (each exits naming its item)")
-    waiting.add_argument("--aot-save", default=None, metavar="DIR")
-    waiting.add_argument("--aot-path", default=None, metavar="DIR")
-    waiting.add_argument("--aot-warm", action="store_true")
-    waiting.add_argument("--aot-max-seq", type=int, default=None,
-                         metavar="T")
+    p.add_argument("--aot-save", default=None, metavar="DIR",
+                   help="save the configured engine's closed bucket "
+                        "universe (--layers/--blocks/--unified/--burst/"
+                        "--max-tokens-per-step) as an AOT artifact "
+                        "directory (manifest, the kernels' libraries), "
+                        "then exit")
+    p.add_argument("--aot-path", default=None, metavar="DIR",
+                   help="serve off a saved AOT artifact: every replica, "
+                        "worker and supervisor rebuild shares it, and no "
+                        "engine counts a trace (a mismatch fails at "
+                        "boot); composes with --selftest and --workers")
+    p.add_argument("--aot-max-seq", type=int, default=None, metavar="T",
+                   help=f"--aot-save: bound the saved universe to "
+                        f"sequences of at most T tokens (default "
+                        f"{_AOT_MAX_SEQ}; the pool capacity caps it "
+                        "either way)")
+    p.add_argument("--aot-warm", action="store_true",
+                   help="with --aot-save: capture every step program on "
+                        "the saving engine (proves each captures; "
+                        "nothing of it persists); with --aot-path: every "
+                        "replica or worker captures the universe at boot, "
+                        "so serving captures nothing (recorded as "
+                        "serving_aot_warm_seconds)")
     p.add_argument("--selftest", action="store_true",
                    help="boot on an ephemeral port, serve one completion "
                         "against the toy fleet through the router path, "
@@ -1686,14 +1784,57 @@ def main(argv=None) -> int:
             p.error(f"--spec-k must be >= 0, got {args.spec_k}")
     if args.burst < 0:
         p.error(f"--burst must be >= 0, got {args.burst}")
+    if args.aot_max_seq is not None:
+        if not args.aot_save:
+            p.error("--aot-max-seq bounds the universe --aot-save saves; "
+                    "it requires --aot-save")
+        if args.aot_max_seq < 1:
+            p.error(f"--aot-max-seq must be >= 1, got {args.aot_max_seq}")
+    if args.aot_save and args.aot_path:
+        p.error("--aot-save writes an artifact and exits, --aot-path "
+                "serves one — pick one")
+    if args.aot_warm and not (args.aot_save or args.aot_path):
+        p.error("--aot-warm warms an artifact's universe: it requires "
+                "--aot-save or --aot-path")
+    if args.aot_path:
+        import os
+
+        if not os.path.exists(os.path.join(args.aot_path,
+                                           "manifest.json")):
+            p.error(f"--aot-path {args.aot_path}: no AOT artifact there "
+                    "(manifest.json missing: unsaved, or a save was torn "
+                    "before commit)")
+    if args.aot_save:
+        return _aot_save_cli(args)
     if args.selftest:
         if args.workers:
             return asyncio.run(_selftest_procfleet_async(args))
         return asyncio.run(_selftest_async(
             dp=args.dp, audit_sample=args.audit_sample or 1,
             unified=args.unified, layers=args.layers, blocks=args.blocks,
-            device=args.device))
+            device=args.device, aot_path=args.aot_path,
+            aot_warm=args.aot_warm))
     return asyncio.run(_serve_cli(args))
+
+
+def _aot_save_cli(args) -> int:
+    """``--aot-save``: save the configured toy engine's universe; with
+    ``--aot-warm`` capture every key of it on that saving engine."""
+    from .aot import AotArtifact
+
+    eng = _toy_engine(_toy_model(args.layers, args.device),
+                      num_blocks=args.blocks, unified=args.unified,
+                      max_tokens_per_step=args.max_tokens_per_step,
+                      burst_steps=args.burst)
+    art = AotArtifact.save(eng, args.aot_save,
+                           max_seq_len=args.aot_max_seq or _AOT_MAX_SEQ)
+    print("aot-save: " + json.dumps(art.describe(), indent=1), flush=True)
+    if args.aot_warm:
+        wall = art.warm(eng)
+        print(f"aot-warm: captured {eng.graphs.captures} step program(s) "
+              f"of {art.program_count} bucket(s) in {wall:.3f}s",
+              flush=True)
+    return 0
 
 
 if __name__ == "__main__":

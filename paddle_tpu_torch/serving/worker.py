@@ -8,14 +8,19 @@ way an in-process fleet drives a live engine, so FleetRouter and
 FleetSupervisor transfer unchanged.
 
 Boot protocol: the worker binds an ephemeral localhost port, builds its
-engine, loads every CUDA kernel that engine will launch, then prints ONE
-machine-readable ready line to stdout::
+engine (optionally onto a shared ``--aot-path`` artifact, whose manifest
+``model_hash`` becomes the handshake's ``aot_hash``; ``--warm`` captures
+the artifact's whole universe before the ready line), loads every CUDA
+kernel that engine will launch, then prints ONE machine-readable ready
+line to stdout::
 
     PADDLE_TPU_WORKER_READY port=<p> pid=<pid> aot_hash=<h> boot_s=<s>
 
 The parent reads that line to learn the port; everything after it is
-free-form logging.  ``boot_s`` spans the engine build and the kernels'
-build and load, so no step and no heartbeat ever waits on ``nvcc``.
+free-form logging.  ``boot_s`` spans the engine build, the kernels'
+build and load and the warm, so no step and no heartbeat ever waits on
+``nvcc`` or a capture.  A worker booted off an artifact loads the kernels
+from the artifact's ``kernels/`` and runs no ``nvcc``.
 With ``--compile-cache DIR`` the kernels are built into (or loaded from)
 ``DIR`` instead of ``paddle_tpu_torch/_build/``, under a cross-process
 lock on the directory, so N sibling workers run ``nvcc`` once; the boot
@@ -49,19 +54,21 @@ The port's departures from the JAX worker:
   on the card and take the JAX package's weights on the CPU.  The keys
   ride the handshake's deployment identity, so a worker built otherwise
   than the router expects answers ``deploy_mismatch``.
-* **A ``launches`` field** in the ``describe`` debug reply: this
+* **``launches`` and ``captures`` fields** in the ``describe`` debug
+  reply.  ``captures``: the step graphs this process's engine captured
+  (with an artifact bound the trace counters stay 0, and this shows
+  whether serving captured anything after a warm boot).  ``launches``: this
   process's ragged and decode kernel launch counts by route, beside the
   launches its engine's steps call for (once per layer per unified step;
   once per layer per decode step and burst iteration), so the router can
   check the launch rule for a process whose counters it cannot read.
-  ``traces.prefill`` is ``None``: the port's prefill families run eagerly
-  (ROADMAP A6 rest).
 * **Hand-off timings**: ``kv_run_begin`` and ``kv_import_ok`` carry
   ``t``, the seconds of each part of the export (gather, device-to-host,
   digest, framing) and of the import (receive, assemble, verify, pool
   import, scatter); a router that does not read them loses nothing.
-* ``mp`` > 1 raises, naming ROADMAP A11; ``--aot-path`` and ``--warm``
-  raise, naming "A9 rest", as ``EngineConfig(aot=...)`` does.
+* ``mp`` > 1 raises, naming ROADMAP A11.  ``--warm`` captures the step
+  graphs of the artifact's universe on this worker's engine (the JAX
+  worker executes the loaded programs once), and needs ``--aot-path``.
 """
 
 from __future__ import annotations
@@ -74,7 +81,7 @@ import sys
 import threading
 import time
 import traceback
-from typing import Dict, List, Optional
+from typing import Dict, Optional
 
 from . import wire
 
@@ -128,7 +135,7 @@ def _model(spec: Dict, dev):
     return LlamaForCausalLM(cfg, device=dev, dtype=dtype, generator=gen)
 
 
-def build_engine(spec: Dict, replica: int, registry):
+def build_engine(spec: Dict, replica: int, registry, aot=None):
     """Deterministic engine factory, mirroring the server's ``_toy_fleet``
     shape: one model instance, per-replica metric labels.  The spec is
     the SAME dict the router's proxies template their gate attributes
@@ -174,30 +181,17 @@ def build_engine(spec: Dict, replica: int, registry):
             max_prefill_tokens_per_step=spec.get(
                 "max_prefill_tokens_per_step"),
             max_tokens_per_step=spec.get("max_tokens_per_step")),
-        audit=audit, spec=spec_decode, **kwargs)
+        audit=audit, aot=aot, spec=spec_decode, **kwargs)
     return EngineCore(model, config=cfg, registry=registry,
                       metrics_labels={"replica": str(replica)})
 
 
-def engine_kernels(engine) -> List[str]:
-    """The CUDA kernels ``engine`` launches: the ragged kernel for the
-    unified step, the decode kernel for the legacy decode step and its
-    bursts; none on the CPU or with the plain versions pinned."""
-    from ..ops import paged_decode, ragged_paged
-
-    if engine.device.type != "cuda" \
-            or engine.engine_config.use_pallas_paged is False:
-        return []
-    if engine.engine_config.unified_step:
-        return [ragged_paged._KERNEL]
-    return [paged_decode._KERNEL]
-
-
 def launch_report(engine) -> Dict:
-    """This process's kernel launches by route, and those its engine's
-    steps call for: the ragged kernel once per layer per unified step,
-    the decode kernel once per layer per decode step and burst iteration
-    (the legacy prefill families and the hand-off launch neither)."""
+    """This process's kernel launches by route since its ready line, and
+    those its engine's steps call for: the ragged kernel once per layer
+    per unified step, the decode kernel once per layer per decode step
+    and burst iteration (the legacy prefill families and the hand-off
+    launch neither)."""
     from ..ops import paged_decode as pd
     from ..ops import ragged_paged as rp
 
@@ -513,7 +507,7 @@ class WorkerHost:
             elif what == "compile_totals":
                 data = eng.stepprof.compile_totals()
             elif what == "aot":
-                data = {"loaded": False}  # AOT artifacts: ROADMAP A9 rest
+                data = eng.stepprof.aot_snapshot()
             elif what == "records":
                 data = eng.stepprof.records()
             elif what == "metrics":
@@ -523,11 +517,12 @@ class WorkerHost:
                         "aot_hash": self.aot_hash,
                         "deploy": wire.canonical_deploy(self.deploy),
                         "traces": {
-                            "prefill": None,  # eager: ROADMAP A6 rest
+                            "prefill": eng.prefill_trace_count,
                             "decode": eng.decode_trace_count,
                             "ragged": eng.ragged_trace_count,
                             "burst": eng.burst_trace_count},
                         "launches": launch_report(eng),
+                        "captures": eng.graphs.captures,
                         **self._state()}
             else:
                 return wire.error_frame(
@@ -693,20 +688,23 @@ def main(argv=None) -> int:
                         "preset/dtype/device/weights/max_seq_len) — must "
                         "match the router's proxy template exactly")
     p.add_argument("--aot-path", default=None,
-                   help="AOT serving artifacts are ROADMAP A9 rest: "
-                        "raises")
+                   help="boot off this shared AOT artifact (its kernels "
+                        "load from it, no nvcc); its manifest model_hash "
+                        "becomes the handshake hash the router must "
+                        "present")
     p.add_argument("--compile-cache", default=None, metavar="DIR",
                    help="build directory of the CUDA kernels: sibling "
                         "workers on one DIR run nvcc once (a lock on the "
                         "directory serializes their builds)")
     p.add_argument("--warm", action="store_true",
-                   help="AOT warm boot is ROADMAP A9 rest: raises")
+                   help="capture every step graph of the artifact's "
+                        "universe before the ready line (serving then "
+                        "captures nothing); needs --aot-path")
     p.add_argument("--max-frame", type=int, default=wire.MAX_FRAME_BYTES)
     args = p.parse_args(argv)
-    if args.aot_path or args.warm:
-        raise NotImplementedError(
-            "--aot-path / --warm: AOT serving artifacts are not ported to "
-            "paddle_tpu_torch yet (ROADMAP A9 rest)")
+    if args.warm and not args.aot_path:
+        p.error("--warm needs --aot-path (it warms the artifact's "
+                "universe)")
 
     t0 = time.perf_counter()
     from ..observability.metrics import MetricsRegistry
@@ -715,15 +713,42 @@ def main(argv=None) -> int:
     if args.compile_cache:
         _build.set_build_dir(args.compile_cache)
     entries_before = _build.count_libraries(args.compile_cache)
+    from . import graphs
+    from .aot import AotArtifact, AotError, engine_kernels
+
     registry = MetricsRegistry()
     spec = json.loads(args.spec)
-    engine = build_engine(spec, args.replica, registry)
+    aot = aot_hash = None
+    if args.aot_path:
+        # the artifact's kernels load here, from its kernels/ directory
+        # (the engine's bind holds it to the engine's platform and card)
+        aot = AotArtifact.load(args.aot_path)
+        aot_hash = aot.manifest["model_hash"]
+    engine = build_engine(spec, args.replica, registry, aot=aot)
     # every kernel this engine launches is built and loaded BEFORE the
-    # ready line: no step and no heartbeat waits on nvcc
+    # ready line: no step and no heartbeat waits on nvcc.  Booted off an
+    # artifact, they were loaded from it and nothing is built.
     kernels = engine_kernels(engine)
-    _build.build(kernels)
+    if aot is None:
+        _build.build(kernels)
+    else:
+        missing = sorted(set(kernels) - set(aot.manifest["kernels"]))
+        if missing:
+            raise AotError(f"the artifact at {args.aot_path!r} holds no "
+                           f"library of kernel(s) {missing}, which this "
+                           "engine launches; re-save it")
     for name in kernels:
         _build.load(name)
+    if args.warm:
+        wall = aot.warm(engine, registry=registry,
+                        labels={"replica": str(args.replica)})
+        print(f"[worker {args.replica}] warmed {aot.program_count} "
+              f"program(s), {engine.graphs.captures} capture(s), in "
+              f"{wall:.3f}s, of which {engine.graphs.capture_seconds:.3f}s "
+              "capturing (the rest the eager first runs)", flush=True)
+        # the warm's first runs launched the kernels outside any step:
+        # the launch report counts from the ready line
+        graphs.reset_counters()
     entries_after = _build.count_libraries(args.compile_cache)
     if args.compile_cache:
         print(f"{CACHE_PREFIX} dir={args.compile_cache} "
@@ -731,11 +756,11 @@ def main(argv=None) -> int:
               f"entries_after={entries_after}", flush=True)
     boot_s = time.perf_counter() - t0
     registry.gauge("serving_worker_boot_seconds",
-                   "worker process boot wall (engine build + the "
-                   "kernels' build and load)",
+                   "worker process boot wall (engine build, artifact "
+                   "load, the kernels' build and load, optional warm)",
                    replica=str(args.replica)).set(boot_s)
 
-    host = WorkerHost(engine, registry, args.replica, None,
+    host = WorkerHost(engine, registry, args.replica, aot_hash,
                       args.max_frame,
                       telemetry=bool(spec.get("telemetry", False)),
                       deploy=deploy_identity(engine, spec))
@@ -745,7 +770,7 @@ def main(argv=None) -> int:
     server.listen(16)
     port = server.getsockname()[1]
     print(f"{READY_PREFIX} port={port} pid={os.getpid()} "
-          f"aot_hash=None boot_s={boot_s:.3f}", flush=True)
+          f"aot_hash={aot_hash} boot_s={boot_s:.3f}", flush=True)
 
     def _accept_loop() -> None:
         while not host.dead.is_set():

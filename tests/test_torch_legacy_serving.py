@@ -28,6 +28,8 @@ same weights (CPU, fp32, ``LlamaConfig.tiny`` at 2 layers).
   while prefill work is pending.
 """
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -60,6 +62,7 @@ from paddle_tpu_torch.serving import (
     SchedulerConfig,
     stream_generate,
 )
+from paddle_tpu_torch.serving import engine as engine_mod
 from paddle_tpu_torch.serving.burst import burst_eligible, clamp_burst
 from paddle_tpu_torch.serving.kv_manager import KVCacheManager
 
@@ -358,6 +361,47 @@ def test_legacy_engine_matches_jax(scenario):
     if scenario == "plain":
         assert ("prefill", 16) in eng.prefill_buckets
         assert {k for k, *_ in eng.decode_buckets} == {"decode"}
+    # the prefill families are step programs: one capture a (bucket,
+    # any_sampled) key, where the JAX engine traces once a bucket
+    n = len(eng.prefill_buckets)
+    if scenario == "mixed":
+        assert n <= eng.prefill_trace_count <= 2 * n
+    else:
+        assert eng.prefill_trace_count == n == jax_eng.prefill_trace_count
+    assert eng.metrics.counters["prefill_jit_traces"] == \
+        eng.prefill_trace_count
+
+
+def test_prefill_step_programs_take_tensors_only():
+    """Each prefill key's inputs are tensors (positions 0-d, never Python
+    ints read on the host, which a replay would repeat): ``last_pos`` and
+    the chunk's ``start`` are device data.  Two prompts of different
+    lengths in one one-shot bucket give the JAX engine's tokens."""
+    jax_eng, eng = _legacy_engines()
+    prompts = [PROMPTS[0][:9], PROMPTS[1][:13], PROMPTS[2][:16]]
+    want, got = _run_both(jax_eng, eng, prompts, 4)
+    assert got == want
+    assert ("prefill", 16) in eng.prefill_buckets
+    keys = [k for k in eng.graphs.programs if k[0] in ("prefill", "chunk")]
+    assert keys
+    for key in keys:
+        prog = eng.graphs.programs[key]
+        assert all(isinstance(a, torch.Tensor) for a in prog.inputs), key
+        names = engine_mod._PROGRAM_INPUTS[key[0]]
+        for name in ("start", "last_pos"):
+            if name in names:
+                t = prog.inputs[names.index(name)]
+                assert t.dim() == 0 and t.dtype == torch.int32, (key, name)
+    # the families take exactly their inputs, and no Python int
+    for fn, program in ((eng._prefill_fn, "prefill"),
+                        (eng._chunk_prefill_fn, "chunk")):
+        params = [p for p in inspect.signature(fn).parameters
+                  if p != "any_sampled"]
+        assert len(params) == len(engine_mod._PROGRAM_INPUTS[program]) + 4
+        assert all(isinstance(a, np.ndarray)
+                   for a in eng.program_inputs(program, (8,) if
+                                               program == "prefill"
+                                               else (8, 2)))
 
 
 def test_legacy_engine_warm_prefix_matches_jax():

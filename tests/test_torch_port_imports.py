@@ -12,8 +12,9 @@
   ``NotImplementedError`` naming its ROADMAP item, as do MoE layers,
   pipeline micro-batches, sep > 1 and gradient clipping; the legacy
   families, decode bursts, the auditor, a shared lifecycle tracker,
-  speculative decoding and the prefill/decode roles build and serve.
-  So do a process fleet's AOT settings and mp > 1, before any worker
+  speculative decoding, the prefill/decode roles and an AOT artifact
+  (``aot_path`` and ``aot``) build and serve.  A process fleet's mp > 1
+  raises naming A11, and its AOT settings are checked, before any worker
   process starts.
 """
 
@@ -31,6 +32,8 @@ from paddle_tpu_torch.observability import AuditConfig, LifecycleTracker
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.parallel.ring_attention import ring_flash_attention
 from paddle_tpu_torch.serving import (
+    AotArtifact,
+    AotError,
     EngineConfig,
     EngineCore,
     SamplingParams,
@@ -66,7 +69,10 @@ MUST_CHECK = ("utils/__init__.py", "utils/extension.py",
               # the cross-process fleet: the JAX worker imports JAX only
               # for its platform pin, procfleet.py and distrib.py none
               "serving/worker.py", "serving/procfleet.py",
-              "observability/distrib.py")
+              "observability/distrib.py",
+              # the AOT artifacts: the JAX module lowers through
+              # jax.export; the port's records signatures instead
+              "serving/aot.py")
 
 
 def _port_files():
@@ -165,6 +171,8 @@ def test_moe_layers_raise_at_construction():
 
 # ROADMAP items already ported: their settings build and serve
 PORTED = ("A7", "A8", "A9")
+# stand-ins for an artifact the test saves first: its path, or it loaded
+_SAVED, _LOADED = "<saved artifact>", "<loaded artifact>"
 
 
 @pytest.mark.parametrize("fields, item", [
@@ -176,21 +184,26 @@ PORTED = ("A7", "A8", "A9")
     (dict(spec=SpecConfig(k=4),
           scheduler=SchedulerConfig(max_tokens_per_step=16)), "A9"),
     # explicit ids keep these cases' names stable
-    pytest.param(dict(aot_path="artifact"), "A9 rest", id="fields6-A9"),
-    pytest.param(dict(aot=object()), "A9 rest", id="fields7-A9"),
+    pytest.param(dict(aot_path=_SAVED), "A9", id="fields6-A9"),
+    pytest.param(dict(aot=_LOADED), "A9", id="fields7-A9"),
     (dict(role="prefill"), "A9"),
     (dict(role="decode"), "A9"),
     (dict(mp=2), "A11"),
 ])
-def test_unported_engine_settings_raise(fields, item):
+def test_unported_engine_settings_raise(fields, item, tmp_path):
     """A setting of an item not ported yet raises naming the item; those of
     a ported item (A7: the legacy families, decode bursts; A8: the
     auditor, a shared lifecycle tracker; A9: speculative decoding, the
-    prefill and decode roles) build an engine that serves a request to its
-    end."""
+    prefill and decode roles, an AOT artifact by path or loaded) build an
+    engine that serves a request to its end."""
     model = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1),
                              device="cpu")
     cfg = dict(num_blocks=16, block_size=4, unified_step=True)
+    if _SAVED in fields.values() or _LOADED in fields.values():
+        path = str(tmp_path / "artifact")
+        AotArtifact.save(EngineCore(model, config=EngineConfig(**cfg)), path)
+        fields = ({"aot_path": path} if "aot_path" in fields
+                  else {"aot": AotArtifact.load(path)})
     cfg.update(fields)
     if item not in PORTED:
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
@@ -234,15 +247,21 @@ def test_supported_settings_build():
                                               role="router"))
 
 
-@pytest.mark.parametrize("fields, item", [
-    (dict(aot_path="artifact"), "A9 rest"),
-    (dict(warm_boot=True), "A9 rest"),
-    (dict(mp=2), "A11"),
+# explicit ids keep the cases' names from when the AOT settings raised
+# naming ROADMAP A9 rest
+@pytest.mark.parametrize("fields, error, message", [
+    pytest.param(dict(aot_path="artifact"), AotError,
+                 "manifest.json missing", id="fields0-A9 rest"),
+    pytest.param(dict(warm_boot=True), ValueError, "needs aot_path",
+                 id="fields1-A9 rest"),
+    pytest.param(dict(mp=2), NotImplementedError, "ROADMAP A11",
+                 id="fields2-A11"),
 ])
-def test_unported_process_fleet_settings_raise(fields, item):
-    """A process fleet's AOT artifact settings and mp > 1 raise naming
-    their item before any worker process is spawned."""
+def test_unported_process_fleet_settings_raise(fields, error, message):
+    """A process fleet's mp > 1 raises naming A11, an artifact path with no
+    artifact and a warm boot with no artifact are refused: all before any
+    worker process is spawned."""
     from paddle_tpu_torch.serving import ProcessFleet, ProcessFleetConfig
 
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    with pytest.raises(error, match=message):
         ProcessFleet(ProcessFleetConfig(dp=1, device="cpu", **fields))

@@ -53,6 +53,7 @@ from paddle_tpu_torch.models import LlamaConfig
 from paddle_tpu_torch.observability.alerts import AlertRule, AlertRuleSet
 from paddle_tpu_torch.observability.metrics import MetricsRegistry
 from paddle_tpu_torch.serving import (
+    AotArtifact,
     AutoscalerConfig,
     CacheRebalancer,
     EngineConfig,
@@ -852,3 +853,81 @@ class TestServerCli:
             server_main(["--workers", "2", "--dp", "2"])
         assert e.value.code == 2
         assert "two fleet modes" in capsys.readouterr().err
+
+
+# --- AOT artifacts across processes ------------------------------------------
+
+class TestProcessFleetAot:
+    @pytest.fixture(scope="class")
+    def artifact(self, jax_weights, tmp_path_factory):
+        """A port artifact saved from an in-process engine of the workers'
+        own configuration (the JAX weights, the fleet's pool and caps)."""
+        _, state, _ = jax_weights
+        model = llama_from_paddle_tpu(
+            state, LlamaConfig.tiny(num_hidden_layers=LAYERS), device="cpu")
+        path = str(tmp_path_factory.mktemp("aot") / "art")
+        art = AotArtifact.save(EngineCore(model, config=EngineConfig(
+            **POOL, scheduler=SchedulerConfig(**SCHED))), path)
+        return path, art
+
+    def test_warm_booted_workers_serve_the_jax_tokens(self, jax_weights,
+                                                      artifact):
+        """CPU workers booted with ``--aot-path --warm``: the JAX engine's
+        greedy tokens, the artifact's hash in every ready line, every
+        trace counter 0, the warm's captures (2 a saved bucket) and none
+        while serving, the ``aot`` debug block loaded with hits."""
+        path, _, want = jax_weights
+        art_path, art = artifact
+        pf = ProcessFleet(_cfg(path, aot_path=art_path, warm_boot=True))
+        pf.start()
+        try:
+            assert pf.router.aot_artifact is pf.shared.aot_handle
+            for i in range(2):
+                assert pf.proxy(i).worker.aot_hash == \
+                    art.manifest["model_hash"]
+            hs = _stream(pf.router, PROMPTS)
+            pf.router.wait(hs, timeout=300)
+            assert {h.rid: list(h.output_tokens) for h in hs} == want
+            for i in range(2):
+                desc = pf.proxy(i).debug_fetch("describe")
+                assert not any(desc["traces"].values()), desc["traces"]
+                assert desc["captures"] == 2 * art.program_count
+                assert desc["aot_hash"] == art.manifest["model_hash"]
+                snap = pf.proxy(i).stepprof.aot_snapshot()
+                assert snap["loaded"] and snap["programs"] == \
+                    art.program_count
+            assert sum(sum(pf.proxy(i).stepprof.aot_snapshot()["hits"]
+                           .values()) for i in range(2)) > 0
+        finally:
+            _stop(pf)
+
+    def test_a_different_model_hash_is_an_aot_mismatch(self, jax_weights,
+                                                       artifact,
+                                                       monkeypatch):
+        """A router holding another model's hash is refused by a worker
+        booted off this artifact (``aot_mismatch``, connection-scoped),
+        and a fleet whose manifest handle names another model than the
+        artifact its workers boot off does not start."""
+        path, _, _ = jax_weights
+        art_path, _ = artifact
+        pf = ProcessFleet(_cfg(path, dp=1, aot_path=art_path))
+        try:
+            with pytest.raises(wire.HandshakeMismatch) as ei:
+                wire.connect("127.0.0.1", pf.proxy(0).worker.port,
+                             role="control", aot_hash="0" * 64,
+                             deploy=pf.shared.deploy(0))
+            assert ei.value.code == "aot_mismatch"
+            assert pf.proxy(0).worker.alive
+        finally:
+            _stop(pf)
+        load = procfleet.AotManifestHandle.load
+
+        def drifted(p):
+            h = load(p)
+            h.manifest = dict(h.manifest, model_hash="0" * 64)
+            return h
+
+        monkeypatch.setattr(procfleet.AotManifestHandle, "load",
+                            staticmethod(drifted))
+        with pytest.raises(procfleet.WorkerDied, match="artifact drift"):
+            ProcessFleet(_cfg(path, dp=1, aot_path=art_path))

@@ -339,9 +339,9 @@ def test_dp2_fleet_server_matches_llm_generate(models):
     assert all(not r.thread.is_alive() for r in fleet.replicas)
 
 
-# The cross-process fleet's flags are live: their cases (ids kept from
-# when they waited for ROADMAP A9 rest) now hold the CLI's checks on them,
-# as the JAX server makes them.  The AOT flags and --mp > 1 still wait.
+# The cross-process fleet's and the AOT artifacts' flags are live: their
+# cases (ids kept from when they waited for ROADMAP A9 rest) now hold the
+# CLI's checks on them.  --mp > 1 still waits.
 _REQUIRES_WORKERS = "they require --workers N"
 
 
@@ -356,12 +356,13 @@ _REQUIRES_WORKERS = "they require --workers N"
                  "--autoscale-max must be >= --autoscale-min",
                  id="args3-A9 rest"),
     pytest.param(("--rebalance",), _REQUIRES_WORKERS, id="args4-A9 rest"),
-    pytest.param(("--aot-save", "d"), "(ROADMAP A9 rest)",
-                 id="args5-A9 rest"),
-    pytest.param(("--aot-path", "d"), "(ROADMAP A9 rest)",
+    pytest.param(("--aot-save", "d", "--aot-max-seq", "0"),
+                 "--aot-max-seq must be >= 1", id="args5-A9 rest"),
+    pytest.param(("--aot-path", "d"), "no AOT artifact there",
                  id="args6-A9 rest"),
-    pytest.param(("--aot-warm",), "(ROADMAP A9 rest)", id="args7-A9 rest"),
-    pytest.param(("--aot-max-seq", "64"), "(ROADMAP A9 rest)",
+    pytest.param(("--aot-warm",), "it requires --aot-save or --aot-path",
+                 id="args7-A9 rest"),
+    pytest.param(("--aot-max-seq", "64"), "it requires --aot-save",
                  id="args8-A9 rest"),
     pytest.param(("--compile-cache", "d"), _REQUIRES_WORKERS,
                  id="args9-A9 rest"),
@@ -393,3 +394,29 @@ def test_cli_workers_selftest_on_the_cpu():
         env=dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1"))
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "selftest: OK" in proc.stdout and "workers=2" in proc.stdout
+
+
+def test_cli_aot_save_then_serve_on_the_cpu(tmp_path):
+    """``--aot-save`` (with ``--aot-warm``: every key captures on the
+    saving engine), then ``--aot-path --aot-warm --selftest`` in process
+    (dp=2) and over ``--workers 2``: each probe serves with zero traces,
+    an empty compile table and every replica's ``aot`` block loaded."""
+    art = str(tmp_path / "art")
+    base = [sys.executable, "-m", "paddle_tpu_torch.serving.server",
+            "--device", "cpu", "--layers", "2", "--blocks", "64"]
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    proc = subprocess.run(base + ["--aot-save", art, "--aot-max-seq", "32",
+                                  "--aot-warm"],
+                          cwd=_REPO, capture_output=True, text=True,
+                          timeout=300, env=env)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "aot-save:" in proc.stdout and "aot-warm: captured" in proc.stdout
+    assert os.path.exists(os.path.join(art, "manifest.json"))
+    for extra, marker in ((["--dp", "2"], "zero traces"),
+                          (["--workers", "2"], "aot zero traces")):
+        proc = subprocess.run(base + ["--aot-path", art, "--aot-warm",
+                                      "--selftest", *extra],
+                              cwd=_REPO, capture_output=True, text=True,
+                              timeout=300, env=env)
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        assert "selftest: OK" in proc.stdout and marker in proc.stdout

@@ -3,11 +3,13 @@ the JAX engine's jit discipline on the same weights (CPU, fp32,
 ``LlamaConfig.tiny`` at 2 layers, the sizes of
 ``test_torch_legacy_serving.py``).
 
-* **Token identity.**  The legacy decode step, decode bursts of 8 and the
-  unified ragged step give the same tokens through the step-program cache
-  as under ``disable_graphs()`` (eager) and as the JAX engine, on greedy,
+* **Token identity.**  The legacy prefill families (one-shot and chunk),
+  decode step, decode bursts of 8 and the unified ragged step give the
+  same tokens through the step-program cache as under
+  ``disable_graphs()`` (eager) and as the JAX engine, on greedy,
   all-sampled and mixed workloads.
-* **Trace counters.**  ``decode_trace_count``, ``burst_trace_count`` and
+* **Trace counters.**  ``prefill_trace_count`` (the one-shot and the chunk
+  prefill), ``decode_trace_count``, ``burst_trace_count`` and
   ``ragged_trace_count`` move once per new ``(family, buckets,
   any_sampled)`` key: on greedy and all-sampled workloads each equals the
   JAX engine's and the size of its bucket set; on the mixed one it lies
@@ -62,11 +64,15 @@ WORKLOADS = {
 }
 # family: (EngineConfig fields, prompts, new tokens, the graphed families)
 FAMILIES = {
-    "legacy": (dict(), PROMPTS, 8, ("decode",)),
-    "burst": (dict(burst_steps=8), PROMPTS[:3], 12, ("decode", "burst")),
+    "legacy": (dict(), PROMPTS, 8, ("prefill", "decode")),
+    "burst": (dict(burst_steps=8), PROMPTS[:3], 12,
+              ("prefill", "decode", "burst")),
     "unified": (dict(unified_step=True), PROMPTS, 8, ("ragged",)),
 }
-TRACED = ("decode", "burst", "ragged")
+TRACED = ("prefill", "decode", "burst", "ragged")
+# the step programs each trace counter counts
+PROGRAMS = {"prefill": ("prefill", "chunk"), "decode": ("decode",),
+            "burst": ("burst",), "ragged": ("ragged",)}
 
 
 def _jax_model():
@@ -97,8 +103,8 @@ def _run(eng, sp_cls, prompts, max_new, per_req):
 
 
 def _buckets(eng, family):
-    return {"decode": eng.decode_buckets, "burst": eng.burst_buckets,
-            "ragged": eng.ragged_buckets}[family]
+    return {"prefill": eng.prefill_buckets, "decode": eng.decode_buckets,
+            "burst": eng.burst_buckets, "ragged": eng.ragged_buckets}[family]
 
 
 @pytest.mark.parametrize("workload", list(WORKLOADS))
@@ -135,7 +141,7 @@ def test_engine_graphs_match_eager_and_jax(family, workload):
             assert count == n == getattr(jax_eng, f"{f}_trace_count"), f
         assert eng.metrics.counters[f"{f}_jit_traces"] == count
         assert snap[f"serving_{f}_jit_traces_total"]["value"] == count
-        keys = [k for k in eng.graphs.programs if k[0] == f]
+        keys = [k for k in eng.graphs.programs if k[0] in PROGRAMS[f]]
         assert len(keys) == count
         assert {k[:-1] for k in keys} == _buckets(eng, f)
     assert eng.graphs.captures == len(eng.graphs.programs)

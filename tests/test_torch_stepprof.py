@@ -58,9 +58,9 @@ def _drive(sp):
 
 
 def _strip(rec):
-    """A record without its timestamps (and without the JAX compile rows'
-    and report's ``aot`` entries, which come with serving artifacts)."""
-    return {k: v for k, v in rec.items() if k not in ("t", "unix", "aot")}
+    """A record without its timestamps (the compile rows' and the report's
+    ``aot`` entries are compared too)."""
+    return {k: v for k, v in rec.items() if k not in ("t", "unix")}
 
 
 def _record(rec):
@@ -186,10 +186,12 @@ class TestEngineIntegration:
     def test_compile_attribution_matches_captures(self, legacy):
         eng = legacy["graphs"]
         table = eng.stepprof.compile_table()
-        # one row per capture, none for the eager prefill families
-        assert len(table) == eng.decode_trace_count == eng.graphs.captures
-        assert {r["program"] for r in table} == {"decode"}
-        seconds = {("decode",) + tuple(int(x) for x in r["bucket"].split(
+        # one row per capture, the prefill families' included
+        assert len(table) == eng.graphs.captures == \
+            eng.decode_trace_count + eng.prefill_trace_count
+        assert {r["program"] for r in table} == \
+            {k[0] for k in eng.graphs.programs} >= {"chunk", "decode"}
+        seconds = {(r["program"],) + tuple(int(x) for x in r["bucket"].split(
             "x")): r["seconds"] for r in table}
         for key, prog in eng.graphs.programs.items():
             assert seconds[key[:-1]] == round(prog.capture_seconds, 6)

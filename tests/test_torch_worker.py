@@ -11,7 +11,7 @@ Llama at 2 layers); the port's takes the same weights through the
 worker spec's ``weights`` key (an ``.npz`` of the JAX parameters).  The
 replies are equal, except pids, timestamps, wall times and what the
 worker's docstring lists as the port's departures (``describe``'s
-``launches`` field and its ``traces.prefill``).
+``launches`` and ``captures`` fields).
 """
 
 import socket
@@ -25,6 +25,7 @@ from paddle_tpu.serving import wire as jax_wire
 from paddle_tpu.serving import worker as jax_worker
 from paddle_tpu_torch.observability.metrics import MetricsRegistry
 from paddle_tpu_torch.serving import wire, worker
+from paddle_tpu_torch.serving.aot import AotError
 
 LAYERS = 2
 SPEC = {"layers": LAYERS, "num_blocks": 32, "block_size": 4,
@@ -156,12 +157,12 @@ def test_control_frames_equal_the_jax_host(hosts):
         assert r["port"][0]["type"] == r["jax"][0]["type"] == "debug_ok"
         if what != "cache_timeline":
             assert _scrub(r["port"]) == _scrub(r["jax"]), what
-    # captures per family: the JAX engine's traces, less the prefill
-    # families the port runs eagerly (ROADMAP A6 rest)
+    # captures per family: the JAX engine's traces, the prefill families
+    # included
     r = _exchange(hosts, {"type": "debug", "what": "compile_totals"})
-    want = {k: v for k, v in _scrub(r["jax"][0]["data"]).items()
-            if k not in ("prefill", "chunk")}
-    assert _scrub(r["port"][0]["data"]) == want and want
+    want = _scrub(r["jax"][0]["data"])
+    assert _scrub(r["port"][0]["data"]) == want
+    assert {"chunk", "decode"} <= set(want)
     cache = _exchange(hosts, {"type": "debug", "what": "cache"})
     for key in ("num_blocks", "block_size", "prefix_cache", "hit_depths",
                 "revives", "reuse_hits", "attribution"):
@@ -172,11 +173,12 @@ def test_control_frames_equal_the_jax_host(hosts):
     port_desc, jax_desc = desc["port"][0]["data"], desc["jax"][0]["data"]
     launches = port_desc.pop("launches")
     # the port's departures: launches (CPU: the plain versions, no kernel
-    # launch, none due on the unified step) and no prefill capture count
+    # launch, none due on the unified step) and captures (one per trace
+    # here: no artifact is bound); traces.prefill equals the JAX worker's
     assert launches["ragged"]["all"] == launches["decode"]["all"] == 0
     assert launches["due"]["ragged"] == 0
-    assert port_desc["traces"].pop("prefill") is None
-    jax_desc["traces"].pop("prefill")
+    assert port_desc.pop("captures") == sum(port_desc["traces"].values())
+    assert port_desc["traces"]["prefill"] == jax_desc["traces"]["prefill"] > 0
     assert _scrub(port_desc) == _scrub(jax_desc)
 
     r = _exchange(hosts, {"type": "debug", "what": "nope"})
@@ -311,5 +313,9 @@ def test_model_identity_refuses_a_drifted_router(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         worker.build_engine({"mp": 2, "device": "cpu"}, 0,
                             MetricsRegistry())
-    with pytest.raises(NotImplementedError, match="A9 rest"):
+    # an artifact path with no artifact is refused before the engine is
+    # built, and a warm boot needs an artifact
+    with pytest.raises(AotError, match="manifest.json missing"):
         worker.main(["--aot-path", str(tmp_path)])
+    with pytest.raises(SystemExit):
+        worker.main(["--warm"])

@@ -40,7 +40,7 @@ FAMILIES = {
     "unified": {"unified_step": True},
 }
 # the step families the port captures as graphs (their compiles)
-GRAPHED = ("decode", "burst", "ragged")
+GRAPHED = ("prefill", "chunk", "decode", "burst", "ragged")
 
 
 def prompts(n=6, rng_seed=0, prefix_len=8, tail=8):
@@ -168,17 +168,17 @@ def series(registry):
 
 # series of a JAX engine's page that the port does not have yet, by the
 # ROADMAP item that brings them: the mesh-collective step times
-# (tensor-parallel serving, A11), the prefill families' trace counter
-# (their capture, A6), and the fleet's finish and admission counters
-# (A9).  Spec, AOT and wire series appear only when those features run,
-# so a single engine's page has none of them.
+# (tensor-parallel serving, A11), and the fleet's finish and admission
+# counters (A9).  Spec, AOT and wire series appear only when those
+# features run, so a single engine's page has none of them.
 JAX_ONLY_SERIES = {("serving_collective_seconds", ("phase",)),
-                   ("serving_prefill_jit_traces_total", ()),
                    ("serving_requests_finished_replica_failed_total", ()),
                    ("serving_admission_rejected_total", ())}
-# the port registers its decode family's capture counter up front, so an
-# engine whose decode family never ran reads 0 instead of a missing key
-PORT_ONLY_SERIES = {("serving_decode_jit_traces_total", ())}
+# the port registers its prefill and decode families' capture counters up
+# front, so an engine whose family never ran reads 0 instead of a missing
+# key
+PORT_ONLY_SERIES = {("serving_prefill_jit_traces_total", ()),
+                    ("serving_decode_jit_traces_total", ())}
 
 
 def assert_telemetry_matches(r, rids=tuple(f"r{i}" for i in range(6))):
