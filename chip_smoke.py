@@ -322,12 +322,61 @@ these phases, printing one JSON line for each:
              SM clock, power draw and temperature sampled by nvidia-smi
              before and after the window.  The ``kernels`` line's flash
              rows take their ``device_ms`` from this window.
+``gpt_train_identity``  GPT-3 6.7B widths (``GPTConfig()``: vocab 50304,
+             hidden 4096, 32 heads of 128, MHA) cut to 2 layers, fp32,
+             B=1, S=1024: 4 AdamW steps through the flash kernels, 4
+             with GPT's attention pinned to the composite paths
+             (``use_pallas=False``, patched in this script only) and 4
+             through the kernels with a planted fault (the attention
+             output's last 64 rows zeroed); the kernel run's losses agree
+             with the composite's within 1e-4 relative and its first
+             step's attention gradients within 1e-4 of their largest
+             entry, the planted run fails that gate, and each kernel
+             launched 4 x 2 times.
+``gpt_train``  first the three flash kernels against their twins at
+             GPT's shape and layout in bf16 (B=4, S=2048, 32 heads of 128,
+             causal, q/k/v as views of one [B, S, 3, H, D] buffer): TMA
+             reads them in place (no copy), every row within 2e-2, each
+             planted fault fails.  Then the GPT training path at full
+             6.7B width cut to 4 layers (the full depth's weights,
+             gradients and AdamW state need ~107 GB), bf16 with fp32
+             master weights, AdamW under LinearWarmup ->
+             CosineAnnealingDecay, B=4, S=2048 on the synthetic corpus: 2
+             warm-up and 8 timed steps with no sync inside the loop;
+             losses (finite, falling), ms a step, tokens/s, MFU against
+             989 TFLOP/s through the port's ``TrainStepTelemetry`` (each
+             step's CUDA-event time; its Prometheus text must hold
+             ``train_mfu``), the optimizer step's share of the steps'
+             CUDA-event time, peak memory and launches = 10 steps x 4
+             layers for each flash kernel, none through a copy; then
+             ``gpt_train_clocks`` and ``gpt_train_profile``, the profile
+             window of ``train_profile`` over 2 more steps.
+``bert_finetune``  BERT-base SQuAD fine-tuning
+             (``BertForQuestionAnswering(BertConfig())``, 12 layers) on
+             examples/finetune_bert_squad.py's synthetic split (spans
+             bracketed by sentinel tokens), S=384, B=32, dropout 0.1 from
+             an explicit generator, bf16 with fp32 masters, AdamW under
+             LinearWarmup -> PolynomialDecay, 60 steps with no sync
+             inside the loop: losses (finite, falling), span accuracy on
+             a held-out split (reported, not gated), ms a step, tokens/s,
+             the optimizer's share of the steps' CUDA-event time, peak
+             memory, a 2-step profile; no flash kernel launches.  Then
+             ``ErnieForSequenceClassification(ErnieConfig())``, 10 steps
+             at S=512, B=32 on one batch whose class shows in every token
+             (losses finite and falling, ms a step).
+``train_checkpoint``  the gpt_train_identity model: 2 steps,
+             ``framework.save`` of model, optimizer and scheduler, a fresh
+             model and optimizer ``load`` them and train 2 more; the 4
+             losses equal an uninterrupted run's, bit for bit where two
+             uninterrupted runs are (else within their gap); a bf16 model
+             saved and loaded back bit-equal.
 
 Then a line ``{"kernels": [...]}`` summarising each kernel at its main
 path's shapes (the ragged kernel at the unified serve step, the decode
 kernel at B=16 bf16, the flash kernels at the train shape in bf16, the
 scale kernel at [8192, 4096] bf16, with the launches of the serve, the
-burst-free serve_legacy, the train and the custom_op runs), the
+burst-free serve_legacy, the train and the custom_op runs; the flash rows
+add ``gpt_train_launches``), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any
 failure raises and the script exits nonzero without that last line; so
 does a machine without a CUDA device, and a directory that holds this
@@ -2611,17 +2660,57 @@ def corpus(rng, B, S):
     return (start + np.arange(S)) % 17
 
 
-def train_steps(model, criterion, opt, batches, sched=None):
-    """``model(ids) -> criterion -> backward -> step -> clear_grad`` for
-    each batch; the losses stay on the device, read after the run."""
+def lm_loss(model, criterion):
+    """A causal LM's step loss: ``criterion(model(ids), ids)``."""
+    return lambda ids: criterion(model(ids), ids)
+
+
+class StepClock:
+    """CUDA events at a train loop's step boundaries, recorded with no sync:
+    one before the first step, then one after each step's backward and one
+    after its optimizer and scheduler step.  ``read()`` syncs once and
+    gives each step's seconds and each optimizer step's (backward's end to
+    the step's end) on the device's timeline, the host's gaps included."""
+
+    def __init__(self, torch):
+        self.torch, self.events = torch, []
+
+    def mark(self):
+        event = self.torch.cuda.Event(enable_timing=True)
+        event.record()
+        self.events.append(event)
+
+    def read(self):
+        self.torch.cuda.synchronize()
+        ev = self.events
+        ends = range(2, len(ev), 2)
+        return ([ev[i - 2].elapsed_time(ev[i]) / 1e3 for i in ends],
+                [ev[i - 1].elapsed_time(ev[i]) / 1e3 for i in ends])
+
+
+def train_steps(step_loss, opt, batches, sched=None, after_backward=None,
+                clock=None):
+    """``step_loss(batch) -> backward -> step -> clear_grad`` (and the
+    scheduler's step) for each batch, as a user's loop runs it: no sync
+    inside the loop, the losses stay on the device, read after the run.
+    ``after_backward(i)`` runs between step i's backward and its optimizer
+    step; ``clock`` (a StepClock) marks the step boundaries."""
     losses = []
-    for ids in batches:
-        loss = criterion(model(ids), ids)
+    if clock is not None:
+        clock.mark()
+    for i, batch in enumerate(batches):
+        loss = step_loss(batch)
         loss.backward()
+        if after_backward is not None:
+            after_backward(i)
+        if clock is not None:
+            clock.mark()
         opt.step()
         opt.clear_grad()
         if sched is not None:
             sched.step()
+        if clock is not None:
+            clock.mark()
         losses.append(loss.detach())
     return losses
 
@@ -2646,8 +2735,9 @@ def train_identity_phase(torch, flash, fa, port):
                          weight_decay=0.01)
         reset_flash_counts(flash)
         t0 = time.perf_counter()
-        losses = train_steps(model, port.LlamaPretrainingCriterion(cfg), opt,
-                             batches)
+        losses = train_steps(
+            lm_loss(model, port.LlamaPretrainingCriterion(cfg)), opt,
+            batches)
         torch.cuda.synchronize()
         runs[use_flash] = {"losses": [float(x) for x in losses],
                            "launches": flash_counts(flash),
@@ -2694,11 +2784,12 @@ def train_phase(torch, flash, fa, port):
     batches = [torch.from_numpy(corpus(rng, B, S)).cuda()
                for _ in range(warm + timed)]
     reset_flash_counts(flash)
-    losses = train_steps(model, criterion, opt, batches[:warm], sched)
+    step_loss = lm_loss(model, criterion)
+    losses = train_steps(step_loss, opt, batches[:warm], sched)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    losses += train_steps(model, criterion, opt, batches[warm:], sched)
+    losses += train_steps(step_loss, opt, batches[warm:], sched)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = flash_counts(flash)
@@ -2733,44 +2824,65 @@ def train_phase(torch, flash, fa, port):
     return launches, (model, criterion, opt, sched)
 
 
-def train_profile_phase(torch, trainer, steps=2):
-    """torch.profiler over 2 train steps: the device-time share of each
-    flash kernel and its device time a launch, the matrix products' share,
-    the top kernels, and the idle share against the wall time of 2
-    unprofiled steps."""
+def profile_window(torch, run, steps):
+    """``run()`` ``steps`` times unprofiled (the window's wall time), then
+    ``steps`` times under torch.profiler: (device us by kernel, the
+    window's wall us, nvidia-smi before and after the profiled calls)."""
     from torch.profiler import ProfilerActivity, profile
 
-    model, criterion, opt, sched = trainer
-    rng = np.random.default_rng(9)
-    batches = [torch.from_numpy(corpus(rng, TRAIN_B, TRAIN_S)).cuda()
-               for _ in range(2 * steps)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    train_steps(model, criterion, opt, batches[:steps], sched)
+    for _ in range(steps):
+        run()
     torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
     before = gpu_sample()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        train_steps(model, criterion, opt, batches[steps:], sched)
+        for _ in range(steps):
+            run()
         torch.cuda.synchronize()
-    emit("train_clocks", before=before, after=gpu_sample(),
-         note="nvidia-smi before and after the profiled window")
-    kernels = device_kernels(prof)
+    return device_kernels(prof), wall_us, (before, gpu_sample())
+
+
+def window_summary(kernels, wall_us):
+    """A profile window's idle share, matrix-product share and top
+    kernels."""
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    return {"window_wall_us": wall_us, "device_busy_us": busy,
+            "idle_share": (1 - busy / wall_us) if busy else None,
+            "matmul_share": share(kernels, MATMUL_MARKS),
+            "top_kernels": [{"name": k[:120], "us": us} for k, us in top]}
+
+
+def train_profile_phase(torch, trainer, steps=2, label="train",
+                        shape=(TRAIN_B, TRAIN_S), seed=9):
+    """torch.profiler over 2 train steps: the device-time share of each
+    flash kernel and its device time a launch, the matrix products' share,
+    the top kernels, and the idle share against the wall time of 2
+    unprofiled steps.  ``label`` names the phase's lines (``train`` for
+    Llama, ``gpt_train`` for GPT)."""
+    model, criterion, opt, sched = trainer
+    rng = np.random.default_rng(seed)
+    batches = iter([torch.from_numpy(corpus(rng, *shape)).cuda()
+                    for _ in range(2 * steps)])
+    kernels, wall_us, (before, after) = profile_window(
+        torch, lambda: train_steps(lm_loss(model, criterion), opt,
+                                   [next(batches)], sched), steps)
+    emit(f"{label}_clocks", before=before, after=after,
+         note="nvidia-smi before and after the profiled window")
+    busy = sum(kernels.values())
     flash_shares = {key: share(kernels, marks)
                     for key, marks in FLASH_MARKS.items()}
     # each flash kernel launches once a layer a step
     launches = steps * model.config.num_hidden_layers
     flash_device_ms = {key: busy * s / launches / 1e3 if s else None
                        for key, s in flash_shares.items()}
-    emit("train_profile", steps=steps, window_wall_us=wall_us,
-         device_busy_us=busy, idle_share=(1 - busy / wall_us) if busy else None,
-         flash_shares=flash_shares, flash_device_ms=flash_device_ms,
+    emit(f"{label}_profile", steps=steps, flash_shares=flash_shares,
+         flash_device_ms=flash_device_ms,
          flash_share=sum(v or 0.0 for v in flash_shares.values()),
-         matmul_share=share(kernels, MATMUL_MARKS),
-         top_kernels=[{"name": k[:120], "us": us} for k, us in top])
+         **window_summary(kernels, wall_us))
     return flash_device_ms
 
 
@@ -4395,25 +4507,497 @@ def aot_boot_phase(serving, saved, spec):
               "(describe)")
 
 
+# --- GPT, BERT and ERNIE training phases --------------------------------------
+
+GPT_B, GPT_S = 4, 2048          # the gpt_train phase's batch and sequence
+BERT_B, BERT_S = 32, 384        # bert_finetune: BERT-base SQuAD
+ERNIE_S, ERNIE_STEPS = 512, 10  # and ERNIE-3.0-base classification
+SENT_L, SENT_R = 2, 3           # the sentinel tokens around an answer span
+
+
+@contextlib.contextmanager
+def gpt_attention(gpt_mod, run):
+    """GPT's attention for one run of gpt_train_identity, patched for this
+    script's comparison only (the model has no such switch): ``kernel`` as
+    it is; ``composite`` pinned to the plain composite paths
+    (``use_pallas=False``); ``planted`` through the kernels with the
+    output's last 64 query rows zeroed, what a forward kernel that skipped
+    its last tile would give."""
+    real = gpt_mod.ring_flash_attention
+
+    def composite(q, k, v, causal=True):
+        return real(q, k, v, causal=causal, use_pallas=False)
+
+    def planted(q, k, v, causal=True):
+        return tail_zeroed(real(q, k, v, causal=causal))
+
+    gpt_mod.ring_flash_attention = {"kernel": real, "composite": composite,
+                                    "planted": planted}[run]
+    try:
+        yield
+    finally:
+        gpt_mod.ring_flash_attention = real
+
+
+def gpt_model(torch, port, layers, dtype, seed):
+    cfg = port.GPTConfig(num_hidden_layers=layers)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return port.GPTForCausalLM(cfg, device="cuda", dtype=dtype,
+                               generator=gen)
+
+
+def gpt_trainer(torch, port, model, lr=1e-4, multi_precision=False):
+    sched = port.LinearWarmup(port.CosineAnnealingDecay(lr, T_max=10), 2,
+                              lr / 10, lr)
+    opt = port.AdamW(learning_rate=sched, parameters=model.parameters(),
+                     weight_decay=0.01, multi_precision=multi_precision)
+    return opt, sched
+
+
+def gpt_losses(torch, port, model, opt, sched, batches,
+               after_backward=None):
+    return [float(x) for x in train_steps(
+        lm_loss(model, port.GPTPretrainingCriterion()), opt, batches, sched,
+        after_backward)]
+
+
+def free(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def identity_gaps(run, ref):
+    """The gaps gpt_train_identity gates: the largest relative gap between
+    two runs' losses, and between their first step's attention gradients
+    (each tensor's largest gap over the reference's largest entry)."""
+    loss = max(abs(a - b) / abs(b)
+               for a, b in zip(run["losses"], ref["losses"]))
+    grad = max(float((g - ref["grads"][n]).abs().max()
+                     / ref["grads"][n].abs().max())
+               for n, g in run["grads"].items())
+    return {"loss": loss, "grad": grad}
+
+
+def gpt_train_identity_phase(torch, flash, fa, port):
+    """GPT-3 6.7B widths (``GPTConfig()``) cut to 2 layers, fp32, B=1,
+    S=1024: 4 AdamW steps through the flash kernels (MHA, a group of 1, at
+    head dim 128), 4 with GPT's attention pinned to the composite paths,
+    and 4 through the kernels with a planted fault (the attention output's
+    last 64 rows zeroed), from the same seeded weights and batches.  The
+    kernel run's losses agree with the composite's within 1e-4 relative and
+    its first step's attention gradients (every layer's qkv_proj and
+    o_proj) within 1e-4 of their largest entry; the planted run must fail
+    that gate.  Each kernel launched 4 x 2 times (none in the pinned
+    run)."""
+    layers, S, steps, tol = 2, 1024, 4, 1e-4
+    rng = np.random.default_rng(12)
+    batches = [torch.from_numpy(corpus(rng, 1, S)).cuda()
+               for _ in range(steps)]
+    runs = {}
+    for run in ("kernel", "composite", "planted"):
+        model = gpt_model(torch, port, layers, torch.float32, seed=5)
+        opt, sched = gpt_trainer(torch, port, model)
+        attn = {n: p for n, p in model.named_parameters() if ".attn." in n}
+        grads = {}
+
+        def first_grads(i):
+            if i == 0:
+                grads.update({n: p.grad.detach().clone()
+                              for n, p in attn.items()})
+
+        reset_flash_counts(flash)
+        t0 = time.perf_counter()
+        with gpt_attention(port.gpt_mod, run):
+            losses = gpt_losses(torch, port, model, opt, sched, batches,
+                                first_grads)
+        runs[run] = {"losses": losses, "grads": grads,
+                     "launches": flash_counts(flash), "path": fa.last_path,
+                     "seconds": time.perf_counter() - t0}
+        del model, opt, attn
+        free(torch)
+    kern, plain, bad = runs["kernel"], runs["composite"], runs["planted"]
+    gaps, planted = identity_gaps(kern, plain), identity_gaps(bad, plain)
+    if not (np.isfinite(kern["losses"]).all()
+            and max(gaps.values()) <= tol):
+        raise AssertionError(f"gpt_train_identity: kernel losses "
+                             f"{kern['losses']} against composite "
+                             f"{plain['losses']}, gaps {gaps} (tol {tol})")
+    if not max(planted.values()) > tol:
+        raise AssertionError(f"gpt_train_identity: the planted fault passes "
+                             f"the gate: gaps {planted} (tol {tol})")
+    due = {k: steps * layers for k in FLASH_MARKS}
+    if (kern["launches"] != due or any(plain["launches"].values())
+            or kern["path"] != "cuda" or plain["path"] == "cuda"):
+        raise AssertionError(f"gpt_train_identity: launches "
+                             f"{kern['launches']} (due {due}), composite "
+                             f"run {plain['launches']}, paths "
+                             f"{kern['path']} / {plain['path']}")
+    for r in runs.values():
+        del r["grads"]
+    emit("gpt_train_identity", layers=layers, dtype="float32", batch=1,
+         seq=S, steps=steps, tol=tol, gaps=gaps, planted_gaps=planted,
+         max_rel_loss_diff=gaps["loss"], kernel=kern, composite=plain,
+         planted=bad)
+
+
+def gpt_shape_flash_check(torch, flash):
+    """The three kernels against their twins at gpt_train's shape and
+    layout in bf16: B=4, S=2048, 32 heads of 128, causal, q, k and v as
+    views into one [B, S, 3, H, D] buffer, as GPTAttention slices its fused
+    projection (rows 3·H·D apart), and dO contiguous, as autograd hands it
+    over.  TMA must read them in place (no copy), every row must hold the
+    bf16 tolerance and each planted fault must fail."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(18)
+    B, S, H, D = GPT_B, GPT_S, 32, 128
+    qkv = torch.randn(B, S, 3, H, D, device=dev, generator=gen).bfloat16()
+    do = torch.randn(B, S, H, D, device=dev, generator=gen).bfloat16()
+    copies = flash.copy_launches
+    rec, _, _ = flash_check(torch, flash, "gpt train shape (fused qkv)",
+                            qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], do,
+                            True, plant=True)
+    routed = {"copies": flash.copy_launches - copies,
+              "route": flash.last_route}
+    if routed != {"copies": 0, "route": "tma"}:
+        raise AssertionError(f"gpt_train: the fused-QKV views took {routed}, "
+                             f"due 0 copies on route 'tma'")
+    del qkv, do
+    free(torch)
+    return {"case": f"gpt train shape {(B, S, S, H, H, D)} causal=True, "
+                    f"q/k/v views of [B, S, 3, H, D]", "dtype": "bfloat16",
+            **routed, **rec}
+
+
+def gpt_train_phase(torch, flash, fa, port, obs):
+    """GPT-3 6.7B at full width (vocab 50304, hidden 4096, 32 heads of
+    128, FFN 16384, 2048 positions) cut to 4 layers, bf16 with fp32 master
+    weights, AdamW under LinearWarmup -> CosineAnnealingDecay, B=4, S=2048
+    on the synthetic corpus: first the kernels at this shape and layout
+    (gpt_shape_flash_check), then 2 warm-up and 8 timed steps of
+    ``model(ids) -> criterion -> backward -> step -> clear_grad`` with no
+    sync inside the loop, each timed step recorded by the port's
+    TrainStepTelemetry (MFU against 989 TFLOP/s) from its CUDA-event
+    time."""
+    layers, warm, timed = 4, 2, 8
+    B, S = GPT_B, GPT_S
+    shape_check = gpt_shape_flash_check(torch, flash)
+    t0 = time.perf_counter()
+    model = gpt_model(torch, port, layers, torch.bfloat16, seed=7)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    criterion = port.GPTPretrainingCriterion()
+    opt, sched = gpt_trainer(torch, port, model, multi_precision=True)
+    rng = np.random.default_rng(13)
+    batches = [torch.from_numpy(corpus(rng, B, S)).cuda()
+               for _ in range(warm + timed)]
+    cfg = model.config
+    n_params = sum(p.numel() for p in model.parameters())
+    tel = port.TrainStepTelemetry(
+        n_params=n_params, num_layers=layers, seq_len=S,
+        hidden=cfg.hidden_size, peak_flops=PEAK_FLOPS["bfloat16"],
+        registry=obs.MetricsRegistry(), tracer=obs.SpanTracer())
+    reset_flash_counts(flash)
+    copies = flash.copy_launches
+    step_loss = lm_loss(model, criterion)
+    losses = train_steps(step_loss, opt, batches[:warm], sched)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    clock = StepClock(torch)
+    t0 = time.perf_counter()
+    losses += train_steps(step_loss, opt, batches[warm:], sched, clock=clock)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_s, opt_s = clock.read()
+    for seconds in step_s:
+        tel.step(tokens=B * S, seconds=seconds)
+    launches = flash_counts(flash)
+    route = {"copies": flash.copy_launches - copies,
+             "route": flash.last_route}
+    losses = [float(x) for x in losses]
+    due = {k: (warm + timed) * layers for k in FLASH_MARKS}
+    if (launches != due or fa.last_path != "cuda"
+            or route != {"copies": 0, "route": "tma"}):
+        raise AssertionError(f"gpt_train: kernel launches {launches}, due "
+                             f"{due} (path {fa.last_path}, {route}; due 0 "
+                             f"copies on route 'tma')")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"gpt_train: losses {losses} are not finite or "
+                             f"do not fall")
+    text = tel.registry.prometheus_text()
+    if "train_mfu" not in text or tel.steps != timed:
+        raise AssertionError(f"gpt_train: telemetry recorded {tel.steps} "
+                             f"steps; its text:\n{text}")
+    tokens_per_s = B * S * timed / wall
+    emit("gpt_train", model="gpt3_6.7b", layers=layers, dtype="bfloat16",
+         batch=B, seq=S, warmup_steps=warm, timed_steps=timed,
+         losses=losses, ms_per_step=wall / timed * 1e3,
+         tokens_per_s=tokens_per_s, params=n_params,
+         flops_per_token=tel.flops_per_token,
+         mfu=tel.flops_per_token * tokens_per_s / PEAK_FLOPS["bfloat16"],
+         telemetry=tel.registry.snapshot(),
+         step_ms=[x * 1e3 for x in step_s],
+         optimizer_ms_per_step=sum(opt_s) / timed * 1e3,
+         optimizer_share=sum(opt_s) / sum(step_s),
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         kernel_launches=launches, kernel_route=route,
+         model_build_s=build_s, telemetry_text_bytes=len(text),
+         shape_check=shape_check)
+    return launches, (model, criterion, opt, sched)
+
+
+def squad_split(rng, n, S, vocab):
+    """examples/finetune_bert_squad.py's SQuAD-shaped synthetic split: a
+    random context whose answer span is bracketed by sentinel tokens, so
+    span-pointing is learnable (copied here: the example imports the JAX
+    package)."""
+    ids = rng.integers(4, vocab, (n, S))
+    start = rng.integers(1, S - 4, (n,))
+    length = rng.integers(1, 3, (n,))
+    end = np.minimum(start + length, S - 2)
+    ids[np.arange(n), start] = SENT_L   # span starts AT the marker
+    ids[np.arange(n), end] = SENT_R
+    return ids.astype(np.int64), start.astype(np.int64), end.astype(np.int64)
+
+
+def finetune_trainer(torch, port, model, lr, warmup, steps):
+    sched = port.LinearWarmup(
+        port.PolynomialDecay(learning_rate=lr, decay_steps=steps,
+                             end_lr=0.0),
+        warmup_steps=warmup, start_lr=0.0, end_lr=lr)
+    opt = port.AdamW(learning_rate=sched, parameters=model.parameters(),
+                     weight_decay=0.01, multi_precision=True)
+    return opt, sched
+
+
+def bert_finetune_phase(torch, flash, port):
+    """BERT-base SQuAD fine-tuning (``BertForQuestionAnswering(
+    BertConfig())``, 12 layers), bf16 with fp32 masters, dropout 0.1 from
+    an explicit generator, AdamW under LinearWarmup -> PolynomialDecay, 60
+    steps of B=32, S=384 on the example's synthetic split in epochs; span
+    accuracy on a held-out split (reported, not gated); then
+    ``ErnieForSequenceClassification(ErnieConfig())`` for 10 steps at
+    S=512, B=32.  Neither reaches a flash kernel: BERT's attention is
+    plain torch ops, as it is XLA code in the JAX package."""
+    steps, warmup, lr = 60, 6, 1e-4
+    B, S = BERT_B, BERT_S
+    cfg = port.BertConfig()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    dgen = torch.Generator(device="cuda").manual_seed(9)
+    t0 = time.perf_counter()
+    model = port.BertForQuestionAnswering(cfg, device="cuda",
+                                          dtype=torch.bfloat16,
+                                          generator=gen,
+                                          dropout_generator=dgen)
+    build_s = time.perf_counter() - t0
+    opt, sched = finetune_trainer(torch, port, model, lr, warmup, steps)
+    rng = np.random.default_rng(14)
+    train = [torch.from_numpy(a).cuda()
+             for a in squad_split(rng, B * 16, S, cfg.vocab_size)]
+    dev = [torch.from_numpy(a).cuda()
+           for a in squad_split(rng, B, S, cfg.vocab_size)]
+    batches = []
+    while len(batches) < steps:
+        perm = torch.from_numpy(rng.permutation(B * 16)).cuda()
+        batches += [perm[lo:lo + B] for lo in range(0, B * 16, B)]
+    batches = batches[:steps]
+
+    def step_loss(sel):
+        ids, start, end = (a[sel] for a in train)
+        s_logits, e_logits = model(ids)
+        return (port.cross_entropy(s_logits, start)
+                + port.cross_entropy(e_logits, end)) / 2.0
+
+    model.train()
+    reset_flash_counts(flash)
+    skip = 10                 # the first steps warm cuBLAS and the caches
+    losses = train_steps(step_loss, opt, batches[:skip], sched)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    clock = StepClock(torch)
+    t0 = time.perf_counter()
+    losses += train_steps(step_loss, opt, batches[skip:], sched, clock=clock)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_s, opt_s = clock.read()
+    losses = [float(x) for x in losses]
+    timed = steps - skip
+    if not (np.isfinite(losses).all()
+            and np.mean(losses[-5:]) < np.mean(losses[:5])):
+        raise AssertionError(f"bert_finetune: losses {losses} are not "
+                             f"finite or do not fall")
+    if any(flash_counts(flash).values()):
+        raise AssertionError(f"bert_finetune: a flash kernel launched "
+                             f"({flash_counts(flash)})")
+    kernels, wall_us, _ = profile_window(
+        torch, lambda: train_steps(step_loss, opt, batches[:1], sched), 2)
+    model.eval()
+    with torch.no_grad():
+        s_logits, e_logits = model(dev[0])
+    s_ok = s_logits.argmax(-1) == dev[1]
+    e_ok = e_logits.argmax(-1) == dev[2]
+    bert = {"model": "bert-base", "layers": cfg.num_hidden_layers,
+            "dtype": "bfloat16", "batch": B, "seq": S, "steps": steps,
+            "losses": losses, "timed_steps": timed,
+            "ms_per_step": wall / timed * 1e3,
+            "tokens_per_s": B * S * timed / wall,
+            "optimizer_ms_per_step": sum(opt_s) / timed * 1e3,
+            "optimizer_share": sum(opt_s) / sum(step_s),
+            "start_acc": s_ok.float().mean().item(),
+            "end_acc": e_ok.float().mean().item(),
+            "exact_match": (s_ok & e_ok).float().mean().item(),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "model_build_s": build_s,
+            "profile": window_summary(kernels, wall_us)}
+    del model, opt, train, dev, batches
+    free(torch)
+
+    ecfg = port.ErnieConfig()
+    model = port.ErnieForSequenceClassification(
+        ecfg, device="cuda", dtype=torch.bfloat16,
+        generator=torch.Generator(device="cuda").manual_seed(10),
+        dropout_generator=torch.Generator(device="cuda").manual_seed(11))
+    # half the steps warm up: with 2, the first steps at the full rate
+    # threw the loss up (to 2.5 on an H100) before it fell
+    opt, sched = finetune_trainer(torch, port, model, lr, ERNIE_STEPS // 2,
+                                  ERNIE_STEPS)
+    # one fixed batch whose class shows in every token: a class-1 text
+    # draws its tokens from the upper half of the vocabulary
+    half = ecfg.vocab_size // 2
+    labels = rng.integers(0, 2, (B,))
+    ids = rng.integers(1, half, (B, ERNIE_S)) + labels[:, None] * half
+    labels = torch.from_numpy(labels).cuda()
+    ids = torch.from_numpy(ids).cuda()
+    model.train()
+
+    def eloss(_):
+        return port.cross_entropy(model(ids), labels)
+
+    elosses = train_steps(eloss, opt, range(2), sched)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    elosses += train_steps(eloss, opt, range(2, ERNIE_STEPS), sched)
+    torch.cuda.synchronize()
+    ewall = time.perf_counter() - t0
+    elosses = [float(x) for x in elosses]
+    if not (np.isfinite(elosses).all() and elosses[-1] < elosses[0]):
+        raise AssertionError(f"bert_finetune: ERNIE losses {elosses} are "
+                             f"not finite or do not fall")
+    ernie = {"model": "ernie-3.0-base", "layers": ecfg.num_hidden_layers,
+             "dtype": "bfloat16", "batch": B, "seq": ERNIE_S,
+             "steps": ERNIE_STEPS, "losses": elosses,
+             "ms_per_step": ewall / (ERNIE_STEPS - 2) * 1e3,
+             "tokens_per_s": B * ERNIE_S * (ERNIE_STEPS - 2) / ewall,
+             "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    del model, opt
+    free(torch)
+    emit("bert_finetune", bert=bert, ernie=ernie)
+
+
+def train_checkpoint_phase(torch, port):
+    """The gpt_train_identity model (fp32, 2 layers): 2 steps, then
+    ``framework.save`` of model, optimizer and scheduler to a temporary
+    directory; a fresh model and optimizer ``load`` them and train 2 more.
+    The 4 losses must equal an uninterrupted 4-step run's: bit for bit
+    where two uninterrupted runs are, else within the gap between those
+    two.  Then a bf16 model saved and loaded back bit-equal."""
+    layers, S, steps = 2, 1024, 4
+    rng = np.random.default_rng(15)
+    batches = [torch.from_numpy(corpus(rng, 1, S)).cuda()
+               for _ in range(steps)]
+
+    def fresh():
+        model = gpt_model(torch, port, layers, torch.float32, seed=5)
+        return (model, *gpt_trainer(torch, port, model))
+
+    whole = []
+    for _ in range(2):
+        model, opt, sched = fresh()
+        whole.append(gpt_losses(torch, port, model, opt, sched, batches))
+        del model, opt
+        free(torch)
+    model, opt, sched = fresh()
+    resumed = gpt_losses(torch, port, model, opt, sched, batches[:2])
+    tmp = tempfile.mkdtemp(prefix="train_checkpoint_")
+    try:
+        path = os.path.join(tmp, "gpt.pdparams")
+        t0 = time.perf_counter()
+        port.framework.save({"model": model.state_dict(),
+                             "opt": opt.state_dict()}, path)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        del model, opt, sched
+        free(torch)
+        model, opt, sched = fresh()
+        t0 = time.perf_counter()
+        ck = port.framework.load(path, device="cuda")
+        model.load_state_dict(ck["model"])
+        opt.set_state_dict(ck["opt"])
+        del ck
+        load_s = time.perf_counter() - t0
+        resumed += gpt_losses(torch, port, model, opt, sched, batches[2:])
+        del model, opt
+        free(torch)
+
+        bf16 = gpt_model(torch, port, layers, torch.bfloat16, seed=6)
+        bpath = os.path.join(tmp, "gpt_bf16.pdparams")
+        port.framework.save(bf16.state_dict(), bpath)
+        other = gpt_model(torch, port, layers, torch.bfloat16, seed=16)
+        other.load_state_dict(port.framework.load(bpath, device="cuda"))
+        bf16_equal = all(torch.equal(a, b) for a, b in
+                         zip(bf16.state_dict().values(),
+                             other.state_dict().values()))
+        del bf16, other
+        free(torch)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    run_gap = max(abs(a - b) for a, b in zip(*whole))
+    gap = max(abs(a - b) for a, b in zip(resumed, whole[0]))
+    ok = (resumed == whole[0]) if whole[0] == whole[1] else gap <= run_gap
+    if not (ok and bf16_equal):
+        raise AssertionError(f"train_checkpoint: resumed {resumed} against "
+                             f"uninterrupted {whole} (gap {gap}, between "
+                             f"runs {run_gap}); bf16 equal {bf16_equal}")
+    emit("train_checkpoint", layers=layers, dtype="float32", seq=S,
+         steps=steps, uninterrupted=whole, resumed=resumed,
+         bit_equal=resumed == whole[0], runs_bit_equal=whole[0] == whole[1],
+         max_gap=gap, file_bytes=size, save_s=save_s, load_s=load_s,
+         bf16_round_trip_equal=bf16_equal)
+
+
 def main() -> int:
     try:
         import torch
 
+        from paddle_tpu_torch import framework
         from paddle_tpu_torch import observability as obs
         from paddle_tpu_torch import serving
         from paddle_tpu_torch.serving import graphs
         from paddle_tpu_torch.models import (
+            BertConfig,
+            BertForQuestionAnswering,
+            ErnieConfig,
+            ErnieForSequenceClassification,
+            GPTConfig,
+            GPTForCausalLM,
+            GPTPretrainingCriterion,
             LlamaConfig,
             LlamaForCausalLM,
             LlamaPretrainingCriterion,
         )
+        from paddle_tpu_torch.models import gpt as gpt_mod
+        from paddle_tpu_torch.nn.functional import cross_entropy
         from paddle_tpu_torch.ops import _build, flash
         from paddle_tpu_torch.ops import flash_attention as fa
         from paddle_tpu_torch.ops import paged_decode as pd
         from paddle_tpu_torch.ops import ragged_paged as rp
         from paddle_tpu_torch.ops import scaled as sc
         from paddle_tpu_torch.optimizer import AdamW
-        from paddle_tpu_torch.optimizer.lr import CosineAnnealingDecay
+        from paddle_tpu_torch.optimizer.lr import (
+            CosineAnnealingDecay,
+            LinearWarmup,
+            PolynomialDecay,
+        )
         from paddle_tpu_torch.utils import cpp_extension
     except ImportError as e:
         print(f"chip_smoke: the paddle_tpu_torch package is not here ({e}); "
@@ -4534,11 +5118,39 @@ def main() -> int:
     # a training step (a back-to-back window of the flash phase recorded
     # no flash kernel: PERF.md section 7)
     flash_device = train_profile_phase(torch, trainer)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    # GPT pre-training (MHA through the flash kernels), BERT/ERNIE
+    # fine-tuning and checkpoints
+    port = SimpleNamespace(
+        GPTConfig=GPTConfig, GPTForCausalLM=GPTForCausalLM,
+        GPTPretrainingCriterion=GPTPretrainingCriterion, gpt_mod=gpt_mod,
+        BertConfig=BertConfig,
+        BertForQuestionAnswering=BertForQuestionAnswering,
+        ErnieConfig=ErnieConfig,
+        ErnieForSequenceClassification=ErnieForSequenceClassification,
+        AdamW=AdamW, LinearWarmup=LinearWarmup,
+        CosineAnnealingDecay=CosineAnnealingDecay,
+        PolynomialDecay=PolynomialDecay, cross_entropy=cross_entropy,
+        TrainStepTelemetry=obs.TrainStepTelemetry, framework=framework)
+    gpt_train_identity_phase(torch, flash, fa, port)
+    gpt_launches, gpt_trainer_state = gpt_train_phase(torch, flash, fa,
+                                                      port, obs)
+    train_profile_phase(torch, gpt_trainer_state, label="gpt_train",
+                        shape=(GPT_B, GPT_S), seed=17)
+    del gpt_trainer_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    bert_finetune_phase(torch, flash, port)
+    train_checkpoint_phase(torch, port)
     flash_rows = [{
         "name": f"flash_attention_{key}", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/flash_attention.cu",
         "replaces": f"paddle_tpu/ops/pallas_flash.py:{line}",
-        "launches": train_launches[key], "device_ms": flash_device[key],
+        "launches": train_launches[key],
+        "gpt_train_launches": gpt_launches[key],
+        "device_ms": flash_device[key],
         **{f: flash_summary[key][f] for f in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")}}

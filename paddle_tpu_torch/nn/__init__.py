@@ -1,3 +1,12 @@
-"""The ``nn`` subset the port's Llama uses."""
+"""The port's ``nn``: the layers, containers and initializers the Llama,
+GPT, BERT and ERNIE models use."""
 
-from .norm import RMSNorm  # noqa: F401
+from . import initializer  # noqa: F401
+from .common import Dropout, Embedding, Flatten, Identity, Linear  # noqa: F401
+from .container import (  # noqa: F401
+    LayerDict,
+    LayerList,
+    ParameterList,
+    Sequential,
+)
+from .norm import LayerNorm, RMSNorm  # noqa: F401

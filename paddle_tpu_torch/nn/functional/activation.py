@@ -1,0 +1,170 @@
+"""Activation functionals: the port of
+``paddle_tpu/nn/functional/activation.py``.
+
+The same formulas as the JAX package (``jax.nn``'s where it calls them),
+in torch ops.  The random ones (``rrelu`` in training, ``gumbel_softmax``)
+draw from ``generator`` when given, else from torch's default generator.
+The in-place ``elu_`` and ``softmax_`` write into their input.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+_DTYPES = {"float32": torch.float32, "float64": torch.float64,
+           "float16": torch.float16, "bfloat16": torch.bfloat16}
+
+
+def _dtype(dtype):
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    return _DTYPES[str(dtype)]
+
+
+def _unary(opname, fn):
+    # the paddle-API ``name=`` kwarg is accepted and ignored
+    def op(x, name=None):
+        return fn(x)
+
+    op.__name__ = opname
+    return op
+
+
+def _clip01(v):
+    return torch.clamp(v, 0.0, 1.0)
+
+
+relu = _unary("relu", torch.relu)
+relu6 = _unary("relu6", lambda v: torch.clamp(v, 0.0, 6.0))
+sigmoid = _unary("sigmoid", torch.sigmoid)
+tanh = _unary("tanh", torch.tanh)
+silu = _unary("silu", F.silu)
+swish = silu
+mish = _unary("mish", lambda v: v * torch.tanh(F.softplus(v)))
+tanhshrink = _unary("tanhshrink", lambda v: v - torch.tanh(v))
+softsign = _unary("softsign", lambda v: v / (torch.abs(v) + 1))
+log_sigmoid = _unary("log_sigmoid", F.logsigmoid)
+hardsigmoid = _unary("hardsigmoid", lambda v: _clip01(v / 6.0 + 0.5))
+hardswish = _unary("hardswish", lambda v: v * _clip01(v / 6.0 + 0.5))
+
+
+def gelu(x, approximate=False, name=None):
+    """``x * Phi(x)``; ``approximate=True`` is the tanh form (GPT's)."""
+    return F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def elu(x, alpha=1.0, name=None):
+    return torch.where(x > 0, x, alpha * torch.expm1(x))
+
+
+def elu_(x, alpha=1.0, name=None):
+    with torch.no_grad():
+        return x.copy_(elu(x, alpha))
+
+
+def celu(x, alpha=1.0, name=None):
+    return torch.where(x > 0, x, alpha * torch.expm1(x / alpha))
+
+
+def selu(x, scale=1.0507009873554804934193349852946,
+         alpha=1.6732632423543772848170429916717, name=None):
+    return scale * torch.where(x > 0, x, alpha * torch.expm1(x))
+
+
+def leaky_relu(x, negative_slope=0.01, name=None):
+    return torch.where(x >= 0, x, negative_slope * x)
+
+
+def prelu(x, weight, data_format="NCHW", name=None):
+    if weight.numel() == 1:
+        return torch.where(x > 0, x, weight.reshape(()) * x)
+    c_axis = 1 if data_format == "NCHW" else x.dim() - 1
+    shape = [1] * x.dim()
+    shape[c_axis] = weight.numel()
+    return torch.where(x > 0, x, weight.reshape(shape) * x)
+
+
+def rrelu(x, lower=1.0 / 8.0, upper=1.0 / 3.0, training=True, name=None,
+          generator=None):
+    if training:
+        a = torch.empty_like(x).uniform_(lower, upper, generator=generator)
+    else:
+        a = (lower + upper) / 2.0
+    return torch.where(x >= 0, x, a * x)
+
+
+def hardtanh(x, min=-1.0, max=1.0, name=None):
+    return torch.clamp(x, min, max)
+
+
+def hardshrink(x, threshold=0.5, name=None):
+    return torch.where(torch.abs(x) > threshold, x, torch.zeros_like(x))
+
+
+def softshrink(x, threshold=0.5, name=None):
+    zero = torch.zeros_like(x)
+    return torch.where(x > threshold, x - threshold,
+                       torch.where(x < -threshold, x + threshold, zero))
+
+
+def softplus(x, beta=1.0, threshold=20.0, name=None):
+    # jax.nn.softplus is logaddexp(x, 0)
+    soft = torch.logaddexp(beta * x, torch.zeros_like(x)) / beta
+    return torch.where(beta * x > threshold, x, soft)
+
+
+def thresholded_relu(x, threshold=1.0, value=0.0, name=None):
+    return torch.where(x > threshold, x, torch.full_like(x, value))
+
+
+def softmax(x, axis=-1, dtype=None, name=None):
+    d = _dtype(dtype)
+    return torch.softmax(x if d is None else x.to(d), dim=axis)
+
+
+def softmax_(x, axis=-1, dtype=None, name=None):
+    with torch.no_grad():
+        return x.copy_(softmax(x, axis, dtype))
+
+
+def log_softmax(x, axis=-1, dtype=None, name=None):
+    d = _dtype(dtype)
+    return torch.log_softmax(x if d is None else x.to(d), dim=axis)
+
+
+def gumbel_softmax(x, temperature=1.0, hard=False, axis=-1, name=None,
+                   generator=None):
+    u = torch.empty_like(x).uniform_(generator=generator)
+    # -log(-log(u)) with u kept off 0, as jax.random.gumbel draws it
+    tiny = torch.finfo(x.dtype).tiny
+    g = -torch.log(-torch.log(u.clamp_min(tiny)))
+    y = torch.softmax((x + g) / temperature, dim=axis)
+    if hard:
+        idx = torch.argmax(y, dim=axis, keepdim=True)
+        y_hard = torch.zeros_like(y).scatter_(axis, idx, 1.0)
+        y = y_hard - y.detach() + y   # straight-through estimator
+    return y
+
+
+def maxout(x, groups, axis=1, name=None):
+    c = x.shape[axis]
+    new_shape = list(x.shape)
+    new_shape[axis] = c // groups
+    new_shape.insert(axis + 1, groups)
+    return torch.amax(x.reshape(new_shape), dim=axis + 1)
+
+
+def glu(x, axis=-1, name=None):
+    a, b = torch.chunk(x, 2, dim=axis)
+    return a * torch.sigmoid(b)
+
+
+
+__all__ = [
+    "relu", "relu6", "sigmoid", "tanh", "silu", "swish", "mish",
+    "tanhshrink", "softsign", "log_sigmoid", "hardsigmoid", "hardswish",
+    "gelu", "elu", "elu_", "celu", "selu", "leaky_relu", "prelu", "rrelu",
+    "hardtanh", "hardshrink", "softshrink", "softplus", "thresholded_relu",
+    "softmax", "softmax_", "log_softmax", "gumbel_softmax", "maxout", "glu",
+]

@@ -31,9 +31,11 @@ engine (the JAX package's public names, in PyTorch and stdlib idiom).
   :class:`ClockSync`, :class:`TelemetryOutbox`, :class:`DeltaMerger`,
   :class:`MirrorRing` and :class:`WireStats`.
 
-Not here yet: the
-op-bus subscribers ``subscribe_ops`` / ``trace_dispatch`` (the ``run_op``
-bus, A12) and ``TrainStepTelemetry`` (A10).
+* :class:`TrainStepTelemetry` (``telemetry.py``) — tokens/s and MFU of
+  training steps as registry series and tracer instants.
+
+Not here yet: the op-bus subscribers ``subscribe_ops`` /
+``trace_dispatch`` (the ``run_op`` bus, A12).
 
 Process-wide defaults: :func:`get_tracer` / :func:`get_registry` return
 one shared instance each.
@@ -105,6 +107,7 @@ from .stepprof import (  # noqa: F401
     CaptureWindow,
     StepProfiler,
 )
+from .telemetry import TrainStepTelemetry  # noqa: F401
 from .tracer import (  # noqa: F401
     Span,
     SpanTracer,

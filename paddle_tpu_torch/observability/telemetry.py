@@ -1,0 +1,69 @@
+"""Train-step telemetry: tokens/sec and MFU as registry series, the port
+of ``paddle_tpu/observability/telemetry.py``.
+
+The same series (``train_tokens_per_sec``, ``train_mfu``,
+``train_step_seconds``, ``train_tokens_total``) and the same tracer
+instant (``train_step``, category ``train``) as the JAX class, with the
+flops of :func:`paddle_tpu_torch.distributed.auto_tuner.
+train_flops_per_token` (``6N + 12·L·S·H``).  The step time is the
+caller's: on the card, synchronise before reading the clock.
+
+Usage::
+
+    tel = TrainStepTelemetry(n_params=n, num_layers=L, seq_len=S,
+                             hidden=H, peak_flops=989e12)
+    for batch in loader:
+        t0 = time.perf_counter()
+        loss = train_step(batch)
+        torch.cuda.synchronize()
+        tel.step(tokens=batch_tokens, seconds=time.perf_counter() - t0)
+    print(tel.registry.prometheus_text())
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from ..distributed.auto_tuner import train_flops_per_token
+from .metrics import MetricsRegistry, get_registry
+from .tracer import SpanTracer, get_tracer
+
+
+class TrainStepTelemetry:
+    """Records per-step tokens/sec, MFU, and step-time histograms."""
+
+    def __init__(self, n_params: float, num_layers: int = 0,
+                 seq_len: int = 0, hidden: int = 0,
+                 peak_flops: float = 0.0,
+                 registry: Optional[MetricsRegistry] = None,
+                 tracer: Optional[SpanTracer] = None):
+        self.flops_per_token = train_flops_per_token(
+            n_params, num_layers, seq_len, hidden)
+        self.peak_flops = float(peak_flops)
+        self.registry = registry if registry is not None else get_registry()
+        self.tracer = tracer if tracer is not None else get_tracer()
+        self.steps = 0
+        self._tok_s = self.registry.gauge(
+            "train_tokens_per_sec", "training throughput, tokens/second")
+        self._mfu = self.registry.gauge(
+            "train_mfu", "model FLOPs utilization (0..1)")
+        self._step_hist = self.registry.histogram(
+            "train_step_seconds", "train step wall time")
+        self._tokens = self.registry.counter(
+            "train_tokens_total", "tokens trained on")
+
+    def step(self, tokens: int, seconds: float) -> dict:
+        """Record one completed train step; returns the derived numbers."""
+        self.steps += 1
+        tok_s = tokens / seconds if seconds > 0 else 0.0
+        mfu = (self.flops_per_token * tok_s / self.peak_flops
+               if self.peak_flops else 0.0)
+        self._tok_s.set(tok_s)
+        self._mfu.set(mfu)
+        self._step_hist.observe(seconds)
+        self._tokens.inc(tokens)
+        self.tracer.instant("train_step", cat="train", step=self.steps,
+                            tokens=tokens, seconds=seconds,
+                            tokens_per_sec=round(tok_s, 2),
+                            mfu=round(mfu, 6))
+        return {"tokens_per_sec": tok_s, "mfu": mfu, "seconds": seconds}

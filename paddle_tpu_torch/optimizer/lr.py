@@ -1,7 +1,13 @@
 """Learning-rate schedulers: the port of ``paddle_tpu/optimizer/lr.py`` for
-the schedulers the training path uses (``LRScheduler``, ``LinearWarmup``,
-``CosineAnnealingDecay``).  Pure Python, the same arithmetic as the JAX
-package's.  The other schedulers wait for ROADMAP A12.
+the schedulers the training paths use (``LRScheduler``, ``LinearWarmup``,
+``CosineAnnealingDecay``, ``PolynomialDecay``).  Pure Python, the same
+arithmetic as the JAX package's.  The other schedulers wait for ROADMAP
+A12.
+
+``state_dict`` is the JAX one: the scheduler's attributes that are not
+callable (so a ``LinearWarmup``'s inner scheduler is left out: it is
+stepped again from ``last_epoch``), under the JAX attribute names, so a
+scheduler's state crosses between the packages unchanged.
 """
 
 from __future__ import annotations
@@ -32,6 +38,36 @@ class LRScheduler:
 
     def get_lr(self):
         raise NotImplementedError
+
+    def state_dict(self):
+        return {k: v for k, v in self.__dict__.items() if not callable(v)}
+
+    def set_state_dict(self, state):
+        self.__dict__.update(state)
+
+    set_dict = set_state_dict
+    state_keys = state_dict
+
+
+class PolynomialDecay(LRScheduler):
+    def __init__(self, learning_rate, decay_steps, end_lr=0.0001, power=1.0,
+                 cycle=False, last_epoch=-1, verbose=False):
+        self.decay_steps = decay_steps
+        self.end_lr = end_lr
+        self.power = power
+        self.cycle = cycle
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        step = self.last_epoch
+        if self.cycle:
+            div = math.ceil(step / self.decay_steps) if step > 0 else 1
+            decay_steps = self.decay_steps * div
+        else:
+            decay_steps = self.decay_steps
+            step = min(step, decay_steps)
+        return ((self.base_lr - self.end_lr)
+                * (1 - step / decay_steps) ** self.power + self.end_lr)
 
 
 class LinearWarmup(LRScheduler):

@@ -6,7 +6,16 @@ The same surface as the JAX package's: parameter groups (dicts with
 per-parameter ``optimize_attr["learning_rate"]`` scale, ``step``,
 ``clear_grad``, ``get_lr`` / ``set_lr`` with an ``LRScheduler``, and
 ``multi_precision`` fp32 master weights for bf16 / fp16 parameters (moments
-then live in the master's dtype).
+then live in the master's dtype), and ``state_dict`` / ``set_state_dict``
+with the JAX keys: ``"step"`` (the count of ``step`` calls), ``"p{i}/m"``,
+``"p{i}/v"``, ``"p{i}/t"`` (a 0-d int32 tensor) and ``"p{i}/master"``,
+where ``i`` is the parameter's position in the list the optimizer was
+built on, and ``"LR_Scheduler"`` (the scheduler's own state dict).  The
+values are the optimizer's tensors, not copies; ``framework.save`` writes
+them in the JAX package's file format.  Across the packages the
+parameter order and the linear layouts differ:
+``convert.optimizer_state_from_paddle_tpu`` / ``..._to_paddle_tpu`` map
+them.
 
 The updates are plain torch ops (XLA code in the JAX package), in place
 under ``torch.no_grad()``, one parameter at a time: a ``torch._foreach_*``
@@ -60,6 +69,7 @@ class Optimizer:
             self._parameter_list = flat
         self._weight_decay = weight_decay
         self._state: Dict[int, Dict[str, object]] = {}
+        self._step_count = 0
         self._use_master_weights = False
 
     # --- lr ---------------------------------------------------------------
@@ -99,6 +109,7 @@ class Optimizer:
         params_grads = [(p, p.grad, attrs)
                         for p, attrs in self._params_with_group_attrs()
                         if p.grad is not None and p.requires_grad]
+        self._step_count += 1
         for p, g, attrs in params_grads:
             self._apply_param(p, g, attrs)
 
@@ -127,6 +138,40 @@ class Optimizer:
     def clear_grad(self, set_to_zero=True):
         for p in self._all_params():
             p.grad = None
+
+    # --- state dict -------------------------------------------------------
+    def state_dict(self):
+        out = {"step": self._step_count}
+        names = {id(p): f"p{i}" for i, p in enumerate(self._all_params())}
+        for key, st in self._state.items():
+            for k, v in st.items():
+                if k == "t":     # a Python int here, an int32 scalar there
+                    v = torch.tensor(v, dtype=torch.int32)
+                out[f"{names.get(key, key)}/{k}"] = v
+        if isinstance(self._lr, LRScheduler):
+            out["LR_Scheduler"] = self._lr.state_dict()
+        return out
+
+    def set_state_dict(self, state):
+        """Load a ``state_dict`` of either package (tensors, or numpy arrays
+        as the JAX package's ``state_dict`` values read back), copying each
+        slot onto its parameter's device.  Keys of parameters the optimizer
+        does not have are skipped, as in the JAX package."""
+        self._step_count = int(state.get("step", 0))
+        params = {f"p{i}": p for i, p in enumerate(self._all_params())}
+        for k, v in state.items():
+            if k in ("step", "LR_Scheduler"):
+                continue
+            pname, sname = k.split("/", 1)
+            p = params.get(pname)
+            if p is None:
+                continue
+            val = torch.as_tensor(v)
+            slot = (int(val) if sname == "t" else
+                    val.detach().to(p.device, copy=True))
+            self._state.setdefault(id(p), {})[sname] = slot
+        if "LR_Scheduler" in state and isinstance(self._lr, LRScheduler):
+            self._lr.set_state_dict(state["LR_Scheduler"])
 
 
 class Adam(Optimizer):

@@ -72,7 +72,15 @@ MUST_CHECK = ("utils/__init__.py", "utils/extension.py",
               "observability/distrib.py",
               # the AOT artifacts: the JAX module lowers through
               # jax.export; the port's records signatures instead
-              "serving/aot.py")
+              "serving/aot.py",
+              # the GPT, BERT and ERNIE training paths with their nn
+              # layers, checkpoints and train telemetry
+              "framework.py", "convert.py", "observability/telemetry.py",
+              "distributed/auto_tuner.py", "nn/initializer.py",
+              "nn/container.py", "nn/common.py", "nn/norm.py",
+              "nn/functional/common.py", "nn/functional/norm.py",
+              "nn/functional/activation.py", "nn/functional/attention.py",
+              "models/gpt.py", "models/bert.py", "models/ernie.py")
 
 
 def _port_files():
@@ -161,6 +169,36 @@ def test_model_without_a_card_raises_instead_of_using_the_cpu(monkeypatch):
     model = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1),
                              device="cpu")
     assert {p.device.type for p in model.parameters()} == {"cpu"}
+
+
+@pytest.mark.parametrize("name", [
+    "GPTForCausalLM", "BertModel", "BertForQuestionAnswering",
+    "BertForSequenceClassification", "ErnieModel",
+    "ErnieForSequenceClassification"])
+def test_training_models_without_a_card_raise(monkeypatch, name):
+    """The GPT, BERT and ERNIE entry points, like Llama's: the card unless
+    the caller passes the CPU."""
+    from paddle_tpu_torch import models
+
+    cls = getattr(models, name)
+    cfg = (models.ErnieConfig if "Ernie" in name else models.BertConfig
+           if "Bert" in name else models.GPTConfig).tiny(num_hidden_layers=1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cls(cfg)
+    model = cls(cfg, device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
+
+
+def test_checkpoint_load_without_a_card_raises(monkeypatch, tmp_path):
+    from paddle_tpu_torch import framework
+
+    path = str(tmp_path / "ck.pdparams")
+    framework.save({"w": torch.ones(2)}, path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        framework.load(path)
+    assert framework.load(path, device="cpu")["w"].device.type == "cpu"
 
 
 def test_moe_layers_raise_at_construction():
