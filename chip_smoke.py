@@ -370,13 +370,50 @@ these phases, printing one JSON line for each:
              losses equal an uninterrupted run's, bit for bit where two
              uninterrupted runs are (else within their gap); a bf16 model
              saved and loaded back bit-equal.
+``vision_identity``  image classification in fp32 with cuDNN
+             deterministic: ``resnet18`` at 64x64, B=8, 5
+             ``jit.to_static`` Momentum steps (the first eager, the second
+             captured into a CUDA graph and replayed, then replays)
+             against 5 eager steps from the same weights: losses,
+             parameters and BatchNorm buffers within 1e-5 (bit-equal is
+             reported); a planted fault, a first call that applies two
+             steps, must miss that gate; a step reading ``float(loss)``
+             falls back to eager with one warning and one graph break; a
+             ViT at ViT-B widths cut to 2 layers (224x224, B=8, fp32,
+             AdamW, captured) through the flash kernels against the same
+             steps through the composite (``use_pallas=False``), losses
+             within 1e-5 relative, 3 x 2 launches of each kernel; then
+             the three flash kernels at ViT-B/16's attention shape (B=64,
+             S=197, 12 heads of 64, non-causal) against their twins row
+             by row in fp32 and bf16, each output's last 64 rows zeroed
+             as a planted fault that must fail, and in bf16 the kernels',
+             twins' and library's (SDPA and its backward) CUDA-event
+             times beside the bound.
+``resnet50_train``  ``resnet50(num_classes=1000)`` at 224x224, B=64,
+             Momentum (lr 0.025, the one-card share of ResNet50.yaml's
+             0.1 at a global batch of 256), ``CrossEntropyLoss``, one
+             ``to_static`` step: 10 steps in fp32 (TF32 off), then a
+             fresh model 10 steps under ``auto_cast(level="O1",
+             dtype="bfloat16")``; each: losses falling, ms a step and
+             images/s by CUDA events, 1 capture and 0 graph breaks, peak
+             memory, the eager step's time and its optimizer share on
+             the same weights, a 2-step profile (idle share; conv,
+             BatchNorm statistics, elementwise and matrix-product
+             shares).
+``vit_train``  ``vit_base_patch16_224(class_num=1000)``, B=64, AdamW, AMP
+             O1 bf16, one ``to_static`` step, 10 steps: losses falling,
+             ms a step, images/s, achieved TFLOP/s (3 x
+             ``vit_flops_per_image`` an image), peak memory, 12 x 10
+             launches of each flash kernel, a 2-step profile (idle share,
+             each flash kernel's device time a launch).
 
 Then a line ``{"kernels": [...]}`` summarising each kernel at its main
 path's shapes (the ragged kernel at the unified serve step, the decode
 kernel at B=16 bf16, the flash kernels at the train shape in bf16, the
 scale kernel at [8192, 4096] bf16, with the launches of the serve, the
 burst-free serve_legacy, the train and the custom_op runs; the flash rows
-add ``gpt_train_launches``), the
+add ``gpt_train_launches``, ``vit_train_launches``, ``vit_train_device_ms``
+and ``vit_shape``, their times and errors at ViT-B/16's shape), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any
 failure raises and the script exits nonzero without that last line; so
 does a machine without a CUDA device, and a directory that holds this
@@ -4965,6 +5002,459 @@ def train_checkpoint_phase(torch, port):
          bf16_round_trip_equal=bf16_equal)
 
 
+
+# --- image classification: ResNet and ViT under to_static ----------------------
+
+VIT_B, VIT_S, VIT_H, VIT_D = 64, 197, 12, 64    # ViT-B/16 at 224, B=64
+RESNET_B = 64       # PaddleClas ResNet50.yaml's batch a card
+RESNET_LR = 0.1 * RESNET_B / 256    # its lr, for a global batch of 256
+CONV_MARKS = ("conv", "xmma", "cudnn", "implicit", "dgrad", "wgrad",
+              "fprop", "nchw", "nhwc")
+WELFORD_MARKS = ("welford", "batch_norm", "batchnorm")
+ELEMENTWISE_MARKS = ("elementwise", "vectorized", "unrolled")
+
+
+def stripe_batches(torch, rng, n, B, S, classes=10):
+    """examples/train_resnet.py's synthetic batches: noise (std 0.1) with a
+    bright row at a height set by the label, labels among ``classes``."""
+    out = []
+    for _ in range(n):
+        y = rng.integers(0, classes, B)
+        x = rng.standard_normal((B, 3, S, S)) * 0.1
+        for b, lab in enumerate(y):
+            x[b, 0, (lab * S // classes) % S] += 1.0
+        out.append((torch.from_numpy(x.astype(np.float32)).cuda(),
+                    torch.from_numpy(y).cuda()))
+    return out
+
+
+def classifier_step(model, opt, loss_fn, amp_ctx=None):
+    """examples/train_resnet.py's step: loss, backward, step, clear."""
+    def step(x, y):
+        with (amp_ctx() if amp_ctx else contextlib.nullcontext()):
+            loss = loss_fn(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+    return step
+
+
+def state_gap(a, b):
+    """The largest gap between two models' parameters and buffers, each
+    over its tensor's largest value, and whether every tensor is
+    bit-equal."""
+    worst, equal = 0.0, True
+    for (name, x), (_, y) in zip(a.state_dict().items(),
+                                 b.state_dict().items()):
+        equal = equal and bool((x == y).all())
+        scale = max(float(y.float().abs().max()), 1e-30)
+        worst = max(worst, float((x.float() - y.float()).abs().max())
+                    / scale)
+    return worst, equal
+
+
+def vit_shape_flash(torch, flash):
+    """The three flash kernels at ViT-B/16's attention shape (B=64, S=197:
+    a tail of 69 rows past the first 128-row block, 12 heads of 64,
+    non-causal), fp32 and bf16, against their twins row by row, with the
+    planted fault (each output's last 64 rows zeroed) that must fail; for
+    bf16 (the O1 path) the kernels', twins', library's (SDPA and its
+    backward) CUDA-event times and the bound.  Each kernel's device time
+    a launch is read inside vit_train's steps: a back-to-back profile
+    window of a long process can record no flash kernel."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    shape = (VIT_B, VIT_S, VIT_H, VIT_D)
+    q32, k32, v32, do32 = (torch.randn(shape, device=dev, generator=gen)
+                           for _ in range(4))
+    checks, summary = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        q, k, v, do = (t.to(dtype) for t in (q32, k32, v32, do32))
+        rec, lse, delta = flash_check(torch, flash, "vit shape", q, k, v,
+                                      do, False, plant=True)
+        checks.append({"dtype": name, **rec})
+        if dtype != torch.bfloat16:
+            continue
+        scale = 1.0 / np.sqrt(VIT_D)
+        kernels = {
+            "fwd": lambda: flash.fwd_kernel(q, k, v, False),
+            "dq": lambda: flash.bwd_dq_kernel(q, k, v, do, lse, delta,
+                                              False),
+            "dkv": lambda: flash.bwd_dkv_kernel(q, k, v, do, lse, delta,
+                                                False)}
+        plains = {
+            "fwd": lambda: flash.fwd_reference(q, k, v, scale, False),
+            "dq": lambda: flash.bwd_dq_reference(q, k, v, do, lse, delta,
+                                                 scale, False),
+            "dkv": lambda: flash.bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                   scale, False)}
+        import torch.nn.functional as TF
+
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        g = do.transpose(1, 2).contiguous()
+        lib_out = TF.scaled_dot_product_attention(qt, kt, vt)
+
+        def lib_fwd():
+            with torch.no_grad():
+                return TF.scaled_dot_product_attention(qt, kt, vt)
+
+        def lib_bwd():
+            return torch.autograd.grad(lib_out, (qt, kt, vt), g,
+                                       retain_graph=True)
+
+        library = {"fwd": time_ms(lib_fwd, 10), "dq": time_ms(lib_bwd, 10)}
+        library["dkv"] = library["dq"]
+        for key, (flops, nbytes) in flash_work(q, k, False).items():
+            t_flops = flops / PEAK_FLOPS[name] * 1e3
+            t_bytes = nbytes / PEAK_BYTES * 1e3
+            ms = time_ms(kernels[key], 10)
+            summary[key] = {
+                "B": VIT_B, "S": VIT_S, "H": VIT_H, "D": VIT_D,
+                "dtype": name, "causal": False,
+                "max_abs_err": kernel_err(rec, "abs", key),
+                "max_row_err": kernel_err(rec, "row", key),
+                "ms": ms, "tflops": flops / ms / 1e9,
+                "plain_ms": time_ms(plains[key], 2, 1),
+                "library_ms": library[key],
+                "bound_ms": max(t_flops, t_bytes),
+                "bound_by": "operations" if t_flops > t_bytes else "bytes"}
+        del qt, kt, vt, lib_out
+    return checks, summary
+
+
+def vision_identity_phase(torch, flash, port):
+    """fp32 gates of the image-classification path (cuDNN deterministic):
+    resnet18 at 64x64, B=8, 5 to_static steps against 5 eager steps from
+    the same weights (losses, parameters and BatchNorm buffers; the planted
+    fault, a first call that applies two steps, must fail the gate); a
+    step that reads float(loss) falls back to eager with one warning and
+    one graph break; a ViT at ViT-B widths cut to 2 layers, 224x224, B=8,
+    3 to_static AdamW steps through the flash kernels against the same
+    steps through the composite (``use_pallas=False``), losses within 1e-5
+    relative and each kernel launched steps x layers times; and the flash
+    kernels at ViT-B/16's attention shape against their twins."""
+    import warnings
+
+    from paddle_tpu_torch.nn.functional import attention as attn_mod
+
+    torch.backends.cudnn.deterministic = True
+    rng = np.random.default_rng(30)
+    batches = stripe_batches(torch, rng, 5, 8, 64)
+
+    def resnet(seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return port.vision.resnet18(num_classes=10, device="cuda",
+                                    generator=gen)
+
+    def trainer(model):
+        opt = port.Momentum(learning_rate=0.1, momentum=0.9,
+                            parameters=model.parameters(),
+                            weight_decay=1e-4)
+        return classifier_step(model, opt, port.nn.CrossEntropyLoss())
+
+    runs = {}
+    for mode in ("static", "eager", "planted"):
+        model = resnet(5)
+        step = trainer(model)
+        if mode == "static":
+            step = port.jit.to_static(step)
+        todo = batches if mode != "planted" else batches[:1] + batches
+        losses = [step(x, y) for x, y in todo]
+        if mode == "planted":
+            losses = losses[1:]
+        runs[mode] = (model, [float(l) for l in losses], step)
+    static, eager, planted = runs["static"], runs["eager"], runs["planted"]
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(static[1], eager[1]))
+    gap, bit_equal = state_gap(static[0], eager[0])
+    planted_gap, _ = state_gap(planted[0], eager[0])
+    planted_loss = max(abs(a - b) / abs(b)
+                       for a, b in zip(planted[1], eager[1]))
+    tol = 1e-5
+    if not (loss_gap <= tol and gap <= tol and static[2].captures == 1
+            and static[2].replays == 4):
+        raise AssertionError(f"vision_identity: to_static against eager: "
+                             f"losses {loss_gap}, state {gap} (tol {tol}), "
+                             f"captures {static[2].captures}, replays "
+                             f"{static[2].replays}")
+    if not (planted_gap > tol or planted_loss > tol):
+        raise AssertionError(f"vision_identity: a first call taking two "
+                             f"steps passed the gate ({planted_gap}, "
+                             f"{planted_loss})")
+    resnet_row = {"losses": static[1], "eager_losses": eager[1],
+                  "max_rel_loss_gap": loss_gap, "max_state_gap": gap,
+                  "bit_equal": bit_equal, "tol": tol,
+                  "planted_state_gap": planted_gap,
+                  "planted_loss_gap": planted_loss,
+                  "captures": static[2].captures,
+                  "replays": static[2].replays}
+    del runs, static, eager, planted
+
+    # a host read inside the step: one warning, one break, eager results
+    model = resnet(6)
+    ref = resnet(6)
+    opt = port.Momentum(learning_rate=0.1, momentum=0.9,
+                        parameters=model.parameters(), weight_decay=1e-4)
+    ce = port.nn.CrossEntropyLoss()
+
+    def reading_step(x, y):
+        loss = ce(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        reading_step.seen.append(float(loss))
+        return loss
+
+    reading_step.seen = []
+    counter = port.registry().counter("jit_graph_breaks_total", "")
+    before = counter.value
+    fn = port.jit.to_static(reading_step)
+    ref_step = trainer(ref)
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        for x, y in batches[:3]:
+            fn(x, y)
+            ref_step(x, y)
+    breaks = counter.value - before
+    warned = sum("graph break" in str(w.message) for w in seen)
+    break_gap, _ = state_gap(model, ref)
+    if not (breaks == 1 and warned == 1 and fn.captures == 0
+            and break_gap <= tol and len(reading_step.seen) == 3):
+        raise AssertionError(f"vision_identity: graph break: {breaks} "
+                             f"breaks, {warned} warnings, captures "
+                             f"{fn.captures}, state gap {break_gap}")
+    del model, ref, opt, fn
+    torch.backends.cudnn.deterministic = False
+
+    # the ViT through the flash kernels against the composite
+    vit_runs = {}
+    vbatches = stripe_batches(torch, rng, 3, 8, 224)
+    kernel_fwd = attn_mod.flash_attention_fwd
+    for pinned in (False, True):
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        model = port.vision.VisionTransformer(depth=2, class_num=1000,
+                                              device="cuda", generator=gen)
+        opt = port.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                         weight_decay=0.01)
+        step = port.jit.to_static(classifier_step(
+            model, opt, port.nn.CrossEntropyLoss()))
+        if pinned:
+            attn_mod.flash_attention_fwd = (
+                lambda q, k, v, causal=False: kernel_fwd(
+                    q, k, v, causal, use_pallas=False))
+        reset_flash_counts(flash)
+        try:
+            losses = [float(step(x, y)) for x, y in vbatches]
+        finally:
+            attn_mod.flash_attention_fwd = kernel_fwd
+        vit_runs[pinned] = {"losses": losses,
+                            "launches": flash_counts(flash),
+                            "captures": step.captures}
+        del model, opt, step
+    kern, comp = vit_runs[False], vit_runs[True]
+    vit_gap = max(abs(a - b) / abs(b)
+                  for a, b in zip(kern["losses"], comp["losses"]))
+    due = {k: len(vbatches) * 2 for k in FLASH_MARKS}
+    if not (vit_gap <= 1e-5 and kern["launches"] == due
+            and not any(comp["launches"].values())):
+        raise AssertionError(f"vision_identity: ViT kernels against the "
+                             f"composite: losses {vit_gap} (tol 1e-5), "
+                             f"launches {kern['launches']} (due {due}), "
+                             f"composite {comp['launches']}")
+    checks, vit_flash = vit_shape_flash(torch, flash)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("vision_identity", resnet18=resnet_row,
+         graph_break={"breaks": breaks, "warnings": warned,
+                      "captures": 0, "state_gap": break_gap},
+         vit={"layers": 2, "batch": 8, "dtype": "float32",
+              "max_rel_loss_gap": vit_gap, "kernel": kern,
+              "composite": comp},
+         vit_shape_checks=checks, vit_shape_flash=vit_flash)
+    return vit_flash
+
+
+def kernel_shares(kernels):
+    return {"conv": share(kernels, CONV_MARKS),
+            "batch_norm_stats": share(kernels, WELFORD_MARKS),
+            "elementwise": share(kernels, ELEMENTWISE_MARKS),
+            "matmul": share(kernels, MATMUL_MARKS)}
+
+
+def timed_steps(torch, step, batches):
+    """Run ``step`` on each batch with CUDA events at the boundaries and no
+    sync inside; returns (losses, ms of each step)."""
+    events = [torch.cuda.Event(enable_timing=True)]
+    events[0].record()
+    losses = []
+    for x, y in batches:
+        losses.append(step(x, y))
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+    torch.cuda.synchronize()
+    return ([float(l) for l in losses],
+            [a.elapsed_time(b) for a, b in zip(events, events[1:])])
+
+
+def resnet50_train_phase(torch, port):
+    """PaddleClas ResNet-50 (``resnet50(num_classes=1000)``, 224x224, B=64
+    a card), ``Momentum(0.025, 0.9, weight_decay=1e-4)`` and
+    ``CrossEntropyLoss`` in one ``to_static`` step (examples/
+    train_resnet.py's loop), synthetic stripe batches.  ResNet50.yaml's
+    lr of 0.1 is for its global batch of 256 (4 cards of 64), after a
+    warm-up; one card's 64 scales it to 0.025 (at 0.1 with no warm-up the
+    loss rose from 7.1 to 28.8 in 10 steps).  10 steps in fp32
+    (TF32 off), then 10 under ``auto_cast(level="O1", dtype="bfloat16")``
+    on the same model.  Each: images/s and ms a step by CUDA events (the
+    first, eager call and the capturing call apart), captures, graph
+    breaks (0), peak memory, 3 eager steps of the same step function on
+    the same weights (with the optimizer's share by CUDA events), and a
+    profiler window over 2 captured steps (idle share; convolution,
+    BatchNorm-statistics, elementwise and matrix-product shares).  Losses
+    must fall.  Each run builds the model afresh from one seed."""
+    rng = np.random.default_rng(40)
+    ce = port.nn.CrossEntropyLoss()
+    breaks = port.registry().counter("jit_graph_breaks_total", "")
+    rows = {}
+    for name, amp_ctx in (("fp32", None),
+                          ("amp_o1_bf16", lambda: port.amp.auto_cast(
+                              level="O1", dtype="bfloat16"))):
+        gen = torch.Generator(device="cuda").manual_seed(41)
+        model = port.vision.resnet50(num_classes=1000, device="cuda",
+                                     generator=gen)
+        params = sum(p.numel() for p in model.parameters())
+        opt = port.Momentum(learning_rate=RESNET_LR, momentum=0.9,
+                            parameters=model.parameters(),
+                            weight_decay=1e-4)
+        batches = stripe_batches(torch, rng, 12, RESNET_B, 224)
+        step = port.jit.to_static(classifier_step(model, opt, ce, amp_ctx))
+        before = breaks.value
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = timed_steps(torch, step, batches[:10])
+        peak = torch.cuda.max_memory_allocated()
+        steady = ms[2:]
+        if not (np.isfinite(losses).all()
+                and np.mean(losses[-3:]) < np.mean(losses[:3])):
+            raise AssertionError(f"resnet50_train {name}: losses {losses} "
+                                 f"are not finite or do not fall")
+        if breaks.value != before or step.captures != 1:
+            raise AssertionError(f"resnet50_train {name}: "
+                                 f"{breaks.value - before} graph breaks, "
+                                 f"{step.captures} captures")
+        kernels, wall_us, _ = profile_window(
+            torch, lambda: step(*batches[10]), 2)
+        # the same step eagerly, with the optimizer's share by events
+        eager = classifier_step(model, opt, ce, amp_ctx)
+        eager(*batches[11])
+        clock = StepClock(torch)
+        clock.mark()
+        for x, y in batches[10:12]:
+            with (amp_ctx() if amp_ctx else contextlib.nullcontext()):
+                loss = ce(model(x), y)
+            loss.backward()
+            clock.mark()
+            opt.step()
+            opt.clear_grad()
+            clock.mark()
+        eager_s, opt_s = clock.read()
+        rows[name] = {
+            "losses": losses, "first_call_ms": ms[0], "capture_call_ms":
+            ms[1], "ms_per_step": float(np.mean(steady)),
+            "ms_steps": steady,
+            "images_per_s": RESNET_B / (np.mean(steady) / 1e3),
+            "captures": step.captures, "graph_breaks": 0,
+            "max_memory_allocated": peak,
+            "eager_ms_per_step": float(np.mean(eager_s)) * 1e3,
+            "eager_optimizer_ms": float(np.mean(opt_s)) * 1e3,
+            "eager_optimizer_share": float(np.sum(opt_s) / np.sum(eager_s)),
+            **window_summary(kernels, wall_us),
+            "shares": kernel_shares(kernels)}
+        del step, eager, batches, model, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit("resnet50_train", model="resnet50", classes=1000, image=224,
+         batch=RESNET_B,
+         optimizer=f"Momentum({RESNET_LR}, 0.9, weight_decay=1e-4)",
+         params=params, **rows)
+
+
+def vit_flops_per_image(embed=768, depth=12, heads=12, tokens=197,
+                        patches=196, patch_dim=768, classes=1000, mlp=4):
+    """Forward FLOPs of one image through ViT-B/16 (2 a multiply-add): the
+    patch conv, each block's QKV, scores, mix, output and MLP products, and
+    the head; a training step is 3 times that."""
+    block = (2 * tokens * embed * 3 * embed          # q, k, v
+             + 2 * 2 * tokens * tokens * embed       # scores and mix
+             + 2 * tokens * embed * embed            # output projection
+             + 2 * 2 * tokens * embed * mlp * embed)  # the MLP
+    return (2 * patches * patch_dim * embed + depth * block
+            + 2 * embed * classes)
+
+
+def vit_train_phase(torch, flash, port):
+    """``vit_base_patch16_224(class_num=1000)``, B=64, AdamW (lr 1e-4, wd
+    0.05), AMP O1 bf16, one ``to_static`` step, synthetic stripe batches:
+    10 steps; images/s, ms a step (CUDA events), achieved TFLOP/s (3 x
+    ``vit_flops_per_image`` an image), peak memory, the flash kernels'
+    launches (12 layers x steps each), then a profiler window over 2
+    steps: the idle share and each flash kernel's device time a launch.
+    Losses must fall."""
+    rng = np.random.default_rng(50)
+    gen = torch.Generator(device="cuda").manual_seed(51)
+    model = port.vision.vit_base_patch16_224(class_num=1000, device="cuda",
+                                             generator=gen)
+    opt = port.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                     weight_decay=0.05)
+    step = port.jit.to_static(classifier_step(
+        model, opt, port.nn.CrossEntropyLoss(),
+        lambda: port.amp.auto_cast(level="O1", dtype="bfloat16")))
+    batches = stripe_batches(torch, rng, 12, VIT_B, 224)
+    breaks = port.registry().counter("jit_graph_breaks_total", "")
+    before = breaks.value
+    reset_flash_counts(flash)
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = timed_steps(torch, step, batches[:10])
+    peak = torch.cuda.max_memory_allocated()
+    launches = flash_counts(flash)
+    due = {k: 12 * 10 for k in FLASH_MARKS}
+    if launches != due or breaks.value != before or step.captures != 1:
+        raise AssertionError(f"vit_train: launches {launches} (due {due}), "
+                             f"{breaks.value - before} breaks, "
+                             f"{step.captures} captures")
+    if not (np.isfinite(losses).all()
+            and np.mean(losses[-3:]) < np.mean(losses[:3])):
+        raise AssertionError(f"vit_train: losses {losses} are not finite "
+                             f"or do not fall")
+    steady = float(np.mean(ms[2:]))
+    flops = 3 * vit_flops_per_image() * VIT_B
+    kernels, wall_us, _ = profile_window(torch, lambda: step(*batches[10]),
+                                         2)
+    busy = sum(kernels.values())
+    flash_device_ms = {
+        key: busy * (share(kernels, marks) or 0.0) / (2 * 12) / 1e3
+        for key, marks in FLASH_MARKS.items()}
+    emit("vit_train", model="vit_base_patch16_224", classes=1000,
+         batch=VIT_B, dtype="amp_o1_bfloat16", losses=losses,
+         first_call_ms=ms[0], capture_call_ms=ms[1], ms_per_step=steady,
+         images_per_s=VIT_B / (steady / 1e3),
+         tflops=flops / (steady / 1e3) / 1e12,
+         flops_per_step=flops,
+         flops_formula="3 x vit_flops_per_image x B (2 a multiply-add: "
+                       "patch conv, QKV, scores, mix, out proj, MLP, head)",
+         mfu=flops / (steady / 1e3) / PEAK_FLOPS["bfloat16"],
+         max_memory_allocated=peak, kernel_launches=launches,
+         captures=step.captures, graph_breaks=0,
+         flash_device_ms=flash_device_ms,
+         **window_summary(kernels, wall_us))
+    del model, opt, step, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, flash_device_ms
+
+
 def main() -> int:
     try:
         import torch
@@ -4992,7 +5482,10 @@ def main() -> int:
         from paddle_tpu_torch.ops import paged_decode as pd
         from paddle_tpu_torch.ops import ragged_paged as rp
         from paddle_tpu_torch.ops import scaled as sc
-        from paddle_tpu_torch.optimizer import AdamW
+        from paddle_tpu_torch import amp, jit
+        from paddle_tpu_torch import nn as port_nn
+        from paddle_tpu_torch.optimizer import AdamW, Momentum
+        from paddle_tpu_torch.vision import models as vision_models
         from paddle_tpu_torch.optimizer.lr import (
             CosineAnnealingDecay,
             LinearWarmup,
@@ -5144,13 +5637,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     bert_finetune_phase(torch, flash, port)
     train_checkpoint_phase(torch, port)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # image classification: ResNet and ViT under jit.to_static and AMP O1
+    port = SimpleNamespace(
+        vision=vision_models, nn=port_nn, jit=jit, amp=amp,
+        Momentum=Momentum, AdamW=AdamW, registry=obs.get_registry)
+    vit_flash = vision_identity_phase(torch, flash, port)
+    resnet50_train_phase(torch, port)
+    vit_launches, vit_device = vit_train_phase(torch, flash, port)
     flash_rows = [{
         "name": f"flash_attention_{key}", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/flash_attention.cu",
         "replaces": f"paddle_tpu/ops/pallas_flash.py:{line}",
         "launches": train_launches[key],
         "gpt_train_launches": gpt_launches[key],
+        "vit_train_launches": vit_launches[key],
         "device_ms": flash_device[key],
+        "vit_train_device_ms": vit_device[key],
+        "vit_shape": vit_flash[key],
         **{f: flash_summary[key][f] for f in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")}}

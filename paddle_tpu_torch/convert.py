@@ -5,9 +5,10 @@
 tensors ``framework.load`` reads from a JAX checkpoint) and builds the
 port's model with the same weights; :func:`to_paddle_tpu` is the inverse
 for every family, the port's model as the JAX ``state_dict()``'s numpy
-arrays.  Names map one to one; linear weights are ``[in, out]`` there and
-``[out, in]`` here, so they are transposed.  A missing, extra or misshaped
-key raises.
+arrays.  Names map one to one, the persistent buffers too (BatchNorm's
+``_mean`` and ``_variance``); linear weights are ``[in, out]`` there and
+``[out, in]`` here, so they are transposed, and conv weights are OIHW in
+both.  A missing, extra or misshaped key raises.
 
 The optimizer's state crosses through :func:`optimizer_state_from_paddle_tpu`
 and :func:`optimizer_state_to_paddle_tpu`.  Both optimizers key a slot
@@ -37,6 +38,7 @@ from .models.gpt import GPTConfig, GPTForCausalLM
 from .models.llama import LlamaConfig, LlamaForCausalLM
 from .nn.common import Linear
 from .parallel.mp_layers import ColumnParallelLinear, RowParallelLinear
+from .vision import models as vision_models
 
 _LINEAR = (ColumnParallelLinear, RowParallelLinear, Linear)
 
@@ -81,10 +83,21 @@ def paddle_parameter_order(model) -> List[str]:
     return names
 
 
+def _state_tensors(model) -> Dict[str, torch.Tensor]:
+    """The model's parameters, then its persistent buffers, by name: the
+    JAX ``state_dict()``'s keys."""
+    out = dict(model.named_parameters())
+    persistent = model.state_dict(keep_vars=True)
+    for name, b in model.named_buffers():
+        if name in persistent:
+            out[name] = b
+    return out
+
+
 def load_paddle_tpu_state(model, state) -> None:
     """Copy the JAX ``state_dict`` ``state`` into ``model`` in place."""
     linear = linear_weights(model)
-    params = dict(model.named_parameters())
+    params = _state_tensors(model)
     missing = sorted(set(params) - set(state))
     extra = sorted(set(state) - set(params))
     if missing or extra:
@@ -110,7 +123,7 @@ def to_paddle_tpu(model) -> Dict[str, np.ndarray]:
     ``set_state_dict`` casts to the parameter's dtype)."""
     linear = linear_weights(model)
     out = {}
-    for name, p in model.named_parameters():
+    for name, p in _state_tensors(model).items():
         t = p.detach().cpu()
         if t.dtype == torch.bfloat16:
             t = t.float()
@@ -165,6 +178,42 @@ def ernie_from_paddle_tpu(state, config: ErnieConfig, device=None,
               dropout_generator=dropout_generator)
     model = (ErnieForSequenceClassification(config, _num_classes(state), **kw)
              if "classifier.weight" in state else ErnieModel(config, **kw))
+    load_paddle_tpu_state(model, state)
+    return model
+
+
+def resnet_from_paddle_tpu(state, arch="resnet50", device=None, dtype=None,
+                           generator=None, **kwargs):
+    """The port's ``vision.models.<arch>`` (``"resnet18"``, ...,
+    ``"wide_resnet101_2"``) with the JAX model's weights and BatchNorm
+    buffers; ``num_classes`` from its ``fc`` (0 without one) unless given."""
+    if "num_classes" not in kwargs:
+        kwargs["num_classes"] = (int(_as_tensor(state["fc.weight"]).shape[1])
+                                 if "fc.weight" in state else 0)
+    model = getattr(vision_models, arch)(device=device, dtype=dtype,
+                                         generator=generator, **kwargs)
+    load_paddle_tpu_state(model, state)
+    return model
+
+
+def vit_from_paddle_tpu(state, num_heads, device=None, dtype=None,
+                        generator=None, **kwargs):
+    """The port's ``VisionTransformer`` with the JAX model's weights.  The
+    widths (embed dim, depth, patch, input channels, image size, MLP ratio,
+    classes) are read from the weights; ``num_heads`` is not in them."""
+    proj = _as_tensor(state["patch_embed.proj.weight"])
+    embed, chans, patch = proj.shape[0], proj.shape[1], proj.shape[2]
+    n = _as_tensor(state["pos_embed"]).shape[1] - 1
+    depth = len({k.split(".")[1] for k in state if k.startswith("blocks.")})
+    hidden = _as_tensor(state["blocks.0.mlp.0.weight"]).shape[1]
+    cfg = dict(img_size=patch * int(round(n ** 0.5)), patch_size=patch,
+               in_chans=chans, embed_dim=embed, depth=depth,
+               num_heads=num_heads, mlp_ratio=hidden / embed,
+               class_num=(int(_as_tensor(state["head.weight"]).shape[1])
+                          if "head.weight" in state else 0))
+    cfg.update(kwargs)
+    model = vision_models.VisionTransformer(device=device, dtype=dtype,
+                                            generator=generator, **cfg)
     load_paddle_tpu_state(model, state)
     return model
 

@@ -1,7 +1,7 @@
-"""The port's ``nn``: the layers, containers and initializers the Llama,
-GPT, BERT and ERNIE models use."""
+"""The port's ``nn``: layers, containers and initializers."""
 
 from . import initializer  # noqa: F401
+from .activation import *  # noqa: F401,F403
 from .common import Dropout, Embedding, Flatten, Identity, Linear  # noqa: F401
 from .container import (  # noqa: F401
     LayerDict,
@@ -9,4 +9,50 @@ from .container import (  # noqa: F401
     ParameterList,
     Sequential,
 )
-from .norm import LayerNorm, RMSNorm  # noqa: F401
+from .conv import (  # noqa: F401
+    Conv1D,
+    Conv1DTranspose,
+    Conv2D,
+    Conv2DTranspose,
+    Conv3D,
+    Conv3DTranspose,
+)
+from .loss import *  # noqa: F401,F403
+from .norm import (  # noqa: F401
+    BatchNorm,
+    BatchNorm1D,
+    BatchNorm2D,
+    BatchNorm3D,
+    GroupNorm,
+    InstanceNorm1D,
+    InstanceNorm2D,
+    InstanceNorm3D,
+    LayerNorm,
+    LocalResponseNorm,
+    RMSNorm,
+    SyncBatchNorm,
+)
+from .pooling import (  # noqa: F401
+    AdaptiveAvgPool1D,
+    AdaptiveAvgPool2D,
+    AdaptiveAvgPool3D,
+    AdaptiveMaxPool1D,
+    AdaptiveMaxPool2D,
+    AdaptiveMaxPool3D,
+    AvgPool1D,
+    AvgPool2D,
+    AvgPool3D,
+    LPPool1D,
+    LPPool2D,
+    MaxPool1D,
+    MaxPool2D,
+    MaxPool3D,
+)
+from .transformer import (  # noqa: F401
+    MultiHeadAttention,
+    Transformer,
+    TransformerDecoder,
+    TransformerDecoderLayer,
+    TransformerEncoder,
+    TransformerEncoderLayer,
+)

@@ -1,7 +1,7 @@
 """Common layers: the port of ``paddle_tpu/nn/common.py`` for the layers
 the GPT, BERT and ERNIE models use (``Identity``, ``Linear``,
 ``Embedding``, ``Dropout``) and ``Flatten``.  The module's other layers
-wait for ROADMAP A12.
+wait for ROADMAP A13's rest.
 
 Parameters are created on ``device`` in ``dtype`` (torch's defaults when
 not given) and initialised at construction from ``generator`` (a
@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as TF
 from torch import nn
 
+from ..amp.auto_cast import cast_args
 from . import functional as F
 from .initializer import Constant, Initializer, Normal, XavierNormal
 
@@ -44,7 +45,8 @@ Identity = nn.Identity
 
 
 class Linear(nn.Module):
-    """``y = x W^T + b`` with ``W`` ``[out_features, in_features]``."""
+    """``y = x W^T + b`` with ``W`` ``[out_features, in_features]`` (under
+    ``amp.auto_cast`` the inputs cast as the JAX op ``linear``'s)."""
 
     def __init__(self, in_features, out_features, weight_attr=None,
                  bias_attr=None, name=None, device=None, dtype=None,
@@ -63,7 +65,8 @@ class Linear(nn.Module):
                                        (out_features,), **kw)
 
     def forward(self, x):
-        return TF.linear(x, self.weight, self.bias)
+        x, w, b = cast_args("linear", x, self.weight, self.bias)
+        return TF.linear(x, w, b)
 
     def extra_repr(self):
         return (f"in_features={self.in_features}, "

@@ -14,6 +14,8 @@ dropout and no mask it takes the flash route where the kernels take the
 call (dropout then applies to the output, the JAX wrapper's contract) and
 the composite, with dropout on the probabilities, elsewhere.  Dropout
 draws from ``generator`` when given, else from torch's default generator.
+Under ``amp.auto_cast`` the inputs (and a mask) are cast as the JAX ops
+``attention`` and ``flash_attention`` cast them.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import math
 
 import torch
 
+from ...amp.auto_cast import cast_args
 from ...ops.flash_attention import flash_attention_fwd, use_flash
 from .common import dropout as _dropout
 
@@ -36,10 +39,12 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     ``[B, S, H, D]``.  ``attn_mask`` is added to the scores."""
     q, k, v = query, key, value
     if attn_mask is None and (dropout_p == 0.0 or not training):
+        q, k, v = cast_args("attention", q, k, v)
         return flash_attention_fwd(q, k, v, causal=is_causal)
     if attn_mask is None and use_flash(q, k, is_causal):
         return flash_attention(q, k, v, dropout=dropout_p, causal=is_causal,
                                training=training, generator=generator)[0]
+    q, k, v, attn_mask = cast_args("attention", q, k, v, attn_mask)
     D = q.shape[-1]
     scale = 1.0 / math.sqrt(D)
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))   # B, H, S, D
@@ -63,6 +68,7 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
                     training=True, name=None, generator=None):
     """``paddle.nn.functional.flash_attention.flash_attention``: returns
     ``(out, None)``; ``dropout`` applies to the output in training."""
+    query, key, value = cast_args("flash_attention", query, key, value)
     out = flash_attention_fwd(query, key, value, causal=causal)
     if dropout > 0.0 and training:
         out = _dropout(out, dropout, generator=generator)

@@ -1,6 +1,7 @@
 """Common functionals: the port of ``paddle_tpu/nn/functional/common.py``
 for ``linear``, ``embedding`` and ``dropout``.  The module's other
-functions (pads, interpolation, one-hot, ...) wait for ROADMAP A12.
+functions (pads, interpolation, one-hot, ...) wait for ROADMAP A13's
+rest.
 
 ``linear`` keeps Paddle's weight layout, ``[in, out]``: a caller passes the
 weight itself.  Only the ``Linear`` layer (``nn/common.py``) stores
@@ -15,9 +16,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ...amp.auto_cast import cast_args
+
 
 def linear(x, weight, bias=None, name=None):
-    """``y = x @ W + b`` with ``W`` ``[in, out]`` (Paddle's layout)."""
+    """``y = x @ W + b`` with ``W`` ``[in, out]`` (Paddle's layout); under
+    ``amp.auto_cast`` the JAX op ``linear``'s casts."""
+    x, weight, bias = cast_args("linear", x, weight, bias)
     return F.linear(x, weight.t(), bias)
 
 

@@ -1,32 +1,44 @@
 """Optimizers: the port of ``paddle_tpu/optimizer/optimizer.py`` for the
-training path (``Optimizer``, ``Adam``, ``AdamW``).
+training paths (``Optimizer``, ``SGD``, ``Momentum``, ``Adam``,
+``AdamW``).
 
 The same surface as the JAX package's: parameter groups (dicts with
 ``"params"`` and per-group ``learning_rate`` / ``weight_decay``), a
 per-parameter ``optimize_attr["learning_rate"]`` scale, ``step``,
 ``clear_grad``, ``get_lr`` / ``set_lr`` with an ``LRScheduler``, and
-``multi_precision`` fp32 master weights for bf16 / fp16 parameters (moments
+``multi_precision`` fp32 master weights for bf16 / fp16 parameters (slots
 then live in the master's dtype), and ``state_dict`` / ``set_state_dict``
 with the JAX keys: ``"step"`` (the count of ``step`` calls), ``"p{i}/m"``,
-``"p{i}/v"``, ``"p{i}/t"`` (a 0-d int32 tensor) and ``"p{i}/master"``,
-where ``i`` is the parameter's position in the list the optimizer was
-built on, and ``"LR_Scheduler"`` (the scheduler's own state dict).  The
-values are the optimizer's tensors, not copies; ``framework.save`` writes
-them in the JAX package's file format.  Across the packages the
-parameter order and the linear layouts differ:
+``"p{i}/v"``, ``"p{i}/t"`` (a 0-d int32 tensor), ``"p{i}/velocity"`` and
+``"p{i}/master"``, where ``i`` is the parameter's position in the list the
+optimizer was built on, and ``"LR_Scheduler"`` (the scheduler's own state
+dict).  The values are the optimizer's tensors, not copies;
+``framework.save`` writes them in the JAX package's file format.  Across
+the packages the parameter order and the linear layouts differ:
 ``convert.optimizer_state_from_paddle_tpu`` / ``..._to_paddle_tpu`` map
 them.
 
-The updates are plain torch ops (XLA code in the JAX package), in place
-under ``torch.no_grad()``, one parameter at a time: a ``torch._foreach_*``
-update over all parameters at once would hold every temporary of the step
-together, which at full width is the size of the master weights again.
-They round as the JAX package does: every Python constant takes the
-weight's dtype before it is used (JAX's weak typing), and the bias
-correction raises the betas to ``t`` cast to the weight's dtype.  In bf16
-without master weights beta2 = bf16(0.999) = 1.0, so ``1 - beta2 ** t`` is
-0, vhat is inf and the Adam step is 0: only the decay moves a bf16 weight,
-as in the JAX package.  ``multi_precision=True`` is how bf16 trains.
+A step is two halves.  The host half (``_host_step``) advances the
+counters (``step``, each Adam ``t``) and computes the scalars that change
+from step to step (the learning rate, Adam's bias corrections, AdamW's
+decay factor), each rounded to the weight's dtype as JAX rounds a Python
+constant.  It goes through ``jit.host_scalars``, so a step captured by
+``jit.to_static`` refills them before every replay.  The device half
+updates each weight and its slots in place under ``torch.no_grad()``, one
+parameter at a time (a ``torch._foreach_*`` update over all parameters at
+once would hold every temporary of the step together, which at full width
+is the size of the master weights again), in the JAX order of operations.
+Constants (betas, momentum, epsilon, a coupled decay) take the weight's
+dtype before they are used (JAX's weak typing), and the bias correction
+raises the betas to ``t`` cast to the weight's dtype; the moments are
+multiplied by its reciprocal (``_reciprocal``), where JAX divides, which
+can differ in the last bit.  In bf16 without
+master weights beta2 = bf16(0.999) = 1.0, so ``1 - beta2 ** t`` is 0,
+vhat is inf and the Adam step is 0: only the decay moves a bf16 weight, as
+in the JAX package.  ``multi_precision=True`` is how bf16 trains.
+
+``weight_decay`` is a float or an ``L2Decay`` (coupled L2 in ``SGD``,
+``Momentum`` and ``Adam``; AdamW decays decoupled); ``L1Decay`` raises.
 ``grad_clip`` and the other optimizers wait for ROADMAP A12.
 """
 
@@ -36,6 +48,8 @@ from typing import Dict, List
 
 import torch
 
+from ..jit.api import host_scalars
+from ..regularizer import L1Decay, L2Decay
 from .lr import LRScheduler
 
 _LOW_PRECISION = (torch.bfloat16, torch.float16)
@@ -45,6 +59,15 @@ def _as(x: float, dtype) -> float:
     """``x`` rounded to ``dtype``, as JAX turns a Python constant into the
     array's dtype."""
     return float(torch.tensor(x, dtype=dtype))
+
+
+def _reciprocal(x: float, dtype) -> float:
+    """``1 / x`` rounded to ``dtype`` (``inf`` for 0).  A step divides by a
+    host scalar as a product with its reciprocal: on the card torch divides
+    a tensor by a Python number that way (one reciprocal, then products),
+    and by a tensor truly, so the eager step and a captured one (whose
+    scalars are device tensors) agree only if both multiply."""
+    return _as(1.0 / x, dtype) if x else float("inf")
 
 
 class Optimizer:
@@ -102,21 +125,62 @@ class Optimizer:
     # --- step -------------------------------------------------------------
     @staticmethod
     def _decay_value(wd):
-        return 0.0 if wd is None else float(wd)
+        if wd is None:
+            return 0.0
+        if isinstance(wd, L1Decay):
+            raise NotImplementedError(
+                "L1Decay as an optimizer's weight_decay is not ported "
+                "(ROADMAP A12); pass a float or an L2Decay")
+        if isinstance(wd, L2Decay):
+            return wd.coeff
+        return float(wd)
 
     @torch.no_grad()
     def step(self):
-        params_grads = [(p, p.grad, attrs)
-                        for p, attrs in self._params_with_group_attrs()
-                        if p.grad is not None and p.requires_grad]
-        self._step_count += 1
-        for p, g, attrs in params_grads:
-            self._apply_param(p, g, attrs)
+        items = [(p, attrs) for p, attrs in self._params_with_group_attrs()
+                 if p.grad is not None and p.requires_grad]
+        scalars = host_scalars(lambda: self._host_step(items))
+        for (p, attrs), sc in zip(items, scalars):
+            self._apply_param(p, p.grad, attrs, sc)
 
-    def _apply_param(self, p, grad, attrs):
-        lr = (self.get_lr()
-              * getattr(p, "optimize_attr", {}).get("learning_rate", 1.0)
-              * attrs.get("learning_rate", 1.0))
+    def _host_step(self, items):
+        """The host half of a step over ``items`` (``(param, group
+        attrs)``): advance the counters, and return for each parameter the
+        ``(value, dtype)`` scalars its update reads."""
+        self._step_count += 1
+        self._memo = {}          # the step's scalars, shared by parameters
+        rows = []
+        for p, attrs in items:
+            lr = (self.get_lr()
+                  * getattr(p, "optimize_attr", {}).get("learning_rate", 1.0)
+                  * attrs.get("learning_rate", 1.0))
+            state = self._state.setdefault(id(p), {})
+            if "t" in self._slots:
+                state["t"] = state.get("t", 0) + 1
+            rows.append(self._scalars(lr, attrs, state, p,
+                                      self._weight_dtype(p)))
+        return rows
+
+    def _weight_dtype(self, p):
+        """The dtype the update runs in: the master's (fp32) or p's."""
+        if self._use_master_weights and p.dtype in _LOW_PRECISION:
+            return torch.float32
+        return p.dtype
+
+    def _cached(self, key, compute):
+        """``compute()``, once a step for each ``key`` (most parameters
+        share their learning rate and step count)."""
+        if key not in self._memo:
+            self._memo[key] = compute()
+        return self._memo[key]
+
+    def _scalars(self, lr, attrs, state, p, dt):
+        """The step's host scalars of one parameter: ``((value, dtype),
+        ...)``, read by ``_update`` in that order.  The learning rate in
+        the weight's dtype by default."""
+        return ((self._cached(("lr", lr, dt), lambda: _as(lr, dt)), dt),)
+
+    def _apply_param(self, p, grad, attrs, sc):
         wd = attrs.get("weight_decay", self._weight_decay)
         state = self._state.setdefault(id(p), {})
         use_master = self._use_master_weights and p.dtype in _LOW_PRECISION
@@ -125,14 +189,22 @@ class Optimizer:
         w = state["master"] if use_master else p.detach()
         for name in self._slots:
             if name not in state:
-                state[name] = 0 if name == "t" else torch.zeros_like(w)
-        self._update(w, grad.to(w.dtype), lr, wd, state, p)
+                state[name] = torch.zeros_like(w)
+        self._update(w, grad.to(w.dtype), sc, wd, state, p)
         if use_master:
             p.detach().copy_(w)
 
-    def _update(self, w, g, lr, wd, state, p):
+    def _coupled_decay(self, g, w, wd, p):
+        """L2 regularization added to the gradient (SGD, Momentum, Adam)."""
+        d = self._decay_value(wd)
+        if d and getattr(p, "regularizer", None) is None:
+            return g + w * _as(d, w.dtype)
+        return g
+
+    def _update(self, w, g, sc, wd, state, p):
         """Update the weight ``w`` (the parameter or its master) and the
-        slots in ``state`` in place."""
+        slots in ``state`` in place; ``sc`` are its host scalars (floats,
+        or 0-d tensors inside a capture)."""
         raise NotImplementedError
 
     def clear_grad(self, set_to_zero=True):
@@ -174,6 +246,47 @@ class Optimizer:
             self._lr.set_state_dict(state["LR_Scheduler"])
 
 
+class SGD(Optimizer):
+    """``w - lr * (g + decay * w)``."""
+
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None, grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+
+    def _update(self, w, g, sc, wd, state, p):
+        (lr,) = sc
+        g = self._coupled_decay(g, w, wd, p)
+        w.sub_(g * lr)
+
+
+class Momentum(Optimizer):
+    """Heavy-ball momentum with coupled L2 decay (the JAX package's
+    ``Momentum``): ``v = momentum v + g``, then ``w - lr v``, or with
+    ``use_nesterov`` ``w - lr (g + momentum v)``; the slot ``velocity``."""
+
+    _slots = ("velocity",)
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+
+    def _update(self, w, g, sc, wd, state, p):
+        (lr,) = sc
+        mu = _as(self._momentum, w.dtype)
+        g = self._coupled_decay(g, w, wd, p)
+        v = state["velocity"]
+        v.mul_(mu).add_(g)
+        if self._nesterov:
+            w.sub_((g + v * mu).mul_(lr))
+        else:
+            w.sub_(v * lr)
+
+
 class Adam(Optimizer):
     _slots = ("m", "v", "t")
 
@@ -186,32 +299,40 @@ class Adam(Optimizer):
         self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
         self._use_master_weights = multi_precision
 
+    def _scalars(self, lr, attrs, state, p, dt):
+        """lr and the reciprocals of the bias corrections ``1 - beta **
+        t``, with ``t`` (this step's, advanced by the host step) and the
+        betas in w's dtype."""
+        def corrections():
+            tf = torch.tensor(state["t"], dtype=dt)
+            return tuple(_reciprocal(float(1 - torch.tensor(
+                _as(beta, dt), dtype=dt) ** tf), dt)
+                for beta in (self._beta1, self._beta2))
+
+        inv_bc1, inv_bc2 = self._cached(("bc", state["t"], dt), corrections)
+        return super()._scalars(lr, attrs, state, p, dt) + (
+            (inv_bc1, dt), (inv_bc2, dt))
+
     def _adam_moments(self, w, g, state):
-        """t += 1; m, v updated in place; returns the bias corrections
-        ``1 - beta ** t`` with ``t`` and the betas in w's dtype."""
+        """m, v updated in place."""
         dt = w.dtype
-        state["t"] += 1
         m, v = state["m"], state["v"]
-        b1, b2 = _as(self._beta1, dt), _as(self._beta2, dt)
-        m.mul_(b1).add_(g * _as(1 - self._beta1, dt))
-        v.mul_(b2).add_((g * _as(1 - self._beta2, dt)).mul_(g))
-        tf = torch.tensor(state["t"], dtype=dt)
-        bc1 = float(1 - torch.tensor(b1, dtype=dt) ** tf)
-        bc2 = float(1 - torch.tensor(b2, dtype=dt) ** tf)
-        return bc1, bc2
+        m.mul_(_as(self._beta1, dt)).add_(g * _as(1 - self._beta1, dt))
+        v.mul_(_as(self._beta2, dt)).add_(
+            (g * _as(1 - self._beta2, dt)).mul_(g))
 
-    def _apply_step(self, w, lr, state, bc1, bc2):
-        """w -= lr * mhat / (sqrt(vhat) + eps), in the JAX order."""
-        dt = w.dtype
-        denom = torch.sqrt(state["v"] / bc2).add_(_as(self._eps, dt))
-        w.sub_((state["m"] / bc1).mul_(_as(lr, dt)).div_(denom))
+    def _apply_step(self, w, lr, state, inv_bc1, inv_bc2):
+        """w -= lr * mhat / (sqrt(vhat) + eps), in the JAX order; mhat and
+        vhat by the reciprocals of the bias corrections."""
+        denom = torch.sqrt(state["v"] * inv_bc2).add_(_as(self._eps,
+                                                         w.dtype))
+        w.sub_((state["m"] * inv_bc1).mul_(lr).div_(denom))
 
-    def _update(self, w, g, lr, wd, state, p):
-        d = self._decay_value(wd)
-        if d and getattr(p, "regularizer", None) is None:
-            g = g + w * _as(d, w.dtype)     # coupled L2 decay
-        bc1, bc2 = self._adam_moments(w, g, state)
-        self._apply_step(w, lr, state, bc1, bc2)
+    def _update(self, w, g, sc, wd, state, p):
+        lr, inv_bc1, inv_bc2 = sc
+        g = self._coupled_decay(g, w, wd, p)
+        self._adam_moments(w, g, state)
+        self._apply_step(w, lr, state, inv_bc1, inv_bc2)
 
 
 class AdamW(Adam):
@@ -226,12 +347,20 @@ class AdamW(Adam):
         self._wd = weight_decay
         self._apply_decay_param_fun = apply_decay_param_fun
 
-    def _update(self, w, g, lr, wd, state, p):
+    def _scalars(self, lr, attrs, state, p, dt):
+        """Adam's, then the decay factor ``1 - lr * decay``."""
+        wd = attrs.get("weight_decay")
         decay = self._wd if wd is None else self._decay_value(wd)
         if (self._apply_decay_param_fun is not None
                 and not self._apply_decay_param_fun(
                     getattr(p, "name", None) or "")):
             decay = 0.0
-        bc1, bc2 = self._adam_moments(w, g, state)
-        w.mul_(_as(1 - lr * decay, w.dtype))
-        self._apply_step(w, lr, state, bc1, bc2)
+        keep = self._cached(("keep", lr, decay, dt),
+                            lambda: _as(1 - lr * decay, dt))
+        return super()._scalars(lr, attrs, state, p, dt) + ((keep, dt),)
+
+    def _update(self, w, g, sc, wd, state, p):
+        lr, inv_bc1, inv_bc2, keep = sc
+        self._adam_moments(w, g, state)
+        w.mul_(keep)
+        self._apply_step(w, lr, state, inv_bc1, inv_bc2)

@@ -70,13 +70,8 @@ from typing import Callable, Dict, Hashable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..ops import paged_decode, ragged_paged
-
-# the kernel wrappers' launch counters, which a replay must advance
-COUNTERS = (
-    (paged_decode, ("launches", "simple_launches", "mma_launches")),
-    (ragged_paged, ("launches", "simple_launches", "tma_launches")),
-)
+from ..ops import counters
+from ..ops.counters import COUNTERS  # noqa: F401 (the counters replays advance)
 
 _local = threading.local()
 # held across every StepGraphs.run of the process (see the docstring)
@@ -115,19 +110,7 @@ def capture_batch():
 
 def reset_counters() -> None:
     """Set every kernel wrapper's launch counter to 0."""
-    _write_counters([0] * len(_read_counters()))
-
-
-def _read_counters() -> Tuple[int, ...]:
-    return tuple(getattr(mod, name) for mod, names in COUNTERS
-                 for name in names)
-
-
-def _write_counters(values: Sequence[int]) -> None:
-    it = iter(values)
-    for mod, names in COUNTERS:
-        for name in names:
-            setattr(mod, name, next(it))
+    counters.write([0] * len(counters.read()))
 
 
 def host_tensor(a) -> torch.Tensor:
@@ -218,9 +201,9 @@ class StepGraphs:
         static = [a if isinstance(a, torch.Tensor)
                   else host_tensor(a).to(self.device, copy=True)
                   for a in inputs]
-        before = _read_counters()
+        before = counters.read()
         out = tuple(fn(*static))
-        after = _read_counters()
+        after = counters.read()
         delta = tuple(b - a for a, b in zip(before, after))
         graph = None
         t0 = time.perf_counter()
@@ -247,7 +230,7 @@ class StepGraphs:
                     gc.enable()
                 # the capture executed nothing: its wrapper calls
                 # launched no kernel
-                _write_counters(after)
+                counters.write(after)
         else:
             outputs = out
         dt = time.perf_counter() - t0
@@ -275,9 +258,9 @@ class StepGraphs:
         if prog.graph is not None:
             prog.graph.replay()
         else:
-            mark = _read_counters()
+            mark = counters.read()
             for o, r in zip(prog.outputs, prog.fn(*prog.inputs)):
                 o.copy_(r)
-            _write_counters(mark)
-        _write_counters([c + d for c, d in zip(_read_counters(), prog.delta)])
+            counters.write(mark)
+        counters.add(prog.delta)
         self.replays += 1

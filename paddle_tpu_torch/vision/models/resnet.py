@@ -1,0 +1,216 @@
+"""The ResNet family: the port of ``paddle_tpu/vision/models/resnet.py``
+(PaddleClas's ResNet-50 is BASELINE.md's config #2).
+
+Convolutions without bias, ``BatchNorm2D`` with Paddle's conventions, ReLU,
+a 3x3 stride-2 max pool, four stages of ``BasicBlock`` (18, 34) or
+``BottleneckBlock`` (50 and deeper, ResNeXt, wide), an adaptive average
+pool and a ``Linear`` head, registered in the JAX order (so
+``convert.paddle_parameter_order`` gives the JAX parameter list).
+``pretrained`` is accepted and ignored, as the JAX constructors ignore it:
+the weights are random, drawn on ``device`` (the card unless
+``device="cpu"``) in ``dtype`` from ``generator``.
+"""
+
+from __future__ import annotations
+
+from torch import nn
+
+from ...device import resolve_device
+from ...nn.activation import ReLU
+from ...nn.common import Linear
+from ...nn.container import Sequential
+from ...nn.conv import Conv2D
+from ...nn.norm import BatchNorm2D
+from ...nn.pooling import AdaptiveAvgPool2D, MaxPool2D
+
+
+def _kw(device, dtype, generator):
+    return dict(device=device, dtype=dtype, generator=generator)
+
+
+class BasicBlock(nn.Module):
+    expansion = 1
+
+    def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
+                 base_width=64, dilation=1, norm_layer=None, device=None,
+                 dtype=None, generator=None):
+        super().__init__()
+        norm_layer = norm_layer or BatchNorm2D
+        kw, nkw = _kw(device, dtype, generator), dict(device=device,
+                                                      dtype=dtype)
+        self.conv1 = Conv2D(inplanes, planes, 3, stride=stride, padding=1,
+                            bias_attr=False, **kw)
+        self.bn1 = norm_layer(planes, **nkw)
+        self.relu = ReLU()
+        self.conv2 = Conv2D(planes, planes, 3, padding=1, bias_attr=False,
+                            **kw)
+        self.bn2 = norm_layer(planes, **nkw)
+        self.downsample = downsample
+        self.stride = stride
+
+    def forward(self, x):
+        identity = x
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        if self.downsample is not None:
+            identity = self.downsample(x)
+        return self.relu(out + identity)
+
+
+class BottleneckBlock(nn.Module):
+    expansion = 4
+
+    def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
+                 base_width=64, dilation=1, norm_layer=None, device=None,
+                 dtype=None, generator=None):
+        super().__init__()
+        norm_layer = norm_layer or BatchNorm2D
+        kw, nkw = _kw(device, dtype, generator), dict(device=device,
+                                                      dtype=dtype)
+        width = int(planes * (base_width / 64.0)) * groups
+        self.conv1 = Conv2D(inplanes, width, 1, bias_attr=False, **kw)
+        self.bn1 = norm_layer(width, **nkw)
+        self.conv2 = Conv2D(width, width, 3, padding=dilation, stride=stride,
+                            groups=groups, dilation=dilation,
+                            bias_attr=False, **kw)
+        self.bn2 = norm_layer(width, **nkw)
+        self.conv3 = Conv2D(width, planes * self.expansion, 1,
+                            bias_attr=False, **kw)
+        self.bn3 = norm_layer(planes * self.expansion, **nkw)
+        self.relu = ReLU()
+        self.downsample = downsample
+
+    def forward(self, x):
+        identity = x
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        if self.downsample is not None:
+            identity = self.downsample(x)
+        return self.relu(out + identity)
+
+
+_DEPTHS = {18: [2, 2, 2, 2], 34: [3, 4, 6, 3], 50: [3, 4, 6, 3],
+           101: [3, 4, 23, 3], 152: [3, 8, 36, 3]}
+
+
+class ResNet(nn.Module):
+    def __init__(self, block, depth=50, width=64, num_classes=1000,
+                 with_pool=True, groups=1, device=None, dtype=None,
+                 generator=None):
+        super().__init__()
+        device = resolve_device(device)
+        layers = _DEPTHS[depth]
+        self.num_classes = num_classes
+        self.with_pool = with_pool
+        self.groups = groups
+        self.base_width = width
+        self.inplanes = 64
+        self.dilation = 1
+        self._kw = _kw(device, dtype, generator)
+        kw, nkw = self._kw, dict(device=device, dtype=dtype)
+        self.conv1 = Conv2D(3, self.inplanes, 7, stride=2, padding=3,
+                            bias_attr=False, **kw)
+        self.bn1 = BatchNorm2D(self.inplanes, **nkw)
+        self.relu = ReLU()
+        self.maxpool = MaxPool2D(3, stride=2, padding=1)
+        self.layer1 = self._make_layer(block, 64, layers[0])
+        self.layer2 = self._make_layer(block, 128, layers[1], stride=2)
+        self.layer3 = self._make_layer(block, 256, layers[2], stride=2)
+        self.layer4 = self._make_layer(block, 512, layers[3], stride=2)
+        if with_pool:
+            self.avgpool = AdaptiveAvgPool2D((1, 1))
+        if num_classes > 0:
+            self.fc = Linear(512 * block.expansion, num_classes, **kw)
+
+    def _make_layer(self, block, planes, blocks, stride=1):
+        kw = self._kw
+        nkw = dict(device=kw["device"], dtype=kw["dtype"])
+        downsample = None
+        if stride != 1 or self.inplanes != planes * block.expansion:
+            downsample = Sequential(
+                Conv2D(self.inplanes, planes * block.expansion, 1,
+                       stride=stride, bias_attr=False, **kw),
+                BatchNorm2D(planes * block.expansion, **nkw))
+        layers = [block(self.inplanes, planes, stride, downsample,
+                        self.groups, self.base_width, **kw)]
+        self.inplanes = planes * block.expansion
+        for _ in range(1, blocks):
+            layers.append(block(self.inplanes, planes, groups=self.groups,
+                                base_width=self.base_width, **kw))
+        return Sequential(*layers)
+
+    def forward(self, x):
+        x = self.relu(self.bn1(self.conv1(x)))
+        x = self.maxpool(x)
+        x = self.layer1(x)
+        x = self.layer2(x)
+        x = self.layer3(x)
+        x = self.layer4(x)
+        if self.with_pool:
+            x = self.avgpool(x)
+        if self.num_classes > 0:
+            x = self.fc(x.flatten(1))
+        return x
+
+
+def _resnet(block, depth, pretrained=False, **kwargs):
+    return ResNet(block, depth, **kwargs)
+
+
+def resnet18(pretrained=False, **kwargs):
+    return _resnet(BasicBlock, 18, pretrained, **kwargs)
+
+
+def resnet34(pretrained=False, **kwargs):
+    return _resnet(BasicBlock, 34, pretrained, **kwargs)
+
+
+def resnet50(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 50, pretrained, **kwargs)
+
+
+def resnet101(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 101, pretrained, **kwargs)
+
+
+def resnet152(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 152, pretrained, **kwargs)
+
+
+def resnext50_32x4d(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 50, pretrained, groups=32, width=4,
+                   **kwargs)
+
+
+def resnext50_64x4d(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 50, pretrained, groups=64, width=4,
+                   **kwargs)
+
+
+def resnext101_32x4d(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 101, pretrained, groups=32, width=4,
+                   **kwargs)
+
+
+def resnext101_64x4d(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 101, pretrained, groups=64, width=4,
+                   **kwargs)
+
+
+def resnext152_32x4d(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 152, pretrained, groups=32, width=4,
+                   **kwargs)
+
+
+def resnext152_64x4d(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 152, pretrained, groups=64, width=4,
+                   **kwargs)
+
+
+def wide_resnet50_2(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 50, pretrained, width=128, **kwargs)
+
+
+def wide_resnet101_2(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 101, pretrained, width=128, **kwargs)

@@ -80,7 +80,18 @@ MUST_CHECK = ("utils/__init__.py", "utils/extension.py",
               "nn/container.py", "nn/common.py", "nn/norm.py",
               "nn/functional/common.py", "nn/functional/norm.py",
               "nn/functional/activation.py", "nn/functional/attention.py",
-              "models/gpt.py", "models/bert.py", "models/ernie.py")
+              "models/gpt.py", "models/bert.py", "models/ernie.py",
+              # image classification: conv, pooling, the norms, the
+              # activation and loss layers, the transformer layers, the
+              # vision models, jit.to_static, AMP and the regularizers
+              "nn/functional/conv.py", "nn/functional/pooling.py",
+              "nn/functional/loss.py", "nn/conv.py", "nn/pooling.py",
+              "nn/activation.py", "nn/loss.py", "nn/transformer.py",
+              "vision/__init__.py", "vision/models/__init__.py",
+              "vision/models/resnet.py", "vision/models/vit.py",
+              "jit/__init__.py", "jit/api.py", "amp/__init__.py",
+              "amp/auto_cast.py", "amp/grad_scaler.py", "regularizer.py",
+              "optimizer/optimizer.py")
 
 
 def _port_files():
@@ -303,3 +314,43 @@ def test_unported_process_fleet_settings_raise(fields, error, message):
 
     with pytest.raises(error, match=message):
         ProcessFleet(ProcessFleetConfig(dp=1, device="cpu", **fields))
+
+
+@pytest.mark.parametrize("name", ["resnet18", "resnet50",
+                                  "vit_base_patch16_224"])
+def test_vision_models_without_a_card_raise(monkeypatch, name):
+    """The image-classification entry points: the card unless the caller
+    passes the CPU."""
+    from paddle_tpu_torch.vision import models
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(models, name)()
+    kw = ({"img_size": 32} if name.startswith("vit")
+          else {"num_classes": 10})
+    model = getattr(models, name)(device="cpu", **kw)
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
+
+
+def test_unported_amp_and_jit_parts_raise_naming_their_items():
+    """AMP O2 needs the op bus (A12); SyncBatchNorm the collectives (A11);
+    jit.save/load and a weight decay of L1Decay are not ported."""
+    from paddle_tpu_torch import amp, jit, nn, regularizer
+    from paddle_tpu_torch.optimizer import Momentum
+
+    with pytest.raises(NotImplementedError, match="A12"):
+        amp.auto_cast(level="O2")
+    with pytest.raises(NotImplementedError, match="A12"):
+        amp.decorate(nn.Linear(2, 2), level="O2")
+    with pytest.raises(NotImplementedError, match="A11"):
+        nn.SyncBatchNorm(4)
+    for fn in (lambda: jit.save(nn.Linear(2, 2), "x"),
+               lambda: jit.load("x")):
+        with pytest.raises(NotImplementedError, match="A13"):
+            fn()
+    lin = nn.Linear(2, 2)
+    opt = Momentum(parameters=lin.parameters(),
+                   weight_decay=regularizer.L1Decay(1e-4))
+    lin(torch.ones(1, 2)).sum().backward()
+    with pytest.raises(NotImplementedError, match="A12"):
+        opt.step()
