@@ -12,8 +12,9 @@ these phases, printing one JSON line for each:
 ``device``   the card (``nvidia-smi`` name and power limit, torch's name).
 ``build``    the four kernel sources in one build (one nvcc each, started
              together), and beside it the decode kernel in the worker
-             processes' kernel directory (their ``--compile-cache``);
-             nvcc's ptxas report goes to standard error.  Every line also
+             processes' kernel directory (their ``--compile-cache``),
+             and the data loader's host library ``csrc/shm_ring.cpp``
+             (g++); nvcc's ptxas report goes to standard error.  Every line also
              carries ``script_s``, the script's wall seconds so far.
 ``custom_op`` the custom-op path: the scale kernel (``csrc/scaled.cu``)
              against its twin bit for bit (``torch.equal``) over fp32, bf16
@@ -76,7 +77,8 @@ these phases, printing one JSON line for each:
              and, at B=1 and 16 bf16, the device time at spans of 32 and 64
              tokens beside the 128 the kernel uses; the launches of each
              route.
-``identity`` Llama-3-8B at full width cut to 4 layers, fp32, random weights
+``identity`` Llama-3-8B at full width cut to 2 layers (4 until PR 15: the
+             script's time limit), fp32, random weights
              from a seeded generator: 8 prompts sharing a 64-token prefix
              through the unified engine with the kernel and with the plain
              version, and with the step graphs and under
@@ -243,8 +245,8 @@ these phases, printing one JSON line for each:
              the launch rule over the replicas and both rounds (the
              ragged kernel on tma, the decode kernel on mma); tokens/s,
              TTFT and ITL against the serve phase's warm pass.
-``aot_boot``  the serve model's architecture (full depth, bf16) in worker
-             processes booted off an AOT artifact saved in the run from an
+``aot_boot``  the serve model's widths (bf16) cut to 4 layers (32 until
+             PR 15: the script's time limit) in worker processes booted off an AOT artifact saved in the run from an
              in-process saving engine (legacy families, bursts of 8, at
              the 2112-token max_seq_len the server rounds need): 2
              workers with ``--aot-path --warm`` and a fresh, empty
@@ -257,7 +259,7 @@ these phases, printing one JSON line for each:
              seconds, the heal's seconds.
 ``procfleet_identity``  the identity model built in worker processes
              (``python -m paddle_tpu_torch.serving.worker``, preset
-             ``llama3_8b`` at 4 layers, fp32, the same seeded generator):
+             ``llama3_8b`` at 2 layers, fp32, the same seeded generator):
              a ``ProcessFleet`` of 2 unified workers gives one in-process
              engine's greedy tokens on the spec prompts (32 new tokens);
              a second wave with the stream's worker killed by SIGKILL
@@ -269,8 +271,8 @@ these phases, printing one JSON line for each:
              from the imported pages (blocks x 16 tokens cached), the same
              tokens.  Per worker, read over the wire (``describe``): ragged
              launches = its unified steps x layers on the simple route.
-``procfleet``  the serve model (seed 1, full depth, bf16) built in each
-             worker: ``CompletionServer`` with the supervisor over
+``procfleet``  the serve model (seed 1, bf16) cut to 4 layers (32 until
+             PR 15) built in each worker: ``CompletionServer`` with the supervisor over
              ``--workers`` fleets of 2 unified workers and of 2 legacy
              workers with bursts of 8, each on the server phase's two
              rounds (the second drained in flight): every completion
@@ -406,14 +408,34 @@ these phases, printing one JSON line for each:
              ``vit_flops_per_image`` an image), peak memory, 12 x 10
              launches of each flash kernel, a 2-step profile (idle share,
              each flash kernel's device time a launch).
+``loader_identity``  LeNet on the synthetic MNIST through ``Model.fit``
+             (1024 images, B=64, Adam) and ``evaluate``: the port's CPU
+             run, then the card with ``num_workers`` 0 and 2 (the
+             shared-memory ring) from the same weights and
+             ``np.random.seed``, losses within 1e-4 relative; then
+             ``Model.save`` / ``load`` into a fresh model and optimizer,
+             weights and slots bit-equal, the next step's loss equal.
+``imagenet_fit``  ResNet-50 (fp32, B=64, 224x224, Momentum, 31 steps, one
+             epoch) and ViT-B/16 (fp32, AdamW, 8 steps) through
+             ``Model.fit`` over an ImageNet-shaped ``DatasetFolder`` of
+             ``.npy`` files written from a seed (1000 classes x 2 images
+             at 256x256, ~494 MB, removed after), PaddleClas's train
+             transforms in 4 forked workers over the ring; ``evaluate``
+             on 512 images; beside each, eager steps on a device-resident
+             batch; the starved share, a profiled window's idle share, the
+             copy's GB/s pinned and pageable, one batch's collate here.
+             Gates: the sampler's indices each served once, labels in its
+             order, 4-worker batches bit-equal to in-process ones, finite
+             losses, a planted worker fault raising within 30 s, no worker
+             or ring segment left, 12 x 8 launches of each flash kernel.
 
 Then a line ``{"kernels": [...]}`` summarising each kernel at its main
 path's shapes (the ragged kernel at the unified serve step, the decode
 kernel at B=16 bf16, the flash kernels at the train shape in bf16, the
 scale kernel at [8192, 4096] bf16, with the launches of the serve, the
 burst-free serve_legacy, the train and the custom_op runs; the flash rows
-add ``gpt_train_launches``, ``vit_train_launches``, ``vit_train_device_ms``
-and ``vit_shape``, their times and errors at ViT-B/16's shape), the
+add ``gpt_train_launches``, ``vit_train_launches``,
+``imagenet_fit_launches``, ``vit_train_device_ms`` and ``vit_shape``, their times and errors at ViT-B/16's shape), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any
 failure raises and the script exits nonzero without that last line; so
 does a machine without a CUDA device, and a directory that holds this
@@ -1139,11 +1161,11 @@ def stale_inputs(graphs):
 
 def identity_phase(torch, rp, serving, graphs, LlamaConfig,
                    LlamaForCausalLM):
-    """The unified engine at 8B widths cut to 4 layers: the ragged kernel
+    """The unified engine at 8B widths cut to 2 layers: the ragged kernel
     against its plain version, graphs against eager (greedy and seeded
     sampled, fp32 on the simple route and bf16 on the tma route), and the
     planted stale-input fault."""
-    layers = 4
+    layers = 2
     cfg = LlamaConfig.llama3_8b(num_hidden_layers=layers)
     models = {}
     for dtype, seed in ((torch.float32, 0), (torch.bfloat16, 4)):
@@ -3410,7 +3432,7 @@ def top2_gap(torch, model, ids):
 
 
 def spec_identity_phase(torch, rp, pd, serving, model):
-    """The identity model (Llama-3-8B widths, 4 layers, fp32, the simple
+    """The identity model (Llama-3-8B widths, 2 layers, fp32, the simple
     route): spec on token-identical to spec off, greedy and seeded
     sampled, in strictly fewer steps (greedy), the ragged kernel launched
     once per layer per step through the replays."""
@@ -4315,8 +4337,9 @@ def procfleet_handoff(serving, spec, prompt, cache_dir):
 
 
 def procfleet_phase(torch, serving, prompts, spec, cache_dir, in_process):
-    """Llama-3-8B (full depth, bf16, built in each worker from ``spec``)
-    through ``CompletionServer`` over ``--workers`` fleets: 2 unified
+    """Llama-3-8B (bf16, cut to ``FLEET_LAYERS`` layers, built in each
+    worker from ``spec``) through ``CompletionServer`` over ``--workers``
+    fleets: 2 unified
     workers, then 2 legacy workers with bursts of 8, each on the server
     phase's two rounds of 24 completions (the second drained in flight),
     the supervisor on, kernels built in ``cache_dir``.  Gates: every
@@ -4405,15 +4428,17 @@ def procfleet_phase(torch, serving, prompts, spec, cache_dir, in_process):
               "to ready line on the parent's clock")
 
 
+FLEET_LAYERS = 4    # aot_boot's and procfleet's depth (32 until PR 15)
+
+
 def aot_boot_save(torch, serving, model, prompts, spec):
     """The artifact ``aot_boot_phase`` boots its workers off, saved from
     an in-process saving engine over ``model`` (the workers'
     architecture; weights are not hashed) with the legacy families and
     decode bursts of 8 at the max_seq_len the server rounds need (the
     longest serve prompt plus the new tokens), and those rounds.  Saved
-    before the phase so the caller can free ``model``: two full-depth
-    workers warming the 2112-token universe need the card to
-    themselves."""
+    before the phase so the caller can free ``model``: two workers
+    warming the 2112-token universe need the card to themselves."""
     vocab = 128256 if spec["preset"] == "llama3_8b" else 256
     rng = np.random.default_rng(17)
     new_tokens = 64
@@ -4438,8 +4463,8 @@ def aot_boot_save(torch, serving, model, prompts, spec):
 
 
 def aot_boot_phase(serving, saved, spec):
-    """Llama-3-8B (full depth, bf16) worker processes booted off the AOT
-    artifact ``aot_boot_save`` saved in this run (legacy families,
+    """Llama-3-8B (bf16, cut to ``FLEET_LAYERS`` layers) worker processes
+    booted off the AOT artifact ``aot_boot_save`` saved in this run (legacy families,
     bursts of 8, the max_seq_len the server rounds need, up to 2112),
     then 2 workers with ``--aot-path --warm`` and a fresh, empty
     ``--compile-cache``: no ``nvcc`` (the directory stays empty), 0 trace
@@ -5455,6 +5480,486 @@ def vit_train_phase(torch, flash, port):
     return launches, flash_device_ms
 
 
+# --- the input pipeline and the high-level trainer -----------------------------
+
+IMAGENET_MEAN = [0.485, 0.456, 0.406]   # ResNet50.yaml's NormalizeImage
+IMAGENET_STD = [0.229, 0.224, 0.225]
+FIT_B = 64                  # ResNet50.yaml's batch a card
+FIT_CLASSES = 1000
+FIT_PER_CLASS = 2           # images a class folder: 2000 in all
+FIT_EVAL = 512              # images of the evaluate folder
+FIT_IMAGE, FIT_CROP = 256, 224
+FIT_VIT_STEPS = 8
+FIT_WINDOW = (20, 4)        # the profiled steps of the ResNet epoch
+
+
+def loader_children():
+    """Live forked loader workers and this process's ring segments in
+    /dev/shm (the port's rings are named ``ptt_dl_<pid>_<n>``)."""
+    import multiprocessing as mp
+
+    rings = [f for f in os.listdir("/dev/shm")
+             if f.startswith(f"ptt_dl_{os.getpid()}_")]
+    return [p.pid for p in mp.active_children()], rings
+
+
+def loss_recorder(port):
+    class Recorder(port.Callback):
+        """Each step's loss and accuracy as ``fit`` logs them."""
+
+        def __init__(self):
+            super().__init__()
+            self.losses, self.accs = [], []
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(logs["loss"])
+            self.accs.append(logs.get("acc"))
+
+    return Recorder()
+
+
+def rel_gaps(got, want):
+    return [abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got, want)]
+
+
+def loader_identity_phase(torch, port, dev="cuda"):
+    """LeNet on the synthetic MNIST through ``Model.fit`` (1024 images, B=64,
+    Adam 1e-3, shuffled, one epoch) and ``evaluate`` (256 test images):
+    the port's CPU run, then the card with ``num_workers=0`` and
+    ``num_workers=2`` (the ring), each from the same weights and the same
+    ``np.random.seed``.  Every card loss within 1e-4 relative of the CPU
+    run's, the evaluate loss too, accuracy in [0, 1].  Then
+    ``Model.save`` / ``load`` into a fresh model and optimizer: every
+    weight and slot bit-equal, and the next ``train_batch`` loss equal to
+    the saved model's."""
+    train = port.io.Subset(port.datasets.MNIST(mode="train"), range(1024))
+    test = port.io.Subset(port.datasets.MNIST(mode="test"), range(256))
+    state = port.models.LeNet(device="cpu", generator=torch.Generator()
+                              .manual_seed(61)).state_dict()
+
+    def run(device, workers):
+        net = port.models.LeNet(device=device)
+        net.load_state_dict(state)
+        model = port.Model(net).prepare(
+            port.Adam(learning_rate=1e-3, parameters=net.parameters()),
+            port.nn.CrossEntropyLoss(), port.metric.Accuracy())
+        rec = loss_recorder(port)
+        np.random.seed(62)
+        t0 = time.perf_counter()
+        model.fit(train, batch_size=64, epochs=1, verbose=0, shuffle=True,
+                  num_workers=workers, callbacks=[rec])
+        fit_s = time.perf_counter() - t0
+        ev = model.evaluate(test, batch_size=64, verbose=0,
+                            num_workers=workers)
+        return model, rec, ev, fit_s
+
+    _, cpu, cpu_ev, _ = run("cpu", 0)
+    rows, card = {}, None
+    for workers in (0, 2):
+        card, rec, ev, fit_s = run(dev, workers)
+        gaps = rel_gaps(rec.losses, cpu.losses)
+        ev_gap = rel_gaps(ev["loss"], cpu_ev["loss"])[0]
+        if (len(rec.losses) != len(cpu.losses) or max(gaps) > 1e-4
+                or ev_gap > 1e-4 or not 0.0 <= ev["acc"] <= 1.0):
+            raise AssertionError(
+                f"loader_identity workers={workers}: card losses "
+                f"{rec.losses} against the CPU's {cpu.losses} (largest "
+                f"gap {max(gaps, default=None)}), evaluate {ev} against "
+                f"{cpu_ev}")
+        rows[f"workers_{workers}"] = {
+            "max_rel_loss_gap": max(gaps), "eval_rel_loss_gap": ev_gap,
+            "eval": ev, "accs": rec.accs, "fit_s": fit_s}
+    # save and load back into a fresh model and optimizer
+    path = os.path.join(tempfile.mkdtemp(prefix="loader_identity_"), "lenet")
+    try:
+        card.save(path)
+        net = port.models.LeNet(device=dev, generator=torch.Generator(
+            device=dev).manual_seed(63))
+        fresh = port.Model(net).prepare(
+            port.Adam(learning_rate=1e-3, parameters=net.parameters()),
+            port.nn.CrossEntropyLoss(), port.metric.Accuracy())
+        fresh.load(path)
+        saved_bytes = sum(os.path.getsize(path + ext)
+                          for ext in (".pdparams", ".pdopt"))
+    finally:
+        shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    weights_equal = all(torch.equal(a, b) for a, b in zip(
+        card.network.state_dict().values(), net.state_dict().values()))
+    slots_a = card._optimizer.state_dict()
+    slots_b = fresh._optimizer.state_dict()
+    slots_equal = slots_a.keys() == slots_b.keys() and all(
+        torch.equal(torch.as_tensor(slots_a[k]).cpu(),
+                    torch.as_tensor(slots_b[k]).cpu())
+        for k in slots_a if k != "LR_Scheduler")
+    x, y = (torch.from_numpy(t).to(dev) for t in
+            port.default_collate_fn([test[i] for i in range(64)]))
+    next_a = card.train_batch([x], [y])[0][0]
+    next_b = fresh.train_batch([x], [y])[0][0]
+    if not (weights_equal and slots_equal and next_a == next_b):
+        raise AssertionError(
+            f"loader_identity: Model.save/load: weights equal "
+            f"{weights_equal}, optimizer slots equal {slots_equal}, next "
+            f"losses {next_a} and {next_b}")
+    children, rings = loader_children()
+    if children or rings:
+        raise AssertionError(f"loader_identity: workers {children} or "
+                             f"rings {rings} outlived the loaders")
+    emit("loader_identity", model="LeNet", dataset="MNIST (synthetic)",
+         images=len(train), batch=64, cpu_losses=cpu.losses,
+         cpu_eval=cpu_ev, **rows, save_load={
+             "bytes": saved_bytes, "weights_equal": weights_equal,
+             "slots_equal": slots_equal, "next_loss": next_a})
+
+
+def write_folder(root, rng, classes, per_class, size=256):
+    """A ``DatasetFolder``: ``classes`` folders of ``per_class`` HWC uint8
+    images as ``.npy``, drawn from ``rng``; returns the bytes written."""
+    total = 0
+    for c in range(classes):
+        d = os.path.join(root, f"n{c:05d}")
+        os.makedirs(d)
+        imgs = rng.integers(0, 256, (per_class, size, size, 3), np.uint8)
+        for i, img in enumerate(imgs):
+            p = os.path.join(d, f"{i}.npy")
+            np.save(p, img)
+            total += os.path.getsize(p)
+    return total
+
+
+def counted(port, ds, counts):
+    """``ds`` counting each index it serves in ``counts`` (a shared
+    memory map, so the forked workers' counts reach the parent)."""
+    class Counted(port.io.Dataset):
+        def __len__(self):
+            return len(ds)
+
+        def __getitem__(self, i):
+            counts[i] += 1
+            return ds[i]
+
+    return Counted()
+
+
+def faulty(port, ds, bad):
+    class Faulty(port.io.Dataset):
+        def __len__(self):
+            return len(ds)
+
+        def __getitem__(self, i):
+            if i in bad:
+                raise ValueError(f"planted fault at sample {i}")
+            return ds[i]
+
+    return Faulty()
+
+
+def fit_probe(torch, port, window=None):
+    """A callback reading ``dataloader_queue_depth`` as each step begins
+    (the depth the loader left when ``fit`` took the batch), the host
+    clock as each step ends (``fit`` syncs on the loss), and optionally a
+    torch.profiler window over steps ``window = (first, n)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    depth = port.registry().gauge("dataloader_queue_depth", "")
+
+    class Probe(port.Callback):
+        def __init__(self):
+            super().__init__()
+            self.depths, self.ends, self.kernels = [], [], None
+            self.prof = None
+
+        def on_train_begin(self, logs=None):
+            self.start = time.perf_counter()
+
+        def on_train_batch_begin(self, step, logs=None):
+            self.depths.append(depth.value)
+            if window and step == window[0]:
+                torch.cuda.synchronize()
+                self.prof = profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA])
+                self.prof.start()
+
+        def on_train_batch_end(self, step, logs=None):
+            self.ends.append(time.perf_counter())
+            if window and step == window[0] + window[1] - 1:
+                torch.cuda.synchronize()
+                self.prof.stop()
+                self.kernels = device_kernels(self.prof)
+                self.prof = None
+                self.ends[-1] = time.perf_counter()
+
+    return Probe()
+
+
+def step_ms(probe, skip=2, window=None):
+    """ms of each step after the first ``skip``, the profiled ones out."""
+    ends = [probe.start] + probe.ends
+    ms = [(b - a) * 1e3 for a, b in zip(ends, ends[1:])]
+    out = []
+    for i, v in enumerate(ms):
+        if i < skip or (window and window[0] <= i < window[0] + window[1]):
+            continue
+        out.append(v)
+    return out
+
+
+def copy_times(torch, batch, reps=10):
+    """ms and GB/s of one batch's host-to-device copy, pinned
+    (``non_blocking``) and pageable, by CUDA events."""
+    out = {}
+    for name, host in (("pinned", batch.pin_memory()),
+                       ("pageable", batch.clone())):
+        host.cuda(non_blocking=True)
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            host.cuda(non_blocking=True)
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+        med = float(np.median(ms))
+        out[name] = {"ms": med, "gb_per_s": batch.nbytes / med / 1e6}
+    out["bytes"] = batch.nbytes
+    return out
+
+
+def resident_steps(model, x, y, n, skip=2):
+    """ms of ``n - skip`` eager ``train_batch`` steps on a batch already
+    on the device, after ``skip`` unmeasured (``train_batch`` syncs on its
+    loss)."""
+    out = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        model.train_batch([x], [y])
+        if i >= skip:
+            out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def imagenet_fit_phase(torch, flash, port, dev="cuda"):
+    """ResNet-50 and ViT-B/16 through ``paddle.Model.fit`` fed by the
+    multi-process DataLoader over the shared-memory ring.
+
+    An ImageNet-shaped ``DatasetFolder`` is written from a seed into a
+    temporary directory (removed at the end): 1000 class folders of 2
+    HWC uint8 256x256 ``.npy`` images, and a 512-image folder for
+    ``evaluate``.  Train transforms are PaddleClas ResNet50.yaml's:
+    ``ToTensor``, ``RandomResizedCrop(224)``, ``RandomHorizontalFlip``,
+    ``Normalize`` (ImageNet's mean and std); evaluate's ``Resize(256)``,
+    ``CenterCrop(224)``, ``Normalize``.  ``resnet50(num_classes=1000)``,
+    ``Momentum(0.025, 0.9, weight_decay=1e-4)``, ``CrossEntropyLoss``,
+    ``Accuracy``: one epoch (31 steps, B=64, fp32, eager) with
+    ``num_workers=4``, ``shuffle=True``, ``drop_last=True``, then
+    ``evaluate``; 6 eager ``train_batch`` steps of the same model on a
+    device-resident batch beside it; ``vit_base_patch16_224`` (fp32,
+    AdamW) through the same ``fit`` for 8 steps, and 3 device-resident
+    steps beside it.
+
+    Reported: images/s and ms a step of each ``fit``, the device-resident
+    steps, the idle share over 4 profiled ``fit`` steps, the share of
+    steps at which ``dataloader_queue_depth`` read 0, one batch's fetch
+    and collate in this process, one batch's host-to-device copy
+    (pinned and pageable), ``os.cpu_count()`` and ``/dev/shm``'s size.
+    Gates: each index the epoch's sampler drew served exactly once and
+    no other, the batches' labels in the sampler's order; ``num_workers=4``
+    batches bit-equal to ``num_workers=0`` ones under the deterministic
+    evaluate transforms; losses finite and evaluate's accuracy in [0, 1];
+    a planted fault (a dataset raising in a worker) makes ``fit`` raise
+    within 30 s; no worker process or ring segment left; 12 x 8 launches
+    of each flash kernel in the ViT's ``fit``."""
+    T = port.transforms
+    rng = np.random.default_rng(70)
+    root = tempfile.mkdtemp(prefix="imagenet_fit_")
+    try:
+        t0 = time.perf_counter()
+        written = write_folder(os.path.join(root, "train"), rng,
+                               FIT_CLASSES, FIT_PER_CLASS, FIT_IMAGE)
+        written += write_folder(os.path.join(root, "eval"), rng, FIT_EVAL, 1,
+                                FIT_IMAGE)
+        write_s = time.perf_counter() - t0
+        train_tf = T.Compose([T.ToTensor(), T.RandomResizedCrop(FIT_CROP),
+                              T.RandomHorizontalFlip(),
+                              T.Normalize(IMAGENET_MEAN, IMAGENET_STD)])
+        eval_tf = T.Compose([T.ToTensor(), T.Resize(FIT_IMAGE),
+                             T.CenterCrop(FIT_CROP),
+                             T.Normalize(IMAGENET_MEAN, IMAGENET_STD)])
+        train = port.datasets.DatasetFolder(os.path.join(root, "train"),
+                                            transform=train_tf)
+        evalset = port.datasets.DatasetFolder(os.path.join(root, "eval"),
+                                              transform=eval_tf)
+        row = imagenet_fit_run(torch, flash, port, root, train, evalset,
+                               dev)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    shm = os.statvfs("/dev/shm")
+    children, rings = loader_children()
+    if children or rings:
+        raise AssertionError(f"imagenet_fit: workers {children} or rings "
+                             f"{rings} outlived the phase")
+    emit("imagenet_fit", written_bytes=written, write_s=write_s,
+         cpu_count=os.cpu_count(),
+         dev_shm_bytes=shm.f_blocks * shm.f_frsize,
+         nvidia_smi=nvidia_smi_line(), **row)
+    return row["vit"]["launches"]
+
+
+def imagenet_fit_run(torch, flash, port, root, train, evalset, dev):
+    n = len(train)
+    steps = n // FIT_B
+    # the identity of the batches: the deterministic evaluate transforms
+    # through 4 workers against this process, bit for bit, on the card
+    same = []
+    loaders = [port.io.DataLoader(evalset, batch_size=FIT_B, num_workers=w,
+                                  places=dev) for w in (4, 0)]
+    for a, b in zip(*loaders):
+        same.append(all(torch.equal(x, y) for x, y in zip(a, b)))
+    del loaders
+    if len(same) != FIT_EVAL // FIT_B or not all(same):
+        raise AssertionError(f"imagenet_fit: num_workers=4 batches equal to "
+                             f"num_workers=0 ones: {same}")
+    # one batch fetched and collated here, and its copy to the card
+    np.random.seed(71)
+    t0 = time.perf_counter()
+    x, y = port.default_collate_fn([train[i] for i in range(FIT_B)])
+    collate_ms = (time.perf_counter() - t0) * 1e3
+    copy = copy_times(torch, torch.from_numpy(x))
+
+    counts = np.memmap(os.path.join(root, "counts"), np.int32, "w+",
+                       shape=(n,))
+    gen = torch.Generator(device=dev).manual_seed(72)
+    net = port.models.resnet50(num_classes=FIT_CLASSES, device=dev,
+                               generator=gen)
+    labels = []
+    ce = port.nn.CrossEntropyLoss()
+
+    def loss_fn(pred, label):
+        labels.append(label)
+        return ce(pred, label)
+
+    model = port.Model(net).prepare(
+        port.Momentum(learning_rate=RESNET_LR, momentum=0.9,
+                      parameters=net.parameters(), weight_decay=1e-4),
+        loss_fn, port.metric.Accuracy())
+    probe = fit_probe(torch, port, FIT_WINDOW)
+    rec = loss_recorder(port)
+    np.random.seed(73)
+    drawn = np.random.get_state()
+    torch.cuda.reset_peak_memory_stats()
+    model.fit(counted(port, train, counts), batch_size=FIT_B, epochs=1,
+              num_workers=4, shuffle=True, drop_last=True, verbose=0,
+              callbacks=[probe, rec])
+    peak = torch.cuda.max_memory_allocated()
+    # the sampler's permutation, drawn from the seeded global generator
+    np.random.set_state(drawn)
+    perm = np.random.permutation(n)[:steps * FIT_B]
+    want = np.zeros(n, np.int32)
+    want[perm] = 1
+    targets = np.asarray([t for _, t in train.samples])
+    got_labels = np.concatenate([t.cpu().numpy() for t in labels])
+    if not (np.array_equal(np.asarray(counts), want)
+            and np.array_equal(got_labels, targets[perm])):
+        raise AssertionError(
+            f"imagenet_fit: indices served {int(counts.sum())} times over "
+            f"{int((counts > 0).sum())} samples (want each of "
+            f"{steps * FIT_B} once), labels in the sampler's order: "
+            f"{np.array_equal(got_labels, targets[perm])}")
+    del counts
+    ev = model.evaluate(evalset, batch_size=FIT_B, verbose=0, num_workers=4)
+    if not (len(rec.losses) == steps and np.isfinite(rec.losses).all()
+            and 0.0 <= ev["acc"] <= 1.0 and np.isfinite(ev["loss"]).all()):
+        raise AssertionError(f"imagenet_fit: {len(rec.losses)} losses "
+                             f"{rec.losses}, evaluate {ev}")
+    fit_ms = step_ms(probe, window=FIT_WINDOW)
+    starved = [d == 0 for d in probe.depths[1:]]
+    busy = sum(probe.kernels.values())
+    window_wall_us = float(np.mean(fit_ms)) * FIT_WINDOW[1] * 1e3
+    # the same model's eager steps on a batch already on the card
+    resident = resident_steps(model, torch.from_numpy(x).to(dev),
+                              torch.from_numpy(y).to(dev), 8)
+    resnet = {
+        "model": "resnet50", "classes": FIT_CLASSES, "image": FIT_CROP,
+        "batch": FIT_B,
+        "optimizer": f"Momentum({RESNET_LR}, 0.9, weight_decay=1e-4)",
+        "steps": steps, "losses": rec.losses, "evaluate": ev,
+        "fit_ms_per_step": float(np.mean(fit_ms)), "fit_ms_steps": fit_ms,
+        "fit_images_per_s": FIT_B / (np.mean(fit_ms) / 1e3),
+        "resident_ms_per_step": float(np.mean(resident)),
+        "resident_ms_steps": resident,
+        "resident_images_per_s": FIT_B / (np.mean(resident) / 1e3),
+        "loader_ms_per_step": float(np.mean(fit_ms) - np.mean(resident)),
+        "starved_share": float(np.mean(starved)),
+        "queue_depths": probe.depths,
+        "profiled_steps": list(FIT_WINDOW),
+        "window_wall_us": window_wall_us, "device_busy_us": busy,
+        "idle_share": 1 - busy / window_wall_us,
+        "max_memory_allocated": peak,
+        "collate_ms": collate_ms, "collate_threads": torch.get_num_threads(),
+        "h2d_copy": copy}
+    del model, net, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+    # a planted fault: a dataset raising in a worker must fail fit fast
+    bad = set(range(0, n, 50))
+    net = port.models.resnet50(num_classes=FIT_CLASSES, device=dev)
+    model = port.Model(net).prepare(
+        port.Momentum(learning_rate=RESNET_LR, momentum=0.9,
+                      parameters=net.parameters()), ce)
+    t0 = time.perf_counter()
+    try:
+        model.fit(faulty(port, train, bad), batch_size=FIT_B, epochs=1,
+                  num_workers=4, shuffle=True, drop_last=True, verbose=0)
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    fault_s = time.perf_counter() - t0
+    if raised is None or "planted fault" not in raised or fault_s > 30:
+        raise AssertionError(f"imagenet_fit: the planted fault raised "
+                             f"{raised!r} after {fault_s} s")
+    del model, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ViT-B/16 through the same fit, fp32, the flash kernels at D=64
+    gen = torch.Generator(device=dev).manual_seed(74)
+    net = port.models.vit_base_patch16_224(class_num=FIT_CLASSES, device=dev,
+                                           generator=gen)
+    model = port.Model(net).prepare(
+        port.AdamW(learning_rate=1e-4, parameters=net.parameters(),
+                   weight_decay=0.05), ce, port.metric.Accuracy())
+    probe = fit_probe(torch, port)
+    rec = loss_recorder(port)
+    reset_flash_counts(flash)
+    np.random.seed(75)
+    model.fit(port.io.Subset(train, range(FIT_VIT_STEPS * FIT_B)),
+              batch_size=FIT_B, epochs=1, num_workers=4, shuffle=True,
+              drop_last=True, verbose=0, callbacks=[probe, rec])
+    launches = flash_counts(flash)
+    due = {k: 12 * FIT_VIT_STEPS for k in FLASH_MARKS}
+    if launches != due or not np.isfinite(rec.losses).all():
+        raise AssertionError(f"imagenet_fit vit: launches {launches} (due "
+                             f"{due}), losses {rec.losses}")
+    vit_ms = step_ms(probe)
+    resident = resident_steps(model, torch.from_numpy(x).to(dev),
+                              torch.from_numpy(y).to(dev), 5)
+    vit = {"model": "vit_base_patch16_224", "dtype": "float32",
+           "batch": FIT_B, "steps": FIT_VIT_STEPS, "losses": rec.losses,
+           "fit_ms_per_step": float(np.mean(vit_ms)), "fit_ms_steps": vit_ms,
+           "fit_images_per_s": FIT_B / (np.mean(vit_ms) / 1e3),
+           "resident_ms_per_step": float(np.mean(resident)),
+           "resident_ms_steps": resident,
+           "starved_share": float(np.mean([d == 0
+                                           for d in probe.depths[1:]])),
+           "launches": launches}
+    del model, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"resnet50": resnet, "vit": vit,
+            "batches_equal": len(same),
+            "planted_fault": {"raised": raised, "seconds": fault_s}}
+
+
 def main() -> int:
     try:
         import torch
@@ -5484,8 +5989,15 @@ def main() -> int:
         from paddle_tpu_torch.ops import scaled as sc
         from paddle_tpu_torch import amp, jit
         from paddle_tpu_torch import nn as port_nn
-        from paddle_tpu_torch.optimizer import AdamW, Momentum
+        from paddle_tpu_torch.optimizer import Adam, AdamW, Momentum
         from paddle_tpu_torch.vision import models as vision_models
+        from paddle_tpu_torch import io as port_io
+        from paddle_tpu_torch import metric as port_metric
+        from paddle_tpu_torch.hapi import Model
+        from paddle_tpu_torch.hapi.callbacks import Callback
+        from paddle_tpu_torch.io.dataloader import default_collate_fn
+        from paddle_tpu_torch.vision import datasets as vision_datasets
+        from paddle_tpu_torch.vision import transforms as vision_transforms
         from paddle_tpu_torch.optimizer.lr import (
             CosineAnnealingDecay,
             LinearWarmup,
@@ -5529,8 +6041,14 @@ def main() -> int:
                              f"the workers' directory:\n{prebuild_err}")
     for name, log in _build.build_logs.items():
         print(f"--- nvcc {name} ---\n{log}", file=sys.stderr)
+    # the data loader's shared-memory ring, a host library (g++)
+    t1 = time.perf_counter()
+    _build.load_host("shm_ring")
     emit("build", kernels=built, seconds=time.perf_counter() - t0,
-         worker_directory=_build.count_libraries(procfleet_cache))
+         worker_directory=_build.count_libraries(procfleet_cache),
+         host_libraries={"shm_ring": str(_build.host_library_path(
+             "shm_ring").relative_to(_build.PACKAGE_DIR.parent)),
+             "seconds": time.perf_counter() - t1})
 
     scaled_launches, scaled_summary = custom_op_phase(
         torch, sc, cpp_extension,
@@ -5585,19 +6103,26 @@ def main() -> int:
     disagg_phase(torch, rp, pd, serving, model, spec_prompts)
     server_rows = server_phase(torch, rp, pd, serving, model, prompts,
                                serve_warm)
-    # worker processes booted off an AOT artifact saved over this model,
-    # which is freed before they boot
-    boot_spec = {"preset": "llama3_8b", "layers": 32, "dtype": "bfloat16",
-                 "seed": 1}
-    saved = aot_boot_save(torch, serving, model, prompts, boot_spec)
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    aot_boot_phase(serving, saved, boot_spec)
-    # the serve model (seed 1, full depth, bf16) in each worker process
-    procfleet_phase(torch, serving, prompts, {
-        "preset": "llama3_8b", "layers": 32, "dtype": "bfloat16",
-        "seed": 1}, procfleet_cache, server_rows)
+    # worker processes booted off an AOT artifact, and the --workers
+    # fleets: the serve model's widths (seed 1, bf16) cut to FLEET_LAYERS
+    # layers, the script's time limit; the artifact is saved over a model
+    # of that depth, freed before the workers boot
+    fleet_spec = {"preset": "llama3_8b", "layers": FLEET_LAYERS,
+                  "dtype": "bfloat16", "seed": 1}
+    saver = LlamaForCausalLM(
+        LlamaConfig.llama3_8b(num_hidden_layers=FLEET_LAYERS),
+        device="cuda", dtype=torch.bfloat16,
+        generator=torch.Generator(device="cuda").manual_seed(1))
+    saved = aot_boot_save(torch, serving, saver, prompts, fleet_spec)
+    del saver
+    gc.collect()
+    torch.cuda.empty_cache()
+    aot_boot_phase(serving, saved, fleet_spec)
+    procfleet_phase(torch, serving, prompts, fleet_spec, procfleet_cache,
+                    server_rows)
     shutil.rmtree(procfleet_cache, ignore_errors=True)
 
     flash_summary = flash_kernel_phase(torch, flash)
@@ -5646,6 +6171,17 @@ def main() -> int:
     vit_flash = vision_identity_phase(torch, flash, port)
     resnet50_train_phase(torch, port)
     vit_launches, vit_device = vit_train_phase(torch, flash, port)
+    # the input pipeline and the high-level trainer: LeNet through
+    # Model.fit on the card against the CPU, then ResNet-50 and ViT-B/16
+    # fed by the multi-process DataLoader over the shared-memory ring
+    port = SimpleNamespace(
+        io=port_io, datasets=vision_datasets, transforms=vision_transforms,
+        models=vision_models, Model=Model, Callback=Callback,
+        metric=port_metric, nn=port_nn, Adam=Adam, AdamW=AdamW,
+        Momentum=Momentum, registry=obs.get_registry,
+        default_collate_fn=default_collate_fn)
+    loader_identity_phase(torch, port)
+    fit_launches = imagenet_fit_phase(torch, flash, port)
     flash_rows = [{
         "name": f"flash_attention_{key}", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/flash_attention.cu",
@@ -5653,6 +6189,7 @@ def main() -> int:
         "launches": train_launches[key],
         "gpt_train_launches": gpt_launches[key],
         "vit_train_launches": vit_launches[key],
+        "imagenet_fit_launches": fit_launches[key],
         "device_ms": flash_device[key],
         "vit_train_device_ms": vit_device[key],
         "vit_shape": vit_flash[key],

@@ -182,6 +182,17 @@ def ernie_from_paddle_tpu(state, config: ErnieConfig, device=None,
     return model
 
 
+def lenet_from_paddle_tpu(state, device=None, dtype=None, generator=None):
+    """The port's ``LeNet`` with the JAX model's weights; ``num_classes``
+    from its last ``Linear`` (0 without a head)."""
+    classes = (int(_as_tensor(state["fc.2.weight"]).shape[1])
+               if "fc.2.weight" in state else 0)
+    model = vision_models.LeNet(num_classes=classes, device=device,
+                                dtype=dtype, generator=generator)
+    load_paddle_tpu_state(model, state)
+    return model
+
+
 def resnet_from_paddle_tpu(state, arch="resnet50", device=None, dtype=None,
                            generator=None, **kwargs):
     """The port's ``vision.models.<arch>`` (``"resnet18"``, ...,

@@ -13,7 +13,11 @@ of them builds it, later uses load it.  A build holds an exclusive
 ``nvcc`` once per source; the lock is released by a process's death.  Nothing is built when this
 module is imported; a kernel wrapper calls :func:`load` the first time it
 launches.  When ``nvcc`` fails, :class:`KernelBuildFailed` carries its
-standard error.  :func:`load_library` loads a kernel's library from a
+standard error.  The repo's host C++ sources (``csrc/<name>.cpp`` at the
+checkout's root, such as the data loader's shared-memory ring) take the
+same route with ``g++``: :func:`load_host` builds one into the same
+directory under the same lock, keyed by its source and flags, and a failed
+build raises :class:`HostBuildFailed` carrying g++'s standard error.  :func:`load_library` loads a kernel's library from a
 given file instead (an AOT artifact's ``kernels/``), with no ``nvcc``;
 :func:`source_hash` is the key both ways.
 """
@@ -35,6 +39,10 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
+HOST_CSRC_DIR = PACKAGE_DIR.parent / "csrc"
+GXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
+GXX_LIBS = ("-lpthread", "-lrt")
+
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -47,6 +55,10 @@ build_logs: Dict[str, str] = {}   # ptxas report (registers, shared memory,
 
 class KernelBuildFailed(RuntimeError):
     """``nvcc`` is missing or refused a kernel source."""
+
+
+class HostBuildFailed(RuntimeError):
+    """``g++`` is missing or refused a host source."""
 
 
 def set_build_dir(path) -> Path:
@@ -179,3 +191,46 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
         return lib
+
+
+def host_library_path(name: str) -> Path:
+    """Where the library of the host source ``csrc/<name>.cpp`` is built:
+    keyed by a hash of the source and the g++ flags."""
+    h = hashlib.sha256((HOST_CSRC_DIR / f"{name}.cpp").read_bytes())
+    h.update(" ".join(GXX_FLAGS + GXX_LIBS).encode())
+    return BUILD_DIR / f"lib{name}-host-{h.hexdigest()[:16]}.so"
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library of the host source ``csrc/<name>.cpp``, built
+    with ``g++`` first if needed.  Raises :class:`HostBuildFailed` with
+    g++'s standard error when the build fails."""
+    key = f"host:{name}"
+    with _lock:
+        lib = _libs.get(key)
+        if lib is not None:
+            return lib
+        out = host_library_path(name)
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            with _directory_lock(BUILD_DIR):
+                if not out.exists():
+                    _build_host(name, out)
+        lib = _libs[key] = ctypes.CDLL(str(out))
+        return lib
+
+
+def _build_host(name: str, out: Path) -> None:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise HostBuildFailed(f"g++ not found on PATH: csrc/{name}.cpp is "
+                              f"built on first use")
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [gxx, *GXX_FLAGS, str(HOST_CSRC_DIR / f"{name}.cpp"), "-o",
+         str(tmp), *GXX_LIBS], capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise HostBuildFailed(f"g++ failed on csrc/{name}.cpp "
+                              f"(exit {proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)

@@ -1,4 +1,8 @@
-"""``paddle.vision`` of the port: the image-classification models
-(``datasets`` and ``transforms`` wait for ROADMAP A13's rest)."""
+"""``paddle.vision`` of the port: the datasets (synthetic fallbacks, no
+downloads), the transforms (numpy, CHW) and the image-classification
+models (LeNet, ResNet, ViT; the other model-zoo nets wait for ROADMAP
+A13's rest)."""
 
-from . import models  # noqa: F401
+from . import datasets, models, transforms  # noqa: F401
+from .datasets import MNIST, Cifar10, FashionMNIST, Flowers, VOC2012  # noqa: F401
+from .models import LeNet  # noqa: F401

@@ -1,6 +1,7 @@
-"""Vision models of the port: the ResNet family and the Vision
+"""Vision models of the port: LeNet, the ResNet family and the Vision
 Transformer (the other model-zoo nets wait for ROADMAP A13's rest)."""
 
+from .lenet import LeNet  # noqa: F401
 from .resnet import (  # noqa: F401
     BasicBlock,
     BottleneckBlock,

@@ -91,7 +91,16 @@ MUST_CHECK = ("utils/__init__.py", "utils/extension.py",
               "vision/models/resnet.py", "vision/models/vit.py",
               "jit/__init__.py", "jit/api.py", "amp/__init__.py",
               "amp/auto_cast.py", "amp/grad_scaler.py", "regularizer.py",
-              "optimizer/optimizer.py")
+              "optimizer/optimizer.py",
+              # the input pipeline and the high-level trainer: the JAX
+              # DataLoader and Resize reach into jax, the JAX metrics and
+              # hapi into the JAX package's core
+              "io/__init__.py", "io/dataset.py", "io/sampler.py",
+              "io/shm_ring.py", "io/worker_pool.py", "io/dataloader.py",
+              "metric/__init__.py", "hapi/__init__.py", "hapi/callbacks.py",
+              "hapi/model.py", "hapi/summary.py",
+              "vision/transforms/__init__.py",
+              "vision/datasets/__init__.py", "vision/models/lenet.py")
 
 
 def _port_files():

@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 
 import paddle_tpu as paddle
+from paddle_tpu.distributed import topology as jax_topology
 from paddle_tpu.models import LlamaConfig as JaxLlamaConfig
 from paddle_tpu.models import LlamaForCausalLM as JaxLlama
 from paddle_tpu.serving import EngineCore as JaxEngineCore
@@ -181,13 +182,22 @@ def models():
 
 @pytest.fixture(scope="module")
 def jax_answers(models):
-    eng = JaxEngineCore(models[0], num_blocks=64, block_size=BS,
-                        scheduler_config=JaxSchedulerConfig(max_num_seqs=4))
-    h = Harness(JaxCompletionServer(eng, JaxServerConfig()))
+    # the JAX engine takes its mp from the process-wide mesh, which an
+    # earlier test file on the same worker may have left at mp=2 (ROADMAP
+    # C3 (i)); the answers compared here are an mp=1 server's
+    saved = jax_topology.get_mesh()
+    jax_topology.set_mesh(None)
     try:
-        return _drive(h.port)
+        eng = JaxEngineCore(models[0], num_blocks=64, block_size=BS,
+                            scheduler_config=JaxSchedulerConfig(
+                                max_num_seqs=4))
+        h = Harness(JaxCompletionServer(eng, JaxServerConfig()))
+        try:
+            return _drive(h.port)
+        finally:
+            h.close()
     finally:
-        h.close()
+        jax_topology.set_mesh(saved)
 
 
 def _engine(model, **kw):
