@@ -428,6 +428,40 @@ these phases, printing one JSON line for each:
              order, 4-worker batches bit-equal to in-process ones, finite
              losses, a planted worker fault raising within 30 s, no worker
              or ring segment left, 12 x 8 launches of each flash kernel.
+``rnn_identity``  fp32, TF32 off, the card against the port's CPU run:
+             2-layer bidirectional ``LSTM``, ``GRU``, ``SimpleRNN`` at H=64
+             (outputs within 1e-5, gradients within 1e-5 of their largest
+             entries); PaddleNLP's seq2seq attention model at H=64, B=8 on
+             ``text.WMT16``, 5 Adam steps under
+             ``ClipGradByGlobalNorm(0.5)``, each step's global norm above
+             0.5 (it clips), losses within 1e-4 relative, then beam search
+             (K=4) token-identical, and on a table cell with ties (K = 1,
+             3, 4); the step under ``jit.to_static``
+             against eager within 1e-5, 1 capture, 0 graph breaks; a
+             planted failed capture falls back to eager within 1e-5.
+``seq2seq_train``  the seq2seq model at its README's widths (512, 2
+             layers, B=128, dropout 0.2, init_scale 0.1, Adam 1e-3,
+             ``ClipGradByGlobalNorm(5.0)``), fp32, fed ``text.WMT16``
+             (vocabularies 4000, length 16) through the port's
+             ``DataLoader``: eager steps (the clip-plus-optimizer share
+             by CUDA events), then ``to_static`` (1 capture, 0 breaks),
+             ms a step and target tokens/s for both, peak memory, a
+             profiled window's idle share, the global norms; beside it the
+             encoder's forward and backward through ``torch.nn.LSTM``
+             (cuDNN), which the port never calls.
+``seq2seq_decode``  the trained model, ``BeamSearchDecoder(beam_size=10)``
+             through ``dynamic_decode`` (32 steps at most) over 128 test
+             sentences: ms a decode, steps, sentences/s, host reads (the
+             synchronising calls ``set_sync_debug_mode("warn")`` reports:
+             one a step); again with the model's initial weights, whose
+             beams run all 32 steps.  Each decode's first 32 sentences
+             held on the CPU: every beam's score against its
+             teacher-forced log-probability (within 4e-6 of its size),
+             tokens after an end token, beams in order, each best beam
+             no worse than the CPU search's.  These three phases reach no
+             kernel of the repo: every kernel's launch count must be
+             unchanged across them.
+``budget``   the sequence-model phases' seconds beside the script's.
 
 Then a line ``{"kernels": [...]}`` summarising each kernel at its main
 path's shapes (the ragged kernel at the unified serve step, the decode
@@ -435,7 +469,8 @@ kernel at B=16 bf16, the flash kernels at the train shape in bf16, the
 scale kernel at [8192, 4096] bf16, with the launches of the serve, the
 burst-free serve_legacy, the train and the custom_op runs; the flash rows
 add ``gpt_train_launches``, ``vit_train_launches``,
-``imagenet_fit_launches``, ``vit_train_device_ms`` and ``vit_shape``, their times and errors at ViT-B/16's shape), the
+``imagenet_fit_launches``, ``vit_train_device_ms`` and ``vit_shape``, their times and errors at ViT-B/16's shape; every row
+adds ``seq2seq_launches``, 0), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any
 failure raises and the script exits nonzero without that last line; so
 does a machine without a CUDA device, and a directory that holds this
@@ -5960,6 +5995,708 @@ def imagenet_fit_run(torch, flash, port, root, train, evalset, dev):
             "planted_fault": {"raised": raised, "seconds": fault_s}}
 
 
+# --- sequence models ----------------------------------------------------------
+
+# PaddleNLP examples/machine_translation/seq2seq, its README's training
+# command (--num_layers 2 --hidden_size 512 --batch_size 128 --dropout 0.2
+# --init_scale 0.1 --max_grad_norm 5.0 --learning_rate 0.001) and predict's
+# --beam_size 10; fed text.WMT16, whose vocabularies (4000) and length (16)
+# stand in for IWSLT'15 en-vi's (17191 / 7709 words, up to 50 tokens)
+S2S_BOS, S2S_EOS = 0, 1        # text.WMT16's start and end tokens
+S2S_VOCAB = 4000
+S2S_LEN = 16
+S2S_HIDDEN = 512               # embedding and hidden
+S2S_LAYERS = 2
+S2S_B = 128
+S2S_LR = 1e-3
+S2S_DROPOUT = 0.2
+S2S_INIT = 0.1
+S2S_CLIP = 5.0
+S2S_BEAM = 10
+S2S_MAX_OUT = 32               # dynamic_decode's steps at most
+S2S_HELD = 32                  # decoded sentences held to the CPU
+S2S_EAGER_STEPS = 6            # timed eager steps (after 2 untimed)
+S2S_CAPTURED_STEPS = 10        # to_static calls: eager, capture, 8 replays
+S2S_WINDOW = 2                 # profiled captured steps (after as many)
+
+
+def seq2seq_model(torch, nn, F, vocab, hidden, layers, dropout=0.0,
+                  device=None, generator=None):
+    """PaddleNLP's ``Seq2SeqAttnModel`` (examples/machine_translation/
+    seq2seq/seq2seq_attn.py) over the port's ``nn`` (``F`` its
+    functional): an embedding and an ``nn.LSTM`` encoder; a decoder
+    ``nn.RNN`` over a cell of stacked ``nn.LSTMCell``s fed the previous
+    attention output, ``nn.Dropout`` between them, and Luong attention
+    (two matrix products and a softmax masked by -1e9 at the source's end
+    tokens, between two bias-free projections); a bias-free output layer.
+    Embeddings and projections are ``Uniform(-S2S_INIT, S2S_INIT)``,
+    the LSTMs their default.  The encoder's ``dropout`` and
+    ``sequence_length`` reach ``nn.LSTM``, which ignores them (ROADMAP
+    C6).  The cell's states are flat, ``(h_0, c_0, ..., h_{L-1}, c_{L-1},
+    input_feed)``, and the encoder's output and padding mask its
+    ``memory``, set before a run and cleared after a training forward
+    (PaddleNLP passes them as keyword
+    arguments, which the JAX package's ``RNN`` and ``BeamSearchDecoder``
+    do not forward), so the same cell steps the training ``RNN`` and
+    ``BeamSearchDecoder``.  ``encode`` gives the encoder's output, the
+    mask and the decoder's initial states."""
+    init = nn.initializer.Uniform(-S2S_INIT, S2S_INIT)
+    kw = dict(device=device, generator=generator)
+
+    class AttentionLayer(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.input_proj = nn.Linear(hidden, hidden, weight_attr=init,
+                                        bias_attr=False, **kw)
+            self.output_proj = nn.Linear(2 * hidden, hidden,
+                                         weight_attr=init, bias_attr=False,
+                                         **kw)
+
+        def forward(self, hidden_state, encoder_output, padding_mask):
+            enc = self.input_proj(encoder_output)
+            scores = torch.matmul(hidden_state.unsqueeze(1),
+                                  enc.transpose(1, 2)) + padding_mask
+            attn = F.softmax(scores, axis=-1)
+            out = torch.matmul(attn, enc).squeeze(1)
+            return self.output_proj(torch.cat([out, hidden_state], 1))
+
+    class DecoderCell(nn.RNNCellBase):
+        def __init__(self):
+            super().__init__()
+            self.hidden_size = hidden
+            self.dropout = nn.Dropout(dropout)
+            self.lstm_cells = nn.LayerList([
+                nn.LSTMCell(2 * hidden if i == 0 else hidden, hidden, **kw)
+                for i in range(layers)])
+            self.attention_layer = AttentionLayer()
+            self.memory = None
+
+        def forward(self, step_input, states):
+            step_input = torch.cat([step_input, states[-1]], 1)
+            new = []
+            for i, cell in enumerate(self.lstm_cells):
+                out, (h, c) = cell(step_input, (states[2 * i],
+                                                states[2 * i + 1]))
+                step_input = self.dropout(out)
+                new += [h, c]
+            out = self.attention_layer(step_input, *self.memory)
+            return out, (*new, out)
+
+    class Encoder(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.embedder = nn.Embedding(vocab, hidden, weight_attr=init,
+                                         **kw)
+            self.lstm = nn.LSTM(hidden, hidden, num_layers=layers,
+                                dropout=dropout if layers > 1 else 0.0, **kw)
+
+        def forward(self, sequence, sequence_length):
+            return self.lstm(self.embedder(sequence),
+                             sequence_length=sequence_length)
+
+    class Decoder(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.embedder = nn.Embedding(vocab, hidden, weight_attr=init,
+                                         **kw)
+            self.lstm_attention = nn.RNN(DecoderCell())
+            self.output_layer = nn.Linear(hidden, vocab, weight_attr=init,
+                                          bias_attr=False, **kw)
+
+        def forward(self, trg, states):
+            out, _ = self.lstm_attention(self.embedder(trg),
+                                         initial_states=states)
+            return self.output_layer(out)
+
+    class Seq2SeqAttnModel(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.encoder = Encoder()
+            self.decoder = Decoder()
+
+        def encode(self, src, src_length):
+            enc_out, (h, c) = self.encoder(src, src_length)
+            cell = self.decoder.lstm_attention.cell
+            states = tuple(t for i in range(layers) for t in (h[i], c[i]))
+            states += (cell.get_initial_states(enc_out),)
+            mask = ((src != S2S_EOS).to(torch.float32) - 1.0) * 1e9
+            return enc_out, mask.unsqueeze(1), states
+
+        def forward(self, src, src_length, trg):
+            enc_out, mask, states = self.encode(src, src_length)
+            cell = self.decoder.lstm_attention.cell
+            cell.memory = (enc_out, mask)
+            logits = self.decoder(trg, states)
+            # a memory kept past the step would keep its autograd graph
+            # alive: the next step's gradients would then accumulate
+            # through nodes made on the last step's stream, which breaks a
+            # to_static capture (it runs on a side stream)
+            cell.memory = None
+            return logits
+
+    return Seq2SeqAttnModel()
+
+
+def seq2seq_loss(torch, F):
+    """PaddleNLP's ``CrossEntropyCriterion``: token cross-entropies masked
+    to the target (its tokens and the end token after them, the positions
+    up to the count of non-end tokens), averaged over the batch and summed
+    over time; ``loss(logits, label)``."""
+    def loss(logits, label):
+        n = (label != S2S_EOS).sum(1, keepdim=True)
+        mask = (torch.arange(label.shape[1], device=label.device) <= n).to(
+            torch.float32)
+        cost = F.cross_entropy(logits, label.unsqueeze(-1), reduction="none")
+        return (cost * mask).mean(0).sum()
+    return loss
+
+
+def seq2seq_beam_search(nn, model, src, src_length, beam_size, max_len):
+    """PaddleNLP's ``Seq2SeqAttnInferModel.forward``: the encoder, the
+    memory repeated ``beam_size`` times along the batch, then
+    ``BeamSearchDecoder`` over the decoder's cell through
+    ``dynamic_decode``: (sequences ``[B, beam, T]``, lengths, scores
+    ``[B, beam]``, best first)."""
+    enc_out, mask, states = model.encode(src, src_length)
+    cell = model.decoder.lstm_attention.cell
+    tile = nn.BeamSearchDecoder.tile_beam_merge_with_batch
+    cell.memory = (tile(enc_out, beam_size), tile(mask, beam_size))
+    dec = nn.BeamSearchDecoder(cell, S2S_BOS, S2S_EOS, beam_size,
+                               embedding_fn=model.decoder.embedder,
+                               output_fn=model.decoder.output_layer)
+    seqs, (_, scores, _), lengths = nn.dynamic_decode(
+        dec, inits=states, max_step_num=max_len, return_length=True)
+    return seqs, lengths, scores
+
+
+def beam_scores(torch, model, src, src_len, seqs):
+    """Each beam's log-probability under ``model``, teacher-forced through
+    its training forward (the decoder ``RNN`` over the whole sequence, no
+    search, no regathering): ``seqs`` ``[B, beam, T]``; the tokens up to
+    and including the first end token count, as the search scores a beam
+    (a finished beam adds 0).  Log-probabilities in the model's dtype,
+    summed in float64: ``[B, beam]``."""
+    B, K, T = seqs.shape
+    flat = seqs.reshape(B * K, T)
+    trg = torch.cat([torch.full_like(flat[:, :1], S2S_BOS), flat[:, :-1]],
+                    1)
+    logits = model(src.repeat_interleave(K, 0),
+                   src_len.repeat_interleave(K, 0), trg)
+    lp = torch.log_softmax(logits, -1).gather(-1, flat[..., None])[..., 0]
+    is_end = (flat == S2S_EOS).to(torch.int64)
+    counted = (is_end.cumsum(1) - is_end) == 0
+    return torch.where(counted, lp.double(), 0.0).sum(1).reshape(B, K)
+
+
+# tests/test_nn.py's beam-search table: the next token's logits by the
+# current one, -10.0 elsewhere (ties); greedy takes 1, beams find 2, 3, end
+TABLE_START, TABLE_END = 0, 5
+TABLE = np.full((6, 6), -10.0, np.float32)
+TABLE[[0, 0, 1, 1, 2, 3, 4], [1, 2, 4, 5, 3, 5, 5]] = np.log(
+    [0.5, 0.4, 0.5, 0.5, 0.99, 0.99, 0.9])
+
+
+def table_cell(torch, table, device):
+    """A step cell whose logits are ``table``'s row of the input token."""
+    class TableCell(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.table = torch.from_numpy(table).to(device)
+
+        def forward(self, tok, state):
+            return self.table[tok], state
+
+    return TableCell()
+
+
+def seq2seq_batches(torch, port, mode, batch, n, device, shuffle=False):
+    """The first ``n`` batches of ``text.WMT16(mode)`` through the port's
+    ``DataLoader``, epoch after epoch (2000 pairs make 15 batches of 128):
+    ``(src, src_len, tgt_in, tgt_out)`` on ``device``."""
+    loader = port.io.DataLoader(port.text.WMT16(mode=mode),
+                                batch_size=batch, shuffle=shuffle,
+                                drop_last=True, places=device)
+    out = []
+    while len(out) < n:
+        for src, src_len, tgt_in, tgt_out, _ in loader:
+            out.append((src, src_len, tgt_in, tgt_out))
+            if len(out) == n:
+                break
+    return out
+
+
+def global_norm(torch, params):
+    return float(torch.sqrt(sum(torch.sum(p.grad.float() ** 2)
+                                for p in params if p.grad is not None)))
+
+
+def seq2seq_step(model, loss_fn, opt):
+    def step(src, src_len, tgt_in, tgt_out):
+        loss = loss_fn(model(src, src_len, tgt_in), tgt_out)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+    return step
+
+
+def rnn_gaps(torch, run, ref):
+    """``run`` and ``ref``'s (outputs, gradients) lists: the largest
+    output gap and the largest gradient gap over each gradient's largest
+    entry."""
+    out_gap = max(float((a.cpu() - b).abs().max()) for a, b in
+                  zip(run[0], ref[0]))
+    grad_gap = max(float((a.cpu() - b).abs().max())
+                   / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(run[1], ref[1]))
+    return out_gap, grad_gap
+
+
+def rnn_identity_phase(torch, port, dev="cuda"):
+    """fp32, TF32 off, the card against the port's own CPU run, from the
+    same weights and inputs.  (1) 2-layer bidirectional ``LSTM``, ``GRU``
+    and ``SimpleRNN`` at H=64 (input 64, B=8, T=16): outputs and final
+    states within 1e-5, the input's and every weight's gradient within
+    1e-5 of its largest entry.  (2) The seq2seq model at H=64, 2 layers,
+    B=8, no dropout, on ``text.WMT16``: 5 Adam steps under
+    ``ClipGradByGlobalNorm(0.5)`` (below every step's global norm: each
+    clips), losses within 1e-4 relative; then beam search with K=4 (16
+    steps at most) on 8 test sentences, and on ``tests/test_nn.py``'s
+    table cell (logits equal on both devices, ties included) with K = 1,
+    3 and 4, sequences and lengths identical.  (The initial weights'
+    beams are not compared across devices: on the CPU their kept and
+    first dropped candidates lie 0 to 2e-5 apart, within the devices'
+    fp32 rounding of log-probabilities near -8.)  (3) The same train step
+    under ``jit.to_static`` on the card against eager: losses within 1e-5
+    relative, 1 capture, 0 graph breaks; then a planted failed capture
+    (the step keeps its loss, and so its autograd graph, alive into the
+    next call): 1 graph break, no capture, the eager fallback's losses
+    finite and within 1e-5 of eager, the caller's stream current."""
+    import warnings
+
+    t0 = time.perf_counter()
+    nn, F = port.nn, port.F
+    rng = np.random.default_rng(70)
+    rows = {}
+    for name in ("LSTM", "GRU", "SimpleRNN"):
+        cpu = getattr(nn, name)(64, 64, num_layers=2, direction="bidirect",
+                                generator=torch.Generator().manual_seed(71))
+        card = getattr(nn, name)(64, 64, num_layers=2, direction="bidirect",
+                                 device=dev)
+        card.load_state_dict(cpu.state_dict())
+        x = torch.from_numpy(rng.standard_normal((8, 16, 64)).astype(
+            np.float32))
+
+        def run(layer, x, dev):
+            xi = x.to(dev).requires_grad_()
+            out, states = layer(xi)
+            outs = [out] + list(states if isinstance(states, tuple)
+                                else (states,))
+            sum((o * (k + 1)).sin().sum() for k, o in enumerate(outs)
+                ).backward()
+            grads = [xi.grad] + [p.grad for p in layer.parameters()]
+            return [o.detach() for o in outs], grads
+
+        out_gap, grad_gap = rnn_gaps(torch, run(card, x, dev),
+                                     run(cpu, x, "cpu"))
+        if out_gap > 1e-5 or grad_gap > 1e-5:
+            raise AssertionError(f"rnn_identity {name}: outputs {out_gap}, "
+                                 f"gradients {grad_gap} (gates 1e-5)")
+        rows[name] = {"max_abs_gap": out_gap, "max_rel_grad_gap": grad_gap}
+
+    # the seq2seq model, card against CPU
+    clip = 0.5
+    state = seq2seq_model(torch, nn, F, S2S_VOCAB, 64, 2,
+                          generator=torch.Generator().manual_seed(72)
+                          ).state_dict()
+    batches = seq2seq_batches(torch, port, "train", 8, 5, "cpu")
+    test = seq2seq_batches(torch, port, "test", 8, 1, "cpu")[0]
+    loss_fn = seq2seq_loss(torch, F)
+
+    def train(where, captured=False, keep=False):
+        model = seq2seq_model(torch, nn, F, S2S_VOCAB, 64, 2, device=where)
+        model.load_state_dict(state)
+        opt = port.Adam(learning_rate=S2S_LR, parameters=model.parameters(),
+                        grad_clip=nn.ClipGradByGlobalNorm(clip))
+        losses, norms = [], []
+        step = seq2seq_step(model, loss_fn, opt)
+        if keep:
+            inner = step
+
+            def step(*batch):
+                # the loss, and so its step's autograd graph, kept alive
+                # into the next call: the capture fails
+                model.kept = inner(*batch)
+                return model.kept
+        if captured:
+            step = port.jit.to_static(step)
+            for b in batches:
+                losses.append(float(step(*(t.to(where) for t in b))))
+            return model, losses, step
+        for b in batches:
+            src, src_len, tgt_in, tgt_out = (t.to(where) for t in b)
+            loss = loss_fn(model(src, src_len, tgt_in), tgt_out)
+            loss.backward()
+            norms.append(global_norm(torch, model.parameters()))
+            opt.step()
+            opt.clear_grad()
+            losses.append(loss.item())
+        return model, losses, norms
+
+    cpu_model, cpu_losses, cpu_norms = train("cpu")
+    card_model, card_losses, card_norms = train(dev)
+    gaps = rel_gaps(card_losses, cpu_losses)
+    if max(gaps) > 1e-4 or min(card_norms) <= clip:
+        raise AssertionError(
+            f"rnn_identity seq2seq: card losses {card_losses} against the "
+            f"CPU's {cpu_losses} (gate 1e-4 relative), global norms "
+            f"{card_norms} (each must exceed the clip norm {clip})")
+    beams = {}
+    with torch.no_grad():
+        found = []
+        for model in (cpu_model, card_model):
+            model.eval()
+            src, src_len = (t.to(next(model.parameters()).device)
+                            for t in test[:2])
+            seqs, lengths, _ = seq2seq_beam_search(nn, model, src,
+                                                   src_len, 4, S2S_LEN)
+            found.append((seqs.cpu(), lengths.cpu()))
+        # the search alone on logits equal on both devices, ties included
+        # (tests/test_nn.py's table: a row of equal -10.0 logits)
+        for K in (1, 3, 4):
+            for where in ("cpu", dev):
+                dec = nn.BeamSearchDecoder(
+                    table_cell(torch, TABLE, where), TABLE_START, TABLE_END,
+                    K)
+                seqs, _, lengths = nn.dynamic_decode(
+                    dec, inits=torch.zeros(2, 8, device=where),
+                    max_step_num=6, return_length=True)
+                found.append((seqs.cpu(), lengths.cpu()))
+            beams[f"table_k{K}"] = found[-1][0][0].tolist()
+    for i in range(0, len(found), 2):
+        (cpu_seqs, cpu_lens), (seqs, lengths) = found[i], found[i + 1]
+        if not (torch.equal(cpu_seqs, seqs)
+                and torch.equal(cpu_lens, lengths)):
+            raise AssertionError(
+                f"rnn_identity beam search: the card's sequences {seqs} "
+                f"and lengths {lengths} differ from the CPU's {cpu_seqs}, "
+                f"{cpu_lens}")
+    beams["seq2seq_lengths"] = found[1][1].tolist()
+    # the captured step against eager on the card
+    breaks = port.registry().counter("jit_graph_breaks_total", "")
+    before = breaks.value
+    _, captured_losses, step = train(dev, captured=True)
+    eager_gaps = rel_gaps(captured_losses, card_losses)
+    if (max(eager_gaps) > 1e-5 or breaks.value != before
+            or step.captures != 1):
+        raise AssertionError(
+            f"rnn_identity to_static: losses {captured_losses} against "
+            f"eager {card_losses} (gate 1e-5 relative), "
+            f"{breaks.value - before} graph breaks, {step.captures} "
+            f"captures")
+    # a capture that fails falls back to eager soundly: the same losses
+    stream = torch.cuda.current_stream()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        _, fallback_losses, step = train(dev, captured=True, keep=True)
+    fallback_gaps = rel_gaps(fallback_losses, card_losses)
+    if (not np.isfinite(fallback_losses).all() or max(fallback_gaps) > 1e-5
+            or breaks.value != before + 1 or step.captures != 0
+            or torch.cuda.current_stream() != stream):
+        raise AssertionError(
+            f"rnn_identity to_static fallback: losses {fallback_losses} "
+            f"against eager {card_losses} (gate 1e-5 relative), "
+            f"{breaks.value - before} graph breaks (1 planted), "
+            f"{step.captures} captures, or another stream left current")
+    emit("rnn_identity", layers=rows, seq2seq={
+        "hidden": 64, "layers": 2, "batch": 8, "vocab": S2S_VOCAB,
+        "clip_norm": clip, "global_norms": card_norms,
+        "cpu_global_norms": cpu_norms, "cpu_losses": cpu_losses,
+        "card_losses": card_losses, "max_rel_loss_gap": max(gaps),
+        "beam": {"size": 4, "sentences": 8, "sequences_equal": True,
+                 **beams},
+        "to_static": {"losses": captured_losses,
+                      "max_rel_gap_to_eager": max(eager_gaps),
+                      "captures": 1, "graph_breaks": 0,
+                      "failed_capture": {
+                          "losses": fallback_losses,
+                          "max_rel_gap_to_eager": max(fallback_gaps),
+                          "graph_breaks": 1}}},
+        seconds=time.perf_counter() - t0)
+
+
+def seq2seq_train_phase(torch, port, dev="cuda"):
+    """The seq2seq model at its README's widths (hidden and embedding 512,
+    2 layers, dropout 0.2, init_scale 0.1) on the card, fp32, fed
+    ``text.WMT16`` (shuffled, B=128) through the port's ``DataLoader``;
+    ``Adam(1e-3)`` under ``ClipGradByGlobalNorm(5.0)``.  Two untimed eager
+    steps read the global norm (whether the clip acts at 5.0), then 6
+    eager steps timed by CUDA events (the clip-plus-optimizer share:
+    backward's end to the step's end), then the step under
+    ``jit.to_static``: 10 calls (the eager first call, the capture, 8
+    replays), 1 capture, 0 graph breaks, a 2-step profiled window (idle
+    share).  ms a step and target tokens/s (the tokens the loss counts)
+    for both, peak memory; losses finite, and falling a target token.
+    Beside it, for later speed work only, the encoder's forward and
+    backward at the same shape through the port's ``nn.LSTM`` and through
+    ``torch.nn.LSTM`` (cuDNN), which the port never calls.  Returns the
+    trained model and its initial weights."""
+    t0 = time.perf_counter()
+    nn, F = port.nn, port.F
+    model = seq2seq_model(torch, nn, F, S2S_VOCAB, S2S_HIDDEN, S2S_LAYERS,
+                          dropout=S2S_DROPOUT, device=dev,
+                          generator=torch.Generator(device=dev)
+                          .manual_seed(73))
+    params = sum(p.numel() for p in model.parameters())
+    initial = {k: v.clone() for k, v in model.state_dict().items()}
+    opt = port.Adam(learning_rate=S2S_LR, parameters=model.parameters(),
+                    grad_clip=nn.ClipGradByGlobalNorm(S2S_CLIP))
+    loss_fn = seq2seq_loss(torch, F)
+    np.random.seed(74)       # the loader's shuffle
+    n = 2 + S2S_EAGER_STEPS + S2S_CAPTURED_STEPS + 2 * S2S_WINDOW
+    batches = seq2seq_batches(torch, port, "train", S2S_B, n, dev,
+                              shuffle=True)
+    tokens = [int(((b[3] != S2S_EOS).sum(1) + 1).clamp_max(S2S_LEN).sum())
+              for b in batches]
+    torch.cuda.reset_peak_memory_stats()
+    norms, losses = [], []
+    for src, src_len, tgt_in, tgt_out in batches[:2]:
+        loss = loss_fn(model(src, src_len, tgt_in), tgt_out)
+        loss.backward()
+        norms.append(global_norm(torch, model.parameters()))
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.detach())
+    # a live loss keeps its graph's AccumulateGrad nodes, made on this
+    # stream: the capture (on a side stream) would then sync with it
+    del loss
+    clock = StepClock(torch)
+    eager = batches[2:2 + S2S_EAGER_STEPS]
+    losses += train_steps(lambda b: loss_fn(model(*b[:3]), b[3]), opt,
+                          eager, clock=clock)
+    eager_s, opt_s = clock.read()
+    step = port.jit.to_static(seq2seq_step(model, loss_fn, opt))
+    breaks = port.registry().counter("jit_graph_breaks_total", "")
+    before = breaks.value
+    captured = batches[2 + S2S_EAGER_STEPS:n - 2 * S2S_WINDOW]
+    events = [torch.cuda.Event(enable_timing=True)]
+    events[0].record()
+    for b in captured:
+        losses.append(step(*b))
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    losses = [float(x) for x in losses]
+    if breaks.value != before or step.captures != 1:
+        raise AssertionError(f"seq2seq_train: {breaks.value - before} graph "
+                             f"breaks, {step.captures} captures")
+    # the loss sums over time: per target token it is comparable across
+    # batches of other lengths
+    per_token = [x * S2S_B / t for x, t in zip(losses, tokens)]
+    if not (np.isfinite(losses).all()
+            and np.mean(per_token[-3:]) < np.mean(per_token[:3])):
+        raise AssertionError(f"seq2seq_train: losses a target token "
+                             f"{per_token} are not finite or do not fall")
+    peak = torch.cuda.max_memory_allocated()
+    window = iter(batches[n - 2 * S2S_WINDOW:])
+    kernels, wall_us, _ = profile_window(torch, lambda: step(*next(window)),
+                                         S2S_WINDOW)
+    steady = ms[2:]
+    eager_tokens = tokens[2:2 + S2S_EAGER_STEPS]
+    captured_tokens = tokens[4 + S2S_EAGER_STEPS:n - 2 * S2S_WINDOW]
+    encoder = seq2seq_encoder_times(torch, model, batches[0][0])
+    emit("seq2seq_train", model="Seq2SeqAttnModel (PaddleNLP seq2seq)",
+         dataset="text.WMT16 (synthetic)", vocab=S2S_VOCAB, length=S2S_LEN,
+         hidden=S2S_HIDDEN, layers=S2S_LAYERS, batch=S2S_B,
+         dropout=S2S_DROPOUT, optimizer=f"Adam({S2S_LR})",
+         grad_clip=f"ClipGradByGlobalNorm({S2S_CLIP})", params=params,
+         global_norms=norms, clipped=[g > S2S_CLIP for g in norms],
+         losses=losses, token_losses=per_token, eager={
+             "ms_per_step": float(np.mean(eager_s)) * 1e3,
+             "ms_steps": [s * 1e3 for s in eager_s],
+             "target_tokens_per_s": sum(eager_tokens) / sum(eager_s),
+             "clip_optimizer_ms": float(np.mean(opt_s)) * 1e3,
+             "clip_optimizer_share": float(np.sum(opt_s) / np.sum(eager_s))},
+         captured={
+             "first_call_ms": ms[0], "capture_call_ms": ms[1],
+             "ms_per_step": float(np.mean(steady)), "ms_steps": steady,
+             "target_tokens_per_s": sum(captured_tokens)
+             / (sum(steady) / 1e3),
+             "captures": step.captures, "graph_breaks": 0},
+         max_memory_allocated=peak, encoder_lstm=encoder,
+         **window_summary(kernels, wall_us),
+         seconds=time.perf_counter() - t0)
+    return model, initial
+
+
+def seq2seq_encoder_times(torch, model, src):
+    """ms of the encoder's forward and backward ([B, T] tokens, 2 layers of
+    512) through the port's ``nn.LSTM`` and through ``torch.nn.LSTM``
+    (cuDNN) on the same weights and embeddings: CUDA events around 10
+    calls after 2 untimed."""
+    lstm = model.encoder.lstm
+    x = model.encoder.embedder(src).detach()
+    ref = torch.nn.LSTM(S2S_HIDDEN, S2S_HIDDEN, num_layers=S2S_LAYERS,
+                        batch_first=True, device=src.device)
+    with torch.no_grad():
+        for name, p in ref.named_parameters():
+            p.copy_(getattr(lstm, name))
+    g = torch.ones(x.shape[0], x.shape[1], S2S_HIDDEN, device=src.device)
+
+    def port_call():
+        xi = x.detach().requires_grad_()
+        out, _ = lstm(xi)
+        out.backward(g)
+
+    def cudnn_call():
+        xi = x.detach().requires_grad_()
+        out, _ = ref(xi)
+        out.backward(g)
+
+    with torch.no_grad():
+        gap = float((lstm(x)[0] - ref(x)[0]).abs().max())
+    out = {"max_abs_gap": gap}
+    for name, fn in (("port_ms", port_call), ("cudnn_ms", cudnn_call)):
+        out[name] = time_ms(fn, 10)
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def timed_decodes(torch, nn, model, src, src_len, n):
+    """``n`` beam searches of ``src`` (host clock around a synchronised
+    run): [(seconds, sequences, lengths, host reads, scores)], the host
+    reads
+    counted as the synchronising calls ``torch.cuda.set_sync_debug_mode
+    ("warn")`` reports."""
+    import warnings
+
+    runs = []
+    with torch.no_grad():
+        for _ in range(n):
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                start = time.perf_counter()
+                try:
+                    seqs, lengths, scores = seq2seq_beam_search(
+                        nn, model, src, src_len, S2S_BEAM, S2S_MAX_OUT)
+                    torch.cuda.synchronize()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                seconds = time.perf_counter() - start
+            reads = sum("synchroniz" in str(w.message) for w in caught)
+            runs.append((seconds, seqs, lengths, reads, scores))
+    return runs
+
+
+def decode_row(runs, src):
+    """A decode's figures from its runs (the first untimed), gated: valid
+    tokens on the input's device, lengths within the steps run, the same
+    output every run."""
+    _, seqs, lengths, reads, scores = runs[-1]
+    steps = seqs.shape[-1]
+    if not (all(r[1].equal(seqs) and r[2].equal(lengths)
+                and r[4].equal(scores) for r in runs)
+            and seqs.device == src.device and int(seqs.min()) >= 0
+            and int(seqs.max()) < S2S_VOCAB and int(lengths.min()) >= 1
+            and int(lengths.max()) <= steps):
+        raise AssertionError(f"seq2seq_decode: sequences {seqs.shape} on "
+                             f"{seqs.device}, lengths {lengths} over "
+                             f"{steps} steps, or runs that differ")
+    timed = [r[0] for r in runs[1:]]
+    mean = float(np.mean(timed))
+    return {"steps": steps, "ms_per_decode": mean * 1e3,
+            "ms_decodes": [t * 1e3 for t in timed],
+            "sentences_per_s": src.shape[0] / mean,
+            "ms_per_step": mean * 1e3 / steps, "host_reads": reads,
+            "first_decode_ms": runs[0][0] * 1e3,
+            "mean_length": float(lengths.float().mean()),
+            "ended_share": float((seqs == S2S_EOS).any(-1).float().mean())}
+
+
+def hold_beams(torch, nn, cpu_model, src, src_len, run):
+    """The card's beams of the first ``S2S_HELD`` sentences of a decode
+    (``run``, one of ``timed_decodes``') held on the CPU, by ``cpu_model``
+    (the decoded weights, eval mode).  Gates: each beam's score equals its
+    teacher-forced log-probability (``beam_scores``) within 4e-6 of its
+    size, twice the most that fp32's rounding of 32 summed steps can move
+    it (32 * 2^-24 = 1.9e-6), which holds the per-step regathering of the
+    states by parent and the end-token masking; tokens after a beam's
+    first end token are end tokens; beams are ranked best first; each
+    sentence's best beam scores no worse than the CPU's own search's best
+    less that tolerance.  Reports the sentences whose beams equal the CPU
+    search's token for token: the two may part where candidates lie within
+    fp32 rounding of each other."""
+    _, seqs, _, _, scores = run
+    src, src_len, seqs, scores = (t[:S2S_HELD].cpu() for t in
+                                  (src, src_len, seqs, scores))
+    with torch.no_grad():
+        forced = beam_scores(torch, cpu_model, src, src_len, seqs)
+        ref_seqs, _, ref_scores = seq2seq_beam_search(
+            nn, cpu_model, src, src_len, S2S_BEAM, S2S_MAX_OUT)
+    size = forced.abs().clamp_min(1.0)
+    gap = float(((scores.double() - forced).abs() / size).max())
+    # how far each best beam falls below the CPU's, over its size
+    below = float(((ref_scores[:, 0] - scores[:, 0]).double()
+                   / size[:, 0]).max())
+    is_end = (seqs == S2S_EOS).to(torch.int64)
+    after_end = (is_end.cumsum(-1) - is_end) > 0
+    same = int(sum(torch.equal(a, b) for a, b in zip(seqs, ref_seqs)))
+    if not (gap <= 4e-6 and below <= 4e-6
+            and bool((seqs[after_end] == S2S_EOS).all())
+            and bool((scores[:, :-1] >= scores[:, 1:]).all())):
+        raise AssertionError(
+            f"seq2seq_decode: the card's beam scores lie {gap} (of their "
+            f"size; gate 4e-6) from their teacher-forced log-probabilities "
+            f"on the CPU, a best beam falls {below} (gate 4e-6) below the "
+            f"CPU search's, tokens follow an end token, or beams are out "
+            f"of order")
+    return {"sentences": S2S_HELD, "max_rel_score_gap": gap,
+            "max_rel_best_below_cpu": below, "same_as_cpu_search": same}
+
+
+def seq2seq_decode_phase(torch, port, model, initial, dev="cuda"):
+    """The trained model in eval mode: ``BeamSearchDecoder(beam_size=10)``
+    through ``dynamic_decode`` (32 steps at most) over the first 128
+    sentences of ``text.WMT16``'s test split, on the card.  One untimed
+    decode, then two timed ones: ms a decode, steps, sentences/s, host
+    reads (one a step: the loop's ``finished.all()``).  The beams of a
+    briefly trained model end as soon as the end token, the targets'
+    commonest, enters them; so the same search with the model's initial
+    weights (``initial``), whose beams run all 32 steps, gives the cost of
+    a full-length decode.  Gates: sequences of valid tokens, lengths
+    within the steps run, the same output each run, and each decode's
+    first beams held on the CPU (``hold_beams``)."""
+    t0 = time.perf_counter()
+    src, src_len = seq2seq_batches(torch, port, "test", S2S_B, 1, dev)[0][:2]
+    cpu_model = seq2seq_model(torch, port.nn, port.F, S2S_VOCAB, S2S_HIDDEN,
+                              S2S_LAYERS, dropout=S2S_DROPOUT, device="cpu")
+    cpu_model.eval()
+    model.eval()
+    runs = timed_decodes(torch, port.nn, model, src, src_len, 3)
+    trained = decode_row(runs, src)
+    cpu_model.load_state_dict(model.state_dict())
+    trained["held"] = hold_beams(torch, port.nn, cpu_model, src, src_len,
+                                 runs[-1])
+    model.load_state_dict(initial)
+    runs = timed_decodes(torch, port.nn, model, src, src_len, 2)
+    full = decode_row(runs, src)
+    cpu_model.load_state_dict(initial)
+    full["held"] = hold_beams(torch, port.nn, cpu_model, src, src_len,
+                              runs[-1])
+    emit("seq2seq_decode", beam_size=S2S_BEAM, max_steps=S2S_MAX_OUT,
+         sentences=S2S_B, trained=trained, initial_weights=full,
+         seconds=time.perf_counter() - t0)
+
+
+def kernel_launches(rp, pd, flash, sc):
+    """Every kernel's launch count now."""
+    return {"ragged": rp.launches, "decode": pd.launches,
+            **flash_counts(flash), "scaled": sc.launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -6004,6 +6741,8 @@ def main() -> int:
             PolynomialDecay,
         )
         from paddle_tpu_torch.utils import cpp_extension
+        from paddle_tpu_torch import text as port_text
+        from paddle_tpu_torch.nn import functional as port_F
     except ImportError as e:
         print(f"chip_smoke: the paddle_tpu_torch package is not here ({e}); "
               "run from the root of a checkout", file=sys.stderr)
@@ -6182,6 +6921,25 @@ def main() -> int:
         default_collate_fn=default_collate_fn)
     loader_identity_phase(torch, port)
     fit_launches = imagenet_fit_phase(torch, flash, port)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # sequence models: the RNNs, gradient clipping and beam search through
+    # PaddleNLP's seq2seq attention model; it reaches no kernel of the repo
+    port = SimpleNamespace(
+        nn=port_nn, F=port_F, io=port_io, text=port_text, jit=jit, Adam=Adam,
+        registry=obs.get_registry)
+    before = kernel_launches(rp, pd, flash, sc)
+    seq_start = time.perf_counter()
+    rnn_identity_phase(torch, port)
+    s2s_model, s2s_initial = seq2seq_train_phase(torch, port)
+    seq2seq_decode_phase(torch, port, s2s_model, s2s_initial)
+    seq_seconds = time.perf_counter() - seq_start
+    del s2s_model, s2s_initial
+    after = kernel_launches(rp, pd, flash, sc)
+    seq_launches = {k: after[k] - before[k] for k in after}
+    if any(seq_launches.values()):
+        raise AssertionError(f"the sequence-model phases launched kernels "
+                             f"of the repo: {seq_launches}")
     flash_rows = [{
         "name": f"flash_attention_{key}", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/flash_attention.cu",
@@ -6190,6 +6948,7 @@ def main() -> int:
         "gpt_train_launches": gpt_launches[key],
         "vit_train_launches": vit_launches[key],
         "imagenet_fit_launches": fit_launches[key],
+        "seq2seq_launches": seq_launches[key],
         "device_ms": flash_device[key],
         "vit_train_device_ms": vit_device[key],
         "vit_shape": vit_flash[key],
@@ -6198,11 +6957,14 @@ def main() -> int:
             "library_ms")}}
         for key, line in (("fwd", 52), ("dq", 153), ("dkv", 195))]
 
+    # the time budget: the sequence-model phases and the whole script
+    emit("budget", sequence_phases_s=seq_seconds, limit_s=1200)
     print(json.dumps({"kernels": [{
         "name": KERNEL_NAME, "route": "cuda",
         "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
         "replaces": "paddle_tpu/ops/ragged_paged.py:111",
-        "launches": launches, "max_abs_err": summary["max_abs_err"],
+        "launches": launches, "seq2seq_launches": seq_launches["ragged"],
+        "max_abs_err": summary["max_abs_err"],
         "ms": summary["ms"], "device_ms": summary["device_ms"],
         "plain_ms": summary["plain_ms"],
         "bound_ms": summary["bound_ms"], "bound_by": summary["bound_by"],
@@ -6211,6 +6973,7 @@ def main() -> int:
         "source": "paddle_tpu_torch/csrc/paged_decode_attention.cu",
         "replaces": "paddle_tpu/ops/pallas_paged.py:45",
         "launches": decode_launches,
+        "seq2seq_launches": seq_launches["decode"],
         "max_abs_err": decode_summary["max_abs_err"],
         "ms": decode_summary["ms"], "device_ms": decode_summary["device_ms"],
         "plain_ms": decode_summary["plain_ms"],
@@ -6221,6 +6984,7 @@ def main() -> int:
         "source": "paddle_tpu_torch/csrc/scaled.cu",
         "replaces": "paddle_tpu/utils/extension.py:18",
         "launches": scaled_launches,
+        "seq2seq_launches": seq_launches["scaled"],
         **{f: scaled_summary[f] for f in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "device_ms", "library_device_ms")}}]}))

@@ -11,10 +11,11 @@ card).  Entry points run on ``cuda`` unless given ``device="cpu"``.
 Importing the package builds nothing and needs neither ``nvcc`` nor
 ``triton``; a kernel is built the first time it launches.  The top level
 exports what the JAX package's does of the ported modules: ``io``,
-``metric``, ``Model``, ``summary`` and ``flops``.
+``metric``, ``text``, ``Model``, ``summary``, ``flops`` and ``pdist``.
 """
 
 from .device import resolve_device  # noqa: F401
-from . import io, metric  # noqa: F401,E402
+from . import io, metric, text  # noqa: F401,E402
 from .hapi.model import Model  # noqa: F401,E402
 from .hapi.summary import flops, summary  # noqa: F401,E402
+from .nn.functional import pdist  # noqa: F401,E402

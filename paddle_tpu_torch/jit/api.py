@@ -45,8 +45,11 @@ eager for that key with one warning and ``jit_graph_breaks_total`` + 1;
 after breaks in ``_EAGER_KEYS_LIMIT`` shape buckets the function stays
 eager; ``full_graph=True`` raises instead; a break never evicts a
 captured entry.  A capture that fails restores what it touched on the
-host (parameters' gradients, optimizer counters and slots, schedulers), so
-nothing is left half-captured, and the call runs eagerly.
+host (parameters' gradients, optimizer counters and slots, schedulers)
+and the caller's current stream and the device's random generator (which
+``torch.cuda.graph`` leaves on its capture stream and in capture mode when
+the capture was invalidated), so nothing is left half-captured, and the
+call runs eagerly.
 
 On the CPU every call runs eagerly: there is no graph to capture, and
 nothing syncs.  The cache keeps the JAX accounting (one entry a key, built
@@ -470,24 +473,42 @@ class StaticFunction:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
         cap = _Capture(device, census)
+        stream = torch.cuda.current_stream(device)
+        rng = torch.cuda.default_generators[
+            device.index if device.index is not None
+            else torch.cuda.current_device()]
+        rng_before = rng.clone_state()
         gc.collect()
         collecting = gc.isenabled()
         gc.disable()
         _local.capture = cap
+        failed = None
         try:
             with torch.cuda.graph(graph, pool=self._pool):
                 out = self._traced(static_args, static_kwargs)
         except Exception as e:   # noqa: BLE001 - any failed capture breaks
-            host.restore()
-            counters.write(before)
-            if self._full_graph:
-                raise
-            self._cache.pop(key, None)
-            return self._on_break(key, bucket, e, args, kwargs)
+            failed = e
         finally:
             _local.capture = None
             if collecting:
                 gc.enable()
+        if failed is not None:
+            # the eager fallback runs with no capture in progress (its host
+            # scalars are floats, not the capture's unwritten buffers), on
+            # the caller's stream and the generator's state from before the
+            # capture: when ending an invalidated capture raises,
+            # torch.cuda.graph leaves its capture stream current and the
+            # device's generator in capture mode (every later draw raises)
+            torch.cuda.set_stream(stream)
+            rng.graphsafe_set_state(rng_before)
+            torch.cuda.synchronize(device)
+            self._pool = None
+            host.restore()
+            counters.write(before)
+            if self._full_graph:
+                raise failed
+            self._cache.pop(key, None)
+            return self._on_break(key, bucket, failed, args, kwargs)
         prog.delta = [a - b for a, b in zip(counters.read(), before)]
         counters.write(before)
         # detached: the captured tape would keep its AccumulateGrad nodes

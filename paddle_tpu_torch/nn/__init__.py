@@ -1,8 +1,40 @@
-"""The port's ``nn``: layers, containers and initializers."""
+"""The port's ``nn``: layers, containers, initializers, gradient clipping,
+recurrent layers and beam search."""
 
+from . import functional  # noqa: F401
 from . import initializer  # noqa: F401
 from .activation import *  # noqa: F401,F403
-from .common import Dropout, Embedding, Flatten, Identity, Linear  # noqa: F401
+from .clip import (  # noqa: F401
+    ClipGradByGlobalNorm,
+    ClipGradByNorm,
+    ClipGradByValue,
+)
+from .common import (  # noqa: F401
+    AlphaDropout,
+    Bilinear,
+    ChannelShuffle,
+    CosineSimilarity,
+    Dropout,
+    Dropout2D,
+    Dropout3D,
+    Embedding,
+    Flatten,
+    Fold,
+    Identity,
+    Linear,
+    Pad1D,
+    Pad2D,
+    Pad3D,
+    PairwiseDistance,
+    PixelShuffle,
+    PixelUnshuffle,
+    Unflatten,
+    Unfold,
+    Upsample,
+    UpsamplingBilinear2D,
+    UpsamplingNearest2D,
+    ZeroPad2D,
+)
 from .container import (  # noqa: F401
     LayerDict,
     LayerList,
@@ -47,6 +79,22 @@ from .pooling import (  # noqa: F401
     MaxPool1D,
     MaxPool2D,
     MaxPool3D,
+)
+from .decode import (  # noqa: F401
+    BeamSearchDecoder,
+    Decoder,
+    dynamic_decode,
+)
+from .rnn import (  # noqa: F401
+    GRU,
+    LSTM,
+    RNN,
+    BiRNN,
+    GRUCell,
+    LSTMCell,
+    RNNCellBase,
+    SimpleRNN,
+    SimpleRNNCell,
 )
 from .transformer import (  # noqa: F401
     MultiHeadAttention,

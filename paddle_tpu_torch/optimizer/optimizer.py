@@ -39,7 +39,11 @@ in the JAX package.  ``multi_precision=True`` is how bf16 trains.
 
 ``weight_decay`` is a float or an ``L2Decay`` (coupled L2 in ``SGD``,
 ``Momentum`` and ``Adam``; AdamW decays decoupled); ``L1Decay`` raises.
-``grad_clip`` and the other optimizers wait for ROADMAP A12.
+``grad_clip`` (an ``nn.ClipGradBy*``) clips at the start of ``step()``, as
+the JAX ``Optimizer.step`` does: over the ``(param, grad)`` pairs about to
+be updated, in their order, before the host half; the clip's scale stays
+on the device, so a captured step clips with no host read.  The other
+optimizers wait for ROADMAP A12.
 """
 
 from __future__ import annotations
@@ -76,10 +80,6 @@ class Optimizer:
 
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None):
-        if grad_clip is not None:
-            raise NotImplementedError(
-                "gradient clipping is not ported yet (ROADMAP A12); build "
-                "the optimizer without grad_clip")
         self._lr = learning_rate
         self._parameter_list = (list(parameters) if parameters is not None
                                 else None)
@@ -91,6 +91,7 @@ class Optimizer:
                 flat.extend(g["params"])
             self._parameter_list = flat
         self._weight_decay = weight_decay
+        self._grad_clip = grad_clip
         self._state: Dict[int, Dict[str, object]] = {}
         self._step_count = 0
         self._use_master_weights = False
@@ -139,9 +140,13 @@ class Optimizer:
     def step(self):
         items = [(p, attrs) for p, attrs in self._params_with_group_attrs()
                  if p.grad is not None and p.requires_grad]
+        grads = [p.grad for p, _ in items]
+        if self._grad_clip is not None:
+            grads = [g for _, g in self._grad_clip(
+                [(p, g) for (p, _), g in zip(items, grads)])]
         scalars = host_scalars(lambda: self._host_step(items))
-        for (p, attrs), sc in zip(items, scalars):
-            self._apply_param(p, p.grad, attrs, sc)
+        for (p, attrs), g, sc in zip(items, grads, scalars):
+            self._apply_param(p, g, attrs, sc)
 
     def _host_step(self, items):
         """The host half of a step over ``items`` (``(param, group

@@ -7,10 +7,11 @@ comes from numpy's global generator in the JAX order, so one
 triangle kernel on half-pixel centres, widened by the scale when it
 downsamples (antialiasing), its weights normalised over each output pixel
 and zero where the sample falls outside the input.  The port builds the
-same weight matrix for each resized axis (float64, as the JAX package
-computes it, cast to float32) and applies the two as a pair of small
-matrix products on the CPU (``torch.matmul``, so a worker's
-``torch.set_num_threads(1)`` bounds its threads); an axis whose size does
+same weight matrix for each resized axis (``nn.functional.common.
+resize_weight_mat``, float64 as the JAX package computes it, cast to
+float32) and applies the two as a pair of small matrix products on the
+CPU (``torch.matmul``, so a worker's ``torch.set_num_threads(1)`` bounds
+its threads); an axis whose size does
 not change is left as it is, as ``jax.image.resize`` leaves it.  The
 products sum in another order than XLA's einsum: the two agree within
 1e-5 on [0, 1] images, not bit for bit.
@@ -20,6 +21,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ...nn.functional.common import resize_weight_mat
 
 
 class Compose:
@@ -68,28 +71,12 @@ class Resize:
             return a
         t = torch.from_numpy(np.require(a, np.float32, ("C", "W")))
         if h != oh:
-            t = torch.matmul(torch.from_numpy(resize_weights(h, oh).T), t)
+            t = torch.matmul(torch.from_numpy(
+                resize_weight_mat(h, oh, "linear").astype(np.float32).T), t)
         if w != ow:
-            t = torch.matmul(t, torch.from_numpy(resize_weights(w, ow)))
+            t = torch.matmul(t, torch.from_numpy(
+                resize_weight_mat(w, ow, "linear").astype(np.float32)))
         return t.numpy()
-
-
-def resize_weights(n_in: int, n_out: int) -> np.ndarray:
-    """``jax.image.resize``'s bilinear weights from ``n_in`` samples to
-    ``n_out`` (``[n_in, n_out]``, float32): ``compute_weight_mat`` of
-    ``jax/_src/image/scale.py``, which computes in float64 under the JAX
-    package (it enables ``jax_enable_x64``) and casts to the image's
-    float32."""
-    inv_scale = 1.0 / (n_out / n_in)
-    kernel_scale = max(inv_scale, 1.0)   # widened when downsampling
-    sample = (np.arange(n_out, dtype=np.float64) + 0.5) * inv_scale - 0.5
-    x = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float64)[:, None])
-    w = np.maximum(0.0, 1.0 - x / kernel_scale)
-    total = w.sum(0, keepdims=True)
-    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
-                 w / np.where(total != 0, total, 1.0), 0.0)
-    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
-    return np.where(inside[None, :], w, 0.0).astype(np.float32)
 
 
 class RandomHorizontalFlip:

@@ -16,6 +16,11 @@ JAX package there).  This file imports no JAX, so it runs on the card:
   ``jit_graph_breaks_total`` + 1, the right results eagerly, no capture;
   another signature still captures; ``full_graph=True`` raises.
 * The flash kernels' launch counters advance on every replay.
+* A capture that fails (invalidated by a live earlier step's autograd
+  graph, or by a host read made only while capturing) falls back to
+  eager on the caller's stream, with the random generator out of capture
+  mode: the losses of that call and of the later ones equal eager steps
+  on a copy, finite, bit for bit.
 """
 
 import copy
@@ -223,3 +228,58 @@ def test_flash_launch_counters_advance_on_replays(cuda):
     assert (flash.fwd_launches, flash.dq_launches,
             flash.dkv_launches) == (4, 4, 4)
     assert fn.captures == 1
+
+
+class _KeepsActivation(torch.nn.Module):
+    """Keeps its hidden activation, and so the step's autograd graph, in
+    an attribute until the next forward."""
+
+    def __init__(self, dev):
+        super().__init__()
+        self.net = _net(dev, seed=8)
+        self.kept = None
+
+    def forward(self, x):
+        h = self.net[0](x)
+        self.kept = h
+        return self.net[2](self.net[1](h))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plant", ["live_activation", "read_in_capture"])
+def test_failed_capture_falls_back_on_the_callers_stream(cuda, plant):
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import Adam
+
+    models = [_KeepsActivation(cuda) for _ in range(2)]
+    models[1].load_state_dict(models[0].state_dict())
+    steps = []
+    for model in models:
+        opt = Adam(learning_rate=1e-2, parameters=model.parameters(),
+                   grad_clip=ClipGradByGlobalNorm(0.5))
+
+        def step(x, y, model=model, opt=opt):
+            loss = F.mse_loss(model(x), y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            if (plant == "read_in_capture"
+                    and torch.cuda.is_current_stream_capturing()):
+                float(loss)                # a host read: invalidates it
+            return loss
+        steps.append(step)
+    fn = jit.to_static(steps[1])
+    counter = get_registry().counter("jit_graph_breaks_total", "")
+    before = counter.value
+    caller = torch.cuda.current_stream()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for i, (x, y) in enumerate(_batches(cuda, 8, seed=9)):
+            want = steps[0](x, y).detach()
+            got = fn(x, y)
+            assert torch.cuda.current_stream() == caller, i
+            torch.rand(4, device=cuda)     # the generator out of capture
+            assert torch.isfinite(got) and torch.equal(want, got), (i, want,
+                                                                    got)
+            _assert_same(*models)
+    assert counter.value == before + 1 and fn.captures == 0

@@ -10,7 +10,8 @@
   nonzero with no result line — as it does beside no package.
 * Every ``EngineConfig`` setting the port does not implement raises
   ``NotImplementedError`` naming its ROADMAP item, as do MoE layers,
-  pipeline micro-batches, sep > 1 and gradient clipping; the legacy
+  pipeline micro-batches and sep > 1 (gradient clipping, which raised
+  naming A12 until the port had ``nn/clip.py``, clips); the legacy
   families, decode bursts, the auditor, a shared lifecycle tracker,
   speculative decoding, the prefill/decode roles and an AOT artifact
   (``aot_path`` and ``aot``) build and serve.  A process fleet's mp > 1
@@ -28,6 +29,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.nn import ClipGradByGlobalNorm
 from paddle_tpu_torch.observability import AuditConfig, LifecycleTracker
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.parallel.ring_attention import ring_flash_attention
@@ -100,7 +102,13 @@ MUST_CHECK = ("utils/__init__.py", "utils/extension.py",
               "metric/__init__.py", "hapi/__init__.py", "hapi/callbacks.py",
               "hapi/model.py", "hapi/summary.py",
               "vision/transforms/__init__.py",
-              "vision/datasets/__init__.py", "vision/models/lenet.py")
+              "vision/datasets/__init__.py", "vision/models/lenet.py",
+              # the sequence models: clipping, the RNNs, beam search, the
+              # vision functionals and the text datasets (the JAX RNNs and
+              # decoder reach into jax and the JAX package's core)
+              "nn/clip.py", "nn/rnn.py", "nn/decode.py",
+              "nn/functional/vision.py", "text/__init__.py",
+              "text/datasets.py")
 
 
 def _port_files():
@@ -276,7 +284,7 @@ def test_unported_engine_settings_raise(fields, item, tmp_path):
 
 def test_unported_training_settings_raise():
     """Pipeline micro-batches, 1F1B and ring attention over sep > 1 raise
-    naming ROADMAP A11; gradient clipping raises naming A12."""
+    naming ROADMAP A11; gradient clipping, ported from A12, clips."""
     model = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1),
                              device="cpu")
     ids = torch.zeros((2, 4), dtype=torch.int64)
@@ -287,8 +295,14 @@ def test_unported_training_settings_raise():
     q = torch.zeros((1, 8, 2, 16))
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         ring_flash_attention(q, q, q, sep=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        AdamW(parameters=model.parameters(), grad_clip=object())
+    opt = AdamW(parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1e-3))
+    model(ids).sum().backward()
+    before = [p.detach().clone() for p in model.parameters()]
+    opt.step()
+    moved = max(float((p.detach() - b).abs().max())
+                for p, b in zip(model.parameters(), before))
+    assert 0 < moved <= 2e-3     # Adam's first step: lr, whatever the norm
     assert model(ids).shape == (2, 4, 256)
 
 

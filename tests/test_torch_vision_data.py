@@ -30,6 +30,7 @@ import paddle_tpu.vision.datasets as JD
 import paddle_tpu.vision.transforms as JT
 from paddle_tpu.vision import models as jmodels
 from paddle_tpu_torch import convert
+from paddle_tpu_torch.nn.functional.common import resize_weight_mat
 from paddle_tpu_torch.vision import datasets as PD
 from paddle_tpu_torch.vision import models as pmodels
 from paddle_tpu_torch.vision import transforms as PT
@@ -148,7 +149,7 @@ def test_resize_weights_equal_jax_weights(n_in, n_out):
     want = np.asarray(jax.jit(lambda: jax_scale.compute_weight_mat(
         n_in, n_out, n_out / n_in, 0.0, jax_scale._fill_triangle_kernel,
         True))()).astype(np.float32)
-    got = PT.resize_weights(n_in, n_out)
+    got = resize_weight_mat(n_in, n_out, "linear").astype(np.float32)
     assert got.dtype == np.float32 and got.shape == (n_in, n_out)
     np.testing.assert_allclose(got, want, rtol=0, atol=6e-8)
 
