@@ -1,5 +1,4 @@
-"""``to_static``: the port of ``paddle_tpu/jit/api.py`` (``partial.py``,
-the partial-graph segment replay, waits for ROADMAP A13's rest).
+"""``to_static``: the port of ``paddle_tpu/jit/api.py``.
 
 The JAX package stages a function into one XLA program per signature key
 (the tensors' shapes and dtypes, the owning layer's training modes, the
@@ -8,10 +7,14 @@ non-tensor arguments).  Here the program of a key is a CUDA graph:
 * **The first call of a key** runs the function eagerly: that run is the
   call's result (one step of a train step, one BatchNorm update), and it
   builds every kernel and lazy state (optimizer slots) outside a capture.
-  It runs under ``torch.cuda.set_sync_debug_mode("warn")``: a host sync
-  (``.item()``, ``float(loss)``, a branch on a tensor's value, ``nonzero``)
-  cannot be captured, so a sync there is the key's graph break, the
-  counterpart of JAX's ``ConcretizationTypeError``.
+  It runs under ``jit/partial.py``'s recorder, on either device: a host
+  sync (``.item()``, ``float(loss)``, a branch on a tensor's value), a
+  tensor read into host Python (``numpy()``), an op whose output shape
+  depends on the data (``nonzero``) or a call into an ``ignore_module``'d
+  module cannot be captured, so it is the key's graph break, the
+  counterpart of JAX's ``ConcretizationTypeError``; on the card it also
+  runs under ``torch.cuda.set_sync_debug_mode("warn")``, whose warnings
+  are breaks too.
 * **The second call** captures the function into a graph (a capture
   executes nothing) and replays it once, so it too takes one step.
 * **Later calls** copy their tensor arguments into the graph's static
@@ -40,10 +43,16 @@ What a replay cannot repeat, the capture records:
   either).  Gradients left on parameters by the function live in the
   graph's pool; a train step that ends in ``clear_grad`` leaves none.
 
-A graph break (the sync check, or a capture that fails) falls back to
-eager for that key with one warning and ``jit_graph_breaks_total`` + 1;
-after breaks in ``_EAGER_KEYS_LIMIT`` shape buckets the function stays
-eager; ``full_graph=True`` raises instead; a break never evicts a
+A graph break (found by the first call, or a capture that fails) gives
+one warning naming the site (``file.py:line``) and
+``jit_graph_breaks_total`` + 1, and sends the key to its trace store
+(``jit/partial.py``): the first call's recording, when it can be
+replayed, becomes the key's first trace, and later calls replay its
+segments around the syncs, with value guards, without running the
+Python body; a trace that cannot be replayed leaves the key eager, with
+a warning saying why.  After breaks in ``_EAGER_KEYS_LIMIT`` shape
+buckets the function stops trying whole captures (the stores still
+apply); ``full_graph=True`` raises instead; a break never evicts a
 captured entry.  A capture that fails restores what it touched on the
 host (parameters' gradients, optimizer counters and slots, schedulers)
 and the caller's current stream and the device's random generator (which
@@ -51,10 +60,13 @@ and the caller's current stream and the device's random generator (which
 the capture was invalidated), so nothing is left half-captured, and the
 call runs eagerly.
 
-On the CPU every call runs eagerly: there is no graph to capture, and
-nothing syncs.  The cache keeps the JAX accounting (one entry a key, built
-on the key's first call, ``jit_builds_total``), and outputs are detached
-as on the card.  A CPU run detects no graph break.
+On the CPU a break-free key runs eagerly: there is no graph to capture.
+The cache keeps the JAX accounting (one entry a key, built on the key's
+first call, ``jit_builds_total``), and outputs are detached as on the
+card.  A broken key replays its trace's segments as op lists.  One
+departure from the JAX package: its first call of a broken key runs the
+Python body up to three times (discovery, staging up to the break, the
+recording); the port's runs it once, recording it.
 """
 
 from __future__ import annotations
@@ -69,6 +81,7 @@ import torch
 
 from ..observability import get_registry
 from ..ops import counters
+from . import partial
 
 # see the module docstring; the JAX package's value (jit/api.py:65)
 _EAGER_KEYS_LIMIT = 8
@@ -78,6 +91,9 @@ _SYNC_WARNING = "called a synchronizing CUDA operation"
 
 _local = threading.local()
 _enabled = True
+# one capture at a time in the process: the main programs' and the
+# partial traces' segments
+_CAPTURE_LOCK = threading.RLock()
 
 
 class IgnoredModuleError(RuntimeError):
@@ -145,6 +161,7 @@ def host_scalars(produce):
     them, so that its capture can set their buffers aside beforehand.
     Inside a capture, 0-d device tensors of those dtypes, which every
     replay refills from a new ``produce()``."""
+    partial.notify_host_scalars()
     rows = produce()
     cap = getattr(_local, "capture", None)
     if cap is None:
@@ -325,6 +342,56 @@ def _detached(out):
     return _tree_map(out, lambda t: t.detach().clone())
 
 
+def capture_graph(device, pool, run):
+    """Capture ``run()`` into a CUDA graph in ``pool``, one capture in the
+    process at a time and no garbage collection inside it; returns
+    ``(graph, run's output, delta)``, ``delta`` the kernel counters'
+    change over the capture, which is taken back (each replay adds it).
+    When the capture fails, the caller's current stream and the device's
+    generator (which ``torch.cuda.graph`` leaves on its capture stream and
+    in capture mode when the capture was invalidated) and the counters are
+    put back, and the error raised."""
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.current_stream(device)
+    rng = torch.cuda.default_generators[
+        device.index if device.index is not None
+        else torch.cuda.current_device()]
+    rng_before = rng.clone_state()
+    before = counters.read()
+    with _CAPTURE_LOCK:
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=pool):
+                out = run()
+        except Exception:
+            torch.cuda.set_stream(stream)
+            rng.graphsafe_set_state(rng_before)
+            torch.cuda.synchronize(device)
+            counters.write(before)
+            raise
+        finally:
+            if collecting:
+                gc.enable()
+    delta = [a - b for a, b in zip(counters.read(), before)]
+    counters.write(before)
+    return graph, out, delta
+
+
+def _break_site(exc) -> str:
+    """The innermost frame of the caller's code in ``exc``'s traceback."""
+    site = None
+    tb = exc.__traceback__
+    while tb is not None:
+        fname = tb.tb_frame.f_code.co_filename
+        if partial.users_file(fname):
+            site = (f"{fname}:{tb.tb_lineno} in "
+                    f"{tb.tb_frame.f_code.co_name}()")
+        tb = tb.tb_next
+    return site or "<unknown site>"
+
+
 class StaticFunction:
     """The callable ``to_static`` returns (see the module docstring)."""
 
@@ -338,8 +405,12 @@ class StaticFunction:
         self._eager_keys: set = set()
         self._eager_buckets: set = set()
         self._eager_all = False
+        # the trace store of each graph-broken key (jit/partial.py)
+        self._partial: Dict[Any, partial.TraceStore] = {}
+        self._partial_announced = False
         self._pool = None
         self.captures = 0
+        self.segment_captures = 0
         self.replays = 0
 
     @property
@@ -378,47 +449,47 @@ class StaticFunction:
                     return p.device
         return torch.device("cpu")
 
+    def _name(self):
+        return getattr(self._fn, "__name__", str(self._fn))
+
     def __call__(self, *args, **kwargs):
         from . import _ignored_modules
 
         ignored = getattr(self._fn, "__module__", None) in _ignored_modules
+        if torch.compiler.is_exporting():
+            return self._fn(*args, **kwargs)      # jit.save's trace
+        if partial.in_recording():
+            # a recording runs nested functions inline into its trace
+            if ignored:
+                partial.notify_ignored_module(self._name())
+            return self._fn(*args, **kwargs)
         if in_to_static_trace():
             if ignored:
                 raise IgnoredModuleError(
-                    f"{getattr(self._fn, '__name__', self._fn)!r} is from "
-                    f"an ignore_module()d module and cannot be inlined into "
-                    f"a to_static function")
+                    f"{self._name()!r} is from an ignore_module()d module "
+                    f"and cannot be inlined into a to_static function")
             return self._fn(*args, **kwargs)      # nested: inline
         if ignored or not _enabled:
             return self._fn(*args, **kwargs)
         key = self._cache_key(args, kwargs)
         if self._eager_all or key in self._eager_keys:
-            return self._fn(*args, **kwargs)
+            return self._fallback(key, args, kwargs)
         bucket = _bucket_key(key)
         if bucket in self._eager_buckets:
-            return self._fn(*args, **kwargs)
+            # a same-structure signature already broke: the break is the
+            # code's, not the shape's (not added to _eager_keys, which a
+            # many-shape stream would grow without bound)
+            return self._fallback(key, args, kwargs)
         device = self._device(args, kwargs)
         entry = self._cache.get(key)
-        if device.type != "cuda":
-            out = self._inline(args, kwargs, key, entry)
-            return _detached(out)
         if entry is None:
-            return self._first_call(key, bucket, args, kwargs)
+            return self._first_call(key, bucket, args, kwargs, device)
+        if device.type != "cuda":
+            return self._inline(key, bucket, args, kwargs)
         if isinstance(entry, _Pending):
             return self._capture(key, bucket, args, kwargs, device,
                                  entry.census)
         return self._replay(entry, args, kwargs)
-
-    # --- CPU ---------------------------------------------------------------
-    def _inline(self, args, kwargs, key, entry):
-        try:
-            out = self._traced(args, kwargs)
-        except IgnoredModuleError as e:
-            return self._on_break(key, _bucket_key(key), e, args, kwargs)
-        if entry is None:
-            self._count_build()
-            self._cache_insert(key, _Pending({}))
-        return out
 
     def _traced(self, args, kwargs):
         _local.depth = getattr(_local, "depth", 0) + 1
@@ -427,36 +498,56 @@ class StaticFunction:
         finally:
             _local.depth -= 1
 
-    # --- CUDA --------------------------------------------------------------
-    def _first_call(self, key, bucket, args, kwargs):
-        """The eager run of a key's first call, watched for host syncs."""
-        prev = torch.cuda.get_sync_debug_mode()
+    def _first_call(self, key, bucket, args, kwargs, device):
+        """The eager run of a key's first call, recorded: a break there
+        sends the key to its trace store, else the key is built."""
+        cuda = device.type == "cuda"
+        rec = partial.TraceRecorder(_tree_tensors([args, kwargs], []))
         census = _local.census = {}
-        try:
-            with warnings.catch_warnings(record=True) as seen:
-                warnings.simplefilter("always")
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            prev = torch.cuda.get_sync_debug_mode() if cuda else None
+            if cuda:
                 torch.cuda.set_sync_debug_mode("warn")
-                try:
-                    out = self._traced(args, kwargs)
-                finally:
+            try:
+                out = partial.record(rec, lambda: self._traced(args, kwargs))
+            finally:
+                if cuda:
                     torch.cuda.set_sync_debug_mode(prev)
-                    _local.census = None
-        except IgnoredModuleError as e:
-            return self._on_break(key, bucket, e, args, kwargs)
+                _local.census = None
         syncs = [w for w in seen if _SYNC_WARNING in str(w.message)]
         for w in seen:
             if w not in syncs:
                 warnings.warn_explicit(w.message, w.category, w.filename,
                                        w.lineno)
-        if syncs:
-            err = GraphBreak(f"a host sync: {syncs[0].message}")
+        breaks = list(rec.breaks) + [
+            (f"a host sync: {w.message}", f"{w.filename}:{w.lineno}")
+            for w in syncs[:1]]
+        if breaks:
+            reason, site = breaks[0]
             if self._full_graph:
-                raise err
-            self._record_break(key, bucket, err)
+                raise GraphBreak(f"{reason} at {site}")
+            err = GraphBreak(reason)
+            self._record_break(key, bucket, err, site)
+            if partial.partial_graph_enabled():
+                self._store(key, device).adopt(rec, out)
             return out
         self._count_build()
         self._cache_insert(key, _Pending(census))
         return _detached(out)
+
+    # --- CPU ---------------------------------------------------------------
+    def _inline(self, key, bucket, args, kwargs):
+        try:
+            return _detached(self._traced(args, kwargs))
+        except IgnoredModuleError as e:
+            return self._on_break(key, bucket, e, args, kwargs)
+
+    # --- CUDA --------------------------------------------------------------
+    def _graph_pool(self):
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
 
     def _capture(self, key, bucket, args, kwargs, device, census):
         prog = _Program()
@@ -468,49 +559,27 @@ class StaticFunction:
                 t.requires_grad))
         host = _HostState(_closure_objects(self._fn, []) + list(
             _tree_tensors([args, kwargs], [])))
-        before = counters.read()
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
         cap = _Capture(device, census)
-        stream = torch.cuda.current_stream(device)
-        rng = torch.cuda.default_generators[
-            device.index if device.index is not None
-            else torch.cuda.current_device()]
-        rng_before = rng.clone_state()
-        gc.collect()
-        collecting = gc.isenabled()
-        gc.disable()
         _local.capture = cap
-        failed = None
         try:
-            with torch.cuda.graph(graph, pool=self._pool):
-                out = self._traced(static_args, static_kwargs)
+            graph, out, delta = capture_graph(
+                device, self._graph_pool(),
+                lambda: self._traced(static_args, static_kwargs))
+            failed = None
         except Exception as e:   # noqa: BLE001 - any failed capture breaks
             failed = e
         finally:
             _local.capture = None
-            if collecting:
-                gc.enable()
         if failed is not None:
             # the eager fallback runs with no capture in progress (its host
-            # scalars are floats, not the capture's unwritten buffers), on
-            # the caller's stream and the generator's state from before the
-            # capture: when ending an invalidated capture raises,
-            # torch.cuda.graph leaves its capture stream current and the
-            # device's generator in capture mode (every later draw raises)
-            torch.cuda.set_stream(stream)
-            rng.graphsafe_set_state(rng_before)
-            torch.cuda.synchronize(device)
+            # scalars are floats, not the capture's unwritten buffers)
             self._pool = None
             host.restore()
-            counters.write(before)
             if self._full_graph:
                 raise failed
             self._cache.pop(key, None)
             return self._on_break(key, bucket, failed, args, kwargs)
-        prog.delta = [a - b for a, b in zip(counters.read(), before)]
-        counters.write(before)
+        prog.delta = delta
         # detached: the captured tape would keep its AccumulateGrad nodes
         # (made on the capture stream) alive into later eager steps
         prog.graph, prog.outputs = graph, _tree_map(out, torch.Tensor.detach)
@@ -520,6 +589,20 @@ class StaticFunction:
         self._cache[key] = prog
         self.captures += 1
         return self._launch(prog)
+
+    def _segment_capture(self, device):
+        """A trace store's capture: one segment into a graph of this
+        function's pool."""
+        def capture(run):
+            try:
+                graph, outs, delta = capture_graph(device, self._graph_pool(),
+                                                   run)
+            except Exception:
+                self._pool = None
+                raise
+            self.segment_captures += 1
+            return graph, outs, delta
+        return capture
 
     def _replay(self, prog, args, kwargs):
         for buf, t in zip(prog.inputs, _tree_tensors([args, kwargs], [])):
@@ -538,6 +621,36 @@ class StaticFunction:
         self.replays += 1
         return _detached(prog.outputs)
 
+    # --- graph breaks --------------------------------------------------------
+    def _store(self, key, device):
+        """The key's trace store (made on first use; FIFO-bounded as the
+        cache)."""
+        store = self._partial.get(key)
+        if store is None:
+            def announce_once():
+                first = not self._partial_announced
+                self._partial_announced = True
+                return first
+
+            store = partial.TraceStore(
+                self._name(),
+                capture=(self._segment_capture(device)
+                         if device.type == "cuda" else None),
+                announce=announce_once)
+            self._partial[key] = store
+            while len(self._partial) > _CACHE_MAX_ENTRIES:
+                self._partial.pop(next(iter(self._partial)))
+        return store
+
+    def _fallback(self, key, args, kwargs):
+        """A graph-broken key's call: its trace store's replay, or plain
+        eager with the partial graph switched off."""
+        if not partial.partial_graph_enabled():
+            return self._fn(*args, **kwargs)
+        store = self._store(key, self._device(args, kwargs))
+        return store.call(self._fn, args, kwargs,
+                          _tree_tensors([args, kwargs], []))
+
     # --- bookkeeping --------------------------------------------------------
     def _count_build(self):
         get_registry().counter(
@@ -551,33 +664,35 @@ class StaticFunction:
 
     def _on_break(self, key, bucket, err, args, kwargs):
         """A graph break found before the call ran: record it, then run the
-        call eagerly."""
+        call through the key's trace store."""
         if self._full_graph:
             raise err
-        self._record_break(key, bucket, err)
-        return self._fn(*args, **kwargs)
+        self._record_break(key, bucket, err, _break_site(err))
+        return self._fallback(key, args, kwargs)
 
-    def _record_break(self, key, bucket, err):
+    def _record_break(self, key, bucket, err, site):
         self._eager_keys.add(key)
         self._eager_buckets.add(bucket)
-        fname = getattr(self._fn, "__name__", str(self._fn))
+        fname = self._name()
         get_registry().counter(
             "jit_graph_breaks_total",
-            "to_static signatures that fell back to eager").inc()
+            "to_static signatures that fell back to partial/eager").inc()
         sig = ", ".join(f"{'x'.join(map(str, s))}:{d}"
                         for s, d, _ in key[0]) or "()"
         warnings.warn(
-            f"to_static: graph break in {fname!r} ({type(err).__name__}: "
-            f"{err}) for signature [{sig}]; falling back to eager "
-            f"execution for this signature (other shapes/dtypes may still "
-            f"be captured)", stacklevel=3)
+            f"to_static: graph break in {fname!r} at {site} "
+            f"({type(err).__name__}: {err}) for signature [{sig}]; falling "
+            f"back to partial-graph/eager execution for this signature "
+            f"(other shapes/dtypes may still be captured)", stacklevel=4)
         if (len(self._eager_buckets) >= _EAGER_KEYS_LIMIT
                 and not self._eager_all):
             self._eager_all = True
             warnings.warn(
-                f"to_static: {fname!r} graph-broke on {_EAGER_KEYS_LIMIT} "
-                f"structurally distinct signatures and now runs eagerly "
-                f"for every signature", stacklevel=3)
+                f"to_static: PERFORMANCE — {fname!r} graph-broke on "
+                f"{_EAGER_KEYS_LIMIT} structurally distinct signatures and "
+                f"now PERMANENTLY skips whole-graph capture (partial-graph "
+                f"segment replay still applies where possible)",
+                stacklevel=4)
 
 
 def to_static(function=None, input_spec=None, build_strategy=None,

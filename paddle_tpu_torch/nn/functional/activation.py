@@ -36,7 +36,8 @@ def _clip01(v):
 
 
 relu = _unary("relu", torch.relu)
-relu6 = _unary("relu6", lambda v: torch.clamp(v, 0.0, 6.0))
+# hardtanh: no gradient at 0 and 6, as jax.nn.relu6's (clamp passes it)
+relu6 = _unary("relu6", lambda v: F.hardtanh(v, 0.0, 6.0))
 sigmoid = _unary("sigmoid", torch.sigmoid)
 tanh = _unary("tanh", torch.tanh)
 silu = _unary("silu", F.silu)

@@ -234,3 +234,13 @@ def _build_host(name: str, out: Path) -> None:
         raise HostBuildFailed(f"g++ failed on csrc/{name}.cpp "
                               f"(exit {proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)
+
+
+def note_launch(name: str) -> None:
+    """A wrapper launches ``name`` through ctypes, which torch's dispatcher
+    does not see: a partial-graph recording in progress
+    (``jit/partial.py``) cannot replay it, unless it runs inside a
+    registered op."""
+    from ..jit.partial import notify_opaque
+
+    notify_opaque(name)

@@ -35,8 +35,15 @@ place only from a 16-byte-aligned base with strides that are multiples of
 to a contiguous tensor first, and :data:`copy_launches` counts the launches
 that took that route.
 
+The forward is also the registered operator ``paddle_tpu_torch::flash_fwd``
+(:func:`flash_fwd`: the kernel for a CUDA tensor, the twin for a CPU one,
+and shapes for ``torch.export``'s fake tensors), so that an exported
+program (``jit.save``) holds the call, and its loaded copy launches the
+kernel on the card and counts in :data:`fwd_launches`.
+
 :class:`FlashAttention` is the ``torch.autograd.Function`` that mirrors the
-JAX ``custom_vjp``: the forward saves ``(q, k, v, out, lse)``; the backward
+JAX ``custom_vjp``: the forward (through the operator) saves ``(q, k, v,
+out, lse)``; the backward
 computes ``delta = rowsum(dO * O)`` in fp32 as a torch op, then dQ, then
 dK/dV.  On a CUDA tensor whose group the kernels take it launches them (or
 raises — there is no fallback and no switch to turn them off); on a CPU
@@ -304,6 +311,7 @@ def fwd_kernel(q, k, v, causal):
             int(causal), 1.0 / math.sqrt(D), stream)
     _raise_on(err, "forward")
     fwd_launches += 1
+    _build.note_launch("flash forward")
     return out, lse
 
 
@@ -326,6 +334,7 @@ def bwd_dq_kernel(q, k, v, do, lse, delta, causal):
             1.0 / math.sqrt(q.shape[-1]), stream)
     _raise_on(err, "dq")
     dq_launches += 1
+    _build.note_launch("flash dQ")
     return dq
 
 
@@ -349,6 +358,7 @@ def bwd_dkv_kernel(q, k, v, do, lse, delta, causal):
             1.0 / math.sqrt(q.shape[-1]), stream)
     _raise_on(err, "dkv")
     dkv_launches += 1
+    _build.note_launch("flash dK/dV")
     return dk, dv
 
 
@@ -374,6 +384,38 @@ def _lib():
     return _lib_handle
 
 
+# --- the forward as a registered op -------------------------------------------
+
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=())
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward as an operator of torch's dispatcher, so that a graph
+    ``torch.export`` traces (``jit.save``) holds the call and not the code
+    behind it: on a CUDA tensor the kernel (:func:`fwd_kernel`, which
+    raises where it cannot launch), on a CPU tensor the twin.  Returns
+    ``(out, lse)``, both contiguous."""
+    raise NotImplementedError(f"flash_fwd: no implementation for "
+                              f"{q.device.type} tensors")
+
+
+@flash_fwd.register_kernel("cuda")
+def _flash_fwd_cuda(q, k, v, causal):
+    return fwd_kernel(q, k, v, causal)
+
+
+@flash_fwd.register_kernel("cpu")
+def _flash_fwd_cpu(q, k, v, causal):
+    out, lse = fwd_reference(q, k, v, 1.0 / math.sqrt(q.shape[-1]), causal)
+    return out.contiguous(), lse.contiguous()
+
+
+@flash_fwd.register_fake
+def _flash_fwd_fake(q, k, v, causal):
+    B, Sq, H, _ = q.shape
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((B, H, Sq), dtype=torch.float32))
+
+
 # --- the autograd function ----------------------------------------------------
 
 class FlashAttention(torch.autograd.Function):
@@ -383,8 +425,8 @@ class FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal):
         global last_path
         kernels = kernels_take(q.device.type, q.shape[2], k.shape[2])
-        if kernels:
-            out, lse = fwd_kernel(q, k, v, causal)
+        if q.shape[2] // k.shape[2] <= MAX_GROUP:
+            out, lse = torch.ops.paddle_tpu_torch.flash_fwd(q, k, v, causal)
         else:
             out, lse = fwd_reference(q, k, v, 1.0 / math.sqrt(q.shape[-1]),
                                      causal)

@@ -14,7 +14,8 @@ Layout ``[B, S, H, D]`` (k/v ``[B, Sk, Hkv, D]``, GQA).  Three paths:
 * ``"chunked"`` — ``ops/chunked_attention.py`` when ``Sq · Sk >= 1024²``;
 * ``"reference"`` — :func:`_reference_attention`, the composite, below it.
 
-The last two are the JAX package's off-TPU dispatch (its ``"xla_chunked"``
+An exported graph (``jit.save``) takes the first path wherever the card
+would (:func:`use_flash`).  The last two are the JAX package's off-TPU dispatch (its ``"xla_chunked"``
 and ``"xla"``); a CPU tensor always takes it, so the CPU tests compare like
 with like.  ``use_pallas=False`` pins it on the card too (the counterpart
 of the JAX ``disable_pallas_kernels`` flag, scoped to one call), and
@@ -53,10 +54,17 @@ def takes_kernels(device_type, dtype, head_dim, H, Hkv, causal, Sq,
 
 
 def use_flash(q, k, causal: bool) -> bool:
-    """Whether the CUDA kernels take this call (:func:`takes_kernels`)."""
+    """Whether the CUDA kernels take this call (:func:`takes_kernels`).
+    While ``torch.export`` traces (``jit.save``), a call takes the flash
+    route wherever the kernels would take it on the card, whatever the
+    tracing tensors' device: the graph then holds the registered
+    ``paddle_tpu_torch::flash_fwd``, which picks the kernel or its twin by
+    the device of the tensors the loaded program runs on."""
     if q.dim() != 4:
         return False
-    return takes_kernels(q.device.type, q.dtype, q.shape[-1], q.shape[2],
+    device_type = ("cuda" if torch.compiler.is_exporting()
+                   else q.device.type)
+    return takes_kernels(device_type, q.dtype, q.shape[-1], q.shape[2],
                          k.shape[2], causal, q.shape[1], k.shape[1])
 
 

@@ -281,6 +281,7 @@ def decode_kernel(q, k_cache, v_cache, block_tables, seq_lens):
         raise RuntimeError(f"decode kernel launch failed ({way} route): CUDA "
                            f"error {err} ({msg})")
     launches += 1
+    _build.note_launch("paged decode")
     if way == "mma":
         mma_launches += 1
     else:

@@ -270,6 +270,7 @@ def ragged_kernel(q, k_cache, v_cache, block_tables, kv_lens, seg_ids,
         raise RuntimeError(f"ragged kernel launch failed ({way} route): CUDA "
                            f"error {err} ({msg})")
     launches += 1
+    _build.note_launch("ragged paged attention")
     if way == "tma":
         tma_launches += 1
     else:

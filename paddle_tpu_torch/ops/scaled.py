@@ -93,6 +93,7 @@ def scaled_kernel(x: torch.Tensor, alpha: float) -> torch.Tensor:
         raise RuntimeError(f"scaled kernel launch failed: CUDA error {err} "
                            f"({msg})")
     launches += 1
+    _build.note_launch("the scale kernel")
     return out
 
 

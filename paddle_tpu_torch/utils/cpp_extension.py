@@ -87,6 +87,9 @@ def _bind(lib: ctypes.CDLL, sym: str, n_in: int):
         host = [x.detach().to("cpu", torch.float32).contiguous() for x in xs]
         out = torch.empty_like(host[0])
         cfn(*(t.data_ptr() for t in host), out.data_ptr(), out.numel())
+        from ..jit.partial import notify_opaque
+
+        notify_opaque(f"host op {sym!r}")
         return out
 
     return call

@@ -39,8 +39,11 @@ under ``csrc/``), load it with ``ctypes``, check the tensors, allocate the
 output with ``torch.empty``, launch on ``torch.cuda.current_stream()`` and
 raise when the launch returns an error.
 
-Capture into a compiled graph (the JAX package's ``to_static``) and AMP's
-input casts come with the port's ``jit/`` and ``amp/`` (ROADMAP A12).
+A registered op runs inside a ``jit.to_static`` function like any torch
+code: captured into the key's CUDA graph on the card, eagerly on the
+CPU.  A kernel launched through ``ctypes`` is invisible to the dispatcher,
+so a graph-broken function that calls one is not replayed in segments
+(``jit/partial.py``): it runs eagerly.
 """
 
 from __future__ import annotations

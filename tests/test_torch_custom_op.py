@@ -1,9 +1,7 @@
 """The custom-op extension path of the PyTorch port, held to the JAX package.
 
-Case for case with ``tests/test_custom_op.py`` (all but its two
-``to_static`` cases, whose capture comes with the port's ``jit/``): the
-same seeded numpy inputs go through ``paddle_tpu.utils`` and
-``paddle_tpu_torch.utils``.
+Case for case with ``tests/test_custom_op.py``: the same seeded numpy
+inputs go through ``paddle_tpu.utils`` and ``paddle_tpu_torch.utils``.
 
 * ``register_custom_op``: a torch composition differentiated by autograd
   (outputs and gradients within 1e-6 of the jnp composition), the custom
@@ -17,6 +15,10 @@ same seeded numpy inputs go through ``paddle_tpu.utils`` and
 * ``cpp_extension.load``: ``my_relu6`` and its gradient against the JAX
   extension built from the same source, the grad-less ``my_square``, the
   build cache, and g++'s message on a source that does not compile.
+* Under ``jit.to_static``: a registered composition
+  (``test_custom_op.py:93``) and a host op (``:152``), against the JAX
+  package's ``to_static`` of the same; a host op inside a graph-broken
+  function keeps it eager (the port's recorder cannot see it).
 * ``host_build`` onto the CPU (the only device here): every parameter,
   buffer and tensor lands there with its value unchanged.
 
@@ -34,7 +36,7 @@ import numpy as np
 import pytest
 import torch
 
-from paddle_tpu_torch import utils
+from paddle_tpu_torch import jit, utils
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.ops import scaled as sc
 from paddle_tpu_torch.utils import cpp_extension, extension, host_build
@@ -177,6 +179,29 @@ def test_bwd_gets_only_the_nondiff_kwargs_passed(registry, passed):
     jop(xj, **kw).sum().backward()
     assert seen["port"] == seen["jax"] == ((3.0, 0.5) if passed else (0.5,))
     np.testing.assert_array_equal(x.grad.numpy(), xj.grad.numpy())
+
+
+def test_custom_op_under_to_static(registry):
+    import jax.numpy as jnp
+
+    paddle, jext, _ = _jax()
+    x = np.array([0.0, 3.0], "float32")
+
+    @extension.register_custom_op(name="squareplus")
+    def squareplus(x):
+        return 0.5 * (x + torch.sqrt(x * x + 4.0))
+
+    @jext.register_custom_op(name="squareplus")
+    def squareplus_jax(x):
+        return 0.5 * (x + jnp.sqrt(x * x + 4.0))
+
+    f = jit.to_static(lambda x: squareplus(x) * 2.0)
+    jf = paddle.jit.to_static(lambda x: squareplus_jax(x) * 2.0)
+    got = f(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, jf(paddle.to_tensor(x)).numpy(),
+                               rtol=1e-6)
+    np.testing.assert_allclose(got, x + np.sqrt(x ** 2 + 4.0), rtol=1e-6)
+    assert len(f._cache) == 1
 
 
 def test_registering_a_name_again_replaces_it(registry):
@@ -425,6 +450,35 @@ def test_gradless_host_op_forward_only(ext, jax_ext):
     xt = torch.from_numpy(x).requires_grad_()
     with pytest.raises(RuntimeError, match="my_square_grad"):
         ext.my_square(xt).sum().backward()
+
+
+def test_host_op_works_under_to_static(ext, jax_ext):
+    paddle, _, _ = _jax()
+    x = np.array([-2.0, 3.0], "float32")
+    f = jit.to_static(lambda x: ext.my_relu6(x) + 1.0)
+    jf = paddle.jit.to_static(lambda x: jax_ext.my_relu6(x) + 1.0)
+    for _ in range(2):
+        got = f(torch.from_numpy(x)).numpy()
+        np.testing.assert_array_equal(got, jf(paddle.to_tensor(x)).numpy())
+        np.testing.assert_array_equal(got, [1.0, 4.0])
+
+
+def test_host_op_keeps_a_broken_function_eager(ext):
+    """The host op writes its output through a pointer the dispatcher
+    never sees: a partial-graph trace would replay an empty tensor, so
+    the signature runs eagerly."""
+    def f(x):
+        y = ext.my_relu6(x)
+        if float(y.sum()) > 1e9:
+            return y * 0
+        return y + 1.0
+
+    fn = jit.to_static(f)
+    with pytest.warns(RuntimeWarning, match="dispatcher"):
+        fn(torch.tensor([-2.0, 3.0]))
+    assert fn._partial[next(iter(fn._partial))].dead is not None
+    np.testing.assert_array_equal(fn(torch.tensor([4.0, 9.0])).numpy(),
+                                  [5.0, 7.0])
 
 
 def test_build_cache_reused(ext, tmp_path):

@@ -2,16 +2,19 @@
 ``tests/test_jit.py`` checks the JAX one: the same numpy inputs (from a
 seed) through both.
 
-On the CPU the port runs each call eagerly and keeps the JAX cache
-accounting (one entry a signature key); the capture into CUDA graphs and
-the graph breaks are checked on the card (``tests/test_torch_jit_cuda.py``).
+On the CPU the port runs a break-free key's calls eagerly and keeps the
+JAX cache accounting (one entry a signature key); the capture into CUDA
+graphs is checked on the card (``tests/test_torch_jit_cuda.py``), the
+graph breaks and their segment replay on both
+(``tests/test_torch_jit_partial.py`` holds them to the JAX package's).
 Here: results against eager and against the JAX ``to_static`` (1e-5), cache
 entries by shape and by training mode, live parameters read each call,
 BatchNorm statistics, Adam moments and the step counter, and dropout's RNG
 threaded through calls (the port's own generator: the masks differ from
 the JAX draws, their statistics not), the decorator form, nested
 functions, a layer, ``not_to_static``, ``enable_to_static(False)``,
-``ignore_module`` and outputs detached as the JAX program's are; and a
+``ignore_module`` and outputs detached as the JAX program's are; reads
+of host constants inside the function (no graph break); and a
 train step under ``to_static`` with ``Momentum`` and a ``LinearWarmup``
 scheduler stepped outside it, against the JAX package's eager steps.
 """
@@ -292,3 +295,23 @@ def test_ignore_module_direct_and_nested():
                                       "").value == breaks + 1
     finally:
         jit._ignored_modules.discard("fake_vendor_mod")
+
+
+def test_reads_of_constants_are_no_graph_break():
+    """Host arithmetic on tensors made inside the function from constants
+    (an optimizer's bias correction, an ``arange``) reads no argument and
+    no state: no graph break, one cache entry, as in the JAX package,
+    where such values are concrete while tracing."""
+    def f(x):
+        scale = float(torch.tensor(0.9) ** 2)
+        n = int(torch.arange(4).sum())
+        return x * scale + n
+
+    fn = jit.to_static(f)
+    breaks = get_registry().counter("jit_graph_breaks_total", "").value
+    x = torch.ones(3)
+    for _ in range(2):
+        np.testing.assert_allclose(fn(x).numpy(), f(x).numpy())
+    assert len(fn._cache) == 1 and not fn._partial
+    assert get_registry().counter("jit_graph_breaks_total",
+                                  "").value == breaks

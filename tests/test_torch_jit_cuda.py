@@ -21,6 +21,17 @@ JAX package there).  This file imports no JAX, so it runs on the card:
   eager on the caller's stream, with the random generator out of capture
   mode: the losses of that call and of the later ones equal eager steps
   on a copy, finite, bit for bit.
+* A graph break's trace (``jit/partial.py``): both segments around a
+  ``float(x.max())`` captured as CUDA graphs at the second call, the
+  Python body never run again, replays equal to eager bit for bit, a
+  batch on the other side of the guard recording a second trace, the
+  flash forward launched inside a segment counted at every replay, and a
+  kernel launched through ctypes outside a registered op (the scale
+  kernel) keeping the function eager.
+* ``jit.save`` / ``jit.load`` of a narrow ViT on the card: the exported
+  graph holds ``paddle_tpu_torch::flash_fwd``, the loaded program
+  launches the forward kernel once a layer a call, and its outputs equal
+  the eager module's within 1e-5.
 """
 
 import copy
@@ -283,3 +294,118 @@ def test_failed_capture_falls_back_on_the_callers_stream(cuda, plant):
                                                                     got)
             _assert_same(*models)
     assert counter.value == before + 1 and fn.captures == 0
+
+
+def _scaled_net(dev):
+    """Conv + BatchNorm + ReLU + pool + Linear, eval: a classifier behind
+    the input-scale idiom."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    return nn.Sequential(
+        nn.Conv2D(3, 8, 3, padding=1, device=dev, generator=gen),
+        nn.BatchNorm2D(8, device=dev), nn.ReLU(),
+        nn.AdaptiveAvgPool2D(1), nn.Flatten(),
+        nn.Linear(8, 5, device=dev, generator=gen)).eval()
+
+
+@pytest.mark.cuda
+def test_partial_segments_are_captured_graphs(cuda):
+    net = _scaled_net(cuda)
+    runs = []
+
+    def predict(x):
+        runs.append(1)
+        if float(x.max()) > 1.0:
+            x = x / 255.0
+        return net(x)
+
+    fn = jit.to_static(predict)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    # 0-255 images: every batch's largest value is 255, the guard's value
+    batches = [torch.randint(0, 256, (4, 3, 16, 16), device=cuda,
+                             generator=gen).float() for _ in range(4)]
+    with torch.no_grad():
+        want = [net(b / 255.0) for b in batches]
+        with pytest.warns(UserWarning, match="graph break"):
+            got = [fn(batches[0])]
+        store = fn._partial[next(iter(fn._partial))]
+        assert len(store.traces) == 1
+        assert len(store.traces[0].segments) == 2
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            got += [fn(b) for b in batches[1:]]
+        assert len(runs) == 1
+        assert all(seg.graph is not None
+                   for seg in store.traces[0].segments)
+        assert fn.segment_captures == 2
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        unit = batches[0] / 255.0            # already in [0, 1]
+        assert torch.equal(fn(unit), net(unit))
+        assert len(store.traces) == 2 and len(runs) == 2
+        assert torch.equal(fn(batches[1]), want[1])
+
+
+@pytest.mark.cuda
+def test_flash_in_a_segment_counts_every_replay(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    mha = nn.MultiHeadAttention(128, 2, device=cuda, generator=gen).eval()
+
+    def attend(x):
+        if float(x.abs().max()) > 100.0:
+            x = x / 100.0
+        return mha(x)
+
+    fn = jit.to_static(attend)
+    x = torch.randn(2, 197, 128, device=cuda, generator=gen)
+    flash.fwd_launches = 0
+    with torch.no_grad():
+        want = mha(x)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            outs = [fn(x) for _ in range(4)]
+    assert flash.fwd_launches == 1 + 4       # the eager call above, then 4
+    for o in outs:
+        assert torch.equal(o, want)
+
+
+@pytest.mark.cuda
+def test_a_ctypes_launch_keeps_a_broken_function_eager(cuda):
+    from paddle_tpu_torch.ops import scaled as sc
+
+    def f(x):
+        y = sc.scaled(x, 3.0)
+        if float(y.sum()) > 1e9:
+            return y * 0
+        return y + 1
+
+    fn = jit.to_static(f)
+    x = torch.ones(1024, device=cuda)
+    with pytest.warns(RuntimeWarning, match="dispatcher"):
+        fn(x)
+    assert fn._partial[next(iter(fn._partial))].dead is not None
+    assert torch.equal(fn(x * 2), x * 7)
+
+
+@pytest.mark.cuda
+def test_loaded_vit_launches_the_flash_kernel(cuda, tmp_path):
+    from paddle_tpu_torch.static import InputSpec
+    from paddle_tpu_torch.vision.models import VisionTransformer
+
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    vit = VisionTransformer(img_size=32, patch_size=8, embed_dim=128,
+                            depth=2, num_heads=2, class_num=5, device=cuda,
+                            generator=gen).eval()
+    x = torch.randn(2, 3, 32, 32, device=cuda, generator=gen)
+    with torch.no_grad():
+        want = vit(x)
+    path = str(tmp_path / "vit")
+    jit.save(vit, path, input_spec=[InputSpec([2, 3, 32, 32])])
+    loaded = jit.load(path)
+    targets = [str(n.target) for n in loaded.program.graph.nodes]
+    assert targets.count("paddle_tpu_torch.flash_fwd.default") == 2
+    flash.fwd_launches = 0
+    for _ in range(3):
+        got = loaded(x)
+    assert flash.fwd_launches == 3 * 2
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
