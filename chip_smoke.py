@@ -488,7 +488,38 @@ these phases, printing one JSON line for each:
              gradients 1e-2 in norm); a captured Momentum train step of
              VGG-16 and MobileNetV2 at B=64 fp32: ms a step, images/s.
              These three phases launch no kernel but the flash forward.
-``budget``   the sequence-model phases' and these three phases' seconds
+``amp_o2_identity``  GPT at 6.7B widths cut to 2 layers, built in fp32
+             from one seed and put through ``amp.decorate(level="O2")``,
+             B=1, S=1024, 3 AdamW steps under ``auto_cast(level="O2")``
+             through the kernels, with attention pinned to the composite,
+             and with a planted fault (the attention output's last 64 rows
+             zeroed): the kernel run's losses within 2 bf16 ulps of the
+             composite's and its first step's attention outputs row by row
+             within 2e-2 (the planted run must fail that gate), B3-B5 3 x 2
+             launches each (none pinned), ``low_precision_op_list`` equal on
+             all three runs and to the CPU test's dict at this depth.
+``amp_o2``   gpt_train's configuration built in fp32 and trained at O2:
+             ms a step, tokens/s, MFU, peak memory, the optimizer's share,
+             beside the bf16-built gpt_train of the same run; B3-B5 (warm +
+             timed) x layers launches on route tma with no copy; falling
+             losses.  ResNet-50 at O2 in one ``to_static`` step: 10
+             captured steps beside resnet50_train's O1, the profiler
+             window's shares (fp32 elementwise among them), the BatchNorm
+             output dtype (bf16, the JAX O2 rule), 0 graph breaks.
+``tensor_api``  every case of the CPU parity test
+             (``tests/torch_tensor_cases.py``) on the card against the
+             port's own CPU call (TF32 off; rtol 1e-5 / atol 1e-6, integer
+             and bool exact); the op bus on the card (a subscriber sees
+             every op, a planted NaN raises naming its op, the NaN check in
+             a captured ``to_static`` step neither syncs nor raises,
+             ``low_precision_op_list`` at O1 and O2 as on the CPU); the
+             bus's host cost, the median of 10^4 calls, of
+             ``paddle_tpu_torch.add`` against ``torch.add``.
+``profile_ops``  a 2-layer bf16 unified engine with ``profile_ops=True``
+             and without on the same prompts: "Host operator summary" in
+             ``eng.metrics.summary()``, the op timer released after each
+             step, the same tokens and ragged-kernel launches.
+``budget``   the sequence-model phases' and the later phases' seconds
              beside the script's.
 
 Then a line ``{"kernels": [...]}`` summarising each kernel at its main
@@ -499,7 +530,8 @@ burst-free serve_legacy, the train and the custom_op runs; the flash rows
 add ``gpt_train_launches``, ``vit_train_launches``,
 ``imagenet_fit_launches``, ``vit_train_device_ms`` and ``vit_shape``, their times and errors at ViT-B/16's shape, and the
 forward row ``jit_export_launches`` (the loaded ViT's, in its own
-process) and ``jit_partial_launches``; every row adds ``seq2seq_launches``
+process) and ``jit_partial_launches``, and ``amp_o2_launches``; the
+ragged row ``profile_ops_launches``; every row adds ``seq2seq_launches``
 and ``vision_zoo_launches``, 0), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any
 failure raises and the script exits nonzero without that last line; so
@@ -4855,21 +4887,23 @@ def gpt_train_phase(torch, flash, fa, port, obs):
         raise AssertionError(f"gpt_train: telemetry recorded {tel.steps} "
                              f"steps; its text:\n{text}")
     tokens_per_s = B * S * timed / wall
-    emit("gpt_train", model="gpt3_6.7b", layers=layers, dtype="bfloat16",
-         batch=B, seq=S, warmup_steps=warm, timed_steps=timed,
-         losses=losses, ms_per_step=wall / timed * 1e3,
-         tokens_per_s=tokens_per_s, params=n_params,
-         flops_per_token=tel.flops_per_token,
-         mfu=tel.flops_per_token * tokens_per_s / PEAK_FLOPS["bfloat16"],
-         telemetry=tel.registry.snapshot(),
-         step_ms=[x * 1e3 for x in step_s],
-         optimizer_ms_per_step=sum(opt_s) / timed * 1e3,
-         optimizer_share=sum(opt_s) / sum(step_s),
-         max_memory_allocated=torch.cuda.max_memory_allocated(),
-         kernel_launches=launches, kernel_route=route,
-         model_build_s=build_s, telemetry_text_bytes=len(text),
-         shape_check=shape_check)
-    return launches, (model, criterion, opt, sched)
+    record = dict(
+        model="gpt3_6.7b", layers=layers, dtype="bfloat16",
+        batch=B, seq=S, warmup_steps=warm, timed_steps=timed,
+        losses=losses, ms_per_step=wall / timed * 1e3,
+        tokens_per_s=tokens_per_s, params=n_params,
+        flops_per_token=tel.flops_per_token,
+        mfu=tel.flops_per_token * tokens_per_s / PEAK_FLOPS["bfloat16"],
+        telemetry=tel.registry.snapshot(),
+        step_ms=[x * 1e3 for x in step_s],
+        optimizer_ms_per_step=sum(opt_s) / timed * 1e3,
+        optimizer_share=sum(opt_s) / sum(step_s),
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        kernel_launches=launches, kernel_route=route,
+        model_build_s=build_s, telemetry_text_bytes=len(text),
+        shape_check=shape_check)
+    emit("gpt_train", **record)
+    return launches, (model, criterion, opt, sched), record
 
 
 def squad_split(rng, n, S, vocab):
@@ -5469,6 +5503,7 @@ def resnet50_train_phase(torch, port):
          batch=RESNET_B,
          optimizer=f"Momentum({RESNET_LR}, 0.9, weight_decay=1e-4)",
          params=params, **rows)
+    return rows
 
 
 def vit_flops_per_image(embed=768, depth=12, heads=12, tokens=197,
@@ -7113,6 +7148,521 @@ def vision_zoo_phase(torch, port, dev="cuda"):
          seconds=time.perf_counter() - t_phase)
 
 
+# --- the op bus, AMP O2 and the tensor API -------------------------------------
+
+O2_LAYERS, O2_S, O2_STEPS = 2, 1024, 3    # amp_o2_identity's cut
+ROW_TOL = 2e-2                           # the flash checks' bf16 row bound
+FP32_MARKS = ("float",)                  # fp32 operands in a kernel's name
+
+
+def bf16_ulp(v):
+    """The spacing of bf16 values around ``v`` (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(abs(v))) - 7)
+
+
+def o2_gpt(torch, port, layers, seed):
+    """GPT at 6.7B widths built in fp32 from one seed, as a Paddle user
+    builds it, with its AdamW, put through ``amp.decorate(level="O2")``:
+    every parameter cast to bf16 in place, fp32 masters in the
+    optimizer."""
+    model = gpt_model(torch, port, layers, torch.float32, seed)
+    opt, sched = gpt_trainer(torch, port, model)
+    model, opt = port.amp.decorate(model, opt, level="O2")
+    if not (opt._use_master_weights and all(
+            p.dtype == torch.bfloat16 for p in model.parameters())):
+        raise AssertionError("amp_o2: decorate left an fp32 parameter or no "
+                             "master weights")
+    return model, opt, sched
+
+
+def o2_loss(port, model, criterion):
+    """The step loss under ``auto_cast(level="O2")``."""
+    def step_loss(ids):
+        with port.amp.auto_cast(level="O2"):
+            return criterion(model(ids), ids)
+    return step_loss
+
+
+def o2_op_counts(layers, steps):
+    """The ops GPT's O2 steps run in bf16, as the JAX package counts them
+    (tests/test_torch_amp_o2.py holds the tiny GPT's dict equal to
+    JAX's): per step an embedding, the position add, four linears, the
+    qkv split, the attention, the head merge, two residual adds and the
+    GELU a layer, the tied head, and the criterion's two slices."""
+    per_layer = {"linear": 4, "split_qkv": 1, "ring_attention_fallback": 1,
+                 "merge_heads": 1, "add": 2, "gelu": 1}
+    out = {"embedding": steps, "add_pos_embed": steps, "tied_head": steps,
+           "getitem": 2 * steps}
+    out.update({k: v * layers * steps for k, v in per_layer.items()})
+    return out
+
+
+def counted_ops(port, run):
+    """``run()`` with the flag ``low_precision_op_list`` on; returns its
+    result and the ops AMP ran in low precision."""
+    port.amp.debugging.clear_low_precision_op_list()
+    port.set_flags({"low_precision_op_list": True})
+    try:
+        out = run()
+    finally:
+        port.set_flags({"low_precision_op_list": False})
+    return out, port.amp.debugging.low_precision_op_list()
+
+
+def amp_o2_identity_phase(torch, flash, fa, port):
+    """GPT at 6.7B widths cut to 2 layers, built in fp32 from one seed and
+    put through O2, B=1, S=1024, 3 AdamW steps under
+    ``auto_cast(level="O2")``, three ways from the same weights and
+    batches: through the kernels, with attention pinned to the composite,
+    and with a planted fault (the attention output's last 64 rows zeroed).
+    Gates: the kernel run's losses within 2 bf16 ulps of the composite
+    run's (the CPU test's tolerance against the JAX package) and its first
+    step's attention outputs, each row within 2e-2 of the composite's row
+    (the flash checks' bf16 bound); the planted run fails that gate; B3-B5
+    each launch 3 x 2 times (the pinned run none); the
+    ``low_precision_op_list`` equal on all three runs and to the CPU
+    test's dict at this depth."""
+    layers, S, steps = O2_LAYERS, O2_S, O2_STEPS
+    rng = np.random.default_rng(14)
+    batches = [torch.from_numpy(corpus(rng, 1, S)).cuda()
+               for _ in range(steps)]
+    runs = {}
+    for run in ("kernel", "composite", "planted"):
+        model, opt, sched = o2_gpt(torch, port, layers, seed=6)
+        outs = []
+        reset_flash_counts(flash)
+        t0 = time.perf_counter()
+        with gpt_attention(port.gpt_mod, run):
+            patched = port.gpt_mod.ring_flash_attention
+
+            def recording(q, k, v, causal=True):
+                out = patched(q, k, v, causal=causal)
+                if len(outs) < layers:      # the first step's, a layer each
+                    outs.append(out.detach().float().clone())
+                return out
+
+            port.gpt_mod.ring_flash_attention = recording
+            losses, ops = counted_ops(port, lambda: train_steps(
+                o2_loss(port, model, port.GPTPretrainingCriterion()), opt,
+                batches, sched))
+        runs[run] = {"losses": [float(x) for x in losses], "outs": outs,
+                     "ops": ops, "launches": flash_counts(flash),
+                     "path": fa.last_path,
+                     "seconds": time.perf_counter() - t0}
+        del model, opt
+        free(torch)
+    ref = runs["composite"]
+
+    def gaps(r):
+        return {"loss_ulps": max(abs(a - b) / bf16_ulp(b) for a, b in zip(
+                    r["losses"], ref["losses"])),
+                "attention_rows": max(flash.rowwise_error(o, w) for o, w in
+                                      zip(r["outs"], ref["outs"]))}
+
+    def holds(g):
+        return g["loss_ulps"] <= 2 and g["attention_rows"] <= ROW_TOL
+
+    kern, bad = runs["kernel"], runs["planted"]
+    kg, pg = gaps(kern), gaps(bad)
+    if not (np.isfinite(kern["losses"]).all() and holds(kg)):
+        raise AssertionError(f"amp_o2_identity: kernel losses "
+                             f"{kern['losses']} against composite "
+                             f"{ref['losses']}, gaps {kg}")
+    if holds(pg):
+        raise AssertionError(f"amp_o2_identity: the planted fault passes "
+                             f"the gate: gaps {pg}")
+    due = {k: steps * layers for k in FLASH_MARKS}
+    if (kern["launches"] != due or bad["launches"] != due
+            or any(ref["launches"].values()) or kern["path"] != "cuda"):
+        raise AssertionError(f"amp_o2_identity: launches {kern['launches']} "
+                             f"/ planted {bad['launches']} (due {due}), "
+                             f"composite {ref['launches']}, path "
+                             f"{kern['path']}")
+    want_ops = o2_op_counts(layers, steps)
+    if any(r["ops"] != want_ops for r in runs.values()):
+        raise AssertionError(f"amp_o2_identity: low_precision_op_list "
+                             f"{ {k: r['ops'] for k, r in runs.items()} }, "
+                             f"due {want_ops}")
+    for r in runs.values():
+        del r["outs"]
+    emit("amp_o2_identity", layers=layers, batch=1, seq=S, steps=steps,
+         built="float32", level="O2", tol={"loss_ulps": 2,
+                                           "attention_rows": ROW_TOL},
+         gaps=kg, planted_gaps=pg, low_precision_op_list=want_ops,
+         kernel=kern, composite=ref, planted=bad)
+
+
+def fp32_elementwise_share(kernels):
+    """The device-time share of elementwise kernels on fp32 operands (a
+    kernel name holding an elementwise mark and ``float`` but not
+    ``bfloat``)."""
+    busy = sum(kernels.values())
+    return (sum(us for k, us in kernels.items()
+                if any(m in k.lower() for m in ELEMENTWISE_MARKS)
+                and "float" in k.lower() and "bfloat" not in k.lower())
+            / busy if busy else None)
+
+
+def amp_o2_phase(torch, flash, fa, port, obs, bf16_built, resnet_o1):
+    """GPT-3 6.7B at the gpt_train configuration (4 layers, B=4, S=2048,
+    AdamW under LinearWarmup -> CosineAnnealingDecay, 2 warm-up and 8
+    timed steps), built in fp32 and put through AMP O2: ms a step,
+    tokens/s, MFU (989 TFLOP/s), peak memory and the optimizer's share,
+    beside the bf16-built gpt_train of this run; B3-B5 launch (warm +
+    timed) x layers times on route tma with no copy; the losses finite
+    and falling.  Then ResNet-50 (B=64, 224x224, Momentum, one
+    ``to_static`` step) built in fp32 and put through O2: 10 captured
+    steps (ms a step, images/s) beside resnet50_train's O1 figures of this
+    run, the profiler window's shares (fp32 elementwise among them), the
+    BatchNorm output dtype (bf16: the JAX package's O2 rule on a bf16 conv
+    output with bf16 weights), 0 graph breaks, one capture, falling
+    losses."""
+    layers, warm, timed = 4, 2, 8
+    B, S = GPT_B, GPT_S
+    model, opt, sched = o2_gpt(torch, port, layers, seed=7)
+    rng = np.random.default_rng(13)
+    batches = [torch.from_numpy(corpus(rng, B, S)).cuda()
+               for _ in range(warm + timed)]
+    n_params = sum(p.numel() for p in model.parameters())
+    tel = port.TrainStepTelemetry(
+        n_params=n_params, num_layers=layers, seq_len=S,
+        hidden=model.config.hidden_size, peak_flops=PEAK_FLOPS["bfloat16"],
+        registry=obs.MetricsRegistry(), tracer=obs.SpanTracer())
+    reset_flash_counts(flash)
+    copies = flash.copy_launches
+    step_loss = o2_loss(port, model, port.GPTPretrainingCriterion())
+    losses = train_steps(step_loss, opt, batches[:warm], sched)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    clock = StepClock(torch)
+    t0 = time.perf_counter()
+    losses += train_steps(step_loss, opt, batches[warm:], sched, clock=clock)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_s, opt_s = clock.read()
+    for seconds in step_s:
+        tel.step(tokens=B * S, seconds=seconds)
+    launches = flash_counts(flash)
+    route = {"copies": flash.copy_launches - copies,
+             "route": flash.last_route}
+    losses = [float(x) for x in losses]
+    due = {k: (warm + timed) * layers for k in FLASH_MARKS}
+    if (launches != due or fa.last_path != "cuda"
+            or route != {"copies": 0, "route": "tma"}):
+        raise AssertionError(f"amp_o2: kernel launches {launches}, due {due} "
+                             f"(path {fa.last_path}, {route}; due 0 copies "
+                             f"on route 'tma')")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"amp_o2: losses {losses} are not finite or do "
+                             f"not fall")
+    tokens_per_s = B * S * timed / wall
+    gpt = {"layers": layers, "batch": B, "seq": S, "warmup_steps": warm,
+           "timed_steps": timed, "losses": losses,
+           "ms_per_step": wall / timed * 1e3, "tokens_per_s": tokens_per_s,
+           "mfu": tel.flops_per_token * tokens_per_s
+           / PEAK_FLOPS["bfloat16"], "step_ms": [x * 1e3 for x in step_s],
+           "optimizer_ms_per_step": sum(opt_s) / timed * 1e3,
+           "optimizer_share": sum(opt_s) / sum(step_s),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "kernel_launches": launches, "kernel_route": route,
+           "bf16_built": {k: bf16_built[k] for k in (
+               "ms_per_step", "tokens_per_s", "mfu", "optimizer_share",
+               "max_memory_allocated")}}
+    del model, opt, sched, batches, step_loss
+    free(torch)
+
+    # ResNet-50 at O2 under to_static
+    rng = np.random.default_rng(40)
+    ce = port.nn.CrossEntropyLoss()
+    breaks = port.registry().counter("jit_graph_breaks_total", "")
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    model = port.vision.resnet50(num_classes=1000, device="cuda",
+                                 generator=gen)
+    opt = port.Momentum(learning_rate=RESNET_LR, momentum=0.9,
+                        parameters=model.parameters(), weight_decay=1e-4)
+    model, opt = port.amp.decorate(model, opt, level="O2")
+    batches = stripe_batches(torch, rng, 11, RESNET_B, 224)
+    bn_dtype = []
+    hook = model.bn1.register_forward_hook(
+        lambda m, i, out: bn_dtype.append(str(out.dtype)))
+    with port.amp.auto_cast(level="O2"), torch.no_grad():
+        model(batches[0][0][:2])
+    hook.remove()
+    step = port.jit.to_static(classifier_step(
+        model, opt, ce, lambda: port.amp.auto_cast(level="O2")))
+    before = breaks.value
+    torch.cuda.reset_peak_memory_stats()
+    rlosses, ms = timed_steps(torch, step, batches[:10])
+    peak = torch.cuda.max_memory_allocated()
+    steady = ms[2:]
+    if not (np.isfinite(rlosses).all()
+            and np.mean(rlosses[-3:]) < np.mean(rlosses[:3])):
+        raise AssertionError(f"amp_o2 resnet50: losses {rlosses} are not "
+                             f"finite or do not fall")
+    if breaks.value != before or step.captures != 1:
+        raise AssertionError(f"amp_o2 resnet50: {breaks.value - before} "
+                             f"graph breaks, {step.captures} captures")
+    if bn_dtype != ["torch.bfloat16"]:
+        raise AssertionError(f"amp_o2 resnet50: BatchNorm gave {bn_dtype}, "
+                             f"due bf16 (the JAX O2 rule)")
+    kernels, wall_us, _ = profile_window(torch, lambda: step(*batches[10]),
+                                         2)
+    resnet = {
+        "losses": rlosses, "first_call_ms": ms[0], "capture_call_ms": ms[1],
+        "ms_per_step": float(np.mean(steady)), "ms_steps": steady,
+        "images_per_s": RESNET_B / (np.mean(steady) / 1e3),
+        "captures": step.captures, "graph_breaks": 0,
+        "max_memory_allocated": peak, "batch_norm_dtype": bn_dtype[0],
+        **window_summary(kernels, wall_us), "shares": {
+            **kernel_shares(kernels),
+            "fp32_elementwise": fp32_elementwise_share(kernels)},
+        "o1": {k: resnet_o1[k] for k in ("ms_per_step", "images_per_s",
+                                         "idle_share", "shares")}}
+    del step, model, opt, batches
+    free(torch)
+    emit("amp_o2", model="gpt3_6.7b", built="float32", level="O2",
+         gpt=gpt, resnet50=resnet)
+    return launches
+
+
+def load_tensor_cases():
+    """tests/torch_tensor_cases.py, the CPU parity test's table (numpy
+    only), from this checkout."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_tensor_cases.py")
+    spec = importlib.util.spec_from_file_location("torch_tensor_cases", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def tensor_args(torch, cases, args, device):
+    out = []
+    for a in args:
+        if isinstance(a, cases.T):
+            out.append(torch.tensor(a.a, device=device))
+        elif isinstance(a, list) and a and isinstance(a[0], cases.T):
+            out.append(tensor_args(torch, cases, a, device))
+        else:
+            out.append(a)
+    return out
+
+
+def flat_results(res):
+    if isinstance(res, (list, tuple)):
+        return [x for r in res for x in flat_results(r)]
+    return [res]
+
+
+def host_value(x, torch):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().resolve_conj().numpy()
+    return np.asarray(x)
+
+
+def median_call_us(torch, fn, n=10_000):
+    """The median host time of ``n`` calls of ``fn`` (launches only: the
+    device is synchronized once after)."""
+    times = np.empty(n)
+    for i in range(n):
+        t0 = time.perf_counter_ns()
+        fn()
+        times[i] = time.perf_counter_ns() - t0
+    torch.cuda.synchronize()
+    return float(np.median(times)) / 1e3
+
+
+def bus_ops(pt, x):
+    """A few ops of the bus in a fixed order (the CPU test's stream)."""
+    a = x
+    for _ in range(3):
+        a = pt.add(a, a)
+    a = pt.matmul(a, a, transpose_y=True)
+    return pt.tensor.sum(pt.nn.functional.relu(a))
+
+
+def tensor_api_phase(torch, pt, dispatch, obs):
+    """Every case of the CPU parity test (tests/torch_tensor_cases.py) on
+    the card against the port's own CPU call, TF32 off: floating results
+    within rtol 1e-5 / atol 1e-6, integer and bool ones exact, the same
+    dtypes.  Then the bus on the card: a subscriber sees every op; a
+    planted NaN raises naming its op; the NaN check inside a captured
+    ``to_static`` step neither syncs (no graph break, one capture) nor
+    raises; ``low_precision_op_list`` counts the same at O1 and O2 as on
+    the CPU.  Last the bus's host cost, the median of 10^4 calls, of
+    ``paddle_tpu_torch.add`` against ``torch.add`` with nothing attached,
+    under O2 (bf16 inputs: the decision only; fp32 inputs: with the two
+    casts) and with one subscriber."""
+    cases = load_tensor_cases()
+    t0 = time.perf_counter()
+    table = {**cases.CASES, **cases.FACTORIES}
+    worst, failed = {}, {}
+    for name, (fname, args, kwargs) in sorted(table.items()):
+        fn = getattr(pt.tensor, fname)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            pt.set_device(dev)
+            try:
+                res[dev] = flat_results(fn(*tensor_args(
+                    torch, cases, args, dev), **kwargs))
+            finally:
+                pt.set_device(None)
+        for g, w in zip(*(map(lambda r: host_value(r, torch), res[d])
+                          for d in ("cuda", "cpu"))):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                failed[name] = f"{g.shape} {g.dtype} vs {w.shape} {w.dtype}"
+                continue
+            if np.issubdtype(w.dtype, np.inexact):
+                err = float(np.max(np.abs(g - w) - 1e-5 * np.abs(w),
+                                   initial=0.0))
+                worst[name] = max(worst.get(name, 0.0), err)
+                if not err <= 1e-6:
+                    failed[name] = f"abs err over rtol {err}"
+            elif not np.array_equal(g, w):
+                failed[name] = "integer/bool results differ"
+        if len(res["cuda"]) != len(res["cpu"]):
+            failed[name] = "result counts differ"
+    if failed:
+        raise AssertionError(f"tensor_api: {len(failed)} of {len(table)} "
+                             f"cases differ on the card: {failed}")
+    table_s = time.perf_counter() - t0
+
+    x = torch.ones(4, 4, device="cuda")
+    seen = []
+    remove = obs.subscribe_ops(lambda n, dt: seen.append(n))
+    try:
+        bus_ops(pt, x)
+    finally:
+        remove()
+    want = ["add"] * 3 + ["matmul", "relu", "sum"]
+    if seen != want or dispatch._op_timer is not None:
+        raise AssertionError(f"tensor_api: the subscriber saw {seen}, due "
+                             f"{want}")
+    neg = torch.tensor([1.0, -1.0], device="cuda")
+    pt.set_flags({"check_nan_inf": True})
+    try:
+        try:
+            pt.tensor.log(neg)
+            raise AssertionError("tensor_api: a planted NaN did not raise")
+        except FloatingPointError as e:
+            nan_msg = str(e)
+        if "'log'" not in nan_msg:
+            raise AssertionError(f"tensor_api: the NaN error {nan_msg!r} "
+                                 f"does not name the op")
+        breaks = obs.get_registry().counter(
+            "jit_graph_breaks_total", "")
+        before = breaks.value
+        step = pt.jit.to_static(lambda t: pt.tensor.log(t) * 2.0)
+        for _ in range(3):
+            out = step(neg)
+        captured_nan = bool(torch.isnan(out).any())
+        if (breaks.value != before or step.captures != 1
+                or not captured_nan):
+            raise AssertionError(f"tensor_api: the NaN check in a captured "
+                                 f"step: {breaks.value - before} breaks, "
+                                 f"{step.captures} captures")
+    finally:
+        pt.set_flags({"check_nan_inf": False})
+    counts = {}
+    for dev in ("cuda", "cpu"):
+        xd = torch.ones(4, 4, device=dev)
+        for level in ("O1", "O2"):
+            def run():
+                with pt.amp.auto_cast(level=level):
+                    return bus_ops(pt, xd)
+            counts[f"{dev}_{level}"] = counted_ops(pt, run)[1]
+    if (counts["cuda_O1"] != counts["cpu_O1"]
+            or counts["cuda_O2"] != counts["cpu_O2"]
+            or counts["cuda_O2"] != {"add": 3, "matmul": 1, "relu": 1}):
+        raise AssertionError(f"tensor_api: low_precision_op_list {counts}")
+
+    y = torch.ones(8, device="cuda")
+    yb = y.bfloat16()
+    cost = {"torch_add": median_call_us(torch, lambda: torch.add(y, y)),
+            "bus_add": median_call_us(torch, lambda: pt.add(y, y))}
+    with pt.amp.auto_cast(level="O2"):
+        cost["bus_add_o2_bf16"] = median_call_us(torch,
+                                                 lambda: pt.add(yb, yb))
+        cost["bus_add_o2_fp32_casts"] = median_call_us(
+            torch, lambda: pt.add(y, y))
+    remove = obs.subscribe_ops(lambda n, dt: None)
+    try:
+        cost["bus_add_one_subscriber"] = median_call_us(
+            torch, lambda: pt.add(y, y))
+    finally:
+        remove()
+    emit("tensor_api", cases=len(table), table_seconds=table_s,
+         worst_err_over_rtol=max(worst.values()), nan_error=nan_msg,
+         captured_nan_step={"captures": 1, "graph_breaks": 0},
+         low_precision_op_list=counts, host_us_per_call=cost)
+
+
+def profile_ops_phase(torch, rp, serving, dispatch, LlamaConfig,
+                      LlamaForCausalLM):
+    """The unified engine at 8B widths cut to 2 layers (bf16, the tma
+    route) serves the same prompts with ``profile_ops=True`` and without:
+    "Host operator summary" in ``eng.metrics.summary()``, the op timer
+    released after each step, the same tokens and the same ragged-kernel
+    launches with profiling as without."""
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=2)
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                             generator=torch.Generator(
+                                 device="cuda").manual_seed(4))
+    rng = np.random.default_rng(19)
+    prompts = prompts_with_prefix(rng, 4, 50, 300, 32, cfg.vocab_size)
+    need = sum(-(-(len(p) + 16) // 16) for p in prompts) + 1
+    rows = {}
+    for profile in (False, True):
+        eng = serving.EngineCore(model, config=serving.EngineConfig(
+            num_blocks=need + 16, block_size=16, dtype=torch.bfloat16,
+            unified_step=True, profile_ops=profile,
+            scheduler=serving.SchedulerConfig(max_num_seqs=4,
+                                              max_tokens_per_step=256)))
+        rp.launches = rp.simple_launches = rp.tma_launches = 0
+        reqs = [eng.add_request(p, sp) for p, sp in zip(
+            prompts, sampling(serving, len(prompts), 16, False))]
+        released = True
+        t0 = time.perf_counter()
+        while eng.scheduler.has_work():
+            eng.step()
+            released &= dispatch._op_timer is None
+        torch.cuda.synchronize()
+        summary = eng.metrics.summary()
+        host = eng.metrics._host_ops
+        rows[profile] = {
+            "tokens": [list(r.output_tokens) for r in reqs],
+            "launches": rp.launches, "tma_launches": rp.tma_launches,
+            "steps": eng.ragged_launches, "released": released,
+            "seconds": time.perf_counter() - t0,
+            "host_summary": "Host operator summary" in summary,
+            "host_ops": ({n: {"calls": s.calls, "total_ms": s.total * 1e3}
+                          for n, s in sorted(host.stats.items())}
+                         if host is not None else {})}
+        del eng
+    on, off = rows[True], rows[False]
+    if not (on["host_summary"] and on["released"] and on["host_ops"]
+            and not off["host_summary"]):
+        raise AssertionError(f"profile_ops: summary {on['host_summary']} "
+                             f"(off: {off['host_summary']}), released "
+                             f"{on['released']}, rows {on['host_ops']}")
+    if (on["tokens"] != off["tokens"] or on["launches"] != off["launches"]
+            or on["launches"] != on["steps"] * cfg.num_hidden_layers
+            or on["tma_launches"] != on["launches"]):
+        raise AssertionError(f"profile_ops: with profiling {on['launches']} "
+                             f"launches ({on['tma_launches']} tma, steps "
+                             f"{on['steps']}), without {off['launches']}; "
+                             f"tokens equal: {on['tokens'] == off['tokens']}")
+    for r in rows.values():
+        del r["tokens"]
+    emit("profile_ops", layers=2, dtype="bfloat16", prompts=len(prompts),
+         profiled=on, unprofiled=off)
+    del model
+    free(torch)
+    return on["launches"]
+
+
 def kernel_launches(rp, pd, flash, sc):
     """Every kernel's launch count now."""
     return {"ragged": rp.launches, "decode": pd.launches,
@@ -7166,6 +7716,8 @@ def main() -> int:
         from paddle_tpu_torch import text as port_text
         from paddle_tpu_torch.nn import functional as port_F
         from paddle_tpu_torch.static import InputSpec
+        import paddle_tpu_torch as pt
+        from paddle_tpu_torch.core import dispatch
     except ImportError as e:
         print(f"chip_smoke: the paddle_tpu_torch package is not here ({e}); "
               "run from the root of a checkout", file=sys.stderr)
@@ -7315,8 +7867,8 @@ def main() -> int:
         PolynomialDecay=PolynomialDecay, cross_entropy=cross_entropy,
         TrainStepTelemetry=obs.TrainStepTelemetry, framework=framework)
     gpt_train_identity_phase(torch, flash, fa, port)
-    gpt_launches, gpt_trainer_state = gpt_train_phase(torch, flash, fa,
-                                                      port, obs)
+    gpt_launches, gpt_trainer_state, gpt_record = gpt_train_phase(
+        torch, flash, fa, port, obs)
     train_profile_phase(torch, gpt_trainer_state, label="gpt_train",
                         shape=(GPT_B, GPT_S), seed=17)
     del gpt_trainer_state
@@ -7331,7 +7883,7 @@ def main() -> int:
         vision=vision_models, nn=port_nn, jit=jit, amp=amp,
         Momentum=Momentum, AdamW=AdamW, registry=obs.get_registry)
     vit_flash = vision_identity_phase(torch, flash, port)
-    resnet50_train_phase(torch, port)
+    resnet_rows = resnet50_train_phase(torch, port)
     vit_launches, vit_device = vit_train_phase(torch, flash, port)
     # the input pipeline and the high-level trainer: LeNet through
     # Model.fit on the card against the CPU, then ResNet-50 and ViT-B/16
@@ -7391,6 +7943,27 @@ def main() -> int:
         raise AssertionError(f"vision_zoo launched kernels of the repo: "
                              f"{zoo_launches}")
     new_seconds = time.perf_counter() - new_start
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the op bus, AMP O2 and the eager Paddle API: GPT built in fp32 and
+    # trained at O2 through the flash kernels, ResNet-50 at O2, the tensor
+    # ops on the card, the serving engine's per-op host table
+    o2_start = time.perf_counter()
+    port = SimpleNamespace(
+        GPTConfig=GPTConfig, GPTForCausalLM=GPTForCausalLM,
+        GPTPretrainingCriterion=GPTPretrainingCriterion, gpt_mod=gpt_mod,
+        AdamW=AdamW, LinearWarmup=LinearWarmup,
+        CosineAnnealingDecay=CosineAnnealingDecay, amp=amp,
+        set_flags=pt.set_flags, TrainStepTelemetry=obs.TrainStepTelemetry,
+        vision=vision_models, nn=port_nn, jit=jit, Momentum=Momentum,
+        registry=obs.get_registry)
+    amp_o2_identity_phase(torch, flash, fa, port)
+    o2_launches = amp_o2_phase(torch, flash, fa, port, obs, gpt_record,
+                               resnet_rows["amp_o1_bf16"])
+    tensor_api_phase(torch, pt, dispatch, obs)
+    profile_launches = profile_ops_phase(torch, rp, serving, dispatch,
+                                         LlamaConfig, LlamaForCausalLM)
+    o2_seconds = time.perf_counter() - o2_start
     flash_rows = [{
         "name": f"flash_attention_{key}", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/flash_attention.cu",
@@ -7403,6 +7976,7 @@ def main() -> int:
         "jit_export_launches": export_launches if key == "fwd" else 0,
         "jit_partial_launches": partial_launches if key == "fwd" else 0,
         "vision_zoo_launches": zoo_launches[key],
+        "amp_o2_launches": o2_launches[key],
         "device_ms": flash_device[key],
         "vit_train_device_ms": vit_device[key],
         "vit_shape": vit_flash[key],
@@ -7413,12 +7987,14 @@ def main() -> int:
 
     # the time budget: the sequence-model phases and the whole script
     emit("budget", sequence_phases_s=seq_seconds,
-         export_partial_zoo_s=new_seconds, limit_s=1200)
+         export_partial_zoo_s=new_seconds, bus_amp_o2_s=o2_seconds,
+         limit_s=1200)
     print(json.dumps({"kernels": [{
         "name": KERNEL_NAME, "route": "cuda",
         "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
         "replaces": "paddle_tpu/ops/ragged_paged.py:111",
         "launches": launches, "seq2seq_launches": seq_launches["ragged"],
+        "profile_ops_launches": profile_launches,
         "vision_zoo_launches": zoo_launches["ragged"],
         "max_abs_err": summary["max_abs_err"],
         "ms": summary["ms"], "device_ms": summary["device_ms"],

@@ -1,6 +1,6 @@
-"""``paddle.amp`` of the port: ``auto_cast`` at O1, ``decorate`` and
-``GradScaler`` (``debugging`` and O2 wait for ROADMAP A13's rest and
-A12)."""
+"""``paddle.amp`` of the port: ``auto_cast`` and ``decorate`` at O1 and
+O2 (the casts ride the op bus, ``core/dispatch.py``), ``GradScaler`` and
+``debugging``."""
 
 import torch
 
@@ -12,6 +12,7 @@ from .auto_cast import (  # noqa: F401
     white_list,
 )
 from .grad_scaler import GradScaler  # noqa: F401
+from . import debugging  # noqa: F401,E402
 
 
 def is_bfloat16_supported(device=None):

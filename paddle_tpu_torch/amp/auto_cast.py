@@ -1,27 +1,32 @@
-"""Automatic mixed precision at O1: the port of
-``paddle_tpu/amp/auto_cast.py``.
+"""Automatic mixed precision: the port of ``paddle_tpu/amp/auto_cast.py``.
 
-The JAX package casts in its op bus (``core/dispatch.py::run_op``): inside
-``auto_cast`` every op whose name is on the white list (and not on the
-black list) gets its fp32 tensor arguments cast to the AMP dtype; every
-other op runs on what it is given.  The black list means "do not cast",
-not "cast up": ``batch_norm`` on a conv's bf16 output with fp32 weights
-computes what the JAX function computes on those dtypes (the normalised
-value rounded to bf16, then the fp32 affine: an fp32 result).
+The cast happens in the op bus (``core/dispatch.py::run_op``), as in the
+JAX package: inside ``auto_cast`` each op's fp32 tensor arguments are cast
+to the AMP dtype when
 
-The port has no op bus yet (ROADMAP A12), so O1 casts where the port's
-functionals carry a white-listed JAX op name: ``linear`` (the functional
-and the ``Linear`` layer), ``conv1d`` / ``conv2d`` / ``conv3d`` /
-``conv2d_transpose``, ``attention`` (``scaled_dot_product_attention``, the
-mask included, as the JAX op takes it as an argument) and
-``flash_attention``.  Each calls :func:`cast_args` with its op name.  The
-list's ``matmul`` / ``mm`` / ``bmm`` / ``einsum`` / ``addmm`` are the JAX
-``paddle.tensor`` ops, which the port does not have (A12): a torch
-``matmul`` in user code is not cast.  ``torch.autocast`` keeps other
-lists and casts outputs, and is not used.
+* at O1 (and OD), the op's name is on the white list and not on the
+  black list (``matmul``, ``linear``, ``conv2d``, ``flash_attention``
+  ...);
+* at O2, the op's name is not on the black list.
 
-O2 casts every op not on the black list, which needs the op bus: it
-raises, naming A12.
+Every other op runs on what it is given.  The black list means "do not
+cast", not "cast up": at O2 ``layer_norm`` on a bf16 input with bf16
+weights computes in fp32 and returns bf16, as the JAX function does, and
+the next op that is not black casts whatever fp32 it meets back down
+(``add`` of bf16 and fp32 gives bf16, where torch's promotion would give
+fp32).  The cast is a differentiable ``.to``: the gradient reaches the
+fp32 tensor.  ``torch.autocast`` keeps other lists and casts outputs, and
+is not used.
+
+With the flag ``low_precision_op_list`` on, each cast decision counts
+once under the op's name (``amp.debugging.low_precision_op_list``), except
+in a pass the bus keeps quiet (``dispatch.quiet``: work the JAX package
+would replay without dispatching it again).
+
+``decorate(level="O2")`` casts every fp32 parameter to the AMP dtype in
+place (``p.data``: an optimizer built before keeps its parameter objects)
+and no buffer, and turns the optimizers' fp32 master weights on unless
+``master_weight=False``.
 """
 
 from __future__ import annotations
@@ -30,6 +35,10 @@ import threading
 from typing import Iterable, Optional, Set
 
 import torch
+
+from ..core import dispatch as _dispatch
+from ..core import dtype as dtype_mod
+from ..core import flags
 
 # the JAX package's default lists (paddle_tpu/amp/auto_cast.py:21-29)
 white_list: Set[str] = {
@@ -43,38 +52,48 @@ black_list: Set[str] = {
     "cumsum", "pow",
 }
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
-           "float32": torch.float32}
-_O2 = ("AMP O2 casts every op that is not on the black list, which needs "
-       "the port's op bus (ROADMAP A12); use level='O1'")
+
+def _cast(a, target):
+    if isinstance(a, torch.Tensor) and a.dtype == torch.float32:
+        return a.to(target)
+    return a
 
 
 class _AmpState(threading.local):
     def __init__(self):
         self.stack = []
 
+    def enabled(self):
+        return bool(self.stack) and self.stack[-1]["enable"]
+
+    def cast_args(self, op_name, args, kwargs):
+        """``(args, kwargs)`` as the op ``op_name`` receives them."""
+        if not self.stack:
+            return args, kwargs
+        cfg = self.stack[-1]
+        if not cfg["enable"]:
+            return args, kwargs
+        base = op_name.split("/")[-1]
+        if cfg["level"] == "O2":
+            do_cast = base not in cfg["black"]
+        else:
+            do_cast = base in cfg["white"] and base not in cfg["black"]
+        if not do_cast:
+            return args, kwargs
+        if flags.flag("low_precision_op_list") and not _dispatch.is_quiet():
+            from . import debugging
+
+            debugging._low_precision_ops[base] = (
+                debugging._low_precision_ops.get(base, 0) + 1)
+        target = cfg["dtype"]
+        args = tuple(_cast(a, target) for a in args)
+        if kwargs:
+            kwargs = {k: _cast(v, target) for k, v in kwargs.items()}
+        return args, kwargs
+
 
 _state = _AmpState()
-
-
-def amp_config():
-    """The innermost active ``auto_cast`` configuration, or None."""
-    return _state.stack[-1] if _state.stack else None
-
-
-def cast_args(op_name: str, *tensors):
-    """``tensors`` as the JAX op ``op_name`` receives them under the active
-    ``auto_cast``: fp32 tensors cast to the AMP dtype when the op is on the
-    white list and not on the black list; everything else (None, other
-    dtypes, ops off the list, no ``auto_cast``) unchanged."""
-    cfg = amp_config()
-    if cfg is None or not cfg["enable"]:
-        return tensors
-    if op_name not in cfg["white"] or op_name in cfg["black"]:
-        return tensors
-    target = cfg["dtype"]
-    return tuple(t.to(target) if isinstance(t, torch.Tensor)
-                 and t.dtype == torch.float32 else t for t in tensors)
+_dispatch._register_amp_state(_state)
 
 
 class auto_cast:
@@ -87,23 +106,22 @@ class auto_cast:
                  use_promote: bool = True):
         if level not in ("O0", "O1", "O2", "OD"):
             raise ValueError(f"level must be O0/OD/O1/O2, got {level}")
-        if level == "O2" and enable:
-            raise NotImplementedError(_O2)
         self.cfg = {
             "enable": enable and level != "O0",
             "level": level,
-            "dtype": dtype if isinstance(dtype, torch.dtype)
-            else _DTYPES[str(dtype)],
+            "dtype": dtype_mod.convert_dtype(dtype),
             "white": set(white_list) | set(custom_white_list or ()),
             "black": set(black_list) | set(custom_black_list or ()),
         }
 
     def __enter__(self):
         _state.stack.append(self.cfg)
+        _dispatch._amp_enter(1)
         return self
 
     def __exit__(self, *exc):
         _state.stack.pop()
+        _dispatch._amp_enter(-1)
         return False
 
 
@@ -112,19 +130,25 @@ amp_guard = auto_cast
 
 def decorate(models, optimizers=None, level="O2", dtype="bfloat16",
              master_weight=None, save_dtype=None):
-    """``paddle.amp.decorate``.  At O1 the parameters stay as they are and
-    the optimizers keep no master weights unless ``master_weight=True``
-    (the JAX rule: masters by default only at O2).  O2 raises, naming
-    ROADMAP A12."""
-    if level == "O2":
-        raise NotImplementedError(_O2)
+    """``paddle.amp.decorate``.  O2 casts every fp32 parameter of the
+    models to ``dtype`` in place; the optimizers keep fp32 master weights
+    at O2 unless ``master_weight=False``, and at O1 only with
+    ``master_weight=True`` (the JAX rule)."""
+    target = dtype_mod.convert_dtype(dtype)
     single = isinstance(models, torch.nn.Module)
     model_list = [models] if single else list(models)
+    if level == "O2":
+        with torch.no_grad():
+            for m in model_list:
+                for p in m.parameters():
+                    if p.dtype == torch.float32:
+                        p.data = p.data.to(target)
     if optimizers is None:
         return models if single else model_list
     opt_single = not isinstance(optimizers, (list, tuple))
     opt_list = [optimizers] if opt_single else list(optimizers)
     for o in opt_list:
-        o._use_master_weights = bool(master_weight)
+        o._use_master_weights = (master_weight if master_weight is not None
+                                 else level == "O2")
     return ((models if single else model_list),
             (optimizers if opt_single else opt_list))

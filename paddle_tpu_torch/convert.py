@@ -37,6 +37,7 @@ from .models.ernie import ErnieConfig, ErnieForSequenceClassification, ErnieMode
 from .models.gpt import GPTConfig, GPTForCausalLM
 from .models.llama import LlamaConfig, LlamaForCausalLM
 from .nn.common import Linear
+from .nn.layers import walk_named
 from .parallel.mp_layers import ColumnParallelLinear, RowParallelLinear
 from .vision import models as vision_models
 
@@ -66,21 +67,7 @@ def paddle_parameter_order(model) -> List[str]:
     layers taken breadth first (``Layer._walk``), each parameter once.  The
     port registers parameters and sub-layers in the JAX order, so the walk
     over the torch module gives the JAX model's list."""
-    names, seen, visited = [], set(), set()
-    queue = [("", model)]
-    while queue:
-        prefix, m = queue.pop(0)
-        if id(m) in visited:
-            continue
-        visited.add(id(m))
-        for pname, p in m._parameters.items():
-            if p is not None and id(p) not in seen:
-                seen.add(id(p))
-                names.append(prefix + pname)
-        for sname, sub in m._modules.items():
-            if sub is not None:
-                queue.append((f"{prefix}{sname}.", sub))
-    return names
+    return [n for n, _ in walk_named(model, "_parameters")]
 
 
 def _state_tensors(model) -> Dict[str, torch.Tensor]:
@@ -91,6 +78,21 @@ def _state_tensors(model) -> Dict[str, torch.Tensor]:
     for name, b in model.named_buffers():
         if name in persistent:
             out[name] = b
+    return out
+
+
+def state_from_paddle_tpu(jax_layer) -> Dict[str, np.ndarray]:
+    """A JAX package ``Layer``'s ``state_dict()`` as numpy arrays under its
+    keys and in its layout, bf16 as its 16-bit words (uint16): what the
+    port's ``nn.Layer.set_state_dict`` loads.  Only the caller imports the
+    JAX package; this reads the layer through ``state_dict()`` and
+    ``numpy.asarray``."""
+    out = {}
+    for k, v in jax_layer.state_dict().items():
+        a = np.asarray(v)
+        if a.dtype.name == "bfloat16":
+            a = a.view(np.uint16)
+        out[k] = np.array(a)
     return out
 
 

@@ -19,3 +19,37 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "paddle_tpu_torch runs on a CUDA device and none is available; "
             "pass device='cpu' to run the plain PyTorch versions on the CPU")
     return dev
+
+
+# The tensor API's default place (``paddle.set_device``): where
+# ``to_tensor`` and the creation ops put a tensor given no place.  The
+# model constructors keep their own ``device=`` argument and never read it.
+_current: Optional[str] = None
+
+
+def set_device(device: str) -> str:
+    """``paddle.set_device``: ``"cpu"``, ``"gpu"``, ``"gpu:N"``,
+    ``"cuda"`` or ``"cuda:N"``."""
+    global _current
+    _current = device
+    return device
+
+
+def get_device() -> str:
+    """The tensor API's default place, in Paddle's spelling."""
+    dev = place_device(None)
+    if dev.type == "cpu":
+        return "cpu"
+    return f"gpu:{dev.index if dev.index is not None else 0}"
+
+
+def place_device(place=None) -> torch.device:
+    """A Paddle place (a string, a torch device, ``None``) as a torch
+    device: ``None`` is :func:`set_device`'s choice, else the card."""
+    if place is None:
+        place = _current
+    if isinstance(place, str):
+        kind, _, idx = place.partition(":")
+        if kind in ("gpu", "cuda"):
+            place = f"cuda:{idx}" if idx else "cuda"
+    return resolve_device(place)

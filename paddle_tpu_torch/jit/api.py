@@ -71,6 +71,7 @@ recording); the port's runs it once, recording it.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import threading
@@ -79,6 +80,7 @@ from typing import Any, Dict, List
 
 import torch
 
+from ..core import dispatch
 from ..observability import get_registry
 from ..ops import counters
 from . import partial
@@ -408,6 +410,7 @@ class StaticFunction:
         # the trace store of each graph-broken key (jit/partial.py)
         self._partial: Dict[Any, partial.TraceStore] = {}
         self._partial_announced = False
+        self._inlined: set = set()     # CPU keys run once after their build
         self._pool = None
         self.captures = 0
         self.segment_captures = 0
@@ -538,8 +541,15 @@ class StaticFunction:
 
     # --- CPU ---------------------------------------------------------------
     def _inline(self, key, bucket, args, kwargs):
+        # The op bus sees a key's ops twice, as in the JAX package (its
+        # discovery pass and its trace): the first call, then the capture
+        # on the card or, here, the first inline run; later runs replay
+        # (JAX runs the compiled program) and stay quiet.
+        quiet = key in self._inlined
+        self._inlined.add(key)
         try:
-            return _detached(self._traced(args, kwargs))
+            with dispatch.quiet() if quiet else contextlib.nullcontext():
+                return _detached(self._traced(args, kwargs))
         except IgnoredModuleError as e:
             return self._on_break(key, bucket, e, args, kwargs)
 

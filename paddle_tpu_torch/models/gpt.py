@@ -12,6 +12,12 @@ Module and parameter names are the JAX package's, so
 backward on a CUDA tensor).  The tied head is ``h @ embed.weight.T`` on the
 embedding's own parameter, so its gradient sums both uses.
 
+Each step the JAX model dispatches is an op of the bus under the JAX name
+(``embedding``, ``add_pos_embed``, ``linear``, ``split_qkv``,
+``ring_attention_fallback``, ``merge_heads``, ``add``, ``gelu``,
+``layer_norm``, ``tied_head``), so ``amp.auto_cast`` casts what the JAX
+package casts and ``amp.debugging.low_precision_op_list`` counts the same.
+
 ``recompute`` checkpoints each decoder layer in training
 (``torch.utils.checkpoint``); ``scan_layers=True`` takes the same module
 loop (the JAX ``lax.scan`` is a compile-time device with the same math).
@@ -28,6 +34,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..core.dispatch import run_op
 from ..device import resolve_device
 from ..nn import functional as F
 from ..nn.container import LayerList
@@ -38,6 +45,7 @@ from ..parallel.mp_layers import (
     VocabParallelEmbedding,
 )
 from ..parallel.ring_attention import ring_flash_attention
+from ..tensor.math import add
 from .llama import LlamaPretrainingCriterion
 
 
@@ -85,11 +93,17 @@ class GPTAttention(nn.Module):
     def forward(self, x):
         B, S = x.shape[0], x.shape[1]
         hd = self.config.head_dim
-        qkv = self.qkv_proj(x).reshape(B, S, 3, self.num_heads, hd)
-        # views into the fused projection: the kernels read them in place
-        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        nh = self.num_heads
+
+        def split(a):
+            # views into the fused projection: the kernels read them in place
+            a = a.reshape(B, S, 3, nh, hd)
+            return a[:, :, 0], a[:, :, 1], a[:, :, 2]
+
+        q, k, v = run_op("split_qkv", split, self.qkv_proj(x))
         out = ring_flash_attention(q, k, v, causal=True)
-        return self.o_proj(out.reshape(B, S, self.num_heads * hd))
+        out = run_op("merge_heads", lambda a: a.reshape(B, S, nh * hd), out)
+        return self.o_proj(out)
 
 
 class GPTMLP(nn.Module):
@@ -118,8 +132,8 @@ class GPTDecoderLayer(nn.Module):
         self.mlp = GPTMLP(config, **kw)
 
     def forward(self, x):
-        x = x + self.attn(self.ln_1(x))
-        return x + self.mlp(self.ln_2(x))
+        x = add(x, self.attn(self.ln_1(x)))
+        return add(x, self.mlp(self.ln_2(x)))
 
 
 class GPTModel(nn.Module):
@@ -152,7 +166,8 @@ class GPTModel(nn.Module):
                 "pipeline micro-batches are not ported yet (ROADMAP A11); "
                 "the port runs pp=1")
         S = input_ids.shape[1]
-        h = self.embed_tokens(input_ids) + self.position_embeddings[:S]
+        h = run_op("add_pos_embed", lambda a, p: a + p[:S],
+                   self.embed_tokens(input_ids), self.position_embeddings)
         remat = self.config.recompute and self.training
         for layer in self.layers:
             h = (checkpoint(layer, h, use_reentrant=False) if remat
@@ -195,7 +210,8 @@ class GPTForCausalLM(nn.Module):
     def forward(self, input_ids, pp_microbatches: Optional[int] = None):
         h = self.gpt(input_ids, pp_microbatches=pp_microbatches)
         if self.lm_head is None:
-            return h @ self.gpt.embed_tokens.weight.T
+            return run_op("tied_head", lambda a, w: a @ w.T, h,
+                          self.gpt.embed_tokens.weight)
         return self.lm_head(h)
 
 

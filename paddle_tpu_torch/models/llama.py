@@ -35,6 +35,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..core.tensor import getitem
 from ..device import resolve_device
 from ..nn import functional as F
 from ..nn.norm import RMSNorm
@@ -519,7 +520,8 @@ class LlamaPretrainingCriterion(nn.Module):
         self.ignore_index = ignore_index
 
     def forward(self, logits, labels):
-        shifted = logits[:, :-1, :]
-        target = labels[:, 1:]
+        # the JAX Tensor's indexing is the op ``getitem``
+        shifted = getitem(logits, (slice(None), slice(None, -1), slice(None)))
+        target = getitem(labels, (slice(None), slice(1, None)))
         return F.cross_entropy(shifted, target, reduction="mean",
                                ignore_index=self.ignore_index)

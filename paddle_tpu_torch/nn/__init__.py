@@ -2,6 +2,7 @@
 recurrent layers and beam search."""
 
 from . import functional  # noqa: F401
+from .layers import Layer  # noqa: F401
 from . import initializer  # noqa: F401
 from .activation import *  # noqa: F401,F403
 from .clip import (  # noqa: F401

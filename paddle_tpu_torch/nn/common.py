@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as TF
 from torch import nn
 
-from ..amp.auto_cast import cast_args
+from ..core.dispatch import run_op
 from . import functional as F
 from .initializer import Constant, Initializer, Normal, Uniform, XavierNormal
 
@@ -43,8 +43,8 @@ Identity = nn.Identity
 
 
 class Linear(nn.Module):
-    """``y = x W^T + b`` with ``W`` ``[out_features, in_features]`` (under
-    ``amp.auto_cast`` the inputs cast as the JAX op ``linear``'s)."""
+    """``y = x W^T + b`` with ``W`` ``[out_features, in_features]``, the
+    op ``linear`` on the bus (cast under ``amp.auto_cast``)."""
 
     def __init__(self, in_features, out_features, weight_attr=None,
                  bias_attr=None, name=None, device=None, dtype=None,
@@ -63,8 +63,7 @@ class Linear(nn.Module):
                                        (out_features,), **kw)
 
     def forward(self, x):
-        x, w, b = cast_args("linear", x, self.weight, self.bias)
-        return TF.linear(x, w, b)
+        return run_op("linear", TF.linear, x, self.weight, self.bias)
 
     def extra_repr(self):
         return (f"in_features={self.in_features}, "

@@ -12,23 +12,16 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-_DTYPES = {"float32": torch.float32, "float64": torch.float64,
-           "float16": torch.float16, "bfloat16": torch.bfloat16}
-
-
-def _dtype(dtype):
-    if dtype is None or isinstance(dtype, torch.dtype):
-        return dtype
-    return _DTYPES[str(dtype)]
-
+from ...core.dispatch import op, run_op
+from ...core.dtype import convert_dtype
 
 def _unary(opname, fn):
-    # the paddle-API ``name=`` kwarg is accepted and ignored
-    def op(x, name=None):
-        return fn(x)
+    # the paddle-API ``name=`` kwarg is not the op's name
+    def f(x, name=None):
+        return run_op(opname, fn, x)
 
-    op.__name__ = opname
-    return op
+    f.__name__ = opname
+    return f
 
 
 def _clip01(v):
@@ -50,11 +43,13 @@ hardsigmoid = _unary("hardsigmoid", lambda v: _clip01(v / 6.0 + 0.5))
 hardswish = _unary("hardswish", lambda v: v * _clip01(v / 6.0 + 0.5))
 
 
+@op("gelu")
 def gelu(x, approximate=False, name=None):
     """``x * Phi(x)``; ``approximate=True`` is the tanh form (GPT's)."""
     return F.gelu(x, approximate="tanh" if approximate else "none")
 
 
+@op("elu")
 def elu(x, alpha=1.0, name=None):
     return torch.where(x > 0, x, alpha * torch.expm1(x))
 
@@ -64,19 +59,23 @@ def elu_(x, alpha=1.0, name=None):
         return x.copy_(elu(x, alpha))
 
 
+@op("celu")
 def celu(x, alpha=1.0, name=None):
     return torch.where(x > 0, x, alpha * torch.expm1(x / alpha))
 
 
+@op("selu")
 def selu(x, scale=1.0507009873554804934193349852946,
          alpha=1.6732632423543772848170429916717, name=None):
     return scale * torch.where(x > 0, x, alpha * torch.expm1(x))
 
 
+@op("leaky_relu")
 def leaky_relu(x, negative_slope=0.01, name=None):
     return torch.where(x >= 0, x, negative_slope * x)
 
 
+@op("prelu")
 def prelu(x, weight, data_format="NCHW", name=None):
     if weight.numel() == 1:
         return torch.where(x > 0, x, weight.reshape(()) * x)
@@ -86,6 +85,7 @@ def prelu(x, weight, data_format="NCHW", name=None):
     return torch.where(x > 0, x, weight.reshape(shape) * x)
 
 
+@op("rrelu")
 def rrelu(x, lower=1.0 / 8.0, upper=1.0 / 3.0, training=True, name=None,
           generator=None):
     if training:
@@ -95,32 +95,38 @@ def rrelu(x, lower=1.0 / 8.0, upper=1.0 / 3.0, training=True, name=None,
     return torch.where(x >= 0, x, a * x)
 
 
+@op("hardtanh")
 def hardtanh(x, min=-1.0, max=1.0, name=None):
     return torch.clamp(x, min, max)
 
 
+@op("hardshrink")
 def hardshrink(x, threshold=0.5, name=None):
     return torch.where(torch.abs(x) > threshold, x, torch.zeros_like(x))
 
 
+@op("softshrink")
 def softshrink(x, threshold=0.5, name=None):
     zero = torch.zeros_like(x)
     return torch.where(x > threshold, x - threshold,
                        torch.where(x < -threshold, x + threshold, zero))
 
 
+@op("softplus")
 def softplus(x, beta=1.0, threshold=20.0, name=None):
     # jax.nn.softplus is logaddexp(x, 0)
     soft = torch.logaddexp(beta * x, torch.zeros_like(x)) / beta
     return torch.where(beta * x > threshold, x, soft)
 
 
+@op("thresholded_relu")
 def thresholded_relu(x, threshold=1.0, value=0.0, name=None):
     return torch.where(x > threshold, x, torch.full_like(x, value))
 
 
+@op("softmax")
 def softmax(x, axis=-1, dtype=None, name=None):
-    d = _dtype(dtype)
+    d = convert_dtype(dtype)
     return torch.softmax(x if d is None else x.to(d), dim=axis)
 
 
@@ -129,11 +135,13 @@ def softmax_(x, axis=-1, dtype=None, name=None):
         return x.copy_(softmax(x, axis, dtype))
 
 
+@op("log_softmax")
 def log_softmax(x, axis=-1, dtype=None, name=None):
-    d = _dtype(dtype)
+    d = convert_dtype(dtype)
     return torch.log_softmax(x if d is None else x.to(d), dim=axis)
 
 
+@op("gumbel_softmax")
 def gumbel_softmax(x, temperature=1.0, hard=False, axis=-1, name=None,
                    generator=None):
     u = torch.empty_like(x).uniform_(generator=generator)
@@ -148,6 +156,7 @@ def gumbel_softmax(x, temperature=1.0, hard=False, axis=-1, name=None,
     return y
 
 
+@op("maxout")
 def maxout(x, groups, axis=1, name=None):
     c = x.shape[axis]
     new_shape = list(x.shape)
@@ -156,6 +165,7 @@ def maxout(x, groups, axis=1, name=None):
     return torch.amax(x.reshape(new_shape), dim=axis + 1)
 
 
+@op("glu")
 def glu(x, axis=-1, name=None):
     a, b = torch.chunk(x, 2, dim=axis)
     return a * torch.sigmoid(b)

@@ -14,8 +14,9 @@ dropout and no mask it takes the flash route where the kernels take the
 call (dropout then applies to the output, the JAX wrapper's contract) and
 the composite, with dropout on the probabilities, elsewhere.  Dropout
 draws from ``generator`` when given, else from torch's default generator.
-Under ``amp.auto_cast`` the inputs (and a mask) are cast as the JAX ops
-``attention`` and ``flash_attention`` cast them.
+Both run as the JAX ops ``attention`` and ``flash_attention`` on the op
+bus (``core/dispatch.py``), which casts the inputs (and a mask) under
+``amp.auto_cast``.
 """
 
 from __future__ import annotations
@@ -24,12 +25,11 @@ import math
 
 import torch
 
-from ...amp.auto_cast import cast_args
+from ...core.dispatch import run_op
+from ...core.dtype import convert_dtype
 from ...ops.flash_attention import flash_attention_fwd, use_flash
 from .common import dropout as _dropout
 
-_DTYPES = {"int64": torch.int64, "int32": torch.int32, "bool": torch.bool,
-           "float32": torch.float32}
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
@@ -39,12 +39,24 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     ``[B, S, H, D]``.  ``attn_mask`` is added to the scores."""
     q, k, v = query, key, value
     if attn_mask is None and (dropout_p == 0.0 or not training):
-        q, k, v = cast_args("attention", q, k, v)
-        return flash_attention_fwd(q, k, v, causal=is_causal)
+        return run_op("attention", _flash, q, k, v, causal=is_causal)
     if attn_mask is None and use_flash(q, k, is_causal):
         return flash_attention(q, k, v, dropout=dropout_p, causal=is_causal,
                                training=training, generator=generator)[0]
-    q, k, v, attn_mask = cast_args("attention", q, k, v, attn_mask)
+
+    def f(q, k, v, attn_mask):
+        return _composite(q, k, v, attn_mask, dropout_p, is_causal, training,
+                          generator)
+
+    return run_op("attention", f, q, k, v, attn_mask)
+
+
+def _flash(q, k, v, causal):
+    return flash_attention_fwd(q, k, v, causal=causal)
+
+
+def _composite(q, k, v, attn_mask, dropout_p, is_causal, training,
+               generator):
     D = q.shape[-1]
     scale = 1.0 / math.sqrt(D)
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))   # B, H, S, D
@@ -68,8 +80,8 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
                     training=True, name=None, generator=None):
     """``paddle.nn.functional.flash_attention.flash_attention``: returns
     ``(out, None)``; ``dropout`` applies to the output in training."""
-    query, key, value = cast_args("flash_attention", query, key, value)
-    out = flash_attention_fwd(query, key, value, causal=causal)
+    out = run_op("flash_attention", _flash, query, key, value,
+                 causal=causal)
     if dropout > 0.0 and training:
         out = _dropout(out, dropout, generator=generator)
     return out, None
@@ -79,5 +91,5 @@ def sequence_mask(x, maxlen=None, dtype="int64", name=None):
     """``[..., maxlen]``: 1 where the position is below the length in
     ``x``."""
     m = maxlen if maxlen is not None else int(x.max())
-    d = dtype if isinstance(dtype, torch.dtype) else _DTYPES[str(dtype)]
+    d = convert_dtype(dtype)
     return (torch.arange(m, device=x.device) < x[..., None]).to(d)

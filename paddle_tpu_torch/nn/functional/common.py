@@ -45,16 +45,20 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ...amp.auto_cast import cast_args
+from ...core.dispatch import op, run_op
 
 
 def linear(x, weight, bias=None, name=None):
     """``y = x @ W + b`` with ``W`` ``[in, out]`` (Paddle's layout); under
     ``amp.auto_cast`` the JAX op ``linear``'s casts."""
-    x, weight, bias = cast_args("linear", x, weight, bias)
+    return run_op("linear", _linear, x, weight, bias)
+
+
+def _linear(x, weight, bias):
     return F.linear(x, weight.t(), bias)
 
 
+@op("embedding")
 def embedding(x, weight, padding_idx=None, sparse=False, max_norm=None,
               norm_type=2.0, name=None):
     """Rows of ``weight`` at ``x``; where ``x == padding_idx`` the row is
@@ -74,6 +78,7 @@ def keep_mask(shape, p, device, generator=None):
         < 1.0 - p
 
 
+@op("dropout")
 def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
             name=None, generator=None):
     """Zero each element (each slice along the dims not in ``axis``, when
@@ -108,6 +113,7 @@ def dropout3d(x, p=0.5, training=True, data_format="NCDHW", name=None,
     return dropout(x, p, axis=axis, training=training, generator=generator)
 
 
+@op("alpha_dropout")
 def alpha_dropout(x, p=0.5, training=True, name=None, generator=None):
     """SELU's dropout: a dropped element takes ``-alpha * scale``, then
     ``a * x + b`` keeps the mean and variance."""
@@ -145,6 +151,7 @@ def _pad_pairs(pad, nd, data_format):
     return pairs
 
 
+@op("pad")
 def pad(x, pad, mode="constant", value=0.0, data_format="NCHW",
         pad_from_left_axis=True, name=None):
     """Paddle's ``pad``: ``pad`` lists ``[before, after]`` for every axis
@@ -171,11 +178,13 @@ def zeropad2d(x, padding, data_format="NCHW", name=None):
 
 # --- small maps ---------------------------------------------------------------
 
+@op("one_hot")
 def one_hot(x, num_classes, name=None):
     classes = torch.arange(num_classes, device=x.device)
     return (x.long()[..., None] == classes).to(torch.float32)
 
 
+@op("label_smooth")
 def label_smooth(label, prior_dist=None, epsilon=0.1, name=None):
     if prior_dist is not None:
         pd = torch.as_tensor(prior_dist, device=label.device)
@@ -183,6 +192,7 @@ def label_smooth(label, prior_dist=None, epsilon=0.1, name=None):
     return (1 - epsilon) * label + epsilon / label.shape[-1]
 
 
+@op("cosine_similarity")
 def cosine_similarity(x1, x2, axis=1, eps=1e-8, name=None):
     dot = torch.sum(x1 * x2, dim=axis)
     na = torch.sqrt(torch.sum(x1 * x1, dim=axis))
@@ -190,11 +200,13 @@ def cosine_similarity(x1, x2, axis=1, eps=1e-8, name=None):
     return dot / torch.clamp_min(na * nb, eps)
 
 
+@op("pairwise_distance")
 def pairwise_distance(x, y, p=2.0, epsilon=1e-6, keepdim=False, name=None):
     d = x - y + epsilon
     return torch.sum(torch.abs(d) ** p, dim=-1, keepdim=keepdim) ** (1.0 / p)
 
 
+@op("bilinear")
 def bilinear(x1, x2, weight, bias=None, name=None):
     """``out[b, o] = x1[b] W[o] x2[b] (+ bias[o])``."""
     out = torch.einsum("bi,oij,bj->bo", x1, weight, x2)
@@ -264,6 +276,7 @@ _KERNELS = {"bilinear": "linear", "linear": "linear", "trilinear": "linear",
             "bicubic": "cubic", "area": "linear", "nearest": "nearest"}
 
 
+@op("interpolate")
 def interpolate(x, size=None, scale_factor=None, mode="nearest",
                 align_corners=False, align_mode=0, data_format="NCHW",
                 name=None):
@@ -317,6 +330,7 @@ def _window_args(kernel_sizes, strides, paddings, dilations):
     return k, s, p, d
 
 
+@op("unfold")
 def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
     """im2col: NCHW -> ``[N, C * kh * kw, L]``, paddings ``[top, left,
     bottom, right]`` (or ``[h, w]``)."""
@@ -331,6 +345,7 @@ def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
     return torch.stack(patches, dim=2).reshape(N, C * k[0] * k[1], oh * ow)
 
 
+@op("fold")
 def fold(x, output_sizes, kernel_sizes, strides=1, paddings=0, dilations=1,
          name=None):
     """col2im: ``[N, C * kh * kw, L]`` -> NCHW, overlapping patches
@@ -351,6 +366,7 @@ def fold(x, output_sizes, kernel_sizes, strides=1, paddings=0, dilations=1,
     return out[:, :, p[0]: H - p[2], p[1]: W - p[3]]
 
 
+@op("pixel_shuffle")
 def pixel_shuffle(x, upscale_factor, data_format="NCHW", name=None):
     r = upscale_factor
     if data_format == "NCHW":
@@ -362,6 +378,7 @@ def pixel_shuffle(x, upscale_factor, data_format="NCHW", name=None):
     return v.reshape(N, H * r, W * r, C // (r * r))
 
 
+@op("pixel_unshuffle")
 def pixel_unshuffle(x, downscale_factor, data_format="NCHW", name=None):
     r = downscale_factor
     if data_format == "NCHW":
@@ -373,6 +390,7 @@ def pixel_unshuffle(x, downscale_factor, data_format="NCHW", name=None):
     return v.reshape(N, H // r, W // r, C * r * r)
 
 
+@op("channel_shuffle")
 def channel_shuffle(x, groups, data_format="NCHW", name=None):
     if data_format == "NCHW":
         N, C, H, W = x.shape
@@ -383,6 +401,7 @@ def channel_shuffle(x, groups, data_format="NCHW", name=None):
     return v.reshape(N, H, W, C)
 
 
+@op("pdist")
 def pdist(x, p=2.0, name=None):
     """Condensed pairwise p-distances of the rows of ``[N, D]``:
     ``[N * (N - 1) / 2]``."""
@@ -435,6 +454,7 @@ def max_unpool3d(x, indices, kernel_size, stride=None, padding=0,
 
 # --- sequences ----------------------------------------------------------------
 
+@op("gather_tree")
 def gather_tree(ids, parents):
     """Beam-search backtrace: ``ids`` and ``parents`` ``[T, B, beam]`` ->
     the full sequences, each followed back from its last step's slot."""
@@ -480,6 +500,7 @@ def edit_distance(input, label, normalized=True, ignored_tokens=None,
             torch.tensor([a.shape[0]], dtype=torch.int64, device=device))
 
 
+@op("triangle_upper_mask")
 def get_triangle_upper_mask(x):
     """An additive ``[S, S]`` mask for ``x``'s last axis: fp32's lowest
     value above the diagonal, 0 elsewhere, in ``x``'s dtype."""

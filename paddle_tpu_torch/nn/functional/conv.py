@@ -30,7 +30,7 @@ import math
 import torch
 import torch.nn.functional as TF
 
-from ...amp.auto_cast import cast_args
+from ...core.dispatch import run_op
 
 _CONV = {1: TF.conv1d, 2: TF.conv2d, 3: TF.conv3d}
 _CONV_T = {1: TF.conv_transpose1d, 2: TF.conv_transpose2d,
@@ -87,7 +87,15 @@ def _add_bias(out, b, channel_last):
 
 def _conv(x, weight, bias, stride, padding, dilation, groups, n,
           data_format, name):
-    x, weight, bias = cast_args(name, x, weight, bias)
+    def f(x, weight, bias):
+        return _conv_body(x, weight, bias, stride, padding, dilation, groups,
+                          n, data_format)
+
+    return run_op(name, f, x, weight, bias)
+
+
+def _conv_body(x, weight, bias, stride, padding, dilation, groups, n,
+               data_format):
     channel_last = data_format.endswith("C")
     s, d = _tuple(stride, n), _tuple(dilation, n)
     v = _channel_first(x, n, channel_last)
@@ -128,7 +136,17 @@ def _conv_transpose(x, weight, bias, stride, padding, output_padding,
     convolution gives it."""
     if isinstance(padding, str):
         raise NotImplementedError("string padding for conv_transpose")
-    x, weight, bias = cast_args(name, x, weight, bias)
+
+    def f(x, weight, bias):
+        return _conv_transpose_body(x, weight, bias, stride, padding,
+                                    output_padding, dilation, groups, n,
+                                    data_format, output_size, name)
+
+    return run_op(name, f, x, weight, bias)
+
+
+def _conv_transpose_body(x, weight, bias, stride, padding, output_padding,
+                         dilation, groups, n, data_format, output_size, name):
     channel_last = data_format.endswith("C")
     s, d = _tuple(stride, n), _tuple(dilation, n)
     op = (_tuple(output_padding, n)

@@ -23,6 +23,8 @@ import numpy as np
 import torch
 import torch.nn.functional as TF
 
+from ...core.dispatch import op
+
 
 def _reduce(v, reduction):
     if reduction == "mean":
@@ -32,6 +34,7 @@ def _reduce(v, reduction):
     return v
 
 
+@op("cross_entropy")
 def cross_entropy(input, label, weight=None, ignore_index=-100,
                   reduction="mean", soft_label=False, axis=-1,
                   use_softmax=True, label_smoothing=0.0, name=None):
@@ -110,6 +113,7 @@ def base_softmax_with_cross_entropy(logits, label, soft_label=False,
         return_softmax=return_softmax, axis=axis)
 
 
+@op("nll_loss")
 def nll_loss(input, label, weight=None, ignore_index=-100, reduction="mean",
              name=None):
     lab = label.to(torch.int64)
@@ -129,26 +133,31 @@ def nll_loss(input, label, weight=None, ignore_index=-100, reduction="mean",
     return _reduce(loss, reduction)
 
 
+@op("mse_loss")
 def mse_loss(input, label, reduction="mean", name=None):
     return _reduce((input - label) ** 2, reduction)
 
 
+@op("l1_loss")
 def l1_loss(input, label, reduction="mean", name=None):
     return _reduce(torch.abs(input - label), reduction)
 
 
+@op("smooth_l1_loss")
 def smooth_l1_loss(input, label, reduction="mean", delta=1.0, name=None):
     d = torch.abs(input - label)
     loss = torch.where(d < delta, 0.5 * d * d / delta, d - 0.5 * delta)
     return _reduce(loss * delta, reduction)
 
 
+@op("huber_loss")
 def huber_loss(input, label, delta=1.0, reduction="mean", name=None):
     d = torch.abs(input - label)
     return _reduce(torch.where(d <= delta, 0.5 * d * d,
                                delta * (d - 0.5 * delta)), reduction)
 
 
+@op("binary_cross_entropy")
 def binary_cross_entropy(input, label, weight=None, reduction="mean",
                          name=None):
     p = torch.clamp(input, 1e-12, 1 - 1e-12)
@@ -158,6 +167,7 @@ def binary_cross_entropy(input, label, weight=None, reduction="mean",
     return _reduce(loss, reduction)
 
 
+@op("bce_with_logits")
 def binary_cross_entropy_with_logits(logit, label, weight=None,
                                      reduction="mean", pos_weight=None,
                                      name=None):
@@ -174,6 +184,7 @@ def binary_cross_entropy_with_logits(logit, label, weight=None,
     return _reduce(loss, reduction)
 
 
+@op("kl_div")
 def kl_div(input, label, reduction="mean", log_target=False, name=None):
     if log_target:
         loss = torch.exp(label) * (label - input)
@@ -184,12 +195,14 @@ def kl_div(input, label, reduction="mean", log_target=False, name=None):
     return _reduce(loss, reduction)
 
 
+@op("margin_ranking_loss")
 def margin_ranking_loss(input, other, label, margin=0.0, reduction="mean",
                         name=None):
     return _reduce(torch.clamp(-label * (input - other) + margin, min=0),
                    reduction)
 
 
+@op("hinge_embedding_loss")
 def hinge_embedding_loss(input, label, margin=1.0, reduction="mean",
                          name=None):
     loss = torch.where(label == 1, input,
@@ -197,6 +210,7 @@ def hinge_embedding_loss(input, label, margin=1.0, reduction="mean",
     return _reduce(loss, reduction)
 
 
+@op("cosine_embedding_loss")
 def cosine_embedding_loss(input1, input2, label, margin=0, reduction="mean",
                           name=None):
     cos = torch.sum(input1 * input2, -1) / (
@@ -210,6 +224,7 @@ def _p_dist(a, b, p, epsilon):
     return torch.sum(torch.abs(a - b + epsilon) ** p, -1) ** (1 / p)
 
 
+@op("triplet_margin_loss")
 def triplet_margin_loss(input, positive, negative, margin=1.0, p=2.0,
                         epsilon=1e-6, swap=False, reduction="mean",
                         name=None):
@@ -220,6 +235,7 @@ def triplet_margin_loss(input, positive, negative, margin=1.0, p=2.0,
     return _reduce(torch.clamp(dp - dn + margin, min=0), reduction)
 
 
+@op("multi_label_soft_margin_loss")
 def multi_label_soft_margin_loss(input, label, weight=None,
                                  reduction="mean", name=None):
     loss = -(label * TF.logsigmoid(input)
@@ -229,19 +245,23 @@ def multi_label_soft_margin_loss(input, label, weight=None,
     return _reduce(torch.mean(loss, -1), reduction)
 
 
+@op("soft_margin_loss")
 def soft_margin_loss(input, label, reduction="mean", name=None):
     return _reduce(torch.log1p(torch.exp(-label * input)), reduction)
 
 
+@op("square_error_cost")
 def square_error_cost(input, label):
     return (input - label) ** 2
 
 
+@op("log_loss")
 def log_loss(input, label, epsilon=1e-4, name=None):
     return (-label * torch.log(input + epsilon)
             - (1 - label) * torch.log(1 - input + epsilon))
 
 
+@op("sigmoid_focal_loss")
 def sigmoid_focal_loss(logit, label, normalizer=None, alpha=0.25, gamma=2.0,
                        reduction="sum", name=None):
     z = logit
@@ -256,6 +276,7 @@ def sigmoid_focal_loss(logit, label, normalizer=None, alpha=0.25, gamma=2.0,
     return _reduce(loss, reduction)
 
 
+@op("ctc_loss")
 def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
              reduction="mean", norm_by_times=False):
     """CTC over ``log_probs`` ``[T, B, K]`` (normalised by a log-softmax
@@ -273,6 +294,7 @@ def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
     return per_seq
 
 
+@op("poisson_nll_loss")
 def poisson_nll_loss(input, label, log_input=True, full=False, epsilon=1e-8,
                      reduction="mean", name=None):
     if log_input:
@@ -287,6 +309,7 @@ def poisson_nll_loss(input, label, log_input=True, full=False, epsilon=1e-8,
     return _reduce(loss, reduction)
 
 
+@op("gaussian_nll_loss")
 def gaussian_nll_loss(input, label, variance, full=False, epsilon=1e-6,
                       reduction="mean", name=None):
     var = torch.clamp(variance, min=epsilon)
@@ -296,6 +319,7 @@ def gaussian_nll_loss(input, label, variance, full=False, epsilon=1e-6,
     return _reduce(loss, reduction)
 
 
+@op("dice_loss")
 def dice_loss(input, label, epsilon=1e-5, name=None):
     lab_oh = TF.one_hot(label.squeeze(-1).to(torch.int64),
                         input.shape[-1]).to(input.dtype)
@@ -305,6 +329,7 @@ def dice_loss(input, label, epsilon=1e-5, name=None):
     return torch.mean(1 - (2 * inter + epsilon) / (union + epsilon))
 
 
+@op("npair_loss")
 def npair_loss(anchor, positive, labels, l2_reg=0.002):
     sim = anchor @ positive.T
     eq = (labels[:, None] == labels[None, :]).to(anchor.dtype)
@@ -315,6 +340,7 @@ def npair_loss(anchor, positive, labels, l2_reg=0.002):
     return torch.mean(xent) + reg
 
 
+@op("multi_margin_loss")
 def multi_margin_loss(input, label, p=1, margin=1.0, weight=None,
                       reduction="mean", name=None):
     """``mean_j max(0, margin - x_y + x_j)^p`` over ``j != y``."""
@@ -332,6 +358,7 @@ def multi_margin_loss(input, label, p=1, margin=1.0, weight=None,
     return _reduce(per, reduction)
 
 
+@op("triplet_margin_with_distance_loss")
 def triplet_margin_with_distance_loss(input, positive, negative,
                                       distance_function=None, margin=1.0,
                                       swap=False, reduction="mean",
@@ -346,6 +373,7 @@ def triplet_margin_with_distance_loss(input, positive, negative,
     return _reduce(torch.clamp(dp - dn + margin, min=0.0), reduction)
 
 
+@op("margin_cross_entropy")
 def margin_cross_entropy(logits, label, margin1=1.0, margin2=0.5,
                          margin3=0.0, scale=64.0, group=None,
                          return_softmax=False, reduction="mean", name=None):
@@ -394,6 +422,7 @@ def _default_tree(C):
     return table, code, np.arange(D)[None, :] < lens[:, None]
 
 
+@op("hsigmoid_loss")
 def hsigmoid_loss(input, label, num_classes, weight, bias=None,
                   path_table=None, path_code=None, is_sparse=False,
                   name=None):
@@ -420,6 +449,7 @@ def hsigmoid_loss(input, label, num_classes, weight, bias=None,
     return torch.mean(per)[None]
 
 
+@op("rnnt_loss")
 def rnnt_loss(input, label, input_lengths, label_lengths, blank=0,
               fastemit_lambda=0.0, reduction="mean", name=None):
     """RNN-Transducer loss over logits ``[B, T, U + 1, V]``: the JAX

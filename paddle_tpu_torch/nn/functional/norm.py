@@ -12,7 +12,10 @@ from __future__ import annotations
 
 import torch
 
+from ...core.dispatch import op, run_op
 
+
+@op("layer_norm")
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05,
                name=None):
     ns = ((normalized_shape,) if isinstance(normalized_shape, int)
@@ -29,6 +32,7 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05,
     return out
 
 
+@op("rms_norm")
 def rms_norm(x, weight=None, epsilon=1e-6):
     """RMSNorm with the JAX package's rounding: statistics and the scaling
     in fp32, the result cast back to ``x``'s dtype, THEN multiplied by the
@@ -41,6 +45,7 @@ def rms_norm(x, weight=None, epsilon=1e-6):
     return out
 
 
+@op("normalize")
 def normalize(x, p=2, axis=1, epsilon=1e-12, name=None):
     n = torch.sum(torch.abs(x) ** p, dim=axis, keepdim=True) ** (1.0 / p)
     return x / torch.clamp(n, min=epsilon)
@@ -64,42 +69,75 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                training=False, momentum=0.9, epsilon=1e-05,
                data_format="NCHW", use_global_stats=None, name=None):
     """Batch norm with Paddle's conventions, as the JAX function computes
-    it (``paddle_tpu/nn/functional/norm.py:72``):
+    it (``paddle_tpu/nn/functional/norm.py:72``), in the same four ops:
 
-    * batch statistics in fp32 whatever ``x``'s dtype (the population
-      variance), differentiated through in training;
-    * the running statistics updated IN PLACE (so a captured step's replay
-      updates the module's own buffers): ``r = momentum r + (1 - momentum)
-      batch``, the variance's batch term times ``n / (n - 1)``, in that
-      order of operations;
-    * ``(x - mean) * rsqrt(var + eps)`` in fp32, rounded to ``x``'s dtype,
-      THEN the weight and bias, in their dtype's promotion with it (bf16
-      ``x`` and fp32 weights give an fp32 result, as in the JAX package).
+    * ``bn_stats``: batch statistics in fp32 whatever ``x``'s dtype (the
+      population variance), differentiated through in training; it also
+      returns its fp32 copy of ``x``, which ``batch_norm`` reuses, so a
+      bf16 activation is cast once a step and not twice;
+    * ``bn_update_mean`` / ``bn_update_var``: ``r = momentum r + (1 -
+      momentum) batch``, the variance's batch term times ``n / (n - 1)``,
+      in that order of operations, computed in the dtype the op receives
+      (at AMP O2 the bus casts both to bf16, as in the JAX package) and
+      written IN PLACE into the buffers (so a captured step's replay
+      updates the module's own buffers; the JAX package rebinds them, so
+      its buffers turn bf16 at O2 where the port's keep their dtype and
+      hold the same bf16 values);
+    * ``batch_norm``: ``(x - mean) * rsqrt(var + eps)`` in fp32, rounded to
+      ``x``'s dtype, THEN the weight and bias, in their dtype's promotion
+      with it (bf16 ``x`` and fp32 weights give an fp32 result, bf16
+      weights a bf16 one).  The port computes this itself: torch's
+      ``batch_norm`` refuses a bf16 input with fp32 statistics.
 
     ``momentum=0.9`` here is torch's ``momentum=0.1``."""
     ca = _channel_axis(x, data_format)
     axes = tuple(i for i in range(x.dim()) if i != ca)
     shape = [1] * x.dim()
     shape[ca] = -1
-    xf = x.to(torch.float32)
+    xf = None
     if training and not use_global_stats:
-        var, mean = torch.var_mean(xf, dim=axes, correction=0)
+        var, mean, xf = run_op("bn_stats", _bn_stats, x, axes)
         n = 1
         for i in axes:
             n *= x.shape[i]
         unbias = n / max(n - 1, 1)
         with torch.no_grad():
-            running_mean.copy_(momentum * running_mean
-                               + (1 - momentum) * mean.detach())
-            running_var.copy_(momentum * running_var
-                              + (1 - momentum) * var.detach() * unbias)
+            running_mean.copy_(run_op(
+                "bn_update_mean", _bn_update, running_mean, mean.detach(),
+                momentum, 1.0))
+            running_var.copy_(run_op(
+                "bn_update_var", _bn_update, running_var, var.detach(),
+                momentum, unbias))
     else:
         mean, var = running_mean, running_var
+    if x.dtype == torch.float32:
+        xf = None    # at O2 the stats may have seen a bf16 cast of x
+    return run_op("batch_norm", _bn_apply, x, mean, var, weight, bias,
+                  shape, epsilon, xf)
+
+
+def _bn_stats(x, axes):
+    """``(var, mean, x in fp32)``: the fp32 copy is returned so that the
+    normalisation reuses it, one cast of the activation a step."""
+    xf = x.to(torch.float32)
+    var, mean = torch.var_mean(xf, dim=axes, correction=0)
+    return var, mean, xf
+
+
+def _bn_update(r, batch, momentum, unbias):
+    if unbias == 1.0:
+        return (momentum * r + (1 - momentum) * batch).to(r.dtype)
+    return (momentum * r + (1 - momentum) * batch * unbias).to(r.dtype)
+
+
+def _bn_apply(x, mean, var, weight, bias, shape, epsilon, xf=None):
+    xf = x.to(torch.float32) if xf is None else xf.to(torch.float32)
     out = ((xf - mean.reshape(shape))
            * torch.rsqrt(var.reshape(shape).to(torch.float32) + epsilon))
     return _affine(out.to(x.dtype), weight, bias, shape)
 
 
+@op("instance_norm")
 def instance_norm(x, running_mean=None, running_var=None, weight=None,
                   bias=None, use_input_stats=True, momentum=0.9, eps=1e-05,
                   data_format="NCHW", name=None):
@@ -117,6 +155,7 @@ def instance_norm(x, running_mean=None, running_var=None, weight=None,
     return _affine(out, weight, bias, shape)
 
 
+@op("group_norm")
 def group_norm(x, num_groups, epsilon=1e-05, weight=None, bias=None,
                data_format="NCHW", name=None):
     channel_last = data_format.endswith("C") and x.dim() > 2
@@ -132,6 +171,7 @@ def group_norm(x, num_groups, epsilon=1e-05, weight=None, bias=None,
     return out.movedim(1, -1) if channel_last else out
 
 
+@op("local_response_norm")
 def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
                         data_format="NCHW", name=None):
     """``x / (k + alpha * s) ** beta`` with ``s`` the sum of squares over

@@ -30,6 +30,8 @@ import numpy as np
 import torch
 import torch.nn.functional as TF
 
+from ...core.dispatch import op
+
 _MAX = {1: TF.max_pool1d, 2: TF.max_pool2d, 3: TF.max_pool3d}
 _AVG = {2: TF.avg_pool2d, 3: TF.avg_pool3d}
 _ADAPTIVE = {("avg", 1): TF.adaptive_avg_pool1d,
@@ -143,30 +145,35 @@ def _unpadded_index(idx, spatial, pads):
     return flat.to(torch.int32)
 
 
+@op("max_pool1d")
 def max_pool1d(x, kernel_size, stride=None, padding=0, return_mask=False,
                ceil_mode=False, data_format="NCL", name=None):
     return _pool(x, kernel_size, stride, padding, 1, "max",
                  data_format == "NLC", ceil_mode, return_mask=return_mask)
 
 
+@op("max_pool2d")
 def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
                ceil_mode=False, data_format="NCHW", name=None):
     return _pool(x, kernel_size, stride, padding, 2, "max",
                  data_format == "NHWC", ceil_mode, return_mask=return_mask)
 
 
+@op("max_pool3d")
 def max_pool3d(x, kernel_size, stride=None, padding=0, return_mask=False,
                ceil_mode=False, data_format="NCDHW", name=None):
     return _pool(x, kernel_size, stride, padding, 3, "max",
                  data_format == "NDHWC", ceil_mode, return_mask=return_mask)
 
 
+@op("avg_pool1d")
 def avg_pool1d(x, kernel_size, stride=None, padding=0, exclusive=True,
                ceil_mode=False, data_format="NCL", name=None):
     return _pool(x, kernel_size, stride, padding, 1, "avg",
                  data_format == "NLC", ceil_mode, exclusive)
 
 
+@op("avg_pool2d")
 def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                exclusive=True, divisor_override=None, data_format="NCHW",
                name=None):
@@ -174,6 +181,7 @@ def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                  data_format == "NHWC", ceil_mode, exclusive)
 
 
+@op("avg_pool3d")
 def avg_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                exclusive=True, divisor_override=None, data_format="NCDHW",
                name=None):
@@ -192,26 +200,32 @@ def _adaptive(x, output_size, n, op, channel_last, return_mask=False):
     return out.movedim(1, -1) if channel_last else out
 
 
+@op("adaptive_avg_pool1d")
 def adaptive_avg_pool1d(x, output_size, name=None):
     return _adaptive(x, output_size, 1, "avg", False)
 
 
+@op("adaptive_avg_pool2d")
 def adaptive_avg_pool2d(x, output_size, data_format="NCHW", name=None):
     return _adaptive(x, output_size, 2, "avg", data_format == "NHWC")
 
 
+@op("adaptive_avg_pool3d")
 def adaptive_avg_pool3d(x, output_size, data_format="NCDHW", name=None):
     return _adaptive(x, output_size, 3, "avg", data_format == "NDHWC")
 
 
+@op("adaptive_max_pool1d")
 def adaptive_max_pool1d(x, output_size, return_mask=False, name=None):
     return _adaptive(x, output_size, 1, "max", False, return_mask)
 
 
+@op("adaptive_max_pool2d")
 def adaptive_max_pool2d(x, output_size, return_mask=False, name=None):
     return _adaptive(x, output_size, 2, "max", False, return_mask)
 
 
+@op("adaptive_max_pool3d")
 def adaptive_max_pool3d(x, output_size, return_mask=False, name=None):
     return _adaptive(x, output_size, 3, "max", False, return_mask)
 
@@ -227,12 +241,14 @@ def _lp_pool(x, norm_type, kernel_size, stride, padding, ceil_mode, n,
     return (pooled * float(np.prod(k))) ** (1.0 / p)
 
 
+@op("lp_pool1d")
 def lp_pool1d(x, norm_type, kernel_size, stride=None, padding=0,
               ceil_mode=False, data_format="NCL", name=None):
     return _lp_pool(x, norm_type, kernel_size, stride, padding, ceil_mode,
                     1, data_format == "NLC")
 
 
+@op("lp_pool2d")
 def lp_pool2d(x, norm_type, kernel_size, stride=None, padding=0,
               ceil_mode=False, data_format="NCHW", name=None):
     return _lp_pool(x, norm_type, kernel_size, stride, padding, ceil_mode,

@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from ...core.dispatch import op
+
 
 def _lin(n, align_corners, device):
     if align_corners:
@@ -27,6 +29,7 @@ def _lin(n, align_corners, device):
     return torch.linspace(-half, half, n, dtype=torch.float64, device=device)
 
 
+@op("affine_grid")
 def affine_grid(theta, out_shape, align_corners=True, name=None):
     """``theta`` ``[N, 2, 3]`` -> the sampling grid ``[N, H, W, 2]`` (``[N,
     3, 4]`` -> ``[N, D, H, W, 3]``)."""
@@ -62,6 +65,7 @@ def _reflect(c, size, align_corners):
     return torch.clamp(m - 0.5, 0, size - 1)
 
 
+@op("grid_sample")
 def grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
                 align_corners=True, name=None):
     """Sample NCHW ``x`` at the normalised coordinates of ``grid`` ``[N, Hg,
@@ -107,6 +111,7 @@ def grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
     return out.permute(0, 3, 1, 2)
 
 
+@op("temporal_shift")
 def temporal_shift(x, seg_num, shift_ratio=0.25, data_format="NCHW",
                    name=None):
     """TSM's shift across the ``seg_num`` frames of each clip: the first

@@ -34,8 +34,9 @@ engine (the JAX package's public names, in PyTorch and stdlib idiom).
 * :class:`TrainStepTelemetry` (``telemetry.py``) — tokens/s and MFU of
   training steps as registry series and tracer instants.
 
-Not here yet: the op-bus subscribers ``subscribe_ops`` /
-``trace_dispatch`` (the ``run_op`` bus, A12).
+* :func:`subscribe_ops` / :func:`trace_dispatch` — subscribers of the op
+  bus (``core/dispatch.py::run_op``): a callback of every op's name and
+  host wall time, or a span per op on a tracer.
 
 Process-wide defaults: :func:`get_tracer` / :func:`get_registry` return
 one shared instance each.
@@ -114,3 +115,26 @@ from .tracer import (  # noqa: F401
     get_tracer,
     set_tracer,
 )
+
+
+def subscribe_ops(callback):
+    """Attach ``callback(op_name, wall_seconds)`` to the op bus beside any
+    other subscriber.  Returns a zero-argument remover."""
+    from ..core import dispatch
+
+    return dispatch.add_op_timer(callback)
+
+
+def trace_dispatch(tracer: "SpanTracer" = None, cat: str = "dispatch"):
+    """Record every op dispatch as a span on ``tracer`` (default: the
+    process tracer), after the fact from the bus's timing.  Returns a
+    zero-argument remover."""
+    import time
+
+    tr = tracer if tracer is not None else get_tracer()
+
+    def _on_op(name, dt):
+        end = time.perf_counter()
+        tr.add_span(name, end - dt, dt, cat=cat)
+
+    return subscribe_ops(_on_op)

@@ -14,6 +14,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.dispatch import run_op
+from ..nn.functional.common import embedding
+
 
 class VocabParallelEmbedding(nn.Module):
     """Token embedding, ``weight`` ``[num_embeddings, embedding_dim]``."""
@@ -27,7 +30,7 @@ class VocabParallelEmbedding(nn.Module):
             num_embeddings, embedding_dim, device=device, dtype=dtype))
 
     def forward(self, x):
-        return F.embedding(x, self.weight)
+        return embedding(x, self.weight)
 
 
 class _Linear(nn.Module):
@@ -43,7 +46,7 @@ class _Linear(nn.Module):
                      if has_bias else None)
 
     def forward(self, x):
-        return F.linear(x, self.weight, self.bias)
+        return run_op("linear", F.linear, x, self.weight, self.bias)
 
 
 class ColumnParallelLinear(_Linear):

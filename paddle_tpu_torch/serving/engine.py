@@ -197,8 +197,6 @@ def check_supported(config: EngineConfig) -> None:
             f"EngineConfig.role must be 'unified', 'prefill' or 'decode'; "
             f"got {config.role!r}")
     todo = (
-        (config.profile_ops, "profile_ops=True",
-         "the per-op dispatch timer (it rides the run_op op bus)", "A12"),
         (config.mp not in (None, 1), f"mp={config.mp}",
          "tensor-parallel serving", "A11"),
     )
@@ -1276,7 +1274,19 @@ class EngineCore:
     def step(self) -> Dict[object, int]:
         """One engine iteration: schedule → a decode burst, one packed
         step, or the legacy prefill and decode families → retire.  Returns
-        {request_id: last token} emitted this step."""
+        {request_id: last token} emitted this step.  With
+        ``profile_ops=True`` the step's op-bus dispatches are timed into
+        the metrics' "Host operator summary" (a replayed graph dispatches
+        nothing and adds no row), the timer released after the step."""
+        if not self.engine_config.profile_ops:
+            return self._step()
+        remove_timer = self.metrics.install_dispatch_timer()
+        try:
+            return self._step()
+        finally:
+            remove_timer()
+
+    def _step(self) -> Dict[object, int]:
         self.step_seq += 1
         self.kv.clock = self.step_seq  # park lifetimes tick in steps
         self.stepprof.begin_step()

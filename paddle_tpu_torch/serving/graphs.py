@@ -70,6 +70,7 @@ from typing import Callable, Dict, Hashable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core import dispatch
 from ..ops import counters
 from ..ops.counters import COUNTERS  # noqa: F401 (the counters replays advance)
 
@@ -222,8 +223,11 @@ class StepGraphs:
             collecting = gc.isenabled()
             gc.disable()
             try:
+                # the eager run above dispatched these ops: the capture
+                # adds no op-bus rows (dispatch.quiet)
                 with torch.cuda.graph(graph, pool=self._pool,
-                                      capture_error_mode="thread_local"):
+                                      capture_error_mode="thread_local"), \
+                        dispatch.quiet():
                     outputs = tuple(fn(*static))
             finally:
                 if collecting:

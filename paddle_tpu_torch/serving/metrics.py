@@ -63,6 +63,28 @@ class OpStat:
     def avg(self) -> float:
         return self.total / self.calls if self.calls else 0.0
 
+    def add(self, dt: float):
+        self.calls += 1
+        self.total += dt
+        self.max = max(self.max, dt)
+        self.min = min(self.min, dt)
+
+
+class HostOpRecorder:
+    """An op-bus subscriber (``core/dispatch.add_op_timer``) keeping an
+    :class:`OpStat` per op name (the JAX package's
+    ``profiler/statistic.HostOpRecorder``)."""
+
+    def __init__(self):
+        self.stats: Dict[str, OpStat] = {}
+
+    def __call__(self, name: str, dt: float):
+        name = str(name) if name else "<anonymous>"
+        stat = self.stats.get(name)
+        if stat is None:
+            stat = self.stats[name] = OpStat(name)
+        stat.add(dt)
+
 
 _UNIT = {"s": 1.0, "ms": 1e3, "us": 1e6, "ns": 1e9}
 
@@ -187,9 +209,19 @@ class ServingMetrics:
                                       **self.labels)
             for name in _GAUGE_NAMES
         }
+        self._host_ops: Optional[HostOpRecorder] = None
         self._stepprof = None  # StepProfiler, attached by the engine
         self._wire = None      # distrib.WireStats, attached by a
         # cross-process WorkerEngineProxy
+
+    def install_dispatch_timer(self):
+        """Subscribe this object's host-op table to the op bus (beside any
+        other subscriber); returns a zero-argument remover."""
+        from ..core import dispatch as _dispatch
+
+        if self._host_ops is None:
+            self._host_ops = HostOpRecorder()
+        return _dispatch.add_op_timer(self._host_ops)
 
     def attach_step_profiler(self, stepprof) -> None:
         """Bind the engine's :class:`~paddle_tpu_torch.observability.stepprof
@@ -468,6 +500,12 @@ class ServingMetrics:
             lines.append(f"{name:24s} {n:8d} {avg:>10s} {mx:>10s} {mn:>10s}")
         lines.append(bar)
         parts.append("\n".join(lines))
+
+        if self._host_ops is not None and self._host_ops.stats:
+            parts.append(summary_table(
+                self._host_ops.stats,
+                "Host operator summary (serving dispatch wall time)",
+                time_unit=time_unit))
 
         report = "\n\n".join(parts)
         print(report)

@@ -22,6 +22,8 @@ from ...nn.container import Sequential
 from ...nn.conv import Conv2D
 from ...nn.norm import BatchNorm2D
 from ...nn.pooling import AdaptiveAvgPool2D, MaxPool2D
+from ...tensor.manipulation import flatten
+from ...tensor.math import add
 
 
 def _kw(device, dtype, generator):
@@ -54,7 +56,7 @@ class BasicBlock(nn.Module):
         out = self.bn2(self.conv2(out))
         if self.downsample is not None:
             identity = self.downsample(x)
-        return self.relu(out + identity)
+        return self.relu(add(out, identity))
 
 
 class BottleneckBlock(nn.Module):
@@ -87,7 +89,7 @@ class BottleneckBlock(nn.Module):
         out = self.bn3(self.conv3(out))
         if self.downsample is not None:
             identity = self.downsample(x)
-        return self.relu(out + identity)
+        return self.relu(add(out, identity))
 
 
 _DEPTHS = {18: [2, 2, 2, 2], 34: [3, 4, 6, 3], 50: [3, 4, 6, 3],
@@ -150,7 +152,7 @@ class ResNet(nn.Module):
         if self.with_pool:
             x = self.avgpool(x)
         if self.num_classes > 0:
-            x = self.fc(x.flatten(1))
+            x = self.fc(flatten(x, 1))
         return x
 
 

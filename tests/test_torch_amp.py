@@ -12,8 +12,9 @@
   scaler: the scaled loss, the unscaled gradients, the skipped step on a
   planted inf, backoff after 2 bad steps and growth after
   ``incr_every_n_steps`` good ones, and ``state_dict``.
-* ``decorate`` at O1 (no master weights unless asked); O2 raises, naming
-  ROADMAP A12.
+* ``decorate`` at O1 (no master weights unless asked) and at O2 (the
+  parameters cast in place, masters on); ``tests/test_torch_amp_o2.py``
+  holds O2 to the JAX package.
 """
 
 import numpy as np
@@ -115,12 +116,18 @@ def test_o1_casts_only_white_listed_ops_and_custom_lists():
 
 
 def test_o2_raises_naming_a12_and_o1_decorate_keeps_params():
+    """(The name is from before the op bus: O2 raised naming A12.)  O2
+    now casts the parameters in place and keeps masters; O1 keeps them."""
+    lin2 = nn.Linear(2, 2)
+    opt2 = Momentum(parameters=lin2.parameters())
+    w = lin2.weight
+    with amp.auto_cast(level="O2"):
+        assert lin2(torch.ones(1, 2)).dtype == torch.bfloat16
+    m, o = amp.decorate(lin2, opt2, level="O2")
+    assert m is lin2 and o is opt2 and opt2._use_master_weights
+    assert lin2.weight is w and w.dtype == torch.bfloat16
     lin = nn.Linear(2, 2)
     opt = Momentum(parameters=lin.parameters())
-    with pytest.raises(NotImplementedError, match="A12"):
-        amp.auto_cast(level="O2")
-    with pytest.raises(NotImplementedError, match="A12"):
-        amp.decorate(lin, opt, level="O2")
     m, o = amp.decorate(lin, opt, level="O1")
     assert m is lin and o is opt and not opt._use_master_weights
     assert lin.weight.dtype == torch.float32

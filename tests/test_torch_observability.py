@@ -20,7 +20,7 @@ engine's registry surface, held to the JAX package's
   per-replica series, with the same series names and label sets as the
   JAX engines on the same registry setup; the ``ServingMetrics`` views
   (``counters``, ``latency``, ``slo_breakdown``, ``snapshot``,
-  ``summary``); ``profile_ops=True`` raises naming ROADMAP A12.
+  ``summary``); ``profile_ops=True``'s host operator table.
 * ``TestMetricsServer``: ``start_metrics_server(port=0)`` serves an
   engine's page byte-identical to ``metrics_page``, with the
   ``serving_step_*``, cache (``serving_pool_*``,
@@ -398,9 +398,17 @@ class TestServingObservability:
         assert "SLO breakdown" in m.summary()
 
     def test_profile_ops_raises_naming_a12(self, models):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            EngineCore(models[1], config=EngineConfig(
-                num_blocks=16, block_size=4, profile_ops=True))
+        """(The name is from before the op bus, when the setting raised
+        naming A12.)  ``profile_ops=True`` builds, serves, fills the host
+        operator table and releases its timer after each step."""
+        from paddle_tpu_torch.core import dispatch
+
+        eng = EngineCore(models[1], config=EngineConfig(
+            num_blocks=16, block_size=4, profile_ops=True))
+        tp.run(eng, SamplingParams, tp.prompts(n=2), max_new=3)
+        assert dispatch._op_timer is None
+        assert eng.metrics._host_ops.stats["linear"].calls > 0
+        assert "Host operator summary" in eng.metrics.summary()
 
 
 class TestMetricsServer:
