@@ -324,6 +324,34 @@ these phases, printing one JSON line for each:
              SM clock, power draw and temperature sampled by nvidia-smi
              before and after the window.  The ``kernels`` line's flash
              rows take their ``device_ms`` from this window.
+``mp_collectives``  the first of three phases run by rank processes that
+             the port's ``distributed.spawn`` starts (each loads the flash
+             kernels this process built; none runs nvcc): 2 ranks at
+             mp=2, or 4 at dp2 x mp2 where 4 cards are present; each rank
+             takes its own card over NCCL where the cards number at least
+             the ranks, else the ranks share ``cuda:0`` over gloo, chosen
+             explicitly (each line prints ``backend`` and ``cards``).
+             Every collective the mp layers and DataParallel issue
+             (all_reduce sum and max, async, bf16, all_gather,
+             broadcast) on the rank's card against values worked out on
+             the CPU from every rank's seeded inputs, then each timed at
+             the mp_train activation's shape ([2*4096, 4096] bf16).
+``mp_identity``  ``train_identity``'s model (Llama-3-8B widths, 2 layers,
+             fp32, B=1, S=1024) run here at mp=1 and by the ranks at mp=2
+             from the same seeded full weights: 3 AdamW steps with
+             global-norm clipping; the losses within 1e-4 relative, the
+             gathered first-step logits within 1e-4 of their largest
+             entry, each rank's flash kernels launched steps x layers
+             times on its own 16 query and 4 KV heads.
+``mp_train``  the train phase's model, seed and batches (Llama-3-8B full
+             width cut to 4 layers, bf16, B=2, S=4096) at mp=2 (dp2 x mp2
+             on 4 cards), each rank building only its slices: 1 warm-up
+             and 2 timed steps, then one step with every collective
+             synchronised and timed: ms a step, tokens/s, each rank's
+             peak memory, the collectives' calls and bytes a step and
+             their share of the timed step, each rank's flash launches
+             (steps x layers, on the tma route); the first loss within 1%
+             of the train phase's.
 ``gpt_train_identity``  GPT-3 6.7B widths (``GPTConfig()``: vocab 50304,
              hidden 4096, 32 heads of 128, MHA) cut to 2 layers, fp32,
              B=1, S=1024: 4 AdamW steps through the flash kernels, 4
@@ -520,7 +548,7 @@ these phases, printing one JSON line for each:
              ``eng.metrics.summary()``, the op timer released after each
              step, the same tokens and ragged-kernel launches.
 ``budget``   the sequence-model phases' and the later phases' seconds
-             beside the script's.
+             (the three mp phases' too) beside the script's.
 
 Then a line ``{"kernels": [...]}`` summarising each kernel at its main
 path's shapes (the ragged kernel at the unified serve step, the decode
@@ -530,7 +558,8 @@ burst-free serve_legacy, the train and the custom_op runs; the flash rows
 add ``gpt_train_launches``, ``vit_train_launches``,
 ``imagenet_fit_launches``, ``vit_train_device_ms`` and ``vit_shape``, their times and errors at ViT-B/16's shape, and the
 forward row ``jit_export_launches`` (the loaded ViT's, in its own
-process) and ``jit_partial_launches``, and ``amp_o2_launches``; the
+process) and ``jit_partial_launches``, ``amp_o2_launches``, and each
+rank's ``mp_identity_launches`` and ``mp_train_launches``; the
 ragged row ``profile_ops_launches``; every row adds ``seq2seq_launches``
 and ``vision_zoo_launches``, 0), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any
@@ -2919,26 +2948,64 @@ def train_identity_phase(torch, flash, fa, port):
          steps=steps, max_rel_loss_diff=rel, kernel=kern, composite=plain)
 
 
+TRAIN_LAYERS, TRAIN_SEED = 4, 4   # the train phase's depth and weights
+
+
+def llama_model(torch, port, layers, dtype, seed):
+    """Llama-3-8B's widths cut to ``layers``, drawn from a generator seeded
+    ``seed`` on this process's card: at mp > 1 each rank keeps its slices
+    of the same full tensors (one full tensor at a time)."""
+    device = torch.device("cuda", torch.cuda.current_device())
+    cfg = port.LlamaConfig.llama3_8b(num_hidden_layers=layers)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return cfg, port.LlamaForCausalLM(cfg, device=device, dtype=dtype,
+                                      generator=gen)
+
+
+def train_batches(torch, n):
+    """The train phase's first ``n`` batches of the synthetic corpus
+    (B=2, S=4096), on this process's card."""
+    rng = np.random.default_rng(0)
+    return [torch.from_numpy(corpus(rng, TRAIN_B, TRAIN_S)).cuda()
+            for _ in range(n)]
+
+
+def train_optimizer(port, model):
+    """The train phase's AdamW with fp32 master weights under its cosine
+    schedule: (schedule, optimizer)."""
+    sched = port.CosineAnnealingDecay(1e-4, T_max=10)
+    return sched, port.AdamW(learning_rate=sched,
+                             parameters=model.parameters(),
+                             weight_decay=0.01, multi_precision=True)
+
+
+def train_first_loss(torch, port):
+    """The train phase's first loss (its model on its first batch, before
+    any update) computed alone: what mp_train's first loss is held to when
+    the mp phases run without the train phase."""
+    cfg, model = llama_model(torch, port, TRAIN_LAYERS, torch.bfloat16,
+                             TRAIN_SEED)
+    ids, = train_batches(torch, 1)
+    with torch.no_grad():
+        loss = float(port.LlamaPretrainingCriterion(cfg)(model(ids), ids))
+    del model
+    free(torch)
+    return loss
+
+
 def train_phase(torch, flash, fa, port):
     """The main path: Llama-3-8B at full width cut to 4 layers, bf16
     parameters, AdamW with fp32 master weights under a cosine schedule, B=2
     and S=4096 on the synthetic corpus; 2 warm-up steps, then 8 timed."""
-    layers, warm, timed = 4, 2, 8
+    layers, warm, timed = TRAIN_LAYERS, 2, 8
     B, S = TRAIN_B, TRAIN_S
-    cfg = port.LlamaConfig.llama3_8b(num_hidden_layers=layers)
-    gen = torch.Generator(device="cuda").manual_seed(4)
     t0 = time.perf_counter()
-    model = port.LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
-                                  generator=gen)
+    cfg, model = llama_model(torch, port, layers, torch.bfloat16, TRAIN_SEED)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     criterion = port.LlamaPretrainingCriterion(cfg)
-    sched = port.CosineAnnealingDecay(1e-4, T_max=10)
-    opt = port.AdamW(learning_rate=sched, parameters=model.parameters(),
-                     weight_decay=0.01, multi_precision=True)
-    rng = np.random.default_rng(0)
-    batches = [torch.from_numpy(corpus(rng, B, S)).cuda()
-               for _ in range(warm + timed)]
+    sched, opt = train_optimizer(port, model)
+    batches = train_batches(torch, warm + timed)
     reset_flash_counts(flash)
     step_loss = lm_loss(model, criterion)
     losses = train_steps(step_loss, opt, batches[:warm], sched)
@@ -2977,7 +3044,7 @@ def train_phase(torch, flash, fa, port):
          * tokens_per_s / PEAK_FLOPS["bfloat16"],
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          kernel_launches=launches, model_build_s=build_s)
-    return launches, (model, criterion, opt, sched)
+    return launches, (model, criterion, opt, sched), losses
 
 
 def profile_window(torch, run, steps):
@@ -3040,6 +3107,446 @@ def train_profile_phase(torch, trainer, steps=2, label="train",
          flash_share=sum(v or 0.0 for v in flash_shares.values()),
          **window_summary(kernels, wall_us))
     return flash_device_ms
+
+
+# --- tensor- and data-parallel training (mp_collectives, mp_identity,
+# --- mp_train) -----------------------------------------------------------------
+
+# mp_identity's run, and mp_train's steps at the train phase's model,
+# seed and batches (2 warm-up, then 2 timed)
+MP_IDENTITY = dict(layers=2, B=1, S=1024, steps=3, seed=3, clip=1.0)
+MP_TRAIN = dict(warm=1, timed=2)
+MP_DEGREE = 2
+# the Llama-3-8B activation of the train phase's batch: [B*S, hidden]
+MP_ACTIVATION = (TRAIN_B * TRAIN_S, 4096)
+
+
+def mp_identity_reference(torch, port, ref_path):
+    """mp_identity's mp=1 run in this process: fp32, 3 AdamW steps with
+    global-norm clipping from the seeded weights; the first step's logits
+    go to ``ref_path`` for the ranks."""
+    p = MP_IDENTITY
+    cfg, model = llama_model(torch, port, p["layers"], torch.float32,
+                             p["seed"])
+    opt = port.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                     weight_decay=0.01,
+                     grad_clip=port.ClipGradByGlobalNorm(p["clip"]))
+    crit = port.LlamaPretrainingCriterion(cfg)
+    rng = np.random.default_rng(6)
+    batches = [torch.from_numpy(corpus(rng, p["B"], p["S"])).cuda()
+               for _ in range(p["steps"])]
+    losses, norm = [], None
+    for i, ids in enumerate(batches):
+        logits = model(ids)
+        loss = crit(logits, ids)
+        loss.backward()
+        if i == 0:
+            np.save(ref_path, logits.detach().float().cpu().numpy())
+            norm = float(torch.sqrt(sum(
+                torch.sum(q.grad.float() ** 2) for q in model.parameters())))
+        del logits
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss.detach()))
+    del model, opt
+    free(torch)
+    return {"losses": losses, "first_grad_norm": norm,
+            "clip_norm": p["clip"]}
+
+
+def mp_collectives_rank(torch, dist):
+    """Every collective the mp layers and DataParallel issue, on the rank's
+    device at the world's size, against values worked out on the CPU from
+    every rank's seeded inputs; then each timed at the mp_train
+    activation's shape (``[B*S, hidden]`` bf16)."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    dev = dist.env.rank_device()
+    shape = (256, 128)
+
+    def inputs(r):
+        g = np.random.default_rng(1000 + r)
+        return g.standard_normal(shape).astype(np.float32)
+
+    every = np.stack([inputs(r) for r in range(world)])
+    mine = torch.from_numpy(every[rank]).to(dev)
+    checks = {}
+
+    def check(name, got, want):
+        err = float(np.abs(got.float().cpu().numpy() - want).max())
+        if err > 1e-5 * max(1.0, float(np.abs(want).max())):
+            raise AssertionError(f"mp_collectives: {name} on rank {rank} "
+                                 f"is off by {err}")
+        checks[name] = err
+
+    t = mine.clone()
+    dist.all_reduce(t)
+    check("all_reduce_sum", t, every.sum(0))
+    t = mine.clone()
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    check("all_reduce_max", t, every.max(0))
+    t = mine.clone()
+    dist.all_reduce(t, sync_op=False).wait()     # DataParallel's buckets
+    check("all_reduce_async", t, every.sum(0))
+    parts = []
+    dist.all_gather(parts, mine)
+    check("all_gather", torch.cat(parts, -1), np.concatenate(every, -1))
+    t = mine.clone()
+    dist.broadcast(t, src=world - 1)
+    check("broadcast", t, every[-1])
+    b16 = mine.to(torch.bfloat16)
+    t = b16.clone()
+    dist.all_reduce(t)
+    want = sum(e.astype(np.float32) for e in
+               (torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+                for x in every))
+    err = float(np.abs(t.float().cpu().numpy() - want).max())
+    if err > 2e-2 * float(np.abs(want).max()):
+        raise AssertionError(f"mp_collectives: bf16 all_reduce off by {err}")
+    checks["all_reduce_bf16"] = err
+    # each at the mp_train activation's shape, bf16
+    big = torch.ones(MP_ACTIVATION, dtype=torch.bfloat16, device=dev)
+    times = {}
+    for name, run in (("all_reduce", lambda: dist.all_reduce(big.clone())),
+                      ("all_gather", lambda: dist.all_gather([], big)),
+                      ("broadcast", lambda: dist.broadcast(big, 0))):
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) / 3 * 1e3
+    return {"checks": checks, "ms": times,
+            "bytes": big.numel() * big.element_size()}
+
+
+def mp_flash_launches(flash):
+    return {"fwd": flash.fwd_launches, "dq": flash.dq_launches,
+            "dkv": flash.dkv_launches, "copy": flash.copy_launches,
+            "route": flash.last_route}
+
+
+def mp_reset_flash(flash):
+    reset_flash_counts(flash)
+    flash.copy_launches = 0
+    flash.last_route = None
+
+
+def mp_dp_half(ids, hcg):
+    """This dp rank's rows of a global batch."""
+    dp, n = hcg.get_data_parallel_rank(), hcg.get_data_parallel_world_size()
+    per = ids.shape[0] // n
+    return ids[dp * per:(dp + 1) * per]
+
+
+def mp_mean_loss(torch, dist, loss, hcg):
+    """The loss over the global batch: the mean of the dp ranks' means."""
+    t = loss.detach().float().clone()
+    dist.all_reduce(t, group=hcg.get_data_parallel_group())
+    return float(t) / hcg.get_data_parallel_world_size()
+
+
+def mp_identity_rank(torch, dist, port, flash, spec):
+    """mp_identity on this rank: the mp=1 run's model, weights and batches
+    at mp=2 (each dp replica the same batch), 3 AdamW steps with the clip;
+    rank 0 holds the gathered first-step logits to the mp=1 ones."""
+    p = MP_IDENTITY
+    hcg = port.topology.get_hybrid_communicate_group()
+    cfg, model = llama_model(torch, port, p["layers"], torch.float32,
+                             p["seed"])
+    heads = (model.llama.layers[0].self_attn.num_heads,
+             model.llama.layers[0].self_attn.num_kv_heads)
+    net = (port.DataParallel(model) if hcg.get_data_parallel_world_size() > 1
+           else model)
+    opt = port.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                     weight_decay=0.01,
+                     grad_clip=port.ClipGradByGlobalNorm(p["clip"]))
+    crit = port.LlamaPretrainingCriterion(cfg)
+    rng = np.random.default_rng(6)
+    batches = [torch.from_numpy(corpus(rng, p["B"], p["S"])).cuda()
+               for _ in range(p["steps"])]
+    mp_reset_flash(flash)
+    losses, logit_err, step_s = [], None, []
+    t0 = time.perf_counter()
+    for i, ids in enumerate(batches):
+        t1 = time.perf_counter()
+        logits = net(ids)
+        loss = crit(logits, ids)
+        loss.backward()
+        if i == 0 and dist.get_rank() == 0:
+            ref = np.load(spec["ref_logits"], mmap_mode="r")
+            got = logits.detach().float().cpu().numpy()
+            logit_err = float(np.abs(got - ref).max() / np.abs(ref).max())
+        del logits
+        opt.step()
+        opt.clear_grad()
+        losses.append(mp_mean_loss(torch, dist, loss, hcg))
+        step_s.append(time.perf_counter() - t1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = mp_flash_launches(flash)
+    del net, model, opt
+    free(torch)
+    return {"losses": losses, "logit_err": logit_err, "launches": launches,
+            "local_heads": heads, "seconds": seconds, "step_s": step_s}
+
+
+def mp_train_rank(torch, dist, port, flash, collective):
+    """mp_train on this rank: the train phase's model, seed and batches at
+    mp=2 (dp2 x mp2 on 4 cards), bf16 with fp32 masters, AdamW under the
+    cosine schedule; warm-up steps, timed steps, then one step with every
+    collective synchronised and timed (the collectives' share)."""
+    p = MP_TRAIN
+    hcg = port.topology.get_hybrid_communicate_group()
+    t0 = time.perf_counter()
+    cfg, model = llama_model(torch, port, TRAIN_LAYERS, torch.bfloat16,
+                             TRAIN_SEED)
+    build_s = time.perf_counter() - t0
+    net = (port.DataParallel(model) if hcg.get_data_parallel_world_size() > 1
+           else model)
+    sched, opt = train_optimizer(port, model)
+    crit = port.LlamaPretrainingCriterion(cfg)
+    steps = p["warm"] + p["timed"] + 1
+    batches = [mp_dp_half(ids, hcg) for ids in train_batches(torch, steps)]
+
+    def step(ids):
+        loss = crit(net(ids), ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        return loss
+
+    sync = torch.cuda.synchronize
+    mp_reset_flash(flash)
+    losses = [step(ids) for ids in batches[:p["warm"]]]
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    collective.reset_stats()
+    t0 = time.perf_counter()
+    losses += [step(ids) for ids in batches[p["warm"]:-1]]
+    sync()
+    wall = time.perf_counter() - t0
+    per_step = {k: {op: v / p["timed"] for op, v in c.items()}
+                for k, c in collective.stats.items() if k != "seconds"}
+    collective.reset_stats()
+    sync()
+    t0 = time.perf_counter()
+    with collective.timed():
+        losses.append(step(batches[-1]))
+        sync()
+    profiled = time.perf_counter() - t0
+    coll_s = sum(collective.stats["seconds"].values())
+    launches = mp_flash_launches(flash)
+    losses = [mp_mean_loss(torch, dist, x, hcg) for x in losses]
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(q.numel() for q in model.parameters())
+    del net, model, opt
+    free(torch)
+    tokens = TRAIN_B * TRAIN_S * p["timed"]
+    return {"losses": losses, "ms_per_step": wall / p["timed"] * 1e3,
+            "tokens_per_s": tokens / wall, "launches": launches,
+            "peak_memory_allocated": peak, "model_build_s": build_s,
+            "local_params": n_params, "collectives_per_step": per_step,
+            "profiled_step_ms": profiled * 1e3,
+            "collective_ms": {k: v * 1e3 for k, v in
+                              collective.stats["seconds"].items()},
+            "collective_share": coll_s / profiled, "steps": steps}
+
+
+def mp_rank_main(spec):
+    """One rank of the three mp phases, started by the port's ``spawn``:
+    it joins the process group on the backend the parent chose, lays the
+    ranks out at dp x mp=2, loads the flash kernels the parent built
+    (``_build`` finds their libraries; no nvcc runs here) and writes its
+    results to ``{out}/rank{r}.json``."""
+    t_entry = time.perf_counter()
+    import torch
+
+    from paddle_tpu_torch import convert, distributed as dist
+    from paddle_tpu_torch.distributed import collective, topology
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM, \
+        LlamaPretrainingCriterion
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops import _build, flash
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.lr import CosineAnnealingDecay
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_parallel_env(backend=spec["backend"])
+    rank = dist.get_rank()
+    prebuilt = _build.library_path(FLASH_NAME).exists()
+    port = SimpleNamespace(
+        LlamaConfig=LlamaConfig, LlamaForCausalLM=LlamaForCausalLM,
+        LlamaPretrainingCriterion=LlamaPretrainingCriterion, AdamW=AdamW,
+        CosineAnnealingDecay=CosineAnnealingDecay,
+        ClipGradByGlobalNorm=ClipGradByGlobalNorm, topology=topology,
+        DataParallel=dist.DataParallel, convert=convert)
+    out = {"rank": rank, "backend": dist.get_backend(),
+           "device": str(dist.env.rank_device()), "prebuilt": prebuilt,
+           "start_s": time.perf_counter() - t_entry}
+    t0 = time.perf_counter()
+    out["collectives"] = mp_collectives_rank(torch, dist)
+    out["collectives"]["seconds"] = time.perf_counter() - t0
+    topology.init_mesh(dp=dist.get_world_size() // MP_DEGREE, mp=MP_DEGREE)
+    t0 = time.perf_counter()
+    out["identity"] = mp_identity_rank(torch, dist, port, flash, spec)
+    out["identity"]["phase_s"] = time.perf_counter() - t0
+    dist.barrier()
+    t0 = time.perf_counter()
+    out["train"] = mp_train_rank(torch, dist, port, flash, collective)
+    out["train"]["phase_s"] = time.perf_counter() - t0
+    out["built_here"] = sorted(_build.build_logs)
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def mp_shape_flash_check(torch, flash):
+    """The three flash kernels against their twins at the shapes an mp=2
+    rank gives them: its 16 query and 4 KV heads of 128, causal, at
+    mp_train's (B=2, S=4096, bf16, on the tma route; dp2 x mp2 gives a rank
+    B=1 of the same rows) and at mp_identity's (B=1, S=1024, fp32, on the
+    fma route).  Every row must hold its tolerance and the planted fault
+    (each output's last 64-row tile zeroed) must fail.  Returns each
+    kernel's errors by dtype."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    H, Hkv, D = 32 // MP_DEGREE, 8 // MP_DEGREE, 128
+    checks, errors = [], {k: {} for k in FLASH_MARKS}
+    for dtype, B, S, route in ((torch.bfloat16, TRAIN_B, TRAIN_S, "tma"),
+                               (torch.float32, MP_IDENTITY["B"],
+                                MP_IDENTITY["S"], "fma")):
+        q, k, v, do = (torch.randn(B, S, n, D, device=dev, generator=gen)
+                       .to(dtype) for n in (H, Hkv, Hkv, H))
+        copies = flash.copy_launches
+        rec, _, _ = flash_check(torch, flash,
+                                f"mp rank shape {(B, S, H, Hkv)}", q, k, v,
+                                do, True, plant=True)
+        routed = {"copies": flash.copy_launches - copies,
+                  "route": flash.last_route}
+        if routed != {"copies": 0, "route": route}:
+            raise AssertionError(f"mp_shape_flash: {dtype} took {routed}, "
+                                 f"due 0 copies on route {route!r}")
+        name = str(dtype).split(".")[-1]
+        checks.append({"case": f"mp rank shape {(B, S, S, H, Hkv, D)} "
+                               f"causal=True", "dtype": name, **routed,
+                       **{f: rec[f] for f in ("row", "abs", "lse", "tol",
+                                              "planted")}})
+        for key in errors:
+            errors[key][name] = {"max_abs_err": kernel_err(rec, "abs", key),
+                                 "max_row_err": kernel_err(rec, "row", key)}
+        del q, k, v, do, rec
+        free(torch)
+    emit("mp_shape_flash", checks=checks)
+    return errors
+
+
+def mp_phases(torch, flash, port, train_loss0):
+    """mp_collectives, mp_identity and mp_train: the flash kernels against
+    their twins at a rank's shapes and the mp=1 identity run here, then one
+    world of ranks through the port's ``spawn`` running the three phases;
+    each phase's line from the ranks' results.  Where the cards number at
+    least the world, each rank takes its own card over NCCL; otherwise the
+    ranks share ``cuda:0`` over gloo, chosen explicitly.  Returns each
+    rank's flash launches of each phase, and the kernels' errors at the
+    rank's shapes."""
+    from paddle_tpu_torch.distributed.spawn import spawn
+
+    shape_errors = mp_shape_flash_check(torch, flash)
+    cards = torch.cuda.device_count()
+    world = 2 * MP_DEGREE if cards >= 2 * MP_DEGREE else MP_DEGREE
+    backend = "nccl" if cards >= world else "gloo"
+    dp = world // MP_DEGREE
+    out = tempfile.mkdtemp(prefix="mp_phases_")
+    try:
+        t0 = time.perf_counter()
+        ref = mp_identity_reference(torch, port,
+                                    os.path.join(out, "ref_logits.npy"))
+        ref_s = time.perf_counter() - t0
+        spec = {"out": out, "backend": backend,
+                "ref_logits": os.path.join(out, "ref_logits.npy")}
+        t0 = time.perf_counter()
+        spawn(mp_rank_main, args=(spec,), nprocs=world, backend=backend,
+              pg_timeout=300, timeout=900)
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    where = dict(backend=backend, cards=cards, world=world, dp=dp,
+                 mp=MP_DEGREE, devices=[r["device"] for r in ranks])
+    if any(r["backend"] != backend for r in ranks) or not all(
+            r["prebuilt"] and not r["built_here"] for r in ranks):
+        raise AssertionError(f"mp: the ranks ran "
+                             f"{[r['backend'] for r in ranks]}"
+                             f" (chose {backend}) or built kernels "
+                             f"themselves: {ranks}")
+    emit("mp_collectives", **where,
+         checks={r["rank"]: r["collectives"]["checks"] for r in ranks},
+         ms={r["rank"]: r["collectives"]["ms"] for r in ranks},
+         timed_bytes=ranks[0]["collectives"]["bytes"],
+         seconds=ranks[0]["collectives"]["seconds"],
+         rank_start_s={r["rank"]: r["start_s"] for r in ranks})
+
+    p = MP_IDENTITY
+    due = p["steps"] * p["layers"]
+    for r in ranks:
+        got = r["identity"]
+        rel = max(abs(a - b) / abs(b) for a, b in
+                  zip(got["losses"], ref["losses"]))
+        kern = {k: got["launches"][k] for k in ("fwd", "dq", "dkv")}
+        if not (np.isfinite(got["losses"]).all() and rel <= 1e-4):
+            raise AssertionError(f"mp_identity: rank {r['rank']} losses "
+                                 f"{got['losses']} against mp=1 "
+                                 f"{ref['losses']} (rel {rel})")
+        if kern != {k: due for k in kern}:
+            raise AssertionError(f"mp_identity: rank {r['rank']} launched "
+                                 f"{kern}, due {due} each")
+        got["max_rel_loss_diff"] = rel
+    err = ranks[0]["identity"]["logit_err"]
+    if not err <= 1e-4:
+        raise AssertionError(f"mp_identity: gathered logits off by {err} of "
+                             f"their largest entry")
+    emit("mp_identity", **where, layers=p["layers"], dtype="float32",
+         batch=p["B"], seq=p["S"], steps=p["steps"], clip_norm=p["clip"],
+         mp1=dict(ref, seconds=ref_s), logit_err=err,
+         ranks={r["rank"]: r["identity"] for r in ranks})
+
+    p = MP_TRAIN
+    due = ranks[0]["train"]["steps"] * TRAIN_LAYERS
+    for r in ranks:
+        got = r["train"]
+        kern = {k: got["launches"][k] for k in ("fwd", "dq", "dkv")}
+        route_ok = (got["launches"]["route"] == "tma"
+                    and got["launches"]["copy"] == 0)
+        if kern != {k: due for k in kern} or not route_ok:
+            raise AssertionError(f"mp_train: rank {r['rank']} launched "
+                                 f"{got['launches']}, due {due} each on "
+                                 f"the tma route")
+    first = ranks[0]["train"]["losses"][0]
+    rel = abs(first - train_loss0) / abs(train_loss0)
+    if not (np.isfinite(ranks[0]["train"]["losses"]).all() and rel <= 0.01):
+        raise AssertionError(f"mp_train: first loss {first} against the "
+                             f"train phase's {train_loss0} (rel {rel})")
+    emit("mp_train", **where, model="llama3_8b", layers=TRAIN_LAYERS,
+         dtype="bfloat16", batch=TRAIN_B, seq=TRAIN_S,
+         warmup_steps=p["warm"], timed_steps=p["timed"],
+         profiled_steps=1, first_loss_vs_train=rel,
+         train_first_loss=train_loss0,
+         ranks={r["rank"]: r["train"] for r in ranks},
+         spawn_s=spawn_s,
+         note="collective_share: one more step with every collective "
+              "synchronised before and after and timed on the host clock, "
+              "over that step's wall time")
+    return {"identity": {r["rank"]: r["identity"]["launches"]
+                         for r in ranks},
+            "train": {r["rank"]: r["train"]["launches"] for r in ranks},
+            "shape": shape_errors}
 
 
 # --- custom-op phase ----------------------------------------------------------
@@ -7845,7 +8352,8 @@ def main() -> int:
         LlamaPretrainingCriterion=LlamaPretrainingCriterion, AdamW=AdamW,
         CosineAnnealingDecay=CosineAnnealingDecay)
     train_identity_phase(torch, flash, fa, port)
-    train_launches, trainer = train_phase(torch, flash, fa, port)
+    train_launches, trainer, train_losses = train_phase(torch, flash, fa,
+                                                        port)
     # the flash kernels' device time a launch, read by the profiler inside
     # a training step (a back-to-back window of the flash phase recorded
     # no flash kernel: PERF.md section 7)
@@ -7853,6 +8361,16 @@ def main() -> int:
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
+    # tensor- and data-parallel training: the collectives, the mp=2
+    # identity against mp=1 and the train phase's model at mp=2, in rank
+    # processes started by the port's spawn
+    mp_start = time.perf_counter()
+    mp_out = mp_phases(torch, flash, SimpleNamespace(
+        LlamaConfig=LlamaConfig, LlamaForCausalLM=LlamaForCausalLM,
+        LlamaPretrainingCriterion=LlamaPretrainingCriterion, AdamW=AdamW,
+        ClipGradByGlobalNorm=port_nn.ClipGradByGlobalNorm),
+        train_losses[0])
+    mp_seconds = time.perf_counter() - mp_start
     # GPT pre-training (MHA through the flash kernels), BERT/ERNIE
     # fine-tuning and checkpoints
     port = SimpleNamespace(
@@ -7977,6 +8495,11 @@ def main() -> int:
         "jit_partial_launches": partial_launches if key == "fwd" else 0,
         "vision_zoo_launches": zoo_launches[key],
         "amp_o2_launches": o2_launches[key],
+        "mp_identity_launches": {r: n[key] for r, n in
+                                 mp_out["identity"].items()},
+        "mp_train_launches": {r: n[key] for r, n in
+                              mp_out["train"].items()},
+        "mp_shape": mp_out["shape"][key],
         "device_ms": flash_device[key],
         "vit_train_device_ms": vit_device[key],
         "vit_shape": vit_flash[key],
@@ -7988,7 +8511,7 @@ def main() -> int:
     # the time budget: the sequence-model phases and the whole script
     emit("budget", sequence_phases_s=seq_seconds,
          export_partial_zoo_s=new_seconds, bus_amp_o2_s=o2_seconds,
-         limit_s=1200)
+         mp_phases_s=mp_seconds, limit_s=1200)
     print(json.dumps({"kernels": [{
         "name": KERNEL_NAME, "route": "cuda",
         "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",

@@ -85,6 +85,8 @@ from .tensor import (  # noqa: F401,A004,E402
 
 from . import amp, io, jit, metric, nn, optimizer, text, vision  # noqa: F401,E402,E501
 from . import base, regularizer, serving, static  # noqa: F401,E402
+from . import distributed, parallel  # noqa: F401,E402
+from .distributed.parallel import DataParallel  # noqa: F401,E402
 from .framework import CPUPlace, CUDAPlace, load, save  # noqa: F401,E402
 from .hapi.model import Model  # noqa: F401,E402
 from .hapi.summary import flops, summary  # noqa: F401,E402

@@ -10,6 +10,13 @@ arrays.  Names map one to one, the persistent buffers too (BatchNorm's
 ``[out, in]`` here, so they are transposed, and conv weights are OIHW in
 both.  A missing, extra or misshaped key raises.
 
+At mp > 1 (a hybrid topology with an mp group of more than one rank) a
+model's tensor-parallel parameters are its rank's slices:
+:func:`shard_paddle_tpu_state` cuts each rank's slice out of the JAX
+package's full arrays (numpy, in the JAX layout), and
+``llama_from_paddle_tpu`` / ``gpt_from_paddle_tpu`` load it, so the ranks
+together hold the JAX model's weights and compute what it computes.
+
 The optimizer's state crosses through :func:`optimizer_state_from_paddle_tpu`
 and :func:`optimizer_state_to_paddle_tpu`.  Both optimizers key a slot
 ``"p{i}/{slot}"`` by the parameter's position in the list they were built
@@ -39,6 +46,7 @@ from .models.llama import LlamaConfig, LlamaForCausalLM
 from .nn.common import Linear
 from .nn.layers import walk_named
 from .parallel.mp_layers import ColumnParallelLinear, RowParallelLinear
+from .parallel.utils import is_sharded, local_shard
 from .vision import models as vision_models
 
 _LINEAR = (ColumnParallelLinear, RowParallelLinear, Linear)
@@ -96,16 +104,20 @@ def state_from_paddle_tpu(jax_layer) -> Dict[str, np.ndarray]:
     return out
 
 
-def load_paddle_tpu_state(model, state) -> None:
-    """Copy the JAX ``state_dict`` ``state`` into ``model`` in place."""
-    linear = linear_weights(model)
-    params = _state_tensors(model)
+def _check_keys(model, params, state) -> None:
     missing = sorted(set(params) - set(state))
     extra = sorted(set(state) - set(params))
     if missing or extra:
         raise KeyError(f"state dict does not match the port's "
                        f"{type(model).__name__}: missing {missing}, "
                        f"unexpected {extra}")
+
+
+def load_paddle_tpu_state(model, state) -> None:
+    """Copy the JAX ``state_dict`` ``state`` into ``model`` in place."""
+    linear = linear_weights(model)
+    params = _state_tensors(model)
+    _check_keys(model, params, state)
     with torch.no_grad():
         for name, p in params.items():
             t = _as_tensor(state[name])
@@ -135,17 +147,58 @@ def to_paddle_tpu(model) -> Dict[str, np.ndarray]:
     return out
 
 
+def shard_paddle_tpu_state(state, model, mp_rank=None,
+                           mp_degree=None) -> Dict[str, np.ndarray]:
+    """The JAX ``state_dict`` ``state`` cut to ``model``'s parameters: the
+    slice of each tensor-parallel one that rank ``mp_rank`` of ``mp_degree``
+    holds, as numpy arrays in the JAX layout (the others whole).  The rank
+    and degree default to the model's own (its mp group's), and must match
+    them when given."""
+    linear = linear_weights(model)
+    params = _state_tensors(model)
+    _check_keys(model, params, state)
+    out = {}
+    for name, p in params.items():
+        a = state[name]
+        if isinstance(a, torch.Tensor):
+            a = _as_tensor(a).float().numpy() if a.dtype == torch.bfloat16 \
+                else _as_tensor(a).numpy()
+        a = np.asarray(a)
+        if is_sharded(p):
+            g = p.mp_group
+            rank = g.rank if mp_rank is None else mp_rank
+            degree = g.nranks if mp_degree is None else mp_degree
+            if (rank, degree) != (g.rank, g.nranks):
+                raise ValueError(
+                    f"{name}: asked for rank {rank} of mp {degree}; the "
+                    f"model is rank {g.rank} of mp {g.nranks}")
+            dim = p.split_axis
+            if name in linear:
+                dim = 1 - dim       # the JAX layout is [in, out]
+            a = local_shard(a, dim, rank, degree, p.split_blocks)
+        out[name] = np.ascontiguousarray(a)
+    return out
+
+
 def llama_from_paddle_tpu(state, config: LlamaConfig, device=None,
-                          dtype=None) -> LlamaForCausalLM:
+                          dtype=None, mp_rank=None,
+                          mp_degree=None) -> LlamaForCausalLM:
+    """The port's Llama with the JAX model's weights: at mp > 1, rank
+    ``mp_rank``'s slices of them (:func:`shard_paddle_tpu_state`)."""
     model = LlamaForCausalLM(config, device=device, dtype=dtype)
-    load_paddle_tpu_state(model, state)
+    load_paddle_tpu_state(model, shard_paddle_tpu_state(
+        state, model, mp_rank, mp_degree))
     return model
 
 
 def gpt_from_paddle_tpu(state, config: GPTConfig, device=None,
-                        dtype=None) -> GPTForCausalLM:
+                        dtype=None, mp_rank=None,
+                        mp_degree=None) -> GPTForCausalLM:
+    """The port's GPT with the JAX model's weights: at mp > 1, rank
+    ``mp_rank``'s slices of them (:func:`shard_paddle_tpu_state`)."""
     model = GPTForCausalLM(config, device=device, dtype=dtype)
-    load_paddle_tpu_state(model, state)
+    load_paddle_tpu_state(model, shard_paddle_tpu_state(
+        state, model, mp_rank, mp_degree))
     return model
 
 

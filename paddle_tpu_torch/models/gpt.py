@@ -18,6 +18,14 @@ Each step the JAX model dispatches is an op of the bus under the JAX name
 ``layer_norm``, ``tied_head``), so ``amp.auto_cast`` casts what the JAX
 package casts and ``amp.debugging.low_precision_op_list`` counts the same.
 
+With a hybrid topology of mp > 1 the layers are tensor-parallel as in the
+JAX package: the fused QKV projection is column-parallel in three blocks
+(each rank holds its ``heads/mp`` heads of Q, of K and of V, in the JAX
+column order), the MLP's first layer column-parallel, the attention output
+and the MLP's second layer row-parallel, the embedding vocab-parallel and
+the tied head's logits gathered (``parallel_matmul``); position embeddings
+and the LayerNorms are whole on every rank.
+
 ``recompute`` checkpoints each decoder layer in training
 (``torch.utils.checkpoint``); ``scan_layers=True`` takes the same module
 loop (the JAX ``lax.scan`` is a compile-time device with the same math).
@@ -43,10 +51,12 @@ from ..parallel.mp_layers import (
     ColumnParallelLinear,
     RowParallelLinear,
     VocabParallelEmbedding,
+    parallel_matmul,
 )
 from ..parallel.ring_attention import ring_flash_attention
+from ..parallel.utils import axis_group
 from ..tensor.math import add
-from .llama import LlamaPretrainingCriterion
+from .llama import LlamaPretrainingCriterion, check_mp_degree
 
 
 @dataclass
@@ -85,10 +95,13 @@ class GPTAttention(nn.Module):
         super().__init__()
         self.config = config
         h = config.hidden_size
-        self.num_heads = config.num_attention_heads
+        self.num_heads = config.num_attention_heads // axis_group("mp").nranks
         kw = dict(device=device, dtype=dtype)
-        self.qkv_proj = ColumnParallelLinear(h, 3 * h, True, **kw)
-        self.o_proj = RowParallelLinear(h, h, True, **kw)
+        self.qkv_proj = ColumnParallelLinear(h, 3 * h, True,
+                                             gather_output=False,
+                                             fused_blocks=3, **kw)
+        self.o_proj = RowParallelLinear(h, h, True, input_is_parallel=True,
+                                        **kw)
 
     def forward(self, x):
         B, S = x.shape[0], x.shape[1]
@@ -111,9 +124,11 @@ class GPTMLP(nn.Module):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.fc_in = ColumnParallelLinear(
-            config.hidden_size, config.intermediate_size, True, **kw)
+            config.hidden_size, config.intermediate_size, True,
+            gather_output=False, **kw)
         self.fc_out = RowParallelLinear(
-            config.intermediate_size, config.hidden_size, True, **kw)
+            config.intermediate_size, config.hidden_size, True,
+            input_is_parallel=True, **kw)
 
     def forward(self, x):
         return self.fc_out(F.gelu(self.fc_in(x), approximate=True))
@@ -188,6 +203,7 @@ class GPTForCausalLM(nn.Module):
     def __init__(self, config: GPTConfig, device=None, dtype=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        check_mp_degree(config, axis_group("mp").nranks)
         device = resolve_device(device)
         dtype = dtype if dtype is not None else getattr(torch, config.dtype)
         self.config = config
@@ -205,13 +221,15 @@ class GPTForCausalLM(nn.Module):
         for m in self.modules():
             if isinstance(m, (ColumnParallelLinear, RowParallelLinear,
                               VocabParallelEmbedding)):
-                m.weight.normal_(0.0, std, generator=generator)
+                m.init_normal_(std, generator)
 
     def forward(self, input_ids, pp_microbatches: Optional[int] = None):
         h = self.gpt(input_ids, pp_microbatches=pp_microbatches)
         if self.lm_head is None:
-            return run_op("tied_head", lambda a, w: a @ w.T, h,
-                          self.gpt.embed_tokens.weight)
+            emb = self.gpt.embed_tokens
+            return run_op("tied_head",
+                          lambda a, w: parallel_matmul(a, w, emb.group), h,
+                          emb.weight)
         return self.lm_head(h)
 
 

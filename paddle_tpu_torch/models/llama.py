@@ -20,8 +20,19 @@ The attention takes the routes of the JAX model's forward:
   decode step (``paged_attention``, the CUDA decode kernel on the card).
 
 ``LlamaPretrainingCriterion`` is the shifted next-token cross-entropy of
-the JAX package.  What waits: MoE layers (``num_experts > 0``), mp > 1,
-pipeline micro-batches and 1F1B — ROADMAP A11.
+the JAX package.
+
+Tensor parallelism follows the JAX layout (``paddle_tpu/models/llama.py``
+``LlamaAttention``, ``LlamaMLP``, ``LlamaForCausalLM``): with a hybrid
+topology of mp > 1 (``distributed.topology.init_mesh``) each rank holds
+``H/mp`` query heads and ``Hkv/mp`` KV heads (q, k, v column-parallel with
+their outputs left sliced, o row-parallel), the MLP's ``I/mp`` columns, the
+embedding's ``V/mp`` rows and the LM head's ``V/mp`` columns, whose logits
+are gathered; the no-cache attention runs the flash kernels on the rank's
+own heads.  mp must divide the heads, the KV heads, the intermediate size
+and the vocabulary, or the model raises.  What waits: the cached routes
+(serving) at mp > 1, MoE layers (``num_experts > 0``), pipeline
+micro-batches and 1F1B — ROADMAP A11.
 """
 
 from __future__ import annotations
@@ -45,8 +56,10 @@ from ..parallel.mp_layers import (
     ColumnParallelLinear,
     RowParallelLinear,
     VocabParallelEmbedding,
+    parallel_matmul,
 )
 from ..parallel.ring_attention import ring_flash_attention
+from ..parallel.utils import axis_group
 
 
 @dataclass
@@ -69,7 +82,7 @@ class LlamaConfig:
     # decoder layer in training; use_flash_attention=False pins the
     # composite attention paths (the kernels stay off for this model);
     # scan_layers runs the same module loop (the JAX scan is a compile-time
-    # device with the same math); sequence_parallel is mp > 1 (A11)
+    # device with the same math); sequence_parallel waits for ROADMAP A11
     sequence_parallel: bool = False
     recompute: bool = False
     use_flash_attention: bool = True
@@ -141,6 +154,20 @@ class LlamaConfig:
         return cls(**defaults)
 
 
+def check_mp_degree(config, mp: int) -> None:
+    """mp must divide the heads, the KV heads, the intermediate size and
+    the vocabulary: each rank holds whole heads and equal slices."""
+    sizes = {"num_attention_heads": config.num_attention_heads,
+             "num_key_value_heads": getattr(config, "num_key_value_heads",
+                                            config.num_attention_heads),
+             "intermediate_size": config.intermediate_size,
+             "vocab_size": config.vocab_size}
+    bad = {k: v for k, v in sizes.items() if v % mp}
+    if bad:
+        raise ValueError(f"mp degree {mp} does not divide "
+                         + ", ".join(f"{k}={v}" for k, v in bad.items()))
+
+
 def _rope_tables(head_dim: int, max_pos: int, theta: float):
     """cos/sin tables ``[max_pos, head_dim / 2]`` in fp32, computed in numpy
     exactly as the JAX package computes them."""
@@ -171,16 +198,21 @@ class LlamaAttention(nn.Module):
         super().__init__()
         self.config = config
         h, hd = config.hidden_size, config.head_dim
-        self.num_heads = config.num_attention_heads
-        self.num_kv_heads = config.num_key_value_heads
+        self.mp = axis_group("mp").nranks
+        # this rank's heads (all of them at mp=1)
+        self.num_heads = config.num_attention_heads // self.mp
+        self.num_kv_heads = config.num_key_value_heads // self.mp
         bias = config.attention_bias
         kw = dict(device=device, dtype=dtype)
-        self.q_proj = ColumnParallelLinear(h, self.num_heads * hd, bias, **kw)
-        self.k_proj = ColumnParallelLinear(h, self.num_kv_heads * hd, bias,
-                                           **kw)
-        self.v_proj = ColumnParallelLinear(h, self.num_kv_heads * hd, bias,
-                                           **kw)
-        self.o_proj = RowParallelLinear(self.num_heads * hd, h, False, **kw)
+        col = dict(kw, gather_output=False)
+        self.q_proj = ColumnParallelLinear(
+            h, config.num_attention_heads * hd, bias, **col)
+        self.k_proj = ColumnParallelLinear(
+            h, config.num_key_value_heads * hd, bias, **col)
+        self.v_proj = ColumnParallelLinear(
+            h, config.num_key_value_heads * hd, bias, **col)
+        self.o_proj = RowParallelLinear(config.num_attention_heads * hd, h,
+                                        False, input_is_parallel=True, **kw)
         cos, sin = _rope_tables(hd, config.max_position_embeddings,
                                 config.rope_theta)
         self.register_buffer("_rope_cos", torch.from_numpy(cos).to(device),
@@ -196,6 +228,11 @@ class LlamaAttention(nn.Module):
         v = self.v_proj(x).reshape(B, S, self.num_kv_heads, hd)
         if cache is not None and pos is None:
             raise ValueError("a cached forward needs the tokens' positions")
+        if cache is not None and self.mp > 1:
+            raise NotImplementedError(
+                "the cached attention routes (serving, generate) at mp > 1 "
+                "are not ported yet (ROADMAP A11); the no-cache forward "
+                "trains at any mp degree")
         if pos is None:
             cos, sin = self._rope_cos[None, :S], self._rope_sin[None, :S]
         else:
@@ -323,9 +360,12 @@ class LlamaMLP(nn.Module):
         super().__init__()
         h, ff = config.hidden_size, config.intermediate_size
         kw = dict(device=device, dtype=dtype)
-        self.gate_proj = ColumnParallelLinear(h, ff, False, **kw)
-        self.up_proj = ColumnParallelLinear(h, ff, False, **kw)
-        self.down_proj = RowParallelLinear(ff, h, False, **kw)
+        self.gate_proj = ColumnParallelLinear(h, ff, False,
+                                              gather_output=False, **kw)
+        self.up_proj = ColumnParallelLinear(h, ff, False,
+                                            gather_output=False, **kw)
+        self.down_proj = RowParallelLinear(ff, h, False,
+                                           input_is_parallel=True, **kw)
 
     def forward(self, x):
         return self.down_proj(
@@ -410,6 +450,7 @@ class LlamaForCausalLM(nn.Module):
             raise NotImplementedError(
                 "MoE layers (num_experts > 0) are not ported yet "
                 "(ROADMAP A11); this slice serves the dense Llama")
+        check_mp_degree(config, axis_group("mp").nranks)
         device = resolve_device(device)
         dtype = dtype if dtype is not None else getattr(torch, config.dtype)
         self.config = config
@@ -422,18 +463,23 @@ class LlamaForCausalLM(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """Each weight drawn whole from ``generator``, in module order; at
+        mp > 1 a rank keeps its slice, so every degree starts from the same
+        full weights and no rank holds more than one full tensor at a
+        time."""
         std = self.config.initializer_range
         for m in self.modules():
             if isinstance(m, (ColumnParallelLinear, RowParallelLinear,
                               VocabParallelEmbedding)):
-                m.weight.normal_(0.0, std, generator=generator)
+                m.init_normal_(std, generator)
 
     def forward(self, input_ids, pp_microbatches: Optional[int] = None,
                 caches=None, pos=None):
         h = self.llama(input_ids, pp_microbatches=pp_microbatches,
                        caches=caches, pos=pos)
         if self.lm_head is None:
-            return h @ self.llama.embed_tokens.weight.T
+            emb = self.llama.embed_tokens
+            return parallel_matmul(h, emb.weight, emb.group)
         return self.lm_head(h)
 
     def train_batch_1f1b(self, input_ids, labels, n_microbatch: int,
@@ -454,6 +500,9 @@ class LlamaForCausalLM(nn.Module):
         Returns ``[B, T0 + n]`` int64 on the CPU (``n <= max_new_tokens``;
         it stops early once every row has emitted ``eos_token_id``)."""
         cfg = self.config
+        if axis_group("mp").nranks > 1:
+            raise NotImplementedError(
+                "generate at mp > 1 is not ported yet (ROADMAP A11)")
         ids = (input_ids.detach().cpu().long()
                if isinstance(input_ids, torch.Tensor) else
                torch.as_tensor(np.asarray(input_ids), dtype=torch.int64))

@@ -17,6 +17,14 @@ division (``torch.full_like(x, clip_norm) / x``): torch computes a Python
 number over a tensor as a reciprocal and a product, which can differ from
 JAX's quotient in the last bit.
 
+At mp > 1 a parameter that is a rank's slice of a tensor-parallel weight
+(``parallel/utils.py::mark_sharded``) holds only part of its
+gradient: the global norm sums the slices' squares, per mp group, with an
+all-reduce over the group, and adds each replicated parameter's once (every
+mp rank holds the same copy), so every rank gets the whole model's norm and
+the same scale.  A norm taken rank by rank would be short by the other
+ranks' slices.
+
 ``clip_grad_norm_`` and ``clip_grad_value_`` act on the parameters'
 ``.grad`` as torch's functions of those names do, with the JAX formulas
 (``max_norm / (total + 1e-6)``, capped at 1).  They take a tensor, a list
@@ -46,6 +54,13 @@ def _scaled(g, scale):
 
 def _sum_sq(g):
     return torch.sum(torch.square(g.float()))
+
+
+def _shard_group(p):
+    """The mp group a parameter is a slice over (``parallel/utils.py``'s
+    ``mark_sharded``), None for a whole (replicated) one."""
+    group = getattr(p, "mp_group", None)
+    return group if group is not None and group.nranks > 1 else None
 
 
 class ClipGradBase:
@@ -94,11 +109,23 @@ class ClipGradByGlobalNorm(ClipGradBase):
         self.clip_norm = clip_norm
 
     def _global_norm_sq(self, params_grads):
-        total = None
+        total, sharded = None, {}
         for p, g in params_grads:
             if _skipped(p, g):
                 continue
             s = _sum_sq(g)
+            group = _shard_group(p)
+            if group is not None:
+                key = id(group)
+                prev = sharded.get(key, (group, None))[1]
+                sharded[key] = (group, s if prev is None else prev + s)
+                continue
+            total = s if total is None else total + s
+        for group, s in sharded.values():
+            # a slice's squares summed over its group: the whole tensor's
+            from ..distributed import collective
+
+            collective.all_reduce(s, group=group)
             total = s if total is None else total + s
         return total
 

@@ -1,5 +1,5 @@
 """Normalisation layers: the port of ``paddle_tpu/nn/norm.py``
-(``SpectralNorm`` waits for ROADMAP A12; ``SyncBatchNorm`` for A11).
+(``SpectralNorm`` waits for ROADMAP A12).
 
 The batch norms keep the JAX package's state: learned ``weight`` (ones)
 and ``bias`` (zeros), and the fp32 buffers ``_mean`` (zeros) and
@@ -14,6 +14,9 @@ from torch import nn
 
 from .common import make_parameter
 from .functional.norm import (
+    _bn_apply,
+    _bn_update,
+    _channel_axis,
     batch_norm,
     group_norm,
     instance_norm,
@@ -121,20 +124,103 @@ class BatchNorm3D(_BatchNormBase):
                          device, dtype)
 
 
-class SyncBatchNorm(_BatchNormBase):
-    """Cross-replica batch norm: needs the port's collectives (ROADMAP
-    A11)."""
+class _SumOverGroup(torch.autograd.Function):
+    """All-reduce (sum) over a group forward; the gradient, which every
+    rank's output sends back to the sum, all-reduced backward."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "SyncBatchNorm needs the port's distributed collectives "
-            "(ROADMAP A11); use BatchNorm2D on one card")
+    @staticmethod
+    def forward(ctx, x, group):
+        from ..distributed import collective
+
+        ctx.group = group
+        return collective.all_reduced(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..distributed import collective
+
+        return collective.all_reduced(g, ctx.group), None
+
+
+class SyncBatchNorm(_BatchNormBase):
+    """Batch norm whose training statistics are the whole dp group's
+    batch's: each rank's per-channel sums are all-reduced over the
+    topology's dp group (else the world), the mean first and then the
+    squared deviations from it (the two passes of ``var_mean``), and the
+    running statistics take the group's batch size in their ``n / (n -
+    1)``.  The JAX layer is one process holding the whole batch; the port's
+    ranks, each holding its share, compute its outputs and running
+    statistics, and gradients whose sum over the ranks is its gradient.
+    Without a group of more than one rank, or in eval, it is
+    :class:`BatchNorm`."""
+
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-05,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None, device=None, dtype=None):
+        super().__init__(num_features, momentum, epsilon, weight_attr,
+                         bias_attr, data_format, None, name, device, dtype)
+
+    @staticmethod
+    def _group():
+        from ..distributed import collective, topology
+
+        hcg = topology.get_hybrid_communicate_group()
+        return (hcg.get_data_parallel_group() if hcg is not None
+                else collective.world_group())
+
+    def forward(self, x):
+        group = self._group() if self.training else None
+        if group is None or group.nranks == 1:
+            return super().forward(x)
+        ca = _channel_axis(x, self.data_format)
+        axes = tuple(i for i in range(x.dim()) if i != ca)
+        shape = [1] * x.dim()
+        shape[ca] = -1
+        xf = x.to(torch.float32)
+        n_local = xf.numel() // xf.shape[ca]
+        sums = torch.cat([xf.sum(dim=axes),
+                          torch.full((1,), float(n_local), device=x.device)])
+        sums = _SumOverGroup.apply(sums, group)
+        n = sums[-1].detach()
+        mean = sums[:-1] / n
+        dev = torch.square(xf - mean.reshape(shape)).sum(dim=axes)
+        var = _SumOverGroup.apply(dev, group) / n
+        with torch.no_grad():
+            unbias = n / torch.clamp(n - 1, min=1)    # no host read
+            self._mean.copy_(_bn_update(self._mean, mean.detach(),
+                                        self.momentum, 1.0))
+            self._variance.copy_(
+                (self.momentum * self._variance + (1 - self.momentum)
+                 * var.detach() * unbias).to(self._variance.dtype))
+        return _bn_apply(x, mean, var, self.weight, self.bias, shape,
+                         self.epsilon, xf)
 
     @classmethod
     def convert_sync_batchnorm(cls, layer):
-        raise NotImplementedError(
-            "SyncBatchNorm needs the port's distributed collectives "
-            "(ROADMAP A11)")
+        """``layer`` with every batch norm in it replaced by a
+        ``SyncBatchNorm`` holding its parameters and running statistics
+        (``layer`` itself when it is a batch norm: its replacement)."""
+        if isinstance(layer, _BatchNormBase) and not isinstance(
+                layer, SyncBatchNorm):
+            w = layer.weight if layer.weight is not None else layer._mean
+            out = cls(layer.num_features, layer.momentum, layer.epsilon,
+                      weight_attr=False if layer.weight is None else None,
+                      bias_attr=False if layer.bias is None else None,
+                      data_format=layer.data_format, device=w.device,
+                      dtype=w.dtype)
+            with torch.no_grad():
+                for name in ("weight", "bias"):
+                    if getattr(layer, name) is not None:
+                        getattr(out, name).copy_(getattr(layer, name))
+                out._mean.copy_(layer._mean)
+                out._variance.copy_(layer._variance)
+            out.train(layer.training)
+            return out
+        for name, child in list(layer.named_children()):
+            new = cls.convert_sync_batchnorm(child)
+            if new is not child:
+                setattr(layer, name, new)
+        return layer
 
 
 class GroupNorm(nn.Module):

@@ -404,8 +404,11 @@ def test_shm_ring_library_lands_in_the_ignored_build_directory():
     assert path.exists()
 
 
-def _draws(m):
-    """(worker id, draws of that worker so far, the draw) per sample."""
+def _draws(m, barrier_dir):
+    """(worker id, draws of that worker so far, the draw) per sample.  A
+    worker's first sample waits until both workers have started one (a
+    barrier of marker files in ``barrier_dir``), so both always draw; the
+    wait draws nothing."""
     class Draws(m.Dataset):
         calls = 0
 
@@ -413,23 +416,30 @@ def _draws(m):
             return 8
 
         def __getitem__(self, i):
-            time.sleep(0.02)      # spread the tasks over both workers
-            Draws.calls += 1
             info = m.get_worker_info()
+            if Draws.calls == 0:
+                (barrier_dir / f"started_{info.id}").touch()
+                deadline = time.monotonic() + 60
+                while len(list(barrier_dir.glob("started_*"))) < 2:
+                    if time.monotonic() > deadline:
+                        raise TimeoutError("the other worker never started")
+                    time.sleep(0.005)
+            Draws.calls += 1
             return np.asarray([info.id, Draws.calls - 1, np.random.rand()])
 
     return Draws()
 
 
 @pytest.mark.parametrize("package", ["jax", "port"])
-def test_workers_start_from_the_parents_generator_state(package):
+def test_workers_start_from_the_parents_generator_state(package, tmp_path):
     """ROADMAP C5: neither pool seeds its workers, so worker w's k-th draw
     is the parent's k-th draw after the fork, whatever w."""
     m = jio if package == "jax" else pio
     kw = {} if package == "jax" else {"places": "cpu"}
     np.random.seed(9)
     want = np.random.RandomState(9).rand(8)
-    loader = m.DataLoader(_draws(m), batch_size=1, num_workers=2, **kw)
+    loader = m.DataLoader(_draws(m, tmp_path), batch_size=1, num_workers=2,
+                          **kw)
     rows = [np.asarray(b.numpy() if package == "jax" else b)[0]
             for b in loader]
     if package == "jax":

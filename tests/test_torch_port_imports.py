@@ -118,12 +118,26 @@ MUST_CHECK = ("utils/__init__.py", "utils/extension.py",
               "tensor/manipulation.py", "tensor/linalg.py",
               "tensor/logic.py", "tensor/search.py", "tensor/random.py",
               "nn/layers.py", "base/__init__.py", "base/param_attr.py",
-              "amp/debugging.py")
+              "amp/debugging.py",
+              # dp x mp training: the JAX collectives, topology, launcher,
+              # DataParallel, fleet and mp layers are jax code
+              "distributed/env.py", "distributed/collective.py",
+              "distributed/communication/__init__.py",
+              "distributed/communication/stream.py",
+              "distributed/topology.py", "distributed/spawn.py",
+              "distributed/parallel.py", "distributed/launch/main.py",
+              "distributed/fleet/__init__.py",
+              "distributed/fleet/distributed_strategy.py",
+              "distributed/fleet/meta_parallel.py",
+              "distributed/fleet/utils.py", "parallel/__init__.py",
+              "parallel/mp_layers.py", "parallel/random.py",
+              "parallel/utils.py")
 
 
 def _port_files():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                          REPO / "chip_ab.py"]
+                                          REPO / "chip_ab.py",
+                                          REPO / "chip_mp.py"]
     assert len(files) > 20 and all(f.exists() for f in files)
     assert {PORT / m for m in MUST_CHECK} <= set(files)
     return files
@@ -369,15 +383,24 @@ def test_vision_models_without_a_card_raise(monkeypatch, name):
 
 
 def test_unported_amp_and_jit_parts_raise_naming_their_items():
-    """SyncBatchNorm needs the collectives (A11); a weight decay of
+    """A pipeline degree needs the pipeline (A11); a weight decay of
     L1Decay is not ported (A12).  jit.save (ported since A13 item 3)
     raises as the JAX one does without an input_spec.  (AMP O2 raised
-    here until the op bus; ``tests/test_torch_amp_o2.py`` holds it.)"""
+    here until the op bus, ``tests/test_torch_amp_o2.py`` holds it;
+    SyncBatchNorm raised naming A11 until the port had collectives, and on
+    one rank it is a BatchNorm, ``tests/test_torch_mp_layers.py`` holds it
+    at dp=4.)"""
     from paddle_tpu_torch import jit, nn, regularizer
+    from paddle_tpu_torch.distributed import topology
     from paddle_tpu_torch.optimizer import Momentum
 
     with pytest.raises(NotImplementedError, match="A11"):
-        nn.SyncBatchNorm(4)
+        topology.init_mesh(pp=2)
+    x = torch.randn(4, 4, 3, 3)
+    sync, plain = nn.SyncBatchNorm(4, device="cpu"), nn.BatchNorm2D(4)
+    torch.testing.assert_close(sync(x), plain(x), rtol=0, atol=0)
+    torch.testing.assert_close(sync._variance, plain._variance, rtol=0,
+                               atol=0)
     with pytest.raises(ValueError, match="input_spec"):
         jit.save(nn.Linear(2, 2), "x")
     lin = nn.Linear(2, 2)

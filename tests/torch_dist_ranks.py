@@ -1,0 +1,471 @@
+"""Rank bodies of the port's distributed CPU tests.
+
+``tests/test_torch_collective.py``, ``tests/test_torch_mp_layers.py`` and
+``tests/test_torch_tp_training.py`` each start one world of 4 ranks with
+``paddle_tpu_torch.distributed.spawn`` (gloo on the CPU) running one
+function of this module; each rank writes what it computed to
+``{out}/{name}_rank{r}.npz`` and the test holds it against the JAX package
+run in the test's own process.  This module imports torch and the port
+only: a spawned rank never imports JAX.
+
+The inputs every side computes from are made here too
+(``collective_inputs``), so the ranks and the JAX side read the same
+numbers.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+WORLD = 4
+PG_TIMEOUT = 90      # seconds a collective may wait for a peer
+JOIN_TIMEOUT = 240   # seconds the test waits for the whole world
+
+
+def start_world(func, *args):
+    """Start ``func(*args)`` on 4 gloo ranks through the port's ``spawn``,
+    with the process group's and the join's own timeouts; ``join()`` the
+    returned context."""
+    from paddle_tpu_torch.distributed.spawn import spawn
+
+    return spawn(func, args=args, nprocs=WORLD, backend="gloo",
+                 pg_timeout=PG_TIMEOUT, timeout=JOIN_TIMEOUT, join=False)
+
+
+def spawn_world(func, *args):
+    """``func(*args)`` on 4 gloo ranks, waited for."""
+    start_world(func, *args).join()
+
+
+def load(out, name, rank):
+    with np.load(os.path.join(out, f"{name}_rank{rank}.npz")) as f:
+        return {k: f[k] for k in f.files}
+
+
+def _init():
+    torch.set_num_threads(1)
+    from paddle_tpu_torch import distributed as dist
+
+    dist.init_parallel_env()
+    return dist
+
+
+def _save(out, name, **arrays):
+    from paddle_tpu_torch import distributed as dist
+
+    np.savez(os.path.join(out, f"{name}_rank{dist.get_rank()}.npz"),
+             **{k: np.asarray(v) for k, v in arrays.items()})
+
+
+def _np(t):
+    return t.detach().cpu().numpy().copy()     # never a view of the tensor
+
+
+# --- collectives --------------------------------------------------------------
+
+def collective_inputs(rank: int) -> dict:
+    """Rank ``rank``'s inputs of every collective case."""
+    rng = np.random.default_rng(100 + rank)
+    return {"x": rng.standard_normal((3, 4)).astype(np.float32),
+            "pos": rng.uniform(0.5, 1.5, (3, 4)).astype(np.float32),
+            "blocks": rng.standard_normal((WORLD * 2, 4)).astype(np.float32),
+            "parts": rng.standard_normal((WORLD, 2)).astype(np.float32),
+            "scatter": rng.standard_normal((WORLD, 3)).astype(np.float32)}
+
+
+def collectives_rank(out):
+    dist = _init()
+    from paddle_tpu_torch.distributed import collective, topology
+    from paddle_tpu_torch.distributed.communication import stream
+
+    rank = dist.get_rank()
+    inp = {k: torch.from_numpy(v) for k, v in collective_inputs(rank).items()}
+    res = {"rank": rank, "world": dist.get_world_size()}
+    R = dist.ReduceOp
+    for name, op, key in (("sum", R.SUM, "x"), ("max", R.MAX, "x"),
+                          ("min", R.MIN, "x"), ("prod", R.PROD, "pos"),
+                          ("avg", R.AVG, "x")):
+        t = inp[key].clone()
+        task = dist.all_reduce(t, op=op)
+        assert task.is_completed()
+        res[f"all_reduce_{name}"] = _np(t)
+    gathered = []
+    dist.all_gather(gathered, inp["x"])
+    res["all_gather"] = np.stack([_np(g) for g in gathered])
+    # a full output list is written in place, element by element
+    full = [torch.zeros(3, 4) for _ in range(WORLD)]
+    ids = [id(t) for t in full]
+    dist.all_gather(full, inp["x"])
+    assert [id(t) for t in full] == ids
+    res["all_gather_inplace"] = np.stack([_np(g) for g in full])
+    rs = torch.zeros(2, 4)
+    dist.reduce_scatter(rs, inp["blocks"])
+    res["reduce_scatter"] = _np(rs)
+    rs_list = torch.zeros(2, 4)
+    dist.reduce_scatter(rs_list, list(inp["blocks"].chunk(WORLD)))
+    res["reduce_scatter_list"] = _np(rs_list)
+    b = inp["x"].clone()
+    dist.broadcast(b, src=2)
+    res["broadcast"] = _np(b)
+    sc = torch.zeros(3)
+    dist.scatter(sc, list(inp["scatter"]) if rank == 1 else None, src=1)
+    res["scatter"] = _np(sc)
+    red = inp["x"].clone()
+    dist.reduce(red, dst=3)
+    res["reduce"] = _np(red)
+    a2a = []
+    dist.alltoall(a2a, list(inp["parts"]))
+    res["alltoall"] = np.stack([_np(t) for t in a2a])
+    single = torch.zeros(WORLD * 2, 4)
+    dist.alltoall_single(single, inp["blocks"])
+    res["alltoall_single"] = _np(single)
+    # the ring: each rank sends x to the next, receives from the previous
+    got = torch.zeros(3, 4)
+    send = dist.isend(inp["x"], dst=(rank + 1) % WORLD)
+    recv = dist.irecv(got, src=(rank - 1) % WORLD)
+    send.wait()
+    recv.wait()
+    res["ring"] = _np(got)
+    # sync_op=False: the tensor and the list hold the result after wait()
+    t = inp["x"].clone()
+    task = dist.all_reduce(t, sync_op=False)
+    task.wait()
+    assert task.is_completed()
+    res["async_all_reduce"] = _np(t)
+    lst = []
+    task = dist.all_gather(lst, inp["x"], sync_op=False)
+    task.wait()
+    res["async_all_gather"] = np.stack([_np(g) for g in lst])
+    t = inp["x"].clone()
+    stream.all_reduce(t, sync_op=False, use_calc_stream=True)
+    res["stream_all_reduce"] = _np(t)
+    # a group of ranks 1 and 3; the others are not members
+    sub = dist.new_group([1, 3])
+    t = inp["x"].clone()
+    dist.all_reduce(t, group=sub)
+    res["subgroup"] = _np(t)
+    res["subgroup_rank"] = sub.rank
+    dist.barrier()
+    # the backend's refusal names the backend
+    real = collective.dist.all_reduce
+
+    def refuse(*args, **kwargs):
+        raise RuntimeError("ProcessGroupGloo::allreduce: unsupported device "
+                           "type")
+
+    collective.dist.all_reduce = refuse
+    try:
+        dist.all_reduce(inp["x"].clone())
+    except NotImplementedError as e:
+        res["refusal"] = str(e)
+    finally:
+        collective.dist.all_reduce = real
+    # the topology at dp2 x mp2
+    mesh = topology.init_mesh(dp=2, mp=2)
+    hcg = topology.get_hybrid_communicate_group()
+    res["hcg"] = np.array([hcg.get_data_parallel_rank(),
+                           hcg.get_model_parallel_rank(),
+                           hcg.get_data_parallel_world_size(),
+                           hcg.get_model_parallel_world_size()])
+    res["mp_group"] = np.array(hcg.get_model_parallel_group().ranks)
+    res["dp_group"] = np.array(hcg.get_data_parallel_group().ranks)
+    res["mesh"] = mesh.ranks
+    t = inp["x"].clone()
+    dist.all_reduce(t, group=hcg.get_model_parallel_group())
+    res["mp_all_reduce"] = _np(t)
+    res["calls"] = np.array([collective.stats["calls"]["all_reduce"],
+                             collective.stats["calls"]["all_gather"]])
+    _save(out, "collectives", **res)
+    dist.destroy_process_group()
+
+
+def failing_rank(out):
+    """Rank 2 raises; the others wait in a collective for it."""
+    dist = _init()
+    if dist.get_rank() == 2:
+        raise ValueError("rank 2 fails on purpose")
+    dist.all_reduce(torch.ones(2))
+
+
+def hanging_rank(out, seconds):
+    """Rank 1 sleeps ``seconds`` before the all-reduce the others wait in."""
+    import time
+
+    dist = _init()
+    if dist.get_rank() == 1:
+        time.sleep(seconds)
+    dist.all_reduce(torch.ones(2))
+
+
+# --- the tensor-parallel layers, clipping, the RNG tracker, SyncBatchNorm,
+# --- DataParallel ---------------------------------------------------------------
+
+def unshard(local, param, group):
+    """The full tensor of ``param``'s slices ``local`` (a gradient) over
+    ``group``: each rank's slice of every block, in rank order."""
+    from paddle_tpu_torch.distributed import collective
+
+    if getattr(param, "mp_group", None) is None:
+        return local
+    parts = []
+    collective.all_gather(parts, local.contiguous(), group=group)
+    dim, blocks = param.split_axis, param.split_blocks
+    chunks = [p.chunk(blocks, dim) for p in parts]
+    return torch.cat([c[b] for b in range(blocks) for c in chunks], dim)
+
+
+def _load_weight(layer, arrays, prefix, linear=True):
+    """Set ``layer``'s parameters from the JAX layout's full arrays."""
+    from paddle_tpu_torch.parallel.utils import param_shard
+
+    with torch.no_grad():
+        for name, p in layer.named_parameters():
+            full = torch.from_numpy(arrays[f"{prefix}.{name}"])
+            if linear and name == "weight":
+                full = full.T
+            p.copy_(param_shard(p, full.contiguous()))
+
+
+def _grads(layer, group, prefix, res, linear=True):
+    for name, p in layer.named_parameters():
+        g = unshard(p.grad, p, group)
+        if linear and name == "weight":
+            g = g.T
+        res[f"{prefix}.{name}.grad"] = _np(g)
+
+
+def mp_layers_rank(out, arrays_path):
+    dist = _init()
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed import topology
+    from paddle_tpu_torch.parallel import (
+        ColumnParallelLinear,
+        ParallelCrossEntropy,
+        RowParallelLinear,
+        VocabParallelEmbedding,
+        random as mp_random,
+    )
+
+    a = dict(np.load(arrays_path))
+    topology.init_mesh(mp=WORLD)
+    group = topology.get_hybrid_communicate_group().get_model_parallel_group()
+    res = {}
+    # tests/test_parallel.py::test_column_row_pair_matches_dense
+    col = ColumnParallelLinear(16, 32, gather_output=False)
+    row = RowParallelLinear(32, 16, input_is_parallel=True)
+    _load_weight(col, a, "pair.col")
+    _load_weight(row, a, "pair.row")
+    x = torch.from_numpy(a["pair.x"]).requires_grad_()
+    y = row(col(x))
+    (y * torch.from_numpy(a["pair.dy"])).sum().backward()
+    res["pair.out"] = _np(y)
+    res["pair.x.grad"] = _np(x.grad)
+    _grads(col, group, "pair.col", res)
+    _grads(row, group, "pair.row", res)
+    # the global-norm clip over the pair's gradients: sliced and whole ones
+    pairs = [(p, p.grad) for p in list(col.parameters()) +
+             list(row.parameters())]
+    clipped = nn.ClipGradByGlobalNorm(float(a["clip_norm"]))(pairs)
+    for (p, g), name in zip(clipped, ["col.weight", "col.bias", "row.weight",
+                                      "row.bias"]):
+        g = unshard(g, p, group)
+        res[f"clip.{name}"] = _np(g.T if name.endswith("weight") else g)
+    # test_column_parallel_grads
+    col = ColumnParallelLinear(8, 16, gather_output=True)
+    _load_weight(col, a, "gather.col")
+    x = torch.from_numpy(a["gather.x"])
+    y = col(x)
+    y.sum().backward()
+    res["gather.out"] = _np(y)
+    _grads(col, group, "gather.col", res)
+    # test_vocab_parallel_embedding
+    emb = VocabParallelEmbedding(32, 16)
+    _load_weight(emb, a, "emb", linear=False)
+    y = emb(torch.from_numpy(a["emb.ids"]))
+    (y * torch.from_numpy(a["emb.dy"])).sum().backward()
+    res["emb.out"] = _np(y)
+    _grads(emb, group, "emb", res, linear=False)
+    # test_2d_input_tp_layers, and a row layer slicing a full input
+    col = ColumnParallelLinear(16, 8, gather_output=False)
+    row = RowParallelLinear(8, 16, input_is_parallel=True)
+    _load_weight(col, a, "flat.col")
+    _load_weight(row, a, "flat.row")
+    y = row(col(torch.from_numpy(a["flat.x"])))
+    y.sum().backward()
+    res["flat.out"] = _np(y)
+    _grads(col, group, "flat.col", res)
+    _grads(row, group, "flat.row", res)
+    row = RowParallelLinear(16, 8, input_is_parallel=False)
+    _load_weight(row, a, "split.row")
+    x = torch.from_numpy(a["split.x"]).requires_grad_()
+    y = row(x)
+    (y * torch.from_numpy(a["split.dy"])).sum().backward()
+    res["split.out"] = _np(y)
+    res["split.x.grad"] = _np(x.grad)
+    _grads(row, group, "split.row", res)
+    # ParallelCrossEntropy over the rank's vocab slice
+    logits = torch.from_numpy(a["ce.logits"])
+    per = logits.shape[-1] // WORLD
+    r = group.rank
+    local = logits[:, r * per:(r + 1) * per].clone().requires_grad_()
+    loss = ParallelCrossEntropy()(local, torch.from_numpy(a["ce.labels"]))
+    loss.backward()
+    res["ce.loss"] = _np(loss)
+    parts = []
+    dist.all_gather(parts, local.grad, group=group)
+    res["ce.grad"] = _np(torch.cat(parts, -1))
+    # the RNG tracker at dp2 x mp2: mp ranks differ inside, agree outside
+    topology.init_mesh(dp=2, mp=2)
+    mp_random.model_parallel_random_seed(1234)
+    outside = torch.rand(4)
+    with mp_random.dropout_state():
+        inside = torch.rand(4)
+        dropped = nn.functional.dropout(torch.ones(8), 0.5)
+    after = torch.rand(4)
+    with mp_random.dropout_state():
+        inside2 = torch.rand(4)
+    res.update(rng_outside=_np(outside), rng_inside=_np(inside),
+               rng_dropout=_np(dropped), rng_after=_np(after),
+               rng_inside2=_np(inside2))
+    # SyncBatchNorm over a dp group of 4: each rank a quarter of the batch
+    topology.init_mesh(dp=WORLD)
+    bn = nn.SyncBatchNorm(3, device="cpu")
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(a["bn.weight"]))
+        bn.bias.copy_(torch.from_numpy(a["bn.bias"]))
+    rank = dist.get_rank()
+    q = a["bn.x"].shape[0] // WORLD
+    x = torch.from_numpy(a["bn.x"][rank * q:(rank + 1) * q]).requires_grad_()
+    y = bn(x)
+    (y * torch.from_numpy(a["bn.dy"][rank * q:(rank + 1) * q])).sum() \
+        .backward()
+    res.update({"bn.out": _np(y), "bn.x.grad": _np(x.grad),
+                "bn.weight.grad": _np(bn.weight.grad),
+                "bn.bias.grad": _np(bn.bias.grad),
+                "bn.mean": _np(bn._mean), "bn.variance": _np(bn._variance)})
+    converted = nn.SyncBatchNorm.convert_sync_batchnorm(
+        torch.nn.Sequential(nn.BatchNorm2D(3), torch.nn.ReLU()))
+    res["bn.converted"] = type(converted[0]).__name__
+    # DataParallel over the 4 ranks: small buckets, then no_sync
+    model = torch.nn.Sequential(nn.Linear(6, 5), torch.nn.Tanh(),
+                                nn.Linear(5, 3))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(torch.from_numpy(a[f"dp.{name}"]))
+    ddp = dist.DataParallel(model, comm_buffer_size=0.00005)
+    q = a["dp.x"].shape[0] // WORLD
+    xs = torch.from_numpy(a["dp.x"][rank * q:(rank + 1) * q])
+    ddp(xs).square().mean().backward()
+    for name, p in model.named_parameters():
+        res[f"dp.{name}.grad"] = _np(p.grad)
+        p.grad = None
+    with ddp.no_sync():
+        ddp(xs).square().mean().backward()
+    res["dp.local.0.weight.grad"] = _np(model[0].weight.grad)
+    ddp(xs).square().mean().backward()
+    for name, p in model.named_parameters():
+        res[f"dp.accum.{name}.grad"] = _np(p.grad)
+    # the buckets torch's reducer settled on after the first backward
+    sizes = ddp._ddp._get_ddp_logging_data()["rebuilt_bucket_sizes"]
+    res["dp.buckets"] = len(sizes.split(","))
+    _save(out, "mp_layers", **res)
+    dist.destroy_process_group()
+
+
+# --- tensor- and data-parallel training -----------------------------------------
+
+def tp_training_rank(out, path):
+    """Tiny Llama at dp2 x mp2 through ``fleet``: 3 clipped AdamW steps on
+    the JAX weights; then tiny GPT at mp=4: its logits on the JAX
+    weights."""
+    dist = _init()
+    from paddle_tpu_torch import convert, nn
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import (
+        GPTConfig,
+        LlamaConfig,
+        LlamaForCausalLM,
+        LlamaPretrainingCriterion,
+    )
+    from paddle_tpu_torch.optimizer import AdamW
+
+    a = dict(np.load(path))
+    res = {}
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 2, "mp_degree": 2}
+    fleet.init(is_collective=True, strategy=strategy)
+    hcg = fleet.get_hybrid_communicate_group()
+    dp, mp = hcg.get_data_parallel_rank(), hcg.get_model_parallel_rank()
+    mp_group, dp_group = (hcg.get_model_parallel_group(),
+                          hcg.get_data_parallel_group())
+    state = {k[6:]: v for k, v in a.items() if k.startswith("llama.")}
+    cfg = LlamaConfig.tiny(num_hidden_layers=2)
+    model = convert.llama_from_paddle_tpu(state, cfg, device="cpu",
+                                          mp_rank=mp, mp_degree=2)
+    try:
+        convert.shard_paddle_tpu_state(state, model, mp_rank=1 - mp,
+                                       mp_degree=2)
+    except ValueError as e:
+        res["wrong_rank"] = str(e)
+    res["local_heads"] = np.array([model.llama.layers[0].self_attn.num_heads,
+                                   model.llama.layers[0].self_attn
+                                   .num_kv_heads])
+    ddp = fleet.distributed_model(model)
+    res["wrapped"] = type(ddp).__name__
+    crit = LlamaPretrainingCriterion(cfg)
+    opt = fleet.distributed_optimizer(AdamW(
+        learning_rate=1e-3, parameters=model.parameters(), weight_decay=0.01,
+        grad_clip=nn.ClipGradByGlobalNorm(float(a["clip_norm"]))))
+    ids = torch.from_numpy(a["ids"])
+    half = ids.shape[0] // 2
+    local = ids[dp * half:(dp + 1) * half]
+    linear = convert.linear_weights(model)
+    losses = []
+    for step in range(3):
+        logits = ddp(local)
+        loss = crit(logits, local)
+        loss.backward()
+        if step == 0:
+            res["logits0"] = _np(logits)
+            for name, p in model.named_parameters():
+                g = unshard(p.grad, p, mp_group)
+                res[f"grad.{name}"] = _np(g.T if name in linear else g)
+        opt.step()
+        opt.clear_grad()
+        mean = loss.detach().clone()
+        dist.all_reduce(mean, group=dp_group)
+        losses.append(float(mean) / dp_group.nranks)
+    res["losses"] = np.array(losses)
+    pipeline = fleet.DistributedStrategy()
+    pipeline.hybrid_configs = {"dp_degree": 2, "pp_degree": 2}
+    try:
+        fleet.init(is_collective=True, strategy=pipeline)
+    except NotImplementedError as e:
+        res["pp_error"] = str(e)
+    mp4 = fleet.DistributedStrategy()
+    mp4.hybrid_configs = {"mp_degree": WORLD}     # dp inferred: 1
+    fleet.init(is_collective=True, strategy=mp4)
+    res["mp4_topology"] = np.array(
+        [fleet.get_hybrid_communicate_group().topology()[k]
+         for k in ("dp", "mp")])
+    try:
+        LlamaForCausalLM(cfg, device="cpu")
+    except ValueError as e:
+        res["mp4_error"] = str(e)
+    gstate = {k[4:]: v for k, v in a.items() if k.startswith("gpt.")}
+    gcfg = GPTConfig.tiny()
+    gpt = convert.gpt_from_paddle_tpu(gstate, gcfg, device="cpu")
+    res["gpt_wrapped"] = type(fleet.distributed_model(gpt)).__name__
+    gids = torch.from_numpy(a["gpt_ids"])
+    glogits = gpt(gids)
+    gloss = LlamaPretrainingCriterion()(glogits, gids)
+    gloss.backward()
+    res["gpt_logits"] = _np(glogits)
+    res["gpt_loss"] = _np(gloss)
+    qkv = gpt.gpt.layers[0].attn.qkv_proj.weight
+    res["gpt_qkv_grad"] = _np(unshard(qkv.grad, qkv, qkv.mp_group).T)
+    _save(out, "tp_training", **res)
+    dist.destroy_process_group()
