@@ -14,15 +14,99 @@ processes started by the port's ``spawn``, two over gloo on one card or
 four at dp2 x mp2 over NCCL where four cards are present.  It prints the
 card line, the phase lines and the phases' seconds, and exits nonzero when
 a phase fails.
+
+``python3 chip_mp.py --serve`` runs ``chip_smoke``'s ``mp_serve`` instead,
+at full depth (32 layers) over NCCL with a card a rank (two cards at
+least): it builds B1 and B2, starts 2 ranks through the port's ``spawn``,
+each runs ``chip_smoke.mp_serve_rank`` on the serve phase's 16 prompts of
+256-2048 tokens (64 greedy tokens each), and prints one ``mp_serve_nccl``
+line: tokens/s, mean TTFT and ITL, each rank's peak memory, launches and
+collectives, the collectives' share of a synchronised window.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import shutil
 import sys
+import tempfile
 import time
 from types import SimpleNamespace
 
+import numpy as np
+
 import chip_smoke as cs
+
+SERVE_LAYERS = 32    # the serve phase's depth
+
+
+def serve_rank_main(spec):
+    """One NCCL rank of ``--serve``: ``chip_smoke.mp_serve_rank`` at full
+    depth; rank 0 writes both ranks' rows to ``{out}/rank{r}.json``."""
+    import torch
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.distributed import collective, topology
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import paged_decode as pd
+    from paddle_tpu_torch.ops import ragged_paged as rp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_parallel_env()
+    rank = dist.get_rank()
+    topology.init_mesh(mp=cs.MP_DEGREE)
+    port = SimpleNamespace(serving=serving, LlamaConfig=LlamaConfig,
+                           LlamaForCausalLM=LlamaForCausalLM)
+    row, _ = cs.mp_serve_rank(torch, port, rp, pd, collective, spec, rank,
+                              layers=SERVE_LAYERS)
+    row.update(backend=dist.get_backend(),
+               device=str(dist.env.rank_device()))
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(row, f)
+    dist.destroy_process_group()
+
+
+def serve_main(torch) -> int:
+    """``--serve``: mp_serve at full depth over NCCL, a card a rank."""
+    from paddle_tpu_torch.distributed.spawn import spawn
+    from paddle_tpu_torch.ops import _build
+
+    if torch.cuda.device_count() < cs.MP_DEGREE:
+        print("chip_mp --serve: NCCL needs a card a rank", file=sys.stderr)
+        return 2
+    t0 = time.perf_counter()
+    _build.build([cs.KERNEL_NAME, cs.DECODE_NAME])
+    cs.emit("build", kernels=[cs.KERNEL_NAME, cs.DECODE_NAME],
+            seconds=time.perf_counter() - t0)
+    rng = np.random.default_rng(2)     # the serve phase's prompts
+    prompts = [rng.integers(0, 128256, int(rng.integers(256, 2049)))
+               .tolist() for _ in range(16)]
+    out = tempfile.mkdtemp(prefix="mp_serve_nccl_")
+    try:
+        t0 = time.perf_counter()
+        spawn(serve_rank_main, args=({"out": out, "serve_prompts": prompts},),
+              nprocs=cs.MP_DEGREE, backend="nccl", pg_timeout=300,
+              timeout=1200)
+        ranks = [json.load(open(os.path.join(out, f"rank{r}.json")))
+                 for r in range(cs.MP_DEGREE)]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    r0 = ranks[0]
+    cs.emit("mp_serve_nccl", model="llama3_8b", layers=SERVE_LAYERS,
+            dtype="bfloat16", backend=r0["backend"],
+            devices=[r["device"] for r in ranks], prompts=len(prompts),
+            prompt_tokens=sum(map(len, prompts)), new_tokens_each=64,
+            **{k: r0[k] for k in ("seconds", "output_tokens_per_s",
+                                  "mean_ttft_s", "mean_itl_s",
+                                  "unified_step_mean_ms", "steps")},
+            peak_memory_bytes=[r["peak_memory_bytes"] for r in ranks],
+            share_window=[r["share_window"] for r in ranks],
+            rules=[r["rule"] for r in ranks],
+            legacy_burst8=[r["legacy_burst8"]["rule"] for r in ranks],
+            spawn_s=time.perf_counter() - t0)
+    return 0
 
 
 def main() -> int:
@@ -43,6 +127,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(cs.nvidia_smi_line(), flush=True)
+    if sys.argv[1:] == ["--serve"]:
+        return serve_main(torch)
     t0 = time.perf_counter()
     _build.build([cs.FLASH_NAME])
     cs.emit("build", kernels=[cs.FLASH_NAME],

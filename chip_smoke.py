@@ -94,7 +94,8 @@ these phases, printing one JSON line for each:
              model of the same widths (tma and mma routes), through the
              unified engine and the legacy one with decode bursts of 8, each
              with every telemetry hook on (the defaults, the numerics
-             auditor at ``sample_every=1``, a metrics history with the
+             auditor at ``sample_every=1`` in fp32 and 4 in bf16, a
+             metrics history with the
              default alert rules, a flight recorder) and with every one off:
              greedy tokens and capture counts equal, launches = steps x
              layers both ways; the step profiler's scheduled tokens equal
@@ -199,8 +200,9 @@ these phases, printing one JSON line for each:
              graphed in the warm pass against eager in the eager one), the
              launch rule (every launch on the mma route), captures and peak
              memory, the step profiler against the scheduler and the pool
-             invariant.  Then a profile window on each of the two engines: the
-             decode kernel's, the matrix products' and the idle shares.
+             invariant.  Then a profile window (16 new tokens) on the
+             burst-free engine: the decode kernel's, the matrix products'
+             and the idle shares.
 ``spec``     the serve model (full depth, bf16, unified, 512 tokens a
              step, ``SpecConfig(k=4)``): 16 ``R + S + O + S`` prompts of
              256-2048 tokens, 128 new tokens each, greedy and seeded sampled
@@ -248,7 +250,8 @@ these phases, printing one JSON line for each:
 ``aot_boot``  the serve model's widths (bf16) cut to 4 layers (32 until
              PR 15: the script's time limit) in worker processes booted off an AOT artifact saved in the run from an
              in-process saving engine (legacy families, bursts of 8, at
-             the 2112-token max_seq_len the server rounds need): 2
+             the max_seq_len the server rounds need; the rounds take the
+             serve prompts of at most 1024 tokens): 2
              workers with ``--aot-path --warm`` and a fresh, empty
              ``--compile-cache`` (no ``nvcc``: it stays empty), 0 trace
              counts and 2 captures a saved bucket each; a server round
@@ -352,6 +355,44 @@ these phases, printing one JSON line for each:
              their share of the timed step, each rank's flash launches
              (steps x layers, on the tma route); the first loss within 1%
              of the train phase's.
+``mp_serve_shape``  B1 and B2 against their twins row by row at a rank's
+             shapes at mp=2 (16 query and 4 KV heads of 128, 16-token
+             pages): the kernels phase's packings (T = 8 .. 512) and the
+             decode_kernels phase's batches (B = 1, 4, 16 of up to 2112
+             tokens), bf16 on the tma / mma routes and fp32 on the simple
+             ones, each with a planted fault run through the kernel (B1
+             short of each chunk walk's last page, B2 of each row's last
+             span) that must read above tolerance; B1's grids
+             (``launch_shape``) at 16 / 4 heads.
+``mp_serve_identity``  tensor-parallel serving in 2 rank processes
+             (the port's ``spawn``, gloo on this card; rank 0 the
+             controller, rank 1 its follower): the identity model (fp32)
+             and its 8 prompts at mp=2 through the unified step, the legacy
+             families and the legacy families with bursts of 8: tokens
+             equal to this process's mp=1 ``identity`` / ``identity_legacy``
+             tokens, bucket sets equal to theirs, no capture, each launch's
+             sampled tokens equal on both ranks, each rank's launches =
+             its steps x layers on the simple routes and 2L+1 all-reduces
+             and one all-gather a forward; the prompts' top-2 logit gaps;
+             then rank 1 is killed with SIGKILL mid-run and the
+             controller's next step must raise within the group's
+             timeout.
+``mp_serve``  Llama-3-8B widths cut to ``FLEET_LAYERS`` layers, bf16, the
+             serve phase's 16 prompts and 64 greedy tokens, unified, at
+             mp=2 on the same ranks: tokens/s, mean TTFT and ITL, each
+             rank's peak memory, the launch and collective rules (ragged on
+             tma), the collectives' share of a short window with each
+             synchronised and timed, a legacy pass with bursts of 8
+             (decode on mma); the first prompt's first 512 tokens through
+             the dense-cache route within 2e-2 of their largest logit
+             against rank 0's whole model of the same weights, and the
+             tokens matching that whole model's mp=1 run before their
+             first divergence.
+``mp_server``  ``python -m paddle_tpu_torch.serving.server --mp 2`` (the
+             CLI's toy model): ``/readyz`` ``ok dp=1 mp=2``, completions
+             token-equal to the same engine at mp=2 in the ranks,
+             ``/metrics`` with ``serving_mp_shards 2`` and the collective
+             series, SIGTERM to exit 0 (the controller joins its follower).
 ``gpt_train_identity``  GPT-3 6.7B widths (``GPTConfig()``: vocab 50304,
              hidden 4096, 32 heads of 128, MHA) cut to 2 layers, fp32,
              B=1, S=1024: 4 AdamW steps through the flash kernels, 4
@@ -548,7 +589,8 @@ these phases, printing one JSON line for each:
              ``eng.metrics.summary()``, the op timer released after each
              step, the same tokens and ragged-kernel launches.
 ``budget``   the sequence-model phases' and the later phases' seconds
-             (the three mp phases' too) beside the script's.
+             (the three mp phases' and the four mp_serve phases' too)
+             beside the script's.
 
 Then a line ``{"kernels": [...]}`` summarising each kernel at its main
 path's shapes (the ragged kernel at the unified serve step, the decode
@@ -559,8 +601,10 @@ add ``gpt_train_launches``, ``vit_train_launches``,
 ``imagenet_fit_launches``, ``vit_train_device_ms`` and ``vit_shape``, their times and errors at ViT-B/16's shape, and the
 forward row ``jit_export_launches`` (the loaded ViT's, in its own
 process) and ``jit_partial_launches``, ``amp_o2_launches``, and each
-rank's ``mp_identity_launches`` and ``mp_train_launches``; the
-ragged row ``profile_ops_launches``; every row adds ``seq2seq_launches``
+rank's ``mp_identity_launches`` and ``mp_train_launches``; the ragged
+and decode rows each rank's ``mp_serve_identity_launches`` and
+``mp_serve_launches`` and their ``mp_shape`` errors; the ragged row
+``profile_ops_launches``; every row adds ``seq2seq_launches``
 and ``vision_zoo_launches``, 0), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any
 failure raises and the script exits nonzero without that last line; so
@@ -1395,7 +1439,7 @@ def identity_phase(torch, rp, serving, graphs, LlamaConfig,
             for name, x in r.items()})
     gc.collect()
     torch.cuda.empty_cache()
-    return model, prompts, kern["tokens"]
+    return model, prompts, kern["tokens"], [list(b) for b in kern["buckets"]]
 
 
 def legacy_counts(eng):
@@ -1519,6 +1563,9 @@ def identity_legacy_phase(torch, pd, serving, graphs, model, prompts,
         raise AssertionError("identity_legacy: malformed token streams")
     agree = sum(a == b for ta, tb in zip(kern["tokens"], unified_tokens)
                 for a, b in zip(ta, tb))
+    mp1 = {name: (r[run]["tokens"], sorted(
+        list(b) for sets in r[run]["buckets"].values() for b in sets))
+        for name, run in (("legacy", "kernel"), ("legacy_burst8", "burst"))}
     emit("identity_legacy", layers=layers, dtype="float32",
          prefill_budget=budget, greedy_identical=True,
          burst_identical=True, graphs_identical=True,
@@ -1527,6 +1574,7 @@ def identity_legacy_phase(torch, pd, serving, graphs, model, prompts,
          tokens_total=sum(map(len, unified_tokens)),
          **{name: {k: v for k, v in x.items() if k != "tokens"}
             for name, x in r.items()})
+    return mp1
 
 
 def prefill_identity_phase(torch, serving, graphs, model, prompts):
@@ -2093,6 +2141,8 @@ def share(kernels, marks):
 # the category of a device kernel's events in torch.profiler's chrome trace
 TRACE_KERNEL_CAT = "kernel"
 # every telemetry field of EngineConfig off (the auditor is off by default)
+# identity_telemetry's auditor: every step in fp32, every 4th in bf16
+AUDIT_EVERY = {"float32": 1, "bfloat16": 4}
 TELEMETRY_OFF = dict(lifecycle_events=False, step_profile=False,
                      cache_stats=False, history=False)
 
@@ -2217,9 +2267,11 @@ def identity_telemetry_phase(torch, rp, pd, serving, obs, model, prompts,
             for family in ("unified", "legacy"):
                 runs = {}
                 for tele in ("on", "off"):
+                    # the bf16 runs audit every 4th step: the shadow
+                    # re-execution of every step cost 15-18 s a run there
                     fields = (dict(audit=obs.AuditConfig(
-                        enabled=True, sample_every=1)) if tele == "on"
-                        else TELEMETRY_OFF)
+                        enabled=True, sample_every=AUDIT_EVERY[dtype]))
+                        if tele == "on" else TELEMETRY_OFF)
                     eng = obs_engine(serving, m, need, family, **fields)
                     if tele == "on":
                         telemetry_on(obs, eng, tmp)
@@ -3547,6 +3599,699 @@ def mp_phases(torch, flash, port, train_loss0):
                          for r in ranks},
             "train": {r["rank"]: r["train"]["launches"] for r in ranks},
             "shape": shape_errors}
+
+
+# --- tensor-parallel serving: mp=2 ranks over gloo on one card ---------------
+
+# a rank's query heads, KV heads and head dim at Llama-3-8B widths and mp=2
+MP_SERVE_HEADS = (32 // MP_DEGREE, 8 // MP_DEGREE, 128)
+MP_SERVE_TIMEOUT = 120     # seconds a collective of the serving ranks waits
+MP_SERVE_SHORT = (4, 256, 8)   # the share window: prompts, tokens, new tokens
+# the CLI's completions of mp_server (its toy model: tests' tiny Llama)
+MP_SERVER_BODIES = [([5, 9, 23, 7], 8), ([1, 2, 3, 4, 5, 6, 7, 8, 9], 8),
+                    ([200, 17, 64], 8)]
+
+
+def mp_serve_shape_phase(torch, rp, pd, flash):
+    """B1 and B2 against their twins row by row at a rank's shapes at mp=2
+    (16 query and 4 KV heads of 128): the kernels phase's packings (T = 8
+    .. 512 tokens, decode rows and chunks, 16-token pages) and the
+    decode_kernels phase's batches (B = 1, 4, 16 rows of up to 2112
+    tokens), bf16 on the tma / mma routes and fp32 on the simple routes.
+    Each kernel also runs a planted fault that must read above tolerance:
+    B1 with each chunk token's walk short of its last page, B2 with each
+    row's walk short of its last span.  Returns each kernel's errors by
+    dtype and the B1 grids ``launch_shape`` gave."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(21)
+    H, Hkv, D = MP_SERVE_HEADS
+    bs = 16
+    checks, grids = [], {}
+    errors = {"ragged": {}, "decode": {}}
+
+    def hold(kernel, label, out, ref, dtype, route, last_route,
+             planted=None):
+        torch.cuda.synchronize()
+        err = float((out.float() - ref).abs().max())
+        row = flash.rowwise_error(out, ref)
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        name = str(dtype).split(".")[-1]
+        if not (err <= tol and row <= tol and last_route == route
+                and torch.isfinite(out.float()).all()):
+            raise AssertionError(f"mp_serve_shape: {kernel} {label} {name}: "
+                                 f"max abs err {err}, row err {row} (tol "
+                                 f"{tol}), route {last_route} (due {route})")
+        rec = {"kernel": kernel, "case": label, "dtype": name, "route": route,
+               "max_abs_err": err, "max_row_err": row, "tol": tol}
+        if planted is not None:
+            rec["planted_row_err"] = flash.rowwise_error(planted, ref)
+            if not rec["planted_row_err"] > tol:
+                raise AssertionError(f"mp_serve_shape: the planted {kernel} "
+                                     f"fault passed at {label} {name}: "
+                                     f"{rec}")
+        checks.append(rec)
+        e = errors[kernel].setdefault(name, {"max_abs_err": 0.0,
+                                             "max_row_err": 0.0})
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+        e["max_row_err"] = max(e["max_row_err"], row)
+
+    W, num_blocks = 64, 4096
+    k32 = torch.randn(num_blocks, bs, Hkv, D, device=dev)
+    v32 = torch.randn(num_blocks, bs, Hkv, D, device=dev)
+    shapes = {8: (8, []), 64: (32, [29]), 256: (16, [120, 119]),
+              512: (16, [248, 247])}   # Tb: (decode rows, chunk sizes)
+    for Tb, (n_decode, chunks) in shapes.items():
+        arrays = packing(rng, Tb, n_decode, chunks, W, bs, num_blocks)
+        meta = [torch.from_numpy(a).to(dev) for a in arrays]
+        q32 = torch.randn(Tb, H, D, device=dev)
+        grids[Tb] = rp.launch_shape(Tb, H, Hkv, D, pd.sm_count(dev))
+        for dtype, route in ((torch.bfloat16, "tma"),
+                             (torch.float32, "simple")):
+            q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+            out = rp.ragged_kernel(q, k, v, *meta)
+            way = rp.last_route
+            ref = rp.ragged_reference(q.float(), k.float(), v.float(), *meta)
+            bad = None
+            if chunks:
+                pos = dropped_last_page(
+                    arrays[3], arrays[2],
+                    range(n_decode, n_decode + len(chunks)), bs)
+                bad = rp.ragged_kernel(q, k, v, *meta[:3],
+                                       torch.from_numpy(pos).to(dev))
+            hold("ragged", f"T={Tb} decode={n_decode} chunks={chunks}", out,
+                 ref, dtype, route, way, bad)
+            del q, k, v, out, ref, bad
+    del k32, v32
+    W, max_len = 256, 2112
+    span = pd.span_tokens(bs)
+    num_blocks = 16 * (max_len // bs) + 1
+    k32 = torch.randn(num_blocks, bs, Hkv, D, device=dev)
+    v32 = torch.randn(num_blocks, bs, Hkv, D, device=dev)
+    for B in (1, 4, 16):
+        lens = rng.integers(1, max_len + 1, B).astype(np.int32)
+        tables = torch.from_numpy(decode_tables(rng, lens, W, bs,
+                                                num_blocks)).to(dev)
+        lens_t = torch.from_numpy(lens).to(dev)
+        cut = torch.clamp((lens_t - 1) // span * span, min=1).int()
+        q32 = torch.randn(B, H, D, device=dev)
+        for dtype, route in ((torch.bfloat16, "mma"),
+                             (torch.float32, "simple")):
+            q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+            out = pd.decode_kernel(q, k, v, tables, lens_t)
+            way = pd.last_route
+            ref = pd.decode_reference(q.float(), k.float(), v.float(),
+                                      tables, lens_t)
+            # rows of one span have nothing to drop
+            bad = (pd.decode_kernel(q, k, v, tables, cut)
+                   if int(lens.max()) > span else None)
+            hold("decode", f"B={B} lens<={max_len}", out, ref, dtype, route,
+                 way, bad)
+            del q, k, v, out, ref, bad
+    del k32, v32
+    free(torch)
+    emit("mp_serve_shape", heads={"q": H, "kv": Hkv, "head_dim": D},
+         block_size=bs, checks=checks,
+         ragged_launch_shape={str(t): g for t, g in grids.items()},
+         note="each output row against its twin's row "
+              "(flash.rowwise_error); the planted faults run the kernels "
+              "on shortened walks and must read above tolerance")
+    return errors
+
+
+def mp_serve_counts(rp, pd, collective):
+    """Zero the kernel wrappers' and the collectives' counters."""
+    rp.launches = rp.simple_launches = rp.tma_launches = 0
+    pd.launches = pd.simple_launches = pd.mma_launches = 0
+    collective.reset_stats()
+
+
+def mp_serve_rule(label, eng, layers, rp, pd, collective, ragged_route,
+                  decode_route):
+    """This rank's launches and collectives of the run since
+    :func:`mp_serve_counts`, held to its forwards: the ragged kernel once a
+    layer a ragged step, the decode kernel once a layer a decode step or
+    burst iteration, each on its route; 2L+1 all-reduces and one
+    all-gather a forward."""
+    prog = eng.tp.programs
+    due = {"ragged": prog["ragged"] * layers,
+           "decode": (prog["decode"] + prog["burst"]) * layers}
+    got = {"ragged": rp.launches, "decode": pd.launches,
+           "ragged_routes": {"simple": rp.simple_launches,
+                             "tma": rp.tma_launches},
+           "decode_routes": {"simple": pd.simple_launches,
+                             "mma": pd.mma_launches}}
+    calls = dict(collective.stats["calls"])
+    fwd = eng.tp.forwards
+    want_calls = {"all_reduce": fwd * (2 * layers + 1), "all_gather": fwd}
+    ok = (got["ragged"] == due["ragged"] and got["decode"] == due["decode"]
+          and (not due["ragged"]
+               or got["ragged_routes"][ragged_route] == due["ragged"])
+          and (not due["decode"]
+               or got["decode_routes"][decode_route] == due["decode"])
+          and calls == want_calls and fwd > 0)
+    if not ok:
+        raise AssertionError(f"{label}: launches {got}, due {due} (routes "
+                             f"{ragged_route} / {decode_route}); collectives "
+                             f"{calls}, due {want_calls}")
+    return {"launches": {"ragged": got["ragged"], "decode": got["decode"]},
+            "programs": dict(prog), "collectives": calls}
+
+
+def mp_serve_record(eng, sampled):
+    """Read each of ``eng``'s launches' sampled tokens back into
+    ``sampled``."""
+    run = eng.graphs.run
+
+    def recorded(*args, **kw):
+        out = run(*args, **kw)
+        sampled.append(out[0].cpu().tolist())
+        return out
+
+    eng.graphs.run = recorded
+
+
+def mp_serve_follow(eng, sampled=None):
+    """A follower's side of one run: launch the controller's steps, each
+    launch's sampled tokens read back into ``sampled`` when given."""
+    from paddle_tpu_torch.serving.tp import follow
+
+    if sampled is not None:
+        mp_serve_record(eng, sampled)
+    follow(eng)
+
+
+def mp_serve_identity_rank(torch, port, rp, pd, collective, spec, rank):
+    """mp_serve_identity on this rank: the identity model at mp=2 through
+    the unified step, the legacy families and the legacy families with
+    bursts of 8, each launch's sampled tokens kept on both ranks; then the
+    top-2 gaps of the prompts' first tokens."""
+    serving = port.serving
+    cfg = port.LlamaConfig.llama3_8b(num_hidden_layers=2)
+    layers = cfg.num_hidden_layers
+    model = port.LlamaForCausalLM(
+        cfg, device="cuda", dtype=torch.float32,
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    prompts = spec["identity_prompts"]
+    need = sum(-(-(len(p) + 16) // 16) for p in prompts) + 1
+    sched = dict(max_num_seqs=8)
+    configs = {
+        "unified": dict(unified_step=True, scheduler=serving.SchedulerConfig(
+            max_tokens_per_step=256, **sched)),
+        "legacy": dict(scheduler=serving.SchedulerConfig(
+            max_prefill_tokens_per_step=256, **sched)),
+        "legacy_burst8": dict(burst_steps=8, scheduler=serving.SchedulerConfig(
+            max_prefill_tokens_per_step=256, **sched)),
+    }
+    out = {}
+    for name, fields in configs.items():
+        eng = serving.EngineCore(model, config=serving.EngineConfig(
+            num_blocks=need + 16, block_size=16, **fields))
+        mp_serve_counts(rp, pd, collective)
+        sampled = []
+        t0 = time.perf_counter()
+        row = {}
+        if eng.tp.is_controller:
+            mp_serve_record(eng, sampled)
+            reqs = [eng.add_request(p, serving.SamplingParams(
+                max_new_tokens=16)) for p in prompts]
+            eng.run(max_steps=2000)
+            eng.tp.release()
+            row.update(
+                tokens=[list(r.output_tokens) for r in reqs],
+                buckets=sorted(list(b) for b in (
+                    eng.ragged_buckets | eng.decode_buckets
+                    | eng.prefill_buckets | eng.burst_buckets)),
+                traces=(eng.prefill_trace_count + eng.decode_trace_count
+                        + eng.ragged_trace_count + eng.burst_trace_count),
+                bursts=int(eng._burst_counters["launches"].value),
+                occupancy=eng.kv.occupancy(),
+                metrics=eng.metrics.prometheus_text())
+        else:
+            mp_serve_follow(eng, sampled)
+        torch.cuda.synchronize()
+        route = "simple"   # fp32
+        row.update(mp_serve_rule(f"mp_serve_identity {name} rank {rank}",
+                                 eng, layers, rp, pd, collective, route,
+                                 route),
+                   seconds=time.perf_counter() - t0, sampled=sampled,
+                   captures=eng.graphs.captures,
+                   eager_reason=eng.graphs.eager_reason,
+                   pool_shape=list(eng._k_pools[0].shape))
+        out[name] = row
+        del eng
+    gaps = []
+    for p in prompts:
+        with torch.no_grad():
+            logits = model(torch.tensor([p], device="cuda"))[0, -1].float()
+        top = torch.topk(logits, 2).values
+        gaps.append(float(top[0] - top[1]))
+    out["top2_gap_first_tokens"] = gaps
+    del model
+    free(torch)
+    return out
+
+
+def mp_serve_rank(torch, port, rp, pd, collective, spec, rank,
+                  layers=None):
+    """mp_serve on this rank: Llama-3-8B widths at ``layers`` (default
+    FLEET_LAYERS), bf16, the
+    serve phase's prompts through the unified step (timed), a window with
+    every collective synchronised and timed, a legacy pass with bursts of
+    8 (the decode kernel's mma route at mp=2), and the first prompt's
+    first 512 tokens through the dense-cache route (kept on rank 0)."""
+    serving = port.serving
+    layers = layers or FLEET_LAYERS
+    cfg = port.LlamaConfig.llama3_8b(num_hidden_layers=layers)
+    torch.cuda.reset_peak_memory_stats()
+    model = port.LlamaForCausalLM(
+        cfg, device="cuda", dtype=torch.bfloat16,
+        generator=torch.Generator(device="cuda").manual_seed(1))
+    prompts = spec["serve_prompts"]
+    new_tokens = 64
+    need = sum(-(-(len(p) + new_tokens) // 16) for p in prompts) + 1
+    llm = serving.LLM(model, config=serving.EngineConfig(
+        num_blocks=need + 16, block_size=16, dtype=torch.bfloat16,
+        unified_step=True, scheduler=serving.SchedulerConfig(
+            max_num_seqs=16, max_tokens_per_step=512)))
+    eng = llm.engine
+    mp_serve_counts(rp, pd, collective)
+    m = eng.metrics
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = llm.generate(prompts, serving.SamplingParams(
+        max_new_tokens=new_tokens))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"seconds": wall,
+           "output_tokens_per_s": sum(len(o.token_ids) for o in outs) / wall,
+           "rule": mp_serve_rule(f"mp_serve rank {rank}", eng, layers, rp,
+                                 pd, collective, "tma", "mma"),
+           "steps": eng.tp.forwards}
+    if eng.tp.is_controller:
+        ttft, itl = (m.histogram(n) for n in ("time_to_first_token",
+                                              "inter_token_latency"))
+        out.update(tokens=[o.token_ids for o in outs],
+                   mean_ttft_s=ttft.sum / ttft.count,
+                   mean_itl_s=itl.sum / itl.count,
+                   unified_step_mean_ms=1e3 * m.histogram(
+                       "unified_step").sum / m.histogram("unified_step").count,
+                   collective_seconds_count=m._collective["ragged"].count)
+    # the collectives' share: a short window with each collective
+    # synchronised before and after and timed on the host clock
+    n, length, short_new = MP_SERVE_SHORT
+    short = [p[:length] for p in prompts[:n]]
+    s0 = sum(collective.stats["seconds"].values())
+    with collective.timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        llm.generate(short, serving.SamplingParams(max_new_tokens=short_new))
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    coll = sum(collective.stats["seconds"].values()) - s0
+    out["share_window"] = {"seconds": window, "collective_seconds": coll,
+                           "collective_share": coll / window,
+                           "prompts": n, "prompt_tokens": length,
+                           "new_tokens": short_new}
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    del llm, eng
+    # the legacy families with bursts of 8: the decode kernel on the
+    # rank's heads on its mma route
+    legacy = serving.LLM(model, config=serving.EngineConfig(
+        num_blocks=need + 16, block_size=16, dtype=torch.bfloat16,
+        burst_steps=8, scheduler=serving.SchedulerConfig(
+            max_num_seqs=4, max_prefill_tokens_per_step=512)))
+    mp_serve_counts(rp, pd, collective)
+    louts = legacy.generate(short, serving.SamplingParams(max_new_tokens=32))
+    torch.cuda.synchronize()
+    out["legacy_burst8"] = {
+        "rule": mp_serve_rule(f"mp_serve legacy_burst8 rank {rank}",
+                              legacy.engine, layers, rp, pd, collective,
+                              "tma", "mma"),
+        "tokens": [o.token_ids for o in louts]}
+    del legacy
+    # the first step's logits through the dense-cache route
+    ids = torch.tensor([prompts[0][:512]], device="cuda")
+    heads = model.llama.layers[0].self_attn.num_kv_heads
+    shape = (1, ids.shape[1], heads, cfg.head_dim)
+    caches = [(torch.zeros(shape, dtype=torch.bfloat16, device="cuda"),
+               torch.zeros(shape, dtype=torch.bfloat16, device="cuda"))
+              for _ in range(layers)]
+    with torch.no_grad():
+        logits = model(ids, caches=caches, pos=0)[0].float()
+    del model, caches
+    free(torch)
+    return out, logits
+
+
+def mp_serve_whole(torch, port, spec, logits):
+    """Rank 0 alone after the world: the same seeded weights whole (mp=1)
+    on this card, its dense-cache logits of mp_serve's first step against
+    the ranks' (held within 2e-2 of their largest entry), the serve
+    prompts through an mp=1 unified engine for the token comparison (its
+    tokens/s: that pass takes the captures), and a pass over fresh prompts
+    of the same lengths (replays only)."""
+    serving = port.serving
+    cfg = port.LlamaConfig.llama3_8b(num_hidden_layers=FLEET_LAYERS)
+    model = port.LlamaForCausalLM(
+        cfg, device="cuda", dtype=torch.bfloat16,
+        generator=torch.Generator(device="cuda").manual_seed(1))
+    prompts = spec["serve_prompts"]
+    ids = torch.tensor([prompts[0][:512]], device="cuda")
+    shape = (1, ids.shape[1], cfg.num_key_value_heads, cfg.head_dim)
+    caches = [(torch.zeros(shape, dtype=torch.bfloat16, device="cuda"),
+               torch.zeros(shape, dtype=torch.bfloat16, device="cuda"))
+              for _ in range(cfg.num_hidden_layers)]
+    with torch.no_grad():
+        ref = model(ids, caches=caches, pos=0)[0].float()
+    err = float((logits - ref).abs().max() / ref.abs().max())
+    del caches, ref
+    need = sum(-(-(len(p) + 64) // 16) for p in prompts) + 1
+    llm = serving.LLM(model, config=serving.EngineConfig(
+        num_blocks=need + 16, block_size=16, dtype=torch.bfloat16,
+        unified_step=True, scheduler=serving.SchedulerConfig(
+            max_num_seqs=16, max_tokens_per_step=512)))
+    rates = {}
+    for name, batch in (("cold", prompts), ("warm", same_lengths(
+            np.random.default_rng(5), prompts, cfg.vocab_size))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = llm.generate(batch, serving.SamplingParams(max_new_tokens=64))
+        torch.cuda.synchronize()
+        rates[name] = sum(len(o.token_ids) for o in outs) / (
+            time.perf_counter() - t0)
+        if name == "cold":
+            tokens = [o.token_ids for o in outs]
+    del llm, model
+    free(torch)
+    return {"first_step_logit_err": err, "tokens": tokens,
+            "mp1_output_tokens_per_s": rates}
+
+
+def mp_serve_toy(port, spec):
+    """The CLI's model and engine (``serving.server._toy_model`` /
+    ``_toy_engine`` at the CLI's --layers 2 --blocks 64 --unified) at
+    mp=2, the mp_server completions one after another."""
+    from paddle_tpu_torch.serving.server import _toy_engine, _toy_model
+
+    eng = _toy_engine(_toy_model(2), num_blocks=64, unified=True)
+    tokens = None
+    if eng.tp.is_controller:
+        tokens = []
+        for prompt, n in MP_SERVER_BODIES:
+            req = eng.add_request(prompt, port.serving.SamplingParams(
+                max_new_tokens=n))
+            eng.run(max_steps=1000)
+            tokens.append(list(req.output_tokens))
+        eng.tp.release()
+    else:
+        mp_serve_follow(eng)
+    return eng, tokens
+
+
+def mp_serve_rank_main(spec):
+    """One rank of the tensor-parallel serving phases, started by the
+    port's ``spawn`` (2 ranks over gloo on one card): it loads the kernels
+    the parent built, runs mp_serve_identity, mp_serve and the CLI model,
+    writes ``{out}/serve_rank{r}.json``, and ends with the follower-death
+    check: rank 1 launches three of the controller's steps and kills
+    itself; rank 0 times how long its next step takes to raise, then runs
+    the whole model alone (mp_serve_whole) and writes its results again."""
+    t_entry = time.perf_counter()
+    import torch
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.distributed import collective, topology
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import paged_decode as pd
+    from paddle_tpu_torch.ops import ragged_paged as rp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_parallel_env(backend="gloo")
+    rank = dist.get_rank()
+    topology.init_mesh(mp=MP_DEGREE)
+    prebuilt = all(_build.library_path(n).exists()
+                   for n in (KERNEL_NAME, DECODE_NAME))
+    port = SimpleNamespace(serving=serving, LlamaConfig=LlamaConfig,
+                           LlamaForCausalLM=LlamaForCausalLM)
+    res = {"rank": rank, "backend": dist.get_backend(),
+           "device": str(dist.env.rank_device()), "prebuilt": prebuilt,
+           "start_s": time.perf_counter() - t_entry}
+    path = os.path.join(spec["out"], f"serve_rank{rank}.json")
+    t0 = time.perf_counter()
+    res["identity"] = mp_serve_identity_rank(torch, port, rp, pd,
+                                             collective, spec, rank)
+    res["identity_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["serve"], logits = mp_serve_rank(torch, port, rp, pd, collective,
+                                         spec, rank)
+    res["serve_s"] = time.perf_counter() - t0
+    toy, res["toy_tokens"] = mp_serve_toy(port, spec)
+    res["built_here"] = sorted(_build.build_logs)
+    with open(path, "w") as f:
+        json.dump(res, f)
+    if rank:
+        del logits
+        for _ in range(3):
+            msg = toy.tp.receive()
+            toy.follow_step(*msg[1:])
+        torch.cuda.synchronize()
+        os.kill(os.getpid(), signal.SIGKILL)
+    toy.add_request([3, 1, 4, 1, 5], serving.SamplingParams(
+        max_new_tokens=40))
+    t0 = time.perf_counter()
+    try:
+        toy.run(max_steps=1000)
+        res["follower_death"] = {"raised": None}
+    except Exception as e:   # the check reads what the controller raised
+        res["follower_death"] = {"raised": f"{type(e).__name__}: "
+                                           f"{str(e)[:300]}"}
+    res["follower_death"]["seconds"] = time.perf_counter() - t0
+    del toy
+    topology.set_hybrid_communicate_group(None)
+    t0 = time.perf_counter()
+    res["whole"] = mp_serve_whole(torch, port, spec, logits)
+    res["whole_s"] = time.perf_counter() - t0
+    with open(path, "w") as f:
+        json.dump(res, f)
+    # the world's process group lost a rank: leave without tearing it down
+    os._exit(0)
+
+
+def matched_prefix(a, b):
+    """Tokens of ``a`` equal to ``b`` before their first difference."""
+    n = 0
+    for x, y in zip(a, b):
+        if x != y:
+            break
+        n += 1
+    return n
+
+
+def mp_serve_phases(torch, rp, pd, flash, ref):
+    """mp_serve_shape here, then one world of 2 ranks over gloo on this
+    card (``mp_serve_rank_main``) for mp_serve_identity and mp_serve, then
+    mp_server (``server --mp 2``).  ``ref`` holds this process's mp=1
+    identity tokens and bucket sets and the prompts.  Returns each rank's
+    kernel launches of each phase and the kernels' errors at a rank's
+    shapes."""
+    from paddle_tpu_torch.distributed.spawn import spawn
+
+    shape_errors = mp_serve_shape_phase(torch, rp, pd, flash)
+    out = tempfile.mkdtemp(prefix="mp_serve_")
+    try:
+        spec = {"out": out, "identity_prompts": ref["identity_prompts"],
+                "serve_prompts": ref["serve_prompts"]}
+        t0 = time.perf_counter()
+        ctx = spawn(mp_serve_rank_main, args=(spec,), nprocs=MP_DEGREE,
+                    backend="gloo", pg_timeout=MP_SERVE_TIMEOUT, join=False)
+        for p in ctx.processes:
+            p.join(900)
+        codes = [p.exitcode for p in ctx.processes]
+        if codes != [0, -9]:
+            ctx.stop()
+            raise AssertionError(f"mp_serve: the ranks exited with {codes}, "
+                                 f"due [0, -9] (rank 1 kills itself)")
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(MP_DEGREE):
+            with open(os.path.join(out, f"serve_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    where = dict(backend="gloo", cards=torch.cuda.device_count(),
+                 world=MP_DEGREE, mp=MP_DEGREE,
+                 devices=[r["device"] for r in ranks],
+                 rank_start_s={r["rank"]: r["start_s"] for r in ranks})
+    if not all(r["prebuilt"] and not r["built_here"]
+               and r["backend"] == "gloo" for r in ranks):
+        raise AssertionError(f"mp_serve: a rank built kernels itself or ran "
+                             f"another backend: {ranks}")
+    r0, r1 = ranks
+    ident = {}
+    for name in ("unified", "legacy", "legacy_burst8"):
+        a, b = r0["identity"][name], r1["identity"][name]
+        want_tokens, want_buckets = ref[name]
+        if a["tokens"] != want_tokens:
+            raise AssertionError(f"mp_serve_identity {name}: mp=2 tokens "
+                                 f"differ from mp=1's")
+        if a["buckets"] != want_buckets or a["traces"] or a["captures"] \
+                or b["captures"]:
+            raise AssertionError(
+                f"mp_serve_identity {name}: buckets {a['buckets']} against "
+                f"mp=1's {want_buckets}, traces {a['traces']}, captures "
+                f"{a['captures']} / {b['captures']} (due 0)")
+        if a["sampled"] != b["sampled"]:
+            raise AssertionError(f"mp_serve_identity {name}: the ranks "
+                                 f"sampled different tokens")
+        if name == "legacy_burst8" and not a["bursts"]:
+            raise AssertionError("mp_serve_identity: no burst ran")
+        if a["occupancy"] != 0.0 or "serving_mp_shards 2" not in a[
+                "metrics"] or "ROADMAP A11 item 7" not in a["eager_reason"]:
+            raise AssertionError(f"mp_serve_identity {name}: pool, "
+                                 f"serving_mp_shards or eager reason wrong")
+        ident[name] = {
+            "tokens_identical_to_mp1": True, "buckets": len(a["buckets"]),
+            "bursts": a["bursts"], "pool_shape": a["pool_shape"],
+            "ranks": {r["rank"]: {k: r["identity"][name][k] for k in (
+                "launches", "programs", "collectives", "seconds")}
+                for r in ranks}}
+    death = r0["follower_death"]
+    if death["raised"] is None or not death["seconds"] < MP_SERVE_TIMEOUT:
+        raise AssertionError(f"mp_serve_identity: with its follower killed "
+                             f"the controller {death}")
+    emit("mp_serve_identity", **where, layers=2, dtype="float32",
+         prompts=len(ref["identity_prompts"]), new_tokens_each=16,
+         both_ranks_sampled_equal=True, captures=0,
+         buckets_equal_mp1=True,
+         min_top2_gap=min(r0["identity"]["top2_gap_first_tokens"]),
+         follower_killed=death, **ident)
+    s0, s1 = r0["serve"], r1["serve"]
+    whole = r0["whole"]
+    if not whole["first_step_logit_err"] <= 2e-2:
+        raise AssertionError(f"mp_serve: first-step logits off by "
+                             f"{whole['first_step_logit_err']} of their "
+                             f"largest entry against the whole model")
+    toks = s0["tokens"]
+    if any(len(t) != 64 for t in toks):
+        raise AssertionError("mp_serve: malformed token streams")
+    matched = [matched_prefix(a, b) for a, b in zip(toks, whole["tokens"])]
+    emit("mp_serve", **where, model="llama3_8b", layers=FLEET_LAYERS,
+         dtype="bfloat16", prompts=len(ref["serve_prompts"]),
+         prompt_tokens=sum(map(len, ref["serve_prompts"])),
+         new_tokens_each=64, seconds=s0["seconds"],
+         output_tokens_per_s=s0["output_tokens_per_s"],
+         mean_ttft_s=s0["mean_ttft_s"], mean_itl_s=s0["mean_itl_s"],
+         unified_step_mean_ms=s0["unified_step_mean_ms"],
+         engine_steps=s0["steps"],
+         peak_memory_bytes={r["rank"]: r["serve"]["peak_memory_bytes"]
+                            for r in ranks},
+         share_window={r["rank"]: r["serve"]["share_window"]
+                       for r in ranks},
+         first_step_logit_err=whole["first_step_logit_err"],
+         mp1_output_tokens_per_s=whole["mp1_output_tokens_per_s"],
+         tokens_matching_mp1_before_divergence={
+             "sum": sum(matched), "of": 64 * len(toks), "min": min(matched),
+             "identical_streams": sum(m == 64 for m in matched)},
+         rules={r["rank"]: r["serve"]["rule"] for r in ranks},
+         legacy_burst8={r["rank"]: r["serve"]["legacy_burst8"]["rule"]
+                        for r in ranks},
+         phase_s={"spawn": spawn_s, "identity": r0["identity_s"],
+                  "serve": r0["serve_s"], "whole": r0["whole_s"]},
+         note="tokens/s, TTFT and ITL of one unified pass at mp=2 (eager, "
+              "the step's collectives over gloo through the host); "
+              "share_window: a short pass with every collective "
+              "synchronised before and after, collective seconds over its "
+              "wall; the mp=1 tokens are rank 0's whole model")
+    mp_server_phase(torch, r0["toy_tokens"])
+    return {"identity": {r["rank"]: {
+                "ragged": sum(r["identity"][n]["launches"]["ragged"]
+                              for n in ("unified", "legacy",
+                                        "legacy_burst8")),
+                "decode": sum(r["identity"][n]["launches"]["decode"]
+                              for n in ("unified", "legacy",
+                                        "legacy_burst8"))}
+                for r in ranks},
+            "serve": {r["rank"]: {
+                "ragged": r["serve"]["rule"]["launches"]["ragged"]
+                + r["serve"]["legacy_burst8"]["rule"]["launches"]["ragged"],
+                "decode": r["serve"]["rule"]["launches"]["decode"]
+                + r["serve"]["legacy_burst8"]["rule"]["launches"]["decode"]}
+                for r in ranks},
+            "shape": shape_errors}
+
+
+def mp_server_phase(torch, toy_tokens):
+    """``python -m paddle_tpu_torch.serving.server --mp 2`` on this card
+    (the CLI's toy model, 2 layers, unified): its banner, ``/readyz`` ``ok
+    dp=1 mp=2``, completions token-equal to the same engine at mp=2 in the
+    ranks, ``/metrics`` with the mp gauge and the collective series, then
+    SIGTERM: the controller drains, stops its follower (which exits 0 or
+    fails the controller's join) and exits 0."""
+    t0 = time.perf_counter()
+    err = tempfile.NamedTemporaryFile("w+", suffix=".err", delete=False)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.serving.server", "--mp",
+         "2", "--layers", "2", "--blocks", "64", "--unified"],
+        stdout=subprocess.PIPE, stderr=err, text=True)
+    try:
+        port, seen = None, []
+        deadline = time.monotonic() + 300
+        while port is None and time.monotonic() < deadline:
+            line = proc.stdout.readline()
+            if not line:
+                break
+            seen.append(line.strip())
+            found = re.search(r"serving on http://[\d.]+:(\d+) dp=1 mp=2",
+                              line)
+            port = int(found.group(1)) if found else None
+        if port is None:
+            err.seek(0)
+            raise AssertionError(f"mp_server: no banner: {seen} "
+                                 f"{err.read()[-3000:]}")
+        boot_s = time.perf_counter() - t0
+        status, _, ready = http_call(port, "GET", "/readyz")
+        tokens = []
+        for prompt, n in MP_SERVER_BODIES:
+            status_c, _, data = http_call(port, "POST", "/v1/completions",
+                                          {"prompt": prompt,
+                                           "max_tokens": n})
+            if status_c != 200:
+                raise AssertionError(f"mp_server: completion {status_c} "
+                                     f"{data[:300]!r}")
+            tokens.append(json.loads(data)["choices"][0]["token_ids"])
+        _, _, page = http_call(port, "GET", "/metrics")
+        want = [b"serving_mp_shards 2",
+                b'serving_collective_seconds_count{phase="ragged"}']
+        if status != 200 or ready != b"ok dp=1 mp=2\n" or any(
+                w not in page for w in want) or tokens != toy_tokens:
+            raise AssertionError(f"mp_server: /readyz {status} {ready!r}, "
+                                 f"metrics {[w in page for w in want]}, "
+                                 f"tokens {tokens} against the ranks' "
+                                 f"{toy_tokens}")
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(timeout=120)
+        stop_s = time.perf_counter() - t1
+        if code != 0:
+            err.seek(0)
+            raise AssertionError(f"mp_server: exit {code} after SIGTERM: "
+                                 f"{err.read()[-3000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+        err.close()
+        os.unlink(err.name)
+    emit("mp_server", readyz=ready.decode().strip(), completions=len(tokens),
+         tokens_equal_in_process_mp2=True, sigterm_exit=0, boot_s=boot_s,
+         stop_s=stop_s, banner=[s for s in seen if s.startswith("mp:")],
+         note="the CLI serves its toy model (LlamaConfig.tiny, 2 layers, "
+              "fp32, simple routes); the follower's exit 0 is checked by "
+              "the controller's join, whose failure fails its exit code")
 
 
 # --- custom-op phase ----------------------------------------------------------
@@ -8170,6 +8915,17 @@ def profile_ops_phase(torch, rp, serving, dispatch, LlamaConfig,
     return on["launches"]
 
 
+def mp_serve_row(out, key):
+    """The mp_serve fields of B1's or B2's row of the kernels line: each
+    rank's launches in mp_serve_identity and mp_serve, and the errors at a
+    rank's shapes."""
+    return {"mp_serve_identity_launches": {r: n[key] for r, n in
+                                           out["identity"].items()},
+            "mp_serve_launches": {r: n[key] for r, n in
+                                  out["serve"].items()},
+            "mp_shape": out["shape"][key]}
+
+
 def kernel_launches(rp, pd, flash, sc):
     """Every kernel's launch count now."""
     return {"ragged": rp.launches, "decode": pd.launches,
@@ -8277,10 +9033,12 @@ def main() -> int:
 
     summary = kernel_phase(torch, rp, flash)
     decode_summary = decode_kernel_phase(torch, pd, flash)
-    model, prompts, unified_tokens = identity_phase(
+    model, prompts, unified_tokens, unified_buckets = identity_phase(
         torch, rp, serving, graphs, LlamaConfig, LlamaForCausalLM)
-    identity_legacy_phase(torch, pd, serving, graphs, model, prompts,
-                          unified_tokens)
+    mp_serve_ref = identity_legacy_phase(torch, pd, serving, graphs, model,
+                                         prompts, unified_tokens)
+    mp_serve_ref.update(unified=(unified_tokens, sorted(unified_buckets)),
+                        identity_prompts=prompts)
     # the prefill families as step programs, and AOT artifacts, on the
     # identity model
     prefill_identity_phase(torch, serving, graphs, model, prompts)
@@ -8313,10 +9071,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     decode_launches, llms = serve_legacy_phase(
         torch, pd, serving, graphs, model, prompts, warm, new_tokens)
-    for name in llms:
-        profile_phase(torch, serving, graphs, llms[name], vocab,
-                      window_name=name,
-                      label="decode", marks=DECODE_MARKS, new_tokens=32)
+    # the legacy families' window only (serve_legacy gates the bursts'
+    # launches), 16 new tokens: most of a window's time is the profiler's
+    # processing of its events
+    profile_phase(torch, serving, graphs, llms["legacy"], vocab,
+                  window_name="legacy", label="decode", marks=DECODE_MARKS,
+                  new_tokens=16)
     del llms
     gc.collect()
     torch.cuda.empty_cache()
@@ -8337,7 +9097,11 @@ def main() -> int:
         LlamaConfig.llama3_8b(num_hidden_layers=FLEET_LAYERS),
         device="cuda", dtype=torch.bfloat16,
         generator=torch.Generator(device="cuda").manual_seed(1))
-    saved = aot_boot_save(torch, serving, saver, prompts, fleet_spec)
+    # the serve prompts of at most 1024 tokens: the artifact's universe,
+    # which each worker warms at boot and again at its respawn, is bounded
+    # by the longest
+    saved = aot_boot_save(torch, serving, saver,
+                          [p for p in prompts if len(p) <= 1024], fleet_spec)
     del saver
     gc.collect()
     torch.cuda.empty_cache()
@@ -8371,6 +9135,13 @@ def main() -> int:
         ClipGradByGlobalNorm=port_nn.ClipGradByGlobalNorm),
         train_losses[0])
     mp_seconds = time.perf_counter() - mp_start
+    # tensor-parallel serving: B1 and B2 at a rank's shapes, the mp=2
+    # identity and serve runs in 2 rank processes over gloo on this card,
+    # and server --mp 2
+    mp_serve_start = time.perf_counter()
+    mp_serve_ref["serve_prompts"] = prompts
+    mp_serve_out = mp_serve_phases(torch, rp, pd, flash, mp_serve_ref)
+    mp_serve_seconds = time.perf_counter() - mp_serve_start
     # GPT pre-training (MHA through the flash kernels), BERT/ERNIE
     # fine-tuning and checkpoints
     port = SimpleNamespace(
@@ -8511,12 +9282,13 @@ def main() -> int:
     # the time budget: the sequence-model phases and the whole script
     emit("budget", sequence_phases_s=seq_seconds,
          export_partial_zoo_s=new_seconds, bus_amp_o2_s=o2_seconds,
-         mp_phases_s=mp_seconds, limit_s=1200)
+         mp_phases_s=mp_seconds, mp_serve_s=mp_serve_seconds, limit_s=1200)
     print(json.dumps({"kernels": [{
         "name": KERNEL_NAME, "route": "cuda",
         "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
         "replaces": "paddle_tpu/ops/ragged_paged.py:111",
         "launches": launches, "seq2seq_launches": seq_launches["ragged"],
+        **mp_serve_row(mp_serve_out, "ragged"),
         "profile_ops_launches": profile_launches,
         "vision_zoo_launches": zoo_launches["ragged"],
         "max_abs_err": summary["max_abs_err"],
@@ -8529,6 +9301,7 @@ def main() -> int:
         "replaces": "paddle_tpu/ops/pallas_paged.py:45",
         "launches": decode_launches,
         "seq2seq_launches": seq_launches["decode"],
+        **mp_serve_row(mp_serve_out, "decode"),
         "vision_zoo_launches": zoo_launches["decode"],
         "max_abs_err": decode_summary["max_abs_err"],
         "ms": decode_summary["ms"], "device_ms": decode_summary["device_ms"],

@@ -13,7 +13,10 @@ function).
 Options: ``backend`` (``PADDLE_DISTRI_BACKEND`` for the ranks),
 ``pg_timeout`` (seconds, ``PADDLE_DISTRI_TIMEOUT``: a collective waiting
 longer fails), ``timeout`` (seconds :meth:`SpawnContext.join` waits for
-every rank), ``master`` (``host:port``, default a free local port).
+every rank), ``master`` (``host:port``, default a free local port), and
+``first_rank`` / ``world_size`` for processes that are only part of a
+world (the ranks ``first_rank..first_rank+nprocs-1`` of ``world_size``:
+a serving controller starts its followers so, being rank 0 itself).
 
 ``join`` returns when every rank exits 0.  When one rank fails, the others
 are stopped and ``join`` raises :class:`ProcessRaisedException` with the
@@ -49,8 +52,9 @@ class SpawnTimeout(TimeoutError):
     stopped)."""
 
 
-def _rank_env(rank: int, nprocs: int, master: str, backend: Optional[str],
-              pg_timeout: Optional[float]) -> dict:
+def rank_env(rank: int, nprocs: int, master: str, backend: Optional[str],
+             pg_timeout: Optional[float]) -> dict:
+    """The launcher environment of rank ``rank`` of ``nprocs`` ranks."""
     host, port = master.rsplit(":", 1)
     env = {"PADDLE_TRAINER_ID": str(rank),
            "PADDLE_TRAINERS_NUM": str(nprocs),
@@ -74,14 +78,18 @@ def _worker(func, args: Tuple, rank_env: dict, errors) -> None:
 
 
 class SpawnContext:
-    """The spawned ranks: ``processes`` in rank order, and :meth:`join`."""
+    """The spawned ranks: ``processes`` in rank order from ``first_rank``,
+    and :meth:`join`."""
 
-    def __init__(self, processes, errors, timeout: Optional[float]):
+    def __init__(self, processes, errors, timeout: Optional[float],
+                 first_rank: int = 0):
         self.processes = processes
+        self.first_rank = first_rank
         self._errors = errors
         self._timeout = timeout
 
-    def _stop(self) -> None:
+    def stop(self) -> None:
+        """Stop every rank still running (terminate, then kill after 5 s)."""
         for p in self.processes:
             if p.is_alive():
                 p.terminate()
@@ -101,27 +109,28 @@ class SpawnContext:
     def join(self, timeout: Optional[float] = None) -> bool:
         timeout = self._timeout if timeout is None else timeout
         deadline = None if timeout is None else time.monotonic() + timeout
-        pending = {p.sentinel: (rank, p)
-                   for rank, p in enumerate(self.processes)}
+        pending = {p.sentinel: (self.first_rank + i, p)
+                   for i, p in enumerate(self.processes)}
         while pending:
             left = (None if deadline is None
                     else max(0.0, deadline - time.monotonic()))
             ready = mpc.wait(list(pending), timeout=left)
             if not ready:
                 ranks = sorted(r for r, _ in pending.values())
-                self._stop()
+                self.stop()
                 raise SpawnTimeout(f"spawned ranks {ranks} still ran after "
                                    f"{timeout} s; all ranks were stopped")
             for s in ready:
                 rank, p = pending.pop(s)
                 p.join()
                 if p.exitcode != 0:
-                    self._stop()
+                    self.stop()
                     first = self._first_error()
                     if first is not None:
                         rank = first[0]
                     raise ProcessRaisedException(
-                        rank, self.processes[rank].exitcode,
+                        rank,
+                        self.processes[rank - self.first_rank].exitcode,
                         first[1] if first is not None else "")
         return True
 
@@ -139,14 +148,16 @@ def spawn(func, args=(), nprocs: int = -1, join: bool = True,
     ctx = mp.get_context("spawn")
     errors = ctx.SimpleQueue()
     procs = []
-    for rank in range(nprocs):
-        env = _rank_env(rank, nprocs, master, options.get("backend"),
-                        options.get("pg_timeout"))
+    first = options.get("first_rank", 0)
+    world = options.get("world_size") or first + nprocs
+    for rank in range(first, first + nprocs):
+        env = rank_env(rank, world, master, options.get("backend"),
+                       options.get("pg_timeout"))
         p = ctx.Process(target=_worker, args=(func, tuple(args), env, errors),
                         daemon=daemon)
         p.start()
         procs.append(p)
-    context = SpawnContext(procs, errors, options.get("timeout"))
+    context = SpawnContext(procs, errors, options.get("timeout"), first)
     if join:
         context.join()
     return context

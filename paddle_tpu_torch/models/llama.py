@@ -29,10 +29,12 @@ topology of mp > 1 (``distributed.topology.init_mesh``) each rank holds
 their outputs left sliced, o row-parallel), the MLP's ``I/mp`` columns, the
 embedding's ``V/mp`` rows and the LM head's ``V/mp`` columns, whose logits
 are gathered; the no-cache attention runs the flash kernels on the rank's
-own heads.  mp must divide the heads, the KV heads, the intermediate size
-and the vocabulary, or the model raises.  What waits: the cached routes
-(serving) at mp > 1, MoE layers (``num_experts > 0``), pipeline
-micro-batches and 1F1B — ROADMAP A11.
+own heads, and every cached route its dense buffers or pools of the
+rank's ``Hkv/mp`` KV heads (tensor-parallel serving and
+:meth:`LlamaForCausalLM.generate`).  mp must divide the heads, the KV
+heads, the intermediate size and the vocabulary, or the model raises.
+What waits: MoE layers (``num_experts > 0``), pipeline micro-batches and
+1F1B — ROADMAP A11.
 """
 
 from __future__ import annotations
@@ -228,11 +230,6 @@ class LlamaAttention(nn.Module):
         v = self.v_proj(x).reshape(B, S, self.num_kv_heads, hd)
         if cache is not None and pos is None:
             raise ValueError("a cached forward needs the tokens' positions")
-        if cache is not None and self.mp > 1:
-            raise NotImplementedError(
-                "the cached attention routes (serving, generate) at mp > 1 "
-                "are not ported yet (ROADMAP A11); the no-cache forward "
-                "trains at any mp degree")
         if pos is None:
             cos, sin = self._rope_cos[None, :S], self._rope_sin[None, :S]
         else:
@@ -498,18 +495,20 @@ class LlamaForCausalLM(nn.Module):
         on the host from ``np.random.default_rng(seed)`` exactly as the JAX
         package's ``generate`` does, so equal logits give equal tokens.
         Returns ``[B, T0 + n]`` int64 on the CPU (``n <= max_new_tokens``;
-        it stops early once every row has emitted ``eos_token_id``)."""
+        it stops early once every row has emitted ``eos_token_id``).
+
+        At mp > 1 every rank of the mp group calls it with the same
+        arguments: each rank's caches hold its KV heads, the gathered
+        logits are bit-equal on every rank, and so are the host draws."""
         cfg = self.config
-        if axis_group("mp").nranks > 1:
-            raise NotImplementedError(
-                "generate at mp > 1 is not ported yet (ROADMAP A11)")
         ids = (input_ids.detach().cpu().long()
                if isinstance(input_ids, torch.Tensor) else
                torch.as_tensor(np.asarray(input_ids), dtype=torch.int64))
         B, T0 = ids.shape
         M = T0 + max_new_tokens
         w = self.llama.embed_tokens.weight
-        shape = (B, M, cfg.num_key_value_heads, cfg.head_dim)
+        shape = (B, M, self.llama.layers[0].self_attn.num_kv_heads,
+                 cfg.head_dim)
         caches = [(torch.zeros(shape, dtype=w.dtype, device=w.device),
                    torch.zeros(shape, dtype=w.dtype, device=w.device))
                   for _ in range(cfg.num_hidden_layers)]

@@ -19,6 +19,10 @@ allocation.
   pinned.
 * :func:`paged_prefill_attention` — chunked-prefill attention over the
   pools, plain PyTorch on every device (XLA code in the JAX package).
+* :data:`KV_POOL_SPEC`, :func:`kv_pool_shape`, :func:`shard_kv_pool` — the
+  head-sharded layout of tensor-parallel serving: at mp > 1 each rank's
+  pools hold its ``Hkv / mp`` KV heads, and every attention path above
+  takes a rank's local head counts as they are.
 
 The block-transfer methods (:meth:`BlockPool.export_blocks`,
 :meth:`~BlockPool.export_chain`, :meth:`~BlockPool.import_blocks`) carry the
@@ -447,10 +451,37 @@ class BlockPool:
 
 
 #: Dimension names of a ``[num_blocks, block_size, Hkv, D]`` KV pool under
-#: tensor-parallel serving: sharded along the HEAD dim over ``mp``.  Kept
-#: as the layout contract for the mp>1 slice (ROADMAP A11); at mp=1 the
-#: pools are whole on one card.
+#: tensor-parallel serving: sharded along the HEAD dim over ``mp``.  The one
+#: source of the layout: :func:`kv_pool_shape` sizes a rank's pools and
+#: :func:`shard_kv_pool` cuts a rank's slice out of a whole pool with it.
 KV_POOL_SPEC = (None, None, "mp", None)
+_POOL_SHARD_DIM = KV_POOL_SPEC.index("mp")
+
+
+def kv_pool_shape(num_blocks: int, block_size: int, num_kv_heads: int,
+                  head_dim: int, mp: int = 1) -> tuple:
+    """The shape of one rank's pool at tensor-parallel degree ``mp``: its
+    ``num_kv_heads / mp`` KV heads of every page.  Raises when ``mp`` does
+    not divide the KV heads (the JAX ``shard_kv_pool`` leaves such a pool
+    whole; the port's ranks hold slices only, so the engine validates
+    divisibility before it allocates)."""
+    if num_kv_heads % mp:
+        raise ValueError(f"mp={mp} must divide num_key_value_heads="
+                         f"{num_kv_heads} (the KV pools shard along the "
+                         f"head dim)")
+    shape = [num_blocks, block_size, num_kv_heads, head_dim]
+    shape[_POOL_SHARD_DIM] //= mp
+    return tuple(shape)
+
+
+def shard_kv_pool(pool, rank: int, mp: int):
+    """Rank ``rank``'s slice of a whole ``[num_blocks, block_size, Hkv, D]``
+    pool at degree ``mp`` (the counterpart of the JAX ``shard_kv_pool``,
+    which places the pool sharded over the mesh): its ``Hkv / mp`` heads,
+    the layout of :func:`kv_pool_shape`."""
+    kv_pool_shape(*pool.shape, mp=mp)      # validates divisibility
+    part = pool.shape[_POOL_SHARD_DIM] // mp
+    return pool.narrow(_POOL_SHARD_DIM, rank * part, part)
 
 
 class PagedCache:

@@ -35,7 +35,10 @@ Written twice against this one interface:
 :func:`paged_attention_decode` dispatches: on a CUDA tensor it launches the
 kernel (or raises — there is no fallback and no switch to turn the kernel
 off), and ``use_pallas=False`` pins the plain version; on a CPU tensor it
-runs the plain version, and ``use_pallas=True`` raises.
+runs the plain version, and ``use_pallas=True`` raises.  At mp > 1 each rank
+calls it with its own ``H/mp`` query and ``Hkv/mp`` KV heads, in the
+legacy decode family and in burst iterations alike (ROADMAP C13: the JAX
+engine pins those families to its gather path at mp > 1).
 
 A row with ``seq_lens == 0`` (the engine never builds one) gets zeros from
 the kernel and from :func:`decode_split_reference`, as from the TPU kernel,
@@ -339,6 +342,11 @@ def paged_attention_decode(q, k_cache, v_cache, block_tables, seq_lens,
     :func:`decode_reference`.  On a CPU tensor the plain version runs, and
     True raises because the kernel cannot run there."""
     global last_path
+    if q.shape[-2] % k_cache.shape[2]:
+        raise ValueError(
+            f"paged decode attention: {q.shape[-2]} query heads do not group "
+            f"over {k_cache.shape[2]} KV heads; at mp > 1 a rank passes its "
+            f"own H/mp and Hkv/mp heads, and mp must divide both")
     if q.device.type == "cuda" and use_pallas is not False:
         out = decode_kernel(q, k_cache, v_cache, block_tables, seq_lens)
         last_path = "cuda"

@@ -39,6 +39,14 @@ Written twice against this one interface:
 kernel (or raises — there is no fallback and no switch to turn the kernel
 off), and ``use_pallas=False`` pins the plain version; on a CPU tensor it
 runs the plain version, and ``use_pallas=True`` raises.
+
+Tensor-parallel serving: the JAX package runs its kernel on each shard's
+heads through ``shard_map`` (``_mesh_kernel``).  Here each rank calls this
+dispatch with its own ``q [T, H/mp, D]`` and its own pools
+``[num_blocks, block_size, Hkv/mp, D]``: the kernels take any head counts
+whose query heads group evenly over the KV heads, and raise otherwise
+(where the JAX function falls back to its single-shard kernel; the engine
+validates mp's divisibility first, as the JAX engine does).
 """
 
 from __future__ import annotations
@@ -342,6 +350,11 @@ def ragged_paged_attention(q, k_cache, v_cache, block_tables, kv_lens,
     True raises because the kernel cannot run there.  The argument keeps
     the JAX package's name so engine configs carry over."""
     global last_path
+    if q.shape[-2] % k_cache.shape[2]:
+        raise ValueError(
+            f"ragged paged attention: {q.shape[-2]} query heads do not group "
+            f"over {k_cache.shape[2]} KV heads; at mp > 1 a rank passes its "
+            f"own H/mp and Hkv/mp heads, and mp must divide both")
     if q.device.type == "cuda" and use_pallas is not False:
         out = ragged_kernel(q, k_cache, v_cache, block_tables, kv_lens,
                             seg_ids, q_pos)

@@ -32,6 +32,9 @@ engine and the in-process serving fleet.
 * :class:`AotArtifact` (``aot.py``) — AOT serving artifacts: save an
   engine's closed bucket universe, load and bind it, and warm it, so an
   engine, a fleet or a worker process captures nothing after boot.
+* ``tp.py`` — tensor-parallel serving, one process a rank: the
+  controller rank broadcasts each step, the follower ranks run it on
+  their shards (``follow``); the server's ``--mp N``.
 """
 
 from ..observability.alerts import (  # noqa: F401

@@ -320,7 +320,9 @@ class AotArtifact:
         """Write ``engine``'s full bucketed universe into the ``path``
         directory.  ``max_seq_len`` bounds it (default: pool capacity).
         The saved set is always the full :func:`enumerate_buckets`
-        lattice: :meth:`validate` requires exactly that coverage."""
+        lattice: :meth:`validate` requires exactly that coverage.  An
+        engine at mp > 1 raises naming ROADMAP A11."""
+        engine._single_rank("AOT artifacts")
         t0 = time.perf_counter()
         sched = engine.scheduler.config
         max_seq = _max_seq_cap(engine, max_seq_len)

@@ -73,10 +73,22 @@ the captured graphs read the imported pages.  **AOT artifacts**
 (``EngineConfig(aot=...)`` / ``aot_path``, ``serving/aot.py``):
 :meth:`EngineCore.bind_aot` validates one and seals the step graphs to its
 saved universe; ``AotArtifact.warm`` captures every key of it before the
-engine serves.  Tensor-parallel serving (A11) and the per-op dispatch
-timer (A12) belong to later slices of the port: the :class:`EngineConfig`
-fields that ask for them raise ``NotImplementedError`` naming the ROADMAP
-item.
+engine serves.
+
+**Tensor-parallel serving** (a hybrid topology of mp > 1,
+``distributed.topology.init_mesh(mp=...)`` on every rank before the model
+and the engine are built; ``EngineConfig.mp`` must agree with it): one
+process a rank, as ``serving/tp.py`` sets out.  Every rank of the mp group
+builds the engine over its shard of the model; the first rank is the
+controller and runs everything above, the others follow
+(``serving.tp.follow``).  A rank's pools hold its ``Hkv/mp`` KV heads
+(``ops.paged_attention.kv_pool_shape``) and its families launch the CUDA
+kernels on its own heads, the legacy decode family included (ROADMAP
+C13).  Each launch is broadcast to the followers before the controller
+runs it; every family runs eagerly (``graphs.eager_reason``), its wall
+time also lands in ``serving_collective_seconds{phase}``.  What waits for
+the rest of ROADMAP A11 raises naming it: the auditor, speculative
+decoding, AOT artifacts and the KV hand-off at mp > 1.
 """
 
 from __future__ import annotations
@@ -95,8 +107,9 @@ from ..observability.cachestat import CacheStatTracker
 from ..observability.lifecycle import LifecycleTracker
 from ..observability.stepprof import StepProfiler
 from ..ops.decode_burst import BurstState, burst_iteration
-from ..ops.paged_attention import PagedCache, PoolExhausted
+from ..ops.paged_attention import PagedCache, PoolExhausted, kv_pool_shape
 from ..ops.sampling import sample_tokens
+from ..parallel.utils import axis_group
 from .burst import burst_eligible, clamp_burst
 from .burst import register_metrics as _register_burst_metrics
 from .graphs import StepGraphs
@@ -111,6 +124,7 @@ from .scheduler import (
     bucket_size,
 )
 from .spec import SpecDecoder
+from .tp import StepChannel
 
 # per-step cap on individual prefix_cache_eviction lifecycle events: the
 # counters and histograms stay exact per eviction, but a pool-thrash step
@@ -191,20 +205,55 @@ class EngineConfig:
 
 def check_supported(config: EngineConfig) -> None:
     """Raise for every :class:`EngineConfig` setting the port does not
-    implement yet — nothing is silently ignored."""
+    implement — nothing is silently ignored."""
     if config.role not in ("unified", "prefill", "decode"):
         raise ValueError(
             f"EngineConfig.role must be 'unified', 'prefill' or 'decode'; "
             f"got {config.role!r}")
-    todo = (
-        (config.mp not in (None, 1), f"mp={config.mp}",
-         "tensor-parallel serving", "A11"),
-    )
-    for bad, setting, what, item in todo:
-        if bad:
-            raise NotImplementedError(
-                f"EngineConfig {setting}: {what} are not ported to "
-                f"paddle_tpu_torch yet (ROADMAP {item})")
+
+
+def resolve_mp(config: EngineConfig, model) -> int:
+    """The engine's tensor-parallel degree: the hybrid topology's mp axis.
+    What waits for the rest of ROADMAP A11 at mp > 1 raises first
+    (``NotImplementedError``); then ``EngineConfig.mp`` must equal the
+    topology's degree, mp must divide the query and KV heads, and the
+    model must hold a rank's heads (built after ``init_mesh``) — each a
+    ``ValueError``, as in the JAX engine."""
+    mp = axis_group("mp").nranks
+    asked = config.mp if config.mp is not None else mp
+    if asked > 1:
+        waiting = (
+            (config.audit is not None and config.audit.enabled,
+             "the numerics auditor (its replicated re-run)"),
+            (config.spec is not None and config.spec.enabled,
+             "speculative decoding"),
+            (config.aot is not None or bool(config.aot_path),
+             "AOT artifacts"))
+        for bad, what in waiting:
+            if bad:
+                raise NotImplementedError(
+                    f"EngineConfig mp={asked}: {what} at mp > 1 is not "
+                    f"ported to paddle_tpu_torch yet (ROADMAP A11)")
+    if config.mp is not None and config.mp != mp:
+        raise ValueError(
+            f"EngineConfig.mp={config.mp} but the hybrid topology has "
+            f"mp={mp}; call distributed.topology.init_mesh(mp=...) on every "
+            f"rank before building the model and the engine")
+    if mp > 1:
+        cfg = model.config
+        if cfg.num_key_value_heads % mp or cfg.num_attention_heads % mp:
+            raise ValueError(
+                f"mp={mp} must divide num_key_value_heads="
+                f"{cfg.num_key_value_heads} and num_attention_heads="
+                f"{cfg.num_attention_heads} (the KV pools shard along the "
+                f"head dim)")
+        held = model.llama.layers[0].self_attn.num_kv_heads
+        if held * mp != cfg.num_key_value_heads:
+            raise ValueError(
+                f"the model holds {held} of {cfg.num_key_value_heads} KV "
+                f"heads a rank, not those of mp={mp}: build it after "
+                f"distributed.topology.init_mesh(mp={mp})")
+    return mp
 
 
 class EngineCore:
@@ -247,6 +296,10 @@ class EngineCore:
         self.engine_config = config
         num_blocks, block_size = config.num_blocks, config.block_size
         cfg = model.config
+        self.mp = resolve_mp(config, model)
+        # the control plane of mp > 1: the controller broadcasts each
+        # launch, the followers run it (serving/tp.py); None at mp = 1
+        self.tp = StepChannel(axis_group("mp")) if self.mp > 1 else None
         self.model = model
         self.device = next(model.parameters()).device
         self.kv = KVCacheManager(num_blocks, block_size,
@@ -295,7 +348,6 @@ class EngineCore:
         # metrics history: set_history() binds a HistoryStore that every
         # step ticks (gated by EngineConfig.history)
         self.history = None
-        self.mp = 1   # tensor-parallel serving is ROADMAP A11
         self.metrics.set_mp_shards(self.mp)
         self._burst_counters = _register_burst_metrics(
             self.metrics.registry, labels=self.metrics.labels)
@@ -304,9 +356,10 @@ class EngineCore:
         self._use_pallas = config.use_pallas_paged
         self._pool_dtype = (config.dtype if config.dtype is not None
                             else torch.float32)
-        # allocated once; every step writes its K/V into them in place
-        shape = (num_blocks, block_size, cfg.num_key_value_heads,
-                 cfg.head_dim)
+        # allocated once; every step writes its K/V into them in place; at
+        # mp > 1 a rank's pools hold its Hkv/mp heads
+        shape = kv_pool_shape(num_blocks, block_size,
+                              cfg.num_key_value_heads, cfg.head_dim, self.mp)
         self._k_pools = [torch.zeros(shape, dtype=self._pool_dtype,
                                      device=self.device)
                          for _ in range(cfg.num_hidden_layers)]
@@ -328,6 +381,11 @@ class EngineCore:
         # the bound AOT artifact (bind_aot); set before any capture
         self._aot = None
         self.graphs = StepGraphs(self.device, on_capture=self._on_capture)
+        if self.mp > 1:
+            self.graphs.eager_reason = (
+                f"mp={self.mp}: the step's collectives run between its "
+                f"kernels, outside any CUDA graph (ROADMAP A11 item 7)")
+            self.metrics.set_graphs_eager(self.graphs.eager_reason)
         # each rows bucket's last-logits buffer of the burst iteration
         self._burst_last: Dict[int, torch.Tensor] = {}
         # decode bursts: the tables of a burst are padded to ONE width (the
@@ -385,6 +443,7 @@ class EngineCore:
         artifact) records no load sample.  Raises
         ``AotManifestMismatch`` on any deployment disagreement, binding
         nothing."""
+        self._single_rank("AOT artifacts")
         artifact.validate(self)
         self._aot = artifact
         # admission-side guard (the backstop stays in AotArtifact.call)
@@ -476,7 +535,8 @@ class EngineCore:
         captured).  Returns the token sampled off that position, its
         logits and their stats."""
         cfg = self.model.config
-        shape = (1, ids.shape[1], cfg.num_key_value_heads, cfg.head_dim)
+        shape = (1, ids.shape[1], cfg.num_key_value_heads // self.mp,
+                 cfg.head_dim)
         dense = [(torch.zeros(shape, dtype=self._pool_dtype,
                               device=self.device),
                   torch.zeros(shape, dtype=self._pool_dtype,
@@ -868,6 +928,10 @@ class EngineCore:
         against its saved universe and signature first, and the launch
         counts as a hit of ``program``."""
         self._burst_counters["roundtrips"].inc()
+        if self.tp is not None:
+            # the followers launch the same family on their shards
+            self.tp.send_step(program, bucket, sampled, steps, a,
+                              pack.arrays())
         inputs = [a[n] for n in _PROGRAM_INPUTS[program]] + list(
             pack.arrays())
         if self._aot is not None:
@@ -877,11 +941,38 @@ class EngineCore:
                                self._family_fn(program, sampled), inputs,
                                steps=steps)
 
+    def follow_step(self, program: str, bucket, sampled: bool, steps: int,
+                    host: dict, pack_arrays) -> tuple:
+        """A follower rank's half of one launch (``serving.tp.follow``):
+        the controller's host arrays over this rank's own pad inputs (its
+        device state, a burst's last-logits buffer, stays its own), then
+        the same family on this rank's shard and pools.  Returns the
+        family's outputs, its sampled tokens first."""
+        a, _ = self._pad_inputs(program, tuple(bucket))
+        a.update(host)
+        inputs = [a[n] for n in _PROGRAM_INPUTS[program]] + list(pack_arrays)
+        return self.graphs.run((program, *bucket, sampled),
+                               self._family_fn(program, sampled), inputs,
+                               steps=steps)
+
+    def _single_rank(self, what: str) -> None:
+        """Raise naming ROADMAP A11 for ``what`` at mp > 1."""
+        if self.mp > 1:
+            raise NotImplementedError(
+                f"{what} at mp={self.mp} are not ported to paddle_tpu_torch "
+                f"yet (ROADMAP A11)")
+
+    def _collective_phase(self, phase: str) -> Optional[str]:
+        """StepTimer's label for ``serving_collective_seconds{phase}``:
+        only when the step spans the mp group's ranks."""
+        return phase if self.mp > 1 else None
+
     def warm_program(self, program: str, bucket, any_sampled: bool) -> None:
         """Capture the step program ``(program, bucket..., any_sampled)``
         now, on pad inputs (:meth:`_pad_inputs`): its first run writes the
         null page only.  ``AotArtifact.warm`` calls this for every key of
         its universe before the engine serves."""
+        self._single_rank("AOT artifacts")
         self.graphs.run((program, *bucket, any_sampled),
                         self._family_fn(program, any_sampled),
                         self.program_inputs(program, tuple(bucket)))
@@ -941,7 +1032,8 @@ class EngineCore:
         sampled = bool((pack.temps > 0).any())
         with self.tracer.span("prefill_step", cat="serving",
                               request=str(rid), trace=req.trace_id, **span):
-            with StepTimer(self.metrics, "prefill_step") as st:
+            with StepTimer(self.metrics, "prefill_step",
+                           self._collective_phase("prefill")) as st:
                 out = self._step_call(program, bucket, sampled, a, pack)
                 tok = int(out[0][0])
         self.stepprof.record_program(
@@ -1006,7 +1098,8 @@ class EngineCore:
                               batch_bucket=Bb, width_bucket=Wb,
                               requests=",".join(str(r.request_id)
                                                 for r in reqs)):
-            with StepTimer(self.metrics, "decode_step") as st:
+            with StepTimer(self.metrics, "decode_step",
+                           self._collective_phase("decode")) as st:
                 out = self._step_call("decode", (Bb, Wb), sampled, a, pack)
                 toks = out[0].cpu().numpy()
         # token/row accounting: B real rows in the Bb row bucket (the
@@ -1077,7 +1170,8 @@ class EngineCore:
                               burst_bucket=Nb,
                               requests=",".join(str(r.request_id)
                                                 for r in reqs)):
-            with StepTimer(self.metrics, "burst_step") as st:
+            with StepTimer(self.metrics, "burst_step",
+                           self._collective_phase("burst")) as st:
                 (buf,) = self._step_call("burst", (Bb, Nb), sampled, a, pack,
                                          steps=n_steps)
                 buf = buf.cpu().numpy()
@@ -1207,7 +1301,8 @@ class EngineCore:
             self._k_pools, self._v_pools, inputs)
         with self.tracer.span("unified_step", cat="serving", tokens=T,
                               rows=R, token_bucket=Tb, table_bucket=TWb):
-            with StepTimer(self.metrics, "unified_step") as st:
+            with StepTimer(self.metrics, "unified_step",
+                           self._collective_phase("ragged")) as st:
                 out = self._step_call("ragged", (Tb, TWb), sampled, a, pack)
                 toks = out[0].cpu().numpy()
         self.ragged_launches += 1
@@ -1277,7 +1372,14 @@ class EngineCore:
         {request_id: last token} emitted this step.  With
         ``profile_ops=True`` the step's op-bus dispatches are timed into
         the metrics' "Host operator summary" (a replayed graph dispatches
-        nothing and adds no row), the timer released after the step."""
+        nothing and adds no row), the timer released after the step.  At
+        mp > 1 only the controller steps; a follower rank runs
+        ``serving.tp.follow(engine)``."""
+        if self.tp is not None and not self.tp.is_controller:
+            raise RuntimeError(
+                "this rank follows the controller's steps at mp > 1: call "
+                "serving.tp.follow(engine) here and step the engine on the "
+                "mp group's first rank")
         if not self.engine_config.profile_ops:
             return self._step()
         remove_timer = self.metrics.install_dispatch_timer()
@@ -1455,6 +1557,7 @@ class EngineCore:
         :meth:`detach_request`."""
         from . import handoff
 
+        self._single_rank("KV hand-offs")
         return handoff.export_request_run(self, request_id)
 
     def export_prefix_chain(self, chain_hash, max_blocks=None):
@@ -1462,6 +1565,7 @@ class EngineCore:
         digest; ``None`` on a broken chain."""
         from . import handoff
 
+        self._single_rank("KV hand-offs")
         return handoff.export_prefix_run(self, chain_hash,
                                          max_blocks=max_blocks)
 
@@ -1472,6 +1576,7 @@ class EngineCore:
         fresh-block count, or ``None`` on a capacity refusal."""
         from . import handoff
 
+        self._single_rank("KV hand-offs")
         return handoff.import_run(self, run)
 
     def detach_request(self, request_id) -> bool:

@@ -3,7 +3,9 @@
 
 * :class:`LLM` — offline batch inference: hand it every prompt, it drives
   the continuous-batching loop to completion and returns per-request
-  outputs in submission order.
+  outputs in submission order.  At mp > 1 every rank of the mp group calls
+  it with the same prompts (SPMD): the controller schedules, the followers
+  follow its steps, and every rank returns the controller's outputs.
 * :func:`stream_generate` — online single-request streaming over a shared
   engine: yields tokens as they decode while other requests keep batching.
 """
@@ -17,6 +19,7 @@ import torch
 from .engine import EngineCore
 from .request import Request, SamplingParams
 from .scheduler import SchedulerConfig
+from .tp import follow
 
 
 class CompletionOutput:
@@ -68,10 +71,17 @@ class LLM:
             params = list(sampling_params)
             if len(params) != len(prompts):
                 raise ValueError("one SamplingParams per prompt required")
-        reqs = [self.engine.add_request(p, sampling=sp)
+        eng = self.engine
+        if eng.tp is not None and not eng.tp.is_controller:
+            follow(eng)
+            return eng.tp.share()
+        reqs = [eng.add_request(p, sampling=sp)
                 for p, sp in zip(prompts, params)]
-        self.engine.run()
-        return [CompletionOutput(r) for r in reqs]
+        eng.run()
+        if eng.tp is not None:
+            eng.tp.release()
+        outputs = [CompletionOutput(r) for r in reqs]
+        return outputs if eng.tp is None else eng.tp.share(outputs)
 
     def summary(self) -> str:
         return self.engine.metrics.summary()

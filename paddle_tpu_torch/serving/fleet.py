@@ -699,6 +699,12 @@ class FleetRouter:
         if len(mps) != 1:
             raise ValueError(f"replicas disagree on mp degree: {sorted(mps)}")
         self.mp = self.engines[0].mp
+        if self.mp > 1 and len(self.engines) > 1:
+            raise NotImplementedError(
+                f"an in-process fleet of {len(self.engines)} replicas at "
+                f"mp={self.mp} (dp x mp serving) is not ported to "
+                f"paddle_tpu_torch yet (ROADMAP A11); a fleet of one engine "
+                f"serves at any mp")
         self._notify_cb: Callable[[Optional[EngineReplica]], None] = \
             lambda replica=None: None
         if len(self.engines) > 1:

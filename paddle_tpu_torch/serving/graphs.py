@@ -54,6 +54,13 @@ programs, one per engine.
 * :func:`disable_graphs` — the counterpart of ``jax.disable_jit()`` — runs
   the families eagerly on fresh tensors and leaves the counters alone; the
   identity checks hold graphs against it.
+* **Eager at mp > 1** (:attr:`StepGraphs.eager_reason`, set by a
+  tensor-parallel engine): a step family's collectives run over the mp
+  group between its kernels, and over gloo they go through the host,
+  which no captured graph can hold (collectives inside captured graphs
+  are ROADMAP A11 item 7).  Every family then runs as under
+  :func:`disable_graphs` on every rank: no capture, so the trace counters
+  stay 0, while the bucket keys are those of mp = 1.
 * **Sealed to an AOT artifact** (:meth:`StepGraphs.seal`, by
   ``EngineCore.bind_aot``): a key outside the artifact's saved universe
   raises ``AotBucketMissing`` and is never captured, graphs on or off.
@@ -159,6 +166,8 @@ class StepGraphs:
         self._pool = None
         # the AOT artifact this cache is sealed to (None = open)
         self.artifact = None
+        # why every family runs eagerly here (None = captured graphs)
+        self.eager_reason: Optional[str] = None
 
     def seal(self, artifact) -> None:
         """Admit only the keys of ``artifact``'s saved universe from now
@@ -181,7 +190,7 @@ class StepGraphs:
             return self._run(key, fn, inputs, steps)
 
     def _run(self, key, fn, inputs, steps):
-        if not graphs_enabled():
+        if self.eager_reason is not None or not graphs_enabled():
             args = [host_tensor(a).to(self.device) for a in inputs]
             for _ in range(steps):
                 out = tuple(fn(*args))

@@ -25,9 +25,10 @@ Tracked:
   the chunk prefill both count in ``prefill``).
 
 ``labels`` (e.g. ``{"replica": "0"}``) ride every series, so engines can
-share one registry.  The per-op dispatch timer rides the JAX op bus, which
-the port has not (ROADMAP A12); the mesh-collective series wait for
-tensor-parallel serving (A11).  A replica of a cross-process fleet binds
+share one registry.  At mp > 1 every step program's wall time also lands
+in ``serving_collective_seconds{phase=...}`` (pre-registered, so the
+series shows at mp = 1 too, never observed there), and
+``serving_mp_shards`` is the degree.  A replica of a cross-process fleet binds
 its wire stats (:meth:`ServingMetrics.attach_wire_stats`), and
 ``summary()`` then renders its host-vs-wire-vs-engine shares.
 """
@@ -174,11 +175,16 @@ _HISTOGRAM_NAMES = (
 # the SLO breakdown quartet, in pipeline order
 SLO_PHASES = ("queue_wait", "prefill", "decode_itl", "e2e")
 
+# the step phases that span the mp group's ranks, the JAX labels:
+# "ragged" is the unified packed step, "burst" one decode burst
+_COLLECTIVE_PHASES = ("prefill", "decode", "ragged", "burst")
+
 # every full metric name this module pre-registers
 METRIC_NAMES = tuple(
     [f"serving_{n}_total" for n in _COUNTER_NAMES]
     + [f"serving_{n}" for n in _GAUGE_NAMES]
     + [f"serving_{n}_seconds" for n in _HISTOGRAM_NAMES]
+    + ["serving_collective_seconds"]
 )
 
 
@@ -208,6 +214,16 @@ class ServingMetrics:
                                       f"per-engine-step {name}",
                                       **self.labels)
             for name in _GAUGE_NAMES
+        }
+        # wall time of one step program spanning the mp group, by phase
+        # (observed only at mp > 1; present on /metrics regardless)
+        self._collective: Dict[str, Histogram] = {
+            phase: self.registry.histogram(
+                "serving_collective_seconds",
+                "wall time of a step program spanning the mp group's "
+                "ranks (mp > 1)", buckets=LATENCY_BUCKETS, phase=phase,
+                **self.labels)
+            for phase in _COLLECTIVE_PHASES
         }
         self._host_ops: Optional[HostOpRecorder] = None
         self._stepprof = None  # StepProfiler, attached by the engine
@@ -326,6 +342,19 @@ class ServingMetrics:
             "ratio": round(good / total, 4) if total else None,
         }
         return out
+
+    def observe_collective(self, phase: str, seconds: float) -> None:
+        """One step program's wall time at mp > 1:
+        ``serving_collective_seconds{phase=...}``."""
+        self._collective[phase].observe(seconds)
+
+    def set_graphs_eager(self, reason: str) -> None:
+        """Publish why every step program runs eagerly (no CUDA graph):
+        ``serving_step_graphs_eager{reason=...} 1``."""
+        self.registry.gauge("serving_step_graphs_eager",
+                            "1 while the step programs run eagerly, with "
+                            "the reason", reason=reason,
+                            **self.labels).set(1)
 
     def set_mp_shards(self, mp: int) -> None:
         """Publish the engine's tensor-parallel degree
@@ -518,11 +547,15 @@ def _round6(v: Optional[float]) -> Optional[float]:
 
 class StepTimer:
     """``with StepTimer(metrics, "decode_step") as st: ...`` — observes
-    the wall time into the named histogram and leaves it on ``st.dt``."""
+    the wall time into the named histogram and leaves it on ``st.dt``.
+    ``collective_phase`` (the engine passes it only at mp > 1) also feeds
+    the same wall time into ``serving_collective_seconds{phase=...}``."""
 
-    def __init__(self, metrics: ServingMetrics, name: str):
+    def __init__(self, metrics: ServingMetrics, name: str,
+                 collective_phase: Optional[str] = None):
         self.metrics = metrics
         self.name = name
+        self.collective_phase = collective_phase
         self.dt: Optional[float] = None  # wall seconds, set on exit —
         # the engine reads it for the StepProfiler record so step-level
         # introspection shares this ONE timing path
@@ -534,4 +567,6 @@ class StepTimer:
     def __exit__(self, *exc):
         dt = self.dt = time.perf_counter() - self._t0
         self.metrics.observe(self.name, dt)
+        if self.collective_phase is not None:
+            self.metrics.observe_collective(self.collective_phase, dt)
         return False

@@ -160,7 +160,7 @@ class ProcessFleetConfig:
     device: Optional[str] = None
     weights: Optional[str] = None
     max_seq_len: Optional[int] = None
-    # tensor-parallel workers: mp > 1 is ROADMAP A11 and raises
+    # workers at mp > 1 wait for the rest of ROADMAP A11 and raise
     mp: int = 1
     # speculative decoding: JSON-able SpecConfig kwargs dict
     # forwarded to every worker (requires unified + max_tokens_per_step);
@@ -1148,9 +1148,10 @@ class _SharedState:
                              "(it warms the artifact's universe)")
         if int(cfg.mp) > 1:
             raise NotImplementedError(
-                f"ProcessFleetConfig mp={cfg.mp}: tensor-parallel "
-                "serving is not ported to paddle_tpu_torch yet "
-                "(ROADMAP A11)")
+                f"ProcessFleetConfig mp={cfg.mp}: worker processes at "
+                "mp > 1 are not ported to paddle_tpu_torch yet "
+                "(ROADMAP A11); one engine serves at mp > 1 through "
+                "serving/tp.py")
         self.cfg = cfg
         self.registry = registry
         # the fleet's artifact (ProcessFleet sets it from cfg.aot_path):

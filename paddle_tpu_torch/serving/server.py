@@ -99,8 +99,21 @@ save (on the saving engine), or on every replica or worker at boot::
     python -m paddle_tpu_torch.serving.server --device cpu --layers 2 \
         --blocks 64 --aot-path /tmp/art --aot-warm --selftest
 
-Tensor-parallel serving (``--mp`` > 1) is ROADMAP A11: it exits non-zero
-naming its item.
+Tensor-parallel serving: ``--mp N`` makes this process rank 0 of N, the
+controller, and starts ranks 1..N-1 as follower processes through the
+port's ``distributed.spawn`` (``serving/tp.py``): NCCL with a card a rank,
+gloo where the ranks share cards, on the CPU, or where
+``PADDLE_DISTRI_BACKEND=gloo`` chooses it.  Each rank builds its shard of
+the toy model; ``/readyz`` answers ``ok dp=1 mp=N``; SIGTERM drains, stops
+the followers, and every rank exits 0::
+
+    python -m paddle_tpu_torch.serving.server --device cpu --layers 2 \
+        --mp 2 --unified
+
+``--mp`` > 1 with ``--dp`` > 1, ``--workers``, ``--roles``, ``--spec-decode``,
+``--audit-sample``, ``--selftest``, the AOT flags or a restarting
+supervisor (``--max-restarts`` > 0; the default is 0 at mp > 1) exits
+non-zero naming ROADMAP A11.
 """
 
 from __future__ import annotations
@@ -1159,10 +1172,19 @@ class CompletionServer:
 
 
 # --- CLI / selftest ---------------------------------------------------------
-# CLI flags of the JAX server that wait for later items of the port: each
-# one exits non-zero naming its ROADMAP item, none is silently ignored
-_WAITING_FLAGS = (
-    ("mp", "--mp > 1", "tensor-parallel serving", "A11"),
+# flags that wait for the rest of ROADMAP A11 at --mp > 1: each exits
+# non-zero naming it, none is silently ignored
+_WAITING_AT_MP = (
+    ("dp", "--dp > 1 (an in-process fleet at dp x mp)"),
+    ("workers", "--workers (worker processes at mp > 1)"),
+    ("roles", "--roles (the KV hand-off at mp > 1)"),
+    ("spec_decode", "--spec-decode (speculative decoding at mp > 1)"),
+    ("audit_sample", "--audit-sample (the auditor at mp > 1)"),
+    ("selftest", "--selftest (it audits every step)"),
+    ("aot_save", "--aot-save (AOT artifacts at mp > 1)"),
+    ("aot_path", "--aot-path (AOT artifacts at mp > 1)"),
+    ("max_restarts", "--max-restarts > 0 (a restart would rebuild the "
+                     "followers too)"),
 )
 
 # --aot-save's bound when --aot-max-seq is not given (the JAX CLI's)
@@ -1382,6 +1404,39 @@ async def _selftest_async(dp: int = 1, audit_sample: int = 1,
         await server.shutdown(drain_timeout=2.0)
 
 
+def _mp_rank_engine(spec: dict) -> EngineCore:
+    """This rank's engine of ``--mp N``: join the world, lay the ranks out
+    at mp=N, build this rank's shard of the toy model (every rank draws
+    the same seeded weights and keeps its slice) and its engine.  Every
+    rank builds the same engine: the construction is collective."""
+    from .. import device as _device
+    from ..distributed import env, topology
+
+    if spec["device"] == "cpu":
+        _device.set_device("cpu")
+    env.init_parallel_env()
+    topology.init_mesh(mp=spec["mp"])
+    return _toy_engine(_toy_model(spec["layers"], spec["device"]),
+                       num_blocks=spec["blocks"], unified=spec["unified"],
+                       max_tokens_per_step=spec["max_tokens_per_step"],
+                       burst_steps=spec["burst"])
+
+
+def _mp_follower(spec: dict) -> None:
+    """A follower rank of ``--mp N`` (started by the controller): launch
+    the controller's steps until it stops the ranks."""
+    import signal
+
+    from ..distributed import env
+    from .tp import follow
+
+    # the controller stops this rank; an interrupt of the terminal's
+    # process group is the controller's to handle
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    follow(_mp_rank_engine(spec))
+    env.destroy_process_group()
+
+
 def _spec_dict(args) -> Optional[dict]:
     """SpecConfig kwargs from the CLI (``None`` = spec decoding off)."""
     if not getattr(args, "spec_decode", False):
@@ -1503,8 +1558,24 @@ async def _serve_cli(args) -> int:
         from ..observability.alerts import AlertRuleSet
 
         alert_rules = AlertRuleSet.from_json(args.alert_rules)
-    pf = None
-    if args.workers:
+    pf = followers = None
+    if args.mp > 1:
+        from .tp import launch_followers, world_backend
+
+        spec = {"mp": args.mp, "device": args.device, "layers": args.layers,
+                "blocks": args.blocks, "unified": args.unified,
+                "max_tokens_per_step": args.max_tokens_per_step,
+                "burst": args.burst}
+        followers = launch_followers(args.mp, _mp_follower, (spec,),
+                                     backend=world_backend(args.mp,
+                                                           args.device))
+        fleet = FleetRouter(
+            [_mp_rank_engine(spec)], config=FleetConfig(
+                max_queue=args.max_queue, flight_dir=args.flight_dir,
+                fault_plan=fault_plan, alert_rules=alert_rules))
+        print(f"mp: ranks 1..{args.mp - 1} follow, pids "
+              f"{[p.pid for p in followers.processes]}", flush=True)
+    elif args.workers:
         pf = _build_procfleet(args, fault_plan=fault_plan,
                               alert_rules=alert_rules)
         fleet = pf.router
@@ -1576,6 +1647,13 @@ async def _serve_cli(args) -> int:
             pusher.close()
         if pf is not None:
             pf.shared.close_all()  # reap the worker processes
+    if followers is not None:
+        # drained: the followers leave their loop and exit 0
+        from ..distributed import env
+
+        server.engine.tp.release()
+        followers.join(timeout=120)
+        env.destroy_process_group()
     return 0
 
 
@@ -1596,8 +1674,10 @@ def main(argv=None) -> int:
     p.add_argument("--timeout", type=float, default=None,
                    help="default per-request deadline (seconds)")
     p.add_argument("--mp", type=int, default=1,
-                   help="tensor-parallel degree (only 1: mp > 1 is "
-                        "ROADMAP A11)")
+                   help="tensor-parallel degree: this process is rank 0 "
+                        "(the controller) and starts mp-1 follower ranks; "
+                        "NCCL with a card a rank, else gloo "
+                        "(PADDLE_DISTRI_BACKEND chooses)")
     p.add_argument("--dp", type=int, default=1,
                    help="data-parallel fleet degree: N engine replicas "
                         "behind the prefix-affinity router")
@@ -1614,14 +1694,15 @@ def main(argv=None) -> int:
                         "engine_step_raise, pool_exhaust, slow_step, "
                         "kernel_corrupt; each fires exactly once and is "
                         "recorded as lifecycle/flight events")
-    p.add_argument("--max-restarts", type=int, default=5, metavar="K",
+    p.add_argument("--max-restarts", type=int, default=None, metavar="K",
                    help="self-healing supervisor: restarts allowed per "
                         "replica inside the crash-loop window before "
                         "permanent exclusion (capped exponential "
                         "backoff between attempts; audit-degraded "
                         "replicas are quarantined and replaced).  0 "
                         "disables supervision — a dead replica stays "
-                        "excluded until an operator acts")
+                        "excluded until an operator acts.  Default 5, "
+                        "and 0 at --mp > 1")
     p.add_argument("--watchdog-timeout", type=float, default=60.0,
                    metavar="S",
                    help="per-replica step watchdog: a step exceeding "
@@ -1730,11 +1811,14 @@ def main(argv=None) -> int:
                         "against the toy fleet through the router path, "
                         "exit 0 on success")
     args = p.parse_args(argv)
-    for dest, flag, what, item in _WAITING_FLAGS:
-        value = getattr(args, dest)
-        if (value > 1) if dest == "mp" else value:
-            p.error(f"{flag}: {what} is not ported to paddle_tpu_torch yet "
-                    f"(ROADMAP {item})")
+    if args.mp > 1:
+        for dest, flag in _WAITING_AT_MP:
+            value = getattr(args, dest)
+            if (value > 1) if dest == "dp" else value:
+                p.error(f"--mp {args.mp} with {flag} is not ported to "
+                        f"paddle_tpu_torch yet (ROADMAP A11)")
+    if args.max_restarts is None:
+        args.max_restarts = 0 if args.mp > 1 else 5
     if args.dp < 1:
         p.error(f"--dp must be >= 1, got {args.dp}")
     if args.mp < 1:

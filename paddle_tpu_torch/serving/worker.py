@@ -148,8 +148,9 @@ def build_engine(spec: Dict, replica: int, registry, aot=None):
     mp = int(spec.get("mp", 1) or 1)
     if mp > 1:
         raise NotImplementedError(
-            f"worker mp={mp}: tensor-parallel serving is not ported to "
-            "paddle_tpu_torch yet (ROADMAP A11)")
+            f"worker mp={mp}: worker processes at mp > 1 are not ported "
+            "to paddle_tpu_torch yet (ROADMAP A11); one engine serves at "
+            "mp > 1 through serving/tp.py")
     if (spec.get("dtype") or "float32") not in _DTYPES:
         raise ValueError(f"unknown dtype {spec['dtype']!r} "
                          f"(expected one of {_DTYPES})")

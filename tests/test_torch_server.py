@@ -351,7 +351,7 @@ def test_dp2_fleet_server_matches_llm_generate(models):
 
 # The cross-process fleet's and the AOT artifacts' flags are live: their
 # cases (ids kept from when they waited for ROADMAP A9 rest) now hold the
-# CLI's checks on them.  --mp > 1 still waits.
+# CLI's checks on them.  --mp > 1 serves; with --dp > 1 it still waits.
 _REQUIRES_WORKERS = "they require --workers N"
 
 
@@ -376,7 +376,8 @@ _REQUIRES_WORKERS = "they require --workers N"
                  id="args8-A9 rest"),
     pytest.param(("--compile-cache", "d"), _REQUIRES_WORKERS,
                  id="args9-A9 rest"),
-    pytest.param(("--mp", "2"), "(ROADMAP A11)", id="args10-A11")])
+    pytest.param(("--mp", "2", "--dp", "2"), "(ROADMAP A11)",
+                 id="args10-A11")])
 def test_waiting_flags_exit_naming_their_item(args, message, capsys):
     with pytest.raises(SystemExit) as e:
         server_main(["--device", "cpu", *args])

@@ -1,7 +1,8 @@
 """Rank bodies of the port's distributed CPU tests.
 
 ``tests/test_torch_collective.py``, ``tests/test_torch_mp_layers.py`` and
-``tests/test_torch_tp_training.py`` each start one world of 4 ranks with
+``tests/test_torch_tp_training.py`` each start one world of 4 ranks
+(``tests/test_torch_tp_serving.py`` one of 2) with
 ``paddle_tpu_torch.distributed.spawn`` (gloo on the CPU) running one
 function of this module; each rank writes what it computed to
 ``{out}/{name}_rank{r}.npz`` and the test holds it against the JAX package
@@ -25,13 +26,13 @@ PG_TIMEOUT = 90      # seconds a collective may wait for a peer
 JOIN_TIMEOUT = 240   # seconds the test waits for the whole world
 
 
-def start_world(func, *args):
-    """Start ``func(*args)`` on 4 gloo ranks through the port's ``spawn``,
-    with the process group's and the join's own timeouts; ``join()`` the
-    returned context."""
+def start_world(func, *args, nprocs=WORLD):
+    """Start ``func(*args)`` on ``nprocs`` (4) gloo ranks through the port's
+    ``spawn``, with the process group's and the join's own timeouts;
+    ``join()`` the returned context."""
     from paddle_tpu_torch.distributed.spawn import spawn
 
-    return spawn(func, args=args, nprocs=WORLD, backend="gloo",
+    return spawn(func, args=args, nprocs=nprocs, backend="gloo",
                  pg_timeout=PG_TIMEOUT, timeout=JOIN_TIMEOUT, join=False)
 
 
@@ -468,4 +469,218 @@ def tp_training_rank(out, path):
     qkv = gpt.gpt.layers[0].attn.qkv_proj.weight
     res["gpt_qkv_grad"] = _np(unshard(qkv.grad, qkv, qkv.mp_group).T)
     _save(out, "tp_training", **res)
+    dist.destroy_process_group()
+
+
+# --- tensor-parallel serving ----------------------------------------------------
+
+TP = 2
+_TP_RNG = np.random.default_rng(7)
+TP_PREFIX = _TP_RNG.integers(0, 256, 8).tolist()
+TP_PROMPTS = [TP_PREFIX + _TP_RNG.integers(0, 256, 8).tolist()
+              for _ in range(5)]
+# tests/test_serving_mp.py's scenarios and test_zzzzzzzzz_burst.py's mp=2
+# burst run: the engine's fields and its waves of (prompts, new tokens)
+TP_SCENARIOS = {
+    "plain": (dict(num_blocks=64), [(TP_PROMPTS, 6)]),
+    "preemption": (dict(num_blocks=12), [(TP_PROMPTS, 8)]),
+    "warm_prefix": (dict(num_blocks=64), [
+        ([TP_PREFIX + [3, 1, 4, 1]], 4),
+        ([TP_PREFIX + t for t in ([9, 2, 6], [5, 3, 5], [8, 9, 7])], 6)]),
+    "chunked": (dict(num_blocks=64, budget=8), [(TP_PROMPTS, 6)]),
+    "burst": (dict(num_blocks=64, burst=8), [(TP_PROMPTS, 8)]),
+}
+TP_FAMILIES = ("unified", "legacy")
+TP_GENERATE = dict(temperature=0.0)
+TP_GENERATE_IDS = np.random.default_rng(11).integers(0, 256, (2, 6))
+
+
+def tp_config(serving, family, num_blocks, budget=None, burst=0, **kw):
+    """One scenario's ``EngineConfig`` in ``serving`` (the port's or the
+    JAX package's: the same names)."""
+    return serving.EngineConfig(
+        num_blocks=num_blocks, block_size=4,
+        unified_step=family == "unified", burst_steps=burst,
+        scheduler=serving.SchedulerConfig(
+            max_num_seqs=4, max_prefill_tokens_per_step=budget), **kw)
+
+
+def tp_waves(eng, SamplingParams, waves):
+    """Run the waves to their end; every request's greedy tokens."""
+    outs = []
+    for prompts, max_new in waves:
+        reqs = [eng.add_request(p, SamplingParams(max_new_tokens=max_new))
+                for p in prompts]
+        eng.run(max_steps=4000)
+        assert all(r.finished for r in reqs)
+        outs += [[int(t) for t in r.output_tokens] for r in reqs]
+    return outs
+
+
+def tp_buckets(eng):
+    return sorted(list(b) for b in (eng.prefill_buckets | eng.decode_buckets
+                                    | eng.ragged_buckets | eng.burst_buckets))
+
+
+def tp_traces(eng):
+    return (eng.prefill_trace_count + eng.decode_trace_count
+            + eng.ragged_trace_count + eng.burst_trace_count)
+
+
+def tp_pool_invariant(eng):
+    kv = eng.kv
+    return len(kv._free) + len(kv._reuse) + len(kv._ref) + 1 == kv.num_blocks
+
+
+def tp_metric(text, name, phase=None):
+    """The value of one sample line of a Prometheus page."""
+    key = name + ("" if phase is None else '{phase="%s"}' % phase)
+    for line in text.splitlines():
+        if line.startswith(key + " "):
+            return float(line.split()[-1])
+    raise KeyError(key)
+
+
+def _raises(fn):
+    try:
+        fn()
+    except Exception as e:     # the test reads the type and the message
+        return f"{type(e).__name__}: {e}"
+    return "no error"
+
+
+def tp_scenario_row(eng, text):
+    """What the controller reports of one scenario's engine."""
+    return dict(
+        buckets=tp_buckets(eng), traces=tp_traces(eng),
+        counters={k: eng.metrics.counters[k] for k in (
+            "preemptions", "prefix_cache_hit_tokens",
+            "chunked_prefill_steps")},
+        burst_launches=eng._burst_counters["launches"].value,
+        occupancy=eng.kv.occupancy(),
+        mp_shards=tp_metric(text, "serving_mp_shards"),
+        collective={ph: tp_metric(text, "serving_collective_seconds_count",
+                                  ph)
+                    for ph in ("prefill", "decode", "ragged", "burst")})
+
+
+def _save_pools(out, name, eng):
+    np.savez(os.path.join(out, f"{name}.npz"),
+             **{f"k{i}": _np(k) for i, k in enumerate(eng._k_pools)})
+
+
+def tp_serving_rank(out, path):
+    """Every scenario of tests/test_torch_tp_serving.py on this rank of an
+    mp=2 world, on the JAX weights: rank 0 is the controller, rank 1
+    follows.  Then rank 0 alone runs every scenario at mp=1 on the whole
+    model.  Writes ``tp_serving_rank{r}.json`` (and the plain unified
+    runs' K pools to ``tp_pools_rank{r}.npz`` and ``tp_pools_mp1.npz``)."""
+    import json
+
+    dist = _init()
+    from paddle_tpu_torch import convert, serving
+    from paddle_tpu_torch.distributed import collective, topology
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import tp
+
+    rank = dist.get_rank()
+    a = dict(np.load(path))
+    topology.init_mesh(mp=TP)
+    cfg = LlamaConfig.tiny(num_hidden_layers=2)
+    model = convert.llama_from_paddle_tpu(a, cfg, device="cpu",
+                                          mp_rank=rank, mp_degree=TP)
+    res = {"rank": rank, "scenarios": {}}
+    for name, (fields, waves) in TP_SCENARIOS.items():
+        for family in TP_FAMILIES:
+            eng = serving.EngineCore(model, config=tp_config(
+                serving, family, **fields))
+            collective.reset_stats()
+            row = {"sampled": []}
+            run = eng.graphs.run
+
+            def recorded(*args, run=run, row=row, **kw):
+                out = run(*args, **kw)
+                row["sampled"].append(_np(out[0]).tolist())
+                return out
+
+            eng.graphs.run = recorded
+            if eng.tp.is_controller:
+                row["tokens"] = tp_waves(eng, serving.SamplingParams, waves)
+                eng.tp.release()
+                row.update(tp_scenario_row(eng, eng.metrics.prometheus_text()))
+            else:
+                row["launches"] = tp.follow(eng)
+                row["step_error"] = _raises(eng.step)
+            row.update(captures=eng.graphs.captures,
+                       eager_reason=eng.graphs.eager_reason,
+                       forwards=eng.tp.forwards,
+                       calls=dict(collective.stats["calls"]),
+                       pool_invariant=tp_pool_invariant(eng),
+                       pool_shape=list(eng._k_pools[0].shape))
+            if name == "plain" and family == "unified":
+                _save_pools(out, f"tp_pools_rank{rank}", eng)
+            res["scenarios"][f"{name}.{family}"] = row
+            del eng
+    # LLM.generate as SPMD: every rank calls it, every rank returns the
+    # controller's outputs
+    llm = serving.LLM(model, num_blocks=64, block_size=4, max_num_seqs=4)
+    res["llm"] = [o.token_ids for o in llm.generate(
+        TP_PROMPTS, serving.SamplingParams(max_new_tokens=6))]
+    del llm
+    # generate and the dense-cache route on this rank's heads
+    ids = torch.from_numpy(TP_GENERATE_IDS)
+    res["generate"] = model.generate(ids, max_new_tokens=6,
+                                     **TP_GENERATE).tolist()
+    shape = (2, 7, model.llama.layers[0].self_attn.num_kv_heads,
+             cfg.head_dim)
+    caches = [(torch.zeros(shape), torch.zeros(shape)) for _ in range(2)]
+    with torch.no_grad():
+        pre = model(ids, caches=caches, pos=0)[:, -1]
+        dec = model(ids[:, :1], caches=caches, pos=6)[:, -1]
+    res["logits"] = {"prefill": _np(pre).tolist(),
+                     "decode": _np(dec).tolist()}
+    # C13: the legacy families take the kernel flag at mp > 1
+    res["c13"] = _raises(lambda: serving.EngineCore(
+        model, num_blocks=16, block_size=4, use_pallas_paged=True))
+    # what waits for the rest of A11 raises naming it
+    eng = serving.EngineCore(model, config=tp_config(
+        serving, "unified", num_blocks=16))
+    res["waiting"] = {
+        "fleet": _raises(lambda: serving.FleetRouter([eng, eng])),
+        "handoff": _raises(lambda: eng.export_kv_run("r")),
+        "aot": _raises(lambda: serving.AotArtifact.save(eng, out)),
+        "spec": _raises(lambda: serving.EngineCore(model, config=tp_config(
+            serving, "unified", num_blocks=16,
+            spec=serving.SpecConfig(k=2)))),
+    }
+    # the engine's own checks: a model of mp=1 and heads mp cannot split
+    hcg = topology.get_hybrid_communicate_group()
+    topology.set_hybrid_communicate_group(None)
+    whole = LlamaForCausalLM(cfg, device="cpu")
+    one_kv = LlamaForCausalLM(LlamaConfig.tiny(
+        num_hidden_layers=1, num_key_value_heads=1), device="cpu")
+    topology.set_hybrid_communicate_group(hcg)
+    res["errors"] = {
+        "whole_model": _raises(lambda: serving.EngineCore(whole)),
+        "one_kv_head": _raises(lambda: serving.EngineCore(one_kv)),
+        "mismatch": _raises(lambda: serving.EngineCore(
+            model, config=serving.EngineConfig(mp=4))),
+    }
+    if rank == 0:
+        # mp=1: the whole model, no topology
+        topology.set_hybrid_communicate_group(None)
+        whole = convert.llama_from_paddle_tpu(a, cfg, device="cpu")
+        res["mp1"] = {}
+        for name, (fields, waves) in TP_SCENARIOS.items():
+            for family in TP_FAMILIES:
+                eng = serving.EngineCore(whole, config=tp_config(
+                    serving, family, **fields))
+                row = {"tokens": tp_waves(eng, serving.SamplingParams,
+                                          waves)}
+                row.update(tp_scenario_row(eng, eng.metrics.prometheus_text()))
+                res["mp1"][f"{name}.{family}"] = row
+                if name == "plain" and family == "unified":
+                    _save_pools(out, "tp_pools_mp1", eng)
+    with open(os.path.join(out, f"tp_serving_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
     dist.destroy_process_group()

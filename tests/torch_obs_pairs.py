@@ -167,12 +167,10 @@ def series(registry):
 
 
 # series of a JAX engine's page that the port does not have yet, by the
-# ROADMAP item that brings them: the mesh-collective step times
-# (tensor-parallel serving, A11), and the fleet's finish and admission
-# counters (A9).  Spec, AOT and wire series appear only when those
+# ROADMAP item that brings them: the fleet's finish and admission counters
+# (A9).  Spec, AOT and wire series appear only when those
 # features run, so a single engine's page has none of them.
-JAX_ONLY_SERIES = {("serving_collective_seconds", ("phase",)),
-                   ("serving_requests_finished_replica_failed_total", ()),
+JAX_ONLY_SERIES = {("serving_requests_finished_replica_failed_total", ()),
                    ("serving_admission_rejected_total", ())}
 # the port registers its prefill and decode families' capture counters up
 # front, so an engine whose family never ran reads 0 instead of a missing
