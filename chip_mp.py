@@ -15,6 +15,15 @@ four at dp2 x mp2 over NCCL where four cards are present.  It prints the
 card line, the phase lines and the phases' seconds, and exits nonzero when
 a phase fails.
 
+``python3 chip_mp.py --fleet`` runs ``chip_smoke``'s tensor-parallel
+serving phases alone, on one card: it builds B1, B2 and the flash kernels
+(B1 and B2 also in a kernel directory for the worker processes), takes
+the mp=1 identity
+references (``identity_phase``, ``identity_legacy_phase``), then runs
+``mp_serve_phases`` (``mp_serve_shape``, ``mp_serve_identity``,
+``mp_serve``, ``mp_fleet_identity``, ``mp_disagg_identity``,
+``mp_server``) and ``mp_procfleet``, and prints their lines and seconds.
+
 ``python3 chip_mp.py --serve`` runs ``chip_smoke``'s ``mp_serve`` instead,
 at full depth (32 layers) over NCCL with a card a rank (two cards at
 least): it builds B1 and B2, starts 2 ranks through the port's ``spawn``,
@@ -109,6 +118,53 @@ def serve_main(torch) -> int:
     return 0
 
 
+def fleet_main(torch) -> int:
+    """``--fleet``: the tensor-parallel serving phases, dp x mp included,
+    on one card."""
+    import subprocess
+
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import _build, flash
+    from paddle_tpu_torch.ops import paged_decode as pd
+    from paddle_tpu_torch.ops import ragged_paged as rp
+    from paddle_tpu_torch.serving import graphs
+
+    t0 = time.perf_counter()
+    # B1 and B2 for the workers' directory; here the flash kernels too
+    # (the mp=1 reference model's dense-cache forward)
+    kernels = [cs.KERNEL_NAME, cs.DECODE_NAME]
+    cache = tempfile.mkdtemp(prefix="procfleet_kernels_")
+    workers = subprocess.Popen(
+        [sys.executable, "-c",
+         "import sys; from paddle_tpu_torch.ops import _build; "
+         "_build.set_build_dir(sys.argv[1]); _build.build(sys.argv[2:])",
+         cache, *kernels])
+    _build.build(kernels + [cs.FLASH_NAME])
+    if workers.wait(timeout=900):
+        return 1
+    cs.emit("build", kernels=kernels, seconds=time.perf_counter() - t0)
+    try:
+        model, prompts, tokens, buckets = cs.identity_phase(
+            torch, rp, serving, graphs, LlamaConfig, LlamaForCausalLM)
+        ref = cs.identity_legacy_phase(torch, pd, serving, graphs, model,
+                                       prompts, tokens)
+        ref.update(unified=(tokens, sorted(buckets)),
+                   identity_prompts=prompts)
+        del model
+        cs.free(torch)
+        _, ref["serve_prompts"] = cs.serve_prompts(128256)
+        t0 = time.perf_counter()
+        cs.mp_serve_phases(torch, rp, pd, flash, ref)
+        t1 = time.perf_counter()
+        cs.mp_procfleet_phase(torch, serving, ref["serve_prompts"], cache)
+        cs.emit("budget", mp_serve_s=t1 - t0,
+                mp_procfleet_s=time.perf_counter() - t1)
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -129,6 +185,8 @@ def main() -> int:
     print(cs.nvidia_smi_line(), flush=True)
     if sys.argv[1:] == ["--serve"]:
         return serve_main(torch)
+    if sys.argv[1:] == ["--fleet"]:
+        return fleet_main(torch)
     t0 = time.perf_counter()
     _build.build([cs.FLASH_NAME])
     cs.emit("build", kernels=[cs.FLASH_NAME],

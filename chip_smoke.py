@@ -393,6 +393,35 @@ these phases, printing one JSON line for each:
              token-equal to the same engine at mp=2 in the ranks,
              ``/metrics`` with ``serving_mp_shards 2`` and the collective
              series, SIGTERM to exit 0 (the controller joins its follower).
+``mp_fleet_identity``  dp x mp in the same 2 ranks: two replicas of the
+             identity model, each on an mp group and a gloo control group
+             of its own (``serving.tp.replica_groups``), rank 0 the
+             controller of both behind one ``FleetRouter`` (a replica cap
+             of 4, so the 8 prompts that share one affinity key reach
+             both), rank 1 following each replica on a thread of its
+             own: tokens equal to mp=1's, each rank's ragged launches =
+             both replicas' forwards x layers (simple route), 2L+1
+             all-reduces and one all-gather a forward, the pool invariant
+             on every rank of every replica, no capture.
+``mp_disagg_identity``  a prefill and a decode replica at mp=2: one
+             hand-off a request, each served from its run (0 recomputed
+             tokens), tokens equal to mp=1's, the launch rule on every
+             rank; one 1024-token hand-off by part (gather, copy, the
+             follower's slice gathered, digest; verify, pool import, the
+             slices scattered, the pools), beside the same hand-off
+             between two mp=1 engines; a run with a flipped byte refused
+             before any pool changes; the mp=2 run imported into an mp=1
+             engine on rank 0 after the world, continuing
+             token-identically with every block served from it.
+``mp_procfleet``  ``--workers 2 --mp 2``: two worker processes, each the
+             controller of a world of 2 ranks over gloo on this card,
+             Llama-3-8B widths cut to ``FLEET_LAYERS`` layers, bf16, the
+             serve prompts behind the router with the supervisor on:
+             tokens/s, mean TTFT and ITL, each worker's boot, each rank's
+             peak memory and launch rule over the wire (``describe``);
+             then one worker's follower killed by SIGKILL mid-wave: the
+             worker fails, the supervisor respawns a fresh world, no
+             request is lost, no process of the killed world is left.
 ``gpt_train_identity``  GPT-3 6.7B widths (``GPTConfig()``: vocab 50304,
              hidden 4096, 32 heads of 128, MHA) cut to 2 layers, fp32,
              B=1, S=1024: 4 AdamW steps through the flash kernels, 4
@@ -589,8 +618,8 @@ these phases, printing one JSON line for each:
              ``eng.metrics.summary()``, the op timer released after each
              step, the same tokens and ragged-kernel launches.
 ``budget``   the sequence-model phases' and the later phases' seconds
-             (the three mp phases' and the four mp_serve phases' too)
-             beside the script's.
+             (the three mp phases', the mp_serve phases' and
+             mp_procfleet's too) beside the script's.
 
 Then a line ``{"kernels": [...]}`` summarising each kernel at its main
 path's shapes (the ragged kernel at the unified serve step, the decode
@@ -602,8 +631,10 @@ add ``gpt_train_launches``, ``vit_train_launches``,
 forward row ``jit_export_launches`` (the loaded ViT's, in its own
 process) and ``jit_partial_launches``, ``amp_o2_launches``, and each
 rank's ``mp_identity_launches`` and ``mp_train_launches``; the ragged
-and decode rows each rank's ``mp_serve_identity_launches`` and
-``mp_serve_launches`` and their ``mp_shape`` errors; the ragged row
+and decode rows each rank's ``mp_serve_identity_launches``,
+``mp_serve_launches``, ``mp_fleet_identity_launches`` and
+``mp_disagg_identity_launches`` (both replicas on the rank), each worker
+rank's ``mp_procfleet_launches`` and their ``mp_shape`` errors; the ragged row
 ``profile_ops_launches``; every row adds ``seq2seq_launches``
 and ``vision_zoo_launches``, 0), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any
@@ -1838,6 +1869,14 @@ def same_lengths(rng, prompts, vocab):
     return [rng.integers(0, vocab, len(p)).tolist() for p in prompts]
 
 
+def serve_prompts(vocab):
+    """The serve phases' 16 prompts of 256-2048 tokens, and the generator
+    that drew them (the serve phase draws on from it)."""
+    rng = np.random.default_rng(2)
+    return rng, [rng.integers(0, vocab, int(rng.integers(256, 2049)))
+                 .tolist() for _ in range(16)]
+
+
 def serve_phase(torch, rp, serving, graphs, LlamaConfig, LlamaForCausalLM):
     """Llama-3-8B, bf16, through the unified LLM: a cold pass with the step
     graphs (the captures inside it), a warm pass on fresh prompts of the
@@ -1850,10 +1889,7 @@ def serve_phase(torch, rp, serving, graphs, LlamaConfig, LlamaForCausalLM):
                              generator=gen)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    rng = np.random.default_rng(2)
-    prompts = [rng.integers(0, cfg.vocab_size,
-                            int(rng.integers(256, 2049))).tolist()
-               for _ in range(16)]
+    rng, prompts = serve_prompts(cfg.vocab_size)
     new_tokens = 64
     warm = [rng.integers(0, cfg.vocab_size, 48).tolist()]
     need = sum(-(-(len(p) + new_tokens) // 16) for p in prompts + warm) + 1
@@ -4008,14 +4044,281 @@ def mp_serve_toy(port, spec):
     return eng, tokens
 
 
+# --- dp x mp serving: replicas spanning the 2 ranks, over gloo on one card ---
+
+MP_FLEET_REPLICAS = 2
+MP_FLEET_QUEUE = 4        # per-replica in-flight cap: the 8 identity prompts
+                          # share one affinity key, the cap spills 4 over
+MP_HANDOFF_TOKENS = 1024  # the timed hand-off's prompt (64 pages of 16)
+MP_HANDOFF_NEW = 16
+
+
+def mp_fleet_models(torch, port, groups):
+    """The identity model (seed 0, fp32, 2 layers at Llama-3-8B widths), one
+    a replica, each built inside its replica's groups: the fleet's and the
+    prefill/decode fleet's replicas serve these two."""
+    from paddle_tpu_torch.serving import tp
+
+    cfg = port.LlamaConfig.llama3_8b(num_hidden_layers=2)
+    models = []
+    for g in groups:
+        with tp.replica(g):
+            models.append(port.LlamaForCausalLM(
+                cfg, device="cuda", dtype=torch.float32,
+                generator=torch.Generator(device="cuda").manual_seed(0)))
+    return models
+
+
+def mp_fleet_factory(serving, groups, models, roles, need):
+    """The replicas' ``ReplicaFactory``: replica ``i`` an identity engine on
+    ``models[i]`` in role ``roles[i]`` (the identity phase's engine), on
+    ``groups[i]``."""
+    from paddle_tpu_torch.serving import tp
+
+    def build(i, registry=None):
+        return serving.EngineCore(models[i], config=serving.EngineConfig(
+            num_blocks=need + 16, block_size=16, unified_step=True,
+            role=roles[i], scheduler=serving.SchedulerConfig(
+                max_num_seqs=8, max_tokens_per_step=256)),
+            registry=registry, metrics_labels={"replica": str(i)})
+
+    return tp.ReplicaFactory(groups, build)
+
+
+def mp_fleet_rule(label, engines, rp, pd, collective):
+    """A rank's launches and collectives since :func:`mp_serve_counts`,
+    held to the forwards of every replica on it: the ragged kernel once a
+    layer a unified step (all on the simple route, fp32), no decode
+    launch, 2L+1 all-reduces and one all-gather a forward."""
+    layers = engines[0].model.config.num_hidden_layers
+    fwd = sum(e.tp.forwards for e in engines)
+    due = sum(e.tp.programs["ragged"] for e in engines) * layers
+    calls = dict(collective.stats["calls"])
+    want = {"all_reduce": fwd * (2 * layers + 1), "all_gather": fwd}
+    if not (rp.launches == rp.simple_launches == due and due > 0
+            and pd.launches == 0 and calls == want):
+        raise AssertionError(
+            f"{label}: ragged {rp.launches} (simple {rp.simple_launches}), "
+            f"decode {pd.launches} for {due} ragged due; collectives "
+            f"{calls}, due {want}")
+    return {"launches": {"ragged": rp.launches, "decode": pd.launches},
+            "forwards": [e.tp.forwards for e in engines],
+            "collectives": calls}
+
+
+def mp_fleet_pools(label, engines):
+    """Each replica's pool invariant on this rank, and no capture."""
+    for i, e in enumerate(engines):
+        pool_invariant(f"{label} replica {i}", e)
+        if e.graphs.captures:
+            raise AssertionError(f"{label}: replica {i} captured")
+
+
+def mp_fleet_serve(serving, factory, prompts, roles, max_queue):
+    """The controller's fleet of the factory's replicas on ``prompts``
+    (16 greedy tokens each); returns the finished handles, the router and
+    the engines (released: their followers' loops ended)."""
+    fleet = serving.FleetRouter.build(
+        factory, dp=MP_FLEET_REPLICAS, config=serving.FleetConfig(
+            max_queue=max_queue, roles=roles))
+    fleet.start()
+    try:
+        hs = [fleet.submit_request(p, serving.SamplingParams(
+            max_new_tokens=16), request_id=f"m{i}")
+            for i, p in enumerate(prompts)]
+        fleet.wait(hs, timeout=600)
+    finally:
+        fleet.shutdown(drain_timeout=60.0)
+    for e in fleet.engines:
+        e.tp.release()
+    return hs, fleet
+
+
+def mp_handoff_timed(torch, serving, donor, recipient, prompt):
+    """One hand-off of ``prompt``'s prefill from ``donor`` to ``recipient``
+    by part (the parts' seconds from ``handoff``'s timings, the device
+    synchronised after each); then the donor's request decoded to
+    MP_HANDOFF_NEW tokens.  Returns the run, the first token, the
+    donor's tokens and the parts' ms."""
+    from paddle_tpu_torch.serving import handoff
+
+    req = donor.add_request(prompt, serving.SamplingParams(
+        max_new_tokens=MP_HANDOFF_NEW), request_id="timed")
+    while not req.output_tokens:
+        donor.step()
+    torch.cuda.synchronize()
+    export, imported = {}, {}
+    run = handoff.export_request_run(donor, "timed", timings=export)
+    resume = [int(t) for t in req.output_tokens]
+    placed = handoff.import_run(recipient, run, timings=imported)
+    donor.run(max_steps=2000)
+    if placed != len(run["blocks"]):
+        raise AssertionError(f"mp hand-off: {placed} of "
+                             f"{len(run['blocks'])} blocks placed")
+    ms = {f"export_{k[:-2]}": 1e3 * v for k, v in export.items()}
+    ms.update({f"import_{k[:-2]}": 1e3 * v for k, v in imported.items()})
+    return run, resume, [int(t) for t in req.output_tokens], {
+        "prompt_tokens": len(prompt), "blocks": len(run["blocks"]),
+        "bytes": int(run["payload"].nbytes), "ms": ms,
+        "total_ms": sum(ms.values())}
+
+
+def mp_fleet_rank(torch, port, rp, pd, collective, spec, rank):
+    """mp_fleet_identity and mp_disagg_identity on this rank of the mp=2
+    world: two replicas of the identity model spanning both ranks, rank 0
+    the controller of both and rank 1 following each on its own thread;
+    first a fleet of two unified replicas on the identity prompts, then a
+    prefill and a decode replica (every request handed off), then one
+    timed hand-off of a 1024-token prompt between the replicas' engines
+    and a run with a flipped byte refused.  Returns this rank's rows and,
+    on rank 0, the timed run for the mp=1 import."""
+    from paddle_tpu_torch.serving import handoff, tp
+
+    serving = port.serving
+    prompts = spec["identity_prompts"]
+    need = sum(-(-(len(p) + 16) // 16) for p in prompts) + 1
+    need += -(-(MP_HANDOFF_TOKENS + MP_HANDOFF_NEW) // 16) * 2
+    groups = tp.replica_groups(MP_FLEET_REPLICAS)
+    models = mp_fleet_models(torch, port, groups)
+    out, keep = {}, {}
+    for name, roles, cap in (
+            ("fleet", ["unified", "unified"], MP_FLEET_QUEUE),
+            ("disagg", ["prefill", "decode"], 64)):
+        factory = mp_fleet_factory(serving, groups, models, roles, need)
+        mp_serve_counts(rp, pd, collective)
+        t0 = time.perf_counter()
+        row = {}
+        if rank == 0:
+            hs, fleet = mp_fleet_serve(serving, factory, prompts, roles,
+                                       cap)
+            engines = fleet.engines
+            row.update(tokens=[list(h.output_tokens) for h in hs],
+                       finish=[h.finish_reason for h in hs],
+                       replicas=[h.replica.index for h in hs],
+                       occupancy=[e.kv.occupancy() for e in engines])
+            if name == "disagg":
+                snap = fleet.registry.snapshot()
+                events = {h.rid: e for h in hs for e in
+                          fleet.lifecycle.get(h.rid).to_dict()["events"]
+                          if e["name"] == "kv_handoff"}
+                att = engines[1].cachestat.attribution()
+                cached = {r["id"]: r["cached_tokens"]
+                          for r in att["active"] + att["recent"]}
+                row.update(
+                    handoffs=snap["serving_handoff_total"]["value"],
+                    blocks_each=[e["blocks"] for e in events.values()],
+                    cached_each=[cached.get(str(rid), 0)
+                                 for rid in events])
+        else:
+            tp.follow_replicas([factory(i) for i in
+                                range(MP_FLEET_REPLICAS)], factory)
+            engines = [factory.built[i] for i in range(MP_FLEET_REPLICAS)]
+        torch.cuda.synchronize()
+        row["seconds"] = time.perf_counter() - t0
+        row["rule"] = mp_fleet_rule(f"mp_{name} rank {rank}", engines, rp,
+                                    pd, collective)
+        mp_fleet_pools(f"mp_{name} rank {rank}", engines)
+        out[name] = row
+        if name == "fleet":
+            del engines, factory
+            continue
+        # the replicas' engines, each rank's control loop alive again: a
+        # timed hand-off, then a flipped byte refused before any pool
+        # changes, then the same run imported
+        factory = mp_fleet_factory(serving, groups, models, roles, need)
+        if rank:
+            tp.follow_replicas([factory(i) for i in
+                                range(MP_FLEET_REPLICAS)], factory)
+        else:
+            donor, recipient = (factory(i) for i in range(2))
+            prompt = np.random.default_rng(23).integers(
+                0, donor.model.config.vocab_size,
+                MP_HANDOFF_TOKENS).tolist()
+            run, resume, tokens, parts = mp_handoff_timed(
+                torch, serving, donor, recipient, prompt)
+            keep.update(run=run, resume=resume, tokens=tokens, prompt=prompt)
+            req = donor.add_request(prompt[:512][::-1], serving.SamplingParams(
+                max_new_tokens=2), request_id="bad")
+            while not req.output_tokens:
+                donor.step()
+            bad = handoff.export_request_run(donor, "bad")
+            donor.run(max_steps=2000)
+            before = mp_pool_sum(recipient)
+            payload = np.array(bad["payload"])
+            payload.reshape(-1).view(np.uint8)[11] ^= 0x20
+            try:
+                recipient.import_kv_run(dict(bad, payload=payload))
+                refused = None
+            except handoff.HandoffError as e:
+                refused = str(e)
+            unchanged = mp_pool_sum(recipient) == before
+            placed = recipient.import_kv_run(bad)
+            out["handoff"] = dict(parts, refused=refused,
+                                  unchanged=unchanged,
+                                  placed_after=placed, tokens=tokens)
+            for e in (donor, recipient):
+                e.tp.release()
+            del donor, recipient
+        torch.cuda.synchronize()
+        del engines, factory
+    del models
+    free(torch)
+    return out, keep
+
+
+def mp_pool_sum(eng):
+    """A checksum of this rank's pools of ``eng``."""
+    return float(sum(p.double().abs().sum() for p in
+                     eng._k_pools + eng._v_pools))
+
+
+def mp_fleet_mp1(torch, port, keep):
+    """Rank 0 alone after the world: the timed run (exported at mp=2)
+    imported into an mp=1 engine of the identity model, continuing from
+    its first token; and the same hand-off at mp=1, by part."""
+    serving = port.serving
+    cfg = port.LlamaConfig.llama3_8b(num_hidden_layers=2)
+    model = port.LlamaForCausalLM(
+        cfg, device="cuda", dtype=torch.float32,
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    blocks = -(-(MP_HANDOFF_TOKENS + MP_HANDOFF_NEW) // 16) * 2 + 2
+
+    def engine():
+        return serving.EngineCore(model, config=serving.EngineConfig(
+            num_blocks=blocks, block_size=16, unified_step=True,
+            scheduler=serving.SchedulerConfig(max_num_seqs=8,
+                                              max_tokens_per_step=256)))
+
+    eng = engine()
+    placed = eng.import_kv_run(keep["run"])
+    req = eng.add_request(keep["prompt"], serving.SamplingParams(
+        max_new_tokens=MP_HANDOFF_NEW), request_id="imported",
+        resume_tokens=keep["resume"])
+    eng.run(max_steps=2000)
+    att = eng.cachestat.attribution()
+    cached = [r["cached_tokens"] for r in att["active"] + att["recent"]
+              if r["id"] == "imported"]
+    row = {"placed": placed, "blocks": len(keep["run"]["blocks"]),
+           "cached_tokens": cached[0] if cached else 0,
+           "tokens_equal_mp2_donor": [int(t) for t in req.output_tokens]
+           == keep["tokens"]}
+    _, _, _, row["mp1_parts"] = mp_handoff_timed(torch, serving, engine(),
+                                                 engine(), keep["prompt"])
+    del eng, model
+    free(torch)
+    return row
+
+
 def mp_serve_rank_main(spec):
     """One rank of the tensor-parallel serving phases, started by the
     port's ``spawn`` (2 ranks over gloo on one card): it loads the kernels
-    the parent built, runs mp_serve_identity, mp_serve and the CLI model,
-    writes ``{out}/serve_rank{r}.json``, and ends with the follower-death
-    check: rank 1 launches three of the controller's steps and kills
-    itself; rank 0 times how long its next step takes to raise, then runs
-    the whole model alone (mp_serve_whole) and writes its results again."""
+    the parent built, runs mp_serve_identity, mp_serve, the dp x mp
+    replicas (mp_fleet_rank) and the CLI model, writes
+    ``{out}/serve_rank{r}.json``, and ends with the follower-death check:
+    rank 1 launches three of the controller's steps and kills itself;
+    rank 0 times how long its next step takes to raise, then runs the
+    whole model alone (mp_serve_whole, and the mp=2 run's import at mp=1)
+    and writes its results again."""
     t_entry = time.perf_counter()
     import torch
 
@@ -4048,6 +4351,10 @@ def mp_serve_rank_main(spec):
     res["serve"], logits = mp_serve_rank(torch, port, rp, pd, collective,
                                          spec, rank)
     res["serve_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["fleet"], fleet_keep = mp_fleet_rank(torch, port, rp, pd,
+                                             collective, spec, rank)
+    res["fleet_s"] = time.perf_counter() - t0
     toy, res["toy_tokens"] = mp_serve_toy(port, spec)
     res["built_here"] = sorted(_build.build_logs)
     with open(path, "w") as f:
@@ -4074,6 +4381,9 @@ def mp_serve_rank_main(spec):
     t0 = time.perf_counter()
     res["whole"] = mp_serve_whole(torch, port, spec, logits)
     res["whole_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["fleet_mp1"] = mp_fleet_mp1(torch, port, fleet_keep)
+    res["fleet_mp1_s"] = time.perf_counter() - t0
     with open(path, "w") as f:
         json.dump(res, f)
     # the world's process group lost a rank: leave without tearing it down
@@ -4205,8 +4515,12 @@ def mp_serve_phases(torch, rp, pd, flash, ref):
               "share_window: a short pass with every collective "
               "synchronised before and after, collective seconds over its "
               "wall; the mp=1 tokens are rank 0's whole model")
+    mp_fleet_gates(ref, ranks, where)
     mp_server_phase(torch, r0["toy_tokens"])
-    return {"identity": {r["rank"]: {
+    return {"fleet": {r["rank"]: {
+                n: r["fleet"][n]["rule"]["launches"]
+                for n in ("fleet", "disagg")} for r in ranks},
+            "identity": {r["rank"]: {
                 "ragged": sum(r["identity"][n]["launches"]["ragged"]
                               for n in ("unified", "legacy",
                                         "legacy_burst8")),
@@ -4221,6 +4535,70 @@ def mp_serve_phases(torch, rp, pd, flash, ref):
                 + r["serve"]["legacy_burst8"]["rule"]["launches"]["decode"]}
                 for r in ranks},
             "shape": shape_errors}
+
+
+def mp_fleet_gates(ref, ranks, where):
+    """mp_fleet_identity's and mp_disagg_identity's gates on the ranks'
+    rows (each rank already held its launches, collectives and pools to
+    its replicas' forwards) and their lines."""
+    want = ref["unified"][0]
+    r0 = ranks[0]
+    fleet, disagg = r0["fleet"]["fleet"], r0["fleet"]["disagg"]
+    n = len(ref["identity_prompts"])
+    if fleet["tokens"] != want or fleet["finish"] != ["length"] * n:
+        raise AssertionError("mp_fleet_identity: the dp=2 x mp=2 fleet's "
+                             "tokens differ from one mp=1 engine's")
+    if set(fleet["replicas"]) != {0, 1} or fleet["occupancy"] != [0.0, 0.0]:
+        raise AssertionError(f"mp_fleet_identity: replicas served "
+                             f"{fleet['replicas']}, occupancy "
+                             f"{fleet['occupancy']}")
+    emit("mp_fleet_identity", **where, dp=MP_FLEET_REPLICAS, layers=2,
+         dtype="float32", prompts=n, new_tokens_each=16,
+         tokens_identical_to_mp1=True, served_by=fleet["replicas"],
+         max_queue=MP_FLEET_QUEUE, captures=0, seconds=fleet["seconds"],
+         ranks={r["rank"]: r["fleet"]["fleet"]["rule"] for r in ranks},
+         note="each rank's ragged launches (simple route, fp32) equal the "
+              "forwards of both replicas on it x layers, with 2L+1 "
+              "all-reduces and one all-gather a forward; the pool "
+              "invariant held on every rank of every replica")
+    short = [(b * 16, c) for b, c in zip(disagg["blocks_each"],
+                                         disagg["cached_each"])
+             if not b or c < b * 16]
+    if disagg["tokens"] != want or disagg["replicas"] != [1] * n \
+            or disagg["handoffs"] != n or len(disagg["blocks_each"]) != n \
+            or short:
+        raise AssertionError(
+            f"mp_disagg_identity: tokens equal {disagg['tokens'] == want}, "
+            f"replicas {disagg['replicas']}, {disagg['handoffs']} hand-offs, "
+            f"imports not served from the run (carried, cached): {short}")
+    ho, mp1 = r0["fleet"]["handoff"], r0["fleet_mp1"]
+    if not (ho["refused"] and "digest" in ho["refused"] and ho["unchanged"]
+            and ho["placed_after"]):
+        raise AssertionError(f"mp_disagg_identity: a flipped byte was not "
+                             f"refused before the pools changed: {ho}")
+    if not (mp1["placed"] == mp1["blocks"] and mp1["cached_tokens"]
+            >= mp1["blocks"] * 16 and mp1["tokens_equal_mp2_donor"]):
+        raise AssertionError(f"mp_disagg_identity: the mp=2 run imported "
+                             f"at mp=1: {mp1}")
+    emit("mp_disagg_identity", **where, layers=2, dtype="float32",
+         prompts=n, new_tokens_each=16, tokens_identical_to_mp1=True,
+         handoffs=disagg["handoffs"], recomputed_tokens=0,
+         blocks_each=disagg["blocks_each"],
+         cached_tokens_each=disagg["cached_each"],
+         seconds=disagg["seconds"],
+         ranks={r["rank"]: r["fleet"]["disagg"]["rule"] for r in ranks},
+         handoff_mp2={k: ho[k] for k in ("prompt_tokens", "blocks", "bytes",
+                                         "ms", "total_ms")},
+         handoff_mp1=mp1["mp1_parts"],
+         mp2_run_into_mp1={k: mp1[k] for k in (
+             "placed", "blocks", "cached_tokens", "tokens_equal_mp2_donor")},
+         flipped_byte_refused=ho["refused"][:120],
+         note="hand-off ms by part, each synchronised: export gather (this "
+              "rank's pages), device_to_host, ranks (the follower's head "
+              "slice gathered over the control group), digest; import "
+              "verify, import (the pool), ranks (the slices scattered), "
+              "scatter (this rank's pools); handoff_mp1 is the same "
+              "1024-token hand-off between two mp=1 engines in this run")
 
 
 def mp_server_phase(torch, toy_tokens):
@@ -5775,6 +6153,149 @@ def procfleet_phase(torch, serving, prompts, spec, cache_dir, in_process):
               "server phase on the same rounds' shapes; boot_s is the "
               "worker's own (engine build + kernel load), ready_s launch "
               "to ready line on the parent's clock")
+
+
+def proc_running(pid) -> bool:
+    """``pid`` exists and is not a zombie."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def worker_rank_rule(label, pf, route, served=True):
+    """The launch rule of each worker at mp > 1, over the wire: every
+    rank's ragged launches equal its forwards x layers, all on ``route``
+    (and some, with ``served``), and no decode launch; their sums are the
+    worker's."""
+    rows = worker_launch_rule(label, pf, route, None)
+    for i, row in rows.items():
+        for r, rank in enumerate(row["ranks"]):
+            due = rank["due"]["ragged"]
+            if not (rank["ragged"]["all"] == rank["ragged"][route] == due
+                    and (due > 0 or not served)
+                    and rank["decode"]["all"] == 0):
+                raise AssertionError(f"{label} worker {i} rank {r}: {rank}")
+    return rows
+
+
+def mp_procfleet_phase(torch, serving, prompts, cache_dir):
+    """``--workers 2 --mp 2``: two worker processes, each the controller
+    of a world of 2 ranks over gloo on this card, Llama-3-8B widths at
+    FLEET_LAYERS layers, bf16, the serve prompts (64 greedy tokens each)
+    through the router with the supervisor on: output tokens/s, mean TTFT
+    and ITL, each worker's boot, each rank's peak memory and launch rule
+    over the wire.  Then a second wave with one worker's follower killed
+    by SIGKILL mid-run: the worker fails, the supervisor respawns it (a
+    fresh world), no request is lost, no process of the killed world is
+    left."""
+    new_tokens = 64
+    spec = {"preset": "llama3_8b", "layers": FLEET_LAYERS,
+            "dtype": "bfloat16", "seed": 1}
+    need = sum(-(-(len(p) + new_tokens) // 16) for p in prompts) + 1
+    pf = serving.ProcessFleet(serving.ProcessFleetConfig(
+        dp=2, mp=MP_DEGREE, num_blocks=need + 16, block_size=16,
+        max_num_seqs=16, max_prefill_tokens_per_step=None,
+        max_tokens_per_step=512, unified=True, compile_cache=cache_dir,
+        heartbeat_timeout_s=10.0, **spec,
+        fleet=serving.FleetConfig(max_queue=64)))
+    pf.supervise(serving.SupervisorConfig(max_restarts=3))
+    pf.start()
+    router = pf.router
+    boots = boot_rows(pf)
+    pids = {pf.worker_pid(i) for i in range(2)}
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        hs = [router.submit_request(p, serving.SamplingParams(
+            max_new_tokens=new_tokens), request_id=f"a{i}", retryable=True)
+            for i, p in enumerate(prompts)]
+        router.wait(hs, timeout=600)
+        wall = time.perf_counter() - t0
+        if any(h.finish_reason != "length" or len(h.output_tokens)
+               != new_tokens for h in hs):
+            raise AssertionError("mp_procfleet: a request did not finish")
+        out.update(seconds=wall,
+                   output_tokens_per_s=len(prompts) * new_tokens / wall,
+                   served_by=[h.replica.index for h in hs],
+                   **timeline_means(router.lifecycle, [h.rid for h in hs],
+                                    new_tokens))
+        out["launch_rule"] = worker_rank_rule("mp_procfleet", pf, "tma")
+        out["peak_memory_bytes"] = {
+            i: [r["peak_memory_bytes"] for r in row["ranks"]]
+            for i, row in out["launch_rule"].items()}
+        # --- kill -9 one worker's follower, mid-run
+        wave = prompts[:8]
+        hs = [router.submit_request(p, serving.SamplingParams(
+            max_new_tokens=new_tokens), request_id=f"b{i}", retryable=True)
+            for i, p in enumerate(wave)]
+        deadline = time.monotonic() + 300
+        while not any(h.output_tokens for h in hs) \
+                and time.monotonic() < deadline:
+            time.sleep(0.002)
+        victim = next((r.index for r in router.replicas if r.in_flight),
+                      None)
+        if victim is None:
+            raise AssertionError("mp_procfleet: nothing in flight to kill")
+        vpid = pf.worker_pid(victim)
+        ranks = pf.proxy(victim).debug_fetch("describe")["launches"]["ranks"]
+        world = [r["pid"] for r in ranks]
+        follower = world[1:]
+        if world[0] != vpid or len(follower) != MP_DEGREE - 1 or not all(
+                proc_running(p) for p in world):
+            raise AssertionError(f"mp_procfleet: worker {vpid}'s world "
+                                 f"{world}")
+        os.kill(follower[0], signal.SIGKILL)
+        t_kill = time.perf_counter()
+        router.wait(hs, timeout=600)
+        lost = [h.rid for h in hs if h.finish_reason != "length"
+                or len(h.output_tokens) != new_tokens]
+        if lost:
+            raise AssertionError(f"mp_procfleet: the follower's death lost "
+                                 f"{lost}")
+        deadline = time.monotonic() + 300
+        while not (all(r.healthy for r in router.replicas)
+                   and pf.worker_pid(victim) != vpid) \
+                and time.monotonic() < deadline:
+            time.sleep(0.02)
+        healed_s = time.perf_counter() - t_kill
+        new_pid = pf.worker_pid(victim)
+        pids.add(new_pid)
+        if new_pid == vpid or not all(r.healthy for r in router.replicas):
+            raise AssertionError("mp_procfleet: the failed worker was not "
+                                 "respawned")
+        deadline = time.monotonic() + 30
+        while any(proc_running(p) for p in world) \
+                and time.monotonic() < deadline:
+            time.sleep(0.05)
+        left = [p for p in world if proc_running(p)]
+        if left:
+            raise AssertionError(f"mp_procfleet: processes {left} of the "
+                                 f"killed world outlived it")
+        out["kill9_follower"] = {
+            "victim": victim, "worker_pid": vpid, "follower_pid": follower[0],
+            "new_pid": new_pid, "healed_s": healed_s, "lost": 0,
+            "killed_world": world, "left": left,
+            "respawns": series_sum(pf.registry,
+                                   "serving_fleet_worker_respawns_total"),
+            "respawn_boot": boot_rows(pf)[str(victim)]}
+        # the respawned worker counts from its ready line
+        out["launch_rule_after"] = worker_rank_rule("mp_procfleet kill9",
+                                                    pf, "tma", served=False)
+    finally:
+        stop_process_fleet("mp_procfleet", pf, pids)
+    emit("mp_procfleet", workers=2, mp=MP_DEGREE, backend="gloo",
+         model=spec["preset"], layers=spec["layers"], dtype=spec["dtype"],
+         prompts=len(prompts), new_tokens_each=new_tokens, boot=boots,
+         **out,
+         note="two worker processes, each the controller of its own world "
+              "of 2 ranks over gloo on this card; TTFT and ITL are means "
+              "over the router's request timelines; boot ready_s is launch "
+              "to ready line (the follower's start included); each rank's "
+              "launches read over the wire (describe)")
+    return {i: [r["ragged"]["all"] for r in row["ranks"]]
+            for i, row in out["launch_rule"].items()}
 
 
 FLEET_LAYERS = 4    # aot_boot's and procfleet's depth (32 until PR 15)
@@ -8917,12 +9438,21 @@ def profile_ops_phase(torch, rp, serving, dispatch, LlamaConfig,
 
 def mp_serve_row(out, key):
     """The mp_serve fields of B1's or B2's row of the kernels line: each
-    rank's launches in mp_serve_identity and mp_serve, and the errors at a
-    rank's shapes."""
+    rank's launches in mp_serve_identity, mp_serve, mp_fleet_identity and
+    mp_disagg_identity (both replicas on the rank), each worker rank's in
+    mp_procfleet's first wave (B1 only: the unified step), and the errors
+    at a rank's shapes."""
     return {"mp_serve_identity_launches": {r: n[key] for r, n in
                                            out["identity"].items()},
             "mp_serve_launches": {r: n[key] for r, n in
                                   out["serve"].items()},
+            "mp_fleet_identity_launches": {r: n["fleet"][key] for r, n in
+                                           out["fleet"].items()},
+            "mp_disagg_identity_launches": {r: n["disagg"][key] for r, n in
+                                            out["fleet"].items()},
+            "mp_procfleet_launches": {
+                w: (ranks if key == "ragged" else [0] * len(ranks))
+                for w, ranks in out["procfleet"].items()},
             "mp_shape": out["shape"][key]}
 
 
@@ -9108,7 +9638,6 @@ def main() -> int:
     aot_boot_phase(serving, saved, fleet_spec)
     procfleet_phase(torch, serving, prompts, fleet_spec, procfleet_cache,
                     server_rows)
-    shutil.rmtree(procfleet_cache, ignore_errors=True)
 
     flash_summary = flash_kernel_phase(torch, flash)
     port = SimpleNamespace(
@@ -9142,6 +9671,13 @@ def main() -> int:
     mp_serve_ref["serve_prompts"] = prompts
     mp_serve_out = mp_serve_phases(torch, rp, pd, flash, mp_serve_ref)
     mp_serve_seconds = time.perf_counter() - mp_serve_start
+    # --workers 2 --mp 2: worker processes each the controller of a world
+    # of its own, a follower killed and its world respawned
+    mp_procfleet_start = time.perf_counter()
+    mp_serve_out["procfleet"] = mp_procfleet_phase(torch, serving, prompts,
+                                                   procfleet_cache)
+    shutil.rmtree(procfleet_cache, ignore_errors=True)
+    mp_procfleet_seconds = time.perf_counter() - mp_procfleet_start
     # GPT pre-training (MHA through the flash kernels), BERT/ERNIE
     # fine-tuning and checkpoints
     port = SimpleNamespace(
@@ -9282,7 +9818,8 @@ def main() -> int:
     # the time budget: the sequence-model phases and the whole script
     emit("budget", sequence_phases_s=seq_seconds,
          export_partial_zoo_s=new_seconds, bus_amp_o2_s=o2_seconds,
-         mp_phases_s=mp_seconds, mp_serve_s=mp_serve_seconds, limit_s=1200)
+         mp_phases_s=mp_seconds, mp_serve_s=mp_serve_seconds,
+         mp_procfleet_s=mp_procfleet_seconds, limit_s=1200)
     print(json.dumps({"kernels": [{
         "name": KERNEL_NAME, "route": "cuda",
         "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",

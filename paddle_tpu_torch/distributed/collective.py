@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import contextlib
 import datetime
+import threading
 import time
 from collections import Counter
 from typing import List, Optional, Sequence
@@ -146,6 +147,9 @@ def new_group(ranks: Optional[Sequence[int]] = None, backend=None,
 
 stats = {"calls": Counter(), "bytes": Counter(), "seconds": Counter()}
 _timing = [0]
+# serving replicas at mp > 1 issue collectives from several threads at
+# once: a counter's increment is not atomic
+_stats_lock = threading.Lock()
 
 
 def reset_stats() -> None:
@@ -220,9 +224,10 @@ def _issue(name: str, g: Group, tensors, call, sync_op: bool, post=None):
     """Run ``call(process_group, async_op)`` as the collective ``name``."""
     tensors = [t for t in tensors if isinstance(t, torch.Tensor)]
     _check_device(name, g, tensors)
-    stats["calls"][name] += 1
-    stats["bytes"][name] += sum(t.numel() * t.element_size()
-                                for t in tensors)
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    with _stats_lock:
+        stats["calls"][name] += 1
+        stats["bytes"][name] += nbytes
     timing = _timing[0] > 0
     if timing:
         _sync(tensors)
@@ -242,7 +247,8 @@ def _issue(name: str, g: Group, tensors, call, sync_op: bool, post=None):
         task.wait()
         if timing:
             _sync(tensors)
-            stats["seconds"][name] += time.perf_counter() - t0
+            with _stats_lock:
+                stats["seconds"][name] += time.perf_counter() - t0
     return task
 
 

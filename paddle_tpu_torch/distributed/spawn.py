@@ -17,6 +17,8 @@ every rank), ``master`` (``host:port``, default a free local port), and
 ``first_rank`` / ``world_size`` for processes that are only part of a
 world (the ranks ``first_rank..first_rank+nprocs-1`` of ``world_size``:
 a serving controller starts its followers so, being rank 0 itself).
+Each rank exits at once when the process that spawned it dies, even by
+``kill -9``: no orphan keeps its share of a card.
 
 ``join`` returns when every rank exits 0.  When one rank fails, the others
 are stopped and ``join`` raises :class:`ProcessRaisedException` with the
@@ -67,7 +69,22 @@ def rank_env(rank: int, nprocs: int, master: str, backend: Optional[str],
     return env
 
 
+def _exit_with_parent() -> None:
+    """Exit this process as soon as its parent process is gone."""
+    import threading
+
+    parent = mp.parent_process()
+
+    def watch():
+        parent.join()
+        os._exit(1)
+
+    threading.Thread(target=watch, name="exit-with-parent",
+                     daemon=True).start()
+
+
 def _worker(func, args: Tuple, rank_env: dict, errors) -> None:
+    _exit_with_parent()
     os.environ.update(rank_env)
     try:
         func(*args)

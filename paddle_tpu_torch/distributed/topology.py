@@ -12,13 +12,19 @@ consecutive ranks, so with one card a rank its ranks are neighbouring
 cards of one host.
 
 The port runs dp and mp; pipeline, sharding and sequence degrees above 1
-raise (ROADMAP A11).
+raise (ROADMAP A11).  Serving replicas that span one mp group's ranks
+each take a group of their own over those ranks
+(:meth:`HybridCommunicateGroup.more_groups`, :meth:`~HybridCommunicateGroup
+.using_group`): two replicas' collectives on one group, issued from two
+threads, would meet in different orders on different ranks.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from collections import OrderedDict
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 
@@ -48,6 +54,9 @@ class Mesh:
 
 
 _global_hcg: Optional["HybridCommunicateGroup"] = None
+# held while a block builds under another group (using_group): two
+# threads rebuilding two serving replicas must not swap each other's
+_USING = threading.RLock()
 
 
 def init_mesh(dp: int = 1, mp: int = 1, pp: int = 1, sharding: int = 1,
@@ -88,15 +97,21 @@ def get_hybrid_communicate_group() -> Optional["HybridCommunicateGroup"]:
     return _global_hcg
 
 
-def _axis_groups(mesh: Mesh, axis: str, me: int) -> collective.Group:
+def axis_rows(mesh: Mesh, axis: str) -> List[List[int]]:
+    """The rank lists of every group along ``axis``, in one order."""
+    a = AXES.index(axis)
+    return np.moveaxis(mesh.ranks, a, -1).reshape(
+        -1, mesh.ranks.shape[a]).tolist()
+
+
+def _axis_groups(mesh: Mesh, axis: str, me: int, backend=None,
+                 timeout=None) -> collective.Group:
     """Every group of ``axis`` (each rank creates them all, in one order:
     torch's ``new_group`` is collective), and this rank's."""
-    a = AXES.index(axis)
-    rows = np.moveaxis(mesh.ranks, a, -1).reshape(-1, mesh.ranks.shape[a])
     mine = None
-    for row in rows.tolist():
-        g = (collective.new_group(row) if len(row) > 1
-             else collective.Group(row, None))
+    for row in axis_rows(mesh, axis):
+        g = (collective.new_group(row, backend=backend, timeout=timeout)
+             if len(row) > 1 else collective.Group(row, None))
         if me in row:
             mine = g
     mine.name = f"{axis}_group"
@@ -127,6 +142,28 @@ class HybridCommunicateGroup:
 
     def axis_rank(self, axis: str) -> int:
         return self._coord[axis]
+
+    def more_groups(self, axis: str, count: int, backend=None,
+                    timeout=None) -> List[collective.Group]:
+        """``count`` more groups along ``axis``, each over the same ranks
+        as this rank's own group along it (``backend``: the world's when
+        None).  Collective: every rank calls it with the same arguments,
+        and every rank creates every row's groups in one order."""
+        return [_axis_groups(self._mesh, axis, self.global_rank, backend,
+                             timeout) for _ in range(count)]
+
+    @contextlib.contextmanager
+    def using_group(self, axis: str, group: collective.Group):
+        """Inside the block this rank's group along ``axis`` is ``group``:
+        the layers and engines built inside take it as theirs.  One thread
+        at a time builds so."""
+        with _USING:
+            old = self._groups[axis]
+            self._groups[axis] = group
+            try:
+                yield group
+            finally:
+                self._groups[axis] = old
 
     def get_data_parallel_world_size(self) -> int:
         return self._sizes["dp"]

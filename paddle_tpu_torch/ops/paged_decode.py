@@ -49,6 +49,7 @@ are not compared there.
 from __future__ import annotations
 
 import ctypes
+import threading
 import functools
 import math
 from typing import Dict, Optional, Tuple
@@ -65,6 +66,9 @@ last_path: Optional[str] = None
 launches = 0
 simple_launches = 0
 mma_launches = 0
+# the replicas of a fleet at mp > 1 launch from several threads at once
+# (serving/graphs.py): an increment is not atomic
+_COUNT_LOCK = threading.Lock()
 # The route of the most recent decode_kernel call: "simple" | "mma".
 last_route: Optional[str] = None
 
@@ -283,13 +287,14 @@ def decode_kernel(q, k_cache, v_cache, block_tables, seq_lens):
         msg = lib.paged_decode_attention_error_string(err).decode()
         raise RuntimeError(f"decode kernel launch failed ({way} route): CUDA "
                            f"error {err} ({msg})")
-    launches += 1
+    with _COUNT_LOCK:
+        launches += 1
+        if way == "mma":
+            mma_launches += 1
+        else:
+            simple_launches += 1
+        last_route = way
     _build.note_launch("paged decode")
-    if way == "mma":
-        mma_launches += 1
-    else:
-        simple_launches += 1
-    last_route = way
     return out
 
 

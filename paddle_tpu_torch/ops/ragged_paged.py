@@ -52,6 +52,7 @@ validates mp's divisibility first, as the JAX engine does).
 from __future__ import annotations
 
 import ctypes
+import threading
 import math
 from typing import Optional
 
@@ -67,6 +68,9 @@ last_path: Optional[str] = None
 launches = 0
 simple_launches = 0
 tma_launches = 0
+# the replicas of a fleet at mp > 1 launch from several threads at once
+# (serving/graphs.py): an increment is not atomic
+_COUNT_LOCK = threading.Lock()
 # The route of the most recent ragged_kernel call: "simple" | "tma".
 last_route: Optional[str] = None
 
@@ -277,13 +281,14 @@ def ragged_kernel(q, k_cache, v_cache, block_tables, kv_lens, seg_ids,
         msg = lib.ragged_paged_attention_error_string(err).decode()
         raise RuntimeError(f"ragged kernel launch failed ({way} route): CUDA "
                            f"error {err} ({msg})")
-    launches += 1
+    with _COUNT_LOCK:
+        launches += 1
+        if way == "tma":
+            tma_launches += 1
+        else:
+            simple_launches += 1
+        last_route = way
     _build.note_launch("ragged paged attention")
-    if way == "tma":
-        tma_launches += 1
-    else:
-        simple_launches += 1
-    last_route = way
     return out
 
 

@@ -86,9 +86,12 @@ controller and runs everything above, the others follow
 kernels on its own heads, the legacy decode family included (ROADMAP
 C13).  Each launch is broadcast to the followers before the controller
 runs it; every family runs eagerly (``graphs.eager_reason``), its wall
-time also lands in ``serving_collective_seconds{phase}``.  What waits for
-the rest of ROADMAP A11 raises naming it: the auditor, speculative
-decoding, AOT artifacts and the KV hand-off at mp > 1.
+time also lands in ``serving_collective_seconds{phase}``.  A KV hand-off
+(:meth:`EngineCore.export_kv_run`, :meth:`EngineCore.import_kv_run`) is a
+step of the control channel too: every rank of the replica sends or
+writes its head slice, and the run is the global one.  What waits for the
+rest of ROADMAP A11 raises naming it: the auditor, speculative decoding
+and AOT artifacts at mp > 1.
 """
 
 from __future__ import annotations
@@ -956,7 +959,8 @@ class EngineCore:
                                steps=steps)
 
     def _single_rank(self, what: str) -> None:
-        """Raise naming ROADMAP A11 for ``what`` at mp > 1."""
+        """Raise naming ROADMAP A11 for ``what`` at mp > 1 (AOT
+        artifacts)."""
         if self.mp > 1:
             raise NotImplementedError(
                 f"{what} at mp={self.mp} are not ported to paddle_tpu_torch "
@@ -1552,12 +1556,12 @@ class EngineCore:
     # --- KV hand-off ----------------------------------------------------------
     def export_kv_run(self, request_id):
         """Serialize ``request_id``'s computed prompt KV (its hashed
-        leading blocks) as a hand-off run; ``None`` when nothing is
-        transferable.  Pure read: the request keeps running here until
+        leading blocks) as a hand-off run, every KV head's (at mp > 1 the
+        followers send theirs); ``None`` when nothing is transferable.
+        Pure read: the request keeps running here until
         :meth:`detach_request`."""
         from . import handoff
 
-        self._single_rank("KV hand-offs")
         return handoff.export_request_run(self, request_id)
 
     def export_prefix_chain(self, chain_hash, max_blocks=None):
@@ -1565,7 +1569,6 @@ class EngineCore:
         digest; ``None`` on a broken chain."""
         from . import handoff
 
-        self._single_rank("KV hand-offs")
         return handoff.export_prefix_run(self, chain_hash,
                                          max_blocks=max_blocks)
 
@@ -1576,7 +1579,6 @@ class EngineCore:
         fresh-block count, or ``None`` on a capacity refusal."""
         from . import handoff
 
-        self._single_rank("KV hand-offs")
         return handoff.import_run(self, run)
 
     def detach_request(self, request_id) -> bool:

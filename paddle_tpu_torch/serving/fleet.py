@@ -73,14 +73,23 @@ reaches the replica that actually holds the request's blocks; entries
 are evicted when the request finishes, so the map is bounded by the sum
 of per-replica admission caps.
 
+**dp x mp.**  Replicas may span an mp group of ranks each
+(``server --dp N --mp M``): this process is the controller of every
+replica, and each follower process holds its shard of every replica and
+follows each on a thread of its own (``serving/tp.py``).  Every replica
+then has its own model, mp group and control group
+(``serving.tp.replica_groups``), which the router checks; routing,
+hand-offs and the rebalancer's prefix migration act on the controller's
+pools and reach the followers through each replica's control channel.
+
 Everything is CPU-provable with host threads: dp=2 greedy output is
 token-identical to dp=1 (each replica keeps the established
 batch-composition-independence contract), per-replica capture counts
 stay within the single-engine bucket bound, and a full-fleet drain
 leaves every pool empty.  On one card the replicas' step programs
-serialize on one process-wide lock (``serving/graphs.py``), and the
-replicas may share ONE model module: the port's step writes no module
-state.
+serialize on one process-wide lock (``serving/graphs.py``; not at mp > 1,
+where every family runs eagerly), and at mp = 1 the replicas may share
+ONE model module: the port's step writes no module state.
 """
 
 from __future__ import annotations
@@ -699,12 +708,20 @@ class FleetRouter:
         if len(mps) != 1:
             raise ValueError(f"replicas disagree on mp degree: {sorted(mps)}")
         self.mp = self.engines[0].mp
-        if self.mp > 1 and len(self.engines) > 1:
-            raise NotImplementedError(
-                f"an in-process fleet of {len(self.engines)} replicas at "
-                f"mp={self.mp} (dp x mp serving) is not ported to "
-                f"paddle_tpu_torch yet (ROADMAP A11); a fleet of one engine "
-                f"serves at any mp")
+        # dp x mp in this process: each replica's collectives and control
+        # messages run on its own groups (serving/tp.py), so two replica
+        # threads never meet on one group in different orders across
+        # ranks (a worker process's replica spans a world of its own)
+        local = [e for e in self.engines if getattr(e, "tp", None)]
+        if len(local) > 1:
+            channels = {id(e.tp._pg) for e in local}
+            models = {id(e.model) for e in local}
+            if len(channels) != len(local) or len(models) != len(local):
+                raise ValueError(
+                    f"replicas at mp={self.mp} share an mp group or a "
+                    "model: build each replica's model and engine inside "
+                    "serving.tp.replica(group), one of "
+                    "serving.tp.replica_groups(dp)")
         self._notify_cb: Callable[[Optional[EngineReplica]], None] = \
             lambda replica=None: None
         if len(self.engines) > 1:

@@ -60,7 +60,15 @@ programs, one per engine.
   which no captured graph can hold (collectives inside captured graphs
   are ROADMAP A11 item 7).  Every family then runs as under
   :func:`disable_graphs` on every rank: no capture, so the trace counters
-  stay 0, while the bucket keys are those of mp = 1.
+  stay 0, while the bucket keys are those of mp = 1.  Such a run takes
+  **no process-wide lock**: the replicas of a fleet at dp x mp step on
+  threads of their own on every rank, and a step waits inside its
+  collectives for the same replica's step on the other ranks.  A lock
+  held across that wait would deadlock as soon as two ranks ran two
+  replicas' steps in opposite orders (rank 0 in replica A's all-reduce
+  holding its lock while rank 1 holds its own in replica B's).  With no
+  capture there is nothing to race, and the kernel wrappers' counters
+  take a lock of their own.
 * **Sealed to an AOT artifact** (:meth:`StepGraphs.seal`, by
   ``EngineCore.bind_aot``): a key outside the artifact's saved universe
   raises ``AotBucketMissing`` and is never captured, graphs on or off.
@@ -186,6 +194,8 @@ class StepGraphs:
         many times."""
         if self.artifact is not None:
             self.artifact.check_key(key)
+        if self.eager_reason is not None:
+            return self._run(key, fn, inputs, steps)
         with _RUN_LOCK:
             return self._run(key, fn, inputs, steps)
 

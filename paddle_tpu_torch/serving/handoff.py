@@ -39,6 +39,17 @@ dict, :func:`export_request_run` and :func:`import_run` record the wall
 seconds of each part there (the device synchronised after each), which a
 worker process reports on its hand-off frames.
 
+**At mp > 1** the run is the same global, unsharded run (the JAX
+package's: donor and recipient need not share a mesh layout).  The
+controller gathers each rank's head slice of the listed blocks over the
+replica's control channel (``serving/tp.py``) and joins them along the
+head axis before the digest; an import verifies the header and the digest
+first, places the blocks on the controller's pool, then scatters each
+rank's head slice into that rank's pools.  So a run exported at mp=2
+imports into an mp=1 engine and the other way round.  The timings then
+also hold ``ranks_s``: the export's collection across the ranks, the
+import's scatter across them.
+
 A refused or failed import never loses a request: the fleet falls back to
 re-prefill on the recipient (the prompt tokens always travel with the
 request), so the hand-off is an optimisation layer.
@@ -130,23 +141,50 @@ def pool_meta(engine) -> Dict:
 
 
 def gather_pages(engine, blocks: List[int]) -> torch.Tensor:
-    """The pages of ``blocks``, every layer's K then V, as one device
-    tensor ``[2, layers, len(blocks), block_size, kv_heads, head_dim]``.
-    Pure read of the pools."""
+    """This rank's pages of ``blocks``, every layer's K then V, as one
+    device tensor ``[2, layers, len(blocks), block_size, kv_heads/mp,
+    head_dim]``.  Pure read of the pools."""
     idx = torch.as_tensor(blocks, dtype=torch.long, device=engine.device)
     return torch.stack([
         torch.stack([p.index_select(0, idx) for p in pools])
         for pools in (engine._k_pools, engine._v_pools)])
 
 
+def rank_pages(engine, blocks: List[int]) -> torch.Tensor:
+    """This rank's pages of ``blocks`` on the host (a follower's share of
+    an export at mp > 1)."""
+    return gather_pages(engine, blocks).cpu()
+
+
+def rank_pages_like(engine, n: int) -> torch.Tensor:
+    """An empty host tensor shaped as this rank's pages of ``n`` blocks."""
+    k = engine._k_pools[0]
+    return torch.empty((2, len(engine._k_pools), n) + tuple(k.shape[1:]),
+                       dtype=k.dtype)
+
+
+def host_array(pages: torch.Tensor) -> np.ndarray:
+    """Host pages as a contiguous numpy array (bf16 as its raw 16-bit
+    words)."""
+    if pages.dtype == torch.bfloat16:
+        return np.ascontiguousarray(pages.view(torch.int16).numpy()
+                                    .view(np.uint16))
+    return np.ascontiguousarray(pages.numpy())
+
+
+def host_tensor(pages: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """Host ``pages`` (bf16 as its 16-bit words) as a tensor of ``dtype``,
+    bit for bit: the inverse of :func:`host_array`."""
+    pages = np.ascontiguousarray(pages)
+    if dtype == torch.bfloat16:
+        return torch.from_numpy(pages.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(pages)
+
+
 def pages_to_host(pages: torch.Tensor) -> np.ndarray:
     """Copy gathered pages to a contiguous host array (bf16 as its raw
     16-bit words)."""
-    host = pages.cpu()
-    if host.dtype == torch.bfloat16:
-        return np.ascontiguousarray(host.view(torch.int16).numpy()
-                                    .view(np.uint16))
-    return np.ascontiguousarray(host.numpy())
+    return host_array(pages.cpu())
 
 
 def payload_digest(payload: np.ndarray) -> bytes:
@@ -166,19 +204,29 @@ def _carrier(payload, dtype: str) -> np.ndarray:
         f"kv run payload of dtype {payload.dtype} for a {dtype} pool")
 
 
-def scatter_pages(engine, dst: List[int], pages: np.ndarray) -> None:
-    """Write host ``pages`` ``[2, layers, len(dst), ...]`` into blocks
-    ``dst`` of every layer's pools, in place."""
-    pages = np.ascontiguousarray(pages)
-    if engine._pool_dtype == torch.bfloat16:
-        t = torch.from_numpy(pages.view(np.int16)).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(pages)
-    t = t.to(engine.device)
+def write_pages(engine, dst: List[int], pages: torch.Tensor) -> None:
+    """Write this rank's ``pages`` ``[2, layers, len(dst), ...]`` (a host
+    tensor of the pool dtype) into blocks ``dst`` of every layer's pools,
+    in place."""
+    t = pages.to(engine.device)
     idx = torch.as_tensor(dst, dtype=torch.long, device=engine.device)
     for kv, pools in enumerate((engine._k_pools, engine._v_pools)):
         for layer, p in enumerate(pools):
             p.index_copy_(0, idx, t[kv, layer])
+
+
+def scatter_pages(engine, dst: List[int], pages: np.ndarray,
+                  timings: Optional[Dict] = None) -> None:
+    """Write host ``pages`` ``[2, layers, len(dst), ...]`` (every KV head)
+    into blocks ``dst`` of every layer's pools, in place; at mp > 1 each
+    follower rank receives and writes its head slice."""
+    t = time.perf_counter()
+    slices = host_tensor(pages, engine._pool_dtype)
+    if engine.tp is not None:
+        slices = engine.tp.scatter_pages(dst, slices)
+        t = _lap(timings, "ranks_s", t)
+    write_pages(engine, dst, slices)
+    _lap(timings, "scatter_s", t, engine.device)
 
 
 def _lap(timings: Optional[Dict], name: str, t0: float, device=None
@@ -200,12 +248,19 @@ def _lap(timings: Optional[Dict], name: str, t0: float, device=None
 def build_run(engine, records: List[dict],
               timings: Optional[Dict] = None) -> Dict:
     """Gather the pages of ``records`` (the ``BlockPool.export_blocks``
-    record shape) into one serialized run.  Pure read on the donor."""
+    record shape) into one serialized run, every KV head's (at mp > 1 the
+    follower ranks send theirs).  Pure read on the donor."""
     t = time.perf_counter()
-    pages = gather_pages(engine, [r["block"] for r in records])
+    blocks = [r["block"] for r in records]
+    pages = gather_pages(engine, blocks)
     t = _lap(timings, "gather_s", t, engine.device)
-    payload = pages_to_host(pages)
+    pages = pages.cpu()
     t = _lap(timings, "device_to_host_s", t)
+    if engine.tp is not None:
+        # every rank's head slice, joined on the controller
+        pages = engine.tp.gather_pages(blocks, pages)
+        t = _lap(timings, "ranks_s", t)
+    payload = host_array(pages)
     run = pool_meta(engine)
     run["blocks"] = [{"hash": r["hash"], "depth": int(r["depth"]),
                       "tokens": tuple(int(t) for t in r["tokens"])}
@@ -294,9 +349,10 @@ def import_run(engine, run: Dict,
     payload (:class:`HandoffError` on any mismatch — the pool is
     untouched), place the fresh blocks atomically through
     ``BlockPool.import_blocks``, then scatter their pages into the pools
-    in place.  Returns the number of freshly placed blocks (0 =
-    everything was already cached here), or ``None`` on a capacity
-    refusal — the caller re-prefills."""
+    in place (at mp > 1 each rank's head slice into its pools).  Returns
+    the number of freshly placed blocks (0 = everything was already
+    cached here), or ``None`` on a capacity refusal — the caller
+    re-prefills."""
     t = time.perf_counter()
     meta = check_header(engine, run)
     records = run.get("blocks") or []
@@ -308,15 +364,14 @@ def import_run(engine, run: Dict,
         placed = engine.kv.import_blocks(records)
     except ValueError as e:
         raise HandoffError(f"kv run rejected by the pool: {e}") from e
-    t = _lap(timings, "import_s", t)
+    _lap(timings, "import_s", t)
     if placed is None:
         return None
     if not placed:
         return 0
     src = [i for i, r in enumerate(records) if r["hash"] in placed]
     scatter_pages(engine, [placed[records[i]["hash"]] for i in src],
-                  payload[:, :, src])
-    _lap(timings, "scatter_s", t, engine.device)
+                  payload[:, :, src], timings)
     return len(placed)
 
 

@@ -54,7 +54,12 @@ see ``serving/worker.py``); the initial workers boot in parallel (each
 ``compile_cache`` is the kernels' build directory (a worker booted with
 ``aot_path`` loads its kernels from the artifact and builds nothing
 there); ``warm_boot`` captures the artifact's whole universe before the
-ready line.  ``mp`` > 1 raises, naming A11.
+ready line.  At ``mp`` > 1 each worker process is the controller of a
+world of its own (``serving/worker.py``): the spawn gives every worker a
+rendezvous address and port no other live worker of the fleet holds
+(``--tp-master``), a respawn a fresh one; the handshake's deployment
+identity carries the degree, so a worker of another mp answers
+``deploy_mismatch``; and a worker's ``describe`` launches sum its ranks'.
 """
 
 from __future__ import annotations
@@ -160,7 +165,8 @@ class ProcessFleetConfig:
     device: Optional[str] = None
     weights: Optional[str] = None
     max_seq_len: Optional[int] = None
-    # workers at mp > 1 wait for the rest of ROADMAP A11 and raise
+    # each worker at mp > 1 is the controller of a world of mp ranks of
+    # its own; the degree rides the worker spec and the handshake
     mp: int = 1
     # speculative decoding: JSON-able SpecConfig kwargs dict
     # forwarded to every worker (requires unified + max_tokens_per_step);
@@ -228,6 +234,25 @@ class AotManifestHandle:
         return len(self.manifest.get("programs", []))
 
 
+# the rendezvous ports handed to this process's workers at mp > 1: a port
+# is never handed out twice, so no two worlds of live workers (nor a
+# respawn and the world it replaces) meet on one address
+_RENDEZVOUS_PORTS: set = set()  # unbounded-ok: one port a spawn, bounded by the ports the host has
+_RENDEZVOUS_LOCK = threading.Lock()
+
+
+def _rendezvous_port() -> int:
+    """A free local port this process has not handed to a worker yet."""
+    from ..distributed.env import free_port
+
+    with _RENDEZVOUS_LOCK:
+        while True:
+            port = free_port()
+            if port not in _RENDEZVOUS_PORTS:
+                _RENDEZVOUS_PORTS.add(port)
+                return port
+
+
 class WorkerHandle:
     """One spawned worker process: ready-line parse, log pump, teardown.
 
@@ -276,6 +301,8 @@ class WorkerHandle:
             cmd += ["--warm"]
         if cfg.compile_cache:
             cmd += ["--compile-cache", cfg.compile_cache]
+        if int(cfg.mp) > 1:
+            cmd += ["--tp-master", f"127.0.0.1:{_rendezvous_port()}"]
         env = dict(os.environ)
         env["PYTHONPATH"] = _REPO_ROOT + (
             os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH")
@@ -1147,11 +1174,16 @@ class _SharedState:
             raise ValueError("ProcessFleetConfig warm_boot needs aot_path "
                              "(it warms the artifact's universe)")
         if int(cfg.mp) > 1:
-            raise NotImplementedError(
-                f"ProcessFleetConfig mp={cfg.mp}: worker processes at "
-                "mp > 1 are not ported to paddle_tpu_torch yet "
-                "(ROADMAP A11); one engine serves at mp > 1 through "
-                "serving/tp.py")
+            # what waits for the rest of ROADMAP A11 at mp > 1 is refused
+            # here, before any worker process starts
+            for bad, what in ((bool(cfg.spec), "speculative decoding"),
+                              (cfg.audit_enabled, "the numerics auditor"),
+                              (bool(cfg.aot_path), "AOT artifacts")):
+                if bad:
+                    raise NotImplementedError(
+                        f"ProcessFleetConfig mp={cfg.mp}: {what} at mp > 1 "
+                        "is not ported to paddle_tpu_torch yet "
+                        "(ROADMAP A11)")
         self.cfg = cfg
         self.registry = registry
         # the fleet's artifact (ProcessFleet sets it from cfg.aot_path):
@@ -1168,6 +1200,7 @@ class _SharedState:
             num_blocks=cfg.num_blocks, block_size=cfg.block_size,
             unified_step=cfg.unified,
             burst_steps=cfg.burst_steps,
+            mp=(cfg.mp if cfg.mp > 1 else None),
             spec=self.spec_config(),
             audit=(self.template_audit if cfg.audit_enabled else None))
         if cfg.roles is not None and len(cfg.roles) != cfg.dp:

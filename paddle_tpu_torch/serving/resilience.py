@@ -54,6 +54,19 @@ lost** while the supervisor lives.  If the router is draining, the
 supervisor stops healing (a replica that dies mid-``shutdown()`` is NOT
 resurrected) and terminally fails any orphans so the drain completes.
 
+**Replicas at mp > 1.**  A replica that spans an mp group of ranks is
+rebuilt on every rank of it: the rebuild factory (``serving/server.py``'s
+``--dp N --mp M`` fleet) tells the replica's followers, over its control
+channel, to rebuild their shards from the same seed, and waits for them
+within a deadline (``serving.tp.StepChannel.rebuild``).  A replica whose
+follower process has died, or does not answer, cannot be rebuilt in
+process: the factory raises :class:`~paddle_tpu_torch.serving.tp
+.FollowerLost`, and the supervisor excludes the replica at once and for
+good (a ``crash_loop`` bundle says why), so its requests recompute on the
+other replicas — as the JAX fleet treats a dead replica — and the
+rebuild is never retried.  A worker process at mp > 1 is another matter:
+its respawn starts a fresh world (``serving/procfleet.py``).
+
 Everything is deterministic-testable: ``serving/faultinject.py``
 schedules the faults, and the CPU tests prove the headline contract — injected engine death mid-stream at dp=2 →
 reroute + auto-restart within the backoff bound, zero lost requests,
@@ -598,6 +611,7 @@ class FleetSupervisor:
         it serves; otherwise its graphs capture each key at first use,
         counted in ``graphs.captures`` only."""
         from .aot import AotError
+        from .tp import FollowerLost
 
         router = self.router
         try:
@@ -623,6 +637,14 @@ class FleetSupervisor:
                 f"[supervisor] replica {index} rebuild cannot match "
                 f"the fleet's AOT configuration: {e}\n")
             self._exclude(index, cause=f"aot_mismatch({cause})")
+            return False
+        except FollowerLost as e:
+            # a follower of the replica's mp group is gone: the replica
+            # cannot be rebuilt in this process, and a retry would wait
+            # on the same dead rank
+            sys.stderr.write(f"[supervisor] replica {index} cannot be "
+                             f"rebuilt: {e}\n")
+            self._exclude(index, cause=f"follower_lost({cause})")
             return False
         if router.aot_warmed:
             # a warmed fleet captures nothing while serving, the rebuilt

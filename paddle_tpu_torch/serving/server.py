@@ -103,17 +103,23 @@ Tensor-parallel serving: ``--mp N`` makes this process rank 0 of N, the
 controller, and starts ranks 1..N-1 as follower processes through the
 port's ``distributed.spawn`` (``serving/tp.py``): NCCL with a card a rank,
 gloo where the ranks share cards, on the CPU, or where
-``PADDLE_DISTRI_BACKEND=gloo`` chooses it.  Each rank builds its shard of
-the toy model; ``/readyz`` answers ``ok dp=1 mp=N``; SIGTERM drains, stops
-the followers, and every rank exits 0::
+``PADDLE_DISTRI_BACKEND=gloo`` chooses it.  With ``--dp D`` (or
+``--roles``) this process is the controller of D replicas, each spanning
+the N ranks on an mp group and a control group of its own, built on every
+rank before any engine; each follower holds its shard of every replica.
+Each rank builds its shards of the toy model; ``/readyz`` answers ``ok
+dp=D mp=N``; SIGTERM drains, stops the followers, and every rank exits
+0.  ``--max-restarts`` rebuilds a crashed replica on every rank of it; a
+replica whose follower died is excluded instead
+(``serving/resilience.py``)::
 
     python -m paddle_tpu_torch.serving.server --device cpu --layers 2 \
-        --mp 2 --unified
+        --dp 2 --mp 2 --unified
 
-``--mp`` > 1 with ``--dp`` > 1, ``--workers``, ``--roles``, ``--spec-decode``,
-``--audit-sample``, ``--selftest``, the AOT flags or a restarting
-supervisor (``--max-restarts`` > 0; the default is 0 at mp > 1) exits
-non-zero naming ROADMAP A11.
+``--workers W --mp N`` runs W worker processes, each the controller of a
+world of N ranks of its own (``serving/worker.py``); this process builds
+no world.  ``--mp`` > 1 with ``--spec-decode``, ``--audit-sample``,
+``--selftest`` or the AOT flags exits non-zero naming ROADMAP A11.
 """
 
 from __future__ import annotations
@@ -1172,19 +1178,15 @@ class CompletionServer:
 
 
 # --- CLI / selftest ---------------------------------------------------------
-# flags that wait for the rest of ROADMAP A11 at --mp > 1: each exits
-# non-zero naming it, none is silently ignored
+# flags that wait for the rest of ROADMAP A11 at --mp > 1 (items 1.4 and
+# 1.5: AOT artifacts; speculative decoding and the auditor's replicated
+# re-run): each exits non-zero naming it, none is silently ignored
 _WAITING_AT_MP = (
-    ("dp", "--dp > 1 (an in-process fleet at dp x mp)"),
-    ("workers", "--workers (worker processes at mp > 1)"),
-    ("roles", "--roles (the KV hand-off at mp > 1)"),
     ("spec_decode", "--spec-decode (speculative decoding at mp > 1)"),
     ("audit_sample", "--audit-sample (the auditor at mp > 1)"),
     ("selftest", "--selftest (it audits every step)"),
     ("aot_save", "--aot-save (AOT artifacts at mp > 1)"),
     ("aot_path", "--aot-path (AOT artifacts at mp > 1)"),
-    ("max_restarts", "--max-restarts > 0 (a restart would rebuild the "
-                     "followers too)"),
 )
 
 # --aot-save's bound when --aot-max-seq is not given (the JAX CLI's)
@@ -1404,36 +1406,51 @@ async def _selftest_async(dp: int = 1, audit_sample: int = 1,
         await server.shutdown(drain_timeout=2.0)
 
 
-def _mp_rank_engine(spec: dict) -> EngineCore:
-    """This rank's engine of ``--mp N``: join the world, lay the ranks out
-    at mp=N, build this rank's shard of the toy model (every rank draws
-    the same seeded weights and keeps its slice) and its engine.  Every
-    rank builds the same engine: the construction is collective."""
+def _mp_rank_factory(spec: dict):
+    """This rank's part of ``--mp N``: join the world, lay the ranks out
+    at mp=N, make every replica's groups (collective, on every rank in one
+    order, before any engine), and return the replicas'
+    ``serving.tp.ReplicaFactory``: replica ``i`` is this rank's shard of
+    the toy model (every rank draws the same seeded weights and keeps its
+    slice) and its engine, in role ``spec["roles"][i]``."""
     from .. import device as _device
     from ..distributed import env, topology
+    from .tp import ReplicaFactory, replica_groups
 
     if spec["device"] == "cpu":
         _device.set_device("cpu")
     env.init_parallel_env()
     topology.init_mesh(mp=spec["mp"])
-    return _toy_engine(_toy_model(spec["layers"], spec["device"]),
-                       num_blocks=spec["blocks"], unified=spec["unified"],
-                       max_tokens_per_step=spec["max_tokens_per_step"],
-                       burst_steps=spec["burst"])
+    groups = replica_groups(spec["dp"])
+    roles = spec.get("roles")
+
+    def build(i, registry=None):
+        return _toy_engine(
+            _toy_model(spec["layers"], spec["device"]),
+            num_blocks=spec["blocks"], unified=spec["unified"],
+            max_tokens_per_step=spec["max_tokens_per_step"],
+            burst_steps=spec["burst"], registry=registry,
+            metrics_labels=(None if spec["dp"] == 1
+                            else {"replica": str(i)}),
+            role=roles[i] if roles else "unified")
+
+    return ReplicaFactory(groups, build)
 
 
 def _mp_follower(spec: dict) -> None:
-    """A follower rank of ``--mp N`` (started by the controller): launch
-    the controller's steps until it stops the ranks."""
+    """A follower rank of ``--mp N`` (started by the controller): its
+    shard of every replica, each replica's steps launched on a thread of
+    its own, until the controller stops the ranks."""
     import signal
 
     from ..distributed import env
-    from .tp import follow
+    from .tp import follow_replicas
 
     # the controller stops this rank; an interrupt of the terminal's
     # process group is the controller's to handle
     signal.signal(signal.SIGINT, signal.SIG_IGN)
-    follow(_mp_rank_engine(spec))
+    factory = _mp_rank_factory(spec)
+    follow_replicas([factory(i) for i in range(spec["dp"])], factory)
     env.destroy_process_group()
 
 
@@ -1448,11 +1465,13 @@ def _build_procfleet(args, fault_plan=None, alert_rules=None):
     """N worker processes behind the SAME router/supervisor stack,
     reached over the wire protocol; each worker builds the CLI's toy
     model (``LlamaConfig.tiny``, a generator seeded with 0) on
-    ``--device``."""
+    ``--device``, at ``--mp`` in a world of its own (the mp degree rides
+    the worker spec; this process builds no world)."""
     from .procfleet import ProcessFleet, ProcessFleetConfig
 
     pf = ProcessFleet(ProcessFleetConfig(
         dp=args.workers, layers=args.layers, num_blocks=args.blocks,
+        mp=args.mp,
         max_num_seqs=8, max_prefill_tokens_per_step=None,
         max_tokens_per_step=args.max_tokens_per_step,
         spec=_spec_dict(args), burst_steps=args.burst,
@@ -1559,20 +1578,28 @@ async def _serve_cli(args) -> int:
 
         alert_rules = AlertRuleSet.from_json(args.alert_rules)
     pf = followers = None
-    if args.mp > 1:
+    if args.mp > 1 and not args.workers:
         from .tp import launch_followers, world_backend
 
-        spec = {"mp": args.mp, "device": args.device, "layers": args.layers,
-                "blocks": args.blocks, "unified": args.unified,
+        spec = {"mp": args.mp, "dp": args.dp, "device": args.device,
+                "layers": args.layers, "blocks": args.blocks,
+                "unified": args.unified,
                 "max_tokens_per_step": args.max_tokens_per_step,
-                "burst": args.burst}
+                "burst": args.burst, "roles": args.roles_list}
         followers = launch_followers(args.mp, _mp_follower, (spec,),
                                      backend=world_backend(args.mp,
                                                            args.device))
-        fleet = FleetRouter(
-            [_mp_rank_engine(spec)], config=FleetConfig(
-                max_queue=args.max_queue, flight_dir=args.flight_dir,
-                fault_plan=fault_plan, alert_rules=alert_rules))
+        factory = _mp_rank_factory(spec)
+        fleet_cfg = FleetConfig(
+            max_queue=args.max_queue, flight_dir=args.flight_dir,
+            fault_plan=fault_plan, alert_rules=alert_rules,
+            roles=args.roles_list)
+        if args.dp == 1:
+            # one engine keeps its own registry, unlabeled, as at mp=1
+            fleet = FleetRouter([factory(0)], config=fleet_cfg)
+            fleet._engine_factory = factory
+        else:
+            fleet = FleetRouter.build(factory, dp=args.dp, config=fleet_cfg)
         print(f"mp: ranks 1..{args.mp - 1} follow, pids "
               f"{[p.pid for p in followers.processes]}", flush=True)
     elif args.workers:
@@ -1648,10 +1675,11 @@ async def _serve_cli(args) -> int:
         if pf is not None:
             pf.shared.close_all()  # reap the worker processes
     if followers is not None:
-        # drained: the followers leave their loop and exit 0
+        # drained: the followers leave every replica's loop and exit 0
         from ..distributed import env
 
-        server.engine.tp.release()
+        for eng in fleet.engines:
+            eng.tp.release()
         followers.join(timeout=120)
         env.destroy_process_group()
     return 0
@@ -1694,15 +1722,14 @@ def main(argv=None) -> int:
                         "engine_step_raise, pool_exhaust, slow_step, "
                         "kernel_corrupt; each fires exactly once and is "
                         "recorded as lifecycle/flight events")
-    p.add_argument("--max-restarts", type=int, default=None, metavar="K",
+    p.add_argument("--max-restarts", type=int, default=5, metavar="K",
                    help="self-healing supervisor: restarts allowed per "
                         "replica inside the crash-loop window before "
                         "permanent exclusion (capped exponential "
                         "backoff between attempts; audit-degraded "
                         "replicas are quarantined and replaced).  0 "
                         "disables supervision — a dead replica stays "
-                        "excluded until an operator acts.  Default 5, "
-                        "and 0 at --mp > 1")
+                        "excluded until an operator acts")
     p.add_argument("--watchdog-timeout", type=float, default=60.0,
                    metavar="S",
                    help="per-replica step watchdog: a step exceeding "
@@ -1813,12 +1840,9 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     if args.mp > 1:
         for dest, flag in _WAITING_AT_MP:
-            value = getattr(args, dest)
-            if (value > 1) if dest == "dp" else value:
+            if getattr(args, dest):
                 p.error(f"--mp {args.mp} with {flag} is not ported to "
                         f"paddle_tpu_torch yet (ROADMAP A11)")
-    if args.max_restarts is None:
-        args.max_restarts = 0 if args.mp > 1 else 5
     if args.dp < 1:
         p.error(f"--dp must be >= 1, got {args.dp}")
     if args.mp < 1:

@@ -66,9 +66,22 @@ The port's departures from the JAX worker:
   ``t``, the seconds of each part of the export (gather, device-to-host,
   digest, framing) and of the import (receive, assemble, verify, pool
   import, scatter); a router that does not read them loses nothing.
-* ``mp`` > 1 raises, naming ROADMAP A11.  ``--warm`` captures the step
-  graphs of the artifact's universe on this worker's engine (the JAX
-  worker executes the loaded programs once), and needs ``--aot-path``.
+* **``mp`` > 1**: the JAX worker builds an mp mesh in its one process.
+  This worker is the controller of a world of ``mp`` ranks of its own
+  (``serving/tp.py``): it starts ranks 1..mp-1 as follower processes on
+  its own rendezvous address (``--tp-master``, which the process fleet
+  gives each spawn; a free local port without it), joins the world and
+  lays it out at mp before its model, and each follower builds its shard
+  of the same model and follows the worker's steps.  The followers exit
+  when the worker dies, even by ``kill -9``; when a follower dies, the
+  worker fails its step or, idle, notices the exit, and exits for a
+  respawn, which starts a fresh world.  ``describe``'s ``launches`` then
+  sum every rank's counters, each rank's in ``ranks``; the deployment
+  identity (``hello_ok``, ``describe``) carries ``mp``, as the JAX
+  worker's does.
+* ``--warm`` captures the step graphs of the artifact's universe on this
+  worker's engine (the JAX worker executes the loaded programs once), and
+  needs ``--aot-path``.
 """
 
 from __future__ import annotations
@@ -140,17 +153,14 @@ def build_engine(spec: Dict, replica: int, registry, aot=None):
     shape: one model instance, per-replica metric labels.  The spec is
     the SAME dict the router's proxies template their gate attributes
     from, so the heterogeneity gates in ``FleetRouter.__init__`` hold
-    across the process boundary."""
+    across the process boundary.  At ``mp`` > 1 every rank of the
+    worker's world calls it after :func:`join_world`, and builds its
+    shard."""
     unknown = sorted(set(spec) - set(_SPEC_KEYS))
     if unknown:
         raise ValueError(f"unknown engine-spec key(s) {unknown} — "
                          "router/worker version drift")
     mp = int(spec.get("mp", 1) or 1)
-    if mp > 1:
-        raise NotImplementedError(
-            f"worker mp={mp}: worker processes at mp > 1 are not ported "
-            "to paddle_tpu_torch yet (ROADMAP A11); one engine serves at "
-            "mp > 1 through serving/tp.py")
     if (spec.get("dtype") or "float32") not in _DTYPES:
         raise ValueError(f"unknown dtype {spec['dtype']!r} "
                          f"(expected one of {_DTYPES})")
@@ -177,6 +187,7 @@ def build_engine(spec: Dict, replica: int, registry, aot=None):
         num_blocks=int(spec.get("num_blocks", 64)),
         block_size=int(spec.get("block_size", 4)),
         dtype=getattr(torch, spec.get("dtype") or "float32"),
+        mp=mp if mp > 1 else None,
         scheduler=SchedulerConfig(
             max_num_seqs=int(spec.get("max_num_seqs", 4)),
             max_prefill_tokens_per_step=spec.get(
@@ -192,23 +203,100 @@ def launch_report(engine) -> Dict:
     those its engine's steps call for: the ragged kernel once per layer
     per unified step, the decode kernel once per layer per decode step
     and burst iteration (the legacy prefill families and the hand-off
-    launch neither)."""
-    from ..ops import paged_decode as pd
-    from ..ops import ragged_paged as rp
+    launch neither).  At mp > 1 every rank of the worker's world reports
+    (``ranks``, the worker's first: its pid, launches, peak card memory
+    and due from its forwards) and ``ragged``, ``decode`` and ``due`` are
+    their sums."""
+    from .tp import launch_counts, rank_report
 
     layers = engine.model.config.num_hidden_layers
     decode_steps = engine.metrics.histogram("decode_step").count
     burst_iters = int(engine._burst_counters["length"].sum)
-    return {
-        "ragged": {"all": rp.launches, "simple": rp.simple_launches,
-                   "tma": rp.tma_launches},
-        "decode": {"all": pd.launches, "simple": pd.simple_launches,
-                   "mma": pd.mma_launches},
-        "due": {"ragged": engine.ragged_launches * layers,
-                "decode": (decode_steps + burst_iters) * layers},
-        "steps": {"unified": engine.ragged_launches,
-                  "decode": decode_steps, "burst_iterations": burst_iters},
-    }
+    out = {**launch_counts(),
+           "due": {"ragged": engine.ragged_launches * layers,
+                   "decode": (decode_steps + burst_iters) * layers},
+           "steps": {"unified": engine.ragged_launches,
+                     "decode": decode_steps,
+                     "burst_iterations": burst_iters}}
+    if engine.tp is None:
+        return out
+    ranks = []
+    for r in engine.tp.report(rank_report(engine)):
+        prog = r.pop("programs")
+        r["due"] = {"ragged": prog.get("ragged", 0) * layers,
+                    "decode": (prog.get("decode", 0)
+                               + prog.get("burst", 0)) * layers}
+        ranks.append(r)
+    out["ranks"] = ranks
+    for key in ("ragged", "decode", "due"):
+        out[key] = {k: sum(r[key][k] for r in ranks) for k in ranks[0][key]}
+    return out
+
+
+def join_world(spec: Dict) -> None:
+    """Join the worker's world (launched by :func:`main`) and lay it out
+    at the spec's mp: every rank, before its model."""
+    from .. import device as _device
+    from ..distributed import env, topology
+
+    if spec.get("device") == "cpu":
+        _device.set_device("cpu")
+    env.init_parallel_env()
+    topology.init_mesh(mp=int(spec["mp"]))
+
+
+def follower_main(spec: Dict, replica: int,
+                  compile_cache: Optional[str]) -> None:
+    """A follower rank of a worker at mp > 1 (started by the worker): its
+    shard of the worker's engine, following the worker's steps until the
+    worker releases it."""
+    import signal
+
+    from ..distributed import env
+    from ..observability.metrics import MetricsRegistry
+    from ..ops import _build
+    from .tp import follow
+
+    # the worker stops this rank (and it exits when the worker dies)
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    if compile_cache:
+        _build.set_build_dir(compile_cache)
+    join_world(spec)
+    follow(build_engine(spec, replica, MetricsRegistry()))
+    env.destroy_process_group()
+
+
+def _watch_followers(ctx, host: "WorkerHost") -> None:
+    """Fail the worker when a follower exits before the worker released
+    it: the world lost a rank, so the worker exits for a respawn."""
+    import multiprocessing.connection as mpc
+
+    mpc.wait([p.sentinel for p in ctx.processes])
+    if host.dead.is_set():
+        return                  # the worker is stopping its world itself
+    codes = [p.exitcode for p in ctx.processes]
+    sys.stderr.write(f"[worker {host.replica}] a follower rank exited "
+                     f"({codes}); exiting for respawn\n")
+    host.exit_code = 3
+    host.dead.set()
+
+
+def _stop_world(host: "WorkerHost", ctx) -> int:
+    """The worker's exit at mp > 1: with every follower alive and no
+    failure, release them (between steps), join them and leave the world
+    (a follower's failure is the worker's); else leave at once, without
+    tearing down a world that lost a rank."""
+    from ..distributed import env
+
+    if host.exit_code == 0 and all(p.is_alive() for p in ctx.processes):
+        with host.lock:
+            host.engine.tp.release()
+        ctx.join(timeout=120)
+        env.destroy_process_group()
+        return 0
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(host.exit_code or 3)
 
 
 class WorkerHost:
@@ -701,6 +789,9 @@ def main(argv=None) -> int:
                    help="capture every step graph of the artifact's "
                         "universe before the ready line (serving then "
                         "captures nothing); needs --aot-path")
+    p.add_argument("--tp-master", default=None, metavar="HOST:PORT",
+                   help="at spec mp > 1: the rendezvous address of this "
+                        "worker's world (a free local port when absent)")
     p.add_argument("--max-frame", type=int, default=wire.MAX_FRAME_BYTES)
     args = p.parse_args(argv)
     if args.warm and not args.aot_path:
@@ -725,6 +816,18 @@ def main(argv=None) -> int:
         # (the engine's bind holds it to the engine's platform and card)
         aot = AotArtifact.load(args.aot_path)
         aot_hash = aot.manifest["model_hash"]
+    followers = None
+    mp = int(spec.get("mp", 1) or 1)
+    if mp > 1:
+        # this process is rank 0 of a world of its own; the followers
+        # build their shards while this rank builds its own
+        from .tp import launch_followers, world_backend
+
+        followers = launch_followers(
+            mp, follower_main, (spec, args.replica, args.compile_cache),
+            backend=world_backend(mp, spec.get("device")),
+            master=args.tp_master)
+        join_world(spec)
     engine = build_engine(spec, args.replica, registry, aot=aot)
     # every kernel this engine launches is built and loaded BEFORE the
     # ready line: no step and no heartbeat waits on nvcc.  Booted off an
@@ -785,6 +888,9 @@ def main(argv=None) -> int:
 
     acceptor = threading.Thread(target=_accept_loop, daemon=True)
     acceptor.start()
+    if followers is not None:
+        threading.Thread(target=_watch_followers, args=(followers, host),
+                         name="watch-followers", daemon=True).start()
     try:
         host.dead.wait()
     except KeyboardInterrupt:
@@ -794,6 +900,8 @@ def main(argv=None) -> int:
             server.close()
         except OSError:
             pass  # swallow-ok: closing an already-dead listener during shutdown
+    if followers is not None:
+        return _stop_world(host, followers)
     return host.exit_code
 
 

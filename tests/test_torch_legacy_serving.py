@@ -65,6 +65,7 @@ from paddle_tpu_torch.serving import (
 from paddle_tpu_torch.serving import engine as engine_mod
 from paddle_tpu_torch.serving.burst import burst_eligible, clamp_burst
 from paddle_tpu_torch.serving.kv_manager import KVCacheManager
+from torch_jax_cache import jax_compile_cache  # noqa: F401
 
 _RNG = np.random.default_rng(7)
 PREFIX = _RNG.integers(0, 256, 8).tolist()
@@ -99,31 +100,41 @@ def _port_logits(model, ids, caches, pos):
 
 # --- the model's cached routes -------------------------------------------------
 
-def test_dense_cache_prefill_then_decode_matches_jax():
-    """A 6-token prefill then two decode steps at scalar positions over
-    static [B, M] buffers: same logits, same buffers (written in place in
-    the port, rebound in JAX)."""
-    jm = _jax_model()
-    model = _port_model(jm)
-    cfg = model.config
+def _dense_steps(cfg):
     rng = np.random.default_rng(3)
     B, T0, M = 2, 6, 9
-    shape = (B, M, cfg.num_key_value_heads, cfg.head_dim)
-    jcaches = [(Tensor(jnp.zeros(shape)), Tensor(jnp.zeros(shape)))
-               for _ in range(LAYERS)]
-    caches = [(torch.zeros(shape), torch.zeros(shape)) for _ in range(LAYERS)]
     steps = [(rng.integers(0, cfg.vocab_size, (B, T0)), 0),
              (rng.integers(0, cfg.vocab_size, (B, 1)), T0),
              (rng.integers(0, cfg.vocab_size, (B, 1)), T0 + 1)]
-    for ids, pos in steps:
-        ref = _jax_logits(jm, ids, jcaches, np.int32(pos))
+    return (B, M, cfg.num_key_value_heads, cfg.head_dim), T0, steps
+
+
+def _jax_dense(jm):
+    """The JAX side of the dense-cache test: each step's logits and the
+    buffers after the last."""
+    shape, _, steps = _dense_steps(jm.config)
+    jcaches = [(Tensor(jnp.zeros(shape)), Tensor(jnp.zeros(shape)))
+               for _ in range(LAYERS)]
+    refs = [_jax_logits(jm, ids, jcaches, np.int32(pos))
+            for ids, pos in steps]
+    return refs, [(np.asarray(jk._value), np.asarray(jv._value))
+                  for jk, jv in jcaches]
+
+
+def test_dense_cache_prefill_then_decode_matches_jax(jax_runs, port_model):
+    """A 6-token prefill then two decode steps at scalar positions over
+    static [B, M] buffers: same logits, same buffers (written in place in
+    the port, rebound in JAX)."""
+    model = port_model
+    shape, T0, steps = _dense_steps(model.config)
+    refs, jbufs = jax_runs["dense"]
+    caches = [(torch.zeros(shape), torch.zeros(shape)) for _ in range(LAYERS)]
+    for (ids, pos), ref in zip(steps, refs):
         out = _port_logits(model, ids, caches, pos)
         np.testing.assert_allclose(out, ref, atol=TOL, rtol=TOL)
-    for (kb, vb), (jk, jv) in zip(caches, jcaches):
-        np.testing.assert_allclose(kb.numpy(), np.asarray(jk._value),
-                                   atol=TOL, rtol=TOL)
-        np.testing.assert_allclose(vb.numpy(), np.asarray(jv._value),
-                                   atol=TOL, rtol=TOL)
+    for (kb, vb), (jk, jv) in zip(caches, jbufs):
+        np.testing.assert_allclose(kb.numpy(), jk, atol=TOL, rtol=TOL)
+        np.testing.assert_allclose(vb.numpy(), jv, atol=TOL, rtol=TOL)
     # nothing past the last written position was touched
     assert not caches[0][0][:, T0 + 2:].any()
 
@@ -266,45 +277,48 @@ def _submit(eng, sp_cls, prompts, max_new, per_req=None, seed0=None):
     return reqs
 
 
-def _run_both(jax_eng, eng, prompts, max_new, per_req=None, seed0=100):
-    """The same requests through both engines: returns both token lists."""
-    outs = []
-    for e, sp_cls in ((jax_eng, JaxSamplingParams), (eng, SamplingParams)):
-        reqs = _submit(e, sp_cls, prompts, max_new, per_req, seed0)
-        if e is eng:
-            _drive(e)
-        else:
-            e.run(max_steps=4000)
-        assert all(r.finished for r in reqs)
-        outs.append([list(r.output_tokens) for r in reqs])
-    return outs
+def _run_jax(jax_eng, prompts, max_new, per_req=None, seed0=100):
+    """The requests through the JAX engine: their tokens."""
+    reqs = _submit(jax_eng, JaxSamplingParams, prompts, max_new, per_req,
+                   seed0)
+    jax_eng.run(max_steps=4000)
+    assert all(r.finished for r in reqs)
+    return [list(r.output_tokens) for r in reqs]
 
 
-def _legacy_engines(num_blocks=64, block_size=4, max_num_seqs=4,
-                    prefill_budget=None, burst=0):
-    """The JAX and the port engine on the same weights.  Without bursts
-    both are built by keyword, the JAX package's default serving form;
-    ``burst_steps`` exists only on EngineConfig, so a burst engine takes
-    a config on both sides."""
-    jm = _jax_model()
-    model = _port_model(jm)
-    sched = dict(max_num_seqs=max_num_seqs,
-                 max_prefill_tokens_per_step=prefill_budget)
+def _run_port(eng, prompts, max_new, per_req=None, seed0=100):
+    """The same requests through the port's engine, the pool invariant
+    checked after every step: their tokens."""
+    reqs = _submit(eng, SamplingParams, prompts, max_new, per_req, seed0)
+    _drive(eng)
+    assert all(r.finished for r in reqs)
+    return [list(r.output_tokens) for r in reqs]
+
+
+def _engine(core, config_cls, sched_cls, model, num_blocks=64, block_size=4,
+            max_num_seqs=4, prefill_budget=None, burst=0):
+    """One package's legacy engine.  Without bursts it is built by
+    keyword, the JAX package's default serving form; ``burst_steps``
+    exists only on EngineConfig, so a burst engine takes a config."""
+    sched = sched_cls(max_num_seqs=max_num_seqs,
+                      max_prefill_tokens_per_step=prefill_budget)
     if not burst:
-        jax_eng = JaxEngineCore(jm, num_blocks=num_blocks,
-                                block_size=block_size,
-                                scheduler_config=JaxSchedulerConfig(**sched))
-        eng = EngineCore(model, num_blocks=num_blocks, block_size=block_size,
-                         scheduler_config=SchedulerConfig(**sched))
-    else:
-        kw = dict(num_blocks=num_blocks, block_size=block_size,
-                  burst_steps=burst)
-        jax_eng = JaxEngineCore(jm, config=JaxEngineConfig(
-            scheduler=JaxSchedulerConfig(**sched), **kw))
-        eng = EngineCore(model, config=EngineConfig(
-            scheduler=SchedulerConfig(**sched), **kw))
+        return core(model, num_blocks=num_blocks, block_size=block_size,
+                    scheduler_config=sched)
+    return core(model, config=config_cls(
+        scheduler=sched, num_blocks=num_blocks, block_size=block_size,
+        burst_steps=burst))
+
+
+def _jax_engine(jm, **kw):
+    return _engine(JaxEngineCore, JaxEngineConfig, JaxSchedulerConfig, jm,
+                   **kw)
+
+
+def _port_engine(model, **kw):
+    eng = _engine(EngineCore, EngineConfig, SchedulerConfig, model, **kw)
     assert not eng.engine_config.unified_step and not eng._unified
-    return jax_eng, eng
+    return eng
 
 
 def _roundtrips(eng):
@@ -344,11 +358,107 @@ SCENARIOS = {
 }
 
 
+BURST_SCENARIOS = {
+    # name: (engine keywords, prompts, max_new, per-request sampling)
+    "greedy": ({}, PROMPTS[:3], 12, None),
+    "sampled": ({}, PROMPTS[:3], 12, [SAMPLED] * 3),
+    "mixed": ({}, PROMPTS[:3], 12, MIXED[:3]),
+    "preemption": (dict(num_blocks=12), PROMPTS, 8, [SAMPLED] * 5),
+    "chunked": (dict(prefill_budget=8), PROMPTS, 10, None),
+}
+
+
+TENSORS_ONLY = [PROMPTS[0][:9], PROMPTS[1][:13], PROMPTS[2][:16]]
+WARM_FIRST = [PREFIX + [3, 1, 4, 1]]
+WARM_WAVE = [PREFIX + t for t in ([9, 2, 6], [5, 3, 5], [8, 9, 7])]
+LLM_KW = dict(num_blocks=32, block_size=4, max_num_seqs=2)
+
+
+def _legacy_view(eng):
+    """What ``_check_legacy`` reads of an engine, frozen now."""
+    from types import SimpleNamespace as NS
+
+    return NS(decode_buckets=set(eng.decode_buckets),
+              prefill_buckets=set(eng.prefill_buckets),
+              burst_buckets=set(eng.burst_buckets),
+              metrics=NS(counters=dict(eng.metrics.counters)),
+              _burst_counters={k: NS(value=eng._burst_counters[k].value)
+                               for k in ("roundtrips", "launches")},
+              scheduler=NS(tokens_planned=eng.scheduler.tokens_planned),
+              kv=NS(_free=list(eng.kv._free), _reuse=list(eng.kv._reuse)))
+
+
+def _jax_llm(jm):
+    """The LLM test's JAX side: the default form's and the keyword form's
+    outputs, the keyword engine as ``_check_legacy`` reads it after its
+    generate, and the tokens it then streams."""
+    default = [o.token_ids for o in JaxLLM(jm).generate(
+        PROMPTS[:3], JaxSamplingParams(max_new_tokens=5))]
+    jax_llm = JaxLLM(jm, **LLM_KW)
+    outs = [o.token_ids for o in jax_llm.generate(
+        PROMPTS, JaxSamplingParams(max_new_tokens=5))]
+    view = _legacy_view(jax_llm.engine)
+    streamed = list(jax_stream_generate(jax_llm.engine, PROMPTS[1],
+                                        JaxSamplingParams(max_new_tokens=5)))
+    return default, outs, view, streamed
+
+
+def _jax_case(jm, case):
+    """One case of the JAX side, on a model ``jm`` of its own."""
+    kind = case[0]
+    if kind == "legacy":
+        kw, prompts, max_new, per_req = SCENARIOS[case[1]]
+        eng = _jax_engine(jm, **kw)
+        return eng, _run_jax(eng, prompts, max_new, per_req)
+    if kind == "burst":
+        kw, prompts, max_new, per_req = BURST_SCENARIOS[case[1]]
+        eng = _jax_engine(jm, burst=8, **kw)
+        return eng, _run_jax(eng, prompts, max_new, per_req)
+    if kind == "tensors_only":
+        eng = _jax_engine(jm)
+        return eng, _run_jax(eng, TENSORS_ONLY, 4)
+    if kind == "warm_prefix":
+        eng = _jax_engine(jm)
+        return eng, (_run_jax(eng, WARM_FIRST, 4),
+                     _run_jax(eng, WARM_WAVE, 6))
+    if kind == "bursts_warm":
+        eng = _jax_engine(jm, burst=8)
+        first = _submit(eng, JaxSamplingParams, WARM_FIRST, 4)
+        eng.run(max_steps=4000)
+        second = _submit(eng, JaxSamplingParams, WARM_WAVE, 8)
+        eng.run(max_steps=4000)
+        return eng, [list(r.output_tokens) for r in first + second]
+    if kind == "llm":
+        return _jax_llm(jm)
+    return _jax_dense(jm)
+
+
+@pytest.fixture(scope="module")
+def port_model():
+    """The port's model on the JAX weights, converted once: the engines
+    of every case share it (a step writes no module state)."""
+    return _port_model(_jax_model())
+
+
+@pytest.fixture(scope="module")
+def jax_runs():
+    """The JAX side of every engine case, of the dense-cache route and of
+    the LLM forms, each case on a model of its own (tracing a step swaps
+    the model's parameters for tracers)."""
+    cases = ([("legacy", n) for n in SCENARIOS]
+             + [("burst", n) for n in BURST_SCENARIOS]
+             + [("tensors_only",), ("warm_prefix",), ("bursts_warm",),
+                ("llm",), ("dense",)])
+    return {case if len(case) > 1 else case[0]:
+            _jax_case(_jax_model(), case) for case in cases}
+
+
 @pytest.mark.parametrize("scenario", list(SCENARIOS))
-def test_legacy_engine_matches_jax(scenario):
+def test_legacy_engine_matches_jax(scenario, jax_runs, port_model):
     kw, prompts, max_new, per_req = SCENARIOS[scenario]
-    jax_eng, eng = _legacy_engines(**kw)
-    want, got = _run_both(jax_eng, eng, prompts, max_new, per_req)
+    jax_eng, want = jax_runs[("legacy", scenario)]
+    eng = _port_engine(port_model, **kw)
+    got = _run_port(eng, prompts, max_new, per_req)
     assert got == want
     _check_legacy(eng, jax_eng)
     counters = eng.metrics.counters
@@ -372,14 +482,14 @@ def test_legacy_engine_matches_jax(scenario):
         eng.prefill_trace_count
 
 
-def test_prefill_step_programs_take_tensors_only():
+def test_prefill_step_programs_take_tensors_only(jax_runs, port_model):
     """Each prefill key's inputs are tensors (positions 0-d, never Python
     ints read on the host, which a replay would repeat): ``last_pos`` and
     the chunk's ``start`` are device data.  Two prompts of different
     lengths in one one-shot bucket give the JAX engine's tokens."""
-    jax_eng, eng = _legacy_engines()
-    prompts = [PROMPTS[0][:9], PROMPTS[1][:13], PROMPTS[2][:16]]
-    want, got = _run_both(jax_eng, eng, prompts, 4)
+    _, want = jax_runs["tensors_only"]
+    eng = _port_engine(port_model)
+    got = _run_port(eng, TENSORS_ONLY, 4)
     assert got == want
     assert ("prefill", 16) in eng.prefill_buckets
     keys = [k for k in eng.graphs.programs if k[0] in ("prefill", "chunk")]
@@ -404,59 +514,50 @@ def test_prefill_step_programs_take_tensors_only():
                                                else (8, 2)))
 
 
-def test_legacy_engine_warm_prefix_matches_jax():
+def test_legacy_engine_warm_prefix_matches_jax(jax_runs, port_model):
     """A second wave forks the first request's cached prefix: the chunk
     family resumes past the hit, with the JAX engine's tokens and hits."""
-    jax_eng, eng = _legacy_engines()
-    wave = [PREFIX + t for t in ([9, 2, 6], [5, 3, 5], [8, 9, 7])]
-    first = _run_both(jax_eng, eng, [PREFIX + [3, 1, 4, 1]], 4)
-    second = _run_both(jax_eng, eng, wave, 6)
-    assert first[0] == first[1] and second[0] == second[1]
+    jax_eng, (jfirst, jsecond) = jax_runs["warm_prefix"]
+    eng = _port_engine(port_model)
+    first = _run_port(eng, WARM_FIRST, 4)
+    second = _run_port(eng, WARM_WAVE, 6)
+    assert first == jfirst and second == jsecond
     assert eng.metrics.counters["prefix_cache_hit_tokens"] > 0
     assert any(b[0] == "chunk" for b in eng.prefill_buckets)
     _check_legacy(eng, jax_eng)
 
 
-def test_llm_default_form_and_stream_match_jax():
+def test_llm_default_form_and_stream_match_jax(jax_runs, port_model):
     """``LLM(model)`` and ``LLM(model, num_blocks=..., ...)`` build the
     legacy engine, as the JAX package's do, and serve the same tokens;
     ``stream_generate`` on the same engine streams them too."""
-    jm = _jax_model()
-    model = _port_model(jm)
+    model = port_model
+    jdefault, jouts, jview, jstreamed = jax_runs["llm"]
     default = LLM(model)
     eng = default.engine
     assert (eng.num_blocks, eng.block_size) == (256, 16)
     assert eng._pool_dtype == torch.float32 and not eng._unified
     assert eng.scheduler.config.max_num_seqs == 8
-    want = [o.token_ids for o in JaxLLM(jm).generate(
-        PROMPTS[:3], JaxSamplingParams(max_new_tokens=5))]
     assert [o.token_ids for o in default.generate(
-        PROMPTS[:3], SamplingParams(max_new_tokens=5))] == want
+        PROMPTS[:3], SamplingParams(max_new_tokens=5))] == jdefault
 
-    kw = dict(num_blocks=32, block_size=4, max_num_seqs=2)
-    jax_llm = JaxLLM(jm, **kw)
-    llm = LLM(model, **kw)
-    want = [o.token_ids for o in jax_llm.generate(
-        PROMPTS, JaxSamplingParams(max_new_tokens=5))]
+    llm = LLM(model, **LLM_KW)
     outs = llm.generate(PROMPTS, SamplingParams(max_new_tokens=5))
-    assert [o.token_ids for o in outs] == want
+    assert [o.token_ids for o in outs] == jouts
     assert {o.finish_reason for o in outs} == {"length"}
-    _check_legacy(llm.engine, jax_llm.engine)
-    want = list(jax_stream_generate(jax_llm.engine, PROMPTS[1],
-                                    JaxSamplingParams(max_new_tokens=5)))
+    _check_legacy(llm.engine, jview)
     streamed = list(stream_generate(llm.engine, PROMPTS[1],
                                     SamplingParams(max_new_tokens=5)))
-    assert streamed == want
+    assert streamed == jstreamed
     assert "decode_step" in llm.summary()
     names = {sp.name for sp in llm.engine.tracer.spans()}
     assert {"engine_step", "prefill_step", "decode_step"} <= names
 
 
-def test_llm_keeps_the_config_form():
+def test_llm_keeps_the_config_form(port_model):
     """``LLM(model, config=...)`` goes through ``**engine_kw``; the config
     wins over the keywords, as in the JAX package."""
-    jm = _jax_model()
-    llm = LLM(_port_model(jm), num_blocks=256, config=EngineConfig(
+    llm = LLM(port_model, num_blocks=256, config=EngineConfig(
         num_blocks=24, block_size=4, unified_step=True))
     assert llm.engine.num_blocks == 24 and llm.engine._unified
     outs = llm.generate(PROMPTS[:2], SamplingParams(max_new_tokens=3))
@@ -697,9 +798,8 @@ def test_eligibility_gates():
     assert not burst_eligible(sched, plan, rows, None)
 
 
-def test_scheduler_plan_carries_the_capacity():
-    jm = _jax_model()
-    eng = EngineCore(_port_model(jm), num_blocks=16, block_size=4,
+def test_scheduler_plan_carries_the_capacity(port_model):
+    eng = EngineCore(port_model, num_blocks=16, block_size=4,
                      scheduler_config=SchedulerConfig(max_num_seqs=2))
     eng.add_request(PROMPTS[0][:6], SamplingParams(max_new_tokens=2))
     eng.step()   # prefill
@@ -711,26 +811,17 @@ def test_scheduler_plan_carries_the_capacity():
 
 # --- bursts: the engine --------------------------------------------------------
 
-BURST_SCENARIOS = {
-    # name: (engine keywords, prompts, max_new, per-request sampling)
-    "greedy": ({}, PROMPTS[:3], 12, None),
-    "sampled": ({}, PROMPTS[:3], 12, [SAMPLED] * 3),
-    "mixed": ({}, PROMPTS[:3], 12, MIXED[:3]),
-    "preemption": (dict(num_blocks=12), PROMPTS, 8, [SAMPLED] * 5),
-    "chunked": (dict(prefill_budget=8), PROMPTS, 10, None),
-}
-
-
 @pytest.mark.parametrize("scenario", list(BURST_SCENARIOS))
-def test_bursts_match_burst_off_and_jax(scenario):
+def test_bursts_match_burst_off_and_jax(scenario, jax_runs, port_model):
     """Burst-on gives the burst-off tokens and the JAX burst engine's, with
     strictly fewer host round trips and the same ledger as JAX."""
     kw, prompts, max_new, per_req = BURST_SCENARIOS[scenario]
-    jax_eng, eng = _legacy_engines(burst=8, **kw)
-    want, got = _run_both(jax_eng, eng, prompts, max_new, per_req)
+    jax_eng, want = jax_runs[("burst", scenario)]
+    eng = _port_engine(port_model, burst=8, **kw)
+    got = _run_port(eng, prompts, max_new, per_req)
     assert got == want
     _check_legacy(eng, jax_eng)
-    _, off = _legacy_engines(**kw)
+    off = _port_engine(port_model, **kw)
     reqs = _submit(off, SamplingParams, prompts, max_new, per_req, 100)
     _drive(off)
     assert [list(r.output_tokens) for r in reqs] == got
@@ -742,36 +833,30 @@ def test_bursts_match_burst_off_and_jax(scenario):
         assert eng.metrics.counters["preemptions"] > 0
 
 
-def test_bursts_warm_prefix_match_burst_off_and_jax():
-    jax_eng, eng = _legacy_engines(burst=8)
-    _, off = _legacy_engines()
-    wave = [PREFIX + t for t in ([9, 2, 6], [5, 3, 5], [8, 9, 7])]
+def test_bursts_warm_prefix_match_burst_off_and_jax(jax_runs, port_model):
+    jax_eng, want = jax_runs["bursts_warm"]
+    eng = _port_engine(port_model, burst=8)
+    off = _port_engine(port_model)
     outs = []
     for e in (eng, off):
-        first = _submit(e, SamplingParams, [PREFIX + [3, 1, 4, 1]], 4)
+        first = _submit(e, SamplingParams, WARM_FIRST, 4)
         _drive(e)
-        second = _submit(e, SamplingParams, wave, 8)
+        second = _submit(e, SamplingParams, WARM_WAVE, 8)
         _drive(e)
         outs.append([list(r.output_tokens) for r in first + second])
         assert e.metrics.counters["prefix_cache_hit_tokens"] > 0
-    jfirst = _submit(jax_eng, JaxSamplingParams, [PREFIX + [3, 1, 4, 1]], 4)
-    jax_eng.run(max_steps=4000)
-    jsecond = _submit(jax_eng, JaxSamplingParams, wave, 8)
-    jax_eng.run(max_steps=4000)
-    assert outs[0] == outs[1] == [list(r.output_tokens)
-                                  for r in jfirst + jsecond]
+    assert outs[0] == outs[1] == want
     assert _bursts(eng) > 0
     assert _roundtrips(eng) < _roundtrips(off)
     _check_legacy(eng, jax_eng)
 
 
-def test_unified_engine_bursts_too():
+def test_unified_engine_bursts_too(port_model):
     """Bursts work with ``unified_step`` True as well: the same tokens as
     the burst-off unified engine, fewer round trips."""
-    jm = _jax_model()
     outs, trips = [], []
     for burst in (0, 8):
-        eng = EngineCore(_port_model(jm), config=EngineConfig(
+        eng = EngineCore(port_model, config=EngineConfig(
             num_blocks=64, block_size=4, unified_step=True, burst_steps=burst,
             scheduler=SchedulerConfig(max_num_seqs=4,
                                       max_tokens_per_step=16)))
@@ -784,10 +869,11 @@ def test_unified_engine_bursts_too():
     assert trips[1] < trips[0]
 
 
-def test_never_bursts_with_prefill_pending():
+def test_never_bursts_with_prefill_pending(port_model):
     """Every burst launches on a step with no prefill work: nothing
     waiting, no deferred chunk, no chunk in the plan."""
-    _, eng = _legacy_engines(burst=8, max_num_seqs=4, prefill_budget=8)
+    eng = _port_engine(port_model, burst=8, max_num_seqs=4,
+                       prefill_budget=8)
     seen = []
     launch = eng._burst_exec
 

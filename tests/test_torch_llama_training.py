@@ -34,6 +34,7 @@ from paddle_tpu_torch.models import LlamaConfig, LlamaPretrainingCriterion
 from paddle_tpu_torch.nn.functional import cross_entropy
 from paddle_tpu_torch.optimizer import Adam, AdamW
 from paddle_tpu_torch.optimizer import lr as lr_mod
+from torch_jax_cache import jax_compile_cache  # noqa: F401
 
 # --- cross entropy ----------------------------------------------------------
 

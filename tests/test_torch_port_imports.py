@@ -14,9 +14,9 @@
   naming A12 until the port had ``nn/clip.py``, clips); the legacy
   families, decode bursts, the auditor, a shared lifecycle tracker,
   speculative decoding, the prefill/decode roles and an AOT artifact
-  (``aot_path`` and ``aot``) build and serve.  A process fleet's mp > 1
-  raises naming A11, and its AOT settings are checked, before any worker
-  process starts.
+  (``aot_path`` and ``aot``) build and serve.  A process fleet's spec
+  decoding at mp > 1 raises naming A11, and its AOT settings are checked,
+  before any worker process starts.
 """
 
 import ast
@@ -356,13 +356,15 @@ def test_supported_settings_build():
                  "manifest.json missing", id="fields0-A9 rest"),
     pytest.param(dict(warm_boot=True), ValueError, "needs aot_path",
                  id="fields1-A9 rest"),
-    pytest.param(dict(mp=2), NotImplementedError, "ROADMAP A11",
-                 id="fields2-A11"),
+    pytest.param(dict(mp=2, unified=True, max_tokens_per_step=16,
+                      spec={"enabled": True, "k": 2}),
+                 NotImplementedError, "ROADMAP A11", id="fields2-A11"),
 ])
 def test_unported_process_fleet_settings_raise(fields, error, message):
-    """A process fleet's mp > 1 raises naming A11, an artifact path with no
-    artifact and a warm boot with no artifact are refused: all before any
-    worker process is spawned."""
+    """Speculative decoding in workers at mp > 1 raises naming A11 (workers
+    at mp > 1 serve since the process fleet was ported there), an artifact
+    path with no artifact and a warm boot with no artifact are refused:
+    all before any worker process is spawned."""
     from paddle_tpu_torch.serving import ProcessFleet, ProcessFleetConfig
 
     with pytest.raises(error, match=message):

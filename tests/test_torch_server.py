@@ -376,8 +376,8 @@ _REQUIRES_WORKERS = "they require --workers N"
                  id="args8-A9 rest"),
     pytest.param(("--compile-cache", "d"), _REQUIRES_WORKERS,
                  id="args9-A9 rest"),
-    pytest.param(("--mp", "2", "--dp", "2"), "(ROADMAP A11)",
-                 id="args10-A11")])
+    pytest.param(("--mp", "2", "--dp", "2", "--audit-sample", "1"),
+                 "(ROADMAP A11)", id="args10-A11")])
 def test_waiting_flags_exit_naming_their_item(args, message, capsys):
     with pytest.raises(SystemExit) as e:
         server_main(["--device", "cpu", *args])

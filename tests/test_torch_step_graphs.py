@@ -50,6 +50,7 @@ from paddle_tpu_torch.serving import (
 )
 from paddle_tpu_torch.serving import graphs
 from paddle_tpu_torch.serving.graphs import StepGraphs, disable_graphs
+from torch_jax_cache import jax_compile_cache  # noqa: F401
 
 _RNG = np.random.default_rng(7)
 PREFIX = _RNG.integers(0, 256, 8).tolist()
@@ -107,17 +108,38 @@ def _buckets(eng, family):
             "burst": eng.burst_buckets, "ragged": eng.ragged_buckets}[family]
 
 
+@pytest.fixture(scope="module")
+def port_model():
+    """The port's model on the JAX weights, converted once: the engines
+    of every case share it (a step writes no module state)."""
+    return _port_model(_jax_model())
+
+
+@pytest.fixture(scope="module")
+def jax_runs():
+    """Every (family, workload) case through the JAX engine, each engine
+    with its own model (tracing a step swaps the model's parameters for
+    tracers): ``{case: (engine, tokens)}``."""
+    out = {}
+    for family, (fields, prompts, max_new, _) in FAMILIES.items():
+        for workload, per_req in WORKLOADS.items():
+            jax_eng = JaxEngineCore(_jax_model(), config=JaxEngineConfig(
+                scheduler=JaxSchedulerConfig(max_num_seqs=4),
+                **_engine_kw(fields)))
+            out[(family, workload)] = (jax_eng, _run(
+                jax_eng, JaxSamplingParams, prompts, max_new, per_req))
+    return out
+
+
 @pytest.mark.parametrize("workload", list(WORKLOADS))
 @pytest.mark.parametrize("family", list(FAMILIES))
-def test_engine_graphs_match_eager_and_jax(family, workload):
+def test_engine_graphs_match_eager_and_jax(family, workload, jax_runs,
+                                           port_model):
     fields, prompts, max_new, graphed = FAMILIES[family]
     per_req = WORKLOADS[workload]
-    jm = _jax_model()
-    model = _port_model(jm)
+    model = port_model
     sched = dict(max_num_seqs=4)
-    jax_eng = JaxEngineCore(jm, config=JaxEngineConfig(
-        scheduler=JaxSchedulerConfig(**sched), **_engine_kw(fields)))
-    want = _run(jax_eng, JaxSamplingParams, prompts, max_new, per_req)
+    jax_eng, want = jax_runs[(family, workload)]
     engines = [EngineCore(model, config=EngineConfig(
         scheduler=SchedulerConfig(**sched), **_engine_kw(fields)))
         for _ in range(2)]
@@ -307,11 +329,11 @@ def test_outputs_alias_and_inputs_are_checked():
     assert graphs.graphs_enabled() and seen == [key]
 
 
-def test_stale_static_inputs_change_the_tokens(monkeypatch):
+def test_stale_static_inputs_change_the_tokens(monkeypatch, port_model):
     """The planted fault: replays whose static inputs were never refreshed
     rerun the first step's inputs, so the tokens must differ from the
     eager engine's — the identity check can fail."""
-    model = _port_model(_jax_model())
+    model = port_model
     kw = dict(num_blocks=64, block_size=4,
               scheduler=SchedulerConfig(max_num_seqs=4))
     with disable_graphs():

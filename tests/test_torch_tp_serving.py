@@ -18,8 +18,9 @@ JAX seed, each rank's shard cut by ``convert.llama_from_paddle_tpu``).
   invariant holds on every rank; ``serving_mp_shards`` and
   ``serving_collective_seconds`` report mp=2 and stay silent at mp=1.
 * The errors: a topology that disagrees with ``EngineConfig.mp``, heads mp
-  does not divide, a model built before the topology; what waits for the
-  rest of ROADMAP A11 raises naming it; a follower cannot step.
+  does not divide, a model built before the topology; a follower cannot
+  step (what waits for the rest of ROADMAP A11 at mp > 1 is tested with
+  the fleet, in ``tests/test_torch_tp_fleet.py``).
 * ROADMAP C13: the JAX engine refuses ``use_pallas_paged=True`` on its
   legacy families at mp > 1; the port's ranks take it.
 * ``server --mp 2`` on the CPU: ``/readyz`` says ``ok dp=1 mp=2``, a
@@ -290,14 +291,6 @@ def test_c13_port_legacy_families_take_the_kernel_flag_at_mp2(sides):
     assert "requires unified_step=True" in want["c13"]
     for r in range(TP):
         assert got[r]["c13"] == "no error"
-
-
-def test_what_waits_for_a11_raises_naming_it(sides):
-    got, _, _ = sides
-    for r in range(TP):
-        for what, err in got[r]["waiting"].items():
-            assert err.startswith("NotImplementedError") and \
-                "ROADMAP A11" in err, (what, err)
 
 
 def test_engine_checks_its_degree_heads_and_model(sides):

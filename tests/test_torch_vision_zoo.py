@@ -18,7 +18,8 @@ the largest JAX output, each gradient within 1e-3 of its largest entry
 plus 1e-6 of the net's largest gradient (XLA's convolutions and torch's
 sum in other orders).  The JAX side runs as one XLA program a net (its
 state swapped in as ``jit.save`` does), its initializers drawing from
-numpy (``tests/torch_zoo_pairs.py``).
+numpy (``tests/torch_zoo_pairs.py``); a module fixture builds every pair
+and runs the JAX programs once.
 """
 
 import jax
@@ -28,10 +29,11 @@ import pytest
 import torch
 
 from paddle_tpu.core.tensor import Tensor
+from paddle_tpu.nn import initializer as jinit
 from paddle_tpu.vision import models as jmodels
 from paddle_tpu_torch import convert
 from paddle_tpu_torch.vision import models
-from torch_zoo_pairs import numpy_init  # noqa: F401
+from torch_zoo_pairs import _Jax
 
 
 def _state(jm):
@@ -61,10 +63,11 @@ def _pair(ctor, kwargs):
     return jm, tm
 
 
-def _jax_program(jm):
+def _jax_program(jm, grads):
     """The JAX model's eval forward as one XLA program of ``(parameter
     values, buffer values, x)`` (the state swapped in as ``jit.save``
-    does): ``(forward, gradient of the outputs' sum by parameter)``.  One
+    does), with ``grads`` the gradient of the outputs' sum by parameter
+    in the same program: ``x -> (outputs, gradients or None)``.  One
     compile a net instead of one an op."""
     state = jm.state_dict()
     pnames = [n for n, _ in jm.named_parameters()]
@@ -83,12 +86,20 @@ def _jax_program(jm):
         return [o._value for o in outs]
 
     def total(pvals, bvals, x):
-        return sum(jnp.sum(o) for o in forward(pvals, bvals, x))
+        outs = forward(pvals, bvals, x)
+        return sum(jnp.sum(o) for o in outs), outs
 
     args = ([state[n]._value for n in pnames],
             [state[n]._value for n in bnames])
-    return (lambda x: jax.jit(forward)(*args, x),
-            lambda x: dict(zip(pnames, jax.jit(jax.grad(total))(*args, x))))
+    if not grads:
+        return lambda x: (jax.jit(forward)(*args, x), None)
+
+    def both(x):
+        (_, outs), g = jax.jit(jax.value_and_grad(total, has_aux=True))(
+            *args, x)
+        return outs, dict(zip(pnames, g))
+
+    return both
 
 
 FORWARD = [
@@ -112,15 +123,36 @@ def _outputs(out):
     return list(out) if isinstance(out, (list, tuple)) else [out]
 
 
+def _image(size, batch):
+    return np.random.default_rng(2).standard_normal(
+        (batch, 3, size, size)).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def pairs():
+    """Every net of FORWARD: the port's model and the JAX program's
+    outputs and gradients on its image, each pair built with the JAX
+    initializers drawing from a fresh numpy generator
+    (``torch_zoo_pairs.numpy_init``'s seed)."""
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        for ctor, kwargs, size, batch, grads in FORWARD:
+            mp.setattr(jinit, "jax", _Jax(0))
+            jm, tm = _pair(ctor, kwargs)
+            jouts, jgrads = _jax_program(jm, grads)(
+                jnp.asarray(_image(size, batch)))
+            out[ctor] = (tm, [np.asarray(o) for o in jouts],
+                         jgrads and {n: np.asarray(g)
+                                     for n, g in jgrads.items()})
+    return out
+
+
 @pytest.mark.parametrize("ctor,kwargs,size,batch,grads", FORWARD,
                          ids=[f[0] for f in FORWARD])
 def test_eval_forward_and_gradients_match_jax(ctor, kwargs, size, batch,
-                                              grads, numpy_init):
-    jm, tm = _pair(ctor, kwargs)
-    forward, grad = _jax_program(jm)
-    x = np.random.default_rng(2).standard_normal(
-        (batch, 3, size, size)).astype(np.float32)
-    jouts = [np.asarray(o) for o in forward(jnp.asarray(x))]
+                                              grads, pairs):
+    tm, jouts, jgrads = pairs[ctor]
+    x = _image(size, batch)
     touts = _outputs(tm(torch.from_numpy(x)))
     assert len(touts) == len(jouts)
     for t, j in zip(touts, jouts):
@@ -130,7 +162,6 @@ def test_eval_forward_and_gradients_match_jax(ctor, kwargs, size, batch,
     if not grads:
         return
     sum(o.sum() for o in touts).backward()
-    jgrads = {n: np.asarray(g) for n, g in grad(jnp.asarray(x)).items()}
     floor = 1e-6 * max(np.abs(g).max() for g in jgrads.values())
     linear = convert.linear_weights(tm)
     tparams = dict(tm.named_parameters())

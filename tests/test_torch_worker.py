@@ -310,7 +310,13 @@ def test_model_identity_refuses_a_drifted_router(tmp_path):
     with pytest.raises(ValueError, match="unknown engine-spec"):
         worker.build_engine({"preset": "tiny", "colour": 1}, 0,
                             MetricsRegistry())
+    # mp > 1: what waits for A11 raises naming it; the rest needs the
+    # worker's world (join_world) laid out before the model
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        worker.build_engine({"mp": 2, "device": "cpu", "unified_step": True,
+                             "max_tokens_per_step": 16, "spec": {"k": 2}},
+                            0, MetricsRegistry())
+    with pytest.raises(ValueError, match="init_mesh"):
         worker.build_engine({"mp": 2, "device": "cpu"}, 0,
                             MetricsRegistry())
     # an artifact path with no artifact is refused before the engine is

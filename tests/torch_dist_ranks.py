@@ -642,17 +642,6 @@ def tp_serving_rank(out, path):
     # C13: the legacy families take the kernel flag at mp > 1
     res["c13"] = _raises(lambda: serving.EngineCore(
         model, num_blocks=16, block_size=4, use_pallas_paged=True))
-    # what waits for the rest of A11 raises naming it
-    eng = serving.EngineCore(model, config=tp_config(
-        serving, "unified", num_blocks=16))
-    res["waiting"] = {
-        "fleet": _raises(lambda: serving.FleetRouter([eng, eng])),
-        "handoff": _raises(lambda: eng.export_kv_run("r")),
-        "aot": _raises(lambda: serving.AotArtifact.save(eng, out)),
-        "spec": _raises(lambda: serving.EngineCore(model, config=tp_config(
-            serving, "unified", num_blocks=16,
-            spec=serving.SpecConfig(k=2)))),
-    }
     # the engine's own checks: a model of mp=1 and heads mp cannot split
     hcg = topology.get_hybrid_communicate_group()
     topology.set_hybrid_communicate_group(None)
@@ -684,3 +673,296 @@ def tp_serving_rank(out, path):
     with open(os.path.join(out, f"tp_serving_rank{rank}.json"), "w") as f:
         json.dump(res, f)
     dist.destroy_process_group()
+
+
+# --- tensor-parallel serving at dp x mp: the fleet and the KV hand-off ----------
+
+_FLEET_RNG = np.random.default_rng(13)
+# prompts with no common prefix, so that the affinity ring spreads them
+FLEET_PROMPTS = [_FLEET_RNG.integers(0, 256, 12).tolist() for _ in range(6)]
+FLEET_NEW = 6
+FLEET_REPLICAS = 2
+# the hand-off's request: exported after HANDOFF_AT tokens of HANDOFF_NEW
+HANDOFF_PROMPT = TP_PROMPTS[2]
+HANDOFF_NEW, HANDOFF_AT = 10, 3
+# the first step's logits of the bf16 comparison
+BF16_IDS = np.random.default_rng(3).integers(0, 256, (1, 32))
+
+
+def fleet_config(serving, **kw):
+    """The dp x mp tests' engines (the port's or the JAX package's)."""
+    return tp_config(serving, "unified", num_blocks=64, **kw)
+
+
+def handoff_donor(eng, SamplingParams, rid="donor"):
+    """Run the hand-off's request on ``eng`` to its HANDOFF_AT-th token,
+    export its run, then run it to its end: ``(run, resume, tokens)``."""
+    req = eng.add_request(HANDOFF_PROMPT, SamplingParams(
+        max_new_tokens=HANDOFF_NEW), request_id=rid)
+    while len(req.output_tokens) < HANDOFF_AT:
+        eng.step()
+    run = eng.export_kv_run(rid)
+    resume = [int(t) for t in req.output_tokens]
+    eng.run(max_steps=2000)
+    return run, resume, [int(t) for t in req.output_tokens]
+
+
+def handoff_recipient(eng, SamplingParams, run, resume, rid="recipient"):
+    """Import ``run`` into ``eng`` and continue the request from
+    ``resume``: ``(placed, tokens, cached tokens at its admission)``."""
+    placed = eng.import_kv_run(run)
+    req = eng.add_request(HANDOFF_PROMPT, SamplingParams(
+        max_new_tokens=HANDOFF_NEW), request_id=rid, resume_tokens=resume)
+    eng.run(max_steps=2000)
+    attr = eng.cachestat.attribution()
+    row = [r for r in attr["active"] + attr["recent"] if r["id"] == rid]
+    return placed, [int(t) for t in req.output_tokens], row[0][
+        "cached_tokens"]
+
+
+def run_arrays(run) -> dict:
+    """A hand-off run as npz arrays (its header as JSON)."""
+    import json
+
+    head = {k: run[k] for k in ("version", "block_size", "layers",
+                                "kv_heads", "head_dim", "dtype",
+                                "tokens_total")}
+    head["blocks"] = [[r["hash"].hex(), int(r["depth"]),
+                       [int(t) for t in r["tokens"]]] for r in run["blocks"]]
+    return {"header": np.array(json.dumps(head)),
+            "payload": np.asarray(run["payload"]),
+            "digest": np.frombuffer(run["digest"], np.uint8)}
+
+
+def run_from_arrays(arrays) -> dict:
+    """The inverse of :func:`run_arrays`."""
+    import json
+
+    head = json.loads(str(arrays["header"]))
+    blocks = head.pop("blocks")
+    return dict(head, payload=arrays["payload"],
+                digest=arrays["digest"].tobytes(),
+                blocks=[{"hash": bytes.fromhex(h), "depth": d,
+                         "tokens": tuple(t)} for h, d, t in blocks])
+
+
+def _fleet_run(serving, factory):
+    """The controller's dp=2 x mp=2 fleet: a wave of FLEET_PROMPTS, then
+    replica 1 killed at the second step of a second wave and rebuilt by
+    the supervisor on both ranks, the wave finishing token-identically."""
+    from paddle_tpu_torch.serving import (
+        FaultInjector,
+        FaultPlan,
+        FaultSpec,
+        FleetSupervisor,
+        SupervisorConfig,
+    )
+
+    fleet = serving.FleetRouter.build(factory, dp=FLEET_REPLICAS)
+    sup = FleetSupervisor(fleet, config=SupervisorConfig(
+        backoff_initial_s=0.01, backoff_max_s=0.2, poll_interval_s=0.01))
+    sup.start()
+    fleet.start()
+    row = {}
+    try:
+        for wave in ("first", "killed"):
+            if wave == "killed":
+                eng = fleet.engines[1]
+                eng.set_fault_injector(FaultInjector(FaultPlan(faults=(
+                    FaultSpec(point="engine_step_raise",
+                              step=eng.step_seq + 1, replica="1"),)),
+                    replica="1"))
+            hs = [fleet.submit_request(
+                p, serving.SamplingParams(max_new_tokens=FLEET_NEW),
+                request_id=f"{wave}{i}", retryable=True)
+                for i, p in enumerate(FLEET_PROMPTS)]
+            fleet.wait(hs, timeout=120)
+            row[wave] = {"tokens": [list(h.output_tokens) for h in hs],
+                         "finish": [h.finish_reason for h in hs],
+                         "replicas": [h.replica.index for h in hs]}
+        row["restarts"] = int(sup._restarts["engine_death"].value)
+        row["predicted"] = [fleet.predict_replica(p) for p in FLEET_PROMPTS]
+        row["metrics"] = fleet.registry.prometheus_text()
+    finally:
+        fleet.shutdown(drain_timeout=5.0)
+    for e in fleet.engines:
+        e.tp.release()
+    row["occupancy"] = [e.kv.occupancy() for e in fleet.engines]
+    return row
+
+
+def _save_replica_pools(out, name, engines):
+    np.savez(os.path.join(out, f"{name}.npz"),
+             **{f"r{i}_{kv}{layer}": _np(p)
+                for i, e in enumerate(engines)
+                for kv, pools in (("k", e._k_pools), ("v", e._v_pools))
+                for layer, p in enumerate(pools)})
+
+
+def _pool_sum(eng):
+    return float(sum(p.double().abs().sum() for p in
+                     eng._k_pools + eng._v_pools))
+
+
+def tp_fleet_rank(out, path):
+    """tests/test_torch_tp_fleet.py on this rank of an mp=2 world, on the
+    JAX weights: the in-process fleet at dp=2 x mp=2 (rank 0 its
+    controller, rank 1 following both replicas on two threads), the
+    hand-off at mp=2 (exported, imported from mp=1 and from the JAX
+    package, a corrupted run refused), bf16 first-step logits, what waits
+    for A11; then rank 0 alone at mp=1.  Writes ``tp_fleet_rank{r}.json``
+    and each rank's replica pools."""
+    import json
+    import time
+
+    dist = _init()
+    from paddle_tpu_torch import convert, serving
+    from paddle_tpu_torch.distributed import topology
+    from paddle_tpu_torch.models import LlamaConfig
+    from paddle_tpu_torch.serving import handoff, tp
+
+    rank = dist.get_rank()
+    a = dict(np.load(path))
+    topology.init_mesh(mp=TP)
+    cfg = LlamaConfig.tiny(num_hidden_layers=2)
+    SP = serving.SamplingParams
+    res = {"rank": rank}
+
+    def shard(dtype=None):
+        return convert.llama_from_paddle_tpu(a, cfg, device="cpu",
+                                             dtype=dtype, mp_rank=rank,
+                                             mp_degree=TP)
+
+    # --- the in-process fleet ---------------------------------------------
+    groups = tp.replica_groups(FLEET_REPLICAS)
+
+    def build(i, registry=None):
+        return serving.EngineCore(shard(), config=fleet_config(serving),
+                                  registry=registry,
+                                  metrics_labels={"replica": str(i)})
+
+    factory = tp.ReplicaFactory(groups, build)
+    if rank == 0:
+        res["fleet"] = _fleet_run(serving, factory)
+    else:
+        tp.follow_replicas([factory(i) for i in range(FLEET_REPLICAS)],
+                           factory)
+    engines = [factory.built[i] for i in range(FLEET_REPLICAS)]
+    res["fleet_invariant"] = [tp_pool_invariant(e) for e in engines]
+    res["fleet_forwards"] = [e.tp.forwards for e in engines]
+    res["fleet_groups"] = [[g.ranks, g.process_group is not None]
+                           for g in groups]
+    if rank == 0:
+        res["fleet_hashes"] = [{str(b): h.hex()
+                                for b, h in e.kv._block_hash.items()}
+                               for e in engines]
+    _save_replica_pools(out, f"fleet_pools_rank{rank}", engines)
+    del engines, factory
+    # --- the hand-off at mp=2 ---------------------------------------------
+    eng = serving.EngineCore(shard(), config=fleet_config(serving))
+    ho = {}
+    if eng.tp.is_controller:
+        run, resume, tokens = handoff_donor(eng, SP)
+        np.savez(os.path.join(out, "run_mp2.npz"), **run_arrays(run))
+        ho["donor"] = {"resume": resume, "tokens": tokens}
+        eng.tp.release()
+    else:
+        tp.follow(eng)
+    # an mp=1 donor on rank 0 (the whole model, no topology), its run into
+    # a fresh mp=2 engine
+    if rank == 0:
+        hcg = topology.get_hybrid_communicate_group()
+        topology.set_hybrid_communicate_group(None)
+        whole = convert.llama_from_paddle_tpu(a, cfg, device="cpu")
+        run1, resume1, tokens1 = handoff_donor(serving.EngineCore(
+            whole, config=fleet_config(serving)), SP)
+        topology.set_hybrid_communicate_group(hcg)
+        ho["mp1_donor"] = {"resume": resume1, "tokens": tokens1}
+    eng = serving.EngineCore(shard(), config=fleet_config(serving))
+    if eng.tp.is_controller:
+        placed, tokens, cached = handoff_recipient(eng, SP, run1, resume1)
+        ho["from_mp1"] = {"placed": placed, "tokens": tokens,
+                          "cached": cached, "blocks": len(run1["blocks"])}
+        eng.tp.release()
+    else:
+        tp.follow(eng)
+    # the JAX package's run (written by the test's process) into mp=2
+    eng = serving.EngineCore(shard(), config=fleet_config(serving))
+    if eng.tp.is_controller:
+        jax_path = os.path.join(out, "run_jax.npz")
+        deadline = time.monotonic() + 300
+        while not os.path.exists(jax_path + ".done"):
+            if time.monotonic() > deadline:
+                raise TimeoutError("the JAX run never came")
+            time.sleep(0.05)
+        with np.load(jax_path) as f:
+            jrun = run_from_arrays({k: f[k] for k in f.files})
+        with open(os.path.join(out, "run_jax.json")) as f:
+            jresume = json.load(f)["resume"]
+        placed, tokens, cached = handoff_recipient(eng, SP, jrun, jresume)
+        ho["from_jax"] = {"placed": placed, "tokens": tokens,
+                          "cached": cached, "blocks": len(jrun["blocks"])}
+        eng.tp.release()
+    else:
+        tp.follow(eng)
+    # a corrupted run is refused before any rank's pool changes
+    before = _pool_sum(eng)
+    if eng.tp.is_controller:
+        with np.load(os.path.join(out, "run_mp2.npz")) as f:
+            bad = run_from_arrays({k: f[k] for k in f.files})
+        payload = np.array(bad["payload"])
+        payload.reshape(-1).view(np.uint8)[7] ^= 0x10
+        bad["payload"] = payload
+        ho["corrupt"] = _raises(lambda: eng.import_kv_run(bad))
+        ho["corrupt_occupancy"] = eng.kv.occupancy()
+        eng.tp.release()
+    else:
+        tp.follow(eng)
+    ho["pool_sum"] = [before, _pool_sum(eng)]
+    ho["invariant"] = tp_pool_invariant(eng)
+    res["handoff"] = ho
+    # --- bf16: the first step's logits through the dense-cache route --------
+    bf = shard(torch.bfloat16)
+    res["bf16_mp2"] = _dense_logits(bf, cfg, torch.bfloat16).tolist()
+    # --- what waits for the rest of A11 -----------------------------------
+    eng = serving.EngineCore(shard(), config=fleet_config(serving))
+    res["waiting"] = {
+        "aot": _raises(lambda: serving.AotArtifact.save(eng, out)),
+        "spec": _raises(lambda: serving.EngineCore(
+            eng.model, config=fleet_config(
+                serving, spec=serving.SpecConfig(k=2)))),
+    }
+    if rank == 0:
+        topology.set_hybrid_communicate_group(None)
+        whole = convert.llama_from_paddle_tpu(a, cfg, device="cpu")
+        ref = serving.EngineCore(whole, config=fleet_config(serving))
+        res["mp1_tokens"] = tp_waves(ref, SP, [(FLEET_PROMPTS, FLEET_NEW)])
+        res["mp1_hashes"] = {h.hex(): b for b, h in
+                             ref.kv._block_hash.items()}
+        _save_replica_pools(out, "fleet_pools_mp1", [ref])
+        eng = serving.EngineCore(whole, config=fleet_config(serving))
+        with np.load(os.path.join(out, "run_mp2.npz")) as f:
+            run2 = run_from_arrays({k: f[k] for k in f.files})
+        placed, tokens, cached = handoff_recipient(
+            eng, SP, run2, ho["donor"]["resume"])
+        ho["to_mp1"] = {"placed": placed, "tokens": tokens,
+                        "cached": cached, "blocks": len(run2["blocks"])}
+        res["bf16_mp1"] = _dense_logits(convert.llama_from_paddle_tpu(
+            a, cfg, device="cpu", dtype=torch.bfloat16), cfg,
+            torch.bfloat16).tolist()
+    with open(os.path.join(out, f"tp_fleet_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def _dense_logits(model, cfg, dtype):
+    """``model``'s logits of BF16_IDS's last token, through the dense-cache
+    route (chip_smoke.py's first-step logits)."""
+    ids = torch.from_numpy(BF16_IDS)
+    heads = model.llama.layers[0].self_attn.num_kv_heads
+    shape = (1, ids.shape[1], heads, cfg.head_dim)
+    caches = [(torch.zeros(shape, dtype=dtype), torch.zeros(shape,
+                                                            dtype=dtype))
+              for _ in range(cfg.num_hidden_layers)]
+    with torch.no_grad():
+        return _np(model(ids, caches=caches, pos=0)[0, -1].float())
